@@ -1,0 +1,60 @@
+"""tpuzip_torch — the PyTorch/CUDA port of tpuzip.
+
+A second package beside ``tpuzip``: the same tpz container, byte for byte,
+produced and read with PyTorch on an NVIDIA GPU, where every Pallas kernel
+of tpuzip becomes a CUDA kernel written for Hopper (``sm_90a``) under
+``tpuzip_torch/csrc``.  ``tpuzip`` stays the reference the port is tested
+against; the port imports only its jax-free modules (the error classes,
+the block chunking, the config tree and the oracle).
+
+Ported so far: the ari codec's chunk-indexed container round trip.  The
+other entry points raise NotImplementedError naming the ROADMAP.md item
+that ports them.
+
+``device="cuda"`` (the default) runs the kernels and raises when there is
+no usable GPU; ``device="cpu"`` runs their plain PyTorch versions.
+"""
+
+__version__ = "0.1.0"
+
+from tpuzip.core.config import CodecConfig, Config  # noqa: F401
+
+
+def compress(data: bytes, codec: str = "ari", block_size: int = 1 << 16,
+             device="cuda", config=None,
+             block_checksums: bool = False) -> bytes:
+    """Compress a corpus into a tpz container (see dist.runner.compress)."""
+    from tpuzip_torch.dist import runner
+
+    return runner.compress(data, codec=codec, block_size=block_size,
+                           device=device, config=config,
+                           block_checksums=block_checksums)
+
+
+def decompress(container: bytes, device="cuda") -> bytes:
+    """Decode a tpz container (see dist.runner.decompress)."""
+    from tpuzip_torch.dist import runner
+
+    return runner.decompress(container, device=device)
+
+
+def _not_ported(what: str, item: int):
+    from tpuzip_torch.dist import runner
+
+    raise runner.not_ported(what, item)
+
+
+def compress_corpus(data: bytes, codec: str = "ari", **kw) -> bytes:
+    _not_ported("compress_corpus", 11)
+
+
+def decompress_corpus(blob: bytes, **kw) -> bytes:
+    _not_ported("decompress_corpus", 11)
+
+
+def compress_from_device(blocks, lengths, codec: str = "ari", **kw) -> bytes:
+    _not_ported("compress_from_device", 10)
+
+
+def open(file, mode: str = "rb", format: str = "lz4f", **kw):  # noqa: A001
+    _not_ported("open (the streaming adapters)", 15)

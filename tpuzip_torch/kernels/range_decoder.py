@@ -1,0 +1,298 @@
+"""Adaptive range DECODER: the CUDA kernel's wrapper, its plain PyTorch
+version, and the chunk index that both read.
+
+Port of tpuzip/kernels/range_decoder.py.  The container carries, per
+block, a chunk index: the stream bytes the coder consumed in each run of
+CHUNK_STEPS symbols.  The TPU decoder needed it to prepack per-chunk
+windows (Mosaic has no per-lane gather); on the card a warp reads its own
+stream, so the index only fixes where each chunk starts reading:
+``start[k] = 4 + exclusive_cumsum(deltas)[k]``.  Within a chunk the read
+position advances by the bytes pulled, and a byte at or past the row's
+width reads as 0 — the TPU kernels' semantics exactly (build_windows
+clamps to the width, with 4 zero bytes of padding).
+
+Torch on the CPU has no add, shift or compare for torch.uint32, so the
+plain versions carry the u32 coder state in int64 masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from tpuzip_torch.codecs.ari import check_knobs
+from tpuzip_torch.kernels import _build
+
+CHUNK_STEPS = 64          # symbols per index entry (index granularity)
+MAX_DELTA = 4 * CHUNK_STEPS + 4   # 4 bytes a symbol + the 4 finish bytes
+TOP = 1 << 24
+BOT = 1 << 16
+MASK = 0xFFFFFFFF
+W_BUCKETS = (16, 24, 40, 72)  # window words per chunk (72 covers the
+#                               absolute worst case 4*64+4 bytes)
+
+
+def window_words(max_delta: int) -> int:
+    """Smallest window bucket covering a chunk that consumed max_delta
+    bytes (word reads reach byte index delta-1+3)."""
+    need = (max_delta + 2) // 4 + 1
+    for w in W_BUCKETS:
+        if w >= need:
+            return w
+    raise ValueError(f"chunk delta {max_delta} exceeds 4*CHUNK_STEPS")
+
+
+# ---------------------------------------------------------------------------
+# Chunk index
+# ---------------------------------------------------------------------------
+
+def chunk_deltas(counts: torch.Tensor) -> torch.Tensor:
+    """Renorm counts (N, L) -> per-chunk consumed bytes (N/CHUNK_STEPS, L)
+    int32.  Decode consumes the same bytes at the same steps."""
+    n, lanes = counts.shape
+    if n % CHUNK_STEPS:
+        raise ValueError(f"{n} steps is not a multiple of {CHUNK_STEPS}")
+    return counts.to(torch.int32).reshape(
+        n // CHUNK_STEPS, CHUNK_STEPS, lanes).sum(dim=1, dtype=torch.int32)
+
+
+def pack_chunk_index(deltas: np.ndarray) -> bytes:
+    """u8 stream; a delta >= 255 is escaped as (255, lo, hi)."""
+    deltas = np.asarray(deltas)
+    if deltas.size == 0:
+        return b""
+    if deltas.max(initial=0) < 255:  # overwhelmingly common: pure u8 cast
+        return deltas.astype(np.uint8).tobytes()
+    out = bytearray()
+    for d in deltas:
+        d = int(d)
+        if d < 255:
+            out.append(d)
+        else:
+            out += bytes((255, d & 0xFF, d >> 8))
+    return bytes(out)
+
+
+def parse_chunk_index(blob: bytes, nc: int) -> np.ndarray:
+    """Inverse of pack_chunk_index; ValueError on a truncated index, one
+    with trailing bytes, or a delta past MAX_DELTA."""
+    if len(blob) == nc and (nc == 0 or b"\xff" not in blob):
+        return np.frombuffer(blob, np.uint8).astype(np.int32)
+    deltas = np.zeros(nc, np.int32)
+    i = 0
+    for k in range(nc):
+        if i >= len(blob):
+            raise ValueError("chunk index truncated")
+        d = blob[i]
+        i += 1
+        if d == 255:
+            if i + 2 > len(blob):
+                raise ValueError("chunk index truncated")
+            d = blob[i] | (blob[i + 1] << 8)
+            i += 2
+            if d > MAX_DELTA:
+                raise ValueError(f"chunk delta {d} exceeds {MAX_DELTA}")
+        deltas[k] = d
+    if i != len(blob):
+        raise ValueError("chunk index has trailing bytes")
+    return deltas
+
+
+def chunk_starts(deltas: torch.Tensor) -> torch.Tensor:
+    """(..., NC) deltas -> (..., NC) int64 stream position of each chunk's
+    first read: 4 (past the code word) + the bytes of the chunks before."""
+    d = deltas.to(torch.int64)
+    return 4 + torch.cumsum(d, dim=-1) - d
+
+
+def build_windows(comp: torch.Tensor, starts: torch.Tensor,
+                  w: int) -> torch.Tensor:
+    """comp (CAP, L) u8 lane-major streams, starts (NC, L) byte positions
+    -> (NC*w, L) windows: word j of chunk k holds stream bytes
+    starts[k]+4j .. +4j+3 big-endian, positions clamped to CAP (which reads
+    4 zero bytes).  Values are u32 held in int64.  The CUDA decoder needs
+    no windows; this is the TPU layout, kept for the parity tests."""
+    cap, lanes = comp.shape
+    c = torch.cat([comp, comp.new_zeros((4, lanes))]).to(torch.int64)
+    sliding = (c[:-3] << 24) | (c[1:-2] << 16) | (c[2:-1] << 8) | c[3:]
+    nc = starts.shape[0]
+    idx = (starts.to(torch.int64)[:, None, :]
+           + 4 * torch.arange(w, device=comp.device)[None, :, None])
+    idx = idx.clamp(0, cap).reshape(nc * w, lanes)
+    return torch.gather(sliding, 0, idx)
+
+
+# ---------------------------------------------------------------------------
+# The model and the coder's renormalization, shared with the encoder
+# ---------------------------------------------------------------------------
+
+def model_init(b: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uniform model: inclusive cumulative table C[k] = k+1, total 256."""
+    cum = torch.arange(1, 257, dtype=torch.int64, device=device).repeat(b, 1)
+    return cum, torch.full((b,), 256, dtype=torch.int64, device=device)
+
+
+def packed_cum_to_cum(table) -> torch.Tensor:
+    """tpuzip's u16-pair-packed model state (128, L) i32 — row p holds
+    C[2p] in its low half and C[2p+1] in its high half — -> the port's
+    (L, 256) int64 inclusive cumulative table."""
+    t = torch.from_numpy(np.array(table, dtype=np.int64)) & MASK
+    pairs = torch.stack([t & 0xFFFF, t >> 16], dim=1)   # (128, 2, L)
+    return pairs.reshape(256, -1).T.contiguous()
+
+
+def model_update(cum, tot, sym, active, increment: int, threshold: int):
+    """freq[sym] += increment (C[k] += increment for k >= sym), then the
+    oracle's halving ((f+1)>>1 on every frequency) on the rows whose total
+    reached threshold.  Rows where `active` is False keep their model."""
+    iota = torch.arange(256, device=cum.device)
+    grow = (iota[None, :] >= sym[:, None]) & active[:, None]
+    cum = cum + grow * increment
+    tot = tot + active * increment
+    scale = active & (tot >= threshold)
+    if bool(scale.any()):   # every ~(threshold-256)/increment symbols
+        freq = torch.diff(cum, dim=1, prepend=cum.new_zeros((cum.shape[0], 1)))
+        halved = torch.cumsum((freq + 1) >> 1, dim=1)
+        cum = torch.where(scale[:, None], halved, cum)
+        tot = torch.where(scale, halved[:, -1], tot)
+    return cum, tot
+
+
+def cum_range(cum, sym):
+    """(C[sym-1], C[sym]) per row, with C[-1] = 0."""
+    hi = torch.gather(cum, 1, sym[:, None]).squeeze(1)
+    lo = torch.gather(cum, 1, (sym - 1).clamp(min=0)[:, None]).squeeze(1)
+    return torch.where(sym > 0, lo, 0), hi
+
+
+def renorm_round(low, rng, active):
+    """One of the <= 4 carryless renorm rounds: returns the new state, the
+    rows that shift a byte out (encoder emits / decoder pulls) and the top
+    byte of low before the shift."""
+    settled = (low ^ ((low + rng) & MASK)) < TOP
+    force = ~settled & (rng < BOT)
+    rng = torch.where(force, (-low) & (BOT - 1), rng)
+    shift = (settled | force) & active
+    top = low >> 24
+    low = torch.where(shift, (low << 8) & MASK, low)
+    rng = torch.where(shift, (rng << 8) & MASK, rng)
+    return low, rng, shift, top
+
+
+def plain_steps(lens: torch.Tensor, n: int) -> int:
+    """Steps a plain version runs: the longest length rounded up to
+    CHUNK_STEPS (the outputs do not depend on the steps after it)."""
+    if lens.numel() == 0:
+        return 0
+    longest = int(lens.max())
+    return min(n, -(-longest // CHUNK_STEPS) * CHUNK_STEPS)
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
+                             lengths: torch.Tensor, increment: int = 8,
+                             threshold: int = 1 << 13) -> torch.Tensor:
+    """Lane-vectorised replica of tpuzip's ``_decode_step_cum`` +
+    ``_apply_halving_gated`` (the v2 kernel; v3 computes the same function
+    on a packed table).  streams (B, CAP) u8 zero-padded, deltas (B, NC)
+    i32, lengths (B,) -> (B, NC*64) u8 symbols, 0 past each length."""
+    b, cap = streams.shape
+    nc = deltas.shape[1]
+    dev = streams.device
+    lens = lengths.to(torch.int64).clamp(0, nc * CHUNK_STEPS)
+    out = torch.zeros((b, nc * CHUNK_STEPS), dtype=torch.uint8, device=dev)
+    # a byte at or past the row width reads as 0: clamp into 4 zero columns
+    padded = torch.cat([streams, streams.new_zeros((b, 4))], 1).to(torch.int64)
+    starts = chunk_starts(deltas)
+    rows = torch.arange(b, device=dev)
+    code = ((padded[:, 0] << 24) | (padded[:, 1] << 16)
+            | (padded[:, 2] << 8) | padded[:, 3])
+    low = torch.zeros(b, dtype=torch.int64, device=dev)
+    rng = torch.full((b,), MASK, dtype=torch.int64, device=dev)
+    cum, tot = model_init(b, dev)
+    for t in range(plain_steps(lens, nc * CHUNK_STEPS)):
+        if t % CHUNK_STEPS == 0:   # rebase on the chunk index
+            pos = starts[:, t // CHUNK_STEPS]
+        active = lens > t
+        r = rng // tot
+        v = torch.minimum(((code - low) & MASK) // r, tot - 1)
+        # find_value: the entries above v are exactly the indices >= sym
+        sym = 256 - (cum > v[:, None]).sum(dim=1)
+        lo, hi = cum_range(cum, sym)
+        low2 = (low + r * lo) & MASK
+        rng2 = r * (hi - lo)
+        for _ in range(4):
+            low2, rng2, pull, _top = renorm_round(low2, rng2, active)
+            byte = padded[rows, pos.clamp(max=cap)]
+            code = torch.where(pull, ((code << 8) | byte) & MASK, code)
+            pos = pos + pull
+        low = torch.where(active, low2, low)
+        rng = torch.where(active, rng2, rng)
+        cum, tot = model_update(cum, tot, sym, active, increment, threshold)
+        out[:, t] = torch.where(active, sym, 0).to(torch.uint8)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("ari_decode")
+    fn = lib.tpz_ari_decode
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp]
+        fn.restype = ci
+    return fn
+
+
+def ari_decode_indexed(streams: torch.Tensor, deltas: torch.Tensor,
+                       lengths: torch.Tensor, increment: int = 8,
+                       threshold: int = 1 << 13) -> torch.Tensor:
+    """Chunk-indexed ari decode: streams (B, CAP) u8, deltas (B, NC) i32,
+    lengths (B,) i32 -> (B, NC*64) u8 symbols, 0 past each length.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/ari_decode.cu on the current stream (no synchronisation)."""
+    check_knobs(increment, threshold)
+    b, cap = streams.shape
+    if (streams.dtype != torch.uint8 or deltas.dtype != torch.int32
+            or lengths.dtype != torch.int32):
+        raise TypeError("ari_decode_indexed takes u8 streams, i32 deltas "
+                        "and i32 lengths")
+    if deltas.dim() != 2 or deltas.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"shape mismatch: streams {tuple(streams.shape)}, "
+                         f"deltas {tuple(deltas.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    if not (streams.device == deltas.device == lengths.device):
+        raise ValueError("streams, deltas and lengths must share a device")
+    if streams.device.type == "cpu":
+        return ari_decode_indexed_plain(streams, deltas, lengths,
+                                        increment, threshold)
+    if streams.device.type != "cuda":
+        raise ValueError(f"no ari_decode for device {streams.device}")
+    if not (streams.is_contiguous() and deltas.is_contiguous()
+            and lengths.is_contiguous()):
+        raise ValueError("ari_decode_indexed takes contiguous tensors")
+    nc = deltas.shape[1]
+    out = torch.empty((b, nc * CHUNK_STEPS), dtype=torch.uint8,
+                      device=streams.device)
+    if b == 0 or nc == 0:
+        return out.zero_()
+    fn = _lib()
+    with torch.cuda.device(streams.device):
+        err = fn(streams.data_ptr(), deltas.data_ptr(), lengths.data_ptr(),
+                 b, cap, nc, out.data_ptr(), increment, threshold,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ari_decode")
+    ari_decode_indexed.launches += 1
+    return out
+
+
+ari_decode_indexed.launches = 0
