@@ -1,33 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-The main path is the ari codec's chunk-indexed container round trip,
-``tpuzip_torch.compress(codec="ari")`` then ``tpuzip_torch.decompress``,
-through the two hand-written kernels tpuzip_torch/csrc/ari_encode.cu and
-ari_decode.cu.  Phases, one JSON line each:
+Two paths, both through ``tpuzip_torch.compress`` / ``decompress``:
+the ari codec's chunk-indexed container round trip (kernels
+tpuzip_torch/csrc/ari_encode.cu and ari_decode.cu), and the bwt codec's,
+BWT -> MTF -> ari (adds csrc/mtf.cu, one source for both directions), at
+its default 1 MiB blocks and through the segmented flag-8 path of a
+100 MB block.  Phases, one JSON line each:
 
 1. device   needs torch.cuda; prints nvidia-smi's name and power limit.
-2. build    builds both kernels from the checkout (one nvcc each, at once).
+2. build    builds every kernel from the checkout (one nvcc each, at once).
 3. kernels  each kernel against its plain PyTorch version on the same
             CUDA tensors (128 blocks x 2048 symbols of skewed, random,
-            constant, ragged and empty blocks), exact to the byte, at the
-            default knobs, at threshold=512 and at (16, 40000), past the
-            2^15 bound of tpuzip's packed kernels; times side by side.
-4. main     a 64 MiB text-like corpus made from a fixed seed, 64 KiB
+            constant, ragged and empty blocks), exact to the byte: ari at
+            the default knobs, at threshold=512 and at (16, 40000), past
+            the 2^15 bound of tpuzip's packed kernels; MTF encode and
+            decode; times side by side.
+4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
-            round-trip, the streams equal tpuzip.oracle.ari on 4 blocks and
-            the C++ coder (tpuzip.runtime.native, built with make) on every
-            block; both kernels' launch counts > 0; each kernel's one
+            round-trip, the streams equal the oracle (tpuzip_torch.oracle)
+            on 8 blocks; both ari kernels launched; each kernel's one
             launch on that path held, exact, against its plain version on
             the very tensors the path gave it; encode/decode MB/s, a device
             trace and a host profile of one more compress and decompress.
+5. bwt      the same corpus through codec="bwt" at the default 1 MiB
+            blocks (64 blocks): the bytes round-trip; MTF launched in both
+            directions and both ari kernels launched; L and the origins
+            equal the oracle's BWT on 4 blocks; each MTF launch held,
+            exact, against the plain version on its own CUDA tensors cut
+            to their first 65536 columns, and each ari launch on its first
+            8192 symbols (both are causal, so the prefix is exact); MB/s,
+            a device trace of each direction, peak memory.
+6. bwt_big  one 100,000,000-byte block made from the same seed (flag 8,
+            128 segments of 781,312): the bytes round-trip; each MTF launch
+            held against the plain version on the first 16384 columns of
+            the 128 segment rows, each ari launch on their first 8192
+            symbols; MB/s and peak memory.
 
-Then the nvidia-smi line, a {"kernels": [...]} line (times at the main
-path's shape) and, last, {"ok": true, "device": {...}}.  Any failure exits
-non-zero before those.  Imports no JAX: tpuzip's oracle and C++ coder are
-jax-free.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  Then the nvidia-smi line, a {"kernels": [...]} line (kernel times
+and bounds at the main paths' shapes, the plain version's time at
+`plain_shape`, launches over the paths) and, last,
+{"ok": true, "device": {...}}.  Any failure exits non-zero before those.
+Imports nothing of JAX and nothing of tpuzip.
 """
 
 from __future__ import annotations
@@ -43,12 +60,21 @@ import numpy as np
 import torch
 
 import tpuzip_torch
-from tpuzip_torch.kernels import _build, range_coder, range_decoder
+from tpuzip_torch.codecs import bwt
+from tpuzip_torch.core import blocks as blk
+from tpuzip_torch.kernels import _build, mtf_scan, range_coder, range_decoder
+from tpuzip_torch.oracle import ari as oari
+from tpuzip_torch.oracle import bwt as obwt
 
 SEED = 20261016
 KNOBS = ((8, 1 << 13), (8, 512), (16, 40000))   # (increment, threshold)
 BLOCK = 1 << 16
-CORPUS_BYTES = 64 << 20   # 1024 blocks: the JAX bench's headline shape
+CORPUS_BYTES = 64 << 20   # 1024 ari blocks: the JAX bench's headline shape
+BWT_BLOCK = 1 << 20       # the bwt codec's default block size
+BIG_BLOCK = 100_000_000   # BASELINE config 4: bwt on 100 MB blocks
+MTF_PLAIN_COLS = {"bwt": 65536, "bwt_big": 16384}
+ARI_PLAIN_COLS = 8192     # symbols of the ari prefix checks on the bwt paths
+HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 
 
 def emit(phase: str, **kw) -> None:
@@ -75,6 +101,15 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes: int) -> dict:
+    """The least time the card could take: the bytes moved (each input byte
+    read once, each output byte written once) over the memory rate.  The
+    coders and MTF do a few integer operations a byte, so bytes bound
+    them."""
+    return {"bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "bytes": int(nbytes)}
 
 
 def text_corpus(nbytes: int, seed: int) -> bytes:
@@ -133,9 +168,10 @@ def mixed_blocks(b: int, n: int, seed: int):
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    secs = _build.build("ari_encode", "ari_decode")
+    secs = _build.build("ari_encode", "ari_decode", "mtf")
     range_coder._lib()
     range_decoder._lib()
+    mtf_scan._lib()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in secs.items()})
 
@@ -143,6 +179,8 @@ def phase_build() -> None:
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -189,8 +227,8 @@ def phase_kernels() -> dict:
                         streams, deltas, lens, inc, thr), 10),
                 "decode_plain_ms": dec_plain_ms,
             }
-        emit("kernels", increment=inc, threshold=thr, blocks=128,
-             symbols=2048, encode_max_abs_err=enc_err,
+        emit("kernels", kernel="ari", increment=inc, threshold=thr,
+             blocks=128, symbols=2048, encode_max_abs_err=enc_err,
              decode_max_abs_err=dec_err, round_trip=round_trip,
              stream_bytes=int(slens.sum()), **times)
         if enc_err or dec_err or not round_trip:
@@ -198,29 +236,54 @@ def phase_kernels() -> dict:
                                  f"knobs ({inc}, {thr})")
         errs["ari_encode"] = max(errs["ari_encode"], enc_err)
         errs["ari_decode"] = max(errs["ari_decode"], dec_err)
+
+    enc = mtf_scan.mtf_batch(blocks, lens)
+    enc_ref, enc_plain_ms = timed(lambda: mtf_scan.mtf_batch_plain(blocks,
+                                                                   lens))
+    dec = mtf_scan.mtf_batch(enc, lens, decode=True)
+    dec_ref, dec_plain_ms = timed(
+        lambda: mtf_scan.mtf_batch_plain(enc, lens, decode=True))
+    errs["mtf_encode"] = max_err(enc, enc_ref)
+    errs["mtf_decode"] = max_err(dec, dec_ref)
+    round_trip = bool(torch.equal(dec, blocks))
+    emit("kernels", kernel="mtf", blocks=128, symbols=2048,
+         encode_max_abs_err=errs["mtf_encode"],
+         decode_max_abs_err=errs["mtf_decode"], round_trip=round_trip,
+         encode_ms=cuda_ms(lambda: mtf_scan.mtf_batch(blocks, lens), 10),
+         encode_plain_ms=enc_plain_ms,
+         decode_ms=cuda_ms(lambda: mtf_scan.mtf_batch(enc, lens,
+                                                      decode=True), 10),
+         decode_plain_ms=dec_plain_ms)
+    if errs["mtf_encode"] or errs["mtf_decode"] or not round_trip:
+        raise AssertionError("mtf kernel and plain version disagree")
     return errs
 
 
-def payload_streams(blob: bytes):
-    """(chunk index, stream) of every block of a container with flag 2,
-    parsed here so the check does not lean on the code under test."""
+def payloads(blob: bytes, head: int):
+    """(head bytes, chunk index, stream) of every block of a container with
+    flag 2, parsed here so the check does not lean on the code under
+    test; head is 0 for ari and 4 (the origin) for bwt."""
     flags = blob[5]
     nb = struct.unpack_from("<I", blob, 10)[0]
     clens = np.frombuffer(blob, "<u4", nb, 26)
     off = 26 + 4 * nb + (4 * nb if flags & 1 else 0) + (6 if flags & 4 else 0)
     out = []
     for n in clens:
-        (idxlen,) = struct.unpack_from("<I", blob, off)
-        out.append((blob[off + 4 : off + 4 + idxlen],
-                    blob[off + 4 + idxlen : off + int(n)]))
+        (idxlen,) = struct.unpack_from("<I", blob, off + head)
+        p = off + head + 4
+        out.append((blob[off : off + head], blob[p : p + idxlen],
+                    blob[p + idxlen : off + int(n)]))
         off += int(n)
     return out
 
 
-def traced(fn) -> dict:
+def traced(fn, expect=()) -> dict:
     """One more run of fn under torch.profiler: wall time, the time of the
     device's own events (kernels and copies; host ops that launched them and
-    the profiler's buffer requests left out) and the ones that took most."""
+    the profiler's buffer requests left out) and the ones that took most.
+    `missing` lists each kernel of `expect` (a name fragment) that fn
+    launches but the trace lacks: the device time and idle share are then
+    null, as they would be too low and too high."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,10 +302,11 @@ def traced(fn) -> dict:
         if us > 0:
             rows.append((us / 1e3, e.key[:80]))
     rows.sort(reverse=True)
-    device_ms = sum(ms for ms, _ in rows)
+    missing = [k for k in expect if not any(k in name for _, name in rows)]
+    device_ms = None if missing else sum(ms for ms, _ in rows)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "device_idle_share": 1 - device_ms / wall_ms,
-            "top": [[name, ms] for ms, name in rows[:6]]}
+            "device_idle_share": None if missing else 1 - device_ms / wall_ms,
+            "top": [[name, ms] for ms, name in rows[:6]], "missing": missing}
 
 
 def host_profile(fn, top: int = 10) -> list:
@@ -286,6 +350,67 @@ def recorded(module, name: str):
         setattr(module, name, real)
 
 
+WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
+            "ari_decode": (range_decoder, "ari_decode_indexed"),
+            "mtf": (mtf_scan, "mtf_batch")}
+PLAINS = ((range_coder, "ari_encode_indexed_plain"),
+          (range_decoder, "ari_decode_indexed_plain"),
+          (mtf_scan, "mtf_batch_plain"))
+
+
+@contextlib.contextmanager
+def refused(module, name: str):
+    """module.name (a plain version) raises while the block runs: on the
+    card the main path must launch kernels, never fall back to it."""
+    real = getattr(module, name)
+
+    def refuse(*args, **kw):
+        raise AssertionError(f"{name} ran on the main path")
+
+    setattr(module, name, refuse)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def counted_run():
+    """Record every kernel wrapper's calls while the block runs, with every
+    launch count set to 0 just before, and refuse every plain version.
+    Yields ({kernel: calls}, counts); counts is filled with each launch
+    count read just after the block."""
+    counts = {}
+    with contextlib.ExitStack() as stack:
+        calls = {k: stack.enter_context(recorded(mod, name))
+                 for k, (mod, name) in WRAPPERS.items()}
+        for mod, name in PLAINS:
+            stack.enter_context(refused(mod, name))
+        torch.cuda.synchronize()
+        for mod, name in WRAPPERS.values():
+            getattr(mod, name).launches = 0
+        yield calls, counts
+        torch.cuda.synchronize()
+        counts.update({k: getattr(mod, name).launches
+                       for k, (mod, name) in WRAPPERS.items()})
+
+
+def ari_bound(kind: str, args, out) -> dict:
+    """bound() of one ari launch at its own inputs: the valid symbols, the
+    stream bytes the coder produces or consumes, the lengths and the chunk
+    index."""
+    if kind == "ari_encode":
+        blocks, lens = args[:2]
+        streams, slens, deltas = out
+        nbytes = (int(lens.sum()) + 4 * lens.numel() + int(slens.sum())
+                  + 4 * slens.numel() + 4 * deltas.numel())
+    else:
+        streams, deltas, lens = args[:3]
+        nbytes = (int(deltas.sum()) + 4 * deltas.shape[0]
+                  + 4 * deltas.numel() + 4 * lens.numel() + out.numel())
+    return bound(nbytes)
+
+
 def against_plain(name: str, kernel, plain, calls) -> dict:
     """The main path's one launch of a kernel held against the plain
     version on the same CUDA tensors, exact; times of both at that shape
@@ -303,85 +428,281 @@ def against_plain(name: str, kernel, plain, calls) -> dict:
                              f"the main path's inputs: max_abs_err {err}")
     return {"inputs": [list(a.shape) for a in args], "max_abs_err": err,
             "ms": cuda_ms(lambda: kernel(*args, **kw), 3),
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, **ari_bound(name, args, out)}
+
+
+def mtf_against_plain(calls, cols: int) -> dict:
+    """Each MTF launch of a path held, exact, against the plain version on
+    the same CUDA tensors cut to their first `cols` columns (MTF is causal:
+    the kernel's first cols outputs are the plain version's on the cut);
+    the kernel's time at the full shape and at the cut, the plain
+    version's at the cut, and the bound at the full shape: the valid bytes
+    read and the rows written."""
+    res = {}
+    for args, kw, out in calls:
+        blocks, lens = args
+        decode = kw.get("decode", False)
+        name = "mtf_decode" if decode else "mtf_encode"
+        if name in res:
+            raise AssertionError(f"{name} launched twice on one path")
+        cut = blocks[:, :cols].contiguous()
+        cut_lens = lens.clamp(max=cols)
+        ref, plain_ms = timed(
+            lambda: mtf_scan.mtf_batch_plain(cut, cut_lens, decode))
+        err = max_err(out[:, :cols], ref)
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the path's inputs: max_abs_err {err}")
+        res[name] = {
+            "inputs": list(blocks.shape), "plain_inputs": list(cut.shape),
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: mtf_scan.mtf_batch(blocks, lens,
+                                                     decode=decode), 3),
+            "ms_at_plain_inputs": cuda_ms(
+                lambda: mtf_scan.mtf_batch(cut, cut_lens, decode=decode), 3),
+            "plain_ms": plain_ms,
+            **bound(int(lens.sum()) + 4 * lens.numel() + out.numel())}
+    if set(res) != {"mtf_encode", "mtf_decode"}:
+        raise AssertionError(f"MTF ran {sorted(res)} on the path, expected "
+                             "both directions")
+    return res
+
+
+def ari_prefix_against_plain(calls, cols: int) -> dict:
+    """A path's one launch of each ari kernel held, exact, against the
+    plain version on the same CUDA tensors cut to their first `cols`
+    symbols (the coder is causal and its renormalisation carryless, so a
+    byte once written never changes).  Encode: the cut's chunk index equals
+    the kernel's first cols/64 entries, and its stream the kernel's, up to
+    the cut's 4 finish bytes on the rows it shortens and whole (length
+    included) on the others.  Decode: the plain version on the kernel's own
+    stream rows, with the index and the lengths cut, gives the kernel's
+    first cols symbols.  Times of each kernel at the path's shape and at
+    the cut, of the plain version at the cut; the bound at the path's
+    shape."""
+    res = {}
+    for name in ("ari_encode", "ari_decode"):
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} launches on "
+                                 "the path, expected 1")
+    (args, kw, out), = calls["ari_encode"]
+    syms, lens = args[:2]
+    cut, cut_lens = syms[:, :cols].contiguous(), lens.clamp(max=cols)
+    ref, plain_ms = timed(lambda: range_coder.ari_encode_indexed_plain(
+        cut, cut_lens, *args[2:], **kw))
+    streams, slens, deltas = out
+    ref_streams, ref_slens, ref_deltas = ref
+    whole = lens <= cols                   # rows the cut leaves whole
+    agree = ref_slens.to(torch.int64) - 4 * (~whole)
+    w = ref_streams.shape[1]
+    keep = torch.arange(w, device=syms.device)[None, :] < agree[:, None]
+    err = max(max_err(deltas[:, : ref_deltas.shape[1]], ref_deltas),
+              max_err(torch.where(keep, streams[:, :w], 0),
+                      torch.where(keep, ref_streams, 0)),
+              max_err(torch.where(whole, slens, 0),
+                      torch.where(whole, ref_slens, 0)))
+    if err:
+        raise AssertionError("ari_encode disagrees with its plain version "
+                             f"on the path's inputs: max_abs_err {err}")
+    res["ari_encode"] = {
+        "inputs": [list(a.shape) for a in args[:2]],
+        "plain_inputs": list(cut.shape), "max_abs_err": err,
+        "ms": cuda_ms(lambda: range_coder.ari_encode_indexed(*args, **kw), 1),
+        "ms_at_plain_inputs": cuda_ms(lambda: range_coder.ari_encode_indexed(
+            cut, cut_lens, *args[2:], **kw), 3),
+        "plain_ms": plain_ms, **ari_bound("ari_encode", args, out)}
+
+    (args, kw, out), = calls["ari_decode"]
+    streams, deltas, lens = args[:3]
+    nc = min(cols // range_decoder.CHUNK_STEPS, deltas.shape[1])
+    cut_deltas = deltas[:, :nc].contiguous()
+    cut_lens = lens.clamp(max=nc * range_decoder.CHUNK_STEPS)
+    ref, plain_ms = timed(lambda: range_decoder.ari_decode_indexed_plain(
+        streams, cut_deltas, cut_lens, *args[3:], **kw))
+    err = max_err(out[:, : ref.shape[1]], ref)
+    if err:
+        raise AssertionError("ari_decode disagrees with its plain version "
+                             f"on the path's inputs: max_abs_err {err}")
+    res["ari_decode"] = {
+        "inputs": [list(a.shape) for a in args[:3]],
+        "plain_inputs": list(ref.shape), "max_abs_err": err,
+        "ms": cuda_ms(lambda: range_decoder.ari_decode_indexed(*args, **kw),
+                      1),
+        "ms_at_plain_inputs": cuda_ms(
+            lambda: range_decoder.ari_decode_indexed(
+                streams, cut_deltas, cut_lens, *args[3:], **kw), 3),
+        "plain_ms": plain_ms, **ari_bound("ari_decode", args, out)}
+    return res
+
+
+def round_trip(data: bytes, **kw):
+    """compress + decompress on cuda under counted_run(): (container,
+    calls, counts, encode s, decode s, peak device bytes of each)."""
+    with counted_run() as (calls, counts):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        blob = tpuzip_torch.compress(data, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        peak_enc = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        back = tpuzip_torch.decompress(blob, device="cuda")
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        peak_dec = torch.cuda.max_memory_allocated()
+    if back != data:
+        raise AssertionError(f"{len(data)} bytes did not round-trip ({kw})")
+    # one wrapper launches both MTF directions: split its count by the
+    # direction of each recorded call
+    dec = sum(1 for _, kw_, _ in calls["mtf"] if kw_.get("decode"))
+    if len(calls["mtf"]) != counts["mtf"]:
+        raise AssertionError(f"{len(calls['mtf'])} MTF calls, "
+                             f"{counts['mtf']} launches")
+    counts.update(mtf_encode=counts["mtf"] - dec, mtf_decode=dec)
+    return blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec
+
+
+def need(counts: dict, at_least: dict, path: str) -> None:
+    short = {k: counts[k] for k, n in at_least.items() if counts[k] < n}
+    if short:
+        raise AssertionError(f"{path} path missed a kernel: {counts}, "
+                             f"needs {at_least}")
 
 
 def phase_main(smi: str):
     data = text_corpus(CORPUS_BYTES, SEED)
     # warm the CUDA context, allocator and host paths outside the timing
-    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK]))
-    encode = range_coder.ari_encode_indexed
-    decode = range_decoder.ari_decode_indexed
-    with (recorded(range_coder, "ari_encode_indexed") as enc_calls,
-          recorded(range_decoder, "ari_decode_indexed") as dec_calls):
-        torch.cuda.synchronize()
-        range_coder.ari_encode_indexed.launches = 0
-        range_decoder.ari_decode_indexed.launches = 0
-        t0 = time.perf_counter()
-        blob = tpuzip_torch.compress(data, codec="ari", block_size=BLOCK,
-                                     device="cuda")
-        torch.cuda.synchronize()
-        t_enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        back = tpuzip_torch.decompress(blob, device="cuda")
-        torch.cuda.synchronize()
-        t_dec = time.perf_counter() - t0
-    launches = {"ari_encode": encode.launches,
-                "ari_decode": decode.launches}
-    if back != data:
-        raise AssertionError("64 MiB corpus did not round-trip")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"main path missed a kernel: {launches}")
-
-    from tpuzip.core import blocks as blk
-    from tpuzip.oracle import ari as oari
-    from tpuzip.runtime import native
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK],
+                                                  codec="ari"))
+    blob, calls, launches, t_enc, t_dec, _, _ = round_trip(
+        data, codec="ari", block_size=BLOCK)
+    need(launches, {"ari_encode": 1, "ari_decode": 1}, "ari")
 
     blocks_np, lens_np = blk.chunk(data, BLOCK)
-    parts = payload_streams(blob)
+    parts = payloads(blob, 0)
     nb = len(parts)
-    checked = sorted({0, 1, nb // 2, nb - 1})
+    checked = sorted({0, 1, 2, nb // 3, nb // 2, 2 * nb // 3, nb - 2, nb - 1})
     for i in checked:
         exp = oari.encode_bytes(blocks_np[i, : lens_np[i]].tobytes())
-        if parts[i][1] != exp:
+        if parts[i][2] != exp:
             raise AssertionError(f"block {i} stream differs from the oracle")
-    if not native.available():
-        raise AssertionError("tpuzip's C++ coder (csrc/, make) did not "
-                             "build: every block cannot be checked")
-    steps = range_decoder.CHUNK_STEPS
-    comp, clens, deltas = native.ari_encode_indexed_batch(
-        blocks_np, lens_np, BLOCK // steps)
-    for i in range(nb):
-        nci = -(-int(lens_np[i]) // steps)
-        if (parts[i][1] != comp[i, : clens[i]].tobytes()
-                or parts[i][0] != range_decoder.pack_chunk_index(
-                    deltas[i, :nci])):
-            raise AssertionError(f"block {i} differs from the C++ coder")
 
     # each kernel against its plain version on the main path's own inputs:
     # the 1024 x 64 KiB blocks, and the stream rows decompress cut to the
     # longest stream (so the past-the-row zero reads run)
     kernels = {
-        "ari_encode": against_plain("ari_encode", encode,
+        "ari_encode": against_plain("ari_encode",
+                                    range_coder.ari_encode_indexed,
                                     range_coder.ari_encode_indexed_plain,
-                                    enc_calls),
-        "ari_decode": against_plain("ari_decode", decode,
+                                    calls["ari_encode"]),
+        "ari_decode": against_plain("ari_decode",
+                                    range_decoder.ari_decode_indexed,
                                     range_decoder.ari_decode_indexed_plain,
-                                    dec_calls)}
-    del enc_calls[:], dec_calls[:]
-    trace = {"encode": traced(lambda: tpuzip_torch.compress(data)),
-             "decode": traced(lambda: tpuzip_torch.decompress(blob))}
-    host = {"encode": host_profile(lambda: tpuzip_torch.compress(data)),
-            "decode": host_profile(lambda: tpuzip_torch.decompress(blob))}
+                                    calls["ari_decode"])}
+    calls.clear()
+    compress = lambda: tpuzip_torch.compress(data, codec="ari")  # noqa: E731
+    decompress = lambda: tpuzip_torch.decompress(blob)           # noqa: E731
     emit("main", corpus_bytes=len(data), block_size=BLOCK, blocks=nb,
          container_bytes=len(blob), ratio=len(blob) / len(data),
-         launches=launches, oracle_blocks=checked, native_blocks=nb,
+         launches=launches, oracle_blocks=checked,
          encode_mb_s=len(data) / 1e6 / t_enc,
          decode_mb_s=len(data) / 1e6 / t_dec, kernels=kernels,
          encode_kernel_mb_s=len(data) / 1e3 / kernels["ari_encode"]["ms"],
          decode_kernel_mb_s=len(data) / 1e3 / kernels["ari_decode"]["ms"],
-         trace=trace, host_profile=host, card=smi)
+         trace={"encode": traced(compress, ("ari_encode_kernel",)),
+                "decode": traced(decompress, ("ari_decode_kernel",))},
+         host_profile={"encode": host_profile(compress),
+                       "decode": host_profile(decompress)}, card=smi)
     return launches, kernels
+
+
+def bwt_ms(calls, blocks_np, lens_np, parts) -> dict:
+    """CUDA-event milliseconds of the BWT forward and inverse on the inputs
+    they had on the bwt path: many sorts and gathers and, forward, a host
+    sync a round, so the trace's per-kernel rows do not add up to them."""
+    blocks = torch.from_numpy(blocks_np).cuda()
+    lens = torch.from_numpy(lens_np).cuda()
+    origins = torch.tensor([struct.unpack("<I", p[0])[0] for p in parts],
+                           dtype=torch.int32, device="cuda")
+    (enc_args, _, _), = [c for c in calls["mtf"] if not c[1].get("decode")]
+    return {
+        "bwt_forward": cuda_ms(lambda: bwt.encode_batch(blocks, lens), 2),
+        "bwt_inverse": cuda_ms(
+            lambda: bwt.decode_batch(enc_args[0], origins, lens), 2)}
+
+
+def phase_bwt(smi: str):
+    data = text_corpus(CORPUS_BYTES, SEED)
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 2 * BWT_BLOCK],
+                                                  codec="bwt"))
+    blob, calls, launches, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+        data, codec="bwt")
+    need(launches, {"mtf_encode": 1, "mtf_decode": 1, "ari_encode": 1,
+                    "ari_decode": 1}, "bwt")
+    if blob[5] & 8 or struct.unpack_from("<I", blob, 6)[0] != BWT_BLOCK:
+        raise AssertionError("bwt did not take 1 MiB blocks, flag 2")
+    # traced first, before the checks below launch the plain versions: in
+    # two runs the profiler lost the ari decode kernel when traced after them
+    compress = lambda: tpuzip_torch.compress(data, codec="bwt")  # noqa: E731
+    decompress = lambda: tpuzip_torch.decompress(blob)           # noqa: E731
+    trace = {"encode": traced(compress, ("ari_encode_kernel",
+                                         "mtf_kernel<false>")),
+             "decode": traced(decompress, ("ari_decode_kernel",
+                                           "mtf_kernel<true>"))}
+
+    # L and the origins against the oracle's BWT: L is the input of the
+    # path's MTF encode, the origins head each block's payload
+    blocks_np, lens_np = blk.chunk(data, BWT_BLOCK)
+    (enc_args, _, _), = [c for c in calls["mtf"] if not c[1].get("decode")]
+    parts = payloads(blob, 4)
+    nb = len(parts)
+    checked = sorted({0, 1, nb // 2, nb - 1})
+    for i in checked:
+        exp_L, exp_origin = obwt.encode_block(
+            blocks_np[i, : lens_np[i]].tobytes())
+        got_L = enc_args[0][i, : lens_np[i]].cpu().numpy().tobytes()
+        if got_L != exp_L or struct.unpack("<I", parts[i][0])[0] != exp_origin:
+            raise AssertionError(f"bwt block {i} differs from the oracle")
+    mtf = mtf_against_plain(calls["mtf"], MTF_PLAIN_COLS["bwt"])
+    ari = ari_prefix_against_plain(calls, ARI_PLAIN_COLS)
+    stages = bwt_ms(calls, blocks_np, lens_np, parts)
+    calls.clear()
+    emit("bwt", corpus_bytes=len(data), block_size=BWT_BLOCK, blocks=nb,
+         container_bytes=len(blob), ratio=len(blob) / len(data),
+         launches=launches, oracle_blocks=checked,
+         encode_mb_s=len(data) / 1e6 / t_enc,
+         decode_mb_s=len(data) / 1e6 / t_dec,
+         peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
+         mtf=mtf, ari=ari, bwt_ms=stages, trace=trace,
+         host_profile={"encode": host_profile(compress),
+                       "decode": host_profile(decompress)}, card=smi)
+    return launches, {**mtf, **ari}
+
+
+def phase_bwt_big(smi: str):
+    data = text_corpus(BIG_BLOCK, SEED)
+    blob, calls, launches, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+        data, codec="bwt", block_size=BIG_BLOCK)
+    need(launches, {"mtf_encode": 1, "mtf_decode": 1, "ari_encode": 1,
+                    "ari_decode": 1}, "bwt_big")
+    if not blob[5] & 8:
+        raise AssertionError("a 100 MB bwt block did not take flag 8")
+    nseg, seg = struct.unpack_from("<HI", blob, 26 + 4 + 4)
+    rows = {tuple(c[0][0].shape) for c in calls["mtf"]}
+    if (nseg, seg) != (128, 781312) or rows != {(128, 781312)}:
+        raise AssertionError(f"segments {nseg} x {seg}, MTF rows {rows}")
+    mtf = mtf_against_plain(calls["mtf"], MTF_PLAIN_COLS["bwt_big"])
+    ari = ari_prefix_against_plain(calls, ARI_PLAIN_COLS)
+    calls.clear()
+    emit("bwt_big", corpus_bytes=len(data), block_size=BIG_BLOCK,
+         segments=nseg, segment_bytes=seg, container_bytes=len(blob),
+         ratio=len(blob) / len(data), launches=launches,
+         encode_mb_s=len(data) / 1e6 / t_enc,
+         decode_mb_s=len(data) / 1e6 / t_dec,
+         peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
+         mtf=mtf, ari=ari, card=smi)
+    return launches, {**mtf, **ari}
 
 
 def main() -> int:
@@ -395,20 +716,41 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     phase_build()
     small = phase_kernels()
-    launches, main_path = phase_main(smi)
-    if "jax" in sys.modules:
-        raise AssertionError("the port's path imported jax")
+    ari_launches, ari_kernels = phase_main(smi)
+    bwt_launches, bwt_kernels = phase_bwt(smi)
+    big_launches, big_kernels = phase_bwt_big(smi)
+    if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
+                                   for m in sys.modules):
+        raise AssertionError("the port's path imported jax or tpuzip")
+    by_path = {"ari": ari_launches, "bwt": bwt_launches,
+               "bwt_big": big_launches}
+    # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
+    # path's 64 x 1 MiB; the error over every phase
+    at_shape = {**bwt_kernels, **ari_kernels}
+    checked = ({k: {"max_abs_err": e} for k, e in small.items()},
+               ari_kernels, bwt_kernels, big_kernels)
     print(smi)
-    # times at the main path's shape; the error over phases 3 and 4
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"tpuzip_torch/csrc/{name}.cu", "replaces": replaces,
-         "launches": launches[name],
-         "max_abs_err": max(small[name], main_path[name]["max_abs_err"]),
-         "ms": main_path[name]["ms"], "plain_ms": main_path[name]["plain_ms"]}
-        for name, replaces in (
-            ("ari_encode", "tpuzip/kernels/range_coder.py:128"),
-            ("ari_decode", "tpuzip/kernels/range_decoder.py:469"))]}))
+    rows = []
+    for name, source, replaces in (
+            ("ari_encode", "ari_encode.cu",
+             "tpuzip/kernels/range_coder.py:128"),
+            ("ari_decode", "ari_decode.cu",
+             "tpuzip/kernels/range_decoder.py:469"),
+            ("mtf_encode", "mtf.cu", "tpuzip/kernels/mtf_scan.py:33"),
+            ("mtf_decode", "mtf.cu", "tpuzip/kernels/mtf_scan.py:33")):
+        k = at_shape[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"tpuzip_torch/csrc/{source}", "replaces": replaces,
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "max_abs_err": max(c[name]["max_abs_err"]
+                               for c in checked if name in c),
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "shape": k["inputs"],
+            "plain_shape": k.get("plain_inputs", k["inputs"])})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

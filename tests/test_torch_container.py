@@ -1,12 +1,14 @@
-"""tpz ari containers: tpuzip_torch against tpuzip.
+"""tpz ari and bwt containers: tpuzip_torch against tpuzip.
 
-On the CPU the port runs its plain versions, never tpuzip's C++ coder, so
-container parity here exercises the port's own code.  tpuzip runs on a
-one-device mesh, because on the tests' 8-device mesh it pads the batch
-with empty blocks (the port must still decode those containers).  The
-CUDA kernels are held against the plain versions on the card by
-chip_smoke.py."""
+On the CPU the port runs its plain versions (torch BWT, plain MTF, plain
+ari), never tpuzip's C++ coder, so container parity here exercises the
+port's own code.  tpuzip runs on a one-device mesh, because on the
+tests' 8-device mesh it pads the batch with empty blocks (the port must
+still decode those containers).  The CUDA kernels are held against the
+plain versions on the card by chip_smoke.py."""
 
+import dataclasses
+import struct
 import zlib
 
 import numpy as np
@@ -16,11 +18,11 @@ import torch
 from tpuzip.core.config import Config
 from tpuzip.dist import mesh as meshlib
 from tpuzip.dist import runner as jrun
-from tpuzip.runtime.errors import (BlockLengthError, ChecksumError,
-                                   CorruptStreamError, HeaderError)
 import tpuzip_torch
 from tpuzip_torch import device as tdevice
 from tpuzip_torch.core.checksum import adler32_batch
+from tpuzip_torch.core.config import config_from_dict
+from tpuzip_torch.dist import runner as trun
 from tpuzip_torch.kernels import _build
 
 MESH1 = meshlib.make_mesh(1)
@@ -36,12 +38,16 @@ def _config(inc, thr):
     return cfg
 
 
-def _round_trip_both(data, block_size, cfg, checksums):
-    mine = tpuzip_torch.compress(data, block_size=block_size, device="cpu",
-                                 config=cfg, block_checksums=checksums)
-    ref = jrun.compress(data, codec="ari", block_size=block_size, mesh=MESH1,
+def _round_trip_both(data, block_size, cfg, checksums, codec="ari"):
+    """Both packages' containers are equal, and each decodes the other's;
+    the port gets the tpuzip config carried across (config_from_dict)."""
+    mine_cfg = cfg and config_from_dict(dataclasses.asdict(cfg))
+    mine = tpuzip_torch.compress(data, codec=codec, block_size=block_size,
+                                 device="cpu", config=mine_cfg,
+                                 block_checksums=checksums)
+    ref = jrun.compress(data, codec=codec, block_size=block_size, mesh=MESH1,
                         config=cfg, block_checksums=checksums)
-    assert mine == ref, (len(data), block_size, checksums)
+    assert mine == ref, (codec, len(data), block_size, checksums)
     assert tpuzip_torch.decompress(ref, device="cpu") == data
     assert jrun.decompress(mine, mesh=MESH1) == data
     return mine
@@ -70,12 +76,88 @@ def test_container_identical_knob_trailer(samples, knobs):
 
 def test_decodes_mesh_padded_container(rng):
     """tpuzip on the 8-device test mesh pads 4 blocks to 8 empty-tailed
-    ones; each padding block still carries idx_len and 4 finish bytes."""
+    ones; each padding block still carries idx_len and 4 finish bytes (and
+    a bwt one its origin)."""
     data = bytes(rng.integers(0, 256, 1000, dtype=np.uint8))
-    blob = jrun.compress(data, codec="ari", block_size=256,
-                         mesh=meshlib.make_mesh(8))
-    assert int.from_bytes(blob[10:14], "little") == 8
-    assert tpuzip_torch.decompress(blob, device="cpu") == data
+    for codec in ("ari", "bwt"):
+        blob = jrun.compress(data, codec=codec, block_size=256,
+                             mesh=meshlib.make_mesh(8))
+        assert int.from_bytes(blob[10:14], "little") == 8
+        assert tpuzip_torch.decompress(blob, device="cpu") == data
+
+
+@pytest.mark.parametrize("block_size", [1024, 4096])
+@pytest.mark.parametrize("checksums", [False, True])
+def test_bwt_container_identical(samples, block_size, checksums):
+    """BWT -> MTF -> ari, flag 2: empty, length-1, ragged, periodic and
+    constant blocks among the samples."""
+    for data in _small(samples):
+        blob = _round_trip_both(data, block_size, None, checksums, "bwt")
+        assert blob[4] == trun.CODECS["bwt"] and blob[5] == 2 | int(checksums)
+
+
+def test_bwt_container_knob_trailer(samples):
+    cases = [s for s in _small(samples) if len(s) >= 1000] + [b""]
+    for i, data in enumerate(cases):
+        blob = _round_trip_both(data, 1024, _config(8, 512), i % 2 == 0,
+                                "bwt")
+        assert blob[5] & 4
+
+
+def _segment_above(monkeypatch, threshold=2048):
+    """Both runners segment bwt blocks above `threshold` bytes (1 MiB in
+    both packages otherwise); the geometry depends on the block size
+    alone, so the containers decode unpatched."""
+    monkeypatch.setattr(trun, "SEG_THRESHOLD", threshold)
+    monkeypatch.setattr(jrun, "SEG_THRESHOLD", threshold)
+
+
+def test_bwt_segmented_container_identical(samples, monkeypatch):
+    """Flag 8 at block_size 4096: 16 segments of 256, each MTF+ari coded
+    with fresh state."""
+    _segment_above(monkeypatch)
+    assert trun._seg_geometry(4096) == jrun._seg_geometry(4096) == (256, 16)
+    blobs = {}
+    for i, data in enumerate(s for s in samples if len(s) <= 8192):
+        blobs[data] = _round_trip_both(data, 4096, None, i % 2 == 1, "bwt")
+        assert blobs[data][5] & 8
+    monkeypatch.undo()
+    for data, blob in blobs.items():
+        assert tpuzip_torch.decompress(blob, device="cpu") == data
+        assert jrun.decompress(blob, mesh=MESH1) == data
+
+
+def _with_payload(blob, payload):
+    """A one-block container (no checksum or knob tables) with its payload
+    replaced and the length table set to match."""
+    assert int.from_bytes(blob[10:14], "little") == 1 and not blob[5] & 5
+    return blob[:26] + struct.pack("<I", len(payload)) + payload
+
+
+BWT_CORRUPTIONS = {   # name: (segmented, payload -> payload, class name)
+    "shorter than header": (False, lambda p: p[:6], "BlockLengthError"),
+    "index overruns payload": (False, lambda p: p[:4] + struct.pack(
+        "<I", len(p)) + p[8:], "BlockLengthError"),
+    "wrong nseg": (True, lambda p: p[:4] + struct.pack("<H", 15) + p[6:],
+                   "CorruptStreamError"),
+    "segment longer than seg": (True, lambda p: p[:10] + struct.pack(
+        "<I", 257) + p[14:], "CorruptStreamError"),
+    "segment truncated": (True, lambda p: p[:-1], "CorruptStreamError"),
+    "segment trailing byte": (True, lambda p: p + b"\x00",
+                              "BlockLengthError"),
+}
+
+
+@pytest.mark.parametrize("name", list(BWT_CORRUPTIONS))
+def test_bwt_corruption_raises_same_class(monkeypatch, name):
+    segmented, mutate, exp = BWT_CORRUPTIONS[name]
+    if segmented:
+        _segment_above(monkeypatch)
+    data = (b"she sells sea shells by the sea shore " * 120)[:4000]
+    blob = tpuzip_torch.compress(data, codec="bwt", block_size=4096,
+                                 device="cpu")
+    assert bool(blob[5] & 8) == segmented
+    assert _same_error(_with_payload(blob, mutate(blob[30:]))) == exp
 
 
 def _mutations(blob, checksums):
@@ -103,14 +185,27 @@ def _mutations(blob, checksums):
     }
 
 
+# the two packages raise classes of the same name from their own taxonomies
 EXPECTED = {
-    "magic": HeaderError, "codec id": HeaderError,
-    "truncated header": HeaderError,
-    "truncated length table": BlockLengthError,
-    "trailing byte": BlockLengthError, "short payload": BlockLengthError,
-    "index overruns payload": BlockLengthError,
-    "index truncated": CorruptStreamError,
+    "magic": "HeaderError", "codec id": "HeaderError",
+    "truncated header": "HeaderError",
+    "truncated length table": "BlockLengthError",
+    "trailing byte": "BlockLengthError", "short payload": "BlockLengthError",
+    "index overruns payload": "BlockLengthError",
+    "index truncated": "CorruptStreamError",
 }
+
+
+def _same_error(bad):
+    """Decode `bad` with both packages; both must raise, with classes of
+    one name.  Returns that name."""
+    with pytest.raises(Exception) as mine:
+        tpuzip_torch.decompress(bad, device="cpu")
+    with pytest.raises(Exception) as ref:
+        jrun.decompress(bad, mesh=MESH1)
+    name = type(mine.value).__name__
+    assert name == type(ref.value).__name__, (mine.value, ref.value)
+    return name
 
 
 @pytest.mark.parametrize("checksums", [False, True])
@@ -121,26 +216,23 @@ def test_corruption_raises_same_class(rng, checksums):
     for name, bad in _mutations(blob, checksums).items():
         if name == "truncated checksum table" and not checksums:
             continue
-        with pytest.raises(Exception) as mine:
-            tpuzip_torch.decompress(bad, device="cpu")
-        with pytest.raises(Exception) as ref:
-            jrun.decompress(bad, mesh=MESH1)
-        assert type(mine.value) is type(ref.value), name
-        exp = EXPECTED.get(name, BlockLengthError)
+        exp = EXPECTED.get(name, "BlockLengthError")
         if name == "stream byte":   # per-block sums name the block first
-            exp = CorruptStreamError if checksums else ChecksumError
-        assert type(mine.value) is exp, (name, mine.value)
+            exp = "CorruptStreamError" if checksums else "ChecksumError"
+        assert _same_error(bad) == exp, name
 
 
 def test_cuda_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tdevice.resolve("cuda")
-    with pytest.raises(RuntimeError):
-        tpuzip_torch.compress(b"abc")
-    blob = tpuzip_torch.compress(b"abc", device="cpu")
-    with pytest.raises(RuntimeError):
-        tpuzip_torch.decompress(blob, device="cuda")
+    for codec in ("ari", "bwt"):
+        with pytest.raises(RuntimeError):
+            tpuzip_torch.compress(b"abc", codec=codec)
+        blob = tpuzip_torch.compress(b"abc", codec=codec, block_size=256,
+                                     device="cpu")
+        with pytest.raises(RuntimeError):
+            tpuzip_torch.decompress(blob, device="cuda")
     assert tdevice.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         tdevice.resolve("meta")
@@ -148,7 +240,7 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 def test_unported_entry_points_name_the_roadmap():
     calls = [lambda: tpuzip_torch.compress(b"x", codec="lz4", device="cpu"),
-             lambda: tpuzip_torch.compress(b"x", codec="bwt", device="cpu"),
+             lambda: tpuzip_torch.compress(b"x", codec="bwtdc", device="cpu"),
              lambda: tpuzip_torch.compress_corpus(b"x"),
              lambda: tpuzip_torch.decompress_corpus(b"TPZC"),
              lambda: tpuzip_torch.decompress(b"TPZC" + bytes(30), "cpu"),

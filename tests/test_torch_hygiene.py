@@ -1,18 +1,18 @@
 """Import hygiene of the port, by AST scan.
 
-The port imports torch and never jax, and from tpuzip only its jax-free
-modules.  The scan reads the sources instead of sys.modules, because the
+The port imports torch and never jax, and nothing of tpuzip: it keeps its
+own copies of what it needs (runtime.errors, core.blocks, core.config,
+oracle).  The scan reads the sources instead of sys.modules, because the
 test process imports jax anyway (tests/conftest.py)."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "tpuzip_torch"
-# the jax-free tpuzip modules the port may read
-ALLOWED = ("tpuzip.runtime.errors", "tpuzip.core.blocks", "tpuzip.core.config",
-           "tpuzip.oracle")
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "tpuzip")
 
 
 def _imports(path):
@@ -27,35 +27,50 @@ def _imports(path):
                 yield node.lineno, f"{node.module}.{a.name}"
 
 
-def _bad(module, allowed):
-    top = module.split(".")[0]
-    if top in FORBIDDEN_ROOTS:
-        return True
-    if top != "tpuzip":
-        return False
-    return not any(module == a or module.startswith(a + ".")
-                   for a in allowed)
+def _bad(module):
+    return module.split(".")[0] in FORBIDDEN_ROOTS
 
 
-def _offenders(paths, allowed):
+def _offenders(paths):
     return [f"{p.relative_to(ROOT)}:{line} imports {mod}"
-            for p in paths for line, mod in _imports(p)
-            if _bad(mod, allowed)]
+            for p in paths for line, mod in _imports(p) if _bad(mod)]
 
 
 def test_port_imports_no_jax_and_only_jaxfree_tpuzip():
+    """No file of the port imports jax or any tpuzip module (the name
+    dates from when a few jax-free tpuzip modules were allowed)."""
     paths = sorted(PKG.rglob("*.py"))
     assert len(paths) >= 10
-    offenders = _offenders(paths, ALLOWED)
+    offenders = _offenders(paths)
     assert not offenders, "\n".join(offenders)
 
 
 def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py may also use the C++ coder as a reference (jax-free),
-    never the jax-bearing tpuzip modules."""
-    offenders = _offenders([ROOT / "chip_smoke.py"],
-                           ALLOWED + ("tpuzip.runtime.native",))
+    """chip_smoke.py imports neither jax nor any tpuzip module, the C++
+    coder (tpuzip.runtime.native) included: its references are the port's
+    plain versions and its own oracle copies."""
+    offenders = _offenders([ROOT / "chip_smoke.py"])
     assert not offenders, "\n".join(offenders)
+
+
+def test_round_trips_load_no_tpuzip_module():
+    """In a fresh interpreter, ari and bwt round trips on the CPU (flag 2
+    and the segmented flag 8) load neither jax nor any tpuzip module, so
+    the port runs its own code there (never tpuzip's C++ coder)."""
+    code = (
+        "import sys\n"
+        "import tpuzip_torch\n"
+        "from tpuzip_torch.dist import runner\n"
+        "runner.SEG_THRESHOLD = 512\n"
+        "d = b'abracadabra ' * 150\n"
+        "for codec, bs in (('ari', 512), ('bwt', 256), ('bwt', 1024)):\n"
+        "    c = tpuzip_torch.compress(d, codec, bs, device='cpu')\n"
+        "    assert tpuzip_torch.decompress(c, device='cpu') == d\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('tpuzip', 'jax', 'jaxlib')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_scan_catches_forbidden_imports(tmp_path):
@@ -66,9 +81,10 @@ def test_scan_catches_forbidden_imports(tmp_path):
                    "from tpuzip.runtime import native\n"
                    "from tpuzip.core.config import Config\n"
                    "import torch\n")
-    got = [mod for _, mod in _imports(src) if _bad(mod, ALLOWED)]
+    got = [mod for _, mod in _imports(src) if _bad(mod)]
     assert got == ["jax.numpy", "tpuzip.kernels.range_decoder",
-                   "tpuzip.dist", "tpuzip.runtime.native"]
+                   "tpuzip.dist", "tpuzip.runtime.native",
+                   "tpuzip.core.config.Config"]
 
 
 def test_kernels_build_nothing_at_import():

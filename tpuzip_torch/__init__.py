@@ -4,12 +4,13 @@ A second package beside ``tpuzip``: the same tpz container, byte for byte,
 produced and read with PyTorch on an NVIDIA GPU, where every Pallas kernel
 of tpuzip becomes a CUDA kernel written for Hopper (``sm_90a``) under
 ``tpuzip_torch/csrc``.  ``tpuzip`` stays the reference the port is tested
-against; the port imports only its jax-free modules (the error classes,
-the block chunking, the config tree and the oracle).
+against; the port imports nothing of it and keeps its own copies of what
+it needs (``runtime.errors``, ``core.blocks``, ``core.config``, ``oracle``).
 
-Ported so far: the ari codec's chunk-indexed container round trip.  The
-other entry points raise NotImplementedError naming the ROADMAP.md item
-that ports them.
+Ported so far: the chunk-indexed container round trip of the ari codec and
+of the bwt codec (BWT -> MTF -> ari, with the segmented entropy stage of
+blocks above 1 MiB).  The other entry points raise NotImplementedError
+naming the ROADMAP.md item that ports them.
 
 ``device="cuda"`` (the default) runs the kernels and raises when there is
 no usable GPU; ``device="cpu"`` runs their plain PyTorch versions.
@@ -17,13 +18,15 @@ no usable GPU; ``device="cpu"`` runs their plain PyTorch versions.
 
 __version__ = "0.1.0"
 
-from tpuzip.core.config import CodecConfig, Config  # noqa: F401
+from tpuzip_torch.core.config import CodecConfig, Config  # noqa: F401
 
 
-def compress(data: bytes, codec: str = "ari", block_size: int = 1 << 16,
+def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
              device="cuda", config=None,
              block_checksums: bool = False) -> bytes:
-    """Compress a corpus into a tpz container (see dist.runner.compress)."""
+    """Compress a corpus into a tpz container (see dist.runner.compress);
+    block_size=None takes the codec's default from the config (1 MiB for
+    bwt, 64 KiB otherwise)."""
     from tpuzip_torch.dist import runner
 
     return runner.compress(data, codec=codec, block_size=block_size,

@@ -1,19 +1,26 @@
-"""The tpz container, ari codec: compress and decompress on one device.
+"""The tpz container, ari and bwt codecs: compress and decompress on one
+device.
 
-Port of the ari parts of tpuzip/dist/runner.py, byte for byte the same
-container:
+Port of the ari and bwt parts of tpuzip/dist/runner.py, byte for byte the
+same container:
 
   magic 'TPZ1' | codec u8 | flags u8 | block_size u32 LE | num_blocks u32 LE
   | orig_len u64 LE | adler32(orig) u32 LE | comp_lens u32[num_blocks] LE
   | [flags&1: block_adler u32[num_blocks] LE]
   | [flags&4: <HI> (increment, threshold) when not (8, 8192)]
-  | payloads, per block [u32 idx_len][chunk index][ari stream]  (flags&2)
+  | payloads, per block (flags&2, the chunk index):
+      ari:  [u32 idx_len][chunk index][ari stream]
+      bwt:  [u32 origin][u32 idx_len][idx][ari(mtf(L)) stream]
+      bwt with flags&8 (blocks above SEG_THRESHOLD):
+            [u32 origin][u16 nseg][u32 seg], then per segment
+            [u32 seg_olen][u32 idx_len][idx][stream], each segment MTF+ari
+            coded with fresh state
 
-The corpus is cut into blocks (tpuzip.core.blocks), the blocks go to the
-device as one (B, block_size) batch, and the chunk-indexed range coder
-kernels encode or decode the whole batch in one launch.  The port runs on
-one device, so unlike tpuzip it never pads the batch to a mesh width; it
-decodes tpuzip's padded containers all the same.
+The corpus is cut into blocks (core.blocks), the blocks go to the device as
+one (B, block_size) batch, and every stage (BWT, MTF, ari) runs on the
+whole batch at once.  The port runs on one device, so unlike tpuzip it
+never pads the batch to a mesh width; it decodes tpuzip's padded
+containers all the same.
 """
 
 from __future__ import annotations
@@ -24,17 +31,18 @@ import zlib
 import numpy as np
 import torch
 
-from tpuzip.core import blocks as blk
-from tpuzip.core.config import Config
-from tpuzip.runtime.errors import (BlockLengthError, ChecksumError,
-                                   CorruptStreamError, HeaderError)
+from tpuzip_torch.codecs import bwt
 from tpuzip_torch.codecs.ari import check_knobs, encode_cap
+from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.checksum import adler32_batch
+from tpuzip_torch.core.config import Config
 from tpuzip_torch.device import resolve
-from tpuzip_torch.kernels import range_coder, range_decoder
+from tpuzip_torch.kernels import mtf_scan, range_coder, range_decoder
 from tpuzip_torch.kernels.range_decoder import (CHUNK_STEPS,
                                                 pack_chunk_index,
                                                 parse_chunk_index)
+from tpuzip_torch.runtime.errors import (BlockLengthError, ChecksumError,
+                                         CorruptStreamError, HeaderError)
 
 MAGIC = b"TPZ1"
 MAGIC_CORPUS = b"TPZC"
@@ -43,10 +51,13 @@ CODECS = {"lz4": 1, "rle": 2, "ari": 3, "bwt": 4, "deflate": 5, "bwtdc": 6,
 CODEC_IDS = {v: k for k, v in CODECS.items()}
 ARI_DEFAULTS = (8, 1 << 13)   # (increment, threshold) without a trailer
 HEADER = 26                   # bytes before the length table
+HEAD = {"ari": 0, "bwt": 4}   # payload bytes before [u32 idx_len]
+SEG_HEAD = 10                 # <IHI> origin, nseg, seg of a flag-8 block
+SEG_THRESHOLD = 1 << 20       # bwt blocks above this segment the entropy stage
 
 # where ROADMAP.md (queue 1) ports each codec that is not here yet
-_ROADMAP_ITEM = {"bwt": 7, "bwtdc": 8, "bin": 9, "apm": 9, "lz4": 12,
-                 "lz4p": 12, "rle": 12, "deflate": 13}
+_ROADMAP_ITEM = {"bwtdc": 8, "bin": 9, "apm": 9, "lz4": 12, "lz4p": 12,
+                 "rle": 12, "deflate": 13}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -58,20 +69,79 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 def _check_codec(codec: str) -> None:
     if codec in _ROADMAP_ITEM:
         raise not_ported(f"codec {codec!r}", _ROADMAP_ITEM[codec])
-    if codec != "ari":
+    if codec not in HEAD:
         raise ValueError(f"unknown codec {codec!r}")
 
 
-def compress(data: bytes, codec: str = "ari", block_size: int = 1 << 16,
+def _seg_geometry(n: int) -> tuple[int, int]:
+    """(seg_size, nseg) of a big block's entropy stage: <= 128 segments,
+    seg_size a multiple of 256 (tpuzip's, so the containers agree)."""
+    seg = -(-n // 128)
+    seg = -(-seg // 256) * 256
+    return seg, -(-n // seg)
+
+
+def _ari_encode(syms: torch.Tensor, lens: torch.Tensor, inc: int, thr: int):
+    """ari with the chunk index of every row -> (streams (B, w) u8 on the
+    host, cut to the longest stream; stream lengths; deltas)."""
+    streams, slens, deltas = range_coder.ari_encode_indexed(
+        syms, lens, increment=inc, threshold=thr)
+    slens_np = slens.cpu().numpy().astype(np.int64)
+    if slens_np.max(initial=0) > streams.shape[1]:
+        raise ValueError("ari stream longer than its row capacity "
+                         f"{streams.shape[1]}: knobs ({inc}, {thr})")
+    # download only the used prefix of the rows
+    width = int(slens_np.max(initial=0))
+    return (streams[:, :width].cpu().numpy(), slens_np,
+            deltas.cpu().numpy())
+
+
+def _indexed(lens_np, comp_np, slens_np, deltas_np, k: int) -> bytes:
+    """[u32 idx_len][chunk index][stream] of row k."""
+    nci = (int(lens_np[k]) + CHUNK_STEPS - 1) // CHUNK_STEPS
+    idx = pack_chunk_index(deltas_np[k, :nci])
+    return (struct.pack("<I", len(idx)) + idx
+            + comp_np[k, : slens_np[k]].tobytes())
+
+
+def _encode_bwt_segmented(L, origins, lengths_np, inc, thr) -> list[bytes]:
+    """The flag-8 payloads: each block's L column cut into segments, each
+    MTF+ari coded with fresh state as one row of a (B*nseg, seg) batch."""
+    nb, n = L.shape
+    seg, nseg = _seg_geometry(n)
+    Lseg = torch.nn.functional.pad(L, (0, seg * nseg - n))
+    Lseg = Lseg.reshape(nb * nseg, seg)
+    seg_lens = np.clip(lengths_np.astype(np.int64)[:, None]
+                       - seg * np.arange(nseg)[None, :], 0, seg
+                       ).astype(np.int32).reshape(-1)
+    sl = torch.from_numpy(seg_lens).to(L.device)
+    comp_np, slens_np, deltas_np = _ari_encode(
+        mtf_scan.mtf_batch(Lseg, sl), sl, inc, thr)
+    blobs = []
+    for i in range(nb):
+        parts = [struct.pack("<IHI", int(origins[i]), nseg, seg)]
+        for k in range(i * nseg, (i + 1) * nseg):
+            parts.append(struct.pack("<I", int(seg_lens[k])))
+            parts.append(_indexed(seg_lens, comp_np, slens_np, deltas_np, k))
+        blobs.append(b"".join(parts))
+    return blobs
+
+
+def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
              device="cuda", config: Config | None = None,
              block_checksums: bool = False) -> bytes:
     """Compress a corpus into a tpz container on `device`.
 
+    block_size=None takes config.codec.bwt.block_size for bwt (1 MiB by
+    default) and config.mesh.block_size otherwise (64 KiB), as tpuzip does.
     `config.codec.ari` supplies the model knobs; values other than the
     defaults are recorded in the container (flag bit 2).
     block_checksums=True adds an Adler-32 per block (flag bit 0)."""
     _check_codec(codec)
     config = config or Config()
+    if block_size is None:
+        block_size = (config.codec.bwt.block_size if codec == "bwt"
+                      else config.mesh.block_size)
     inc, thr = config.codec.ari.increment, config.codec.ari.threshold
     check_knobs(inc, thr)
     dev = resolve(device)
@@ -79,25 +149,23 @@ def compress(data: bytes, codec: str = "ari", block_size: int = 1 << 16,
     nb = blocks_np.shape[0]
     blocks = torch.from_numpy(blocks_np).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
-    streams, slens, deltas = range_coder.ari_encode_indexed(
-        blocks, lengths, increment=inc, threshold=thr)
-    slens_np = slens.cpu().numpy().astype(np.int64)
-    if slens_np.max(initial=0) > streams.shape[1]:
-        raise ValueError("ari stream longer than its row capacity "
-                         f"{streams.shape[1]}: knobs ({inc}, {thr})")
-    # download only the used prefix of the rows
-    width = int(slens_np.max(initial=0))
-    comp_np = streams[:, :width].cpu().numpy()
-    deltas_np = deltas.cpu().numpy()
-    blobs = []
-    for i in range(nb):
-        nci = (int(lengths_np[i]) + CHUNK_STEPS - 1) // CHUNK_STEPS
-        idx = pack_chunk_index(deltas_np[i, :nci])
-        blobs.append(struct.pack("<I", len(idx)) + idx
-                     + comp_np[i, : slens_np[i]].tobytes())
     flags = 2 | (1 if block_checksums else 0)
     if (inc, thr) != ARI_DEFAULTS:
         flags |= 4
+    if codec == "ari":
+        coded = _ari_encode(blocks, lengths, inc, thr)
+        blobs = [_indexed(lengths_np, *coded, i) for i in range(nb)]
+    else:
+        L, origins = bwt.encode_batch(blocks, lengths)
+        origins = origins.cpu().numpy()
+        if block_size > SEG_THRESHOLD:
+            flags |= 8
+            blobs = _encode_bwt_segmented(L, origins, lengths_np, inc, thr)
+        else:
+            coded = _ari_encode(mtf_scan.mtf_batch(L, lengths), lengths,
+                                inc, thr)
+            blobs = [struct.pack("<I", int(origins[i]))
+                     + _indexed(lengths_np, *coded, i) for i in range(nb)]
     hdr = bytearray(MAGIC)
     hdr.append(CODECS[codec])
     hdr.append(flags)
@@ -111,10 +179,21 @@ def compress(data: bytes, codec: str = "ari", block_size: int = 1 << 16,
     return bytes(hdr) + b"".join(blobs)
 
 
+def _block_cap(codec: str, flags: int, block_size: int) -> int:
+    """The largest payload a block of `codec` may declare (tpuzip's
+    per-codec bound in its decompress)."""
+    if codec == "bwt" and flags & 8:
+        seg, nseg = _seg_geometry(block_size)
+        nc_seg = (seg + CHUNK_STEPS - 1) // CHUNK_STEPS
+        return SEG_HEAD + nseg * (8 + 3 * nc_seg + encode_cap(seg))
+    nc_full = (block_size + CHUNK_STEPS - 1) // CHUNK_STEPS
+    return HEAD[codec] + 4 + 3 * nc_full + encode_cap(block_size)
+
+
 def _parse_header(container: bytes):
     """Validate the header and length tables (tpuzip's checks, same error
-    classes).  Returns (block_size, nb, orig_len, a32, clens, block_sums,
-    (increment, threshold), payload offset)."""
+    classes).  Returns (codec, flags, block_size, nb, orig_len, a32, clens,
+    block_sums, (increment, threshold), payload offset)."""
     if container[:4] == MAGIC_CORPUS:
         raise not_ported("the TPZC corpus container", 11)
     if container[:4] != MAGIC:
@@ -126,7 +205,7 @@ def _parse_header(container: bytes):
     _check_codec(codec)
     flags = container[5]
     if not flags & 2:
-        raise not_ported("an ari container without the chunk index", 15)
+        raise not_ported(f"a {codec} container without the chunk index", 15)
     try:
         block_size, nb, orig_len, a32 = struct.unpack_from("<IIQI",
                                                            container, 6)
@@ -149,23 +228,122 @@ def _parse_header(container: bytes):
             raise BlockLengthError("container truncated in codec params")
         knobs = struct.unpack_from("<HI", container, off)
         off += 6
-    nc_full = (block_size + CHUNK_STEPS - 1) // CHUNK_STEPS
-    cap = 4 + 3 * nc_full + encode_cap(block_size)
     if off + int(clens.sum()) != len(container):
         raise BlockLengthError(
             "container payload length disagrees with the length table"
             if off + int(clens.sum()) < len(container) else
             "container truncated: payload shorter than length table claims")
-    if (clens > cap).any():
+    if (clens > _block_cap(codec, flags, block_size)).any():
         raise BlockLengthError("declared block length exceeds codec bound")
-    return block_size, nb, orig_len, a32, clens, block_sums, knobs, off
+    return (codec, flags, block_size, nb, orig_len, a32, clens, block_sums,
+            knobs, off)
+
+
+def _parse_indexed(container: bytes, p: int, n: int, olen: int,
+                   cap_s: int, deltas_row: np.ndarray, i: int):
+    """Parse [u32 idx_len][idx][stream] of block i (n bytes at p) into
+    deltas_row; returns the stream's (offset, length)."""
+    (idxlen,) = struct.unpack_from("<I", container, p)
+    if 4 + idxlen > n:
+        raise BlockLengthError(f"ari block {i}: index overruns payload")
+    nci = (olen + CHUNK_STEPS - 1) // CHUNK_STEPS
+    try:
+        deltas_row[:nci] = parse_chunk_index(
+            container[p + 4 : p + 4 + idxlen], nci)
+    except ValueError as e:
+        raise CorruptStreamError([i]) from e
+    if n - 4 - idxlen > cap_s:
+        raise CorruptStreamError([i])
+    return p + 4 + idxlen, n - 4 - idxlen
+
+
+def _parse_segmented(container: bytes, p: int, n: int, seg: int, nseg: int,
+                     deltas: np.ndarray, spans: np.ndarray,
+                     seg_lens: np.ndarray, i: int) -> int:
+    """Parse the flag-8 payload of block i (n bytes at p) into rows
+    i*nseg .. of deltas / spans / seg_lens; returns its origin."""
+    cap_s = encode_cap(seg)
+    if n < SEG_HEAD:
+        raise CorruptStreamError([i])
+    origin, ns, sg = struct.unpack_from("<IHI", container, p)
+    if ns != nseg or sg != seg:
+        raise CorruptStreamError([i])
+    pos, end = p + SEG_HEAD, p + n
+    for k in range(i * nseg, (i + 1) * nseg):
+        if pos + 8 > end:
+            raise CorruptStreamError([i])
+        sl, idxlen = struct.unpack_from("<II", container, pos)
+        pos += 8
+        if sl > seg:
+            raise CorruptStreamError([i])
+        nci = (sl + CHUNK_STEPS - 1) // CHUNK_STEPS
+        try:
+            deltas[k, :nci] = parse_chunk_index(
+                container[pos : min(pos + idxlen, end)], nci)
+        except ValueError as e:
+            raise CorruptStreamError([i]) from e
+        pos += idxlen
+        # 4 code bytes + the bytes the chunks pull (an empty segment still
+        # carries its 4 finish bytes)
+        slen = int(deltas[k].sum()) + 4
+        if slen > cap_s or pos + slen > end:
+            raise CorruptStreamError([i])
+        spans[k] = (pos, slen)
+        seg_lens[k] = sl
+        pos += slen
+    if pos != end:
+        raise BlockLengthError(f"bwt block {i}: trailing payload bytes")
+    return origin
+
+
+def _upload_streams(container: bytes, spans: np.ndarray, dev):
+    """(B, longest) u8 stream rows from the container on `dev`; a byte past
+    a row's stream reads as 0."""
+    streams = np.zeros((spans.shape[0], int(spans[:, 1].max(initial=0))),
+                       np.uint8)
+    for k, (p, n) in enumerate(spans):
+        streams[k, :n] = np.frombuffer(container, np.uint8, n, p)
+    return torch.from_numpy(streams).to(dev)
+
+
+def _ari_decode(container, spans, deltas, lens, width, inc, thr, dev):
+    """ari decode of every row -> (B, width) u8 symbols on `dev`."""
+    syms = range_decoder.ari_decode_indexed(
+        _upload_streams(container, spans, dev),
+        torch.from_numpy(deltas).to(dev),
+        torch.from_numpy(lens.astype(np.int32)).to(dev),
+        increment=inc, threshold=thr)
+    return syms[:, :width].contiguous()
+
+
+def _decode_segmented(container, starts, clens, olens, block_size, nb,
+                      inc, thr, dev) -> torch.Tensor:
+    """Flag-8 bwt blocks -> (nb, block_size) u8 on `dev`."""
+    seg, nseg = _seg_geometry(block_size)
+    nc_seg = (seg + CHUNK_STEPS - 1) // CHUNK_STEPS
+    deltas = np.zeros((nb * nseg, nc_seg), np.int32)
+    spans = np.zeros((nb * nseg, 2), np.int64)
+    seg_lens = np.zeros(nb * nseg, np.int64)
+    origins = np.zeros(nb, np.int32)
+    for i in range(nb):
+        if clens[i]:
+            origins[i] = _parse_segmented(
+                container, int(starts[i]), int(clens[i]), seg, nseg, deltas,
+                spans, seg_lens, i)
+    sl = torch.from_numpy(seg_lens.astype(np.int32)).to(dev)
+    syms = _ari_decode(container, spans, deltas, seg_lens, seg, inc, thr,
+                       dev)
+    L = mtf_scan.mtf_batch(syms, sl, decode=True)
+    L = L.reshape(nb, nseg * seg)[:, :block_size]
+    return bwt.decode_batch(L, torch.from_numpy(origins).to(dev),
+                            torch.from_numpy(olens).to(dev))
 
 
 def decompress(container: bytes, device="cuda") -> bytes:
-    """Decode a tpz ari container on `device`; checks the per-block and
-    corpus Adler-32 as tpuzip does."""
-    (block_size, nb, orig_len, a32, clens, block_sums, (inc, thr),
-     off) = _parse_header(container)
+    """Decode a tpz ari or bwt container on `device`; checks the per-block
+    and corpus Adler-32 as tpuzip does."""
+    (codec, flags, block_size, nb, orig_len, a32, clens, block_sums,
+     (inc, thr), off) = _parse_header(container)
     try:
         check_knobs(inc, thr)
     except ValueError as e:
@@ -173,45 +351,42 @@ def decompress(container: bytes, device="cuda") -> bytes:
     dev = resolve(device)
     olens = np.clip(orig_len - np.arange(nb, dtype=np.int64) * block_size,
                     0, block_size)
-    nc_full = (block_size + CHUNK_STEPS - 1) // CHUNK_STEPS
-    cap_s = encode_cap(block_size)
-    deltas = np.zeros((nb, nc_full), np.int32)
-    spans = np.zeros((nb, 2), np.int64)   # stream offset, stream length
-    starts = off + np.concatenate([[0], np.cumsum(clens)[:-1]]) if nb else []
-    for i in range(nb):
-        p, n = int(starts[i]), int(clens[i])
-        if n < 4:
-            if n != 0:
-                raise BlockLengthError(f"ari block {i} shorter than header")
-            continue
-        (idxlen,) = struct.unpack_from("<I", container, p)
-        if 4 + idxlen > n:
-            raise BlockLengthError(f"ari block {i}: index overruns payload")
-        nci = (int(olens[i]) + CHUNK_STEPS - 1) // CHUNK_STEPS
-        try:
-            deltas[i, :nci] = parse_chunk_index(
-                container[p + 4 : p + 4 + idxlen], nci)
-        except ValueError as e:
-            raise CorruptStreamError([i]) from e
-        if n - 4 - idxlen > cap_s:
-            raise CorruptStreamError([i])
-        spans[i] = (p + 4 + idxlen, n - 4 - idxlen)
-    # upload only the used prefix of the rows: bytes past a row read as 0
-    streams = np.zeros((nb, int(spans[:, 1].max(initial=0))), np.uint8)
-    for i in range(nb):
-        p, n = spans[i]
-        streams[i, :n] = np.frombuffer(container, np.uint8, n, p)
-    syms = range_decoder.ari_decode_indexed(
-        torch.from_numpy(streams).to(dev), torch.from_numpy(deltas).to(dev),
-        torch.from_numpy(olens.astype(np.int32)).to(dev),
-        increment=inc, threshold=thr)[:, :block_size]
+    starts = off + np.concatenate([[0], np.cumsum(clens)[:-1]]) if nb \
+        else np.zeros(0, np.int64)
+    if codec == "bwt" and flags & 8:
+        out = _decode_segmented(container, starts, clens, olens, block_size,
+                                nb, inc, thr, dev)
+    else:
+        head = HEAD[codec]
+        nc_full = (block_size + CHUNK_STEPS - 1) // CHUNK_STEPS
+        cap_s = encode_cap(block_size)
+        deltas = np.zeros((nb, nc_full), np.int32)
+        spans = np.zeros((nb, 2), np.int64)   # stream offset, length
+        origins = np.zeros(nb, np.int32)
+        for i in range(nb):
+            p, n = int(starts[i]), int(clens[i])
+            if n == 0:
+                continue
+            if n < head + 4:
+                raise BlockLengthError(f"{codec} block {i} shorter than "
+                                       "header")
+            if head:
+                (origins[i],) = struct.unpack_from("<I", container, p)
+            spans[i] = _parse_indexed(container, p + head, n - head,
+                                      int(olens[i]), cap_s, deltas[i], i)
+        out = _ari_decode(container, spans, deltas, olens, block_size, inc,
+                          thr, dev)
+        if codec == "bwt":
+            lens = torch.from_numpy(olens.astype(np.int32)).to(dev)
+            out = bwt.decode_batch(mtf_scan.mtf_batch(out, lens, decode=True),
+                                   torch.from_numpy(origins).to(dev), lens)
     if block_sums is not None:
-        got = adler32_batch(syms, torch.from_numpy(olens).to(dev))
+        got = adler32_batch(out, torch.from_numpy(olens).to(dev))
         bad = np.nonzero(got.cpu().numpy() != block_sums)[0]
         if bad.size:
             raise CorruptStreamError(bad)
     # every block is full except the tail (the chunking invariant)
-    data = syms.cpu().numpy().reshape(-1)[:orig_len].tobytes()
+    data = out.cpu().numpy().reshape(-1)[:orig_len].tobytes()
     if a32 and zlib.adler32(data) != a32:
         raise ChecksumError(f"corpus Adler-32 mismatch: "
                             f"{zlib.adler32(data):#x} != {a32:#x}")
