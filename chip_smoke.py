@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Two paths, both through ``tpuzip_torch.compress`` / ``decompress``:
-the ari codec's chunk-indexed container round trip (kernels
-tpuzip_torch/csrc/ari_encode.cu and ari_decode.cu), and the bwt codec's,
+Every path goes through ``tpuzip_torch.compress`` / ``decompress``: the
+ari codec's chunk-indexed container round trip (kernels
+tpuzip_torch/csrc/ari_encode.cu and ari_decode.cu); the bwt codec's,
 BWT -> MTF -> ari (adds csrc/mtf.cu, one source for both directions), at
 its default 1 MiB blocks and through the segmented flag-8 path of a
-100 MB block.  Phases, one JSON line each:
+100 MB block; the bwtdc codec's, BWT -> DC -> ari (adds csrc/dc_decode.cu);
+and the bin and apm codecs' (csrc/bin_encode.cu, bin_decode.cu).  Phases,
+one JSON line each:
 
 1. device   needs torch.cuda; prints nvidia-smi's name and power limit.
 2. build    builds every kernel from the checkout (one nvcc each, at once).
@@ -17,7 +19,11 @@ its default 1 MiB blocks and through the segmented flag-8 path of a
             constant, ragged and empty blocks), exact to the byte: ari at
             the default knobs, at threshold=512 and at (16, 40000), past
             the 2^15 bound of tpuzip's packed kernels; MTF encode and
-            decode; times side by side.
+            decode; the DC walk on the DC streams of those blocks plus a
+            row with a clobbered header and one with a flipped varint
+            continuation bit; bin and apm encode and decode at the knobs
+            (12, 5), (10, 4) and (11, 5) (one plain run holds all six,
+            a knob pair a row); times side by side.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -31,13 +37,30 @@ its default 1 MiB blocks and through the segmented flag-8 path of a
             equal the oracle's BWT on 4 blocks; each MTF launch held,
             exact, against the plain version on its own CUDA tensors cut
             to their first 65536 columns, and each ari launch on its first
-            8192 symbols (both are causal, so the prefix is exact); MB/s,
+            4096 symbols (both are causal, so the prefix is exact); MB/s,
             a device trace of each direction, peak memory.
 6. bwt_big  one 100,000,000-byte block made from the same seed (flag 8,
             128 segments of 781,312): the bytes round-trip; each MTF launch
             held against the plain version on the first 16384 columns of
-            the 128 segment rows, each ari launch on their first 8192
+            the 128 segment rows, each ari launch on their first 4096
             symbols; MB/s and peak memory.
+7. bwtdc    the 64 MiB corpus through codec="bwtdc" at 1 MiB blocks: the
+            bytes round-trip; dc_decode and both ari kernels launched; the
+            DC streams of 4 blocks equal the oracle's DC of the oracle's
+            BWT; the DC-decode launch held, all four outputs exact, against
+            the plain version on the path's own inputs cut to their first
+            8192 steps (the kernel runs the cut too, so the err of an
+            unfinished walk is compared as well), each ari launch on its
+            first 4096 symbols; MB/s, ratio, peak memory, and a device
+            trace of each direction taken in a fresh process.
+8. bin      the 64 MiB corpus through codec="bin" and codec="apm" at 64 KiB
+            blocks (1024 streams of 524,288 bits): the bytes round-trip;
+            both bin kernels launched on each; the streams of 2 blocks
+            equal the oracle's BinaryModel / ApmGate chain; each launch
+            held against the plain version on the path's own tensors cut
+            to the first 512 bytes of every block (kernel and plain on the
+            same cut, and the path's own outputs on that prefix); MB/s,
+            peak memory, and traces of apm taken in a fresh process.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then the nvidia-smi line, a {"kernels": [...]} line (kernel times
@@ -60,11 +83,13 @@ import numpy as np
 import torch
 
 import tpuzip_torch
-from tpuzip_torch.codecs import bwt
+from tpuzip_torch.codecs import bwt, dc
 from tpuzip_torch.core import blocks as blk
-from tpuzip_torch.kernels import _build, mtf_scan, range_coder, range_decoder
+from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, mtf_scan,
+                                  range_coder, range_decoder)
 from tpuzip_torch.oracle import ari as oari
 from tpuzip_torch.oracle import bwt as obwt
+from tpuzip_torch.oracle import dc as odc
 
 SEED = 20261016
 KNOBS = ((8, 1 << 13), (8, 512), (16, 40000))   # (increment, threshold)
@@ -73,7 +98,10 @@ CORPUS_BYTES = 64 << 20   # 1024 ari blocks: the JAX bench's headline shape
 BWT_BLOCK = 1 << 20       # the bwt codec's default block size
 BIG_BLOCK = 100_000_000   # BASELINE config 4: bwt on 100 MB blocks
 MTF_PLAIN_COLS = {"bwt": 65536, "bwt_big": 16384}
-ARI_PLAIN_COLS = 8192     # symbols of the ari prefix checks on the bwt paths
+ARI_PLAIN_COLS = 4096     # symbols of the ari prefix checks on the bwt paths
+DC_PLAIN_STEPS = 8192     # runs of the DC-walk check on the bwtdc path
+BIN_PLAIN_BYTES = 512     # bytes a block of the bin/apm checks on their paths
+BIN_KNOBS = ((12, 5), (10, 4), (11, 5))   # (model_bits, rate)
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 
 
@@ -168,10 +196,14 @@ def mixed_blocks(b: int, n: int, seed: int):
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    secs = _build.build("ari_encode", "ari_decode", "mtf")
+    secs = _build.build("ari_encode", "ari_decode", "mtf", "dc_decode",
+                        "bin_encode", "bin_decode")
     range_coder._lib()
     range_decoder._lib()
     mtf_scan._lib()
+    dc_scan._lib()
+    bin_coder._lib("bin_encode")
+    bin_coder._lib("bin_decode")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in secs.items()})
 
@@ -256,7 +288,87 @@ def phase_kernels() -> dict:
          decode_plain_ms=dec_plain_ms)
     if errs["mtf_encode"] or errs["mtf_decode"] or not round_trip:
         raise AssertionError("mtf kernel and plain version disagree")
+    errs["dc_decode"] = dc_kernel_check(blocks, lens)
+    errs.update(bin_kernel_check(blocks, lens))
     return errs
+
+
+def dc_kernel_check(blocks, lens) -> int:
+    """The DC walk on the DC streams of the blocks, plus a row whose header
+    field first[0] is clobbered to 0xFFFFFFFF (it reads as -1) and a row
+    with a varint's continuation bit flipped: kernel against plain, all
+    four outputs, exact."""
+    comp, clens = dc.encode_batch(blocks, lens)
+    comp = comp[:, : int(clens.max())]
+    bad_hdr, bad_var = comp[0].clone(), comp[4].clone()
+    bad_hdr[4:8] = 0xFF
+    bad_var[dc.HDR + 1] ^= 0x80
+    comp = torch.cat([comp, bad_hdr[None], bad_var[None]]).contiguous()
+    clens = torch.cat([clens, clens[[0, 4]]])
+    vals, first, length = dc.decode_inputs(comp, clens, blocks.shape[1])
+    out = dc_scan.dc_decode_lanes(vals, first, length)
+    ref, plain_ms = timed(
+        lambda: dc_scan.dc_decode_lanes_plain(vals, first, length))
+    err = max(max_err(x, y) for x, y in zip(out, ref))
+    back, _, flags = dc.decode_batch(comp, clens, blocks.shape[1])
+    round_trip = bool(torch.equal(back[:-2], blocks))
+    emit("kernels", kernel="dc_decode", streams=comp.shape[0],
+         steps=vals.shape[1], max_abs_err=err, round_trip=round_trip,
+         err_flags=out[3].tolist()[-2:],
+         ms=cuda_ms(lambda: dc_scan.dc_decode_lanes(vals, first, length),
+                    10), plain_ms=plain_ms)
+    if err or not round_trip or flags[:-2].any():
+        raise AssertionError("dc_decode kernel and plain version disagree")
+    return err
+
+
+def knob_rows(pairs, b: int) -> dict:
+    """Per-row knobs of one plain run holding several launches: each
+    (model_bits, rate, use_apm) repeated over its b rows."""
+    return {name: torch.tensor(col, device="cuda").repeat_interleave(b)
+            for name, col in zip(("model_bits", "rate", "use_apm"),
+                                 zip(*pairs))}
+
+
+def bin_kernel_check(blocks, lens) -> dict:
+    """bin and apm at each knob pair: encode and decode kernels against one
+    plain run of each direction over all six settings (a knob pair a row),
+    exact; the round trip; times side by side."""
+    b = blocks.shape[0]
+    pairs = [(bits, rate, apm) for apm in (False, True)
+             for bits, rate in BIN_KNOBS]
+    nbits = (8 * lens).to(torch.int32)
+    encs = [bin_coder.bin_encode_indexed(blocks, lens, *p) for p in pairs]
+    decs = [bin_coder.bin_decode_indexed(e[0], e[2], nbits, *p)
+            for e, p in zip(encs, pairs)]
+    knobs = knob_rows(pairs, b)
+    n = len(pairs)
+    enc_ref, enc_plain_ms = timed(lambda: bin_coder.bin_encode_indexed_plain(
+        blocks.repeat(n, 1), lens.repeat(n), **knobs))
+    dec_ref, dec_plain_ms = timed(lambda: bin_coder.bin_decode_indexed_plain(
+        torch.cat([e[0] for e in encs]), torch.cat([e[2] for e in encs]),
+        nbits.repeat(n), **knobs))
+    enc_err = max(max_err(x, y[j * b : (j + 1) * b])
+                  for j, e in enumerate(encs) for x, y in zip(e, enc_ref))
+    dec_err = max(max_err(d, dec_ref[j * b : (j + 1) * b])
+                  for j, d in enumerate(decs))
+    n_bytes = blocks.shape[1]
+    keep = torch.arange(n_bytes, device="cuda")[None, :] < lens[:, None]
+    round_trip = all(torch.equal(torch.where(keep, d[:, : blocks.shape[1]],
+                                             0), blocks) for d in decs)
+    times = {f"{'apm' if p[2] else 'bin'}_{p[0]}_{p[1]}": {
+        "encode_ms": cuda_ms(lambda: bin_coder.bin_encode_indexed(
+            blocks, lens, *p), 5),
+        "decode_ms": cuda_ms(lambda: bin_coder.bin_decode_indexed(
+            e[0], e[2], nbits, *p), 5)} for e, p in zip(encs, pairs)}
+    emit("kernels", kernel="bin", blocks=b, bytes=blocks.shape[1],
+         knobs=pairs, encode_max_abs_err=enc_err, decode_max_abs_err=dec_err,
+         round_trip=round_trip, times=times,
+         encode_plain_ms_all_six=enc_plain_ms,
+         decode_plain_ms_all_six=dec_plain_ms)
+    if enc_err or dec_err or not round_trip:
+        raise AssertionError("bin kernels and plain versions disagree")
+    return {"bin_encode": enc_err, "bin_decode": dec_err}
 
 
 def payloads(blob: bytes, head: int):
@@ -352,10 +464,16 @@ def recorded(module, name: str):
 
 WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "ari_decode": (range_decoder, "ari_decode_indexed"),
-            "mtf": (mtf_scan, "mtf_batch")}
+            "mtf": (mtf_scan, "mtf_batch"),
+            "dc_decode": (dc_scan, "dc_decode_lanes"),
+            "bin_encode": (bin_coder, "bin_encode_indexed"),
+            "bin_decode": (bin_coder, "bin_decode_indexed")}
 PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (range_decoder, "ari_decode_indexed_plain"),
-          (mtf_scan, "mtf_batch_plain"))
+          (mtf_scan, "mtf_batch_plain"),
+          (dc_scan, "dc_decode_lanes_plain"),
+          (bin_coder, "bin_encode_indexed_plain"),
+          (bin_coder, "bin_decode_indexed_plain"))
 
 
 @contextlib.contextmanager
@@ -705,11 +823,266 @@ def phase_bwt_big(smi: str):
     return launches, {**mtf, **ari}
 
 
+def dc_bound(vals) -> dict:
+    """bound() of one DC walk: vals, first and lengths read, the three
+    (B, T) outputs and err written."""
+    b, t = vals.shape
+    return bound(16 * b * t + 4 * 256 * b + 8 * b)
+
+
+def dc_against_plain(calls, steps: int) -> dict:
+    """The path's one DC-walk launch: the kernel and the plain version both
+    run on its inputs cut to the first `steps` steps, all four outputs
+    exact (the err of a walk the cut leaves unfinished included), and the
+    path launch's own first `steps` triples equal theirs (the walk is
+    causal).  Times of the kernel at the path's shape and at the cut, of
+    the plain version at the cut."""
+    if len(calls) != 1:
+        raise AssertionError(f"dc_decode: {len(calls)} launches on the "
+                             "path, expected 1")
+    (args, kw, out), = calls
+    vals, first, length = args
+    cut = vals[:, :steps].contiguous()
+    ref, plain_ms = timed(
+        lambda: dc_scan.dc_decode_lanes_plain(cut, first, length))
+    got = dc_scan.dc_decode_lanes(cut, first, length)
+    err = max(max(max_err(x, y) for x, y in zip(got, ref)),
+              max(max_err(x[:, :steps], y) for x, y in zip(out[:3], ref)))
+    if err:
+        raise AssertionError("dc_decode disagrees with its plain version on "
+                             f"the path's inputs: max_abs_err {err}")
+    return {"inputs": list(vals.shape), "plain_inputs": list(cut.shape),
+            "max_abs_err": err, "unfinished_at_cut": int(ref[3].sum()),
+            "ms": cuda_ms(lambda: dc_scan.dc_decode_lanes(*args), 3),
+            "ms_at_plain_inputs": cuda_ms(
+                lambda: dc_scan.dc_decode_lanes(cut, first, length), 3),
+            "plain_ms": plain_ms, **dc_bound(vals)}
+
+
+def phase_bwtdc(smi: str):
+    data = text_corpus(CORPUS_BYTES, SEED)
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 2 * BWT_BLOCK],
+                                                  codec="bwtdc"))
+    blob, calls, launches, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+        data, codec="bwtdc")
+    need(launches, {"dc_decode": 1, "ari_encode": 1, "ari_decode": 1},
+         "bwtdc")
+    if blob[5] & 8 or struct.unpack_from("<I", blob, 6)[0] != BWT_BLOCK:
+        raise AssertionError("bwtdc did not take 1 MiB blocks, flag 2")
+    trace = trace_in_child("bwtdc")
+    # the DC streams (the ari encoder's input rows) against the oracle's DC
+    # of the oracle's BWT
+    blocks_np, lens_np = blk.chunk(data, BWT_BLOCK)
+    (args, _, _), = calls["ari_encode"]
+    syms, dlens = args[:2]
+    nb = blocks_np.shape[0]
+    checked = sorted({0, 1, nb // 2, nb - 1})
+    for i in checked:
+        L, _ = obwt.encode_block(blocks_np[i, : lens_np[i]].tobytes())
+        got = syms[i, : int(dlens[i])].cpu().numpy().tobytes()
+        if got != odc.encode(L):
+            raise AssertionError(f"bwtdc block {i}: DC stream differs from "
+                                 "the oracle")
+    kernels = {"dc_decode": dc_against_plain(calls["dc_decode"],
+                                             DC_PLAIN_STEPS),
+               **ari_prefix_against_plain(calls, ARI_PLAIN_COLS)}
+    calls.clear()
+    emit("bwtdc", corpus_bytes=len(data), block_size=BWT_BLOCK, blocks=nb,
+         container_bytes=len(blob), ratio=len(blob) / len(data),
+         launches=launches, oracle_blocks=checked,
+         dc_stream_bytes=int(dlens.sum()),
+         encode_mb_s=len(data) / 1e6 / t_enc,
+         decode_mb_s=len(data) / 1e6 / t_dec,
+         peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
+         kernels=kernels, trace=trace, card=smi)
+    return launches, kernels
+
+
+def bin_bound(kind: str, args, out) -> dict:
+    """bound() of one bin launch at its own inputs: the valid bytes and the
+    stream bytes written (encode) or the stream bytes consumed and the
+    bytes written (decode), with the lengths and the chunk index."""
+    if kind == "bin_encode":
+        blocks, lens = args[:2]
+        streams, slens, deltas = out
+        nbytes = (int(lens.sum()) + 4 * lens.numel() + int(slens.sum())
+                  + 4 * slens.numel() + 4 * deltas.numel())
+    else:
+        streams, deltas, nbits = args[:3]
+        nbytes = (int(deltas.sum()) + 4 * deltas.shape[0]
+                  + 4 * deltas.numel() + 4 * nbits.numel() + out.numel())
+    return bound(nbytes)
+
+
+def bin_against_plain(runs, cut: int) -> dict:
+    """Each path's one launch of each bin kernel (runs: {codec: calls})
+    held against the plain version on the path's own tensors cut to the
+    first `cut` bytes of every block.  Kernel and plain run on the same
+    cut, exact; the path launch's own outputs agree on that prefix (the
+    coder is causal and carryless: its chunk index and its stream up to the
+    cut's finish bytes, whole on the rows the cut leaves whole; decode:
+    the first `cut` bytes).  One plain run of each direction holds both
+    codecs, a knob setting a row."""
+    enc, dec = [], []
+    for codec, calls in runs.items():
+        for name in ("bin_encode", "bin_decode"):
+            if len(calls[name]) != 1:
+                raise AssertionError(f"{codec} {name}: {len(calls[name])} "
+                                     "launches on the path, expected 1")
+        enc.append(calls["bin_encode"][0])
+        dec.append(calls["bin_decode"][0])
+    pairs = [tuple(a[2:]) for a, _, _ in enc]
+    b = enc[0][0][0].shape[0]
+    knobs = knob_rows(pairs, b)
+    cuts = [(a[0][:, :cut].contiguous(), a[1].clamp(max=cut))
+            for a, _, _ in enc]
+    ref, enc_plain_ms = timed(lambda: bin_coder.bin_encode_indexed_plain(
+        torch.cat([c[0] for c in cuts]), torch.cat([c[1] for c in cuts]),
+        **knobs))
+    nc = cut * 8 // bin_coder.CHUNK
+    errs = []
+    for j, ((args, _, out), (blocks, lens)) in enumerate(zip(enc, cuts)):
+        mine = [r[j * b : (j + 1) * b] for r in ref]
+        got = bin_coder.bin_encode_indexed(blocks, lens, *args[2:])
+        streams, slens, deltas = out
+        whole = args[1] <= cut
+        agree = mine[1].to(torch.int64) - 4 * (~whole)
+        w = mine[0].shape[1]
+        keep = torch.arange(w, device="cuda")[None, :] < agree[:, None]
+        errs.append(max(
+            max(max_err(x, y) for x, y in zip(got, mine)),
+            max_err(deltas[:, :nc], mine[2]),
+            max_err(torch.where(keep, streams[:, :w], 0),
+                    torch.where(keep, mine[0], 0)),
+            max_err(torch.where(whole, slens, 0),
+                    torch.where(whole, mine[1], 0))))
+    dec_cuts = [(args[0], args[1][:, :nc].contiguous(),
+                 args[2].clamp(max=8 * cut)) for args, _, _ in dec]
+    width = max(c[0].shape[1] for c in dec_cuts)
+    dref, dec_plain_ms = timed(lambda: bin_coder.bin_decode_indexed_plain(
+        torch.cat([torch.nn.functional.pad(c[0], (0, width - c[0].shape[1]))
+                   for c in dec_cuts]),
+        torch.cat([c[1] for c in dec_cuts]),
+        torch.cat([c[2] for c in dec_cuts]), **knobs))
+    for j, ((args, _, out), c) in enumerate(zip(dec, dec_cuts)):
+        mine = dref[j * b : (j + 1) * b]
+        got = bin_coder.bin_decode_indexed(*c, *args[3:])
+        errs.append(max(max_err(got, mine), max_err(out[:, :cut], mine)))
+    err = max(errs)
+    if err:
+        raise AssertionError("a bin kernel disagrees with its plain version "
+                             f"on the path's inputs: max_abs_err {err}")
+    res = {}
+    for name, launches, plain_ms, pshape in (
+            ("bin_encode", enc, enc_plain_ms, list(ref[0].shape)),
+            ("bin_decode", dec, dec_plain_ms, list(dref.shape))):
+        (args, kw, out), = [c for c in launches if c[0][-1]]      # apm
+        (bargs, bkw, bout), = [c for c in launches if not c[0][-1]]
+        kernel = getattr(bin_coder, f"{name}_indexed")
+        res[name] = {
+            "inputs": [list(a.shape) for a in args[:2]],
+            "plain_inputs": pshape, "max_abs_err": err,
+            "ms": cuda_ms(lambda: kernel(*args, **kw), 3),
+            "ms_bin": cuda_ms(lambda: kernel(*bargs, **bkw), 3),
+            "plain_ms": plain_ms, **bin_bound(name, args, out),
+            "bound_ms_bin": bin_bound(name, bargs, bout)["bound_ms"]}
+    return res
+
+
+def oracle_bits(block: bytes, apm: bool) -> bytes:
+    """The oracle chain of tests/test_jax_bin_apm.py: the block's bits
+    MSB-first through BinaryModel, or ApmGate over it, and the range
+    coder."""
+    model, gate, enc = oari.BinaryModel(), oari.ApmGate(), oari.RangeEncoder()
+    one = 1 << oari.ApmBit.BITS
+    for bit in np.unpackbits(np.frombuffer(block, np.uint8)).tolist():
+        if apm:
+            p0 = gate.pass_through(model.p0)
+            enc.encode(*((0, p0) if bit == 0 else (p0, one)), one)
+            gate.update(bit, 5)
+        else:
+            enc.encode(*model.get_range(bit), model.get_denominator())
+        model.update(bit)
+    return enc.finish()
+
+
+def phase_bin(smi: str):
+    data = text_corpus(CORPUS_BYTES, SEED)
+    blocks_np, lens_np = blk.chunk(data, BLOCK)
+    runs, launches, out = {}, {}, {}
+    for codec in ("bin", "apm"):
+        tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK],
+                                                      codec=codec))
+        blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+            data, codec=codec)
+        need(counts, {"bin_encode": 1, "bin_decode": 1}, codec)
+        if blob[5] != 2 or struct.unpack_from("<I", blob, 6)[0] != BLOCK:
+            raise AssertionError(f"{codec} did not take 64 KiB blocks, flag 2")
+        parts = payloads(blob, 0)
+        checked = [0, len(parts) // 2]
+        for i in checked:
+            exp = oracle_bits(blocks_np[i, : lens_np[i]].tobytes(),
+                              codec == "apm")
+            if parts[i][2] != exp:
+                raise AssertionError(f"{codec} block {i} stream differs from "
+                                     "the oracle")
+        out[codec] = {
+            "container_bytes": len(blob), "ratio": len(blob) / len(data),
+            "launches": counts, "oracle_blocks": checked,
+            "encode_mb_s": len(data) / 1e6 / t_enc,
+            "decode_mb_s": len(data) / 1e6 / t_dec,
+            "peak_device_bytes": {"encode": peak_enc, "decode": peak_dec}}
+        if codec == "apm":
+            out[codec]["trace"] = trace_in_child("apm")
+        runs[codec], launches[codec] = calls, counts
+    kernels = bin_against_plain(runs, BIN_PLAIN_BYTES)
+    runs.clear()
+    emit("bin", corpus_bytes=len(data), block_size=BLOCK,
+         blocks=int(blocks_np.shape[0]), codecs=out, kernels=kernels,
+         card=smi)
+    return launches, kernels
+
+
+TRACED = {"bwtdc": (("ari_encode_kernel",),
+                    ("ari_decode_kernel", "dc_decode_kernel")),
+          "apm": (("bin_encode_kernel",), ("bin_decode_kernel",))}
+
+
+def trace_in_child(codec: str) -> dict:
+    """traced() of one compress and one decompress of the corpus through
+    `codec`, in a fresh process (this script with --trace): in this
+    process the profiler lost kernels from traces taken late in the run
+    (a bwtdc decode without its ari decode kernel, apm traces with no
+    device events at all), while a fresh process traced every kernel of
+    repeated runs."""
+    out = subprocess.run([sys.executable, __file__, "--trace", codec],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"the {codec} trace failed:\n{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def trace_child(codec: str) -> int:
+    data = text_corpus(CORPUS_BYTES, SEED)
+    block = BWT_BLOCK if codec == "bwtdc" else BLOCK
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 2 * block],
+                                                  codec=codec))
+    blob = tpuzip_torch.compress(data, codec=codec)
+    enc, dec = TRACED[codec]
+    print(json.dumps({
+        "encode": traced(lambda: tpuzip_torch.compress(data, codec=codec),
+                         enc),
+        "decode": traced(lambda: tpuzip_torch.decompress(blob), dec)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--trace"]:
+        return trace_child(sys.argv[2])
     smi = nvidia_smi()
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -719,16 +1092,22 @@ def main() -> int:
     ari_launches, ari_kernels = phase_main(smi)
     bwt_launches, bwt_kernels = phase_bwt(smi)
     big_launches, big_kernels = phase_bwt_big(smi)
+    dc_launches, dc_kernels = phase_bwtdc(smi)
+    bin_launches, bin_kernels = phase_bin(smi)
     if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
                                    for m in sys.modules):
         raise AssertionError("the port's path imported jax or tpuzip")
     by_path = {"ari": ari_launches, "bwt": bwt_launches,
-               "bwt_big": big_launches}
+               "bwt_big": big_launches, "bwtdc": dc_launches,
+               "bin": bin_launches["bin"], "apm": bin_launches["apm"]}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
-    # path's 64 x 1 MiB; the error over every phase
-    at_shape = {**bwt_kernels, **ari_kernels}
+    # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
+    # at the apm path's 1024 x 64 KiB (bin beside it); the error over every
+    # phase
+    at_shape = {**bwt_kernels, **ari_kernels,
+                "dc_decode": dc_kernels["dc_decode"], **bin_kernels}
     checked = ({k: {"max_abs_err": e} for k, e in small.items()},
-               ari_kernels, bwt_kernels, big_kernels)
+               ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels)
     print(smi)
     rows = []
     for name, source, replaces in (
@@ -737,8 +1116,14 @@ def main() -> int:
             ("ari_decode", "ari_decode.cu",
              "tpuzip/kernels/range_decoder.py:469"),
             ("mtf_encode", "mtf.cu", "tpuzip/kernels/mtf_scan.py:33"),
-            ("mtf_decode", "mtf.cu", "tpuzip/kernels/mtf_scan.py:33")):
+            ("mtf_decode", "mtf.cu", "tpuzip/kernels/mtf_scan.py:33"),
+            ("dc_decode", "dc_decode.cu", "tpuzip/kernels/dc_scan.py:37"),
+            ("bin_encode", "bin_encode.cu",
+             "tpuzip/kernels/bin_coder.py:38"),
+            ("bin_decode", "bin_decode.cu",
+             "tpuzip/kernels/bin_coder.py:341")):
         k = at_shape[name]
+        extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"tpuzip_torch/csrc/{source}", "replaces": replaces,
@@ -749,7 +1134,7 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "shape": k["inputs"],
-            "plain_shape": k.get("plain_inputs", k["inputs"])})
+            "plain_shape": k.get("plain_inputs", k["inputs"]), **extra})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,23 @@ def test_chunk_index_escape_truncation_trailing():
             mod.parse_chunk_index(b"\xff" + (261).to_bytes(2, "little"), 1)
 
 
+def test_parse_takes_the_bin_coders_bound():
+    """A delta of 300 (escaped 255, 44, 1) is past the ari bound 4*64+4 but
+    inside the bin coder's 4*256+4, which its callers pass as max_delta,
+    as tpuzip's runner does for the bin/apm chunk index."""
+    blob = bytes((7, 255, 44, 1))
+    for mod in (trd, jrd):
+        np.testing.assert_array_equal(
+            mod.parse_chunk_index(blob, 2, max_delta=4 * 256 + 4), [7, 300])
+        with pytest.raises(ValueError, match="exceeds"):
+            mod.parse_chunk_index(blob, 2)
+    edge = bytes((255,)) + (1028).to_bytes(2, "little")
+    assert trd.parse_chunk_index(edge, 1, max_delta=1028).tolist() == [1028]
+    with pytest.raises(ValueError):
+        trd.parse_chunk_index(bytes((255,)) + (1029).to_bytes(2, "little"),
+                              1, max_delta=1028)
+
+
 def test_chunk_starts(rng):
     d = rng.integers(0, 200, (3, 9)).astype(np.int32)
     got = trd.chunk_starts(torch.from_numpy(d)).numpy()

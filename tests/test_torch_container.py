@@ -1,11 +1,12 @@
-"""tpz ari and bwt containers: tpuzip_torch against tpuzip.
+"""tpz ari, bwt, bwtdc, bin and apm containers: tpuzip_torch against
+tpuzip.
 
-On the CPU the port runs its plain versions (torch BWT, plain MTF, plain
-ari), never tpuzip's C++ coder, so container parity here exercises the
-port's own code.  tpuzip runs on a one-device mesh, because on the
-tests' 8-device mesh it pads the batch with empty blocks (the port must
-still decode those containers).  The CUDA kernels are held against the
-plain versions on the card by chip_smoke.py."""
+On the CPU the port runs its plain versions (torch BWT and DC, plain MTF,
+ari, DC walk and bin coder), never tpuzip's C++ coder, so container parity
+here exercises the port's own code.  tpuzip runs on a one-device mesh,
+because on the tests' 8-device mesh it pads the batch with empty blocks
+(the port must still decode those containers).  The CUDA kernels are
+held against the plain versions on the card by chip_smoke.py."""
 
 import dataclasses
 import struct
@@ -35,6 +36,12 @@ def _small(samples):
 def _config(inc, thr):
     cfg = Config()
     cfg.codec.ari.increment, cfg.codec.ari.threshold = inc, thr
+    return cfg
+
+
+def _bin_config(bits, rate):
+    cfg = Config()
+    cfg.codec.ari.bin_bits, cfg.codec.ari.bin_rate = bits, rate
     return cfg
 
 
@@ -79,7 +86,7 @@ def test_decodes_mesh_padded_container(rng):
     ones; each padding block still carries idx_len and 4 finish bytes (and
     a bwt one its origin)."""
     data = bytes(rng.integers(0, 256, 1000, dtype=np.uint8))
-    for codec in ("ari", "bwt"):
+    for codec in ("ari", "bwt", "bwtdc", "bin", "apm"):
         blob = jrun.compress(data, codec=codec, block_size=256,
                              mesh=meshlib.make_mesh(8))
         assert int.from_bytes(blob[10:14], "little") == 8
@@ -102,6 +109,60 @@ def test_bwt_container_knob_trailer(samples):
         blob = _round_trip_both(data, 1024, _config(8, 512), i % 2 == 0,
                                 "bwt")
         assert blob[5] & 4
+
+
+def _bwtdc_cases(samples):
+    """Empty, length 1, random (4 blocks of 1024, the last ragged),
+    constant, periodic and text samples."""
+    return [s for s in _small(samples) if len(s) in (0, 1, 255, 1000, 1200,
+                                                     2816, 4096)]
+
+
+@pytest.mark.parametrize("block_size", [1024, 2048])
+def test_bwtdc_container_identical(samples, block_size):
+    """BWT -> DC -> ari, flag 2; block_checksums on every other sample."""
+    for i, data in enumerate(_bwtdc_cases(samples)):
+        blob = _round_trip_both(data, block_size, None, i % 2 == 1, "bwtdc")
+        assert blob[4] == trun.CODECS["bwtdc"]
+        assert blob[5] == 2 | (i % 2)
+
+
+def test_bwtdc_container_knob_trailer(samples):
+    cases = [s for s in _bwtdc_cases(samples) if len(s) >= 1000] + [b""]
+    for i, data in enumerate(cases):
+        blob = _round_trip_both(data, 1024, _config(16, 40000), i % 2 == 0,
+                                "bwtdc")
+        assert blob[5] & 4
+
+
+def _bin_cases(samples):
+    """Empty, length 1 and 7, random (4 blocks of 256, the last ragged),
+    constant and text samples."""
+    return [s for s in _small(samples) if len(s) in (0, 1, 7, 1000, 2816)]
+
+
+@pytest.mark.parametrize("codec", ["bin", "apm"])
+def test_bin_container_identical(samples, codec):
+    """Default knobs (12, 5), flag 2, 256-bit chunk index; block_checksums
+    on every other sample."""
+    for i, data in enumerate(_bin_cases(samples)):
+        blob = _round_trip_both(data, 256, None, i % 2 == 0, codec)
+        assert blob[4] == trun.CODECS[codec] and blob[5] == 2 | (i % 2 == 0)
+
+
+@pytest.mark.parametrize("knobs", [(10, 4), (11, 5)],
+                         ids=lambda k: f"bits{k[0]}-rate{k[1]}")
+def test_bin_container_knob_trailer(samples, knobs):
+    """(bin_bits, bin_rate) other than (12, 5) ride the flag-4 trailer."""
+    cases = [s for s in _bin_cases(samples) if len(s) in (7, 1000)]
+    for codec in ("bin", "apm"):
+        for i, data in enumerate(cases):
+            blob = _round_trip_both(data, 256, _bin_config(*knobs), i == 0,
+                                    codec)
+            nb = int.from_bytes(blob[10:14], "little")
+            off = 26 + 4 * nb * (2 if i == 0 else 1)
+            assert blob[5] & 4 and struct.unpack_from("<HI", blob, off) == \
+                knobs
 
 
 def _segment_above(monkeypatch, threshold=2048):
@@ -146,6 +207,38 @@ BWT_CORRUPTIONS = {   # name: (segmented, payload -> payload, class name)
     "segment trailing byte": (True, lambda p: p + b"\x00",
                               "BlockLengthError"),
 }
+
+
+CODEC_CORRUPTIONS = {   # name: (codec, payload -> payload, class name)
+    "bwtdc shorter than header": ("bwtdc", lambda p: p[:10],
+                                  "BlockLengthError"),
+    "bwtdc dc_len past its cap": ("bwtdc", lambda p: p[:4] + struct.pack(
+        "<I", 1028 + 5 * 4096 + 8 + 1) + p[8:], "CorruptStreamError"),
+    "bwtdc index overruns payload": ("bwtdc", lambda p: p[:8] + struct.pack(
+        "<I", len(p)) + p[12:], "BlockLengthError"),
+    "bin shorter than its index length": ("bin", lambda p: p[:3],
+                                          "CorruptStreamError"),
+    "bin index overruns payload": ("bin", lambda p: struct.pack(
+        "<I", len(p)) + p[4:], "CorruptStreamError"),
+    # parse_chunk_index's ValueError escapes unwrapped in both packages
+    "bin index truncated": ("apm", lambda p: struct.pack(
+        "<I", int.from_bytes(p[:4], "little") - 1) + p[4:], "ValueError"),
+    "bin stream byte": ("apm", lambda p: p[:-9] + bytes([p[-9] ^ 0x5A])
+                        + p[-8:], "ChecksumError"),
+}
+
+
+@pytest.mark.parametrize("name", list(CODEC_CORRUPTIONS))
+def test_codec_corruption_raises_same_class(name):
+    """Corruptions that both packages reject with classes of one name."""
+    codec, mutate, exp = CODEC_CORRUPTIONS[name]
+    # one block: 4000 bytes for bwtdc, 500 for the bit coders (8 steps a
+    # byte on the CPU)
+    n = 4000 if codec == "bwtdc" else 500
+    data = (b"she sells sea shells by the sea shore " * 120)[:n]
+    blob = tpuzip_torch.compress(data, codec=codec, block_size=n + 96,
+                                 device="cpu")
+    assert _same_error(_with_payload(blob, mutate(blob[30:]))) == exp
 
 
 @pytest.mark.parametrize("name", list(BWT_CORRUPTIONS))
@@ -226,7 +319,7 @@ def test_cuda_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tdevice.resolve("cuda")
-    for codec in ("ari", "bwt"):
+    for codec in ("ari", "bwt", "bwtdc", "bin", "apm"):
         with pytest.raises(RuntimeError):
             tpuzip_torch.compress(b"abc", codec=codec)
         blob = tpuzip_torch.compress(b"abc", codec=codec, block_size=256,
@@ -240,7 +333,8 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 def test_unported_entry_points_name_the_roadmap():
     calls = [lambda: tpuzip_torch.compress(b"x", codec="lz4", device="cpu"),
-             lambda: tpuzip_torch.compress(b"x", codec="bwtdc", device="cpu"),
+             lambda: tpuzip_torch.compress(b"x", codec="deflate",
+                                           device="cpu"),
              lambda: tpuzip_torch.compress_corpus(b"x"),
              lambda: tpuzip_torch.decompress_corpus(b"TPZC"),
              lambda: tpuzip_torch.decompress(b"TPZC" + bytes(30), "cpu"),

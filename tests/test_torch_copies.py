@@ -1,6 +1,6 @@
-"""The port's own copies of tpuzip's jax-free modules against the
-originals: block chunking, the config tree, the error classes and the
-format oracles (tpuzip_torch imports nothing of tpuzip)."""
+"""The port's own copies of tpuzip's modules against the originals: block
+chunking, the config tree, the error classes, the format oracles and the
+varint packer of core/bitio (tpuzip_torch imports nothing of tpuzip)."""
 
 import dataclasses
 import inspect
@@ -8,17 +8,25 @@ import inspect
 import numpy as np
 import pytest
 
+import torch
+
+import jax.numpy as jnp
+
+from tpuzip.core import bitio as jbitio
 from tpuzip.core import blocks as jblocks
 from tpuzip.core import config as jconfig
 from tpuzip.oracle import ari as jari
 from tpuzip.oracle import bwt as jbwt
+from tpuzip.oracle import dc as jdc
 from tpuzip.oracle import mtf as jmtf
 from tpuzip.runtime import errors as jerrors
 import tpuzip_torch
+from tpuzip_torch.core import bitio as tbitio
 from tpuzip_torch.core import blocks as tblocks
 from tpuzip_torch.core import config as tconfig
 from tpuzip_torch.oracle import ari as tari
 from tpuzip_torch.oracle import bwt as tbwt
+from tpuzip_torch.oracle import dc as tdc
 from tpuzip_torch.oracle import mtf as tmtf
 from tpuzip_torch.runtime import errors as terrors
 
@@ -109,3 +117,59 @@ def test_mtf_and_bwt_oracles_same_bytes(samples):
         np.testing.assert_array_equal(
             tbwt.rotation_sort(np.frombuffer(data, np.uint8)),
             jbwt.rotation_sort(np.frombuffer(data, np.uint8)))
+
+
+def test_dc_oracle_same_bytes(samples):
+    for data in samples:
+        if len(data) > 8192:
+            continue
+        enc = tdc.encode(data)
+        assert enc == jdc.encode(data)
+        assert tdc.decode(enc) == jdc.decode(enc) == data
+    bad = bytearray(tdc.encode(b"abcabcabc" * 30))
+    bad[-1] = 0x7F                                   # a bad last distance
+    for mod in (tdc, jdc):
+        with pytest.raises(ValueError, match="DC decode"):
+            mod.decode(bytes(bad))
+
+
+@pytest.mark.parametrize("knobs", [(12, 5), (10, 4), (11, 5)],
+                         ids=lambda k: f"bits{k[0]}-rate{k[1]}")
+def test_bin_apm_models_same_states(rng, knobs):
+    """BinaryModel, ApmBit and ApmGate step for step: the range of each bit,
+    the gate's interpolated probability and every cell after it."""
+    bits = (rng.random(3000) < 0.2).astype(int).tolist()
+    mine = (tari.BinaryModel(*knobs), tari.ApmGate())
+    ref = (jari.BinaryModel(*knobs), jari.ApmGate())
+    for bit in bits:
+        got = [(m.get_range(bit), m.get_denominator(), g.pass_through(m.p0),
+                m.find_value(m.p0 - 1)) for m, g in (mine, ref)]
+        assert got[0] == got[1]
+        for m, g in (mine, ref):
+            g.update(bit, 5)
+            m.update(bit)
+        assert [c.p0 for c in mine[1].cells] == [c.p0 for c in ref[1].cells]
+    assert tari.ApmBit().predict() == jari.ApmBit().predict() == 2048
+
+
+def test_bitio_varint_packer_matches(rng):
+    """exclusive_cumsum, and pack_bytes_varlen against both of tpuzip's
+    packers (scatter and sort), row by row, with bytes falling past the
+    capacity."""
+    t, k = 50, 5
+    chunks = rng.integers(0, 256, (3, t, k), dtype=np.uint8)
+    lens = rng.integers(0, k + 1, (3, t)).astype(np.int32)
+    lens[2] = k                                      # overflows cap
+    cap = 160
+    np.testing.assert_array_equal(
+        tbitio.exclusive_cumsum(torch.from_numpy(lens)).numpy()[0],
+        np.asarray(jbitio.exclusive_cumsum(jnp.array(lens[0]))))
+    out, total = tbitio.pack_bytes_varlen(torch.from_numpy(chunks),
+                                          torch.from_numpy(lens), cap)
+    for i in range(3):
+        for jpack in (jbitio.pack_bytes_varlen,
+                      jbitio.pack_bytes_varlen_sorted):
+            e_out, e_total = jpack(jnp.array(chunks[i]), jnp.array(lens[i]),
+                                   cap)
+            np.testing.assert_array_equal(out[i].numpy(), np.asarray(e_out))
+            assert int(total[i]) == int(e_total)

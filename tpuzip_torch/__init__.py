@@ -7,10 +7,12 @@ of tpuzip becomes a CUDA kernel written for Hopper (``sm_90a``) under
 against; the port imports nothing of it and keeps its own copies of what
 it needs (``runtime.errors``, ``core.blocks``, ``core.config``, ``oracle``).
 
-Ported so far: the chunk-indexed container round trip of the ari codec and
+Ported so far: the chunk-indexed container round trip of the ari codec,
 of the bwt codec (BWT -> MTF -> ari, with the segmented entropy stage of
-blocks above 1 MiB).  The other entry points raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+blocks above 1 MiB), of the bwtdc codec (BWT -> DC -> ari) and of the bin
+and apm codecs (a binary adaptive model over each block's bits, the apm
+one refined by an APM/SSE gate).  The other codecs and entry points raise
+NotImplementedError naming the ROADMAP.md item that ports them.
 
 ``device="cuda"`` (the default) runs the kernels and raises when there is
 no usable GPU; ``device="cpu"`` runs their plain PyTorch versions.
@@ -26,7 +28,7 @@ def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
              block_checksums: bool = False) -> bytes:
     """Compress a corpus into a tpz container (see dist.runner.compress);
     block_size=None takes the codec's default from the config (1 MiB for
-    bwt, 64 KiB otherwise)."""
+    bwt and bwtdc, 64 KiB otherwise)."""
     from tpuzip_torch.dist import runner
 
     return runner.compress(data, codec=codec, block_size=block_size,

@@ -1,25 +1,29 @@
-"""The tpz container, ari and bwt codecs: compress and decompress on one
-device.
+"""The tpz container, ari, bwt, bwtdc, bin and apm codecs: compress and
+decompress on one device.
 
-Port of the ari and bwt parts of tpuzip/dist/runner.py, byte for byte the
+Port of those codecs' parts of tpuzip/dist/runner.py, byte for byte the
 same container:
 
   magic 'TPZ1' | codec u8 | flags u8 | block_size u32 LE | num_blocks u32 LE
   | orig_len u64 LE | adler32(orig) u32 LE | comp_lens u32[num_blocks] LE
   | [flags&1: block_adler u32[num_blocks] LE]
-  | [flags&4: <HI> (increment, threshold) when not (8, 8192)]
+  | [flags&4: <HI> the model knobs when not the codec's defaults:
+      (increment, threshold) not (8, 8192), or for bin/apm
+      (model_bits, rate) not (12, 5)]
   | payloads, per block (flags&2, the chunk index):
-      ari:  [u32 idx_len][chunk index][ari stream]
-      bwt:  [u32 origin][u32 idx_len][idx][ari(mtf(L)) stream]
+      ari:   [u32 idx_len][chunk index][ari stream]
+      bwt:   [u32 origin][u32 idx_len][idx][ari(mtf(L)) stream]
+      bwtdc: [u32 origin][u32 dc_len][u32 idx_len][idx][ari(dc(L)) stream]
+      bin, apm: [u32 idx_len][index of 256-bit chunks][bit coder stream]
       bwt with flags&8 (blocks above SEG_THRESHOLD):
             [u32 origin][u16 nseg][u32 seg], then per segment
             [u32 seg_olen][u32 idx_len][idx][stream], each segment MTF+ari
             coded with fresh state
 
 The corpus is cut into blocks (core.blocks), the blocks go to the device as
-one (B, block_size) batch, and every stage (BWT, MTF, ari) runs on the
-whole batch at once.  The port runs on one device, so unlike tpuzip it
-never pads the batch to a mesh width; it decodes tpuzip's padded
+one (B, block_size) batch, and every stage (BWT, MTF or DC, the coder)
+runs on the whole batch at once.  The port runs on one device, so unlike
+tpuzip it never pads the batch to a mesh width; it decodes tpuzip's padded
 containers all the same.
 """
 
@@ -31,13 +35,14 @@ import zlib
 import numpy as np
 import torch
 
-from tpuzip_torch.codecs import bwt
+from tpuzip_torch.codecs import bin_apm, bwt, dc
 from tpuzip_torch.codecs.ari import check_knobs, encode_cap
 from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.checksum import adler32_batch
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.device import resolve
-from tpuzip_torch.kernels import mtf_scan, range_coder, range_decoder
+from tpuzip_torch.kernels import (bin_coder, mtf_scan, range_coder,
+                                  range_decoder)
 from tpuzip_torch.kernels.range_decoder import (CHUNK_STEPS,
                                                 pack_chunk_index,
                                                 parse_chunk_index)
@@ -51,13 +56,14 @@ CODECS = {"lz4": 1, "rle": 2, "ari": 3, "bwt": 4, "deflate": 5, "bwtdc": 6,
 CODEC_IDS = {v: k for k, v in CODECS.items()}
 ARI_DEFAULTS = (8, 1 << 13)   # (increment, threshold) without a trailer
 HEADER = 26                   # bytes before the length table
-HEAD = {"ari": 0, "bwt": 4}   # payload bytes before [u32 idx_len]
+# payload bytes before [u32 idx_len]
+HEAD = {"ari": 0, "bwt": 4, "bwtdc": 8, "bin": 0, "apm": 0}
 SEG_HEAD = 10                 # <IHI> origin, nseg, seg of a flag-8 block
 SEG_THRESHOLD = 1 << 20       # bwt blocks above this segment the entropy stage
+BIN_CODECS = ("bin", "apm")
 
 # where ROADMAP.md (queue 1) ports each codec that is not here yet
-_ROADMAP_ITEM = {"bwtdc": 8, "bin": 9, "apm": 9, "lz4": 12, "lz4p": 12,
-                 "rle": 12, "deflate": 13}
+_ROADMAP_ITEM = {"lz4": 12, "lz4p": 12, "rle": 12, "deflate": 13}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -73,6 +79,15 @@ def _check_codec(codec: str) -> None:
         raise ValueError(f"unknown codec {codec!r}")
 
 
+def _knob_defaults(codec: str) -> tuple[int, int]:
+    return bin_apm.KNOB_DEFAULTS if codec in BIN_CODECS else ARI_DEFAULTS
+
+
+def _check_knobs(codec: str, a: int, b: int) -> None:
+    """ValueError for knobs the codec's range coder cannot carry."""
+    (bin_apm.check_knobs if codec in BIN_CODECS else check_knobs)(a, b)
+
+
 def _seg_geometry(n: int) -> tuple[int, int]:
     """(seg_size, nseg) of a big block's entropy stage: <= 128 segments,
     seg_size a multiple of 256 (tpuzip's, so the containers agree)."""
@@ -81,24 +96,32 @@ def _seg_geometry(n: int) -> tuple[int, int]:
     return seg, -(-n // seg)
 
 
-def _ari_encode(syms: torch.Tensor, lens: torch.Tensor, inc: int, thr: int):
-    """ari with the chunk index of every row -> (streams (B, w) u8 on the
-    host, cut to the longest stream; stream lengths; deltas)."""
-    streams, slens, deltas = range_coder.ari_encode_indexed(
-        syms, lens, increment=inc, threshold=thr)
+def _download(streams, slens, deltas, what: str):
+    """An indexed encoder's (streams, stream lengths, deltas) -> the same on
+    the host, the streams cut to the longest one."""
     slens_np = slens.cpu().numpy().astype(np.int64)
     if slens_np.max(initial=0) > streams.shape[1]:
-        raise ValueError("ari stream longer than its row capacity "
-                         f"{streams.shape[1]}: knobs ({inc}, {thr})")
+        raise ValueError(f"{what} stream longer than its row capacity "
+                         f"{streams.shape[1]}")
     # download only the used prefix of the rows
     width = int(slens_np.max(initial=0))
     return (streams[:, :width].cpu().numpy(), slens_np,
             deltas.cpu().numpy())
 
 
-def _indexed(lens_np, comp_np, slens_np, deltas_np, k: int) -> bytes:
-    """[u32 idx_len][chunk index][stream] of row k."""
-    nci = (int(lens_np[k]) + CHUNK_STEPS - 1) // CHUNK_STEPS
+def _ari_encode(syms: torch.Tensor, lens: torch.Tensor, inc: int, thr: int):
+    """ari with the chunk index of every row -> (streams (B, w) u8 on the
+    host, cut to the longest stream; stream lengths; deltas)."""
+    return _download(*range_coder.ari_encode_indexed(
+        syms, lens, increment=inc, threshold=thr),
+        f"ari (knobs ({inc}, {thr}))")
+
+
+def _indexed(lens_np, comp_np, slens_np, deltas_np, k: int,
+             chunk: int = CHUNK_STEPS) -> bytes:
+    """[u32 idx_len][chunk index][stream] of row k, whose coder took
+    lens_np[k] steps, `chunk` steps an index entry."""
+    nci = (int(lens_np[k]) + chunk - 1) // chunk
     idx = pack_chunk_index(deltas_np[k, :nci])
     return (struct.pack("<I", len(idx)) + idx
             + comp_np[k, : slens_np[k]].tobytes())
@@ -127,38 +150,70 @@ def _encode_bwt_segmented(L, origins, lengths_np, inc, thr) -> list[bytes]:
     return blobs
 
 
+def _encode_bwtdc(L, origins, lengths, inc: int, thr: int) -> list[bytes]:
+    """The bwtdc payloads: DC of each block's L column, then ari of the DC
+    stream (rows cut to the longest: a row's ari stream does not depend on
+    the row width)."""
+    comp, dlens = dc.encode_batch(L, lengths)
+    dlens_np = dlens.cpu().numpy()
+    width = int(dlens_np.max(initial=0))
+    coded = _ari_encode(comp[:, :width].contiguous(), dlens, inc, thr)
+    return [struct.pack("<II", int(origins[i]), int(dlens_np[i]))
+            + _indexed(dlens_np, *coded, i) for i in range(L.shape[0])]
+
+
+def _encode_bin(blocks, lengths, lengths_np, bits: int, rate: int,
+                use_apm: bool) -> list[bytes]:
+    """The bin/apm payloads: each block's bits through the binary model (or
+    the APM gate over it), with the index of 256-bit chunks."""
+    coded = _download(*bin_coder.bin_encode_indexed(
+        blocks, lengths, bits, rate, use_apm), f"bin (knobs ({bits}, {rate}))")
+    nbits = 8 * lengths_np.astype(np.int64)
+    return [_indexed(nbits, *coded, i, bin_coder.CHUNK)
+            for i in range(blocks.shape[0])]
+
+
 def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
              device="cuda", config: Config | None = None,
              block_checksums: bool = False) -> bytes:
     """Compress a corpus into a tpz container on `device`.
 
-    block_size=None takes config.codec.bwt.block_size for bwt (1 MiB by
-    default) and config.mesh.block_size otherwise (64 KiB), as tpuzip does.
-    `config.codec.ari` supplies the model knobs; values other than the
+    block_size=None takes config.codec.bwt.block_size for bwt and bwtdc
+    (1 MiB by default) and config.mesh.block_size otherwise (64 KiB), as
+    tpuzip does.  `config.codec.ari` supplies the model knobs, (increment,
+    threshold) or for bin/apm (bin_bits, bin_rate); values other than the
     defaults are recorded in the container (flag bit 2).
     block_checksums=True adds an Adler-32 per block (flag bit 0)."""
     _check_codec(codec)
     config = config or Config()
     if block_size is None:
-        block_size = (config.codec.bwt.block_size if codec == "bwt"
+        block_size = (config.codec.bwt.block_size if codec in ("bwt", "bwtdc")
                       else config.mesh.block_size)
-    inc, thr = config.codec.ari.increment, config.codec.ari.threshold
-    check_knobs(inc, thr)
+    ari = config.codec.ari
+    knobs = ((ari.bin_bits, ari.bin_rate) if codec in BIN_CODECS
+             else (ari.increment, ari.threshold))
+    _check_knobs(codec, *knobs)
+    inc, thr = knobs
     dev = resolve(device)
     blocks_np, lengths_np = blk.chunk(data, block_size)
     nb = blocks_np.shape[0]
     blocks = torch.from_numpy(blocks_np).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
     flags = 2 | (1 if block_checksums else 0)
-    if (inc, thr) != ARI_DEFAULTS:
+    if knobs != _knob_defaults(codec):
         flags |= 4
     if codec == "ari":
         coded = _ari_encode(blocks, lengths, inc, thr)
         blobs = [_indexed(lengths_np, *coded, i) for i in range(nb)]
+    elif codec in BIN_CODECS:
+        blobs = _encode_bin(blocks, lengths, lengths_np, inc, thr,
+                            codec == "apm")
     else:
         L, origins = bwt.encode_batch(blocks, lengths)
         origins = origins.cpu().numpy()
-        if block_size > SEG_THRESHOLD:
+        if codec == "bwtdc":   # never segmented (flag 8 is bwt's alone)
+            blobs = _encode_bwtdc(L, origins, lengths, inc, thr)
+        elif block_size > SEG_THRESHOLD:
             flags |= 8
             blobs = _encode_bwt_segmented(L, origins, lengths_np, inc, thr)
         else:
@@ -186,14 +241,19 @@ def _block_cap(codec: str, flags: int, block_size: int) -> int:
         seg, nseg = _seg_geometry(block_size)
         nc_seg = (seg + CHUNK_STEPS - 1) // CHUNK_STEPS
         return SEG_HEAD + nseg * (8 + 3 * nc_seg + encode_cap(seg))
-    nc_full = (block_size + CHUNK_STEPS - 1) // CHUNK_STEPS
-    return HEAD[codec] + 4 + 3 * nc_full + encode_cap(block_size)
+    if codec in BIN_CODECS:
+        nc_bits = (8 * block_size + bin_coder.CHUNK - 1) // bin_coder.CHUNK
+        return bin_apm.encode_cap(8 * block_size) + 4 + 3 * nc_bits
+    # ari symbols a block: its bytes, or for bwtdc its DC stream's
+    width = dc.encode_cap(block_size) if codec == "bwtdc" else block_size
+    nc_full = (width + CHUNK_STEPS - 1) // CHUNK_STEPS
+    return HEAD[codec] + 4 + 3 * nc_full + encode_cap(width)
 
 
 def _parse_header(container: bytes):
     """Validate the header and length tables (tpuzip's checks, same error
     classes).  Returns (codec, flags, block_size, nb, orig_len, a32, clens,
-    block_sums, (increment, threshold), payload offset)."""
+    block_sums, knobs, payload offset)."""
     if container[:4] == MAGIC_CORPUS:
         raise not_ported("the TPZC corpus container", 11)
     if container[:4] != MAGIC:
@@ -222,7 +282,7 @@ def _parse_header(container: bytes):
             raise BlockLengthError("container truncated in checksum table")
         block_sums = np.frombuffer(container, np.uint32, nb, off)
         off += 4 * nb
-    knobs = ARI_DEFAULTS
+    knobs = _knob_defaults(codec)
     if flags & 4:
         if len(container) < off + 6:
             raise BlockLengthError("container truncated in codec params")
@@ -296,6 +356,37 @@ def _parse_segmented(container: bytes, p: int, n: int, seg: int, nseg: int,
     return origin
 
 
+def _decode_bin(container: bytes, starts, clens, olens, block_size: int,
+                nb: int, bits: int, rate: int, use_apm: bool,
+                dev) -> torch.Tensor:
+    """bin/apm blocks -> (nb, block_size) u8 on `dev`.  A bad index raises
+    parse_chunk_index's ValueError unwrapped, as tpuzip lets it escape."""
+    chunk = bin_coder.CHUNK
+    deltas = np.zeros((nb, (8 * block_size + chunk - 1) // chunk), np.int32)
+    spans = np.zeros((nb, 2), np.int64)   # stream offset, length
+    cap_s = bin_apm.encode_cap(8 * block_size)
+    for i in range(nb):
+        p, n = int(starts[i]), int(clens[i])
+        if n == 0:
+            continue
+        idxlen = int.from_bytes(container[p : p + min(n, 4)], "little")
+        if 4 + idxlen > n:
+            raise CorruptStreamError([i])
+        nci = (8 * int(olens[i]) + chunk - 1) // chunk
+        deltas[i, :nci] = parse_chunk_index(
+            container[p + 4 : p + 4 + idxlen], nci,
+            max_delta=bin_coder.MAX_DELTA)
+        if n - 4 - idxlen > cap_s:
+            raise CorruptStreamError([i])
+        spans[i] = (p + 4 + idxlen, n - 4 - idxlen)
+    out = bin_coder.bin_decode_indexed(
+        _upload_streams(container, spans, dev),
+        torch.from_numpy(deltas).to(dev),
+        torch.from_numpy((8 * olens).astype(np.int32)).to(dev),
+        bits, rate, use_apm)
+    return out[:, :block_size].contiguous()
+
+
 def _upload_streams(container: bytes, spans: np.ndarray, dev):
     """(B, longest) u8 stream rows from the container on `dev`; a byte past
     a row's stream reads as 0."""
@@ -340,12 +431,12 @@ def _decode_segmented(container, starts, clens, olens, block_size, nb,
 
 
 def decompress(container: bytes, device="cuda") -> bytes:
-    """Decode a tpz ari or bwt container on `device`; checks the per-block
-    and corpus Adler-32 as tpuzip does."""
+    """Decode a tpz container of a ported codec on `device`; checks the
+    per-block and corpus Adler-32 as tpuzip does."""
     (codec, flags, block_size, nb, orig_len, a32, clens, block_sums,
      (inc, thr), off) = _parse_header(container)
     try:
-        check_knobs(inc, thr)
+        _check_knobs(codec, inc, thr)
     except ValueError as e:
         raise HeaderError(str(e)) from None
     dev = resolve(device)
@@ -356,13 +447,19 @@ def decompress(container: bytes, device="cuda") -> bytes:
     if codec == "bwt" and flags & 8:
         out = _decode_segmented(container, starts, clens, olens, block_size,
                                 nb, inc, thr, dev)
+    elif codec in BIN_CODECS:
+        out = _decode_bin(container, starts, clens, olens, block_size, nb,
+                          inc, thr, codec == "apm", dev)
     else:
         head = HEAD[codec]
-        nc_full = (block_size + CHUNK_STEPS - 1) // CHUNK_STEPS
-        cap_s = encode_cap(block_size)
+        # ari symbols a block: its bytes, or for bwtdc its DC stream's
+        width = dc.encode_cap(block_size) if codec == "bwtdc" else block_size
+        nc_full = (width + CHUNK_STEPS - 1) // CHUNK_STEPS
+        cap_s = encode_cap(width)
         deltas = np.zeros((nb, nc_full), np.int32)
         spans = np.zeros((nb, 2), np.int64)   # stream offset, length
         origins = np.zeros(nb, np.int32)
+        sym_lens = olens if codec != "bwtdc" else np.zeros(nb, np.int64)
         for i in range(nb):
             p, n = int(starts[i]), int(clens[i])
             if n == 0:
@@ -370,12 +467,32 @@ def decompress(container: bytes, device="cuda") -> bytes:
             if n < head + 4:
                 raise BlockLengthError(f"{codec} block {i} shorter than "
                                        "header")
-            if head:
+            if codec == "bwtdc":
+                origins[i], sym_lens[i] = struct.unpack_from("<II",
+                                                             container, p)
+                if sym_lens[i] > width:
+                    raise CorruptStreamError([i])
+            elif head:
                 (origins[i],) = struct.unpack_from("<I", container, p)
             spans[i] = _parse_indexed(container, p + head, n - head,
-                                      int(olens[i]), cap_s, deltas[i], i)
-        out = _ari_decode(container, spans, deltas, olens, block_size, inc,
-                          thr, dev)
+                                      int(sym_lens[i]), cap_s, deltas[i], i)
+        if codec == "bwtdc":
+            # the DC streams, in rows cut to the longest
+            nc = (int(sym_lens.max(initial=0)) + CHUNK_STEPS - 1) \
+                // CHUNK_STEPS
+            dstreams = _ari_decode(container, spans,
+                                   np.ascontiguousarray(deltas[:, :nc]),
+                                   sym_lens, nc * CHUNK_STEPS, inc, thr, dev)
+            dlens = torch.from_numpy(sym_lens.astype(np.int32)).to(dev)
+            L, _, err = dc.decode_batch(dstreams, dlens, block_size)
+            bad = np.nonzero(err.cpu().numpy())[0]
+            if bad.size:
+                raise CorruptStreamError(bad)
+            out = bwt.decode_batch(L, torch.from_numpy(origins).to(dev),
+                                   torch.from_numpy(olens).to(dev))
+        else:
+            out = _ari_decode(container, spans, deltas, olens, block_size,
+                              inc, thr, dev)
         if codec == "bwt":
             lens = torch.from_numpy(olens.astype(np.int32)).to(dev)
             out = bwt.decode_batch(mtf_scan.mtf_batch(out, lens, decode=True),

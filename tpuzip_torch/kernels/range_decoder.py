@@ -75,9 +75,11 @@ def pack_chunk_index(deltas: np.ndarray) -> bytes:
     return bytes(out)
 
 
-def parse_chunk_index(blob: bytes, nc: int) -> np.ndarray:
+def parse_chunk_index(blob: bytes, nc: int,
+                      max_delta: int = MAX_DELTA) -> np.ndarray:
     """Inverse of pack_chunk_index; ValueError on a truncated index, one
-    with trailing bytes, or a delta past MAX_DELTA."""
+    with trailing bytes, or a delta past max_delta (the ari bound by
+    default; the bin coder's 256-bit chunks pass 4*256+4)."""
     if len(blob) == nc and (nc == 0 or b"\xff" not in blob):
         return np.frombuffer(blob, np.uint8).astype(np.int32)
     deltas = np.zeros(nc, np.int32)
@@ -92,8 +94,8 @@ def parse_chunk_index(blob: bytes, nc: int) -> np.ndarray:
                 raise ValueError("chunk index truncated")
             d = blob[i] | (blob[i + 1] << 8)
             i += 2
-            if d > MAX_DELTA:
-                raise ValueError(f"chunk delta {d} exceeds {MAX_DELTA}")
+            if d > max_delta:
+                raise ValueError(f"chunk delta {d} exceeds {max_delta}")
         deltas[k] = d
     if i != len(blob):
         raise ValueError("chunk index has trailing bytes")

@@ -1,6 +1,6 @@
 """Adaptive arithmetic ("ari") coding oracle: a copy of the range coder
-core, the table model and the order-0 byte coder of tpuzip/oracle/ari.py
-(the bin/APM models come with the bin/apm slice).
+core, the table model, the bin/APM bit models and the order-0 byte coder
+of tpuzip/oracle/ari.py.
 
 The coder is a Subbotin-style carryless 32-bit range coder:
 renormalization emits the top byte whenever the top byte of ``low`` is
@@ -131,6 +131,84 @@ class TableModel:
                 self.freq[i] = (f + 1) >> 1
                 total += self.freq[i]
             self.total = total
+
+
+class BinaryModel:
+    """Single-bit adaptive model with shift-based update (bin.rs parity)."""
+
+    def __init__(self, bits: int = 12, rate: int = 5) -> None:
+        self.bits = bits
+        self.rate = rate
+        self.p0 = 1 << (bits - 1)  # probability of bit 0, scaled by 2^bits
+
+    def get_range(self, bit: int) -> tuple[int, int]:
+        if bit == 0:
+            return 0, self.p0
+        return self.p0, 1 << self.bits
+
+    def get_denominator(self) -> int:
+        return 1 << self.bits
+
+    def find_value(self, offset: int) -> tuple[int, int, int]:
+        bit = 0 if offset < self.p0 else 1
+        lo, hi = self.get_range(bit)
+        return bit, lo, hi
+
+    def update(self, bit: int) -> None:
+        if bit == 0:
+            self.p0 += ((1 << self.bits) - self.p0) >> self.rate
+        else:
+            self.p0 -= self.p0 >> self.rate
+        self.p0 = min(max(self.p0, 1), (1 << self.bits) - 1)
+
+
+class ApmBit:
+    """A probability cell: predict()/update(bit, rate) (apm.rs Bit parity)."""
+
+    BITS = 12
+
+    def __init__(self, p0: int | None = None) -> None:
+        self.p0 = (1 << (self.BITS - 1)) if p0 is None else p0
+
+    def predict(self) -> int:
+        return self.p0
+
+    def update(self, bit: int, rate: int) -> None:
+        if bit == 0:
+            self.p0 += ((1 << self.BITS) - self.p0) >> rate
+        else:
+            self.p0 -= self.p0 >> rate
+        self.p0 = min(max(self.p0, 1), (1 << self.BITS) - 1)
+
+
+class ApmGate:
+    """Secondary symbol estimation: refine an input probability through a
+    table of ApmBit cells indexed by quantized probability (apm.rs Gate)."""
+
+    SLOTS = 33
+
+    def __init__(self) -> None:
+        self.cells = [
+            ApmBit(max(1, min((1 << ApmBit.BITS) - 1,
+                              (i * (1 << ApmBit.BITS)) // (self.SLOTS - 1))))
+            for i in range(self.SLOTS)
+        ]
+        self._last = 0
+
+    def pass_through(self, p0: int) -> int:
+        """Map a 12-bit p0 through the SSE table with linear interpolation."""
+        scaled = p0 * (self.SLOTS - 1)
+        idx = scaled >> ApmBit.BITS
+        frac = scaled & ((1 << ApmBit.BITS) - 1)
+        idx = min(idx, self.SLOTS - 2)
+        self._last = idx if frac < (1 << (ApmBit.BITS - 1)) else idx + 1
+        a = self.cells[idx].predict()
+        b = self.cells[idx + 1].predict()
+        p = (a * ((1 << ApmBit.BITS) - frac) + b * frac) >> ApmBit.BITS
+        return min(max(p, 1), (1 << ApmBit.BITS) - 1)
+
+    def update(self, bit: int, rate: int) -> None:
+        self.cells[self._last].update(bit, rate)
 
 
 def encode_bytes(data: bytes, increment: int = 8,
