@@ -3,22 +3,27 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Every path goes through ``tpuzip_torch.compress`` / ``decompress``: the
-ari codec's chunk-indexed container round trip (kernels
-tpuzip_torch/csrc/ari_encode.cu and ari_decode.cu); the bwt codec's,
+Every container path goes through ``tpuzip_torch.compress`` /
+``decompress``: the ari codec's chunk-indexed container round trip
+(kernels tpuzip_torch/csrc/ari_encode.cu and ari_decode.cu); the bwt codec's,
 BWT -> MTF -> ari (adds csrc/mtf.cu, one source for both directions), at
 its default 1 MiB blocks and through the segmented flag-8 path of a
 100 MB block; the bwtdc codec's, BWT -> DC -> ari (adds csrc/dc_decode.cu);
-and the bin and apm codecs' (csrc/bin_encode.cu, bin_decode.cu).  Phases,
-one JSON line each:
+and the bin and apm codecs' (csrc/bin_encode.cu, bin_decode.cu).  The
+lane decoder's other state design, csrc/ari_decode_dot.cu (tpuzip's v1
+decoder, ``ari_decode_indexed(algo="dot")``), runs on no container path;
+phase 5 drives it and holds it against ari_decode.cu.  Phases, one JSON
+line each:
 
 1. device   needs torch.cuda; prints nvidia-smi's name and power limit.
-2. build    builds every kernel from the checkout (one nvcc each, at once).
+2. build    builds every kernel from the checkout (one nvcc each, at once),
+            and reports each one's registers and spills (nvcc -Xptxas -v).
 3. kernels  each kernel against its plain PyTorch version on the same
             CUDA tensors (128 blocks x 2048 symbols of skewed, random,
             constant, ragged and empty blocks), exact to the byte: ari at
             the default knobs, at threshold=512 and at (16, 40000), past
-            the 2^15 bound of tpuzip's packed kernels; MTF encode and
+            the 2^15 bound of tpuzip's packed kernels, both decoders (the
+            dot decoder also equal to ari_decode.cu); MTF encode and
             decode; the DC walk on the DC streams of those blocks plus a
             row with a clobbered header and one with a flipped varint
             continuation bit; bin and apm encode and decode at the knobs
@@ -31,7 +36,16 @@ one JSON line each:
             launch on that path held, exact, against its plain version on
             the very tensors the path gave it; encode/decode MB/s, a device
             trace and a host profile of one more compress and decompress.
-5. bwt      the same corpus through codec="bwt" at the default 1 MiB
+5. dot      the decode A/B of tpuzip's bench/tpu_r2d.py:91-106, cum
+            (ari_decode.cu) against dot (ari_decode_dot.cu): (a) on the ari
+            path's own decode inputs (1024 stream rows), one counted
+            launch of ari_decode_indexed(algo="dot") equal to the path's
+            ari_decode.cu output and, exact, to the plain version on its
+            first 4096 symbols; (b) on that bench's mix, 128 x 64 KiB
+            blocks of random bytes, text and 6 symbols, encoded and decoded
+            by both; both decode every block exactly.  CUDA-event times of
+            both kernels in turns (cum, dot, dot, cum) at each shape.
+6. bwt      the same corpus through codec="bwt" at the default 1 MiB
             blocks (64 blocks): the bytes round-trip; MTF launched in both
             directions and both ari kernels launched; L and the origins
             equal the oracle's BWT on 4 blocks; each MTF launch held,
@@ -39,12 +53,12 @@ one JSON line each:
             to their first 65536 columns, and each ari launch on its first
             4096 symbols (both are causal, so the prefix is exact); MB/s,
             a device trace of each direction, peak memory.
-6. bwt_big  one 100,000,000-byte block made from the same seed (flag 8,
+7. bwt_big  one 100,000,000-byte block made from the same seed (flag 8,
             128 segments of 781,312): the bytes round-trip; each MTF launch
             held against the plain version on the first 16384 columns of
             the 128 segment rows, each ari launch on their first 4096
             symbols; MB/s and peak memory.
-7. bwtdc    the 64 MiB corpus through codec="bwtdc" at 1 MiB blocks: the
+8. bwtdc    the 64 MiB corpus through codec="bwtdc" at 1 MiB blocks: the
             bytes round-trip; dc_decode and both ari kernels launched; the
             DC streams of 4 blocks equal the oracle's DC of the oracle's
             BWT; the DC-decode launch held, all four outputs exact, against
@@ -53,7 +67,7 @@ one JSON line each:
             unfinished walk is compared as well), each ari launch on its
             first 4096 symbols; MB/s, ratio, peak memory, and a device
             trace of each direction taken in a fresh process.
-8. bin      the 64 MiB corpus through codec="bin" and codec="apm" at 64 KiB
+9. bin      the 64 MiB corpus through codec="bin" and codec="apm" at 64 KiB
             blocks (1024 streams of 524,288 bits): the bytes round-trip;
             both bin kernels launched on each; the streams of 2 blocks
             equal the oracle's BinaryModel / ApmGate chain; each launch
@@ -63,20 +77,24 @@ one JSON line each:
             peak memory, and traces of apm taken in a fresh process.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after.  Then the nvidia-smi line, a {"kernels": [...]} line (kernel times
-and bounds at the main paths' shapes, the plain version's time at
-`plain_shape`, launches over the paths) and, last,
-{"ok": true, "device": {...}}.  Any failure exits non-zero before those.
-Imports nothing of JAX and nothing of tpuzip.
+after; the dot decoder must have none on a container path.  Then the
+nvidia-smi line, a {"kernels": [...]} line (kernel times and bounds at the
+main paths' shapes, the plain version's time at `plain_shape`, launches
+over the paths) and, last, {"ok": true, "device": {...}}.  Any failure
+exits non-zero before those.  Imports nothing of JAX and nothing of
+tpuzip.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import re
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -140,6 +158,7 @@ def bound(nbytes: int) -> dict:
             "bytes": int(nbytes)}
 
 
+@functools.cache   # the paths share one corpus: made once, not per phase
 def text_corpus(nbytes: int, seed: int) -> bytes:
     """Text-like bytes: Zipf-distributed words over a skewed alphabet,
     separated by spaces, some punctuation and line breaks."""
@@ -194,18 +213,54 @@ def mixed_blocks(b: int, n: int, seed: int):
     return blocks, lens
 
 
+SOURCES = ("ari_encode", "ari_decode", "ari_decode_dot", "mtf", "dc_decode",
+           "bin_encode", "bin_decode")
+
+
+def ptxas_report(procs) -> dict:
+    """Registers (one a kernel, several for a template) and spilled bytes
+    of each source, from the output of its nvcc -Xptxas -v run."""
+    report = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"nvcc -Xptxas -v failed on {name}:\n{err}")
+        text = out + err
+        report[name] = {
+            "registers": [int(n) for n in
+                          re.findall(r"Used (\d+) registers", text)],
+            "spill_bytes": sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", text))}
+    return report
+
+
 def phase_build() -> None:
+    """Every source built as the wrappers load it, and, started together
+    with those builds, once more with nvcc -Xptxas -v for its registers."""
     t0 = time.perf_counter()
-    secs = _build.build("ari_encode", "ari_decode", "mtf", "dc_decode",
-                        "bin_encode", "bin_decode")
+    nvcc = _build.find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             f"{tmp}/{name}.so", str(_build.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name in SOURCES}
+        try:
+            secs = _build.build(*SOURCES)
+            ptxas = ptxas_report(procs)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
     range_coder._lib()
     range_decoder._lib()
+    range_decoder._lib("ari_decode_dot")
     mtf_scan._lib()
     dc_scan._lib()
     bin_coder._lib("bin_encode")
     bin_coder._lib("bin_decode")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds={k: round(v, 3) for k, v in secs.items()})
+         nvcc_seconds={k: round(v, 3) for k, v in secs.items()}, ptxas=ptxas)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -233,7 +288,7 @@ def phase_kernels() -> dict:
     blocks_np, lens_np = mixed_blocks(128, 2048, SEED)
     blocks = torch.from_numpy(blocks_np).cuda()
     lens = torch.from_numpy(lens_np).cuda()
-    errs = {"ari_encode": 0, "ari_decode": 0}
+    errs = {"ari_encode": 0, "ari_decode": 0, "ari_decode_dot": 0}
     for inc, thr in KNOBS:
         enc = range_coder.ari_encode_indexed(blocks, lens, inc, thr)
         enc_ref, enc_plain_ms = timed(
@@ -244,8 +299,15 @@ def phase_kernels() -> dict:
         dec_ref, dec_plain_ms = timed(
             lambda: range_decoder.ari_decode_indexed_plain(streams, deltas,
                                                            lens, inc, thr))
+        dot = range_decoder.ari_decode_dot_indexed(streams, deltas, lens, inc,
+                                                   thr)
+        dot_ref, dot_plain_ms = timed(
+            lambda: range_decoder.ari_decode_dot_indexed_plain(
+                streams, deltas, lens, inc, thr))
         enc_err = max(max_err(x, y) for x, y in zip(enc, enc_ref))
         dec_err = max_err(dec, dec_ref)
+        dot_err = max_err(dot, dot_ref)
+        dot_is_cum = bool(torch.equal(dot, dec))
         keep = torch.arange(2048, device="cuda")[None, :] < lens[:, None]
         round_trip = bool(torch.equal(torch.where(keep, dec, 0), blocks))
         times = {}
@@ -258,16 +320,22 @@ def phase_kernels() -> dict:
                     lambda: range_decoder.ari_decode_indexed(
                         streams, deltas, lens, inc, thr), 10),
                 "decode_plain_ms": dec_plain_ms,
+                "dot_decode_ms": cuda_ms(
+                    lambda: range_decoder.ari_decode_dot_indexed(
+                        streams, deltas, lens, inc, thr), 10),
+                "dot_decode_plain_ms": dot_plain_ms,
             }
         emit("kernels", kernel="ari", increment=inc, threshold=thr,
              blocks=128, symbols=2048, encode_max_abs_err=enc_err,
-             decode_max_abs_err=dec_err, round_trip=round_trip,
+             decode_max_abs_err=dec_err, dot_decode_max_abs_err=dot_err,
+             dot_equals_ari_decode=dot_is_cum, round_trip=round_trip,
              stream_bytes=int(slens.sum()), **times)
-        if enc_err or dec_err or not round_trip:
+        if enc_err or dec_err or dot_err or not dot_is_cum or not round_trip:
             raise AssertionError(f"kernel and plain version disagree at "
                                  f"knobs ({inc}, {thr})")
         errs["ari_encode"] = max(errs["ari_encode"], enc_err)
         errs["ari_decode"] = max(errs["ari_decode"], dec_err)
+        errs["ari_decode_dot"] = max(errs["ari_decode_dot"], dot_err)
 
     enc = mtf_scan.mtf_batch(blocks, lens)
     enc_ref, enc_plain_ms = timed(lambda: mtf_scan.mtf_batch_plain(blocks,
@@ -464,12 +532,14 @@ def recorded(module, name: str):
 
 WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "ari_decode": (range_decoder, "ari_decode_indexed"),
+            "ari_decode_dot": (range_decoder, "ari_decode_dot_indexed"),
             "mtf": (mtf_scan, "mtf_batch"),
             "dc_decode": (dc_scan, "dc_decode_lanes"),
             "bin_encode": (bin_coder, "bin_encode_indexed"),
             "bin_decode": (bin_coder, "bin_decode_indexed")}
 PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (range_decoder, "ari_decode_indexed_plain"),
+          (range_decoder, "ari_decode_dot_indexed_plain"),
           (mtf_scan, "mtf_batch_plain"),
           (dc_scan, "dc_decode_lanes_plain"),
           (bin_coder, "bin_encode_indexed_plain"),
@@ -671,6 +741,9 @@ def round_trip(data: bytes, **kw):
         peak_dec = torch.cuda.max_memory_allocated()
     if back != data:
         raise AssertionError(f"{len(data)} bytes did not round-trip ({kw})")
+    if counts["ari_decode_dot"]:
+        raise AssertionError(f"a container path launched the dot decoder "
+                             f"({kw})")
     # one wrapper launches both MTF directions: split its count by the
     # direction of each recorded call
     dec = sum(1 for _, kw_, _ in calls["mtf"] if kw_.get("decode"))
@@ -718,6 +791,7 @@ def phase_main(smi: str):
                                     range_decoder.ari_decode_indexed,
                                     range_decoder.ari_decode_indexed_plain,
                                     calls["ari_decode"])}
+    decode_call = calls["ari_decode"][0]   # phase dot's input
     calls.clear()
     compress = lambda: tpuzip_torch.compress(data, codec="ari")  # noqa: E731
     decompress = lambda: tpuzip_torch.decompress(blob)           # noqa: E731
@@ -732,7 +806,91 @@ def phase_main(smi: str):
                 "decode": traced(decompress, ("ari_decode_kernel",))},
          host_profile={"encode": host_profile(compress),
                        "decode": host_profile(decompress)}, card=smi)
-    return launches, kernels
+    return launches, kernels, decode_call
+
+
+def in_turns(args, kw, reps: int) -> dict:
+    """CUDA-event ms of both ari decoders on the same inputs, taken in turns
+    (cum, dot, dot, cum; each the mean of reps runs), and dot over cum."""
+    cum = lambda: range_decoder.ari_decode_indexed(*args, **kw)      # noqa: E731
+    dot = lambda: range_decoder.ari_decode_dot_indexed(*args, **kw)  # noqa: E731
+    t = [cuda_ms(fn, reps) for fn in (cum, dot, dot, cum)]
+    cum_ms, dot_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    return {"cum_ms": cum_ms, "dot_ms": dot_ms, "dot_over_cum": dot_ms / cum_ms,
+            "turns_ms": t}
+
+
+def ab_mix(b: int, n: int, seed: int) -> np.ndarray:
+    """The input of tpuzip's decode A/B (bench/tpu_r2d.py:68-77): block i
+    is random bytes if i % 3 == 0, text if 1, and 6 symbols if 2."""
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(text_corpus(b * n, seed), np.uint8).reshape(b, n)
+    mix = np.empty((b, n), np.uint8)
+    for i in range(b):
+        if i % 3 == 0:
+            mix[i] = rng.integers(0, 256, n)
+        elif i % 3 == 1:
+            mix[i] = text[i]
+        else:
+            mix[i] = rng.integers(0, 6, n)
+    return mix
+
+
+def phase_dot(smi: str, decode_call):
+    """The decode A/B, cum (ari_decode.cu) against dot (ari_decode_dot.cu),
+    (a) on the ari path's own decode launch `decode_call` and (b) on the
+    mix of tpuzip's A/B.  Returns the launch counts of (a) and the dot kernel's
+    row at the ari path's shape."""
+    args, kw, cum_out = decode_call
+    streams, deltas, lens = args[:3]
+    with counted_run() as (_, launches):
+        out = range_decoder.ari_decode_indexed(*args, **kw, algo="dot")
+    if launches != {k: int(k == "ari_decode_dot") for k in WRAPPERS}:
+        raise AssertionError(f"algo='dot' launched {launches}, expected the "
+                             "dot decoder once")
+    launches.update(mtf_encode=0, mtf_decode=0)
+    if not torch.equal(out, cum_out):
+        raise AssertionError("the dot decoder and ari_decode.cu disagree on "
+                             "the ari path's inputs")
+    # the plain version on the first ARI_PLAIN_COLS symbols, as
+    # ari_prefix_against_plain cuts a decode launch
+    nc = min(ARI_PLAIN_COLS // range_decoder.CHUNK_STEPS, deltas.shape[1])
+    ref, plain_ms = timed(lambda: range_decoder.ari_decode_dot_indexed_plain(
+        streams, deltas[:, :nc].contiguous(),
+        lens.clamp(max=nc * range_decoder.CHUNK_STEPS), **kw))
+    err = max_err(out[:, : ref.shape[1]], ref)
+    if err:
+        raise AssertionError("ari_decode_dot disagrees with its plain version "
+                             f"on the ari path's inputs: max_abs_err {err}")
+    main = in_turns(args, kw, 5)
+    kernel = {"inputs": [list(a.shape) for a in args[:3]],
+              "plain_inputs": list(ref.shape), "max_abs_err": err,
+              "ms": main["dot_ms"], "plain_ms": plain_ms,
+              **ari_bound("ari_decode", args, out)}
+
+    mix = torch.from_numpy(ab_mix(128, BLOCK, SEED)).cuda()
+    mix_lens = torch.full((128,), BLOCK, dtype=torch.int32, device="cuda")
+    mix_streams, _, mix_deltas = range_coder.ari_encode_indexed(mix, mix_lens)
+    mix_args = (mix_streams, mix_deltas, mix_lens)
+    exact = {
+        "cum": bool(torch.equal(range_decoder.ari_decode_indexed(*mix_args),
+                                mix)),
+        "dot": bool(torch.equal(
+            range_decoder.ari_decode_dot_indexed(*mix_args), mix))}
+    if not all(exact.values()):
+        raise AssertionError(f"the A/B mix did not decode exactly: {exact}")
+    ab = in_turns(mix_args, {}, 5)
+    emit("dot", launches=launches, inputs=kernel["inputs"],
+         equals_ari_decode=True, max_abs_err=err,
+         plain_inputs=kernel["plain_inputs"], plain_ms=plain_ms,
+         bound_ms=kernel["bound_ms"], main=main,
+         main_mb_s={k: CORPUS_BYTES / 1e3 / main[f"{k}_ms"]
+                    for k in ("cum", "dot")},
+         mix={"blocks": 128, "block_size": BLOCK, "exact": exact, **ab,
+              "mb_s": {k: mix.numel() / 1e3 / ab[f"{k}_ms"]
+                       for k in ("cum", "dot")}},
+         card=smi)
+    return launches, kernel
 
 
 def bwt_ms(calls, blocks_np, lens_np, parts) -> dict:
@@ -1089,7 +1247,9 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     phase_build()
     small = phase_kernels()
-    ari_launches, ari_kernels = phase_main(smi)
+    ari_launches, ari_kernels, decode_call = phase_main(smi)
+    dot_launches, dot_kernel = phase_dot(smi, decode_call)
+    del decode_call
     bwt_launches, bwt_kernels = phase_bwt(smi)
     big_launches, big_kernels = phase_bwt_big(smi)
     dc_launches, dc_kernels = phase_bwtdc(smi)
@@ -1099,15 +1259,19 @@ def main() -> int:
         raise AssertionError("the port's path imported jax or tpuzip")
     by_path = {"ari": ari_launches, "bwt": bwt_launches,
                "bwt_big": big_launches, "bwtdc": dc_launches,
-               "bin": bin_launches["bin"], "apm": bin_launches["apm"]}
+               "bin": bin_launches["bin"], "apm": bin_launches["apm"],
+               "dot": dot_launches}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
-    # at the apm path's 1024 x 64 KiB (bin beside it); the error over every
-    # phase
+    # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
+    # the ari path's decode inputs; the error over every phase
+    dot_kernels = {"ari_decode_dot": dot_kernel}
     at_shape = {**bwt_kernels, **ari_kernels,
-                "dc_decode": dc_kernels["dc_decode"], **bin_kernels}
+                "dc_decode": dc_kernels["dc_decode"], **bin_kernels,
+                **dot_kernels}
     checked = ({k: {"max_abs_err": e} for k, e in small.items()},
-               ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels)
+               ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels,
+               dot_kernels)
     print(smi)
     rows = []
     for name, source, replaces in (
@@ -1121,7 +1285,9 @@ def main() -> int:
             ("bin_encode", "bin_encode.cu",
              "tpuzip/kernels/bin_coder.py:38"),
             ("bin_decode", "bin_decode.cu",
-             "tpuzip/kernels/bin_coder.py:341")):
+             "tpuzip/kernels/bin_coder.py:341"),
+            ("ari_decode_dot", "ari_decode_dot.cu",
+             "tpuzip/kernels/range_decoder.py:559")):
         k = at_shape[name]
         extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}
         rows.append({

@@ -1,8 +1,14 @@
-"""The port's plain chunk-indexed ari decoder against tpuzip's XLA
+"""The port's plain chunk-indexed ari decoders against tpuzip's XLA
 replica of the Pallas decode kernels, ``ari_decode_reference``, symbol for
-symbol under algo="packed" (v3) and algo="cum" (v2), across halvings —
-the setting of tests/test_kernels.py:227-268, with ragged and empty
-lanes.  The CUDA kernel is held against this plain version on the card."""
+symbol: ari_decode_indexed_plain under algo="packed" (v3) and algo="cum"
+(v2), ari_decode_dot_indexed_plain under algo="dot" (v1, frequency state),
+across halvings — the setting of tests/test_kernels.py:227-268, with
+ragged and empty lanes — and on garbage streams with a random chunk
+index.  tests/test_range_decoder.py:74 parametrizes algo but never passes
+it, so these are the only tests of the v1 step; they go through
+``ari_decode_reference(algo="dot")`` because ``ari_decode_lanes`` does not
+lower in interpret mode on the CPU.  The CUDA kernels are held against
+these plain versions on the card."""
 
 import numpy as np
 import pytest
@@ -47,13 +53,18 @@ def _reference(streams, deltas, lens, inc, thr, algo):
         threshold=thr)).T
 
 
+PLAIN = {"packed": trd.ari_decode_indexed_plain,
+         "cum": trd.ari_decode_indexed_plain,
+         "dot": trd.ari_decode_dot_indexed_plain}
+
+
 @pytest.mark.parametrize("algo,knobs", [
-    ("packed", (8, 512)), ("cum", (8, 512)), ("cum", (16, 40000))])
+    ("packed", (8, 512)), ("cum", (8, 512)), ("cum", (16, 40000)),
+    ("dot", (8, 512)), ("dot", (16, 40000))])
 def test_plain_decode_matches_reference(rng, algo, knobs):
     inc, thr = knobs
     x, lens, streams, deltas = _streams(rng, inc, thr)
-    got = trd.ari_decode_indexed_plain(streams, deltas,
-                                       torch.from_numpy(lens), inc, thr)
+    got = PLAIN[algo](streams, deltas, torch.from_numpy(lens), inc, thr)
     assert got.shape == (LANES, N)
     exp = _reference(streams, deltas, lens, inc, thr, algo)
     for lane in range(LANES):
@@ -62,6 +73,28 @@ def test_plain_decode_matches_reference(rng, algo, knobs):
             (algo, lane)
         assert got[lane, :n].numpy().tobytes() == x[lane, :n].tobytes()
         assert not got[lane, n:].any()              # 0 past the length
+
+
+@pytest.mark.parametrize("knobs", [(8, 512), (16, 40000)])
+def test_dot_plain_decode_matches_reference_on_garbage(rng, knobs):
+    """Random stream bytes and a random chunk index (deltas 0..260, so
+    some chunks read past the row and some barely move): both states give
+    the same symbols, because v <= tot-1 clamps the search in both."""
+    inc, thr = knobs
+    nc = 6
+    streams = torch.from_numpy(rng.integers(0, 256, (LANES, 1200), np.uint8))
+    deltas = torch.from_numpy(rng.integers(0, 261, (LANES, nc), np.int32))
+    lens = rng.integers(0, nc * trd.CHUNK_STEPS + 1, LANES).astype(np.int32)
+    lens[:4] = nc * trd.CHUNK_STEPS
+    lt = torch.from_numpy(lens)
+    got = trd.ari_decode_dot_indexed_plain(streams, deltas, lt, inc, thr)
+    exp = _reference(streams, deltas, lens, inc, thr, "dot")
+    cum = trd.ari_decode_indexed_plain(streams, deltas, lt, inc, thr)
+    for lane in range(LANES):
+        n = lens[lane]
+        assert got[lane, :n].numpy().tobytes() == exp[lane, :n].tobytes(), \
+            lane
+        assert torch.equal(got[lane], cum[lane]), lane
 
 
 def test_plain_decode_reads_zero_past_the_row(rng):
@@ -90,3 +123,35 @@ def test_wrapper_takes_plain_version_only_on_cpu(rng):
         trd.ari_decode_indexed(streams, deltas.to(torch.int64), lt)
     with pytest.raises(ValueError):
         trd.ari_decode_indexed(streams, deltas[:3], lt)
+
+
+def test_algo_choice_takes_plain_versions_only_on_cpu(rng):
+    """ari_decode_indexed(algo=...) and ari_decode_dot_indexed on CPU
+    tensors: the plain versions, no launch counted, the same checks."""
+    _, lens, streams, deltas = _streams(rng, 8, 1 << 13)
+    deltas = deltas[:, :2].contiguous()          # the first 128 symbols
+    lt = torch.from_numpy(lens).clamp(max=2 * trd.CHUNK_STEPS)
+    cum = trd.ari_decode_indexed_plain(streams, deltas, lt)
+    dot = trd.ari_decode_dot_indexed_plain(streams, deltas, lt)
+    assert torch.equal(dot, cum)
+    before = (trd.ari_decode_indexed.launches,
+              trd.ari_decode_dot_indexed.launches)
+    assert torch.equal(trd.ari_decode_indexed(streams, deltas, lt,
+                                              algo="dot"), dot)
+    assert torch.equal(trd.ari_decode_dot_indexed(streams, deltas, lt), dot)
+    for algo in ("packed", "cum"):
+        assert torch.equal(trd.ari_decode_indexed(streams, deltas, lt,
+                                                  algo=algo), cum)
+    assert (trd.ari_decode_indexed.launches,
+            trd.ari_decode_dot_indexed.launches) == before
+    with pytest.raises(ValueError):
+        trd.ari_decode_indexed(streams, deltas, lt, algo="v1")
+    with pytest.raises(ValueError):
+        trd.ari_decode_dot_indexed(streams.to("meta"), deltas.to("meta"),
+                                   lt.to("meta"))
+    with pytest.raises(TypeError):
+        trd.ari_decode_dot_indexed(streams, deltas.to(torch.int64), lt)
+    with pytest.raises(ValueError):
+        trd.ari_decode_dot_indexed(streams, deltas[:3], lt)
+    with pytest.raises(ValueError):
+        trd.ari_decode_dot_indexed(streams, deltas, lt, 8, 1 << 16)

@@ -4,7 +4,8 @@
 // table C (C[255] == total) as eight u32 registers.  Unpacked u32 entries
 // take any knobs with threshold + increment <= 2^16, the bound of the
 // range coder itself (the TPU kernels' u16-pair packing stopped at 2^15).
-// Every function here is called by all 32 lanes with warp-uniform
+// ari_decode_dot.cu keeps the frequencies in that layout instead and
+// rebuilds C from them with prefix() every step.  Every function here is called by all 32 lanes with warp-uniform
 // arguments, so the shuffles are always full-warp.
 
 #pragma once
@@ -44,15 +45,11 @@ __device__ __forceinline__ void add(uint32_t (&c)[8], int lane, int sym,
   for (int j = 0; j < 8; ++j) c[j] += (8 * lane + j >= sym) ? inc : 0u;
 }
 
-// The oracle's downscale: every frequency f -> (f+1)>>1, then the table is
-// summed again, eight entries in the lane and a warp scan across lanes.
-// Returns the new total.
-__device__ __forceinline__ uint32_t halve(uint32_t (&c)[8], int lane) {
-  uint32_t prev = __shfl_up_sync(FULL, c[7], 1);
-  if (lane == 0) prev = 0;
-  uint32_t f[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) f[j] = (c[j] - (j ? c[j - 1] : prev) + 1) >> 1;
+// The inclusive cumulative table of the frequencies f (lane l holds
+// f[8l .. 8l+7]): eight sums in the lane, then a warp scan of the lane
+// totals.  Returns this lane's inclusive total (lane 31's is the table's).
+__device__ __forceinline__ uint32_t prefix(uint32_t (&c)[8],
+                                           const uint32_t (&f)[8], int lane) {
   uint32_t run = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -68,7 +65,18 @@ __device__ __forceinline__ uint32_t halve(uint32_t (&c)[8], int lane) {
   const uint32_t excl = incl - run;
 #pragma unroll
   for (int j = 0; j < 8; ++j) c[j] += excl;
-  return __shfl_sync(FULL, incl, 31);
+  return incl;
+}
+
+// The oracle's downscale: every frequency f -> (f+1)>>1, then the table is
+// summed again with prefix().  Returns the new total.
+__device__ __forceinline__ uint32_t halve(uint32_t (&c)[8], int lane) {
+  uint32_t prev = __shfl_up_sync(FULL, c[7], 1);
+  if (lane == 0) prev = 0;
+  uint32_t f[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = (c[j] - (j ? c[j - 1] : prev) + 1) >> 1;
+  return __shfl_sync(FULL, prefix(c, f, lane), 31);
 }
 
 // Model update after coding sym: add, then halve once the total reaches

@@ -1,5 +1,5 @@
-"""Adaptive range DECODER: the CUDA kernel's wrapper, its plain PyTorch
-version, and the chunk index that both read.
+"""Adaptive range DECODERS: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the chunk index that all of them read.
 
 Port of tpuzip/kernels/range_decoder.py.  The container carries, per
 block, a chunk index: the stream bytes the coder consumed in each run of
@@ -10,6 +10,12 @@ stream, so the index only fixes where each chunk starts reading:
 position advances by the bytes pulled, and a byte at or past the row's
 width reads as 0 — the TPU kernels' semantics exactly (build_windows
 clamps to the width, with 4 zero bytes of padding).
+
+Two decoders compute that one function.  ari_decode_indexed (csrc/
+ari_decode.cu) carries the cumulative table and updates it in place, as
+tpuzip's v2 and v3 kernels do; ari_decode_dot_indexed (csrc/
+ari_decode_dot.cu) carries the frequency table and rebuilds the
+cumulative one every step, as tpuzip's v1 kernel (algo="dot") does.
 
 Torch on the CPU has no add, shift or compare for torch.uint32, so the
 plain versions carry the u32 coder state in int64 masked to 32 bits.
@@ -193,16 +199,15 @@ def plain_steps(lens: torch.Tensor, n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
 
-def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
-                             lengths: torch.Tensor, increment: int = 8,
-                             threshold: int = 1 << 13) -> torch.Tensor:
-    """Lane-vectorised replica of tpuzip's ``_decode_step_cum`` +
-    ``_apply_halving_gated`` (the v2 kernel; v3 computes the same function
-    on a packed table).  streams (B, CAP) u8 zero-padded, deltas (B, NC)
-    i32, lengths (B,) -> (B, NC*64) u8 symbols, 0 past each length."""
+def _plain_decode(streams: torch.Tensor, deltas: torch.Tensor,
+                  lengths: torch.Tensor, model, step) -> torch.Tensor:
+    """The coder loop of both plain decoders: the rebase on the chunk
+    index, the two divisions and the byte pulls.  `model` is the state
+    (table, total) before the first step; ``step(model, v, active)``
+    returns (sym, C[sym-1], C[sym], model after the update)."""
     b, cap = streams.shape
     nc = deltas.shape[1]
     dev = streams.device
@@ -216,16 +221,14 @@ def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
             | (padded[:, 2] << 8) | padded[:, 3])
     low = torch.zeros(b, dtype=torch.int64, device=dev)
     rng = torch.full((b,), MASK, dtype=torch.int64, device=dev)
-    cum, tot = model_init(b, dev)
     for t in range(plain_steps(lens, nc * CHUNK_STEPS)):
         if t % CHUNK_STEPS == 0:   # rebase on the chunk index
             pos = starts[:, t // CHUNK_STEPS]
         active = lens > t
+        tot = model[1]
         r = rng // tot
         v = torch.minimum(((code - low) & MASK) // r, tot - 1)
-        # find_value: the entries above v are exactly the indices >= sym
-        sym = 256 - (cum > v[:, None]).sum(dim=1)
-        lo, hi = cum_range(cum, sym)
+        sym, lo, hi, model = step(model, v, active)
         low2 = (low + r * lo) & MASK
         rng2 = r * (hi - lo)
         for _ in range(4):
@@ -235,18 +238,70 @@ def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
             pos = pos + pull
         low = torch.where(active, low2, low)
         rng = torch.where(active, rng2, rng)
-        cum, tot = model_update(cum, tot, sym, active, increment, threshold)
         out[:, t] = torch.where(active, sym, 0).to(torch.uint8)
     return out
 
 
+def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
+                             lengths: torch.Tensor, increment: int = 8,
+                             threshold: int = 1 << 13) -> torch.Tensor:
+    """Lane-vectorised replica of tpuzip's ``_decode_step_cum`` +
+    ``_apply_halving_gated`` (the v2 kernel; v3 computes the same function
+    on a packed table).  streams (B, CAP) u8 zero-padded, deltas (B, NC)
+    i32, lengths (B,) -> (B, NC*64) u8 symbols, 0 past each length."""
+
+    def step(model, v, active):
+        cum, tot = model
+        # find_value: the entries above v are exactly the indices >= sym
+        sym = 256 - (cum > v[:, None]).sum(dim=1)
+        lo, hi = cum_range(cum, sym)
+        return sym, lo, hi, model_update(cum, tot, sym, active, increment,
+                                         threshold)
+
+    return _plain_decode(streams, deltas, lengths,
+                         model_init(streams.shape[0], streams.device), step)
+
+
+def ari_decode_dot_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
+                                 lengths: torch.Tensor, increment: int = 8,
+                                 threshold: int = 1 << 13) -> torch.Tensor:
+    """Lane-vectorised replica of tpuzip's ``_decode_step`` (the v1
+    kernel ``_ari_decode_kernel``, ``algo="dot"``): the model is the
+    FREQUENCY table, and every step rebuilds the inclusive cumulative
+    table from it.  The TPU took that as ``tri @ freq`` on its matrix unit
+    with the frequencies split into bytes to stay exact in bf16; the cumsum
+    here is exact in int64.  Same arguments and output as
+    ari_decode_indexed_plain, and the same function of them."""
+
+    def step(model, v, active):
+        freq, tot = model
+        cum = torch.cumsum(freq, dim=1)
+        sym = (cum <= v[:, None]).sum(dim=1)
+        lo, hi = cum_range(cum, sym)
+        freq = freq.scatter_add(1, sym[:, None], (active * increment)[:, None])
+        tot = tot + active * increment
+        scale = active & (tot >= threshold)
+        if bool(scale.any()):   # every ~(threshold-256)/increment symbols
+            halved = (freq + 1) >> 1
+            freq = torch.where(scale[:, None], halved, freq)
+            tot = torch.where(scale, halved.sum(dim=1), tot)
+        return sym, lo, hi, (freq, tot)
+
+    b, dev = streams.shape[0], streams.device
+    model = (torch.ones((b, 256), dtype=torch.int64, device=dev),
+             torch.full((b,), 256, dtype=torch.int64, device=dev))
+    return _plain_decode(streams, deltas, lengths, model, step)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    lib = _build.load("ari_decode")
-    fn = lib.tpz_ari_decode
+def _lib(name: str = "ari_decode"):
+    """The C entry tpz_<name> of csrc/<name>.cu: ari_decode or
+    ari_decode_dot, which take the same arguments."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"tpz_{name}")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp]
@@ -254,47 +309,99 @@ def _lib():
     return fn
 
 
-def ari_decode_indexed(streams: torch.Tensor, deltas: torch.Tensor,
-                       lengths: torch.Tensor, increment: int = 8,
-                       threshold: int = 1 << 13) -> torch.Tensor:
-    """Chunk-indexed ari decode: streams (B, CAP) u8, deltas (B, NC) i32,
-    lengths (B,) i32 -> (B, NC*64) u8 symbols, 0 past each length.
-
-    A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/ari_decode.cu on the current stream (no synchronisation)."""
+def _check(name: str, streams, deltas, lengths, increment: int,
+           threshold: int) -> None:
+    """The argument checks of both wrappers."""
     check_knobs(increment, threshold)
-    b, cap = streams.shape
+    b, _cap = streams.shape
     if (streams.dtype != torch.uint8 or deltas.dtype != torch.int32
             or lengths.dtype != torch.int32):
-        raise TypeError("ari_decode_indexed takes u8 streams, i32 deltas "
-                        "and i32 lengths")
+        raise TypeError(f"{name} takes u8 streams, i32 deltas and i32 "
+                        "lengths")
     if deltas.dim() != 2 or deltas.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"shape mismatch: streams {tuple(streams.shape)}, "
                          f"deltas {tuple(deltas.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
     if not (streams.device == deltas.device == lengths.device):
         raise ValueError("streams, deltas and lengths must share a device")
-    if streams.device.type == "cpu":
-        return ari_decode_indexed_plain(streams, deltas, lengths,
-                                        increment, threshold)
-    if streams.device.type != "cuda":
-        raise ValueError(f"no ari_decode for device {streams.device}")
+    if streams.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} for device {streams.device}")
+
+
+def _launch(name: str, streams, deltas, lengths, increment: int,
+            threshold: int) -> torch.Tensor:
+    """csrc/<name>.cu on the current stream (no synchronisation) into a new
+    (B, NC*64) u8 tensor.  An empty batch launches nothing and gives an
+    empty tensor."""
     if not (streams.is_contiguous() and deltas.is_contiguous()
             and lengths.is_contiguous()):
-        raise ValueError("ari_decode_indexed takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+    b, cap = streams.shape
     nc = deltas.shape[1]
     out = torch.empty((b, nc * CHUNK_STEPS), dtype=torch.uint8,
                       device=streams.device)
-    if b == 0 or nc == 0:
-        return out.zero_()
-    fn = _lib()
+    if out.numel() == 0:
+        return out
+    fn = _lib(name)
     with torch.cuda.device(streams.device):
         err = fn(streams.data_ptr(), deltas.data_ptr(), lengths.data_ptr(),
                  b, cap, nc, out.data_ptr(), increment, threshold,
                  torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "ari_decode")
-    ari_decode_indexed.launches += 1
+    _build.check(err, name)
+    return out
+
+
+def ari_decode_indexed(streams: torch.Tensor, deltas: torch.Tensor,
+                       lengths: torch.Tensor, increment: int = 8,
+                       threshold: int = 1 << 13,
+                       algo: str | None = None) -> torch.Tensor:
+    """Chunk-indexed ari decode: streams (B, CAP) u8, deltas (B, NC) i32,
+    lengths (B,) i32 -> (B, NC*64) u8 symbols, 0 past each length.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/ari_decode.cu on the current stream (no synchronisation).
+
+    `algo` is the counterpart of ``ari_decode_lanes(algo=...)``: None,
+    "packed" and "cum" (one function, and one kernel here: its u32 table
+    takes every knob pair) or "dot", which runs ari_decode_dot_indexed.
+    The runner never passes it."""
+    if algo == "dot":
+        return ari_decode_dot_indexed(streams, deltas, lengths, increment,
+                                      threshold)
+    if algo not in (None, "packed", "cum"):
+        raise ValueError(f"unknown ari decode algo {algo!r}")
+    _check("ari_decode_indexed", streams, deltas, lengths, increment,
+           threshold)
+    if streams.device.type == "cpu":
+        return ari_decode_indexed_plain(streams, deltas, lengths,
+                                        increment, threshold)
+    out = _launch("ari_decode", streams, deltas, lengths, increment,
+                  threshold)
+    if out.numel():
+        ari_decode_indexed.launches += 1
     return out
 
 
 ari_decode_indexed.launches = 0
+
+
+def ari_decode_dot_indexed(streams: torch.Tensor, deltas: torch.Tensor,
+                           lengths: torch.Tensor, increment: int = 8,
+                           threshold: int = 1 << 13) -> torch.Tensor:
+    """ari_decode_indexed on frequency state, the v1 decoder: the same
+    arguments and output.  A CPU tensor runs
+    ari_decode_dot_indexed_plain; a CUDA tensor launches
+    csrc/ari_decode_dot.cu on the current stream (no synchronisation)."""
+    _check("ari_decode_dot_indexed", streams, deltas, lengths, increment,
+           threshold)
+    if streams.device.type == "cpu":
+        return ari_decode_dot_indexed_plain(streams, deltas, lengths,
+                                            increment, threshold)
+    out = _launch("ari_decode_dot", streams, deltas, lengths, increment,
+                  threshold)
+    if out.numel():
+        ari_decode_dot_indexed.launches += 1
+    return out
+
+
+ari_decode_dot_indexed.launches = 0
