@@ -2,15 +2,19 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --ab DIR   # csrc/ari_decode.cu against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
 (kernels tpuzip_torch/csrc/ari_encode.cu and ari_decode.cu); the bwt codec's,
 BWT -> MTF -> ari (adds csrc/mtf.cu, one source for both directions), at
-its default 1 MiB blocks and through the segmented flag-8 path of a
-100 MB block; the bwtdc codec's, BWT -> DC -> ari (adds csrc/dc_decode.cu);
-and the bin and apm codecs' (csrc/bin_encode.cu, bin_decode.cu).  The
-lane decoder's other state design, csrc/ari_decode_dot.cu (tpuzip's v1
+1 MiB blocks and through the segmented flag-8 path of a 100 MB block;
+the bwtdc codec's, BWT -> DC -> ari (adds csrc/dc_decode.cu); the bin and
+apm codecs' (csrc/bin_encode.cu, bin_decode.cu); and the decode of
+containers without the chunk index (flag 2 clear, as tpuzip's run_job
+writes them), through the no-index modes of ari_decode.cu and
+bin_decode.cu.  The lane decoder's other state design,
+csrc/ari_decode_dot.cu (tpuzip's v1
 decoder, ``ari_decode_indexed(algo="dot")``), runs on no container path;
 phase 5 drives it and holds it against ari_decode.cu.  Phases, one JSON
 line each:
@@ -22,8 +26,10 @@ line each:
             CUDA tensors (128 blocks x 2048 symbols of skewed, random,
             constant, ragged and empty blocks), exact to the byte: ari at
             the default knobs, at threshold=512 and at (16, 40000), past
-            the 2^15 bound of tpuzip's packed kernels, both decoders (the
-            dot decoder also equal to ari_decode.cu); MTF encode and
+            the 2^15 bound of tpuzip's packed kernels, both decoders on
+            those rows and 4 garbage rows with a random chunk index (the
+            dot decoder also equal to ari_decode.cu), ari_decode.cu's
+            no-index mode at the default knobs; MTF encode and
             decode; the DC walk on the DC streams of those blocks plus a
             row with a clobbered header and one with a flipped varint
             continuation bit; bin and apm encode and decode at the knobs
@@ -34,8 +40,9 @@ line each:
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
             on 8 blocks; both ari kernels launched; each kernel's one
             launch on that path held, exact, against its plain version on
-            the very tensors the path gave it; encode/decode MB/s, a device
-            trace and a host profile of one more compress and decompress.
+            the path's own tensors cut to their first 4096 symbols, as on
+            the bwt paths; encode/decode MB/s, a device trace and a host
+            profile of one more compress and decompress.
 5. dot      the decode A/B of tpuzip's bench/tpu_r2d.py:91-106, cum
             (ari_decode.cu) against dot (ari_decode_dot.cu): (a) on the ari
             path's own decode inputs (1024 stream rows), one counted
@@ -45,7 +52,7 @@ line each:
             blocks of random bytes, text and 6 symbols, encoded and decoded
             by both; both decode every block exactly.  CUDA-event times of
             both kernels in turns (cum, dot, dot, cum) at each shape.
-6. bwt      the same corpus through codec="bwt" at the default 1 MiB
+6. bwt      the same corpus through codec="bwt" at 1 MiB
             blocks (64 blocks): the bytes round-trip; MTF launched in both
             directions and both ari kernels launched; L and the origins
             equal the oracle's BWT on 4 blocks; each MTF launch held,
@@ -75,9 +82,16 @@ line each:
             to the first 512 bytes of every block (kernel and plain on the
             same cut, and the path's own outputs on that prefix); MB/s,
             peak memory, and traces of apm taken in a fresh process.
+10. legacy  the ari and apm paths' own containers with the chunk index
+            stripped (flag 2 cleared, [u32 idx_len][idx] cut from each
+            payload): decompress on cuda gives the corpus; the no-index
+            decoders launched and the indexed ones not; each launch held,
+            exact, against its plain version on the path's rows cut to the
+            first 4096 symbols (ari) or 512 bytes (apm).
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; the dot decoder must have none on a container path.  Then the
+after; the dot decoder must have none on a container path.  The
+kernels line counts a decoder's launches in both modes.  Then the
 nvidia-smi line, a {"kernels": [...]} line (kernel times and bounds at the
 main paths' shapes, the plain version's time at `plain_shape`, launches
 over the paths) and, last, {"ok": true, "device": {...}}.  Any failure
@@ -88,8 +102,10 @@ tpuzip.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
+import os
 import re
 import struct
 import subprocess
@@ -101,7 +117,7 @@ import numpy as np
 import torch
 
 import tpuzip_torch
-from tpuzip_torch.codecs import bwt, dc
+from tpuzip_torch.codecs import bin_apm, bwt, dc
 from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, mtf_scan,
                                   range_coder, range_decoder)
@@ -289,44 +305,73 @@ def phase_kernels() -> dict:
     blocks = torch.from_numpy(blocks_np).cuda()
     lens = torch.from_numpy(lens_np).cuda()
     errs = {"ari_encode": 0, "ari_decode": 0, "ari_decode_dot": 0}
+    # 4 garbage rows beside the real ones: random bytes, a random chunk
+    # index, full lengths
+    grng = np.random.default_rng(SEED + 2)
+    gdeltas = torch.from_numpy(grng.integers(
+        0, range_decoder.MAX_DELTA + 1, (4, 2048 // 64), dtype=np.int32)).cuda()
+    glens = torch.cat([lens, torch.full((4,), 2048, dtype=torch.int32,
+                                        device="cuda")])
     for inc, thr in KNOBS:
         enc = range_coder.ari_encode_indexed(blocks, lens, inc, thr)
         enc_ref, enc_plain_ms = timed(
             lambda: range_coder.ari_encode_indexed_plain(blocks, lens, inc,
                                                          thr))
         streams, slens, deltas = enc
-        dec = range_decoder.ari_decode_indexed(streams, deltas, lens, inc, thr)
+        streams = torch.cat([streams, torch.from_numpy(grng.integers(
+            0, 256, (4, streams.shape[1]), dtype=np.uint8)).cuda()])
+        deltas = torch.cat([deltas, gdeltas])
+        dec = range_decoder.ari_decode_indexed(streams, deltas, glens, inc,
+                                               thr)
         dec_ref, dec_plain_ms = timed(
             lambda: range_decoder.ari_decode_indexed_plain(streams, deltas,
-                                                           lens, inc, thr))
-        dot = range_decoder.ari_decode_dot_indexed(streams, deltas, lens, inc,
-                                                   thr)
+                                                           glens, inc, thr))
+        dot = range_decoder.ari_decode_dot_indexed(streams, deltas, glens,
+                                                   inc, thr)
         dot_ref, dot_plain_ms = timed(
             lambda: range_decoder.ari_decode_dot_indexed_plain(
-                streams, deltas, lens, inc, thr))
+                streams, deltas, glens, inc, thr))
         enc_err = max(max_err(x, y) for x, y in zip(enc, enc_ref))
         dec_err = max_err(dec, dec_ref)
         dot_err = max_err(dot, dot_ref)
         dot_is_cum = bool(torch.equal(dot, dec))
         keep = torch.arange(2048, device="cuda")[None, :] < lens[:, None]
-        round_trip = bool(torch.equal(torch.where(keep, dec, 0), blocks))
+        round_trip = bool(torch.equal(torch.where(keep, dec[:128], 0),
+                                      blocks))
         times = {}
         if (inc, thr) == KNOBS[0]:
+            # the no-index mode on the same rows, garbage included (the
+            # real rows' streams are the same bytes without their index)
+            flat = range_decoder.decode_batch(streams, glens, 2048)
+            flat_ref, flat_plain_ms = timed(
+                lambda: range_decoder.decode_batch_plain(streams, glens,
+                                                         2048))
+            errs["ari_decode_unindexed"] = max_err(flat, flat_ref)
+            if errs["ari_decode_unindexed"] or not torch.equal(
+                    flat[:128], dec[:128]):
+                raise AssertionError("ari_decode.cu without the index "
+                                     "disagrees with its plain version")
             times = {
                 "encode_ms": cuda_ms(lambda: range_coder.ari_encode_indexed(
                     blocks, lens, inc, thr), 10),
                 "encode_plain_ms": enc_plain_ms,
                 "decode_ms": cuda_ms(
                     lambda: range_decoder.ari_decode_indexed(
-                        streams, deltas, lens, inc, thr), 10),
+                        streams, deltas, glens, inc, thr), 10),
                 "decode_plain_ms": dec_plain_ms,
+                "unindexed_decode_max_abs_err": errs["ari_decode_unindexed"],
+                "unindexed_decode_ms": cuda_ms(
+                    lambda: range_decoder.decode_batch(streams, glens, 2048),
+                    10),
+                "unindexed_decode_plain_ms": flat_plain_ms,
                 "dot_decode_ms": cuda_ms(
                     lambda: range_decoder.ari_decode_dot_indexed(
-                        streams, deltas, lens, inc, thr), 10),
+                        streams, deltas, glens, inc, thr), 10),
                 "dot_decode_plain_ms": dot_plain_ms,
             }
         emit("kernels", kernel="ari", increment=inc, threshold=thr,
-             blocks=128, symbols=2048, encode_max_abs_err=enc_err,
+             blocks=128, garbage_rows=4, symbols=2048,
+             encode_max_abs_err=enc_err,
              decode_max_abs_err=dec_err, dot_decode_max_abs_err=dot_err,
              dot_equals_ari_decode=dot_is_cum, round_trip=round_trip,
              stream_bytes=int(slens.sum()), **times)
@@ -336,7 +381,6 @@ def phase_kernels() -> dict:
         errs["ari_encode"] = max(errs["ari_encode"], enc_err)
         errs["ari_decode"] = max(errs["ari_decode"], dec_err)
         errs["ari_decode_dot"] = max(errs["ari_decode_dot"], dot_err)
-
     enc = mtf_scan.mtf_batch(blocks, lens)
     enc_ref, enc_plain_ms = timed(lambda: mtf_scan.mtf_batch_plain(blocks,
                                                                    lens))
@@ -457,6 +501,31 @@ def payloads(blob: bytes, head: int):
     return out
 
 
+def strip_index(blob: bytes) -> bytes:
+    """A container with flag 2 as tpuzip writes it without the chunk index
+    (its run_job): flag 2 cleared, [u32 idx_len][idx] cut from each
+    payload, the length table rewritten.  Parsed here, so the check does
+    not lean on the code under test; not for flag 8."""
+    codec, flags = blob[4], blob[5]
+    if not flags & 2 or flags & 8:
+        raise ValueError(f"flags {flags}: not an indexed flat container")
+    head = {4: 4, 6: 8}.get(codec, 0)    # bwt: origin; bwtdc: + dc_len
+    nb = struct.unpack_from("<I", blob, 10)[0]
+    clens = np.frombuffer(blob, "<u4", nb, 26)
+    tables = 26 + 4 * nb
+    off = tables + (4 * nb if flags & 1 else 0) + (6 if flags & 4 else 0)
+    parts = []
+    for n in clens:
+        p = blob[off : off + int(n)]
+        (idxlen,) = struct.unpack_from("<I", p, head)
+        parts.append(p[:head] + p[head + 4 + idxlen:])
+        off += int(n)
+    lens = np.array([len(p) for p in parts], "<u4").tobytes()
+    return (blob[:5] + bytes([flags & ~2]) + blob[6:26] + lens
+            + blob[tables : tables + (4 * nb if flags & 1 else 0)
+                   + (6 if flags & 4 else 0)] + b"".join(parts))
+
+
 def traced(fn, expect=()) -> dict:
     """One more run of fn under torch.profiler: wall time, the time of the
     device's own events (kernels and copies; host ops that launched them and
@@ -536,9 +605,13 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "mtf": (mtf_scan, "mtf_batch"),
             "dc_decode": (dc_scan, "dc_decode_lanes"),
             "bin_encode": (bin_coder, "bin_encode_indexed"),
-            "bin_decode": (bin_coder, "bin_decode_indexed")}
+            "bin_decode": (bin_coder, "bin_decode_indexed"),
+            # the same two kernels in their modes without the chunk index
+            "ari_decode_unindexed": (range_decoder, "decode_batch"),
+            "bin_decode_unindexed": (bin_apm, "decode_batch")}
 PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (range_decoder, "ari_decode_indexed_plain"),
+          (range_decoder, "decode_batch_plain"),
           (range_decoder, "ari_decode_dot_indexed_plain"),
           (mtf_scan, "mtf_batch_plain"),
           (dc_scan, "dc_decode_lanes_plain"),
@@ -597,26 +670,6 @@ def ari_bound(kind: str, args, out) -> dict:
         nbytes = (int(deltas.sum()) + 4 * deltas.shape[0]
                   + 4 * deltas.numel() + 4 * lens.numel() + out.numel())
     return bound(nbytes)
-
-
-def against_plain(name: str, kernel, plain, calls) -> dict:
-    """The main path's one launch of a kernel held against the plain
-    version on the same CUDA tensors, exact; times of both at that shape
-    (the kernel's relaunches here come after the launch count was read)."""
-    if len(calls) != 1:
-        raise AssertionError(f"{name}: {len(calls)} launches on the main "
-                             "path, expected 1")
-    (args, kw, out), = calls
-    outs = out if isinstance(out, tuple) else (out,)
-    ref, plain_ms = timed(lambda: plain(*args, **kw))
-    refs = ref if isinstance(ref, tuple) else (ref,)
-    err = max(max_err(x, y) for x, y in zip(outs, refs))
-    if err:
-        raise AssertionError(f"{name} disagrees with its plain version on "
-                             f"the main path's inputs: max_abs_err {err}")
-    return {"inputs": [list(a.shape) for a in args], "max_abs_err": err,
-            "ms": cuda_ms(lambda: kernel(*args, **kw), 3),
-            "plain_ms": plain_ms, **ari_bound(name, args, out)}
 
 
 def mtf_against_plain(calls, cols: int) -> dict:
@@ -779,21 +832,14 @@ def phase_main(smi: str):
         if parts[i][2] != exp:
             raise AssertionError(f"block {i} stream differs from the oracle")
 
-    # each kernel against its plain version on the main path's own inputs:
-    # the 1024 x 64 KiB blocks, and the stream rows decompress cut to the
-    # longest stream (so the past-the-row zero reads run)
-    kernels = {
-        "ari_encode": against_plain("ari_encode",
-                                    range_coder.ari_encode_indexed,
-                                    range_coder.ari_encode_indexed_plain,
-                                    calls["ari_encode"]),
-        "ari_decode": against_plain("ari_decode",
-                                    range_decoder.ari_decode_indexed,
-                                    range_decoder.ari_decode_indexed_plain,
-                                    calls["ari_decode"])}
+    # each kernel against its plain version on the main path's own inputs
+    # cut to their first ARI_PLAIN_COLS symbols (whole blocks are covered
+    # by the oracle check above and the round trip)
+    kernels = ari_prefix_against_plain(calls, ARI_PLAIN_COLS)
     decode_call = calls["ari_decode"][0]   # phase dot's input
     calls.clear()
-    compress = lambda: tpuzip_torch.compress(data, codec="ari")  # noqa: E731
+    compress = lambda: tpuzip_torch.compress(  # noqa: E731
+        data, codec="ari", block_size=BLOCK)
     decompress = lambda: tpuzip_torch.decompress(blob)           # noqa: E731
     emit("main", corpus_bytes=len(data), block_size=BLOCK, blocks=nb,
          container_bytes=len(blob), ratio=len(blob) / len(data),
@@ -806,7 +852,7 @@ def phase_main(smi: str):
                 "decode": traced(decompress, ("ari_decode_kernel",))},
          host_profile={"encode": host_profile(compress),
                        "decode": host_profile(decompress)}, card=smi)
-    return launches, kernels, decode_call
+    return launches, kernels, decode_call, blob
 
 
 def in_turns(args, kw, reps: int) -> dict:
@@ -910,17 +956,18 @@ def bwt_ms(calls, blocks_np, lens_np, parts) -> dict:
 
 def phase_bwt(smi: str):
     data = text_corpus(CORPUS_BYTES, SEED)
-    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 2 * BWT_BLOCK],
-                                                  codec="bwt"))
+    tpuzip_torch.decompress(tpuzip_torch.compress(
+        data[: 2 * BWT_BLOCK], codec="bwt", block_size=BWT_BLOCK))
     blob, calls, launches, t_enc, t_dec, peak_enc, peak_dec = round_trip(
-        data, codec="bwt")
+        data, codec="bwt", block_size=BWT_BLOCK)
     need(launches, {"mtf_encode": 1, "mtf_decode": 1, "ari_encode": 1,
                     "ari_decode": 1}, "bwt")
     if blob[5] & 8 or struct.unpack_from("<I", blob, 6)[0] != BWT_BLOCK:
         raise AssertionError("bwt did not take 1 MiB blocks, flag 2")
     # traced first, before the checks below launch the plain versions: in
     # two runs the profiler lost the ari decode kernel when traced after them
-    compress = lambda: tpuzip_torch.compress(data, codec="bwt")  # noqa: E731
+    compress = lambda: tpuzip_torch.compress(  # noqa: E731
+        data, codec="bwt", block_size=BWT_BLOCK)
     decompress = lambda: tpuzip_torch.decompress(blob)           # noqa: E731
     trace = {"encode": traced(compress, ("ari_encode_kernel",
                                          "mtf_kernel<false>")),
@@ -1019,10 +1066,10 @@ def dc_against_plain(calls, steps: int) -> dict:
 
 def phase_bwtdc(smi: str):
     data = text_corpus(CORPUS_BYTES, SEED)
-    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 2 * BWT_BLOCK],
-                                                  codec="bwtdc"))
+    tpuzip_torch.decompress(tpuzip_torch.compress(
+        data[: 2 * BWT_BLOCK], codec="bwtdc", block_size=BWT_BLOCK))
     blob, calls, launches, t_enc, t_dec, peak_enc, peak_dec = round_trip(
-        data, codec="bwtdc")
+        data, codec="bwtdc", block_size=BWT_BLOCK)
     need(launches, {"dc_decode": 1, "ari_encode": 1, "ari_decode": 1},
          "bwtdc")
     if blob[5] & 8 or struct.unpack_from("<I", blob, 6)[0] != BWT_BLOCK:
@@ -1167,12 +1214,12 @@ def oracle_bits(block: bytes, apm: bool) -> bytes:
 def phase_bin(smi: str):
     data = text_corpus(CORPUS_BYTES, SEED)
     blocks_np, lens_np = blk.chunk(data, BLOCK)
-    runs, launches, out = {}, {}, {}
+    runs, launches, out, blobs = {}, {}, {}, {}
     for codec in ("bin", "apm"):
-        tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK],
-                                                      codec=codec))
+        tpuzip_torch.decompress(tpuzip_torch.compress(
+            data[: 4 * BLOCK], codec=codec, block_size=BLOCK))
         blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec = round_trip(
-            data, codec=codec)
+            data, codec=codec, block_size=BLOCK)
         need(counts, {"bin_encode": 1, "bin_decode": 1}, codec)
         if blob[5] != 2 or struct.unpack_from("<I", blob, 6)[0] != BLOCK:
             raise AssertionError(f"{codec} did not take 64 KiB blocks, flag 2")
@@ -1192,11 +1239,90 @@ def phase_bin(smi: str):
             "peak_device_bytes": {"encode": peak_enc, "decode": peak_dec}}
         if codec == "apm":
             out[codec]["trace"] = trace_in_child("apm")
-        runs[codec], launches[codec] = calls, counts
+        runs[codec], launches[codec], blobs[codec] = calls, counts, blob
     kernels = bin_against_plain(runs, BIN_PLAIN_BYTES)
     runs.clear()
     emit("bin", corpus_bytes=len(data), block_size=BLOCK,
          blocks=int(blocks_np.shape[0]), codecs=out, kernels=kernels,
+         card=smi)
+    return launches, kernels, blobs["apm"]
+
+
+def unindexed_against_plain(name: str, calls, cols: int, blob: bytes
+                            ) -> dict:
+    """A legacy path's one launch of a decoder without the chunk index
+    held against the plain version on the same CUDA rows with the lengths
+    and the output cut to the first `cols` symbols (bytes for the bit
+    coder; the coders are causal): kernel and plain on the cut, exact, and
+    the path launch's own first cols outputs equal to theirs.  Times of
+    the kernel at the path's shape and at the cut, of the plain version at
+    the cut; the bound at the path's shape: the payload bytes of the
+    container, the lengths and the bytes written."""
+    if len(calls) != 1:
+        raise AssertionError(f"{name}: {len(calls)} launches on the legacy "
+                             "path, expected 1")
+    (args, kw, out), = calls
+    comp, lens, out_n = args[:3]
+    knobs = args[3:]
+    cut_lens = lens.clamp(max=cols)
+    if name == "ari_decode":
+        wrapper = range_decoder.decode_batch
+        plain = lambda: range_decoder.decode_batch_plain(  # noqa: E731
+            comp, cut_lens, cols, *knobs)
+    else:
+        wrapper = bin_apm.decode_batch
+        nc = -(-8 * cols // bin_coder.CHUNK)
+        plain = lambda: bin_coder.bin_decode_indexed_plain(  # noqa: E731
+            comp, None, (8 * cut_lens).to(torch.int32), *knobs,
+            nc=nc)[:, :cols]
+    ref, plain_ms = timed(plain)
+    got = wrapper(comp, cut_lens, cols, *knobs)
+    err = max(max_err(got, ref), max_err(out[:, :cols], ref))
+    if err:
+        raise AssertionError(f"{name} without the index disagrees with its "
+                             f"plain version: max_abs_err {err}")
+    nb = struct.unpack_from("<I", blob, 10)[0]
+    payload = int(np.frombuffer(blob, "<u4", nb, 26).astype(np.int64).sum())
+    return {"inputs": [list(comp.shape), list(lens.shape)],
+            "plain_inputs": list(ref.shape), "max_abs_err": err,
+            "ms": cuda_ms(lambda: wrapper(*args, **kw), 3),
+            "ms_at_plain_inputs": cuda_ms(
+                lambda: wrapper(comp, cut_lens, cols, *knobs), 3),
+            "plain_ms": plain_ms,
+            **bound(payload + 4 * lens.numel() + out.numel())}
+
+
+def phase_legacy(smi: str, blobs: dict):
+    """The ari and apm paths' own containers with their chunk index
+    stripped (flag 2 clear, as tpuzip's run_job writes them), decoded on
+    cuda through the no-index modes of ari_decode.cu and bin_decode.cu:
+    the bytes, the launch counts and a prefix against the plain
+    versions."""
+    data = text_corpus(CORPUS_BYTES, SEED)
+    res, kernels, launches = {}, {}, {}
+    for codec, kernel, cols in (("ari", "ari_decode", ARI_PLAIN_COLS),
+                                ("apm", "bin_decode", BIN_PLAIN_BYTES)):
+        legacy = strip_index(blobs[codec])
+        with counted_run() as (calls, counts):
+            t0 = time.perf_counter()
+            back = tpuzip_torch.decompress(legacy, device="cuda")
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+        if back != data:
+            raise AssertionError(f"legacy {codec} container did not decode")
+        need(counts, {f"{kernel}_unindexed": 1}, f"legacy {codec}")
+        if counts[kernel]:
+            raise AssertionError(f"legacy {codec}: the indexed {kernel} ran")
+        kernels[kernel] = unindexed_against_plain(
+            kernel, calls[f"{kernel}_unindexed"], cols, legacy)
+        calls.clear()
+        res[codec] = {"container_bytes": len(legacy), "flags": legacy[5],
+                      "launches": counts,
+                      "decode_mb_s": len(data) / 1e6 / t_dec,
+                      "kernel": kernels[kernel]}
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    emit("legacy", corpus_bytes=len(data), block_size=BLOCK, codecs=res,
          card=smi)
     return launches, kernels
 
@@ -1223,15 +1349,179 @@ def trace_in_child(codec: str) -> dict:
 def trace_child(codec: str) -> int:
     data = text_corpus(CORPUS_BYTES, SEED)
     block = BWT_BLOCK if codec == "bwtdc" else BLOCK
-    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 2 * block],
-                                                  codec=codec))
-    blob = tpuzip_torch.compress(data, codec=codec)
+    tpuzip_torch.decompress(tpuzip_torch.compress(
+        data[: 2 * block], codec=codec, block_size=block))
+    blob = tpuzip_torch.compress(data, codec=codec, block_size=block)
     enc, dec = TRACED[codec]
     print(json.dumps({
-        "encode": traced(lambda: tpuzip_torch.compress(data, codec=codec),
-                         enc),
+        "encode": traced(lambda: tpuzip_torch.compress(
+            data, codec=codec, block_size=block), enc),
         "decode": traced(lambda: tpuzip_torch.decompress(blob), dec)}))
     return 0
+
+
+def sass_functions(nvcc: str, lib: str) -> dict:
+    """{mangled kernel name: its SASS lines, addresses and encodings
+    dropped} of a built library (cuobjdump -sass)."""
+    text = subprocess.run([nvcc.rsplit("nvcc", 1)[0] + "cuobjdump", "-sass",
+                           lib], check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and "/*" in line:
+            code = re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "", line)
+            if code.strip():
+                funcs[name].append(code.strip())
+    return funcs
+
+
+def ab_inputs() -> dict:
+    """{path: (streams, deltas, lens)}: the one ari_decode_indexed launch of
+    the ari, bwt, bwt_big and bwtdc paths' decompress."""
+    data = text_corpus(CORPUS_BYTES, SEED)
+    out = {}
+    for path, codec, block, corpus in (
+            ("ari", "ari", BLOCK, data), ("bwt", "bwt", BWT_BLOCK, data),
+            ("bwt_big", "bwt", BIG_BLOCK, text_corpus(BIG_BLOCK, SEED)),
+            ("bwtdc", "bwtdc", BWT_BLOCK, data)):
+        blob = tpuzip_torch.compress(corpus, codec=codec, block_size=block)
+        with recorded(range_decoder, "ari_decode_indexed") as calls:
+            if tpuzip_torch.decompress(blob) != corpus:
+                raise AssertionError(f"{path} did not round-trip")
+        (args, _, _), = calls
+        out[path] = tuple(a.contiguous() for a in args[:3])
+    return out
+
+
+def ab_child(dirs: list) -> int:
+    """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
+    csrc/ari_decode.cu against the ari_decode.cu in each DIR (beside the
+    ari_model.cuh it includes), for instance a parent commit's:
+
+        mkdir -p _parent && for f in ari_decode.cu ari_model.cuh \\
+            bin_decode.cu bin_coder.cuh; do git show \\
+            REV:tpuzip_torch/csrc/$f > _parent/$f; done
+
+    Builds them all at once with their registers and spills, takes the
+    decode inputs of the ari, bwt, bwt_big and bwtdc paths, checks that
+    every build gives the same symbols there, and times each earlier kernel
+    and the checkout's in turns (old, new, new, old; each the mean of 3
+    launches), with ns a step (the longest row's symbols).  Beside them:
+    the no-index mode at the ari shape, one bwt row alone against all 64,
+    and, where DIR holds bin_decode.cu, whether the indexed bin_decode
+    kernels' SASS equals the checkout's.  One JSON line a shape, then one
+    line of the whole."""
+    if not dirs:
+        raise SystemExit("chip_smoke.py --ab needs a directory")
+    smi = nvidia_smi()
+    nvcc = _build.find_nvcc()
+    jobs = {"new": _build.CSRC / "ari_decode.cu",
+            "bin_new": _build.CSRC / "bin_decode.cu"}
+    for i, d in enumerate(dirs):
+        jobs[f"old{i}"] = f"{d}/ari_decode.cu"
+        if os.path.exists(f"{d}/bin_decode.cu"):
+            jobs[f"bin_old{i}"] = f"{d}/bin_decode.cu"
+    res = {"nvidia_smi": smi, "old": {f"old{i}": d for i, d in
+                                      enumerate(dirs)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             f"{tmp}/{name}.so", str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name, src in jobs.items()}
+        try:
+            res["ptxas"] = ptxas_report(procs)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        new_bin = sass_functions(nvcc, f"{tmp}/bin_new.so")
+        same = {}
+        for name in jobs:
+            if name.startswith("bin_old"):
+                old_bin = sass_functions(nvcc, f"{tmp}/{name}.so")
+                # the indexed kernels: template <bool APM> before, <APM,
+                # INDEXED = true> now
+                same[name] = {
+                    "apm" if apm else "bin": [v for k, v in old_bin.items()
+                                              if f"ILb{apm}EE" in k]
+                    == [v for k, v in new_bin.items()
+                        if f"ILb{apm}ELb1EE" in k]
+                    for apm in (0, 1)}
+        res["bin_decode_indexed_sass_unchanged"] = same
+        fns = {}
+        for name in jobs:
+            if not name.startswith("bin"):
+                fn = ctypes.CDLL(f"{tmp}/{name}.so").tpz_ari_decode
+                vp, ci = ctypes.c_void_p, ctypes.c_int
+                fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp]
+                fn.restype = ci
+                fns[name] = fn
+
+        def launcher(fn, streams, deltas, lens, nc):
+            """A closure that launches fn once into a new (B, nc*64)
+            tensor, at the default knobs."""
+            def run():
+                out = torch.empty((streams.shape[0],
+                                   nc * range_decoder.CHUNK_STEPS),
+                                  dtype=torch.uint8, device="cuda")
+                _build.check(fn(
+                    streams.data_ptr(),
+                    None if deltas is None else deltas.data_ptr(),
+                    lens.data_ptr(), streams.shape[0], streams.shape[1], nc,
+                    out.data_ptr(), *KNOBS[0],
+                    torch.cuda.current_stream().cuda_stream),
+                    "tpz_ari_decode")
+                return out
+            return run
+
+        shapes = {}
+        for path, (streams, deltas, lens) in ab_inputs().items():
+            nc = deltas.shape[1]
+            runs = {k: launcher(fn, streams, deltas, lens, nc)
+                    for k, fn in fns.items()}
+            ref = runs["new"]()
+            equal = {k: torch.equal(run(), ref) for k, run in runs.items()}
+            if not all(equal.values()):
+                raise AssertionError(f"{path}: outputs differ {equal}")
+            steps = int(lens.max())
+            row = {"rows": list(streams.shape), "index": list(deltas.shape),
+                   "steps": steps, "outputs_equal": equal}
+            for k in runs:
+                if k == "new":
+                    continue
+                t = [cuda_ms(runs[j], 3) for j in (k, "new", "new", k)]
+                old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+                row[k] = {"old_ms": old_ms, "new_ms": new_ms,
+                          "new_over_old": new_ms / old_ms, "turns_ms": t,
+                          "ns_a_step": [old_ms * 1e6 / steps,
+                                        new_ms * 1e6 / steps]}
+            if path == "ari":
+                # the no-index mode on the same stream rows (a row's stream
+                # bytes do not depend on the index beside it)
+                plain = launcher(fns["new"], streams, None, lens, nc)
+                if not torch.equal(plain(), ref):
+                    raise AssertionError("the no-index mode differs")
+                row["unindexed_ms"] = cuda_ms(plain, 3)
+            if path == "bwt":
+                one = launcher(fns["new"], streams[:1].contiguous(),
+                               deltas[:1].contiguous(), lens[:1], nc)
+                row["one_row_ms"] = cuda_ms(one, 3)
+                row["all_rows_ms"] = cuda_ms(runs["new"], 3)
+            shapes[path] = row
+            print(json.dumps({"path": path, **row}), flush=True)
+    res["shapes"] = shapes
+    print(json.dumps(res))
+    return 0
+
+
+def launched(counts: dict, name: str) -> int:
+    """A path's launches of kernel `name`, in either mode."""
+    return counts.get(name, 0) + counts.get(f"{name}_unindexed", 0)
 
 
 def main() -> int:
@@ -1241,26 +1531,31 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--trace"]:
         return trace_child(sys.argv[2])
+    if sys.argv[1:2] == ["--ab"]:
+        return ab_child(sys.argv[2:])
     smi = nvidia_smi()
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     phase_build()
     small = phase_kernels()
-    ari_launches, ari_kernels, decode_call = phase_main(smi)
+    ari_launches, ari_kernels, decode_call, ari_blob = phase_main(smi)
     dot_launches, dot_kernel = phase_dot(smi, decode_call)
     del decode_call
     bwt_launches, bwt_kernels = phase_bwt(smi)
     big_launches, big_kernels = phase_bwt_big(smi)
     dc_launches, dc_kernels = phase_bwtdc(smi)
-    bin_launches, bin_kernels = phase_bin(smi)
+    bin_launches, bin_kernels, apm_blob = phase_bin(smi)
+    legacy_launches, legacy_kernels = phase_legacy(
+        smi, {"ari": ari_blob, "apm": apm_blob})
+    del ari_blob, apm_blob
     if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
                                    for m in sys.modules):
         raise AssertionError("the port's path imported jax or tpuzip")
     by_path = {"ari": ari_launches, "bwt": bwt_launches,
                "bwt_big": big_launches, "bwtdc": dc_launches,
                "bin": bin_launches["bin"], "apm": bin_launches["apm"],
-               "dot": dot_launches}
+               "dot": dot_launches, "legacy": legacy_launches}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
@@ -1271,7 +1566,7 @@ def main() -> int:
                 **dot_kernels}
     checked = ({k: {"max_abs_err": e} for k, e in small.items()},
                ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels,
-               dot_kernels)
+               dot_kernels, legacy_kernels)
     print(smi)
     rows = []
     for name, source, replaces in (
@@ -1293,10 +1588,13 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda",
             "source": f"tpuzip_torch/csrc/{source}", "replaces": replaces,
-            "launches": sum(p[name] for p in by_path.values()),
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
-            "max_abs_err": max(c[name]["max_abs_err"]
-                               for c in checked if name in c),
+            # the decoders' launches without the chunk index count too
+            "launches": sum(launched(c, name) for c in by_path.values()),
+            "launches_by_path": {p: launched(c, name)
+                                 for p, c in by_path.items()},
+            "max_abs_err": max(c[key]["max_abs_err"] for c in checked
+                               for key in (name, f"{name}_unindexed")
+                               if key in c),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "shape": k["inputs"],

@@ -23,12 +23,15 @@ __version__ = "0.1.0"
 from tpuzip_torch.core.config import CodecConfig, Config  # noqa: F401
 
 
-def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
+def compress(data: bytes, codec: str = "ari", block_size: int = 1 << 16,
              device="cuda", config=None,
              block_checksums: bool = False) -> bytes:
-    """Compress a corpus into a tpz container (see dist.runner.compress);
-    block_size=None takes the codec's default from the config (1 MiB for
-    bwt and bwtdc, 64 KiB otherwise)."""
+    """Compress a corpus into a tpz container (see dist.runner.compress).
+
+    The defaults mirror ``tpuzip.compress``: 64 KiB blocks for every codec
+    (block_size=None takes the runner's per-codec default from the config,
+    1 MiB for bwt and bwtdc).  The default codec is "ari" until the lz4
+    codec, tpuzip's default, is ported (ROADMAP.md, queue 1, item 12)."""
     from tpuzip_torch.dist import runner
 
     return runner.compress(data, codec=codec, block_size=block_size,

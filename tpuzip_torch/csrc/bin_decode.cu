@@ -9,7 +9,11 @@
 //
 // Read position, as the TPU kernel reads its windows: chunk k (256 bits)
 // starts at 4 + the deltas of the chunks before it, advances by the bytes
-// the coder pulls, and a byte at or past the row width reads as 0.  A
+// the coder pulls, and a byte at or past the row width reads as 0.
+// Without the chunk index (a null deltas: tpuzip.codecs.bin_apm.
+// decode_batch, the XLA scan tpuzip runs on containers with flag 2 clear)
+// the position runs on from 4, and a byte at or past the row width reads
+// as the row's last byte, as that scan clips its index to the row.  A
 // thread reads its own stream, so the TPU's window prepack, one-hot byte
 // fetch and f32 divider are gone: the u32 division is native.
 //
@@ -32,7 +36,7 @@ namespace {
 
 using namespace bin;
 
-template <bool USE_APM>
+template <bool USE_APM, bool INDEXED>
 __global__ void __launch_bounds__(THREADS)
 bin_decode_kernel(const uint8_t* __restrict__ streams,
                   const int32_t* __restrict__ deltas,
@@ -43,10 +47,14 @@ bin_decode_kernel(const uint8_t* __restrict__ streams,
   if (b >= B) return;  // no block-wide barrier follows
   const int nbytes_row = nc * CHUNK_BYTES;
   const uint8_t* row = streams + static_cast<size_t>(b) * cap;
-  const int32_t* drow = deltas + static_cast<size_t>(b) * nc;
+  const int32_t* drow = INDEXED ? deltas + static_cast<size_t>(b) * nc
+                                : nullptr;
   uint8_t* orow = out + static_cast<size_t>(b) * nbytes_row;
   const int len = max(0, min(nbits[b], 8 * nbytes_row));
-  auto byte_at = [&](int p) -> uint32_t { return p < cap ? row[p] : 0u; };
+  auto byte_at = [&](int p) -> uint32_t {
+    if (INDEXED) return p < cap ? row[p] : 0u;
+    return row[min(p, cap - 1)];
+  };
 
   Model<USE_APM> m(bits, rate, cells + threadIdx.x);
   const int dbits = m.denom_bits();
@@ -58,7 +66,7 @@ bin_decode_kernel(const uint8_t* __restrict__ streams,
 
   const int nbytes = (len + 7) / 8;
   for (int i = 0; i < nbytes; ++i) {
-    if (i % CHUNK_BYTES == 0) {  // rebase on the chunk index
+    if (INDEXED && i % CHUNK_BYTES == 0) {  // rebase on the chunk index
       pos = start;
       start += drow[i / CHUNK_BYTES];
     }
@@ -95,7 +103,8 @@ bin_decode_kernel(const uint8_t* __restrict__ streams,
 
 }  // namespace
 
-// streams (B, cap) u8, deltas (B, nc) i32 and nbits (B,) i32 in; out
+// streams (B, cap) u8, deltas (B, nc) i32 or null (no chunk index: then
+// cap >= 1) and nbits (B,) i32 in; out
 // (B, nc*32) u8, the bits MSB-first, every byte written (0 past each
 // stream's bits).  Launches on `stream` and returns cudaGetLastError().
 extern "C" int tpz_bin_decode(const void* streams, const void* deltas,
@@ -108,11 +117,17 @@ extern "C" int tpz_bin_decode(const void* streams, const void* deltas,
   const auto* d = static_cast<const int32_t*>(deltas);
   const auto* nb = static_cast<const int32_t*>(nbits);
   auto* y = static_cast<uint8_t*>(out);
-  if (use_apm)
-    bin_decode_kernel<true><<<grid, THREADS, 0, s>>>(x, d, nb, B, cap, nc, y,
-                                                     model_bits, rate);
+  if (use_apm && d)
+    bin_decode_kernel<true, true><<<grid, THREADS, 0, s>>>(
+        x, d, nb, B, cap, nc, y, model_bits, rate);
+  else if (d)
+    bin_decode_kernel<false, true><<<grid, THREADS, 0, s>>>(
+        x, d, nb, B, cap, nc, y, model_bits, rate);
+  else if (use_apm)
+    bin_decode_kernel<true, false><<<grid, THREADS, 0, s>>>(
+        x, d, nb, B, cap, nc, y, model_bits, rate);
   else
-    bin_decode_kernel<false><<<grid, THREADS, 0, s>>>(x, d, nb, B, cap, nc, y,
-                                                      model_bits, rate);
+    bin_decode_kernel<false, false><<<grid, THREADS, 0, s>>>(
+        x, d, nb, B, cap, nc, y, model_bits, rate);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,9 @@ same container:
       bwt:   [u32 origin][u32 idx_len][idx][ari(mtf(L)) stream]
       bwtdc: [u32 origin][u32 dc_len][u32 idx_len][idx][ari(dc(L)) stream]
       bin, apm: [u32 idx_len][index of 256-bit chunks][bit coder stream]
+    or, with flags&2 clear (tpuzip's run_job writes them; decoded only):
+      ari: [stream]; bwt: [u32 origin][stream];
+      bwtdc: [u32 origin][u32 dc_len][stream]; bin, apm: [stream]
       bwt with flags&8 (blocks above SEG_THRESHOLD):
             [u32 origin][u16 nseg][u32 seg], then per segment
             [u32 seg_olen][u32 idx_len][idx][stream], each segment MTF+ari
@@ -241,6 +244,11 @@ def _block_cap(codec: str, flags: int, block_size: int) -> int:
         seg, nseg = _seg_geometry(block_size)
         nc_seg = (seg + CHUNK_STEPS - 1) // CHUNK_STEPS
         return SEG_HEAD + nseg * (8 + 3 * nc_seg + encode_cap(seg))
+    if not flags & 2:   # no chunk index: the stream's own bound
+        if codec in BIN_CODECS:
+            return bin_apm.encode_cap(8 * block_size)
+        return encode_cap(dc.encode_cap(block_size) if codec == "bwtdc"
+                          else block_size)
     if codec in BIN_CODECS:
         nc_bits = (8 * block_size + bin_coder.CHUNK - 1) // bin_coder.CHUNK
         return bin_apm.encode_cap(8 * block_size) + 4 + 3 * nc_bits
@@ -264,8 +272,6 @@ def _parse_header(container: bytes):
     codec = CODEC_IDS[container[4]]
     _check_codec(codec)
     flags = container[5]
-    if not flags & 2:
-        raise not_ported(f"a {codec} container without the chunk index", 15)
     try:
         block_size, nb, orig_len, a32 = struct.unpack_from("<IIQI",
                                                            container, 6)
@@ -430,6 +436,53 @@ def _decode_segmented(container, starts, clens, olens, block_size, nb,
                             torch.from_numpy(olens).to(dev))
 
 
+def _decode_unindexed(container: bytes, codec: str, starts, clens, olens,
+                      block_size: int, nb: int, knobs, dev) -> torch.Tensor:
+    """The blocks of a container without the chunk index (flag 2 clear)
+    -> (nb, block_size) u8 on `dev`, as tpuzip decodes them (its
+    decompress, runner.py:1186-1299): each payload zero-filled to the
+    codec's bound, the fields at its head read from there, and the stream
+    decoded with no index by ari_decode.cu or bin_decode.cu."""
+    head = {"bwt": 4, "bwtdc": 8}.get(codec, 0)
+    cap = _block_cap(codec, 0, block_size)
+    # the rows cut one zero column past the longest payload: past it the
+    # decoders read the row's last byte, which is 0 in tpuzip's rows too
+    width = min(cap, max(int(clens.max(initial=0)) + 1, head + 1))
+    rows = np.zeros((nb, width), np.uint8)
+    for i in range(nb):
+        n = int(clens[i])
+        rows[i, :n] = np.frombuffer(container, np.uint8, n, int(starts[i]))
+    fields = rows[:, :head].copy().view("<i4")   # origin (and dc_len)
+    streams = torch.from_numpy(np.ascontiguousarray(rows[:, head:])).to(dev)
+    lens = torch.from_numpy(olens.astype(np.int32)).to(dev)
+    if codec in BIN_CODECS:
+        bits, rate = knobs
+        return bin_apm.decode_batch(streams, lens, block_size, bits, rate,
+                                    codec == "apm")
+    # tpuzip decodes ari, bwt and bwtdc at the default knobs whatever
+    # flag 4 says (jari.decode_batch / jari.decode take no knobs there):
+    # its behaviour, mirrored
+    if codec == "ari":
+        return range_decoder.decode_batch(streams, lens, block_size)
+    origins = torch.from_numpy(fields[:, 0].copy()).to(dev)
+    if codec == "bwt":
+        syms = range_decoder.decode_batch(streams, lens, block_size)
+        return bwt.decode_batch(mtf_scan.mtf_batch(syms, lens, decode=True),
+                                origins, lens)
+    width_dc = dc.encode_cap(block_size)
+    dlens_np = fields[:, 1].astype(np.int64)
+    bad = np.nonzero((dlens_np < 0) | (dlens_np > width_dc))[0]
+    if bad.size:
+        raise CorruptStreamError(bad)
+    dlens = torch.from_numpy(dlens_np.astype(np.int32)).to(dev)
+    dstreams = range_decoder.decode_batch(streams, dlens, width_dc)
+    L, _, err = dc.decode_batch(dstreams, dlens, block_size)
+    bad = np.nonzero(err.cpu().numpy())[0]
+    if bad.size:
+        raise CorruptStreamError(bad)
+    return bwt.decode_batch(L, origins, lens)
+
+
 def decompress(container: bytes, device="cuda") -> bytes:
     """Decode a tpz container of a ported codec on `device`; checks the
     per-block and corpus Adler-32 as tpuzip does."""
@@ -444,9 +497,12 @@ def decompress(container: bytes, device="cuda") -> bytes:
                     0, block_size)
     starts = off + np.concatenate([[0], np.cumsum(clens)[:-1]]) if nb \
         else np.zeros(0, np.int64)
-    if codec == "bwt" and flags & 8:
+    if codec == "bwt" and flags & 8:   # whatever flag 2 says, as tpuzip
         out = _decode_segmented(container, starts, clens, olens, block_size,
                                 nb, inc, thr, dev)
+    elif not flags & 2:
+        out = _decode_unindexed(container, codec, starts, clens, olens,
+                                block_size, nb, (inc, thr), dev)
     elif codec in BIN_CODECS:
         out = _decode_bin(container, starts, clens, olens, block_size, nb,
                           inc, thr, codec == "apm", dev)

@@ -155,36 +155,48 @@ def bin_encode_indexed_plain(blocks: torch.Tensor, lengths: torch.Tensor,
     return out[:, :cap].contiguous(), (pos + 4).to(torch.int32), deltas
 
 
-def bin_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
+def bin_decode_indexed_plain(streams: torch.Tensor,
+                             deltas: torch.Tensor | None,
                              nbits: torch.Tensor, model_bits=12, rate=5,
-                             use_apm=False) -> torch.Tensor:
+                             use_apm=False,
+                             nc: int | None = None) -> torch.Tensor:
     """Lane-vectorised replica of ``_bin_decode_step``.  streams (B, CAP)
     u8, deltas (B, NC) i32, nbits (B,) i32 -> (B, NC*CHUNK/8) u8 bytes,
-    bits 0 past each row's nbits.  The knobs are ints or (B,) tensors."""
+    bits 0 past each row's nbits.  The knobs are ints or (B,) tensors.
+    deltas=None decodes `nc` chunks without the index: the read position
+    runs on from 4 and a byte at or past the row width reads as the row's
+    last byte (tpuzip.codecs.bin_apm.decode_bits clips its index to the
+    row); with the index such a byte reads as 0."""
     b, cap = streams.shape
-    nc = deltas.shape[1]
+    indexed = deltas is not None
+    nc = deltas.shape[1] if indexed else nc
     dev = streams.device
     nb = nbits.to(torch.int64).clamp(0, nc * CHUNK)
     steps = min(nc * CHUNK, -(-int(nb.max()) // CHUNK) * CHUNK) if b else 0
     bits = torch.zeros((b, nc * CHUNK), dtype=torch.bool, device=dev)
     active_at = torch.arange(steps, device=dev) < nb[:, None]
-    # a byte at or past the row width reads as 0: clamp into 4 zero columns
-    padded = torch.cat([streams, streams.new_zeros((b, 4))], 1).to(
-        torch.int64)
-    starts = chunk_starts(deltas)
+    if indexed:
+        # a byte at or past the row width reads as 0: 4 zero columns
+        padded = torch.cat([streams, streams.new_zeros((b, 4))], 1)
+        last = cap
+        starts = chunk_starts(deltas)
+    else:
+        padded, last = streams, cap - 1
+    padded = padded.to(torch.int64)
     k4 = torch.arange(4, device=dev)
     shifts = 24 - 8 * k4
 
     def word(at):   # stream bytes at .. at+3, big-endian
-        return (torch.gather(padded, 1, (at[:, None] + k4).clamp(max=cap))
+        return (torch.gather(padded, 1, (at[:, None] + k4).clamp(max=last))
                 << shifts).sum(1)
 
     m = _Model(b, model_bits, rate, use_apm, dev)
     code = word(torch.zeros(b, dtype=torch.int64, device=dev))
+    pos = torch.full((b,), 4, dtype=torch.int64, device=dev)
     low = torch.zeros(b, dtype=torch.int64, device=dev)
     rng = torch.full((b,), MASK, dtype=torch.int64, device=dev)
     for t in range(steps):
-        if t % CHUNK == 0:   # rebase on the chunk index
+        if indexed and t % CHUNK == 0:   # rebase on the chunk index
             pos = starts[:, t // CHUNK]
         active = active_at[:, t]
         split = m.split()
@@ -288,18 +300,31 @@ def bin_decode_indexed(streams: torch.Tensor, deltas: torch.Tensor,
     if not _check(streams, deltas, nbits):
         return bin_decode_indexed_plain(streams, deltas, nbits, model_bits,
                                         rate, use_apm)
-    nc = deltas.shape[1]
+    out = launch_decode(streams, deltas, nbits, deltas.shape[1], model_bits,
+                        rate, use_apm)
+    if out.numel():
+        bin_decode_indexed.launches += 1
+    return out
+
+
+def launch_decode(streams, deltas, nbits, nc: int, model_bits: int,
+                  rate: int, use_apm: bool) -> torch.Tensor:
+    """csrc/bin_decode.cu on the current stream (no synchronisation) into a
+    new (B, nc*CHUNK/8) u8 tensor, with the chunk index or, deltas=None,
+    without it.  Launches nothing for an empty output.  The callers count
+    the launches."""
+    b, cap = streams.shape
     out = torch.empty((b, nc * CHUNK // 8), dtype=torch.uint8,
                       device=streams.device)
-    if b == 0 or nc == 0:
-        return out.zero_()
+    if out.numel() == 0:
+        return out
     fn = _lib("bin_decode")
     with torch.cuda.device(streams.device):
-        err = fn(streams.data_ptr(), deltas.data_ptr(), nbits.data_ptr(), b,
-                 cap, nc, out.data_ptr(), model_bits, rate, int(use_apm),
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(streams.data_ptr(),
+                 None if deltas is None else deltas.data_ptr(),
+                 nbits.data_ptr(), b, cap, nc, out.data_ptr(), model_bits,
+                 rate, int(use_apm), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "bin_decode")
-    bin_decode_indexed.launches += 1
     return out
 
 

@@ -202,27 +202,41 @@ def plain_steps(lens: torch.Tensor, n: int) -> int:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _plain_decode(streams: torch.Tensor, deltas: torch.Tensor,
-                  lengths: torch.Tensor, model, step) -> torch.Tensor:
-    """The coder loop of both plain decoders: the rebase on the chunk
-    index, the two divisions and the byte pulls.  `model` is the state
-    (table, total) before the first step; ``step(model, v, active)``
-    returns (sym, C[sym-1], C[sym], model after the update)."""
+def _plain_decode(streams: torch.Tensor, deltas: torch.Tensor | None,
+                  lengths: torch.Tensor, model, step,
+                  nc: int | None = None) -> torch.Tensor:
+    """The coder loop of the plain decoders: the rebase on the chunk index,
+    the two divisions and the byte pulls.  `model` is the state (table,
+    total) before the first step; ``step(model, v, active)`` returns (sym,
+    C[sym-1], C[sym], model after the update).  deltas=None decodes
+    without the index, `nc` chunks of symbols: the read position runs on
+    from 4, and a byte at or past the row width reads as the row's last
+    byte (tpuzip.codecs.ari.decode clips its index to the row); with the
+    index such a byte reads as 0."""
     b, cap = streams.shape
-    nc = deltas.shape[1]
+    indexed = deltas is not None
+    nc = deltas.shape[1] if indexed else nc
     dev = streams.device
     lens = lengths.to(torch.int64).clamp(0, nc * CHUNK_STEPS)
     out = torch.zeros((b, nc * CHUNK_STEPS), dtype=torch.uint8, device=dev)
-    # a byte at or past the row width reads as 0: clamp into 4 zero columns
-    padded = torch.cat([streams, streams.new_zeros((b, 4))], 1).to(torch.int64)
-    starts = chunk_starts(deltas)
+    if indexed:
+        # a byte at or past the row width reads as 0: 4 zero columns
+        padded = torch.cat([streams, streams.new_zeros((b, 4))], 1)
+        last = cap
+    else:
+        padded, last = streams, cap - 1
+    padded = padded.to(torch.int64)
     rows = torch.arange(b, device=dev)
-    code = ((padded[:, 0] << 24) | (padded[:, 1] << 16)
-            | (padded[:, 2] << 8) | padded[:, 3])
+    code = torch.zeros(b, dtype=torch.int64, device=dev)
+    for k in range(4):
+        code = (code << 8) | padded[:, min(k, last)]
+    pos = torch.full((b,), 4, dtype=torch.int64, device=dev)
+    if indexed:
+        starts = chunk_starts(deltas)
     low = torch.zeros(b, dtype=torch.int64, device=dev)
     rng = torch.full((b,), MASK, dtype=torch.int64, device=dev)
     for t in range(plain_steps(lens, nc * CHUNK_STEPS)):
-        if t % CHUNK_STEPS == 0:   # rebase on the chunk index
+        if indexed and t % CHUNK_STEPS == 0:   # rebase on the chunk index
             pos = starts[:, t // CHUNK_STEPS]
         active = lens > t
         tot = model[1]
@@ -233,7 +247,7 @@ def _plain_decode(streams: torch.Tensor, deltas: torch.Tensor,
         rng2 = r * (hi - lo)
         for _ in range(4):
             low2, rng2, pull, _top = renorm_round(low2, rng2, active)
-            byte = padded[rows, pos.clamp(max=cap)]
+            byte = padded[rows, pos.clamp(max=last)]
             code = torch.where(pull, ((code << 8) | byte) & MASK, code)
             pos = pos + pull
         low = torch.where(active, low2, low)
@@ -242,13 +256,10 @@ def _plain_decode(streams: torch.Tensor, deltas: torch.Tensor,
     return out
 
 
-def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
-                             lengths: torch.Tensor, increment: int = 8,
-                             threshold: int = 1 << 13) -> torch.Tensor:
-    """Lane-vectorised replica of tpuzip's ``_decode_step_cum`` +
-    ``_apply_halving_gated`` (the v2 kernel; v3 computes the same function
-    on a packed table).  streams (B, CAP) u8 zero-padded, deltas (B, NC)
-    i32, lengths (B,) -> (B, NC*64) u8 symbols, 0 past each length."""
+def _cum_step(increment: int, threshold: int):
+    """The step of the plain decoder on cumulative state: tpuzip's
+    ``_decode_step_cum`` + ``_apply_halving_gated`` (the v2 kernel; v3
+    computes the same function on a packed table)."""
 
     def step(model, v, active):
         cum, tot = model
@@ -258,8 +269,30 @@ def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
         return sym, lo, hi, model_update(cum, tot, sym, active, increment,
                                          threshold)
 
+    return step
+
+
+def ari_decode_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
+                             lengths: torch.Tensor, increment: int = 8,
+                             threshold: int = 1 << 13) -> torch.Tensor:
+    """Lane-vectorised replica of tpuzip's chunk-indexed lane decoder
+    (_cum_step).  streams (B, CAP) u8 zero-padded, deltas (B, NC) i32,
+    lengths (B,) -> (B, NC*64) u8 symbols, 0 past each length."""
     return _plain_decode(streams, deltas, lengths,
-                         model_init(streams.shape[0], streams.device), step)
+                         model_init(streams.shape[0], streams.device),
+                         _cum_step(increment, threshold))
+
+
+def decode_batch_plain(comp: torch.Tensor, lengths: torch.Tensor, out_n: int,
+                       increment: int = 8,
+                       threshold: int = 1 << 13) -> torch.Tensor:
+    """Plain version of decode_batch: the decoder of _cum_step with no
+    chunk index.  comp (B, CAP) u8, lengths (B,) -> (B, out_n) u8."""
+    nc = -(-out_n // CHUNK_STEPS)
+    out = _plain_decode(comp, None, lengths,
+                        model_init(comp.shape[0], comp.device),
+                        _cum_step(increment, threshold), nc)
+    return out[:, :out_n].contiguous()
 
 
 def ari_decode_dot_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
@@ -329,24 +362,26 @@ def _check(name: str, streams, deltas, lengths, increment: int,
 
 
 def _launch(name: str, streams, deltas, lengths, increment: int,
-            threshold: int) -> torch.Tensor:
+            threshold: int, nc: int | None = None) -> torch.Tensor:
     """csrc/<name>.cu on the current stream (no synchronisation) into a new
-    (B, NC*64) u8 tensor.  An empty batch launches nothing and gives an
-    empty tensor."""
-    if not (streams.is_contiguous() and deltas.is_contiguous()
-            and lengths.is_contiguous()):
+    (B, NC*64) u8 tensor; deltas=None (ari_decode only) decodes nc chunks
+    without the index.  An empty batch launches nothing and gives an empty
+    tensor."""
+    if not all(t.is_contiguous() for t in (streams, deltas, lengths)
+               if t is not None):
         raise ValueError(f"{name} takes contiguous tensors")
     b, cap = streams.shape
-    nc = deltas.shape[1]
+    nc = deltas.shape[1] if deltas is not None else nc
     out = torch.empty((b, nc * CHUNK_STEPS), dtype=torch.uint8,
                       device=streams.device)
     if out.numel() == 0:
         return out
     fn = _lib(name)
     with torch.cuda.device(streams.device):
-        err = fn(streams.data_ptr(), deltas.data_ptr(), lengths.data_ptr(),
-                 b, cap, nc, out.data_ptr(), increment, threshold,
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(streams.data_ptr(),
+                 None if deltas is None else deltas.data_ptr(),
+                 lengths.data_ptr(), b, cap, nc, out.data_ptr(), increment,
+                 threshold, torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     return out
 
@@ -405,3 +440,41 @@ def ari_decode_dot_indexed(streams: torch.Tensor, deltas: torch.Tensor,
 
 
 ari_decode_dot_indexed.launches = 0
+
+
+def decode_batch(comp: torch.Tensor, lengths: torch.Tensor, out_n: int,
+                 increment: int = 8,
+                 threshold: int = 1 << 13) -> torch.Tensor:
+    """ari decode without the chunk index, tpuzip.codecs.ari.decode_batch:
+    comp (B, CAP) u8 streams, CAP >= 1, lengths (B,) i32 symbols -> (B,
+    out_n) u8, 0 past each length.  The read position runs on from byte 4,
+    and a byte at or past CAP reads as the row's last byte, as tpuzip
+    reads.
+
+    A CPU tensor runs decode_batch_plain; a CUDA tensor launches
+    csrc/ari_decode.cu in its mode without the index, on the current
+    stream (no synchronisation)."""
+    check_knobs(increment, threshold)
+    if comp.dtype != torch.uint8 or lengths.dtype != torch.int32:
+        raise TypeError("decode_batch takes u8 streams and i32 lengths")
+    if comp.dim() != 2 or lengths.shape != comp.shape[:1]:
+        raise ValueError(f"shape mismatch: comp {tuple(comp.shape)}, "
+                         f"lengths {tuple(lengths.shape)}")
+    if comp.shape[1] < 1 or out_n < 0:
+        raise ValueError(f"decode_batch needs rows of at least 1 byte and "
+                         f"out_n >= 0 (comp {tuple(comp.shape)}, out_n "
+                         f"{out_n})")
+    if comp.device != lengths.device:
+        raise ValueError("comp and lengths must share a device")
+    if comp.device.type == "cpu":
+        return decode_batch_plain(comp, lengths, out_n, increment, threshold)
+    if comp.device.type != "cuda":
+        raise ValueError(f"no decode_batch for device {comp.device}")
+    out = _launch("ari_decode", comp, None, lengths, increment, threshold,
+                  -(-out_n // CHUNK_STEPS))
+    if out.numel():
+        decode_batch.launches += 1
+    return out[:, :out_n].contiguous()
+
+
+decode_batch.launches = 0
