@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --ab DIR   # csrc/ari_decode.cu against DIR's
+    python3 chip_smoke.py --ab DIR   # csrc/ari_encode.cu, ari_decode.cu and
+                                     # bin_decode.cu against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -25,8 +26,9 @@ line each:
 3. kernels  each kernel against its plain PyTorch version on the same
             CUDA tensors (128 blocks x 2048 symbols of skewed, random,
             constant, ragged and empty blocks), exact to the byte: ari at
-            the default knobs, at threshold=512 and at (16, 40000), past
-            the 2^15 bound of tpuzip's packed kernels, both decoders on
+            the default knobs, at threshold=512, at (16, 40000), past
+            the 2^15 bound of tpuzip's packed kernels, and at increment 0
+            (a model that never grows), both decoders on
             those rows and 4 garbage rows with a random chunk index (the
             dot decoder also equal to ari_decode.cu), ari_decode.cu's
             no-index mode at the default knobs; MTF encode and
@@ -34,7 +36,9 @@ line each:
             row with a clobbered header and one with a flipped varint
             continuation bit; bin and apm encode and decode at the knobs
             (12, 5), (10, 4) and (11, 5) (one plain run holds all six,
-            a knob pair a row); times side by side.
+            a knob pair a row), the decoder also on 4 garbage rows with
+            a random chunk index and, through bin_apm.decode_batch,
+            without the index; times side by side.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -126,7 +130,7 @@ from tpuzip_torch.oracle import bwt as obwt
 from tpuzip_torch.oracle import dc as odc
 
 SEED = 20261016
-KNOBS = ((8, 1 << 13), (8, 512), (16, 40000))   # (increment, threshold)
+KNOBS = ((8, 1 << 13), (8, 512), (16, 40000), (0, 1 << 13))  # (inc, thr)
 BLOCK = 1 << 16
 CORPUS_BYTES = 64 << 20   # 1024 ari blocks: the JAX bench's headline shape
 BWT_BLOCK = 1 << 20       # the bwt codec's default block size
@@ -445,42 +449,68 @@ def knob_rows(pairs, b: int) -> dict:
 def bin_kernel_check(blocks, lens) -> dict:
     """bin and apm at each knob pair: encode and decode kernels against one
     plain run of each direction over all six settings (a knob pair a row),
-    exact; the round trip; times side by side."""
-    b = blocks.shape[0]
+    exact; the decoder on the blocks' streams and 4 garbage rows (random
+    bytes, a random chunk index, full bit counts), with the chunk index
+    and, through bin_apm.decode_batch, without it; the round trip; times
+    side by side."""
+    b, n_bytes = blocks.shape
     pairs = [(bits, rate, apm) for apm in (False, True)
              for bits, rate in BIN_KNOBS]
-    nbits = (8 * lens).to(torch.int32)
     encs = [bin_coder.bin_encode_indexed(blocks, lens, *p) for p in pairs]
-    decs = [bin_coder.bin_decode_indexed(e[0], e[2], nbits, *p)
-            for e, p in zip(encs, pairs)]
+    grng = np.random.default_rng(SEED + 3)
+    garbage = torch.from_numpy(grng.integers(
+        0, 256, (4, encs[0][0].shape[1]), dtype=np.uint8)).cuda()
+    gdeltas = torch.from_numpy(grng.integers(
+        0, bin_coder.MAX_DELTA + 1, (4, encs[0][2].shape[1]),
+        dtype=np.int32)).cuda()
+    glens = torch.cat([lens, torch.full((4,), n_bytes, dtype=torch.int32,
+                                        device="cuda")])
+    gbits = (8 * glens).to(torch.int32)
+    rows = [(torch.cat([e[0], garbage]), torch.cat([e[2], gdeltas]))
+            for e in encs]
+    decs = [bin_coder.bin_decode_indexed(s, d, gbits, *p)
+            for (s, d), p in zip(rows, pairs)]
+    flats = [bin_apm.decode_batch(s, glens, n_bytes, *p)
+             for (s, _), p in zip(rows, pairs)]
     knobs = knob_rows(pairs, b)
+    gknobs = knob_rows(pairs, b + 4)
     n = len(pairs)
     enc_ref, enc_plain_ms = timed(lambda: bin_coder.bin_encode_indexed_plain(
         blocks.repeat(n, 1), lens.repeat(n), **knobs))
     dec_ref, dec_plain_ms = timed(lambda: bin_coder.bin_decode_indexed_plain(
-        torch.cat([e[0] for e in encs]), torch.cat([e[2] for e in encs]),
-        nbits.repeat(n), **knobs))
+        torch.cat([r[0] for r in rows]), torch.cat([r[1] for r in rows]),
+        gbits.repeat(n), **gknobs))
+    flat_ref, flat_plain_ms = timed(
+        lambda: bin_coder.bin_decode_indexed_plain(
+            torch.cat([r[0] for r in rows]), None, gbits.repeat(n),
+            **gknobs, nc=encs[0][2].shape[1])[:, :n_bytes])
     enc_err = max(max_err(x, y[j * b : (j + 1) * b])
                   for j, e in enumerate(encs) for x, y in zip(e, enc_ref))
-    dec_err = max(max_err(d, dec_ref[j * b : (j + 1) * b])
+    g = b + 4
+    dec_err = max(max_err(d, dec_ref[j * g : (j + 1) * g])
                   for j, d in enumerate(decs))
-    n_bytes = blocks.shape[1]
+    flat_err = max(max_err(d, flat_ref[j * g : (j + 1) * g])
+                   for j, d in enumerate(flats))
     keep = torch.arange(n_bytes, device="cuda")[None, :] < lens[:, None]
-    round_trip = all(torch.equal(torch.where(keep, d[:, : blocks.shape[1]],
-                                             0), blocks) for d in decs)
+    round_trip = all(torch.equal(torch.where(keep, d[:b, :n_bytes], 0),
+                                 blocks) for d in decs + flats)
     times = {f"{'apm' if p[2] else 'bin'}_{p[0]}_{p[1]}": {
         "encode_ms": cuda_ms(lambda: bin_coder.bin_encode_indexed(
             blocks, lens, *p), 5),
         "decode_ms": cuda_ms(lambda: bin_coder.bin_decode_indexed(
-            e[0], e[2], nbits, *p), 5)} for e, p in zip(encs, pairs)}
-    emit("kernels", kernel="bin", blocks=b, bytes=blocks.shape[1],
+            r[0], r[1], gbits, *p), 5),
+        "unindexed_decode_ms": cuda_ms(lambda: bin_apm.decode_batch(
+            r[0], glens, n_bytes, *p), 5)} for r, p in zip(rows, pairs)}
+    emit("kernels", kernel="bin", blocks=b, garbage_rows=4, bytes=n_bytes,
          knobs=pairs, encode_max_abs_err=enc_err, decode_max_abs_err=dec_err,
-         round_trip=round_trip, times=times,
-         encode_plain_ms_all_six=enc_plain_ms,
-         decode_plain_ms_all_six=dec_plain_ms)
-    if enc_err or dec_err or not round_trip:
+         unindexed_decode_max_abs_err=flat_err, round_trip=round_trip,
+         times=times, encode_plain_ms_all_six=enc_plain_ms,
+         decode_plain_ms_all_six=dec_plain_ms,
+         unindexed_decode_plain_ms_all_six=flat_plain_ms)
+    if enc_err or dec_err or flat_err or not round_trip:
         raise AssertionError("bin kernels and plain versions disagree")
-    return {"bin_encode": enc_err, "bin_decode": dec_err}
+    return {"bin_encode": enc_err, "bin_decode": dec_err,
+            "bin_decode_unindexed": flat_err}
 
 
 def payloads(blob: bytes, head: int):
@@ -1380,91 +1410,81 @@ def sass_functions(nvcc: str, lib: str) -> dict:
 
 
 def ab_inputs() -> dict:
-    """{path: (streams, deltas, lens)}: the one ari_decode_indexed launch of
-    the ari, bwt, bwt_big and bwtdc paths' decompress."""
+    """{kernel: {path: (args, kw)}}: the one launch of each A/B kernel on
+    the container paths, recorded through its wrapper: ari_encode_indexed
+    at the ari, bwt, bwt_big and bwtdc paths' compress, ari_decode_indexed
+    at their decompress; bin_decode_indexed at the bin and apm paths'
+    decompress, and bin_apm.decode_batch at the apm container's without
+    the chunk index."""
     data = text_corpus(CORPUS_BYTES, SEED)
-    out = {}
+    out = {"ari_encode": {}, "ari_decode": {}, "bin_decode": {}}
+
+    def keep(kernel, path, calls):
+        (args, kw, _), = calls
+        out[kernel][path] = (tuple(a.contiguous() if torch.is_tensor(a)
+                                   else a for a in args), kw)
+
     for path, codec, block, corpus in (
             ("ari", "ari", BLOCK, data), ("bwt", "bwt", BWT_BLOCK, data),
             ("bwt_big", "bwt", BIG_BLOCK, text_corpus(BIG_BLOCK, SEED)),
-            ("bwtdc", "bwtdc", BWT_BLOCK, data)):
-        blob = tpuzip_torch.compress(corpus, codec=codec, block_size=block)
-        with recorded(range_decoder, "ari_decode_indexed") as calls:
+            ("bwtdc", "bwtdc", BWT_BLOCK, data), ("bin", "bin", BLOCK, data),
+            ("apm", "apm", BLOCK, data)):
+        ari = codec != "bin" and codec != "apm"
+        with recorded(range_coder, "ari_encode_indexed") as enc:
+            blob = tpuzip_torch.compress(corpus, codec=codec,
+                                         block_size=block)
+        wrapper = ((range_decoder, "ari_decode_indexed") if ari
+                   else (bin_coder, "bin_decode_indexed"))
+        with recorded(*wrapper) as dec:
             if tpuzip_torch.decompress(blob) != corpus:
                 raise AssertionError(f"{path} did not round-trip")
-        (args, _, _), = calls
-        out[path] = tuple(a.contiguous() for a in args[:3])
+        if ari:
+            keep("ari_encode", path, enc)
+        keep(wrapper[1].replace("_indexed", ""), path, dec)
+        if codec == "apm":
+            with recorded(bin_apm, "decode_batch") as flat:
+                if tpuzip_torch.decompress(strip_index(blob)) != corpus:
+                    raise AssertionError("apm without the index did not "
+                                         "round-trip")
+            keep("bin_decode", "apm_unindexed", flat)
     return out
 
 
-def ab_child(dirs: list) -> int:
-    """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
-    csrc/ari_decode.cu against the ari_decode.cu in each DIR (beside the
-    ari_model.cuh it includes), for instance a parent commit's:
+AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode")
+# sources that share a header with an A/B kernel and are not redesigned:
+# their SASS must stay the DIR's
+AB_SHARERS = ("bin_encode", "ari_decode_dot")
 
-        mkdir -p _parent && for f in ari_decode.cu ari_model.cuh \\
-            bin_decode.cu bin_coder.cuh; do git show \\
-            REV:tpuzip_torch/csrc/$f > _parent/$f; done
 
-    Builds them all at once with their registers and spills, takes the
-    decode inputs of the ari, bwt, bwt_big and bwtdc paths, checks that
-    every build gives the same symbols there, and times each earlier kernel
-    and the checkout's in turns (old, new, new, old; each the mean of 3
-    launches), with ns a step (the longest row's symbols).  Beside them:
-    the no-index mode at the ari shape, one bwt row alone against all 64,
-    and, where DIR holds bin_decode.cu, whether the indexed bin_decode
-    kernels' SASS equals the checkout's.  One JSON line a shape, then one
-    line of the whole."""
-    if not dirs:
-        raise SystemExit("chip_smoke.py --ab needs a directory")
-    smi = nvidia_smi()
-    nvcc = _build.find_nvcc()
-    jobs = {"new": _build.CSRC / "ari_decode.cu",
-            "bin_new": _build.CSRC / "bin_decode.cu"}
-    for i, d in enumerate(dirs):
-        jobs[f"old{i}"] = f"{d}/ari_decode.cu"
-        if os.path.exists(f"{d}/bin_decode.cu"):
-            jobs[f"bin_old{i}"] = f"{d}/bin_decode.cu"
-    res = {"nvidia_smi": smi, "old": {f"old{i}": d for i, d in
-                                      enumerate(dirs)}}
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = {name: subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             f"{tmp}/{name}.so", str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for name, src in jobs.items()}
-        try:
-            res["ptxas"] = ptxas_report(procs)
-        finally:
-            for proc in procs.values():
-                proc.kill()
-                proc.wait()
-        new_bin = sass_functions(nvcc, f"{tmp}/bin_new.so")
-        same = {}
-        for name in jobs:
-            if name.startswith("bin_old"):
-                old_bin = sass_functions(nvcc, f"{tmp}/{name}.so")
-                # the indexed kernels: template <bool APM> before, <APM,
-                # INDEXED = true> now
-                same[name] = {
-                    "apm" if apm else "bin": [v for k, v in old_bin.items()
-                                              if f"ILb{apm}EE" in k]
-                    == [v for k, v in new_bin.items()
-                        if f"ILb{apm}ELb1EE" in k]
-                    for apm in (0, 1)}
-        res["bin_decode_indexed_sass_unchanged"] = same
-        fns = {}
-        for name in jobs:
-            if not name.startswith("bin"):
-                fn = ctypes.CDLL(f"{tmp}/{name}.so").tpz_ari_decode
-                vp, ci = ctypes.c_void_p, ctypes.c_int
-                fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp]
-                fn.restype = ci
-                fns[name] = fn
+def ab_launchers(fns: dict, kernel: str, args, kw) -> tuple:
+    """({build: a closure that launches that build once into new outputs
+    and returns them}, the work's steps: the longest row's symbols, or its
+    bits) for one recorded launch of `kernel`."""
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    if kernel == "ari_encode":
+        blocks, lens = args[:2]
+        knobs = (kw.get("increment", args[2] if len(args) > 2 else 8),
+                 kw.get("threshold", args[3] if len(args) > 3 else 1 << 13))
+        b, n = blocks.shape
+        cap, nc = range_coder.encode_cap(n), -(-n // range_decoder.CHUNK_STEPS)
 
-        def launcher(fn, streams, deltas, lens, nc):
-            """A closure that launches fn once into a new (B, nc*64)
-            tensor, at the default knobs."""
+        def make(fn):
+            def run():
+                out = (torch.zeros((b, cap), dtype=torch.uint8, device="cuda"),
+                       torch.empty(b, dtype=torch.int32, device="cuda"),
+                       torch.empty((b, nc), dtype=torch.int32, device="cuda"))
+                _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                                out[0].data_ptr(), cap, out[1].data_ptr(),
+                                out[2].data_ptr(), nc, *knobs, stream()),
+                             "tpz_ari_encode")
+                return out
+            return run
+        steps = int(lens.max())
+    elif kernel == "ari_decode":
+        streams, deltas, lens = args[:3]
+        nc = kw.get("nc") or deltas.shape[1]
+
+        def make(fn):
             def run():
                 out = torch.empty((streams.shape[0],
                                    nc * range_decoder.CHUNK_STEPS),
@@ -1473,50 +1493,148 @@ def ab_child(dirs: list) -> int:
                     streams.data_ptr(),
                     None if deltas is None else deltas.data_ptr(),
                     lens.data_ptr(), streams.shape[0], streams.shape[1], nc,
-                    out.data_ptr(), *KNOBS[0],
-                    torch.cuda.current_stream().cuda_stream),
-                    "tpz_ari_decode")
-                return out
+                    out.data_ptr(), *KNOBS[0], stream()), "tpz_ari_decode")
+                return (out,)
             return run
-
-        shapes = {}
-        for path, (streams, deltas, lens) in ab_inputs().items():
+        steps = int(lens.max())
+    else:
+        if not torch.is_tensor(args[2]):
+            # bin_apm.decode_batch(comp, lengths, out_n, bits, rate, apm)
+            streams, lens, out_n = args[:3]
+            deltas, nc = None, -(-8 * out_n // bin_coder.CHUNK)
+            nbits = (lens.to(torch.int64).clamp(0, out_n) * 8).to(torch.int32)
+        else:
+            streams, deltas, nbits = args[:3]
             nc = deltas.shape[1]
-            runs = {k: launcher(fn, streams, deltas, lens, nc)
-                    for k, fn in fns.items()}
-            ref = runs["new"]()
-            equal = {k: torch.equal(run(), ref) for k, run in runs.items()}
-            if not all(equal.values()):
-                raise AssertionError(f"{path}: outputs differ {equal}")
-            steps = int(lens.max())
-            row = {"rows": list(streams.shape), "index": list(deltas.shape),
-                   "steps": steps, "outputs_equal": equal}
-            for k in runs:
-                if k == "new":
-                    continue
-                t = [cuda_ms(runs[j], 3) for j in (k, "new", "new", k)]
-                old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-                row[k] = {"old_ms": old_ms, "new_ms": new_ms,
-                          "new_over_old": new_ms / old_ms, "turns_ms": t,
-                          "ns_a_step": [old_ms * 1e6 / steps,
-                                        new_ms * 1e6 / steps]}
-            if path == "ari":
-                # the no-index mode on the same stream rows (a row's stream
-                # bytes do not depend on the index beside it)
-                plain = launcher(fns["new"], streams, None, lens, nc)
-                if not torch.equal(plain(), ref):
-                    raise AssertionError("the no-index mode differs")
-                row["unindexed_ms"] = cuda_ms(plain, 3)
-            if path == "bwt":
-                one = launcher(fns["new"], streams[:1].contiguous(),
-                               deltas[:1].contiguous(), lens[:1], nc)
-                row["one_row_ms"] = cuda_ms(one, 3)
-                row["all_rows_ms"] = cuda_ms(runs["new"], 3)
-            shapes[path] = row
-            print(json.dumps({"path": path, **row}), flush=True)
+        knobs = tuple(int(k) for k in args[3:6])
+
+        def make(fn):
+            def run():
+                out = torch.empty((streams.shape[0], nc * bin_coder.CHUNK // 8),
+                                  dtype=torch.uint8, device="cuda")
+                _build.check(fn(
+                    streams.data_ptr(),
+                    None if deltas is None else deltas.data_ptr(),
+                    nbits.data_ptr(), streams.shape[0], streams.shape[1], nc,
+                    out.data_ptr(), *knobs, stream()), "tpz_bin_decode")
+                return (out,)
+            return run
+        steps = int(nbits.max())
+    return {k: make(fn) for k, fn in fns.items()}, steps
+
+
+def ab_child(dirs: list) -> int:
+    """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
+    csrc/ari_encode.cu, ari_decode.cu and bin_decode.cu against the same
+    files in each DIR (beside the headers they include), for instance a
+    parent commit's:
+
+        mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
+            tpuzip_torch/csrc/); do git show REV:$f > _parent/${f##*/}; done
+
+    Builds them all at once with their registers and spills, takes each
+    kernel's launch on the container paths (ari_encode and ari_decode at
+    the ari, bwt, bwt_big and bwtdc paths, bin_decode at the bin and apm
+    paths and apm without the chunk index), checks that every build gives
+    the same outputs there (streams, lengths and chunk index; symbols;
+    bits), and times each DIR's kernel and the checkout's in turns (old,
+    new, new, old; each the mean of 3 launches), with ns a step (the
+    longest row's symbols or bits).  Beside them: ari_decode's no-index
+    mode at the ari shape, one row alone against all the rows at the bwt
+    and apm shapes, and whether the SASS of each source that shares a header and
+    is not redesigned (bin_encode.cu: bin_coder.cuh; ari_decode_dot.cu:
+    ari_model.cuh) equals the DIR's build of it.  One JSON line a kernel
+    and shape, then one line of the whole; exits 1 if any outputs
+    differed."""
+    if not dirs:
+        raise SystemExit("chip_smoke.py --ab needs a directory")
+    smi = nvidia_smi()
+    nvcc = _build.find_nvcc()
+    jobs = {}
+    for kernel in AB_KERNELS + AB_SHARERS:
+        jobs[f"new:{kernel}"] = _build.CSRC / f"{kernel}.cu"
+        for i, d in enumerate(dirs):
+            if os.path.exists(f"{d}/{kernel}.cu"):
+                jobs[f"old{i}:{kernel}"] = f"{d}/{kernel}.cu"
+    res = {"nvidia_smi": smi, "old": {f"old{i}": d for i, d in
+                                      enumerate(dirs)}}
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    argtypes = {"ari_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, vp],
+                "ari_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp],
+                "bin_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, vp]}
+    differ = []
+    with tempfile.TemporaryDirectory() as tmp:
+        so = {name: f"{tmp}/{name.replace(':', '_')}.so" for name in jobs}
+        procs = {name: subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", so[name],
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for name, src in jobs.items()}
+        try:
+            res["ptxas"] = ptxas_report(procs)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+        # the kernels' SASS, whatever the unnamed namespace's mangled
+        # name (it hashes the source's path)
+        def sass(name):
+            return sorted(sass_functions(nvcc, so[name]).values())
+
+        res["sass_unchanged"] = {
+            name: sass(name) == sass("new:" + name.split(":")[1])
+            for name in jobs if not name.startswith("new")
+            and name.split(":")[1] in AB_SHARERS + ("ari_decode",)}
+        fns = {}
+        for name in jobs:
+            build, kernel = name.split(":")
+            if kernel in AB_KERNELS:
+                fn = getattr(ctypes.CDLL(so[name]), f"tpz_{kernel}")
+                fn.argtypes = argtypes[kernel]
+                fn.restype = ci
+                fns.setdefault(kernel, {})[build] = fn
+        shapes = {}
+        for kernel, paths in ab_inputs().items():
+            for path, (args, kw) in paths.items():
+                runs, steps = ab_launchers(fns[kernel], kernel, args, kw)
+                ref = runs["new"]()
+                equal = {k: all(torch.equal(x, y) for x, y in
+                                zip(run(), ref)) for k, run in runs.items()}
+                if not all(equal.values()):
+                    differ.append(f"{kernel} at {path}: {equal}")
+                row = {"rows": list(args[0].shape), "steps": steps,
+                       "outputs_equal": equal}
+                for k in runs:
+                    if k == "new":
+                        continue
+                    t = [cuda_ms(runs[j], 3) for j in (k, "new", "new", k)]
+                    old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+                    row[k] = {"old_ms": old_ms, "new_ms": new_ms,
+                              "new_over_old": new_ms / old_ms, "turns_ms": t,
+                              "ns_a_step": [old_ms * 1e6 / steps,
+                                            new_ms * 1e6 / steps]}
+                if kernel == "ari_decode" and path == "ari":
+                    # the no-index mode on the same stream rows (a row's
+                    # stream bytes do not depend on the index beside it)
+                    flat, _ = ab_launchers(
+                        fns[kernel], kernel, (args[0], None, *args[2:]),
+                        {"nc": args[1].shape[1]})
+                    if not torch.equal(flat["new"]()[0], ref[0]):
+                        differ.append("ari_decode's no-index mode")
+                    row["unindexed_ms"] = cuda_ms(flat["new"], 3)
+                if path in ("bwt", "apm"):
+                    one, _ = ab_launchers(
+                        {"new": fns[kernel]["new"]}, kernel,
+                        tuple(a[:1].contiguous() if torch.is_tensor(a)
+                              else a for a in args), kw)
+                    row["one_row_ms"] = cuda_ms(one["new"], 3)
+                    row["all_rows_ms"] = cuda_ms(runs["new"], 3)
+                shapes.setdefault(kernel, {})[path] = row
+                print(json.dumps({"kernel": kernel, "path": path, **row}),
+                      flush=True)
     res["shapes"] = shapes
+    res["outputs_differ"] = differ
     print(json.dumps(res))
-    return 0
+    return 1 if differ else 0
 
 
 def launched(counts: dict, name: str) -> int:

@@ -1,0 +1,310 @@
+// step_clocks.cu — clock64-stamped copies of two kernels' steps, as they
+// stood before their redesign: the ari encoder's (csrc/ari_encode.cu) and
+// the apm bit decoder's (csrc/bin_decode.cu, indexed); and the redesigned
+// encoder, built from its own source, stamped by warp.  One stream
+// each (one warp, one thread).  Each part of a step is stamped after its result
+// is ready (the stamp waits on it), and its cycles are summed over the
+// stream; STAMP=false runs the same copy with only the two stamps around
+// the whole loop, for the step's cycles as the kernel runs it.  The
+// outputs are the kernels' own, so tools/step_clocks.py holds them against
+// the real kernels.  Built and run by tools/step_clocks.py.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "../tpuzip_torch/csrc/ari_encode.cu"
+#include "../tpuzip_torch/csrc/bin_coder.cuh"
+
+namespace {
+
+// clock64 once `dep` is ready: the setp waits on it, the mov after it.
+__device__ __forceinline__ long long stamp(uint32_t dep) {
+  long long t;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.eq.u32 p, %1, 0x7fffffff;\n\t"
+      "mov.u64 %0, %%clock64;\n\t@p add.s64 %0, %0, 1;\n\t}"
+      : "=l"(t) : "r"(dep) : "memory");
+  return t;
+}
+
+template <bool STAMP>
+struct Clocks {
+  long long t, sum[8];
+  __device__ __forceinline__ void start(uint32_t dep) {
+    t = stamp(dep);
+    for (int i = 0; i < 8; ++i) sum[i] = 0;
+  }
+  __device__ __forceinline__ void lap(int part, uint32_t dep) {
+    if (!STAMP) return;
+    const long long now = stamp(dep);
+    sum[part] += now - t;
+    t = now;
+  }
+};
+
+// ari encode, parts: 0 symbol, 1 table reads, 2 division, 3 multiplies,
+// 4 renormalisation, 5 update, 6 chunk test and loop; 7 the whole loop.
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+ari_encode_clocks(const uint8_t* row, int len, uint8_t* out, int cap,
+                  int32_t* drow, int32_t* slen, long long* cycles,
+                  uint32_t inc, uint32_t threshold) {
+  using namespace ari;
+  const int lane = threadIdx.x;
+  uint32_t c[8];
+  init(c, lane);
+  uint32_t tot = 256, low = 0, rng = 0xffffffffu;
+  int pos = 0, chunk_pos = 0;
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  for (int t0g = 0; t0g < len; t0g += 128) {
+    uint32_t word = 0;
+    for (int q = 0; q < 4; ++q) {
+      const int i = t0g + 4 * lane + q;
+      if (i < len) word |= static_cast<uint32_t>(row[i]) << (8 * q);
+    }
+    const int steps = min(128, len - t0g);
+    for (int j = 0; j < steps; ++j) {
+      const int sym =
+          (__shfl_sync(FULL, word, j >> 2) >> (8 * (j & 3))) & 0xff;
+      k.lap(0, sym);
+      const uint32_t hi = cum_at(c, sym);
+      const uint32_t below = cum_at(c, max(sym - 1, 0));
+      const uint32_t lo = sym > 0 ? below : 0u;
+      k.lap(1, hi ^ lo);
+      const uint32_t r = rng / tot;
+      k.lap(2, r);
+      low += r * lo;
+      rng = r * (hi - lo);
+      k.lap(3, low ^ rng);
+      for (int q = 0; q < 4; ++q) {
+        if ((low ^ (low + rng)) >= TOP) {
+          if (rng >= BOT) break;
+          rng = (0u - low) & (BOT - 1);
+        }
+        if (lane == 0 && pos < cap) out[pos] = static_cast<uint8_t>(low >> 24);
+        ++pos;
+        low <<= 8;
+        rng <<= 8;
+      }
+      k.lap(4, low ^ rng);
+      tot = update(c, lane, sym, tot, inc, threshold);
+      k.lap(5, tot ^ c[0] ^ c[7]);
+      const int t = t0g + j;
+      if ((t + 1) % CHUNK_STEPS == 0 || t + 1 == len) {
+        if (lane == 0) drow[t / CHUNK_STEPS] = pos - chunk_pos;
+        chunk_pos = pos;
+      }
+      k.lap(6, static_cast<uint32_t>(chunk_pos));
+    }
+  }
+  const long long t1 = stamp(low ^ rng);
+  if (lane < 4 && pos + lane < cap)
+    out[pos + lane] = static_cast<uint8_t>(low >> (24 - 8 * lane));
+  if (lane == 0) {
+    *slen = pos + 4;
+    for (int i = 0; i < 7; ++i) cycles[i] = k.sum[i];
+    cycles[7] = t1 - t0;
+  }
+}
+
+// apm decode (indexed), parts: 0 byte loads, 1 split, 2 division,
+// 3 bit and coder update, 4 renormalisation, 5 model update, 6 bit packing
+// and loop; 7 the whole loop.
+template <bool STAMP>
+__global__ void __launch_bounds__(1)
+apm_decode_clocks(const uint8_t* row, const int32_t* drow, int cap, int len,
+                  uint8_t* orow, long long* cycles, int bits, int rate) {
+  using namespace bin;
+  __shared__ int cells[APM_SLOTS * THREADS];
+  auto byte_at = [&](int p) -> uint32_t { return p < cap ? row[p] : 0u; };
+  Model<true> m(bits, rate, cells);
+  const uint32_t denom = 1u << APM_BITS;
+  uint32_t low = 0, rng = 0xffffffffu;
+  uint32_t code = (byte_at(0) << 24) | (byte_at(1) << 16) |
+                  (byte_at(2) << 8) | byte_at(3);
+  int start = 4, pos = 4;
+  Clocks<STAMP> k;
+  k.start(code);
+  const long long t0 = k.t;
+  const int nbytes = (len + 7) / 8;
+  for (int i = 0; i < nbytes; ++i) {
+    if (i % CHUNK_BYTES == 0) {
+      pos = start;
+      start += drow[i / CHUNK_BYTES];
+    }
+    uint32_t byte = 0;
+    const int kbits = min(8, len - 8 * i);
+    for (int q = 0; q < kbits; ++q) {
+      uint32_t next = (byte_at(pos) << 24) | (byte_at(pos + 1) << 16) |
+                      (byte_at(pos + 2) << 8) | byte_at(pos + 3);
+      k.lap(0, next);
+      const uint32_t split = static_cast<uint32_t>(m.split());
+      k.lap(1, split);
+      const uint32_t r = rng >> APM_BITS;
+      const uint32_t v = min((code - low) / r, denom - 1);
+      k.lap(2, v);
+      const int bit = v >= split;
+      if (bit) low += r * split;
+      rng = r * (bit ? denom - split : split);
+      k.lap(3, low ^ rng);
+      for (int j = 0; j < 4; ++j) {
+        if ((low ^ (low + rng)) >= bin::TOP) {
+          if (rng >= bin::BOT) break;
+          rng = (0u - low) & (bin::BOT - 1);
+        }
+        code = (code << 8) | (next >> 24);
+        next <<= 8;
+        ++pos;
+        low <<= 8;
+        rng <<= 8;
+      }
+      k.lap(4, low ^ rng ^ code);
+      m.update(bit);
+      k.lap(5, static_cast<uint32_t>(m.p0));
+      byte |= static_cast<uint32_t>(bit) << (7 - q);
+      k.lap(6, byte);
+    }
+    orow[i] = static_cast<uint8_t>(byte);
+  }
+  const long long t1 = stamp(low ^ rng);
+  for (int i = 0; i < 7; ++i) cycles[i] = k.sum[i];
+  cycles[7] = t1 - t0;
+}
+
+// The redesigned encoder (csrc/ari_encode.cu's kernel, its helpers taken
+// from that source), stamped by warp: 0 the model warp's time in the
+// model, 1 its waits for an empty slot, 2 the coder warp's time in its
+// steps, 3 its waits for a full slot; 7 the coder warp's whole loop.
+// FINE also stamps the coder's step: 4 the quotient, 5 the products and
+// the correction, 6 the renormalisation (part 2 then keeps the rest).
+template <bool FINE>
+__global__ void __launch_bounds__(128)
+ari_encode_warps(const uint8_t* row, int len, uint8_t* out, int cap,
+                 int32_t* drow, int32_t* slen, long long* cycles,
+                 uint32_t inc, uint32_t threshold) {
+  __shared__ uint4 plan[2][ari::CHUNK_STEPS];
+  __shared__ __align__(16) uint32_t tab[256], hist[256];
+  const int lane = threadIdx.x & 31;
+  const int nchunks = (len + ari::CHUNK_STEPS - 1) / ari::CHUNK_STEPS;
+  Clocks<true> k;
+  k.start(0);
+  if (threadIdx.x < 32) {
+    auto pair_at = [&](int q) -> uint32_t {
+      const int i = q * ari::CHUNK_STEPS + 2 * lane;
+      return (i < len ? row[i] : 0u) | (i + 1 < len ? row[i + 1] << 8 : 0u);
+    };
+    uint32_t c[8];
+    ari::init(c, lane);
+    uint32_t tot = 256, next = pair_at(0);
+    for (int q = 0; q < nchunks; ++q) {
+      const uint32_t pair = next;
+      if (q + 1 < nchunks) next = pair_at(q + 1);
+      k.lap(0, pair);
+      if (q >= 2) bar_sync(3 + (q & 1));
+      k.lap(1, 0);
+      model(c, tot, pair, lane,
+            min(ari::CHUNK_STEPS, len - q * ari::CHUNK_STEPS), inc,
+            threshold, plan[q & 1], tab, hist);
+      k.lap(0, tot ^ c[0]);
+      bar_arrive(1 + (q & 1));
+    }
+    if (lane == 0)
+      for (int i = 0; i < 2; ++i) cycles[i] = k.sum[i];
+    return;
+  }
+  if (threadIdx.x < 64 || threadIdx.x >= 96) return;
+  const long long t0 = k.t;
+  uint32_t low = 0, rng = 0xffffffffu;
+  int pos = 0, chunk_pos = 0;
+  for (int q = 0; q < nchunks; ++q) {
+    const uint4* ring = plan[q & 1];
+    const int n = min(ari::CHUNK_STEPS, len - q * ari::CHUNK_STEPS);
+    k.lap(2, 0);
+    bar_sync(1 + (q & 1));
+    k.lap(3, 0);
+    uint4 s = ring[0];
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      const uint4 next = ring[min(j + 1, ari::CHUNK_STEPS - 1)];
+      if (FINE) k.lap(2, s.w);
+      const uint32_t r = __umulhi(rng, s.w);
+      if (FINE) k.lap(4, r);
+      const bool short_by_one = rng + r * s.z >= 0u - s.z;
+      low += r * s.x;
+      rng = r * s.y;
+      if (short_by_one) {
+        low += s.x;
+        rng += s.y;
+      }
+      if (FINE) k.lap(5, low ^ rng);
+      if ((low ^ (low + rng)) < ari::TOP || rng < ari::BOT) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if ((low ^ (low + rng)) >= ari::TOP) {
+            if (rng >= ari::BOT) break;
+            rng = (0u - low) & (ari::BOT - 1);
+          }
+          if (lane == 0 && pos < cap)
+            out[pos] = static_cast<uint8_t>(low >> 24);
+          ++pos;
+          low <<= 8;
+          rng <<= 8;
+        }
+      }
+      if (FINE) k.lap(6, low ^ rng);
+      s = next;
+    }
+    k.lap(2, low ^ rng);
+    if (q + 2 < nchunks) bar_arrive(3 + (q & 1));
+    if (lane == 0) drow[q] = pos - chunk_pos;
+    chunk_pos = pos;
+  }
+  const long long t1 = stamp(low ^ rng);
+  if (lane < 4 && pos + lane < cap)
+    out[pos + lane] = static_cast<uint8_t>(low >> (24 - 8 * lane));
+  if (lane == 0) {
+    *slen = pos + 4;
+    for (int i = 2; i < 7; ++i) cycles[i] = k.sum[i];
+    cycles[7] = t1 - t0;
+  }
+}
+
+}  // namespace
+
+extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
+                                     int cap, void* drow, void* slen,
+                                     void* cycles, int inc, int thr,
+                                     int stamped) {
+  auto* r = static_cast<const uint8_t*>(row);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* d = static_cast<int32_t*>(drow);
+  auto* s = static_cast<int32_t*>(slen);
+  auto* c = static_cast<long long*>(cycles);
+  if (stamped == 3)
+    ari_encode_warps<true><<<1, 128>>>(r, len, o, cap, d, s, c, inc, thr);
+  else if (stamped == 2)
+    ari_encode_warps<false><<<1, 128>>>(r, len, o, cap, d, s, c, inc, thr);
+  else if (stamped)
+    ari_encode_clocks<true><<<1, 32>>>(r, len, o, cap, d, s, c, inc, thr);
+  else
+    ari_encode_clocks<false><<<1, 32>>>(r, len, o, cap, d, s, c, inc, thr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpz_apm_decode_clocks(const void* row, const void* drow,
+                                     int cap, int len, void* out,
+                                     void* cycles, int bits, int rate,
+                                     int stamped) {
+  auto* r = static_cast<const uint8_t*>(row);
+  auto* d = static_cast<const int32_t*>(drow);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* c = static_cast<long long*>(cycles);
+  if (stamped)
+    apm_decode_clocks<true><<<1, 1>>>(r, d, cap, len, o, c, bits, rate);
+  else
+    apm_decode_clocks<false><<<1, 1>>>(r, d, cap, len, o, c, bits, rate);
+  return static_cast<int>(cudaGetLastError());
+}

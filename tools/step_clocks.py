@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""Cycles a step, by part, of the ari encoder's and the apm bit decoder's
+steps as they stood before their redesign, and of the redesigned
+encoder by warp (tools/step_clocks.cu), on one real stream each, on one
+GPU:
+
+    python3 tools/step_clocks.py        # from the root of a checkout
+
+The encoder's stream is block 0 of the bwt path (the smoke's corpus at
+1 MiB blocks, the ari encoder's input after BWT and MTF), and for the
+redesign also block 0 of the bwtdc path (after BWT and DC); the decoder's
+is block 0 of the apm path at 64 KiB.  Each copy's output must equal the real
+kernel's on that stream.  Prints one JSON line: for each, the steps, the
+cycles a step of each part (stamped run), of the stamped loop and of the
+unstamped loop, and the unstamped copy's CUDA-event ms (cycles over ms is
+the SM clock under this load)."""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+import tpuzip_torch  # noqa: E402
+from tpuzip_torch.kernels import _build, bin_coder, range_coder  # noqa: E402
+
+ARI_PARTS = ("symbol", "table reads", "division", "multiplies",
+             "renormalisation", "update", "chunk test and loop")
+WARP_PARTS = ("model warp busy", "model warp waits", "coder warp busy",
+              "coder warp waits", "", "", "")
+FINE_PARTS = ("model warp busy", "model warp waits", "coder step rest",
+              "coder warp waits", "quotient", "products and correction",
+              "renormalisation")
+APM_PARTS = ("byte loads", "split", "division", "bit and coder update",
+             "renormalisation", "model update", "bit packing and loop")
+
+
+def per_step(cycles, parts, steps: int) -> dict:
+    return {**{p: cycles[i] / steps for i, p in enumerate(parts) if p},
+            "sum of parts": sum(cycles[:7]) / steps,
+            "loop": cycles[7] / steps}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("step_clocks: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    data = cs.text_corpus(cs.BWT_BLOCK, cs.SEED)
+    rows = {}
+    for codec in ("bwt", "bwtdc"):
+        with cs.recorded(range_coder, "ari_encode_indexed") as calls:
+            tpuzip_torch.compress(data, codec=codec, block_size=cs.BWT_BLOCK)
+        (args, _, _), = calls
+        rows[codec] = (args[0][:1].contiguous(), args[1][:1])
+    apm_data = data[: cs.BLOCK]
+    blob = tpuzip_torch.compress(apm_data, codec="apm", block_size=cs.BLOCK)
+    with cs.recorded(bin_coder, "bin_decode_indexed") as dcalls:
+        tpuzip_torch.decompress(blob)
+    (dargs, _, dout), = dcalls
+    with tempfile.TemporaryDirectory() as tmp:
+        so = f"{tmp}/step_clocks.so"
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                        os.path.join(ROOT, "tools", "step_clocks.cu")],
+                       check=True, timeout=600)
+        lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    enc = lib.tpz_ari_encode_clocks
+    enc.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, ci]
+    dec = lib.tpz_apm_decode_clocks
+    dec.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci]
+    res = {"nvidia_smi": cs.nvidia_smi()}
+
+    def run_enc(syms, lens, ref, stamped: int):
+        out = torch.zeros(ref[0].shape[1], dtype=torch.uint8, device="cuda")
+        drow = torch.zeros(ref[2].shape[1], dtype=torch.int32, device="cuda")
+        slen = torch.zeros(1, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(8, dtype=torch.int64, device="cuda")
+        _build.check(enc(syms.data_ptr(), int(lens[0]), out.data_ptr(),
+                         out.numel(), drow.data_ptr(), slen.data_ptr(),
+                         cyc.data_ptr(), *cs.KNOBS[0], stamped),
+                     "ari_encode_clocks")
+        torch.cuda.synchronize()
+        return out, drow, slen, cyc.tolist()
+
+    # the earlier step stamped by part and unstamped on the bwt row, the
+    # redesign by warp on the bwt and bwtdc rows
+    for codec, runs in (("bwt", (3, 2, 1, 0)), ("bwtdc", (2,))):
+        syms, lens = rows[codec]
+        n = int(lens[0])
+        ref = range_coder.ari_encode_indexed(syms, lens)
+        row = res.setdefault(f"ari_encode_{codec}", {"steps": n})
+        for stamped in runs:
+            out, drow, slen, cyc = run_enc(syms, lens, ref, stamped)
+            if not (torch.equal(out, ref[0][0]) and torch.equal(slen, ref[1])
+                    and torch.equal(drow, ref[2][0])):
+                raise AssertionError(f"ari encode copy (stamped={stamped}) "
+                                     f"differs from csrc/ari_encode.cu on "
+                                     f"the {codec} row")
+            row[("unstamped", "stamped", "redesign_by_warp",
+                 "redesign_coder_step")[stamped]] = per_step(
+                cyc, (ARI_PARTS, ARI_PARTS, WARP_PARTS, FINE_PARTS)[stamped],
+                n)
+        if 0 in runs:
+            row["unstamped_ms"] = cs.cuda_ms(
+                lambda: run_enc(syms, lens, ref, 0), 3)
+
+    drows, dcap = dargs[0][:1].contiguous(), dargs[0].shape[1]
+    ddeltas, nbits = dargs[1][:1].contiguous(), int(dargs[2][0])
+
+    def run_dec(stamped: int):
+        out = torch.zeros(dout.shape[1], dtype=torch.uint8, device="cuda")
+        cyc = torch.zeros(8, dtype=torch.int64, device="cuda")
+        _build.check(dec(drows.data_ptr(), ddeltas.data_ptr(), dcap, nbits,
+                         out.data_ptr(), cyc.data_ptr(), *dargs[3:5],
+                         stamped), "apm_decode_clocks")
+        torch.cuda.synchronize()
+        return out, cyc.tolist()
+
+    nbytes = (nbits + 7) // 8
+    for stamped in (1, 0):
+        out, cyc = run_dec(stamped)
+        if not torch.equal(out[:nbytes], dout[0, :nbytes]):
+            raise AssertionError(f"apm decode copy (stamped={stamped}) "
+                                 "differs from csrc/bin_decode.cu")
+        res.setdefault("apm_decode", {"bits": nbits})[
+            "stamped" if stamped else "unstamped"] = per_step(
+                cyc, APM_PARTS, nbits)
+    res["apm_decode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_dec(0), 3)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
