@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --ab DIR   # csrc/ari_encode.cu, ari_decode.cu and
-                                     # bin_decode.cu against DIR's
+    python3 chip_smoke.py --ab DIR   # csrc/ari_encode.cu, ari_decode.cu,
+                                     # bin_decode.cu, mtf.cu, bin_encode.cu
+                                     # against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -32,7 +33,9 @@ line each:
             those rows and 4 garbage rows with a random chunk index (the
             dot decoder also equal to ari_decode.cu), ari_decode.cu's
             no-index mode at the default knobs; MTF encode and
-            decode; the DC walk on the DC streams of those blocks plus a
+            decode, also on rows across csrc/mtf.cu's chunks of C bytes
+            (lengths 0, 1, C-1, C, C+1 and 3C+17); the DC walk on the
+            DC streams of those blocks plus a
             row with a clobbered header and one with a flipped varint
             continuation bit; bin and apm encode and decode at the knobs
             (12, 5), (10, 4) and (11, 5) (one plain run holds all six,
@@ -61,12 +64,14 @@ line each:
             directions and both ari kernels launched; L and the origins
             equal the oracle's BWT on 4 blocks; each MTF launch held,
             exact, against the plain version on its own CUDA tensors cut
-            to their first 65536 columns, and each ari launch on its first
+            to their first 65553 columns (mtf_cut: at least 3 chunks, and
+            rows that end inside one; the kernel run on the cut too), and
+            each ari launch on its first
             4096 symbols (both are causal, so the prefix is exact); MB/s,
             a device trace of each direction, peak memory.
 7. bwt_big  one 100,000,000-byte block made from the same seed (flag 8,
             128 segments of 781,312): the bytes round-trip; each MTF launch
-            held against the plain version on the first 16384 columns of
+            held against the plain version on the first 16401 columns of
             the 128 segment rows, each ari launch on their first 4096
             symbols; MB/s and peak memory.
 8. bwtdc    the 64 MiB corpus through codec="bwtdc" at 1 MiB blocks: the
@@ -135,7 +140,7 @@ BLOCK = 1 << 16
 CORPUS_BYTES = 64 << 20   # 1024 ari blocks: the JAX bench's headline shape
 BWT_BLOCK = 1 << 20       # the bwt codec's default block size
 BIG_BLOCK = 100_000_000   # BASELINE config 4: bwt on 100 MB blocks
-MTF_PLAIN_COLS = {"bwt": 65536, "bwt_big": 16384}
+MTF_PLAIN_COLS = {"bwt": 65536, "bwt_big": 16384}   # before mtf_cut()
 ARI_PLAIN_COLS = 4096     # symbols of the ari prefix checks on the bwt paths
 DC_PLAIN_STEPS = 8192     # runs of the DC-walk check on the bwtdc path
 BIN_PLAIN_BYTES = 512     # bytes a block of the bin/apm checks on their paths
@@ -203,6 +208,32 @@ def text_corpus(nbytes: int, seed: int) -> bytes:
     seps = np.frombuffer(b"      ,.\n", np.uint8)
     out[sep] = seps[rng.integers(0, len(seps), int(sep.sum()))]
     return out.tobytes()
+
+
+def mtf_cut(cols: int) -> int:
+    """Columns of an MTF plain check: at least `cols` and 3 of csrc/mtf.cu's
+    chunks, plus 17, so the cut's rows end inside a chunk."""
+    return max(cols, 3 * mtf_scan._lib()[1]) + 17
+
+
+def mtf_edge_rows(chunk: int, seed: int):
+    """(36, 3 chunk + 17) u8 blocks and lengths for the chunked MTF: each of
+    the lengths 0, 1, chunk - 1, chunk, chunk + 1 and 3 chunk + 17 over
+    text, random bytes, a constant, 4 symbols, Zipf-skewed bytes and
+    whole permutations of the 256 symbols."""
+    rng = np.random.default_rng(seed)
+    n = 3 * chunk + 17
+    text = np.frombuffer(text_corpus(n, seed), np.uint8)
+    zipf = 1.0 / np.arange(1, 257) ** 1.3
+    kinds = [text, rng.integers(0, 256, n), np.full(n, 97),
+             rng.integers(0, 4, n), rng.choice(256, n, p=zipf / zipf.sum()),
+             np.concatenate([rng.permutation(256)
+                             for _ in range(-(-n // 256))])[:n]]
+    lengths = (0, 1, chunk - 1, chunk, chunk + 1, n)
+    blocks = np.stack([k for _ in lengths for k in kinds]).astype(np.uint8)
+    lens = np.repeat(np.array(lengths, np.int32), len(kinds))
+    blocks[np.arange(n)[None, :] >= lens[:, None]] = 0
+    return blocks, lens
 
 
 def mixed_blocks(b: int, n: int, seed: int):
@@ -391,10 +422,26 @@ def phase_kernels() -> dict:
     dec = mtf_scan.mtf_batch(enc, lens, decode=True)
     dec_ref, dec_plain_ms = timed(
         lambda: mtf_scan.mtf_batch_plain(enc, lens, decode=True))
-    errs["mtf_encode"] = max_err(enc, enc_ref)
-    errs["mtf_decode"] = max_err(dec, dec_ref)
-    round_trip = bool(torch.equal(dec, blocks))
+    # rows across csrc/mtf.cu's chunk boundaries: lengths 0, 1, C-1, C, C+1
+    # and 3C+17; decoded as they are too (not only an encode's output)
+    chunk = mtf_scan._lib()[1]
+    eblocks, elens = (torch.from_numpy(a).cuda()
+                      for a in mtf_edge_rows(chunk, SEED + 4))
+    eenc = mtf_scan.mtf_batch(eblocks, elens)
+    edec = mtf_scan.mtf_batch(eenc, elens, decode=True)
+    eraw = mtf_scan.mtf_batch(eblocks, elens, decode=True)
+    edge_errs = [max_err(eenc, mtf_scan.mtf_batch_plain(eblocks, elens)),
+                 max_err(edec, mtf_scan.mtf_batch_plain(eenc, elens, True)),
+                 max_err(eraw, mtf_scan.mtf_batch_plain(eblocks, elens,
+                                                        True))]
+    errs["mtf_encode"] = max(max_err(enc, enc_ref), edge_errs[0])
+    errs["mtf_decode"] = max(max_err(dec, dec_ref), *edge_errs[1:])
+    round_trip = bool(torch.equal(dec, blocks)) and bool(
+        torch.equal(edec, eblocks))
     emit("kernels", kernel="mtf", blocks=128, symbols=2048,
+         chunk_bytes=chunk, edge_rows=list(eblocks.shape),
+         edge_lengths=sorted(set(elens.tolist())),
+         edge_max_abs_err=max(edge_errs),
          encode_max_abs_err=errs["mtf_encode"],
          decode_max_abs_err=errs["mtf_decode"], round_trip=round_trip,
          encode_ms=cuda_ms(lambda: mtf_scan.mtf_batch(blocks, lens), 10),
@@ -559,10 +606,11 @@ def strip_index(blob: bytes) -> bytes:
 def traced(fn, expect=()) -> dict:
     """One more run of fn under torch.profiler: wall time, the time of the
     device's own events (kernels and copies; host ops that launched them and
-    the profiler's buffer requests left out) and the ones that took most.
-    `missing` lists each kernel of `expect` (a name fragment) that fn
-    launches but the trace lacks: the device time and idle share are then
-    null, as they would be too low and too high."""
+    the profiler's buffer requests left out), the ones that took most, and
+    the device ms of each kernel of `expect` (a name fragment).  `missing`
+    lists each kernel of `expect` that fn launches but the trace lacks:
+    the device time and idle share are then null, as they would be too
+    low and too high."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -585,7 +633,9 @@ def traced(fn, expect=()) -> dict:
     device_ms = None if missing else sum(ms for ms, _ in rows)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": None if missing else 1 - device_ms / wall_ms,
-            "top": [[name, ms] for ms, name in rows[:6]], "missing": missing}
+            "top": [[name, ms] for ms, name in rows[:6]],
+            "expected_ms": {k: sum(ms for ms, name in rows if k in name)
+                            for k in expect}, "missing": missing}
 
 
 def host_profile(fn, top: int = 10) -> list:
@@ -705,10 +755,11 @@ def ari_bound(kind: str, args, out) -> dict:
 def mtf_against_plain(calls, cols: int) -> dict:
     """Each MTF launch of a path held, exact, against the plain version on
     the same CUDA tensors cut to their first `cols` columns (MTF is causal:
-    the kernel's first cols outputs are the plain version's on the cut);
-    the kernel's time at the full shape and at the cut, the plain
-    version's at the cut, and the bound at the full shape: the valid bytes
-    read and the rows written."""
+    the kernel's first cols outputs are the plain version's on the cut),
+    and the kernel on the cut (its rows end inside a chunk, mtf_cut())
+    against the same; the kernel's time at the full shape and at the cut,
+    the plain version's at the cut, and the bound at the full shape: the
+    valid bytes read and the rows written."""
     res = {}
     for args, kw, out in calls:
         blocks, lens = args
@@ -720,7 +771,8 @@ def mtf_against_plain(calls, cols: int) -> dict:
         cut_lens = lens.clamp(max=cols)
         ref, plain_ms = timed(
             lambda: mtf_scan.mtf_batch_plain(cut, cut_lens, decode))
-        err = max_err(out[:, :cols], ref)
+        err = max(max_err(out[:, :cols], ref),
+                  max_err(mtf_scan.mtf_batch(cut, cut_lens, decode), ref))
         if err:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on the path's inputs: max_abs_err {err}")
@@ -999,10 +1051,12 @@ def phase_bwt(smi: str):
     compress = lambda: tpuzip_torch.compress(  # noqa: E731
         data, codec="bwt", block_size=BWT_BLOCK)
     decompress = lambda: tpuzip_torch.decompress(blob)           # noqa: E731
-    trace = {"encode": traced(compress, ("ari_encode_kernel",
-                                         "mtf_kernel<false>")),
+    trace = {"encode": traced(compress, ("ari_encode_kernel", "mtf_last",
+                                         "mtf_compose<false>",
+                                         "mtf_scan<false>")),
              "decode": traced(decompress, ("ari_decode_kernel",
-                                           "mtf_kernel<true>"))}
+                                           "mtf_scan<true>",
+                                           "mtf_compose<true>", "mtf_map"))}
 
     # L and the origins against the oracle's BWT: L is the input of the
     # path's MTF encode, the origins head each block's payload
@@ -1017,7 +1071,7 @@ def phase_bwt(smi: str):
         got_L = enc_args[0][i, : lens_np[i]].cpu().numpy().tobytes()
         if got_L != exp_L or struct.unpack("<I", parts[i][0])[0] != exp_origin:
             raise AssertionError(f"bwt block {i} differs from the oracle")
-    mtf = mtf_against_plain(calls["mtf"], MTF_PLAIN_COLS["bwt"])
+    mtf = mtf_against_plain(calls["mtf"], mtf_cut(MTF_PLAIN_COLS["bwt"]))
     ari = ari_prefix_against_plain(calls, ARI_PLAIN_COLS)
     stages = bwt_ms(calls, blocks_np, lens_np, parts)
     calls.clear()
@@ -1045,7 +1099,8 @@ def phase_bwt_big(smi: str):
     rows = {tuple(c[0][0].shape) for c in calls["mtf"]}
     if (nseg, seg) != (128, 781312) or rows != {(128, 781312)}:
         raise AssertionError(f"segments {nseg} x {seg}, MTF rows {rows}")
-    mtf = mtf_against_plain(calls["mtf"], MTF_PLAIN_COLS["bwt_big"])
+    mtf = mtf_against_plain(calls["mtf"],
+                            mtf_cut(MTF_PLAIN_COLS["bwt_big"]))
     ari = ari_prefix_against_plain(calls, ARI_PLAIN_COLS)
     calls.clear()
     emit("bwt_big", corpus_bytes=len(data), block_size=BIG_BLOCK,
@@ -1413,11 +1468,12 @@ def ab_inputs() -> dict:
     """{kernel: {path: (args, kw)}}: the one launch of each A/B kernel on
     the container paths, recorded through its wrapper: ari_encode_indexed
     at the ari, bwt, bwt_big and bwtdc paths' compress, ari_decode_indexed
-    at their decompress; bin_decode_indexed at the bin and apm paths'
-    decompress, and bin_apm.decode_batch at the apm container's without
-    the chunk index."""
+    at their decompress; mtf_batch at the bwt and bwt_big paths' compress
+    (encode) and decompress (decode); bin_encode_indexed at the bin and
+    apm paths' compress, bin_decode_indexed at their decompress, and
+    bin_apm.decode_batch at the apm container's without the chunk index."""
     data = text_corpus(CORPUS_BYTES, SEED)
-    out = {"ari_encode": {}, "ari_decode": {}, "bin_decode": {}}
+    out = {kernel: {} for kernel in AB_KERNELS}
 
     def keep(kernel, path, calls):
         (args, kw, _), = calls
@@ -1430,16 +1486,24 @@ def ab_inputs() -> dict:
             ("bwtdc", "bwtdc", BWT_BLOCK, data), ("bin", "bin", BLOCK, data),
             ("apm", "apm", BLOCK, data)):
         ari = codec != "bin" and codec != "apm"
-        with recorded(range_coder, "ari_encode_indexed") as enc:
+        with (recorded(range_coder, "ari_encode_indexed") as enc,
+              recorded(bin_coder, "bin_encode_indexed") as benc,
+              recorded(mtf_scan, "mtf_batch") as menc):
             blob = tpuzip_torch.compress(corpus, codec=codec,
                                          block_size=block)
         wrapper = ((range_decoder, "ari_decode_indexed") if ari
                    else (bin_coder, "bin_decode_indexed"))
-        with recorded(*wrapper) as dec:
+        with recorded(*wrapper) as dec, recorded(mtf_scan,
+                                                 "mtf_batch") as mdec:
             if tpuzip_torch.decompress(blob) != corpus:
                 raise AssertionError(f"{path} did not round-trip")
         if ari:
             keep("ari_encode", path, enc)
+        else:
+            keep("bin_encode", path, benc)
+        if codec == "bwt":
+            keep("mtf", f"{path}:encode", menc)
+            keep("mtf", f"{path}:decode", mdec)
         keep(wrapper[1].replace("_indexed", ""), path, dec)
         if codec == "apm":
             with recorded(bin_apm, "decode_batch") as flat:
@@ -1450,16 +1514,36 @@ def ab_inputs() -> dict:
     return out
 
 
-AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode")
-# sources that share a header with an A/B kernel and are not redesigned:
-# their SASS must stay the DIR's
-AB_SHARERS = ("bin_encode", "ari_decode_dot")
+AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode")
+# the A/B kernels this checkout redesigns: every other one, and each
+# source that shares a header with one, must keep the DIR's SASS
+AB_REDESIGNED = ("mtf", "bin_encode")
+AB_SHARERS = ("ari_decode_dot",)
 
 
-def ab_launchers(fns: dict, kernel: str, args, kw) -> tuple:
+def ab_entry(lib, kernel: str):
+    """The typed C entry point of `kernel` in a build.  An MTF build exports
+    tpz_mtf_chunked (with its scratch) since the chunked redesign, and
+    tpz_mtf before it."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if kernel == "mtf":
+        kernel = "mtf_chunked" if hasattr(lib, "tpz_mtf_chunked") else "mtf"
+    fn = getattr(lib, f"tpz_{kernel}")
+    fn.argtypes = {
+        "ari_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, vp],
+        "ari_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp],
+        "bin_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, vp],
+        "bin_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, ci, vp],
+        "mtf": [vp, vp, ci, ci, vp, ci, vp],
+        "mtf_chunked": [vp, vp, ci, ci, vp, vp, ci, vp]}[kernel]
+    fn.restype = ci
+    return fn
+
+
+def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
     """({build: a closure that launches that build once into new outputs
     and returns them}, the work's steps: the longest row's symbols, or its
-    bits) for one recorded launch of `kernel`."""
+    bits) for one recorded launch of `kernel`; libs: {build: its CDLL}."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     if kernel == "ari_encode":
         blocks, lens = args[:2]
@@ -1468,7 +1552,9 @@ def ab_launchers(fns: dict, kernel: str, args, kw) -> tuple:
         b, n = blocks.shape
         cap, nc = range_coder.encode_cap(n), -(-n // range_decoder.CHUNK_STEPS)
 
-        def make(fn):
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
             def run():
                 out = (torch.zeros((b, cap), dtype=torch.uint8, device="cuda"),
                        torch.empty(b, dtype=torch.int32, device="cuda"),
@@ -1484,7 +1570,9 @@ def ab_launchers(fns: dict, kernel: str, args, kw) -> tuple:
         streams, deltas, lens = args[:3]
         nc = kw.get("nc") or deltas.shape[1]
 
-        def make(fn):
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
             def run():
                 out = torch.empty((streams.shape[0],
                                    nc * range_decoder.CHUNK_STEPS),
@@ -1497,6 +1585,47 @@ def ab_launchers(fns: dict, kernel: str, args, kw) -> tuple:
                 return (out,)
             return run
         steps = int(lens.max())
+    elif kernel == "mtf":
+        blocks, lens = args[:2]
+        decode = int(kw.get("decode", False))
+        b, n = blocks.shape
+
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+            chunked = hasattr(lib, "tpz_mtf_chunked")
+            scratch = torch.empty(
+                b * -(-n // lib.tpz_mtf_chunk_bytes()) * 256 if chunked
+                else 0, dtype=torch.uint8, device="cuda")
+
+            def run():
+                out = torch.empty((b, n), dtype=torch.uint8, device="cuda")
+                tail = (scratch.data_ptr(),) if chunked else ()
+                _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                                out.data_ptr(), *tail, decode, stream()),
+                             "tpz_mtf")
+                return (out,)
+            return run
+        steps = int(lens.max())
+    elif kernel == "bin_encode":
+        blocks, lens = args[:2]
+        knobs = tuple(int(k) for k in args[2:5])
+        b, n = blocks.shape
+        cap, nc = bin_coder.encode_cap(8 * n), -(-8 * n // bin_coder.CHUNK)
+
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
+            def run():
+                out = (torch.zeros((b, cap), dtype=torch.uint8, device="cuda"),
+                       torch.empty(b, dtype=torch.int32, device="cuda"),
+                       torch.empty((b, nc), dtype=torch.int32, device="cuda"))
+                _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                                out[0].data_ptr(), cap, out[1].data_ptr(),
+                                out[2].data_ptr(), nc, *knobs, stream()),
+                             "tpz_bin_encode")
+                return out
+            return run
+        steps = 8 * int(lens.max())
     else:
         if not torch.is_tensor(args[2]):
             # bin_apm.decode_batch(comp, lengths, out_n, bits, rate, apm)
@@ -1508,7 +1637,9 @@ def ab_launchers(fns: dict, kernel: str, args, kw) -> tuple:
             nc = deltas.shape[1]
         knobs = tuple(int(k) for k in args[3:6])
 
-        def make(fn):
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
             def run():
                 out = torch.empty((streams.shape[0], nc * bin_coder.CHUNK // 8),
                                   dtype=torch.uint8, device="cuda")
@@ -1520,32 +1651,33 @@ def ab_launchers(fns: dict, kernel: str, args, kw) -> tuple:
                 return (out,)
             return run
         steps = int(nbits.max())
-    return {k: make(fn) for k, fn in fns.items()}, steps
+    return {k: make(lib) for k, lib in libs.items()}, steps
 
 
 def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
-    csrc/ari_encode.cu, ari_decode.cu and bin_decode.cu against the same
-    files in each DIR (beside the headers they include), for instance a
-    parent commit's:
+    csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu and
+    bin_encode.cu against the same files in each DIR (beside the headers
+    they include), for instance a parent commit's:
 
         mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
             tpuzip_torch/csrc/); do git show REV:$f > _parent/${f##*/}; done
 
     Builds them all at once with their registers and spills, takes each
     kernel's launch on the container paths (ari_encode and ari_decode at
-    the ari, bwt, bwt_big and bwtdc paths, bin_decode at the bin and apm
-    paths and apm without the chunk index), checks that every build gives
-    the same outputs there (streams, lengths and chunk index; symbols;
-    bits), and times each DIR's kernel and the checkout's in turns (old,
-    new, new, old; each the mean of 3 launches), with ns a step (the
+    the ari, bwt, bwt_big and bwtdc paths; mtf both ways at the bwt and
+    bwt_big paths; bin_encode and bin_decode at the bin and apm paths, and
+    bin_decode at apm without the chunk index), checks that every build
+    gives the same outputs there (streams, lengths and chunk index;
+    symbols; bits), and times each DIR's kernel and the checkout's in turns
+    (old, new, new, old; each the mean of 3 launches), with ns a step (the
     longest row's symbols or bits).  Beside them: ari_decode's no-index
-    mode at the ari shape, one row alone against all the rows at the bwt
-    and apm shapes, and whether the SASS of each source that shares a header and
-    is not redesigned (bin_encode.cu: bin_coder.cuh; ari_decode_dot.cu:
-    ari_model.cuh) equals the DIR's build of it.  One JSON line a kernel
-    and shape, then one line of the whole; exits 1 if any outputs
-    differed."""
+    mode at the ari shape; one row alone against all the rows at the bwt,
+    bin and apm shapes, for every build; and whether the SASS of each source
+    that this checkout does not redesign (all but AB_REDESIGNED, and
+    ari_decode_dot.cu, which shares ari_model.cuh) equals the DIR's build
+    of it.  One JSON line a kernel and shape, then one line of the whole;
+    exits 1 if any outputs differed."""
     if not dirs:
         raise SystemExit("chip_smoke.py --ab needs a directory")
     smi = nvidia_smi()
@@ -1558,10 +1690,6 @@ def ab_child(dirs: list) -> int:
                 jobs[f"old{i}:{kernel}"] = f"{d}/{kernel}.cu"
     res = {"nvidia_smi": smi, "old": {f"old{i}": d for i, d in
                                       enumerate(dirs)}}
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    argtypes = {"ari_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, vp],
-                "ari_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp],
-                "bin_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, vp]}
     differ = []
     with tempfile.TemporaryDirectory() as tmp:
         so = {name: f"{tmp}/{name.replace(':', '_')}.so" for name in jobs}
@@ -1583,19 +1711,16 @@ def ab_child(dirs: list) -> int:
         res["sass_unchanged"] = {
             name: sass(name) == sass("new:" + name.split(":")[1])
             for name in jobs if not name.startswith("new")
-            and name.split(":")[1] in AB_SHARERS + ("ari_decode",)}
-        fns = {}
+            and name.split(":")[1] not in AB_REDESIGNED}
+        libs = {}
         for name in jobs:
             build, kernel = name.split(":")
             if kernel in AB_KERNELS:
-                fn = getattr(ctypes.CDLL(so[name]), f"tpz_{kernel}")
-                fn.argtypes = argtypes[kernel]
-                fn.restype = ci
-                fns.setdefault(kernel, {})[build] = fn
+                libs.setdefault(kernel, {})[build] = ctypes.CDLL(so[name])
         shapes = {}
         for kernel, paths in ab_inputs().items():
             for path, (args, kw) in paths.items():
-                runs, steps = ab_launchers(fns[kernel], kernel, args, kw)
+                runs, steps = ab_launchers(libs[kernel], kernel, args, kw)
                 ref = runs["new"]()
                 equal = {k: all(torch.equal(x, y) for x, y in
                                 zip(run(), ref)) for k, run in runs.items()}
@@ -1616,18 +1741,20 @@ def ab_child(dirs: list) -> int:
                     # the no-index mode on the same stream rows (a row's
                     # stream bytes do not depend on the index beside it)
                     flat, _ = ab_launchers(
-                        fns[kernel], kernel, (args[0], None, *args[2:]),
-                        {"nc": args[1].shape[1]})
+                        {"new": libs[kernel]["new"]}, kernel,
+                        (args[0], None, *args[2:]), {"nc": args[1].shape[1]})
                     if not torch.equal(flat["new"]()[0], ref[0]):
                         differ.append("ari_decode's no-index mode")
                     row["unindexed_ms"] = cuda_ms(flat["new"], 3)
-                if path in ("bwt", "apm"):
+                if path in ("bwt", "bin", "apm"):
                     one, _ = ab_launchers(
-                        {"new": fns[kernel]["new"]}, kernel,
+                        libs[kernel], kernel,
                         tuple(a[:1].contiguous() if torch.is_tensor(a)
                               else a for a in args), kw)
-                    row["one_row_ms"] = cuda_ms(one["new"], 3)
-                    row["all_rows_ms"] = cuda_ms(runs["new"], 3)
+                    row["one_row_ms"] = {k: cuda_ms(run, 3)
+                                         for k, run in one.items()}
+                    row["all_rows_ms"] = {k: cuda_ms(run, 3)
+                                          for k, run in runs.items()}
                 shapes.setdefault(kernel, {})[path] = row
                 print(json.dumps({"kernel": kernel, "path": path, **row}),
                       flush=True)

@@ -15,6 +15,12 @@ at every precision the formats allow.
 - The bit decoder leaves out two clamps of the APM gate that cannot bind:
   the interpolation of two cells in [1, 4095] stays between them, and a
   cell's update at rate 5 stays in [1, 4095].
+- The bit encoder (csrc/bin_encode.cu) takes ``r * (2^dbits - split)`` as
+  ``(rng & ~(2^dbits - 1)) - r * split``, tests in one branch whether a
+  bit emits any byte, runs the renormalisation's passes with no break,
+  and leaves out the gate's two clamps: each checked through the plain
+  coder step (``bin_coder._code``) and the plain model
+  (``bin_coder._Model``).
 
 All in int64 or uint64 numpy, exact (the tolerance is 0)."""
 
@@ -132,3 +138,78 @@ def test_apm_cell_update_needs_no_clamp(bit):
     torch_new = bin_coder._bin_update(torch.from_numpy(c),
                                       torch.tensor(bool(bit)), 4096, 5)
     np.testing.assert_array_equal(torch_new.numpy(), new)
+
+
+def _renormalise(low, rg):
+    """The carryless renormalisation as bin_encode.cu runs it, in int64:
+    four passes and no break, since a pass that moves no byte changes
+    nothing."""
+    low, rg = low.copy(), rg.copy()
+    for _ in range(4):
+        settled = (low ^ ((low + rg) & U32)) < bin_coder.TOP
+        force = (rg < bin_coder.BOT) & ~settled
+        rg = np.where(force, (-low) & (bin_coder.BOT - 1), rg)
+        shift = settled | force
+        low = np.where(shift, (low << 8) & U32, low)
+        rg = np.where(shift, (rg << 8) & U32, rg)
+    return low, rg
+
+
+@pytest.mark.parametrize("dbits", DBITS)
+def test_encoder_step_equals_the_plain_coder(rng, dbits):
+    """bin_encode.cu's products, rs = (rng >> dbits) * split, low += rs and
+    rng = (rng & ~(2^dbits - 1)) - rs on a 1, rng = rs on a 0, then a
+    renormalisation only where (low ^ (low + rng)) < 2^24 or rng < 2^16:
+    the same low, rng and emitted bytes as the plain step."""
+    low, rg, bit, split = _states(rng, dbits)
+    m = bin_coder._Model(low.size, dbits, 5, False, "cpu")
+    exp_low, exp_rng, count, before = (t.numpy() for t in bin_coder._code(
+        torch.from_numpy(low), torch.from_numpy(rg),
+        torch.from_numpy(bit.astype(bool)), torch.from_numpy(split), m))
+    rs = (rg >> dbits) * split
+    dmask = U32 & ~((1 << dbits) - 1)
+    k_low = np.where(bit == 1, (low + rs) & U32, low)
+    k_rng = np.where(bit == 1, (rg & dmask) - rs, rs)
+    np.testing.assert_array_equal(k_low, before)
+    emits = ((k_low ^ ((k_low + k_rng) & U32)) < bin_coder.TOP) | (
+        k_rng < bin_coder.BOT)
+    np.testing.assert_array_equal(emits, count > 0)
+    assert emits.any() and not emits.all()
+    r_low, r_rng = _renormalise(k_low, k_rng)
+    np.testing.assert_array_equal(np.where(emits, r_low, k_low), exp_low)
+    np.testing.assert_array_equal(np.where(emits, r_rng, k_rng), exp_rng)
+
+
+@pytest.mark.parametrize("bits", [1, 8, 12, 16])
+def test_encoder_gate_equals_the_plain_model(rng, bits):
+    """bin_encode.cu's gate: the split a + (((a1 - a) * frac) >> 12) with no
+    clamp, the cell it keeps (a1 if frac >= 2048, else a) and that cell's
+    update with no clamp give the plain model's split, slot and cells, on
+    random gates and every edge of p0."""
+    n = 40000
+    top = 1 << bits
+    p0 = np.concatenate([np.arange(1, min(top, 4096)),
+                         [1, top - 1, top // 2, top // 32 * 31],
+                         rng.integers(1, top, n) if top > 2
+                         else np.ones(n, np.int64)]).clip(1, top - 1)
+    n = p0.size
+    gate = rng.integers(1, 4096, (n, 33))
+    gate[: n // 4] = rng.choice([1, 2, 4094, 4095], (n // 4, 33))
+    m = bin_coder._Model(n, bits, 5, True, "cpu")
+    m.p0 = torch.from_numpy(p0)
+    m.gate = torch.from_numpy(gate)
+    exp = m.split().numpy()
+    scaled = p0 * 32
+    idx = np.minimum(scaled >> 12, 31)
+    frac = scaled & 4095
+    at = np.arange(n)
+    a, a1 = gate[at, idx], gate[at, idx + 1]
+    upper = frac >= 2048
+    slot = np.where(upper, idx + 1, idx)
+    cell = np.where(upper, a1, a)
+    np.testing.assert_array_equal(a + (((a1 - a) * frac) >> 12), exp)
+    np.testing.assert_array_equal(slot, m.last[:, 0].numpy())
+    bit = rng.integers(0, 2, n).astype(bool)
+    m.update(torch.from_numpy(bit), torch.ones(n, dtype=torch.bool))
+    v = np.where(bit, cell - (cell >> 5), cell + ((4096 - cell) >> 5))
+    np.testing.assert_array_equal(m.gate.numpy()[at, slot], v)

@@ -1,10 +1,11 @@
-// step_clocks.cu — clock64-stamped copies of two kernels' steps, as they
-// stood before their redesign: the ari encoder's (csrc/ari_encode.cu) and
-// the apm bit decoder's (csrc/bin_decode.cu, indexed); and the redesigned
-// encoder, built from its own source, stamped by warp.  One stream
-// each (one warp, one thread).  Each part of a step is stamped after its result
-// is ready (the stamp waits on it), and its cycles are summed over the
-// stream; STAMP=false runs the same copy with only the two stamps around
+// step_clocks.cu — clock64-stamped copies of three kernels' steps, as they
+// stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
+// apm bit decoder's (csrc/bin_decode.cu, indexed) and the apm bit
+// encoder's (csrc/bin_encode.cu, one thread a stream); and the redesigned
+// ari encoder, built from its own source, stamped by warp.  One stream
+// each (one warp, one thread).  Each part of a step is stamped after its
+// result is ready (the stamp waits on it), and its cycles are summed over
+// the stream; STAMP=false runs the same copy with only the two stamps around
 // the whole loop, for the step's cycles as the kernel runs it.  The
 // outputs are the kernels' own, so tools/step_clocks.py holds them against
 // the real kernels.  Built and run by tools/step_clocks.py.
@@ -15,6 +16,54 @@
 
 #include "../tpuzip_torch/csrc/ari_encode.cu"
 #include "../tpuzip_torch/csrc/bin_coder.cuh"
+
+// The bit model as the one-thread-a-stream kernels held it: p0 in a
+// register, the APM cells of a block's 32 streams in shared memory, laid
+// out [slot][thread], so a slot picked at run time is an address and not
+// a register index.
+namespace bin {
+
+constexpr int THREADS = 32;  // streams a block
+
+template <bool USE_APM>
+struct Model {
+  int p0, bits, rate;
+  int* gate;   // this thread's column: slot s at gate[s * THREADS]
+  int last;    // the slot the current bit's update adapts
+
+  __device__ __forceinline__ Model(int model_bits, int shift, int* column)
+      : p0(1 << (model_bits - 1)), bits(model_bits), rate(shift),
+        gate(column), last(0) {
+    if (USE_APM)
+      for (int s = 0; s < APM_SLOTS; ++s)
+        gate[s * THREADS] = cell_init(s);
+  }
+
+  __device__ __forceinline__ int denom_bits() const {
+    return USE_APM ? APM_BITS : bits;
+  }
+
+  // p(bit = 0) scaled by 2^denom_bits().
+  __device__ __forceinline__ int split() {
+    if (!USE_APM) return p0;
+    const int scaled = p0 * (APM_SLOTS - 1);
+    const int idx = min(scaled >> APM_BITS, APM_SLOTS - 2);
+    const int frac = scaled & ((1 << APM_BITS) - 1);
+    const int a = gate[idx * THREADS], b = gate[(idx + 1) * THREADS];
+    last = frac < (1 << (APM_BITS - 1)) ? idx : idx + 1;
+    const int p = (a * ((1 << APM_BITS) - frac) + b * frac) >> APM_BITS;
+    return min(max(p, 1), (1 << APM_BITS) - 1);
+  }
+
+  __device__ __forceinline__ void update(int bit) {
+    p0 = adapt(p0, bit, bits, rate);
+    if (USE_APM)
+      gate[last * THREADS] = adapt(gate[last * THREADS], bit, APM_BITS,
+                                   APM_RATE);
+  }
+};
+
+}  // namespace bin
 
 namespace {
 
@@ -174,6 +223,66 @@ apm_decode_clocks(const uint8_t* row, const int32_t* drow, int cap, int len,
   cycles[7] = t1 - t0;
 }
 
+// apm encode (one thread a stream, the gate in shared memory), parts:
+// 0 input byte, 1 split with the gate, 2 coder products, 3 renormalisation
+// with its byte stores, 4 model update, 5 chunk test and loop; 7 the
+// whole loop.
+template <bool STAMP>
+__global__ void __launch_bounds__(1)
+apm_encode_clocks(const uint8_t* row, int len, uint8_t* out, int cap,
+                  int32_t* drow, int32_t* slen, long long* cycles, int bits,
+                  int rate) {
+  using namespace bin;
+  __shared__ int cells[APM_SLOTS * THREADS];
+  Model<true> m(bits, rate, cells);
+  const uint32_t denom = 1u << APM_BITS;
+  uint32_t low = 0, rng = 0xffffffffu;
+  int pos = 0, chunk_pos = 0;
+  uint32_t next = len > 0 ? row[0] : 0u;
+  Clocks<STAMP> k;
+  k.start(next);
+  const long long t0 = k.t;
+  for (int i = 0; i < len; ++i) {
+    const uint32_t byte = next;
+    if (i + 1 < len) next = row[i + 1];
+    k.lap(0, byte);
+    for (int q = 7; q >= 0; --q) {
+      const int bit = (byte >> q) & 1;
+      const uint32_t split = static_cast<uint32_t>(m.split());
+      k.lap(1, split);
+      const uint32_t r = rng >> APM_BITS;
+      if (bit) low += r * split;
+      rng = r * (bit ? denom - split : split);
+      k.lap(2, low ^ rng);
+      for (int j = 0; j < 4; ++j) {
+        if ((low ^ (low + rng)) >= bin::TOP) {
+          if (rng >= bin::BOT) break;
+          rng = (0u - low) & (bin::BOT - 1);
+        }
+        if (pos < cap) out[pos] = static_cast<uint8_t>(low >> 24);
+        ++pos;
+        low <<= 8;
+        rng <<= 8;
+      }
+      k.lap(3, low ^ rng);
+      m.update(bit);
+      k.lap(4, static_cast<uint32_t>(m.p0));
+    }
+    if ((i + 1) % CHUNK_BYTES == 0 || i + 1 == len) {
+      drow[i / CHUNK_BYTES] = pos - chunk_pos;
+      chunk_pos = pos;
+    }
+    k.lap(5, static_cast<uint32_t>(chunk_pos));
+  }
+  const long long t1 = stamp(low ^ rng);
+  for (int q = 0; q < 4; ++q)
+    if (pos + q < cap)
+      out[pos + q] = static_cast<uint8_t>(low >> (24 - 8 * q));
+  *slen = pos + 4;
+  for (int i = 0; i < 7; ++i) cycles[i] = k.sum[i];
+  cycles[7] = t1 - t0;
+}
+
 // The redesigned encoder (csrc/ari_encode.cu's kernel, its helpers taken
 // from that source), stamped by warp: 0 the model warp's time in the
 // model, 1 its waits for an empty slot, 2 the coder warp's time in its
@@ -306,5 +415,21 @@ extern "C" int tpz_apm_decode_clocks(const void* row, const void* drow,
     apm_decode_clocks<true><<<1, 1>>>(r, d, cap, len, o, c, bits, rate);
   else
     apm_decode_clocks<false><<<1, 1>>>(r, d, cap, len, o, c, bits, rate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpz_apm_encode_clocks(const void* row, int len, void* out,
+                                     int cap, void* drow, void* slen,
+                                     void* cycles, int bits, int rate,
+                                     int stamped) {
+  auto* r = static_cast<const uint8_t*>(row);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* d = static_cast<int32_t*>(drow);
+  auto* s = static_cast<int32_t*>(slen);
+  auto* c = static_cast<long long*>(cycles);
+  if (stamped)
+    apm_encode_clocks<true><<<1, 1>>>(r, len, o, cap, d, s, c, bits, rate);
+  else
+    apm_encode_clocks<false><<<1, 1>>>(r, len, o, cap, d, s, c, bits, rate);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Cycles a step, by part, of the ari encoder's and the apm bit decoder's
-steps as they stood before their redesign, and of the redesigned
-encoder by warp (tools/step_clocks.cu), on one real stream each, on one
-GPU:
+"""Cycles a step, by part, of the ari encoder's, the apm bit decoder's and
+the apm bit encoder's steps as they stood before their redesign, and of
+the redesigned ari encoder by warp (tools/step_clocks.cu), on one real
+stream each, on one GPU:
 
     python3 tools/step_clocks.py        # from the root of a checkout
 
 The encoder's stream is block 0 of the bwt path (the smoke's corpus at
 1 MiB blocks, the ari encoder's input after BWT and MTF), and for the
 redesign also block 0 of the bwtdc path (after BWT and DC); the decoder's
-is block 0 of the apm path at 64 KiB.  Each copy's output must equal the real
-kernel's on that stream.  Prints one JSON line: for each, the steps, the
-cycles a step of each part (stamped run), of the stamped loop and of the
-unstamped loop, and the unstamped copy's CUDA-event ms (cycles over ms is
-the SM clock under this load)."""
+is block 0 of the apm path at 64 KiB, and the bit encoder's that block's
+bytes.  Each copy's output must equal the real kernel's on that stream.
+Prints one JSON line: for each, the steps, the cycles a step of each
+part (stamped run), of the stamped loop and of the unstamped loop, and
+the unstamped copy's CUDA-event ms (cycles over ms is the SM clock under
+this load)."""
 
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ WARP_PARTS = ("model warp busy", "model warp waits", "coder warp busy",
 FINE_PARTS = ("model warp busy", "model warp waits", "coder step rest",
               "coder warp waits", "quotient", "products and correction",
               "renormalisation")
+APM_ENC_PARTS = ("input byte", "split with the gate", "coder products",
+                 "renormalisation and stores", "model update",
+                 "chunk test and loop", "")
 APM_PARTS = ("byte loads", "split", "division", "bit and coder update",
              "renormalisation", "model update", "bit packing and loop")
 
@@ -136,6 +140,36 @@ def main() -> int:
             "stamped" if stamped else "unstamped"] = per_step(
                 cyc, APM_PARTS, nbits)
     res["apm_decode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_dec(0), 3)
+
+    with cs.recorded(bin_coder, "bin_encode_indexed") as ecalls:
+        tpuzip_torch.compress(apm_data, codec="apm", block_size=cs.BLOCK)
+    (eargs, _, eout), = ecalls
+    erow, elen = eargs[0][:1].contiguous(), int(eargs[1][0])
+    apm_enc = lib.tpz_apm_encode_clocks
+    apm_enc.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, ci]
+
+    def run_apm_enc(stamped: int):
+        out = torch.zeros(eout[0].shape[1], dtype=torch.uint8, device="cuda")
+        drow = torch.zeros(eout[2].shape[1], dtype=torch.int32, device="cuda")
+        slen = torch.zeros(1, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(8, dtype=torch.int64, device="cuda")
+        _build.check(apm_enc(erow.data_ptr(), elen, out.data_ptr(),
+                             out.numel(), drow.data_ptr(), slen.data_ptr(),
+                             cyc.data_ptr(), *eargs[2:4], stamped),
+                     "apm_encode_clocks")
+        torch.cuda.synchronize()
+        return out, drow, slen, cyc.tolist()
+
+    for stamped in (1, 0):
+        out, drow, slen, cyc = run_apm_enc(stamped)
+        if not (torch.equal(out, eout[0][0]) and torch.equal(drow, eout[2][0])
+                and int(slen) == int(eout[1][0])):
+            raise AssertionError(f"apm encode copy (stamped={stamped}) "
+                                 "differs from csrc/bin_encode.cu")
+        res.setdefault("apm_encode", {"bits": 8 * elen})[
+            "stamped" if stamped else "unstamped"] = per_step(
+                cyc, APM_ENC_PARTS, 8 * elen)
+    res["apm_encode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_apm_enc(0), 3)
     print(json.dumps(res))
     return 0
 

@@ -74,12 +74,6 @@ struct Row {
   }
 };
 
-// APM gate cell s as it starts (bin_coder.cuh's Model).
-__device__ __forceinline__ int cell_init(int s) {
-  return min(max(s * (1 << APM_BITS) / (APM_SLOTS - 1), 1),
-             (1 << APM_BITS) - 1);
-}
-
 template <bool USE_APM, bool INDEXED>
 __global__ void __launch_bounds__(32)
 bin_decode_kernel(const uint8_t* __restrict__ streams,

@@ -12,6 +12,9 @@ runs on the first ``lengths[b]`` bytes of a row; the output is 0 from
 there on, as the masked XLA scan writes it (the TPU kernel does not mask,
 so only its valid prefix is comparable).  Any B >= 0 and N >= 0: the
 TPU's multiple-of-256 rows and lane groups are not part of the function.
+The CUDA kernel cuts each row into chunks that run side by side
+(csrc/mtf.cu; tests/test_torch_mtf_chunks.py holds the decomposition);
+the plain version runs the rows' steps in order.
 """
 
 from __future__ import annotations
@@ -52,12 +55,13 @@ def mtf_batch_plain(blocks: torch.Tensor, lengths: torch.Tensor,
 
 def _lib():
     lib = _build.load("mtf")
-    fn = lib.tpz_mtf
+    fn = lib.tpz_mtf_chunked
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, ci, vp, ci, vp]
+        fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, vp]
         fn.restype = ci
-    return fn
+        lib.tpz_mtf_chunk_bytes.restype = ci
+    return fn, lib.tpz_mtf_chunk_bytes()
 
 
 def mtf_batch(blocks: torch.Tensor, lengths: torch.Tensor,
@@ -66,7 +70,8 @@ def mtf_batch(blocks: torch.Tensor, lengths: torch.Tensor,
     i32 -> (B, N) u8, 0 at and past each length.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/mtf.cu on the current stream (no synchronisation)."""
+    csrc/mtf.cu's three passes on the current stream (no synchronisation),
+    counted as one launch."""
     if blocks.dtype != torch.uint8 or lengths.dtype != torch.int32:
         raise TypeError("mtf_batch takes u8 blocks and i32 lengths")
     if blocks.dim() != 2 or lengths.shape != blocks.shape[:1]:
@@ -84,10 +89,15 @@ def mtf_batch(blocks: torch.Tensor, lengths: torch.Tensor,
     out = torch.empty((b, n), dtype=torch.uint8, device=blocks.device)
     if b == 0 or n == 0:
         return out
-    fn = _lib()
+    fn, chunk = _lib()
+    # the kernel's record of each chunk: its end list or its symbols' order,
+    # then the list or the ranks at its start
+    scratch = torch.empty(b * -(-n // chunk) * 256, dtype=torch.uint8,
+                          device=blocks.device)
     with torch.cuda.device(blocks.device):
         err = fn(blocks.data_ptr(), lengths.data_ptr(), b, n, out.data_ptr(),
-                 int(decode), torch.cuda.current_stream().cuda_stream)
+                 scratch.data_ptr(), int(decode),
+                 torch.cuda.current_stream().cuda_stream)
     _build.check(err, "mtf")
     mtf_batch.launches += 1
     return out
