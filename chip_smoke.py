@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --ab DIR   # csrc/ari_encode.cu, ari_decode.cu,
-                                     # bin_decode.cu, mtf.cu, bin_encode.cu
-                                     # against DIR's
+                                     # bin_decode.cu, mtf.cu, bin_encode.cu,
+                                     # dc_decode.cu against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -15,11 +15,11 @@ the bwtdc codec's, BWT -> DC -> ari (adds csrc/dc_decode.cu); the bin and
 apm codecs' (csrc/bin_encode.cu, bin_decode.cu); and the decode of
 containers without the chunk index (flag 2 clear, as tpuzip's run_job
 writes them), through the no-index modes of ari_decode.cu and
-bin_decode.cu.  The lane decoder's other state design,
-csrc/ari_decode_dot.cu (tpuzip's v1
-decoder, ``ari_decode_indexed(algo="dot")``), runs on no container path;
-phase 5 drives it and holds it against ari_decode.cu.  Phases, one JSON
-line each:
+bin_decode.cu.  tpuzip's v1 decoder (frequency state,
+``ari_decode_indexed(algo="dot")``, the wrapper ari_decode_dot_indexed)
+runs on no container path; on the card it launches ari_decode.cu, and
+phase 5 drives it and holds it against its plain version, the v1 step.
+Phases, one JSON line each:
 
 1. device   needs torch.cuda; prints nvidia-smi's name and power limit.
 2. build    builds every kernel from the checkout (one nvcc each, at once),
@@ -31,13 +31,15 @@ line each:
             the 2^15 bound of tpuzip's packed kernels, and at increment 0
             (a model that never grows), both decoders on
             those rows and 4 garbage rows with a random chunk index (the
-            dot decoder also equal to ari_decode.cu), ari_decode.cu's
+            dot route also equal to the cum one), ari_decode.cu's
             no-index mode at the default knobs; MTF encode and
             decode, also on rows across csrc/mtf.cu's chunks of C bytes
             (lengths 0, 1, C-1, C, C+1 and 3C+17); the DC walk on the
             DC streams of those blocks plus a
-            row with a clobbered header and one with a flipped varint
-            continuation bit; bin and apm encode and decode at the knobs
+            row with a clobbered header, one with a flipped varint
+            continuation bit and two past dc_decode.cu's packing (a first
+            occurrence below -2^23, a length of 2^23); bin and apm encode
+            and decode at the knobs
             (12, 5), (10, 4) and (11, 5) (one plain run holds all six,
             a knob pair a row), the decoder also on 4 garbage rows with
             a random chunk index and, through bin_apm.decode_batch,
@@ -51,14 +53,14 @@ line each:
             the bwt paths; encode/decode MB/s, a device trace and a host
             profile of one more compress and decompress.
 5. dot      the decode A/B of tpuzip's bench/tpu_r2d.py:91-106, cum
-            (ari_decode.cu) against dot (ari_decode_dot.cu): (a) on the ari
+            against dot, both routes on ari_decode.cu: (a) on the ari
             path's own decode inputs (1024 stream rows), one counted
             launch of ari_decode_indexed(algo="dot") equal to the path's
             ari_decode.cu output and, exact, to the plain version on its
             first 4096 symbols; (b) on that bench's mix, 128 x 64 KiB
             blocks of random bytes, text and 6 symbols, encoded and decoded
             by both; both decode every block exactly.  CUDA-event times of
-            both kernels in turns (cum, dot, dot, cum) at each shape.
+            both routes in turns (cum, dot, dot, cum) at each shape.
 6. bwt      the same corpus through codec="bwt" at 1 MiB
             blocks (64 blocks): the bytes round-trip; MTF launched in both
             directions and both ari kernels launched; L and the origins
@@ -99,7 +101,7 @@ line each:
             first 4096 symbols (ari) or 512 bytes (apm).
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; the dot decoder must have none on a container path.  The
+after; the dot route must have none on a container path.  The
 kernels line counts a decoder's launches in both modes.  Then the
 nvidia-smi line, a {"kernels": [...]} line (kernel times and bounds at the
 main paths' shapes, the plain version's time at `plain_shape`, launches
@@ -264,8 +266,8 @@ def mixed_blocks(b: int, n: int, seed: int):
     return blocks, lens
 
 
-SOURCES = ("ari_encode", "ari_decode", "ari_decode_dot", "mtf", "dc_decode",
-           "bin_encode", "bin_decode")
+SOURCES = ("ari_encode", "ari_decode", "mtf", "dc_decode", "bin_encode",
+           "bin_decode")
 
 
 def ptxas_report(procs) -> dict:
@@ -305,7 +307,6 @@ def phase_build() -> None:
                 proc.wait()
     range_coder._lib()
     range_decoder._lib()
-    range_decoder._lib("ari_decode_dot")
     mtf_scan._lib()
     dc_scan._lib()
     bin_coder._lib("bin_encode")
@@ -408,7 +409,7 @@ def phase_kernels() -> dict:
              blocks=128, garbage_rows=4, symbols=2048,
              encode_max_abs_err=enc_err,
              decode_max_abs_err=dec_err, dot_decode_max_abs_err=dot_err,
-             dot_equals_ari_decode=dot_is_cum, round_trip=round_trip,
+             dot_equals_cum=dot_is_cum, round_trip=round_trip,
              stream_bytes=int(slens.sum()), **times)
         if enc_err or dec_err or dot_err or not dot_is_cum or not round_trip:
             raise AssertionError(f"kernel and plain version disagree at "
@@ -458,9 +459,11 @@ def phase_kernels() -> dict:
 
 def dc_kernel_check(blocks, lens) -> int:
     """The DC walk on the DC streams of the blocks, plus a row whose header
-    field first[0] is clobbered to 0xFFFFFFFF (it reads as -1) and a row
-    with a varint's continuation bit flipped: kernel against plain, all
-    four outputs, exact."""
+    field first[0] is clobbered to 0xFFFFFFFF (it reads as -1), a row
+    with a varint's continuation bit flipped, and two rows past
+    csrc/dc_decode.cu's packing (a first occurrence below -2^23, a length
+    of 2^23), which it walks by the exact step throughout: kernel against
+    plain, all four outputs, exact."""
     comp, clens = dc.encode_batch(blocks, lens)
     comp = comp[:, : int(clens.max())]
     bad_hdr, bad_var = comp[0].clone(), comp[4].clone()
@@ -469,15 +472,21 @@ def dc_kernel_check(blocks, lens) -> int:
     comp = torch.cat([comp, bad_hdr[None], bad_var[None]]).contiguous()
     clens = torch.cat([clens, clens[[0, 4]]])
     vals, first, length = dc.decode_inputs(comp, clens, blocks.shape[1])
+    wide = first[[4, 4]].clone()
+    wide[0, 5] = -(1 << 24)
+    vals = torch.cat([vals, vals[[4, 4]]]).contiguous()
+    first = torch.cat([first, wide]).contiguous()
+    length = torch.cat([length, torch.stack([length[4], length.new_tensor(
+        1 << 23)])])
     out = dc_scan.dc_decode_lanes(vals, first, length)
     ref, plain_ms = timed(
         lambda: dc_scan.dc_decode_lanes_plain(vals, first, length))
     err = max(max_err(x, y) for x, y in zip(out, ref))
     back, _, flags = dc.decode_batch(comp, clens, blocks.shape[1])
     round_trip = bool(torch.equal(back[:-2], blocks))
-    emit("kernels", kernel="dc_decode", streams=comp.shape[0],
+    emit("kernels", kernel="dc_decode", streams=vals.shape[0],
          steps=vals.shape[1], max_abs_err=err, round_trip=round_trip,
-         err_flags=out[3].tolist()[-2:],
+         err_flags=out[3].tolist()[-4:],
          ms=cuda_ms(lambda: dc_scan.dc_decode_lanes(vals, first, length),
                     10), plain_ms=plain_ms)
     if err or not round_trip or flags[:-2].any():
@@ -877,7 +886,7 @@ def round_trip(data: bytes, **kw):
     if back != data:
         raise AssertionError(f"{len(data)} bytes did not round-trip ({kw})")
     if counts["ari_decode_dot"]:
-        raise AssertionError(f"a container path launched the dot decoder "
+        raise AssertionError(f"a container path launched the dot route "
                              f"({kw})")
     # one wrapper launches both MTF directions: split its count by the
     # direction of each recorded call
@@ -965,21 +974,23 @@ def ab_mix(b: int, n: int, seed: int) -> np.ndarray:
 
 
 def phase_dot(smi: str, decode_call):
-    """The decode A/B, cum (ari_decode.cu) against dot (ari_decode_dot.cu),
-    (a) on the ari path's own decode launch `decode_call` and (b) on the
-    mix of tpuzip's A/B.  Returns the launch counts of (a) and the dot kernel's
-    row at the ari path's shape."""
+    """The decode A/B of tpuzip's cum and dot algos, (a) on the ari path's
+    own decode launch `decode_call` and (b) on the mix of tpuzip's A/B.
+    Both routes launch ari_decode.cu; the dot route's launch is counted by
+    its own wrapper, and held against its plain version, tpuzip's v1 step
+    on frequency state.  Returns the launch counts of (a) and the dot
+    route's row at the ari path's shape."""
     args, kw, cum_out = decode_call
     streams, deltas, lens = args[:3]
     with counted_run() as (_, launches):
         out = range_decoder.ari_decode_indexed(*args, **kw, algo="dot")
     if launches != {k: int(k == "ari_decode_dot") for k in WRAPPERS}:
         raise AssertionError(f"algo='dot' launched {launches}, expected the "
-                             "dot decoder once")
+                             "dot route once")
     launches.update(mtf_encode=0, mtf_decode=0)
     if not torch.equal(out, cum_out):
-        raise AssertionError("the dot decoder and ari_decode.cu disagree on "
-                             "the ari path's inputs")
+        raise AssertionError("the dot and cum routes disagree on the ari "
+                             "path's inputs")
     # the plain version on the first ARI_PLAIN_COLS symbols, as
     # ari_prefix_against_plain cuts a decode launch
     nc = min(ARI_PLAIN_COLS // range_decoder.CHUNK_STEPS, deltas.shape[1])
@@ -988,7 +999,7 @@ def phase_dot(smi: str, decode_call):
         lens.clamp(max=nc * range_decoder.CHUNK_STEPS), **kw))
     err = max_err(out[:, : ref.shape[1]], ref)
     if err:
-        raise AssertionError("ari_decode_dot disagrees with its plain version "
+        raise AssertionError("the dot route disagrees with its plain version "
                              f"on the ari path's inputs: max_abs_err {err}")
     main = in_turns(args, kw, 5)
     kernel = {"inputs": [list(a.shape) for a in args[:3]],
@@ -1009,7 +1020,8 @@ def phase_dot(smi: str, decode_call):
         raise AssertionError(f"the A/B mix did not decode exactly: {exact}")
     ab = in_turns(mix_args, {}, 5)
     emit("dot", launches=launches, inputs=kernel["inputs"],
-         equals_ari_decode=True, max_abs_err=err,
+         kernel="tpuzip_torch/csrc/ari_decode.cu", equals_cum_route=True,
+         max_abs_err=err,
          plain_inputs=kernel["plain_inputs"], plain_ms=plain_ms,
          bound_ms=kernel["bound_ms"], main=main,
          main_mb_s={k: CORPUS_BYTES / 1e3 / main[f"{k}_ms"]
@@ -1471,7 +1483,10 @@ def ab_inputs() -> dict:
     at their decompress; mtf_batch at the bwt and bwt_big paths' compress
     (encode) and decompress (decode); bin_encode_indexed at the bin and
     apm paths' compress, bin_decode_indexed at their decompress, and
-    bin_apm.decode_batch at the apm container's without the chunk index."""
+    bin_apm.decode_batch at the apm container's without the chunk index;
+    dc_decode_lanes at the bwtdc path's decompress.  And for the dot row
+    (ari_decode.cu through the dot route): the ari path's decode launch
+    and the decode of phase 5's A/B mix."""
     data = text_corpus(CORPUS_BYTES, SEED)
     out = {kernel: {} for kernel in AB_KERNELS}
 
@@ -1493,8 +1508,9 @@ def ab_inputs() -> dict:
                                          block_size=block)
         wrapper = ((range_decoder, "ari_decode_indexed") if ari
                    else (bin_coder, "bin_decode_indexed"))
-        with recorded(*wrapper) as dec, recorded(mtf_scan,
-                                                 "mtf_batch") as mdec:
+        with (recorded(*wrapper) as dec,
+              recorded(mtf_scan, "mtf_batch") as mdec,
+              recorded(dc_scan, "dc_decode_lanes") as walk):
             if tpuzip_torch.decompress(blob) != corpus:
                 raise AssertionError(f"{path} did not round-trip")
         if ari:
@@ -1505,33 +1521,46 @@ def ab_inputs() -> dict:
             keep("mtf", f"{path}:encode", menc)
             keep("mtf", f"{path}:decode", mdec)
         keep(wrapper[1].replace("_indexed", ""), path, dec)
+        if codec == "bwtdc":
+            keep("dc_decode", path, walk)
         if codec == "apm":
             with recorded(bin_apm, "decode_batch") as flat:
                 if tpuzip_torch.decompress(strip_index(blob)) != corpus:
                     raise AssertionError("apm without the index did not "
                                          "round-trip")
             keep("bin_decode", "apm_unindexed", flat)
+    mix = torch.from_numpy(ab_mix(128, BLOCK, SEED)).cuda()
+    mix_lens = torch.full((128,), BLOCK, dtype=torch.int32, device="cuda")
+    mix_streams, _, mix_deltas = range_coder.ari_encode_indexed(mix, mix_lens)
+    out["ari_decode_dot"] = {"ari": out["ari_decode"]["ari"],
+                             "mix": ((mix_streams, mix_deltas, mix_lens), {})}
     return out
 
 
-AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode")
-# the A/B kernels this checkout redesigns: every other one, and each
-# source that shares a header with one, must keep the DIR's SASS
-AB_REDESIGNED = ("mtf", "bin_encode")
-AB_SHARERS = ("ari_decode_dot",)
+AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
+              "dc_decode")
+# the A/B kernels this checkout redesigns: every other one must keep the
+# DIR's SASS
+AB_REDESIGNED = ("dc_decode",)
 
 
 def ab_entry(lib, kernel: str):
     """The typed C entry point of `kernel` in a build.  An MTF build exports
     tpz_mtf_chunked (with its scratch) since the chunked redesign, and
-    tpz_mtf before it."""
+    tpz_mtf before it.  The dot row's old build is a DIR's
+    ari_decode_dot.cu, its new one the checkout's ari_decode.cu (the dot
+    route since that source was removed)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if kernel == "mtf":
         kernel = "mtf_chunked" if hasattr(lib, "tpz_mtf_chunked") else "mtf"
+    if kernel == "ari_decode_dot" and not hasattr(lib, "tpz_ari_decode_dot"):
+        kernel = "ari_decode"
     fn = getattr(lib, f"tpz_{kernel}")
     fn.argtypes = {
         "ari_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, vp],
         "ari_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp],
+        "ari_decode_dot": [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp],
+        "dc_decode": [vp, vp, vp, ci, ci, vp, vp, vp, vp, vp],
         "bin_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, vp],
         "bin_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, ci, vp],
         "mtf": [vp, vp, ci, ci, vp, ci, vp],
@@ -1566,7 +1595,7 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
                 return out
             return run
         steps = int(lens.max())
-    elif kernel == "ari_decode":
+    elif kernel in ("ari_decode", "ari_decode_dot"):
         streams, deltas, lens = args[:3]
         nc = kw.get("nc") or deltas.shape[1]
 
@@ -1626,6 +1655,25 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
                 return out
             return run
         steps = 8 * int(lens.max())
+    elif kernel == "dc_decode":
+        vals, first, lengths = args
+        b, t = vals.shape
+
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
+            def run():
+                out = torch.empty((3, b, t), dtype=torch.int32, device="cuda")
+                err = torch.empty(b, dtype=torch.int32, device="cuda")
+                _build.check(fn(vals.data_ptr(), first.data_ptr(),
+                                lengths.data_ptr(), b, t, out[0].data_ptr(),
+                                out[1].data_ptr(), out[2].data_ptr(),
+                                err.data_ptr(), stream()), "tpz_dc_decode")
+                return out, err
+            return run
+        # the runs of the longest walk (a column of T past a walk's end is
+        # no run)
+        steps = int((make(libs["new"])()[0][1] > 0).sum(1).max())
     else:
         if not torch.is_tensor(args[2]):
             # bin_apm.decode_batch(comp, lengths, out_n, bits, rate, apm)
@@ -1656,8 +1704,8 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
 
 def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
-    csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu and
-    bin_encode.cu against the same files in each DIR (beside the headers
+    csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu
+    and dc_decode.cu against the same files in each DIR (beside the headers
     they include), for instance a parent commit's:
 
         mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
@@ -1667,24 +1715,29 @@ def ab_child(dirs: list) -> int:
     kernel's launch on the container paths (ari_encode and ari_decode at
     the ari, bwt, bwt_big and bwtdc paths; mtf both ways at the bwt and
     bwt_big paths; bin_encode and bin_decode at the bin and apm paths, and
-    bin_decode at apm without the chunk index), checks that every build
-    gives the same outputs there (streams, lengths and chunk index;
-    symbols; bits), and times each DIR's kernel and the checkout's in turns
-    (old, new, new, old; each the mean of 3 launches), with ns a step (the
-    longest row's symbols or bits).  Beside them: ari_decode's no-index
-    mode at the ari shape; one row alone against all the rows at the bwt,
-    bin and apm shapes, for every build; and whether the SASS of each source
-    that this checkout does not redesign (all but AB_REDESIGNED, and
-    ari_decode_dot.cu, which shares ari_model.cuh) equals the DIR's build
-    of it.  One JSON line a kernel and shape, then one line of the whole;
-    exits 1 if any outputs differed."""
+    bin_decode at apm without the chunk index; dc_decode at the bwtdc
+    path), checks that every build gives the same outputs there (streams,
+    lengths and chunk index; symbols; bits; run triples and err), and
+    times each DIR's kernel and the checkout's in turns (old, new, new,
+    old; each the mean of 3 launches), with ns a step (the longest row's
+    symbols, bits or walked runs).  A DIR that holds ari_decode_dot.cu
+    (tpuzip's v1 decoder on frequency state, since removed) gives one
+    more row, ari_decode_dot: that kernel against the checkout's dot route
+    (ari_decode.cu) at the ari path's decode launch and on phase 5's A/B
+    mix.  Beside them: ari_decode's no-index mode at the ari shape; one
+    row alone against all the rows at the bwt, bwtdc, bin and apm shapes,
+    for every build; and whether the SASS of each source that this
+    checkout does not redesign (all but AB_REDESIGNED) equals the DIR's
+    build of it.  One JSON line a kernel and shape, then one line of the
+    whole; exits 1 if any outputs differed."""
     if not dirs:
         raise SystemExit("chip_smoke.py --ab needs a directory")
     smi = nvidia_smi()
     nvcc = _build.find_nvcc()
     jobs = {}
-    for kernel in AB_KERNELS + AB_SHARERS:
-        jobs[f"new:{kernel}"] = _build.CSRC / f"{kernel}.cu"
+    for kernel in AB_KERNELS + ("ari_decode_dot",):
+        if kernel in AB_KERNELS:
+            jobs[f"new:{kernel}"] = _build.CSRC / f"{kernel}.cu"
         for i, d in enumerate(dirs):
             if os.path.exists(f"{d}/{kernel}.cu"):
                 jobs[f"old{i}:{kernel}"] = f"{d}/{kernel}.cu"
@@ -1711,14 +1764,18 @@ def ab_child(dirs: list) -> int:
         res["sass_unchanged"] = {
             name: sass(name) == sass("new:" + name.split(":")[1])
             for name in jobs if not name.startswith("new")
+            and name.split(":")[1] in AB_KERNELS
             and name.split(":")[1] not in AB_REDESIGNED}
         libs = {}
         for name in jobs:
             build, kernel = name.split(":")
-            if kernel in AB_KERNELS:
-                libs.setdefault(kernel, {})[build] = ctypes.CDLL(so[name])
+            libs.setdefault(kernel, {})[build] = ctypes.CDLL(so[name])
+        if "ari_decode_dot" in libs:
+            libs["ari_decode_dot"]["new"] = libs["ari_decode"]["new"]
         shapes = {}
         for kernel, paths in ab_inputs().items():
+            if kernel not in libs:
+                continue
             for path, (args, kw) in paths.items():
                 runs, steps = ab_launchers(libs[kernel], kernel, args, kw)
                 ref = runs["new"]()
@@ -1746,7 +1803,7 @@ def ab_child(dirs: list) -> int:
                     if not torch.equal(flat["new"]()[0], ref[0]):
                         differ.append("ari_decode's no-index mode")
                     row["unindexed_ms"] = cuda_ms(flat["new"], 3)
-                if path in ("bwt", "bin", "apm"):
+                if path in ("bwt", "bin", "apm") or kernel == "dc_decode":
                     one, _ = ab_launchers(
                         libs[kernel], kernel,
                         tuple(a[:1].contiguous() if torch.is_tensor(a)
@@ -1826,7 +1883,7 @@ def main() -> int:
              "tpuzip/kernels/bin_coder.py:38"),
             ("bin_decode", "bin_decode.cu",
              "tpuzip/kernels/bin_coder.py:341"),
-            ("ari_decode_dot", "ari_decode_dot.cu",
+            ("ari_decode_dot", "ari_decode.cu",
              "tpuzip/kernels/range_decoder.py:559")):
         k = at_shape[name]
         extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}

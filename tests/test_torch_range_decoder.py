@@ -8,7 +8,10 @@ index.  tests/test_range_decoder.py:74 parametrizes algo but never passes
 it, so these are the only tests of the v1 step; they go through
 ``ari_decode_reference(algo="dot")`` because ``ari_decode_lanes`` does not
 lower in interpret mode on the CPU.  The CUDA kernels are held against
-these plain versions on the card."""
+these plain versions on the card.  The dot route launches csrc/
+ari_decode.cu on the card; test_dot_function_equals_cum_function is what
+licenses that: the v1 function equals the cumulative-state one at every
+knob pair the card's smoke runs, on valid streams and on garbage."""
 
 import numpy as np
 import pytest
@@ -75,17 +78,23 @@ def test_plain_decode_matches_reference(rng, algo, knobs):
         assert not got[lane, n:].any()              # 0 past the length
 
 
-@pytest.mark.parametrize("knobs", [(8, 512), (16, 40000)])
-def test_dot_plain_decode_matches_reference_on_garbage(rng, knobs):
-    """Random stream bytes and a random chunk index (deltas 0..260, so
-    some chunks read past the row and some barely move): both states give
-    the same symbols, because v <= tot-1 clamps the search in both."""
-    inc, thr = knobs
+def _garbage(rng):
+    """Random stream bytes and a random chunk index (deltas 0..260, so some
+    chunks read past the row and some barely move), ragged lengths."""
     nc = 6
     streams = torch.from_numpy(rng.integers(0, 256, (LANES, 1200), np.uint8))
     deltas = torch.from_numpy(rng.integers(0, 261, (LANES, nc), np.int32))
     lens = rng.integers(0, nc * trd.CHUNK_STEPS + 1, LANES).astype(np.int32)
     lens[:4] = nc * trd.CHUNK_STEPS
+    return streams, deltas, lens
+
+
+@pytest.mark.parametrize("knobs", [(8, 512), (16, 40000)])
+def test_dot_plain_decode_matches_reference_on_garbage(rng, knobs):
+    """Both states give the same symbols on garbage, because v <= tot-1
+    clamps the search in both."""
+    inc, thr = knobs
+    streams, deltas, lens = _garbage(rng)
     lt = torch.from_numpy(lens)
     got = trd.ari_decode_dot_indexed_plain(streams, deltas, lt, inc, thr)
     exp = _reference(streams, deltas, lens, inc, thr, "dot")
@@ -95,6 +104,47 @@ def test_dot_plain_decode_matches_reference_on_garbage(rng, knobs):
         assert got[lane, :n].numpy().tobytes() == exp[lane, :n].tobytes(), \
             lane
         assert torch.equal(got[lane], cum[lane]), lane
+
+
+# chip_smoke.KNOBS: the (increment, threshold) pairs the card's smoke runs
+SMOKE_KNOBS = ((8, 1 << 13), (8, 512), (16, 40000), (0, 1 << 13))
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the plain decoders' many small steps, so
+    that a worker beside other test workers does not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("kind", ["valid", "garbage"])
+@pytest.mark.parametrize("knobs", SMOKE_KNOBS)
+def test_dot_function_equals_cum_function(rng, knobs, kind):
+    """The v1 function (frequency state, the table rebuilt every step)
+    equals the cumulative-state one: the port's two plain versions agree
+    on every symbol, and so do tpuzip's references under algo="dot" and
+    "cum" (both take every pair here: f32 sums stay below 2^24, and the
+    frequencies' bytes are bf16-exact)."""
+    inc, thr = knobs
+    if kind == "valid":
+        _, lens, streams, deltas = _streams(rng, inc, thr)
+    else:
+        streams, deltas, lens = _garbage(rng)
+    lt = torch.from_numpy(lens)
+    dot = trd.ari_decode_dot_indexed_plain(streams, deltas, lt, inc, thr)
+    assert torch.equal(dot, trd.ari_decode_indexed_plain(streams, deltas, lt,
+                                                         inc, thr))
+    jdot = _reference(streams, deltas, lens, inc, thr, "dot")
+    jcum = _reference(streams, deltas, lens, inc, thr, "cum")
+    for lane in range(LANES):
+        n = lens[lane]
+        assert jdot[lane, :n].tobytes() == jcum[lane, :n].tobytes(), lane
+        assert dot[lane, :n].numpy().tobytes() == jdot[lane, :n].tobytes()
 
 
 def test_plain_decode_reads_zero_past_the_row(rng):
@@ -125,9 +175,11 @@ def test_wrapper_takes_plain_version_only_on_cpu(rng):
         trd.ari_decode_indexed(streams, deltas[:3], lt)
 
 
-def test_algo_choice_takes_plain_versions_only_on_cpu(rng):
+def test_algo_choice_takes_plain_versions_only_on_cpu(rng, monkeypatch):
     """ari_decode_indexed(algo=...) and ari_decode_dot_indexed on CPU
-    tensors: the plain versions, no launch counted, the same checks."""
+    tensors: the plain versions, no launch counted, the same checks; the
+    dot route's CPU path is still the v1 step (its own plain version, not
+    the cumulative one) though on the card it launches ari_decode.cu."""
     _, lens, streams, deltas = _streams(rng, 8, 1 << 13)
     deltas = deltas[:, :2].contiguous()          # the first 128 symbols
     lt = torch.from_numpy(lens).clamp(max=2 * trd.CHUNK_STEPS)
@@ -155,3 +207,21 @@ def test_algo_choice_takes_plain_versions_only_on_cpu(rng):
         trd.ari_decode_dot_indexed(streams, deltas[:3], lt)
     with pytest.raises(ValueError):
         trd.ari_decode_dot_indexed(streams, deltas, lt, 8, 1 << 16)
+    ran = []
+    plain = trd.ari_decode_dot_indexed_plain
+
+    def v1_step(*args):
+        ran.append(args[3:])
+        return plain(*args)
+
+    def refused(*args):
+        raise AssertionError("the dot route ran the cumulative plain version")
+
+    monkeypatch.setattr(trd, "ari_decode_dot_indexed_plain", v1_step)
+    monkeypatch.setattr(trd, "ari_decode_indexed_plain", refused)
+    assert torch.equal(trd.ari_decode_dot_indexed(streams, deltas, lt, 16,
+                                                  512), plain(
+        streams, deltas, lt, 16, 512))
+    assert torch.equal(trd.ari_decode_indexed(streams, deltas, lt, algo="dot"),
+                       dot)
+    assert ran == [(16, 512), (8, 1 << 13)]

@@ -1,9 +1,11 @@
-// step_clocks.cu — clock64-stamped copies of three kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of four kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
-// apm bit decoder's (csrc/bin_decode.cu, indexed) and the apm bit
-// encoder's (csrc/bin_encode.cu, one thread a stream); and the redesigned
-// ari encoder, built from its own source, stamped by warp.  One stream
-// each (one warp, one thread).  Each part of a step is stamped after its
+// apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
+// (csrc/bin_encode.cu, one thread a stream) and the DC walk's
+// (csrc/dc_decode.cu, eight compares and two reductions a run); and the
+// redesigned ari encoder and DC walk, built from their own sources, the
+// encoder stamped by warp, the walk by part.  One stream each (one warp,
+// one thread).  Each part of a step is stamped after its
 // result is ready (the stamp waits on it), and its cycles are summed over
 // the stream; STAMP=false runs the same copy with only the two stamps around
 // the whole loop, for the step's cycles as the kernel runs it.  The
@@ -16,6 +18,7 @@
 
 #include "../tpuzip_torch/csrc/ari_encode.cu"
 #include "../tpuzip_torch/csrc/bin_coder.cuh"
+#include "../tpuzip_torch/csrc/dc_decode.cu"
 
 // The bit model as the one-thread-a-stream kernels held it: p0 in a
 // register, the APM cells of a block's 32 streams in shared memory, laid
@@ -381,6 +384,201 @@ ari_encode_warps(const uint8_t* row, int len, uint8_t* out, int cap,
   }
 }
 
+// The DC walk as it stood before its redesign (csrc/dc_decode.cu as ported),
+// one stream, by part: 0 the compares and the lane minimum, 1 the vote,
+// 2 the min reduction, 3 the target and bad, 4 the add reduction, 5 the
+// update, 6 the output select with the 32-step load and store, 7 the loop
+// test (`j < steps && pos < length`); cycles[8] the whole loop.
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+dc_walk_clocks(const int32_t* vals, const int32_t* first, int length, int T,
+               int32_t* starts, int32_t* run_lens, int32_t* syms,
+               int32_t* err_out, long long* cycles) {
+  constexpr int INF = 0x7fffffff;
+  constexpr unsigned FULL = dc::FULL;
+  const int lane = threadIdx.x;
+  int sched[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int f = first[8 * lane + k];
+    sched[k] = f < length ? f : INF;
+  }
+  int pos = 0;
+  bool err = false;
+  Clocks<STAMP> c;
+  c.start(static_cast<uint32_t>(sched[0]));
+  const long long t0 = c.t;
+  for (int g0 = 0; g0 < T; g0 += 32) {
+    const int t = g0 + lane;
+    const int v = t < T ? vals[t] : 0;
+    int o_start = 0, o_len = 0, o_sym = 0;
+    const int steps = min(32, T - g0);
+    c.lap(6, static_cast<uint32_t>(v));
+    for (int j = 0; j < steps && pos < length; ++j) {
+      c.lap(7, static_cast<uint32_t>(j));
+      const int d = __shfl_sync(FULL, v, j);
+      unsigned hit = 0;
+      int low_min = INF, hit_sum = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (sched[k] == pos) {
+          hit |= 1u << k;
+          hit_sum += 8 * lane + k;
+        } else {
+          low_min = min(low_min, sched[k]);
+        }
+      }
+      c.lap(0, hit ^ static_cast<uint32_t>(low_min ^ hit_sum ^ d));
+      const bool any = __any_sync(FULL, hit != 0);
+      c.lap(1, any);
+      const int nxt = min(__reduce_min_sync(FULL, low_min), length);
+      c.lap(2, static_cast<uint32_t>(nxt));
+      const int target = static_cast<int>(static_cast<unsigned>(nxt) - 1u +
+                                          static_cast<unsigned>(d));
+      const bool bad = !any || (d > 0 && (target >= length || target < nxt));
+      const int put = (d > 0 && !bad) ? target : INF;
+      c.lap(3, static_cast<uint32_t>(put) ^ bad);
+      const int sym = __reduce_add_sync(FULL, hit_sum);
+      c.lap(4, static_cast<uint32_t>(sym));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (hit & (1u << k)) sched[k] = put;
+      c.lap(5, static_cast<uint32_t>(sched[0] ^ sched[1] ^ sched[2] ^
+                                     sched[3] ^ sched[4] ^ sched[5] ^
+                                     sched[6] ^ sched[7]));
+      if (lane == j) {
+        o_start = pos;
+        o_len = static_cast<int>(static_cast<unsigned>(nxt) -
+                                 static_cast<unsigned>(pos));
+        o_sym = sym;
+      }
+      pos = nxt;
+      err |= bad;
+      c.lap(6, static_cast<uint32_t>(o_start ^ o_len ^ o_sym ^ pos));
+    }
+    c.lap(7, static_cast<uint32_t>(pos));
+    if (t < T) {
+      starts[t] = o_start;
+      run_lens[t] = o_len;
+      syms[t] = o_sym;
+    }
+    c.lap(6, static_cast<uint32_t>(o_start));
+  }
+  const long long t1 = stamp(static_cast<uint32_t>(pos));
+  if (lane == 0) {
+    *err_out = (err || pos < length) ? 1 : 0;
+    for (int i = 0; i < 8; ++i) cycles[i] = c.sum[i];
+    cycles[8] = t1 - t0;
+  }
+}
+
+// The redesigned walk (csrc/dc_decode.cu's helpers), one stream.  Stamped,
+// by part: 0 the distances' shuffles, the key and the test for the exact
+// step, 1 the min reduction, 2 the limit test and the entry put back, 3 the
+// merge, 4 the head kept, 5 the group's load and vote, 6 its triples, err
+// and store, 7 the exact redo of a group; cycles[8] the whole loop.
+// Unstamped, the kernel's own dc::walk_keyed.
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+dc_keyed_clocks(const int32_t* vals, const int32_t* first, int length, int T,
+                int32_t* starts, int32_t* run_lens, int32_t* syms,
+                int32_t* err_out, long long* cycles) {
+  constexpr unsigned FULL = dc::FULL;
+  const int lane = threadIdx.x;
+  const dc::Rows rows = {starts, run_lens, syms};
+  dc::Walk w;
+  dc::init(w, first, length, lane);
+  Clocks<STAMP> c;
+  c.start(static_cast<uint32_t>(w.s[0]));
+  const long long t0 = c.t;
+  if (!STAMP) {
+    dc::walk_keyed(w, vals, T, length, lane, rows);
+  } else {
+    dc::Packed k;
+    dc::pack(k, w);
+    const int L8 = dc::shl8(length);
+    for (int g0 = 0; g0 < T; g0 += dc::GROUP) {
+      const int t = g0 + lane;
+      dc::Out o = {0, 0, 0};
+      if (k.ppos < L8) {
+        const int v = t < T ? vals[t] : 0;
+        const int steps = min(dc::GROUP, T - g0);
+        const dc::Packed start = k;
+        const int lim = dc::limit(v, length);
+        const int lim8 = lim > -dc::SPAN ? dc::shl8(lim) : INT_MIN;
+        const unsigned d8 = (static_cast<unsigned>(v) - 1u) << 8;
+        int o_h = L8;
+        bool odd = (k.head & ~255) != k.ppos;
+        c.lap(5, static_cast<uint32_t>(lim8) ^ d8 ^ odd);
+        for (int j = 0; j < steps; ++j) {
+          const int lim8j = __shfl_sync(FULL, lim8, j);
+          const unsigned d8j = __shfl_sync(FULL, d8, j);
+          const int head = k.head, phi = head | 255;
+          const int p0 = k.p[0], p1 = k.p[1];
+          const bool hit = p0 == head;
+          const int key = hit ? p1 : p0;
+          odd |= ((head & ~255) < L8) & (((p0 <= phi) & !hit) | (p1 <= phi));
+          const int kept = hit ? (L8 | (p0 & 255)) : p0;
+          const unsigned moved = d8j + static_cast<unsigned>(p0 & 255);
+          c.lap(0, static_cast<uint32_t>(key ^ kept ^ lim8j) ^ moved ^ odd);
+          const int r = __reduce_min_sync(FULL, key);
+          c.lap(1, static_cast<uint32_t>(r));
+          const int x =
+              (hit && r < lim8j)
+                  ? static_cast<int>(static_cast<unsigned>(r & ~255) + moved)
+                  : kept;
+          c.lap(2, static_cast<uint32_t>(x));
+          int q[8];
+          q[0] = min(p1, x);
+#pragma unroll
+          for (int i = 1; i < 7; ++i) q[i] = max(k.p[i], min(k.p[i + 1], x));
+          q[7] = max(k.p[7], x);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) k.p[i] = q[i];
+          c.lap(3, static_cast<uint32_t>(q[0] ^ q[1] ^ q[2] ^ q[3] ^ q[4] ^
+                                         q[5] ^ q[6] ^ q[7]));
+          if (lane == j) o_h = head;
+          k.head = r;
+          c.lap(4, static_cast<uint32_t>(o_h));
+        }
+        const bool redo = __any_sync(FULL, odd);
+        c.lap(5, redo);
+        if (redo) {
+          dc::Walk u;
+          dc::unpack(u, start);
+          for (int j = 0; j < steps; ++j)
+            dc::exact_step(u, o, lane == j, __shfl_sync(FULL, v, j), length);
+          dc::pack(k, u);
+          c.lap(7, static_cast<uint32_t>(k.ppos ^ o.sym));
+        } else {
+          k.ppos = k.head & ~255;
+          const int down = __shfl_down_sync(FULL, o_h, 1);
+          const int next = (lane == steps - 1 ? k.head : down) & ~255;
+          const bool active = o_h < L8;
+          if (active) {
+            o.start = o_h >> 8;
+            o.len = static_cast<int>((static_cast<unsigned>(next) -
+                                      static_cast<unsigned>(o_h & ~255)) >>
+                                     8);
+            o.sym = o_h & 255;
+          }
+          k.err |= __any_sync(FULL, active && v > 0 && next >= lim8);
+        }
+      }
+      dc::store(rows, t, T, o);
+      c.lap(6, static_cast<uint32_t>(o.start ^ o.len ^ k.err));
+    }
+    w.pos = k.ppos >> 8;
+    w.err = k.err;
+  }
+  const long long t1 = stamp(static_cast<uint32_t>(w.pos));
+  if (lane == 0) {
+    *err_out = (w.err || w.pos < length) ? 1 : 0;
+    for (int i = 0; i < 8; ++i) cycles[i] = c.sum[i];
+    cycles[8] = t1 - t0;
+  }
+}
+
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -431,5 +629,29 @@ extern "C" int tpz_apm_encode_clocks(const void* row, int len, void* out,
     apm_encode_clocks<true><<<1, 1>>>(r, len, o, cap, d, s, c, bits, rate);
   else
     apm_encode_clocks<false><<<1, 1>>>(r, len, o, cap, d, s, c, bits, rate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One DC stream: which = 3 the earlier walk stamped, 2 unstamped; 1 the
+// redesign stamped, 0 unstamped.  cycles holds 9 int64.
+extern "C" int tpz_dc_walk_clocks(const void* vals, const void* first,
+                                  int length, int T, void* starts,
+                                  void* run_lens, void* syms, void* err,
+                                  void* cycles, int which) {
+  auto* v = static_cast<const int32_t*>(vals);
+  auto* f = static_cast<const int32_t*>(first);
+  auto* s = static_cast<int32_t*>(starts);
+  auto* l = static_cast<int32_t*>(run_lens);
+  auto* y = static_cast<int32_t*>(syms);
+  auto* e = static_cast<int32_t*>(err);
+  auto* c = static_cast<long long*>(cycles);
+  if (which == 3)
+    dc_walk_clocks<true><<<1, 32>>>(v, f, length, T, s, l, y, e, c);
+  else if (which == 2)
+    dc_walk_clocks<false><<<1, 32>>>(v, f, length, T, s, l, y, e, c);
+  else if (which == 1)
+    dc_keyed_clocks<true><<<1, 32>>>(v, f, length, T, s, l, y, e, c);
+  else
+    dc_keyed_clocks<false><<<1, 32>>>(v, f, length, T, s, l, y, e, c);
   return static_cast<int>(cudaGetLastError());
 }

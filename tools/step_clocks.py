@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Cycles a step, by part, of the ari encoder's, the apm bit decoder's and
-the apm bit encoder's steps as they stood before their redesign, and of
-the redesigned ari encoder by warp (tools/step_clocks.cu), on one real
-stream each, on one GPU:
+"""Cycles a step, by part, of the ari encoder's, the apm bit decoder's, the
+apm bit encoder's and the DC walk's steps as they stood before their
+redesign, of the redesigned ari encoder by warp and of the redesigned DC
+walk by part (tools/step_clocks.cu), on one real stream each, on one GPU:
 
     python3 tools/step_clocks.py        # from the root of a checkout
 
@@ -10,11 +10,14 @@ The encoder's stream is block 0 of the bwt path (the smoke's corpus at
 1 MiB blocks, the ari encoder's input after BWT and MTF), and for the
 redesign also block 0 of the bwtdc path (after BWT and DC); the decoder's
 is block 0 of the apm path at 64 KiB, and the bit encoder's that block's
-bytes.  Each copy's output must equal the real kernel's on that stream.
-Prints one JSON line: for each, the steps, the cycles a step of each
-part (stamped run), of the stamped loop and of the unstamped loop, and
-the unstamped copy's CUDA-event ms (cycles over ms is the SM clock under
-this load)."""
+bytes; the DC walk's is block 0 of the bwtdc path on the smoke's 64 MiB
+corpus (the walk's own vals, first and length), a step there being one
+walked run.  Each copy's output must equal the real kernel's on that
+stream.  Prints one JSON line: for each, the steps, the cycles a step of
+each part (stamped run), of the stamped loop and of the unstamped loop,
+and the unstamped copy's CUDA-event ms (cycles over ms is the SM clock
+under this load); for the DC walk also the walked runs of all 64 streams
+and csrc/dc_decode.cu's ms on row 0 alone and on all 64."""
 
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 import tpuzip_torch  # noqa: E402
-from tpuzip_torch.kernels import _build, bin_coder, range_coder  # noqa: E402
+from tpuzip_torch.kernels import (_build, bin_coder, dc_scan,  # noqa: E402
+                                  range_coder)
 
 ARI_PARTS = ("symbol", "table reads", "division", "multiplies",
              "renormalisation", "update", "chunk test and loop")
@@ -46,12 +50,70 @@ APM_ENC_PARTS = ("input byte", "split with the gate", "coder products",
                  "chunk test and loop", "")
 APM_PARTS = ("byte loads", "split", "division", "bit and coder update",
              "renormalisation", "model update", "bit packing and loop")
+DC_PARTS = ("compares and the lane minimum", "vote", "min reduction",
+            "target and bad", "add reduction", "update",
+            "output select with the 32-step load and store", "loop test")
+DC_KEYED_PARTS = ("shuffles, key and the test for the exact step",
+                  "min reduction", "limit test and the entry put back",
+                  "merge", "head kept", "group load and vote",
+                  "triples, err and store", "exact redo")
 
 
 def per_step(cycles, parts, steps: int) -> dict:
+    """cycles[i] / steps for each named part, their sum, and the loop's
+    (the entry after the parts)."""
     return {**{p: cycles[i] / steps for i, p in enumerate(parts) if p},
-            "sum of parts": sum(cycles[:7]) / steps,
-            "loop": cycles[7] / steps}
+            "sum of parts": sum(cycles[:len(parts)]) / steps,
+            "loop": cycles[len(parts)] / steps}
+
+
+def dc_walk(lib, res) -> None:
+    """The DC walk's copies on row 0 of the bwtdc path, held against
+    csrc/dc_decode.cu's outputs there, into res["dc_walk"]."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    blob = tpuzip_torch.compress(data, codec="bwtdc", block_size=cs.BWT_BLOCK)
+    with cs.recorded(dc_scan, "dc_decode_lanes") as calls:
+        tpuzip_torch.decompress(blob)
+    (args, _, out), = calls
+    vals, first, lengths = args
+    walked = (out[1] > 0).sum(1)
+    runs, t = int(walked[0]), vals.shape[1]
+    fn = lib.tpz_dc_walk_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, vp, ci]
+    row = (vals[0].contiguous(), first[0].contiguous())
+
+    def run(which: int):
+        got = torch.zeros((3, t), dtype=torch.int32, device="cuda")
+        err = torch.zeros(1, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(9, dtype=torch.int64, device="cuda")
+        _build.check(fn(row[0].data_ptr(), row[1].data_ptr(),
+                        int(lengths[0]), t, got[0].data_ptr(),
+                        got[1].data_ptr(), got[2].data_ptr(), err.data_ptr(),
+                        cyc.data_ptr(), which), "dc_walk_clocks")
+        torch.cuda.synchronize()
+        return got, err, cyc.tolist()
+
+    rec = res.setdefault("dc_walk", {
+        "steps": t, "walked_runs_row0": runs,
+        "walked_runs_all": walked.tolist()})
+    for which, name, parts in ((3, "earlier_stamped", DC_PARTS),
+                               (2, "earlier_unstamped", DC_PARTS),
+                               (1, "redesign_stamped", DC_KEYED_PARTS),
+                               (0, "redesign_unstamped", DC_KEYED_PARTS)):
+        got, err, cyc = run(which)
+        if not (all(torch.equal(got[i], out[i][0]) for i in range(3))
+                and int(err) == int(out[3][0])):
+            raise AssertionError(f"DC walk copy {name} differs from "
+                                 "csrc/dc_decode.cu on row 0")
+        rec[name] = per_step(cyc, parts, runs)
+        if which in (2, 0):
+            rec[f"{name}_ms"] = cs.cuda_ms(lambda: run(which), 3)
+    rec["kernel_row0_ms"] = cs.cuda_ms(
+        lambda: dc_scan.dc_decode_lanes(*(a[:1].contiguous() for a in args)),
+        3)
+    rec["kernel_all_ms"] = cs.cuda_ms(lambda: dc_scan.dc_decode_lanes(*args),
+                                      3)
 
 
 def main() -> int:
@@ -170,6 +232,7 @@ def main() -> int:
             "stamped" if stamped else "unstamped"] = per_step(
                 cyc, APM_ENC_PARTS, 8 * elen)
     res["apm_encode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_apm_enc(0), 3)
+    dc_walk(lib, res)
     print(json.dumps(res))
     return 0
 

@@ -4,8 +4,7 @@
 // table C (C[255] == total) as eight u32 registers.  Unpacked u32 entries
 // take any knobs with threshold + increment <= 2^16, the bound of the
 // range coder itself (the TPU kernels' u16-pair packing stopped at 2^15).
-// ari_decode_dot.cu keeps the frequencies in that layout instead and
-// rebuilds C from them with prefix() every step.  Every function here is called by all 32 lanes with warp-uniform
+// Every function here is called by all 32 lanes with warp-uniform
 // arguments, so the shuffles are always full-warp.
 
 #pragma once

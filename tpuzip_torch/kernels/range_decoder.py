@@ -11,11 +11,14 @@ position advances by the bytes pulled, and a byte at or past the row's
 width reads as 0 — the TPU kernels' semantics exactly (build_windows
 clamps to the width, with 4 zero bytes of padding).
 
-Two decoders compute that one function.  ari_decode_indexed (csrc/
-ari_decode.cu) carries the cumulative table and updates it in place, as
-tpuzip's v2 and v3 kernels do; ari_decode_dot_indexed (csrc/
-ari_decode_dot.cu) carries the frequency table and rebuilds the
-cumulative one every step, as tpuzip's v1 kernel (algo="dot") does.
+tpuzip has three decode kernels of that one function: v3 and v2 carry
+the cumulative table and update it in place, v1 (algo="dot") carries the
+frequency table and rebuilds the cumulative one every step, because the
+TPU's vector unit had no scan across sublanes and its matrix unit did it.
+On the card the rebuild is a warp scan on the chain of every step, so all
+three run csrc/ari_decode.cu, whose step updates the cumulative table in
+place.  The plain versions keep both states: ari_decode_indexed_plain the
+cumulative one, ari_decode_dot_indexed_plain tpuzip's v1 step.
 
 Torch on the CPU has no add, shift or compare for torch.uint32, so the
 plain versions carry the u32 coder state in int64 masked to 32 bits.
@@ -330,11 +333,9 @@ def ari_decode_dot_indexed_plain(streams: torch.Tensor, deltas: torch.Tensor,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib(name: str = "ari_decode"):
-    """The C entry tpz_<name> of csrc/<name>.cu: ari_decode or
-    ari_decode_dot, which take the same arguments."""
-    lib = _build.load(name)
-    fn = getattr(lib, f"tpz_{name}")
+def _lib():
+    """The C entry tpz_ari_decode of csrc/ari_decode.cu."""
+    fn = _build.load("ari_decode").tpz_ari_decode
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, ci, vp]
@@ -361,28 +362,27 @@ def _check(name: str, streams, deltas, lengths, increment: int,
         raise ValueError(f"no {name} for device {streams.device}")
 
 
-def _launch(name: str, streams, deltas, lengths, increment: int,
-            threshold: int, nc: int | None = None) -> torch.Tensor:
-    """csrc/<name>.cu on the current stream (no synchronisation) into a new
-    (B, NC*64) u8 tensor; deltas=None (ari_decode only) decodes nc chunks
-    without the index.  An empty batch launches nothing and gives an empty
-    tensor."""
+def _launch(streams, deltas, lengths, increment: int, threshold: int,
+            nc: int | None = None) -> torch.Tensor:
+    """csrc/ari_decode.cu on the current stream (no synchronisation) into
+    a new (B, NC*64) u8 tensor; deltas=None decodes nc chunks without the
+    index.  An empty batch launches nothing and gives an empty tensor."""
     if not all(t.is_contiguous() for t in (streams, deltas, lengths)
                if t is not None):
-        raise ValueError(f"{name} takes contiguous tensors")
+        raise ValueError("ari_decode takes contiguous tensors")
     b, cap = streams.shape
     nc = deltas.shape[1] if deltas is not None else nc
     out = torch.empty((b, nc * CHUNK_STEPS), dtype=torch.uint8,
                       device=streams.device)
     if out.numel() == 0:
         return out
-    fn = _lib(name)
+    fn = _lib()
     with torch.cuda.device(streams.device):
         err = fn(streams.data_ptr(),
                  None if deltas is None else deltas.data_ptr(),
                  lengths.data_ptr(), b, cap, nc, out.data_ptr(), increment,
                  threshold, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, name)
+    _build.check(err, "ari_decode")
     return out
 
 
@@ -410,8 +410,7 @@ def ari_decode_indexed(streams: torch.Tensor, deltas: torch.Tensor,
     if streams.device.type == "cpu":
         return ari_decode_indexed_plain(streams, deltas, lengths,
                                         increment, threshold)
-    out = _launch("ari_decode", streams, deltas, lengths, increment,
-                  threshold)
+    out = _launch(streams, deltas, lengths, increment, threshold)
     if out.numel():
         ari_decode_indexed.launches += 1
     return out
@@ -423,17 +422,17 @@ ari_decode_indexed.launches = 0
 def ari_decode_dot_indexed(streams: torch.Tensor, deltas: torch.Tensor,
                            lengths: torch.Tensor, increment: int = 8,
                            threshold: int = 1 << 13) -> torch.Tensor:
-    """ari_decode_indexed on frequency state, the v1 decoder: the same
-    arguments and output.  A CPU tensor runs
-    ari_decode_dot_indexed_plain; a CUDA tensor launches
-    csrc/ari_decode_dot.cu on the current stream (no synchronisation)."""
+    """tpuzip's v1 decoder (algo="dot"): the same arguments and output as
+    ari_decode_indexed, and the same function.  A CPU tensor runs
+    ari_decode_dot_indexed_plain, the v1 step on frequency state; a CUDA
+    tensor launches csrc/ari_decode.cu on the current stream (no
+    synchronisation), counted here and not in ari_decode_indexed."""
     _check("ari_decode_dot_indexed", streams, deltas, lengths, increment,
            threshold)
     if streams.device.type == "cpu":
         return ari_decode_dot_indexed_plain(streams, deltas, lengths,
                                             increment, threshold)
-    out = _launch("ari_decode_dot", streams, deltas, lengths, increment,
-                  threshold)
+    out = _launch(streams, deltas, lengths, increment, threshold)
     if out.numel():
         ari_decode_dot_indexed.launches += 1
     return out
@@ -470,7 +469,7 @@ def decode_batch(comp: torch.Tensor, lengths: torch.Tensor, out_n: int,
         return decode_batch_plain(comp, lengths, out_n, increment, threshold)
     if comp.device.type != "cuda":
         raise ValueError(f"no decode_batch for device {comp.device}")
-    out = _launch("ari_decode", comp, None, lengths, increment, threshold,
+    out = _launch(comp, None, lengths, increment, threshold,
                   -(-out_n // CHUNK_STEPS))
     if out.numel():
         decode_batch.launches += 1
