@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --ab DIR   # csrc/ari_encode.cu, ari_decode.cu,
                                      # bin_decode.cu, mtf.cu, bin_encode.cu,
-                                     # dc_decode.cu against DIR's
+                                     # dc_decode.cu, lz4_encode.cu,
+                                     # lz4_decode.cu, rle.cu against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -15,7 +16,9 @@ the bwtdc codec's, BWT -> DC -> ari (adds csrc/dc_decode.cu); the bin and
 apm codecs' (csrc/bin_encode.cu, bin_decode.cu); and the decode of
 containers without the chunk index (flag 2 clear, as tpuzip's run_job
 writes them), through the no-index modes of ari_decode.cu and
-bin_decode.cu.  tpuzip's v1 decoder (frequency state,
+bin_decode.cu; the lz4 codec's, tpuzip's default (csrc/lz4_encode.cu,
+lz4_decode.cu, which replace tpuzip's host C++ coder: LZ4 has no Pallas
+kernel), and the rle codec's (csrc/rle.cu, both directions).  tpuzip's v1 decoder (frequency state,
 ``ari_decode_indexed(algo="dot")``, the wrapper ari_decode_dot_indexed)
 runs on no container path; on the card it launches ari_decode.cu, and
 phase 5 drives it and holds it against its plain version, the v1 step.
@@ -43,7 +46,15 @@ Phases, one JSON line each:
             (12, 5), (10, 4) and (11, 5) (one plain run holds all six,
             a knob pair a row), the decoder also on 4 garbage rows with
             a random chunk index and, through bin_apm.decode_batch,
-            without the index; times side by side.
+            without the index; lz4 encode at hash_log 12, 16, 20 and an
+            out-of-range 40, rle encode, and both decoders, on those rows
+            and on 19 more: 13 under 13 bytes, runs over 255 bytes,
+            periods 2, 3, 7 and 31 (offsets under 32), and corrupt streams
+            (lz4: offset 0, an offset past the output, truncated literal
+            and match extensions, a literal run past the stream and a
+            truncated offset; rle: counts past the stream, output past
+            out_cap), exact to the byte and the status; times side by
+            side.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -99,6 +110,15 @@ Phases, one JSON line each:
             decoders launched and the indexed ones not; each launch held,
             exact, against its plain version on the path's rows cut to the
             first 4096 symbols (ari) or 512 bytes (apm).
+11. lz4     the 64 MiB corpus through tpuzip_torch.compress(data) with no
+            codec argument (lz4 at 64 KiB blocks, 1024 blocks): the bytes
+            round-trip; both lz4 kernels launched; the streams of 8 blocks
+            equal the oracle's (tpuzip_torch.oracle.lz4); each launch held,
+            exact, against its plain version on 8 whole blocks of the
+            path's own tensors (an LZ4 stream is not causal near a block's
+            end, so no prefix); MB/s, ratio, peak memory, a device trace in
+            a fresh process and a host profile.
+12. rle     the same through codec="rle" (csrc/rle.cu both ways).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the dot route must have none on a container path.  The
@@ -130,11 +150,14 @@ import torch
 import tpuzip_torch
 from tpuzip_torch.codecs import bin_apm, bwt, dc
 from tpuzip_torch.core import blocks as blk
-from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, mtf_scan,
-                                  range_coder, range_decoder)
+from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, lz4_coder,
+                                  mtf_scan, range_coder, range_decoder,
+                                  rle_coder)
 from tpuzip_torch.oracle import ari as oari
 from tpuzip_torch.oracle import bwt as obwt
 from tpuzip_torch.oracle import dc as odc
+from tpuzip_torch.oracle import lz4 as olz4
+from tpuzip_torch.oracle import rle as orle
 
 SEED = 20261016
 KNOBS = ((8, 1 << 13), (8, 512), (16, 40000), (0, 1 << 13))  # (inc, thr)
@@ -147,6 +170,7 @@ ARI_PLAIN_COLS = 4096     # symbols of the ari prefix checks on the bwt paths
 DC_PLAIN_STEPS = 8192     # runs of the DC-walk check on the bwtdc path
 BIN_PLAIN_BYTES = 512     # bytes a block of the bin/apm checks on their paths
 BIN_KNOBS = ((12, 5), (10, 4), (11, 5))   # (model_bits, rate)
+HASH_LOGS = (12, 16, 20, 40)   # the lz4 table's bits; 40 is taken as 16
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 
 
@@ -267,7 +291,7 @@ def mixed_blocks(b: int, n: int, seed: int):
 
 
 SOURCES = ("ari_encode", "ari_decode", "mtf", "dc_decode", "bin_encode",
-           "bin_decode")
+           "bin_decode", "lz4_encode", "lz4_decode", "rle")
 
 
 def ptxas_report(procs) -> dict:
@@ -311,6 +335,10 @@ def phase_build() -> None:
     dc_scan._lib()
     bin_coder._lib("bin_encode")
     bin_coder._lib("bin_decode")
+    lz4_coder._lib("lz4_encode")
+    lz4_coder._lib("lz4_decode")
+    rle_coder._lib("rle_encode")
+    rle_coder._lib("rle_decode")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in secs.items()}, ptxas=ptxas)
 
@@ -454,6 +482,7 @@ def phase_kernels() -> dict:
         raise AssertionError("mtf kernel and plain version disagree")
     errs["dc_decode"] = dc_kernel_check(blocks, lens)
     errs.update(bin_kernel_check(blocks, lens))
+    errs.update(lz_kernel_check(blocks_np, lens_np))
     return errs
 
 
@@ -567,6 +596,142 @@ def bin_kernel_check(blocks, lens) -> dict:
         raise AssertionError("bin kernels and plain versions disagree")
     return {"bin_encode": enc_err, "bin_decode": dec_err,
             "bin_decode_unindexed": flat_err}
+
+
+def lz_rows(n: int, seed: int):
+    """(19, n) u8 rows and lengths for the lz4 and rle checks beside the
+    mixed blocks: 13 rows of 0 to 12 bytes (all literals in LZ4), runs of
+    255 to 700 bytes, text with runs in it, and periods 2, 3, 7 and 31
+    (LZ4 offsets under 32)."""
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(text_corpus(n, seed), np.uint8)
+    runs = np.repeat(rng.integers(0, 256, n), rng.integers(255, 701, n))[:n]
+    mixed = text.copy()
+    for at in range(0, n - 700, 900):
+        mixed[at : at + rng.integers(256, 700)] = rng.integers(0, 256)
+    rows = [text] * 13 + [runs, mixed] + [
+        np.resize(rng.integers(0, 256, p), n) for p in (2, 3, 7, 31)]
+    lens = np.array(list(range(13)) + [n] * 6, np.int32)
+    rows = np.stack(rows).astype(np.uint8)
+    rows[np.arange(n)[None, :] >= lens[:, None]] = 0
+    return rows, lens
+
+
+def first_offset(stream: bytes) -> int:
+    """Where an LZ4 stream's first offset sits: after its token, its literal
+    run's extension and its literals."""
+    lit, p = stream[0] >> 4, 1
+    if lit == 15:
+        while stream[p] == 255:
+            lit += 255
+            p += 1
+        lit += stream[p]
+        p += 1
+    return p + lit
+
+
+def lz4_corrupt_streams(text: bytes) -> list:
+    """(name, stream) of each fault the LZ4 decoder's status reports."""
+    good = olz4.compress_block(text)
+    at = first_offset(good)
+    return [("offset 0", good[:at] + b"\x00\x00" + good[at + 2:]),
+            ("offset past output", good[:at] + b"\xff\xff" + good[at + 2:]),
+            ("truncated literal ext", b"\xf0\xff"),
+            ("truncated match ext", b"\x1fa\x01\x00\xff"),
+            ("truncated offset", b"\x10a\x01"),
+            ("literal run past stream", b"\x50ab")]
+
+
+def rle_corrupt_streams() -> list:
+    """(name, stream) of each fault the rle decoder's status reports."""
+    return [("count past stream", b"aa"),
+            ("count past stream after 255", b"aa\xff"),
+            ("count past stream after 255 255", b"xyzz\xff\xff")]
+
+
+def padded(streams, width: int):
+    """(len, width) u8 rows holding the streams, and their lengths, on the
+    card."""
+    rows = np.zeros((len(streams), width), np.uint8)
+    for i, st in enumerate(streams):
+        rows[i, : len(st)] = np.frombuffer(st, np.uint8)
+    return (torch.from_numpy(rows).cuda(),
+            torch.tensor([len(st) for st in streams], dtype=torch.int32,
+                         device="cuda"))
+
+
+def lz_kernel_check(blocks_np, lens_np) -> dict:
+    """lz4 and rle, each kernel against its plain version on the mixed
+    blocks and lz_rows(), exact to the byte and the status: lz4 encode at
+    each of HASH_LOGS, rle encode; each decoder on the encoded rows plus
+    corrupt streams (lz4_corrupt_streams(), rle_corrupt_streams(), and for
+    both, streams whose literals or fill pass out_cap), every corrupt row's
+    status -1 and every encoded row decoded back; times side by side."""
+    rows_np, rlens_np = lz_rows(blocks_np.shape[1], SEED + 5)
+    x = torch.from_numpy(np.concatenate([blocks_np, rows_np])).cuda()
+    xl = torch.from_numpy(np.concatenate([lens_np, rlens_np])).cuda()
+    b, n = x.shape
+    text = text_corpus(n + 300, SEED + 6)
+    errs, res = {}, {}
+    for hl in HASH_LOGS:
+        enc = lz4_coder.lz4_encode_batch(x, xl, hl)
+        ref, plain_ms = timed(
+            lambda: lz4_coder.lz4_encode_batch_plain(x, xl, hl))
+        err = max(max_err(a, c) for a, c in zip(enc, ref))
+        errs["lz4_encode"] = max(errs.get("lz4_encode", 0), err)
+        res[f"lz4_encode_hash_log_{hl}"] = {
+            "max_abs_err": err, "stream_bytes": int(enc[1].sum()),
+            "ms": cuda_ms(lambda: lz4_coder.lz4_encode_batch(x, xl, hl), 10),
+            "plain_ms": plain_ms}
+        if hl == 16:
+            lz4_enc = enc
+    rle_enc = rle_coder.rle_encode_batch(x, xl)
+    ref, plain_ms = timed(lambda: rle_coder.rle_encode_batch_plain(x, xl))
+    errs["rle_encode"] = max(max_err(a, c) for a, c in zip(rle_enc, ref))
+    res["rle_encode"] = {
+        "max_abs_err": errs["rle_encode"],
+        "stream_bytes": int(rle_enc[1].sum()),
+        "ms": cuda_ms(lambda: rle_coder.rle_encode_batch(x, xl), 10),
+        "plain_ms": plain_ms}
+    # past out_cap: a text stream of n + 300 bytes, and for rle a fill
+    # and a literal stretch longer than n
+    lz4_bad = lz4_corrupt_streams(text[:900]) + [
+        ("output past out_cap", olz4.compress_block(text))]
+    stretch = bytes((np.arange(n + 10) % 251).astype(np.uint8))
+    rle_bad = rle_corrupt_streams() + [
+        ("fill past out_cap", orle.encode(b"a" * (n + 10))),
+        ("literals past out_cap", orle.encode(stretch))]
+    for codec, (comp, clens), bad in (("lz4", lz4_enc, lz4_bad),
+                                      ("rle", rle_enc, rle_bad)):
+        coder = LZ[codec][0]
+        extra, elens = padded([st for _, st in bad], comp.shape[1])
+        comp = torch.cat([comp, extra]).contiguous()
+        clens = torch.cat([clens, elens]).contiguous()
+        wrapper = getattr(coder, f"{codec}_decode_batch")
+        dec = wrapper(comp, clens, n)
+        ref, plain_ms = timed(lambda: getattr(
+            coder, f"{codec}_decode_batch_plain")(comp, clens, n))
+        err = max(max_err(a, c) for a, c in zip(dec, ref))
+        keep = torch.arange(n, device="cuda")[None, :] < xl[:, None]
+        back = (torch.equal(dec[1][:b], xl.to(torch.int64))
+                and torch.equal(torch.where(keep, dec[0][:b], 0), x))
+        status = dec[1][b:].tolist()
+        errs[f"{codec}_decode"] = err
+        res[f"{codec}_decode"] = {
+            "max_abs_err": err, "round_trip": back,
+            "corrupt_status": dict(zip((k for k, _ in bad), status)),
+            "ms": cuda_ms(lambda: wrapper(comp, clens, n), 10),
+            "plain_ms": plain_ms}
+        if err or not back or any(st != -1 for st in status):
+            raise AssertionError(f"{codec} decode: kernel and plain version "
+                                 f"disagree, or a row decoded wrong: "
+                                 f"{res[f'{codec}_decode']}")
+    emit("kernels", kernel="lz4_rle", rows=b, bytes=n,
+         short_rows=int((rlens_np < 13).sum()), **res)
+    if errs["lz4_encode"] or errs["rle_encode"]:
+        raise AssertionError(f"lz4 or rle encode disagrees with its plain "
+                             f"version: {res}")
+    return errs
 
 
 def payloads(blob: bytes, head: int):
@@ -695,6 +860,10 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "dc_decode": (dc_scan, "dc_decode_lanes"),
             "bin_encode": (bin_coder, "bin_encode_indexed"),
             "bin_decode": (bin_coder, "bin_decode_indexed"),
+            "lz4_encode": (lz4_coder, "lz4_encode_batch"),
+            "lz4_decode": (lz4_coder, "lz4_decode_batch"),
+            "rle_encode": (rle_coder, "rle_encode_batch"),
+            "rle_decode": (rle_coder, "rle_decode_batch"),
             # the same two kernels in their modes without the chunk index
             "ari_decode_unindexed": (range_decoder, "decode_batch"),
             "bin_decode_unindexed": (bin_apm, "decode_batch")}
@@ -705,7 +874,11 @@ PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (mtf_scan, "mtf_batch_plain"),
           (dc_scan, "dc_decode_lanes_plain"),
           (bin_coder, "bin_encode_indexed_plain"),
-          (bin_coder, "bin_decode_indexed_plain"))
+          (bin_coder, "bin_decode_indexed_plain"),
+          (lz4_coder, "lz4_encode_batch_plain"),
+          (lz4_coder, "lz4_decode_batch_plain"),
+          (rle_coder, "rle_encode_batch_plain"),
+          (rle_coder, "rle_decode_batch_plain"))
 
 
 @contextlib.contextmanager
@@ -1424,9 +1597,125 @@ def phase_legacy(smi: str, blobs: dict):
     return launches, kernels
 
 
+LZ = {"lz4": (lz4_coder, 1, olz4.compress_block),   # (coder, id, oracle)
+      "rle": (rle_coder, 2, orle.encode)}
+
+
+def lz_streams(blob: bytes) -> list:
+    """Every block's stream of a container with one plain stream a block
+    (lz4, rle), parsed here so the check does not lean on the code under
+    test."""
+    flags = blob[5]
+    nb = struct.unpack_from("<I", blob, 10)[0]
+    clens = np.frombuffer(blob, "<u4", nb, 26)
+    off = 26 + 4 * nb + (4 * nb if flags & 1 else 0) + (6 if flags & 4 else 0)
+    out = []
+    for n in clens:
+        out.append(blob[off : off + int(n)])
+        off += int(n)
+    return out
+
+
+def lz_bound(kind: str, args, out) -> dict:
+    """bound() of one lz4 or rle launch at its own inputs: encode reads the
+    valid bytes and the lengths and writes the streams and their lengths;
+    decode reads the streams and their lengths and writes every byte of
+    its rows and the statuses."""
+    rows, lens = args[:2]
+    if kind == "encode":
+        nbytes = (int(lens.sum()) + 4 * lens.numel() + int(out[1].sum())
+                  + 4 * out[1].numel())
+    else:
+        nbytes = (int(lens.clamp(max=rows.shape[1]).sum()) + 4 * lens.numel()
+                  + out[0].numel() + 8 * out[1].numel())
+    return bound(nbytes)
+
+
+def lz_against_plain(codec: str, calls, rows: list) -> dict:
+    """The path's one launch of each of the codec's kernels held, exact,
+    against its plain version on `rows` whole blocks of the launch's own
+    tensors (an LZ4 stream is not causal near a block's end, so no prefix
+    will do): the kernel on those rows and the launch's own rows both equal
+    the plain version's.  Times of each kernel at the path's shape and on
+    the rows, of the plain version on the rows; the bound at the path's
+    shape."""
+    coder = LZ[codec][0]
+    pick = torch.tensor(rows, device="cuda")
+    res = {}
+    for kind in ("encode", "decode"):
+        name = f"{codec}_{kind}"
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} launches on "
+                                 "the path, expected 1")
+        (args, kw, out), = calls[name]
+        cut = (args[0][pick].contiguous(), args[1][pick].contiguous(),
+               *args[2:])
+        wrapper = getattr(coder, f"{name}_batch")
+        ref, plain_ms = timed(
+            lambda: getattr(coder, f"{name}_batch_plain")(*cut, **kw))
+        got = wrapper(*cut, **kw)
+        err = max(max(max_err(a, c) for a, c in zip(got, ref)),
+                  max(max_err(a[pick], c) for a, c in zip(out, ref)))
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the path's inputs: max_abs_err {err}")
+        res[name] = {
+            "inputs": [list(a.shape) for a in args[:2]],
+            "plain_inputs": list(cut[0].shape), "plain_rows": rows,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: wrapper(*args, **kw), 3),
+            "ms_at_plain_inputs": cuda_ms(lambda: wrapper(*cut, **kw), 3),
+            "plain_ms": plain_ms, **lz_bound(kind, args, out)}
+    return res
+
+
+def phase_lz(smi: str, codec: str):
+    """The lz4 path (tpuzip_torch.compress with no codec argument: the
+    default) or the rle path on the 64 MiB corpus at 64 KiB blocks."""
+    data = text_corpus(CORPUS_BYTES, SEED)
+    kw = {} if codec == "lz4" else {"codec": codec}
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK], **kw))
+    blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+        data, **kw)
+    need(counts, {f"{codec}_encode": 1, f"{codec}_decode": 1}, codec)
+    coder, cid, oracle = LZ[codec]
+    if blob[4:6] != bytes([cid, 0]) or \
+            struct.unpack_from("<I", blob, 6)[0] != BLOCK:
+        raise AssertionError(f"{codec}: codec id {blob[4]}, flags {blob[5]}, "
+                             "expected 64 KiB blocks and flags 0")
+    blocks_np, lens_np = blk.chunk(data, BLOCK)
+    streams = lz_streams(blob)
+    nb = len(streams)
+    rows = sorted({0, 1, 2, nb // 3, nb // 2, 2 * nb // 3, nb - 2, nb - 1})
+    for i in rows:
+        if streams[i] != oracle(blocks_np[i, : lens_np[i]].tobytes()):
+            raise AssertionError(f"{codec} block {i} stream differs from the "
+                                 "oracle")
+    kernels = lz_against_plain(codec, calls, rows)
+    calls.clear()
+    compress = lambda: tpuzip_torch.compress(data, **kw)       # noqa: E731
+    decompress = lambda: tpuzip_torch.decompress(blob)          # noqa: E731
+    emit(codec, corpus_bytes=len(data), block_size=BLOCK, blocks=nb,
+         container_bytes=len(blob), ratio=len(blob) / len(data),
+         launches=counts, oracle_blocks=rows,
+         encode_mb_s=len(data) / 1e6 / t_enc,
+         decode_mb_s=len(data) / 1e6 / t_dec,
+         encode_kernel_mb_s=len(data) / 1e3
+         / kernels[f"{codec}_encode"]["ms"],
+         decode_kernel_mb_s=len(data) / 1e3
+         / kernels[f"{codec}_decode"]["ms"],
+         peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
+         kernels=kernels, trace=trace_in_child(codec),
+         host_profile={"encode": host_profile(compress),
+                       "decode": host_profile(decompress)}, card=smi)
+    return counts, kernels
+
+
 TRACED = {"bwtdc": (("ari_encode_kernel",),
                     ("ari_decode_kernel", "dc_decode_kernel")),
-          "apm": (("bin_encode_kernel",), ("bin_decode_kernel",))}
+          "apm": (("bin_encode_kernel",), ("bin_decode_kernel",)),
+          "lz4": (("lz4_encode_kernel",), ("lz4_decode_kernel",)),
+          "rle": (("rle_encode_kernel",), ("rle_decode_kernel",))}
 
 
 def trace_in_child(codec: str) -> dict:
@@ -1486,7 +1775,8 @@ def ab_inputs() -> dict:
     bin_apm.decode_batch at the apm container's without the chunk index;
     dc_decode_lanes at the bwtdc path's decompress.  And for the dot row
     (ari_decode.cu through the dot route): the ari path's decode launch
-    and the decode of phase 5's A/B mix."""
+    and the decode of phase 5's A/B mix.  lz4_encode / lz4_decode and
+    rle_encode / rle_decode at the lz4 and rle paths."""
     data = text_corpus(CORPUS_BYTES, SEED)
     out = {kernel: {} for kernel in AB_KERNELS}
 
@@ -1529,6 +1819,14 @@ def ab_inputs() -> dict:
                     raise AssertionError("apm without the index did not "
                                          "round-trip")
             keep("bin_decode", "apm_unindexed", flat)
+    for codec, (coder, _, _) in LZ.items():
+        with recorded(coder, f"{codec}_encode_batch") as enc:
+            blob = tpuzip_torch.compress(data, codec=codec)
+        with recorded(coder, f"{codec}_decode_batch") as dec:
+            if tpuzip_torch.decompress(blob) != data:
+                raise AssertionError(f"{codec} did not round-trip")
+        keep(f"{codec}_encode", codec, enc)
+        keep(f"{codec}_decode", codec, dec)
     mix = torch.from_numpy(ab_mix(128, BLOCK, SEED)).cuda()
     mix_lens = torch.full((128,), BLOCK, dtype=torch.int32, device="cuda")
     mix_streams, _, mix_deltas = range_coder.ari_encode_indexed(mix, mix_lens)
@@ -1538,10 +1836,12 @@ def ab_inputs() -> dict:
 
 
 AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
-              "dc_decode")
+              "dc_decode", "lz4_encode", "lz4_decode", "rle_encode",
+              "rle_decode")
+AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle"}   # else the name
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
-AB_REDESIGNED = ("dc_decode",)
+AB_REDESIGNED = ()
 
 
 def ab_entry(lib, kernel: str):
@@ -1564,7 +1864,11 @@ def ab_entry(lib, kernel: str):
         "bin_decode": [vp, vp, vp, ci, ci, ci, vp, ci, ci, ci, vp],
         "bin_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, ci, vp],
         "mtf": [vp, vp, ci, ci, vp, ci, vp],
-        "mtf_chunked": [vp, vp, ci, ci, vp, vp, ci, vp]}[kernel]
+        "mtf_chunked": [vp, vp, ci, ci, vp, vp, ci, vp],
+        "lz4_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp],
+        "lz4_decode": [vp, vp, ci, ci, vp, ci, vp, vp],
+        "rle_encode": [vp, vp, ci, ci, vp, ci, vp, vp],
+        "rle_decode": [vp, vp, ci, ci, vp, ci, vp, vp]}[kernel]
     fn.restype = ci
     return fn
 
@@ -1674,6 +1978,46 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
         # the runs of the longest walk (a column of T past a walk's end is
         # no run)
         steps = int((make(libs["new"])()[0][1] > 0).sum(1).max())
+    elif kernel in ("lz4_encode", "rle_encode"):
+        blocks, lens = args[:2]
+        b, n = blocks.shape
+        lz4 = kernel == "lz4_encode"
+        cap = lz4_coder.encode_cap(n) if lz4 else rle_coder.encode_cap(n)
+        hl = lz4_coder.resolve_hash_log(args[2] if len(args) > 2 else 16)
+        ntab = max(1, min(b, lz4_coder.POOL_BYTES // (4 << hl)))
+        tables = torch.empty(ntab << hl if lz4 else 0, dtype=torch.int32,
+                             device="cuda")
+
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
+            def run():
+                out = (torch.zeros((b, cap), dtype=torch.uint8, device="cuda"),
+                       torch.empty(b, dtype=torch.int32, device="cuda"))
+                tail = (tables.data_ptr(), ntab, hl) if lz4 else ()
+                _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                                out[0].data_ptr(), cap, out[1].data_ptr(),
+                                *tail, stream()), f"tpz_{kernel}")
+                return out
+            return run
+        steps = int(lens.max())
+    elif kernel in ("lz4_decode", "rle_decode"):
+        comp, clens, out_cap = args[:3]
+        b, w = comp.shape
+
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
+            def run():
+                out = (torch.empty((b, out_cap), dtype=torch.uint8,
+                                   device="cuda"),
+                       torch.empty(b, dtype=torch.int64, device="cuda"))
+                _build.check(fn(comp.data_ptr(), clens.data_ptr(), b, w,
+                                out[0].data_ptr(), out_cap, out[1].data_ptr(),
+                                stream()), f"tpz_{kernel}")
+                return out
+            return run
+        steps = out_cap
     else:
         if not torch.is_tensor(args[2]):
             # bin_apm.decode_batch(comp, lengths, out_n, bits, rate, apm)
@@ -1704,9 +2048,10 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
 
 def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
-    csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu
-    and dc_decode.cu against the same files in each DIR (beside the headers
-    they include), for instance a parent commit's:
+    csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu,
+    dc_decode.cu, lz4_encode.cu, lz4_decode.cu and rle.cu against the same
+    files in each DIR (beside the headers they include), for instance a
+    parent commit's:
 
         mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
             tpuzip_torch/csrc/); do git show REV:$f > _parent/${f##*/}; done
@@ -1716,8 +2061,10 @@ def ab_child(dirs: list) -> int:
     the ari, bwt, bwt_big and bwtdc paths; mtf both ways at the bwt and
     bwt_big paths; bin_encode and bin_decode at the bin and apm paths, and
     bin_decode at apm without the chunk index; dc_decode at the bwtdc
-    path), checks that every build gives the same outputs there (streams,
-    lengths and chunk index; symbols; bits; run triples and err), and
+    path; the lz4 and rle kernels at their paths; a kernel whose source no
+    DIR holds gets a line that says so and no row), checks that every
+    build gives the same outputs there (streams, lengths and chunk index;
+    symbols; bits; run triples and err; bytes and statuses), and
     times each DIR's kernel and the checkout's in turns (old, new, new,
     old; each the mean of 3 launches), with ns a step (the longest row's
     symbols, bits or walked runs).  A DIR that holds ari_decode_dot.cu
@@ -1736,11 +2083,12 @@ def ab_child(dirs: list) -> int:
     nvcc = _build.find_nvcc()
     jobs = {}
     for kernel in AB_KERNELS + ("ari_decode_dot",):
+        src = AB_SOURCE.get(kernel, kernel)
         if kernel in AB_KERNELS:
-            jobs[f"new:{kernel}"] = _build.CSRC / f"{kernel}.cu"
+            jobs[f"new:{kernel}"] = _build.CSRC / f"{src}.cu"
         for i, d in enumerate(dirs):
-            if os.path.exists(f"{d}/{kernel}.cu"):
-                jobs[f"old{i}:{kernel}"] = f"{d}/{kernel}.cu"
+            if os.path.exists(f"{d}/{src}.cu"):
+                jobs[f"old{i}:{kernel}"] = f"{d}/{src}.cu"
     res = {"nvidia_smi": smi, "old": {f"old{i}": d for i, d in
                                       enumerate(dirs)}}
     differ = []
@@ -1773,8 +2121,15 @@ def ab_child(dirs: list) -> int:
         if "ari_decode_dot" in libs:
             libs["ari_decode_dot"]["new"] = libs["ari_decode"]["new"]
         shapes = {}
+        # a kernel no DIR holds (a source newer than every DIR) has no row
+        res["skipped"] = sorted(k for k in AB_KERNELS if set(libs[k]) ==
+                                {"new"})
+        for kernel in res["skipped"]:
+            print(json.dumps({"kernel": kernel, "skipped": "no DIR holds "
+                              f"{AB_SOURCE.get(kernel, kernel)}.cu"}),
+                  flush=True)
         for kernel, paths in ab_inputs().items():
-            if kernel not in libs:
+            if kernel not in libs or kernel in res["skipped"]:
                 continue
             for path, (args, kw) in paths.items():
                 runs, steps = ab_launchers(libs[kernel], kernel, args, kw)
@@ -1851,24 +2206,28 @@ def main() -> int:
     legacy_launches, legacy_kernels = phase_legacy(
         smi, {"ari": ari_blob, "apm": apm_blob})
     del ari_blob, apm_blob
+    lz4_launches, lz4_kernels = phase_lz(smi, "lz4")
+    rle_launches, rle_kernels = phase_lz(smi, "rle")
     if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
                                    for m in sys.modules):
         raise AssertionError("the port's path imported jax or tpuzip")
     by_path = {"ari": ari_launches, "bwt": bwt_launches,
                "bwt_big": big_launches, "bwtdc": dc_launches,
                "bin": bin_launches["bin"], "apm": bin_launches["apm"],
-               "dot": dot_launches, "legacy": legacy_launches}
+               "dot": dot_launches, "legacy": legacy_launches,
+               "lz4": lz4_launches, "rle": rle_launches}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
-    # the ari path's decode inputs; the error over every phase
+    # the ari path's decode inputs, lz4 and rle at theirs (1024 x 64 KiB);
+    # the error over every phase
     dot_kernels = {"ari_decode_dot": dot_kernel}
     at_shape = {**bwt_kernels, **ari_kernels,
                 "dc_decode": dc_kernels["dc_decode"], **bin_kernels,
-                **dot_kernels}
+                **dot_kernels, **lz4_kernels, **rle_kernels}
     checked = ({k: {"max_abs_err": e} for k, e in small.items()},
                ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels,
-               dot_kernels, legacy_kernels)
+               dot_kernels, legacy_kernels, lz4_kernels, rle_kernels)
     print(smi)
     rows = []
     for name, source, replaces in (
@@ -1884,7 +2243,16 @@ def main() -> int:
             ("bin_decode", "bin_decode.cu",
              "tpuzip/kernels/bin_coder.py:341"),
             ("ari_decode_dot", "ari_decode.cu",
-             "tpuzip/kernels/range_decoder.py:559")):
+             "tpuzip/kernels/range_decoder.py:559"),
+            # no Pallas kernel: these replace tpuzip's host C++ coder
+            ("lz4_encode", "lz4_encode.cu",
+             "csrc/tpuzip_host.cpp:190 tpz_lz4_compress"),
+            ("lz4_decode", "lz4_decode.cu",
+             "csrc/tpuzip_host.cpp:252 tpz_lz4_decompress"),
+            ("rle_encode", "rle.cu",
+             "csrc/tpuzip_host.cpp:1795 tpz_rle_encode"),
+            ("rle_decode", "rle.cu",
+             "csrc/tpuzip_host.cpp:1822 tpz_rle_decode")):
         k = at_shape[name]
         extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}
         rows.append({

@@ -304,8 +304,8 @@ def _same_error(bad):
 @pytest.mark.parametrize("checksums", [False, True])
 def test_corruption_raises_same_class(rng, checksums):
     data = (b"the quick brown fox jumps over the lazy dog " * 30)[:1000]
-    blob = tpuzip_torch.compress(data, block_size=256, device="cpu",
-                                 block_checksums=checksums)
+    blob = tpuzip_torch.compress(data, codec="ari", block_size=256,
+                                 device="cpu", block_checksums=checksums)
     for name, bad in _mutations(blob, checksums).items():
         if name == "truncated checksum table" and not checksums:
             continue
@@ -319,7 +319,7 @@ def test_cuda_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tdevice.resolve("cuda")
-    for codec in ("ari", "bwt", "bwtdc", "bin", "apm"):
+    for codec in ("lz4", "rle", "ari", "bwt", "bwtdc", "bin", "apm"):
         with pytest.raises(RuntimeError):
             tpuzip_torch.compress(b"abc", codec=codec)
         blob = tpuzip_torch.compress(b"abc", codec=codec, block_size=256,
@@ -332,7 +332,7 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    calls = [lambda: tpuzip_torch.compress(b"x", codec="lz4", device="cpu"),
+    calls = [lambda: tpuzip_torch.compress(b"x", codec="lz4p", device="cpu"),
              lambda: tpuzip_torch.compress(b"x", codec="deflate",
                                            device="cpu"),
              lambda: tpuzip_torch.compress_corpus(b"x"),
@@ -343,9 +343,9 @@ def test_unported_entry_points_name_the_roadmap():
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-    lz4 = jrun.compress(b"abc" * 100, codec="lz4", mesh=MESH1)
+    lz4p = jrun.compress(b"abc" * 100, codec="lz4p", mesh=MESH1)
     with pytest.raises(NotImplementedError, match="item 12"):
-        tpuzip_torch.decompress(lz4, device="cpu")
+        tpuzip_torch.decompress(lz4p, device="cpu")
     with pytest.raises(ValueError):
         tpuzip_torch.compress(b"x", codec="zstd", device="cpu")
 

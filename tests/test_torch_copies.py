@@ -1,6 +1,7 @@
 """The port's own copies of tpuzip's modules against the originals: block
-chunking, the config tree, the error classes, the format oracles and the
-varint packer of core/bitio (tpuzip_torch imports nothing of tpuzip)."""
+chunking, the config tree, the error classes, the format oracles (the LZ4
+block codec and rle among them) and the varint packer of core/bitio
+(tpuzip_torch imports nothing of tpuzip)."""
 
 import dataclasses
 import inspect
@@ -18,7 +19,9 @@ from tpuzip.core import config as jconfig
 from tpuzip.oracle import ari as jari
 from tpuzip.oracle import bwt as jbwt
 from tpuzip.oracle import dc as jdc
+from tpuzip.oracle import lz4 as jlz4
 from tpuzip.oracle import mtf as jmtf
+from tpuzip.oracle import rle as jrle
 from tpuzip.runtime import errors as jerrors
 import tpuzip_torch
 from tpuzip_torch.core import bitio as tbitio
@@ -27,7 +30,9 @@ from tpuzip_torch.core import config as tconfig
 from tpuzip_torch.oracle import ari as tari
 from tpuzip_torch.oracle import bwt as tbwt
 from tpuzip_torch.oracle import dc as tdc
+from tpuzip_torch.oracle import lz4 as tlz4
 from tpuzip_torch.oracle import mtf as tmtf
+from tpuzip_torch.oracle import rle as trle
 from tpuzip_torch.runtime import errors as terrors
 
 
@@ -131,6 +136,36 @@ def test_dc_oracle_same_bytes(samples):
     for mod in (tdc, jdc):
         with pytest.raises(ValueError, match="DC decode"):
             mod.decode(bytes(bad))
+
+
+@pytest.mark.parametrize("hash_log", [12, 16])
+def test_lz4_block_oracle_same_bytes(samples, hash_log):
+    """The block half of tpuzip/oracle/lz4.py: the same streams, each
+    decoder reads the other's, the same bound and hash."""
+    for data in samples:
+        if len(data) > 8192:
+            continue
+        comp = tlz4.compress_block(data, hash_log)
+        assert comp == jlz4.compress_block(data, hash_log)
+        assert len(comp) <= tlz4.worst_case_size(len(data)) \
+            == jlz4.worst_case_size(len(data))
+        assert tlz4.decompress_block(comp) == jlz4.decompress_block(comp) \
+            == data
+    for seq in (0, 1, 0x61626364, 0xFFFFFFFF):
+        assert tlz4._hash(seq, hash_log) == jlz4._hash(seq, hash_log)
+    for mod in (tlz4, jlz4):
+        with pytest.raises(ValueError, match="zero offset"):
+            mod.decompress_block(b"\x10a\x00\x00")
+
+
+def test_rle_oracle_same_bytes(samples):
+    runs = b"x" * 255 + b"y" * 256 + b"z" * 257 + b"aabbcc"
+    for data in samples + [runs]:
+        enc = trle.encode(data)
+        assert enc == jrle.encode(data)
+        assert trle.decode(enc) == jrle.decode(enc) == data
+        for got, exp in zip(trle.runs_of(data), jrle.runs_of(data)):
+            np.testing.assert_array_equal(got, exp)
 
 
 @pytest.mark.parametrize("knobs", [(12, 5), (10, 4), (11, 5)],

@@ -54,20 +54,22 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_round_trips_load_no_tpuzip_module():
-    """In a fresh interpreter, ari, bwt (flag 2 and the segmented flag 8),
-    bwtdc and apm round trips on the CPU load neither jax nor any tpuzip
-    module, so the port runs its own code there (never tpuzip's C++
-    coder)."""
+    """In a fresh interpreter, lz4 (the default codec), rle, ari, bwt (flag
+    2 and the segmented flag 8), bwtdc and apm round trips on the CPU load
+    neither jax nor any tpuzip module, so the port runs its own code there
+    (never tpuzip's C++ coder)."""
     code = (
         "import sys\n"
         "import tpuzip_torch\n"
         "from tpuzip_torch.dist import runner\n"
         "runner.SEG_THRESHOLD = 512\n"
         "d = b'abracadabra ' * 150\n"
-        "for codec, bs in (('ari', 512), ('bwt', 256), ('bwt', 1024),\n"
-        "                  ('bwtdc', 1024), ('apm', 128)):\n"
+        "for codec, bs in (('rle', 512), ('ari', 512), ('bwt', 256),\n"
+        "                  ('bwt', 1024), ('bwtdc', 1024), ('apm', 128)):\n"
         "    c = tpuzip_torch.compress(d, codec, bs, device='cpu')\n"
         "    assert tpuzip_torch.decompress(c, device='cpu') == d\n"
+        "c = tpuzip_torch.compress(d, device='cpu')\n"
+        "assert c[4] == 1 and tpuzip_torch.decompress(c, device='cpu') == d\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('tpuzip', 'jax', 'jaxlib')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

@@ -1,0 +1,167 @@
+"""The rle codec: tpuzip_torch against tpuzip.
+
+Off the TPU tpuzip encodes and decodes rle with its C++ loops, whose bytes
+are tpuzip.oracle.rle's (a run's count bytes chain by 255 without bound);
+on the CPU the port runs the plain versions of csrc/rle.cu's two kernels
+(kernels/rle_coder.py), so the containers here are the port's own code
+against tpuzip's C++.  The CUDA kernels are held against the plain
+versions on the card by chip_smoke.py.
+"""
+
+import dataclasses
+import struct
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuzip.codecs import rle as jrle
+from tpuzip.core.config import Config
+from tpuzip.dist import mesh as meshlib
+from tpuzip.dist import runner as jrun
+from tpuzip.oracle import rle as orle
+from tpuzip.runtime import native
+import chip_smoke
+import tpuzip_torch
+from tpuzip_torch.core.config import config_from_dict
+from tpuzip_torch.kernels import rle_coder
+
+MESH1 = meshlib.make_mesh(1)
+with open(__file__.rsplit("/tests/", 1)[0] + "/SURVEY.md", "rb") as _f:
+    TEXT = _f.read()[:3000]
+# runs of 255, 256, 257 and 600 bytes (counts across the 255 chain), pairs
+RUNS = b"x" * 255 + b"y" * 256 + b"z" * 257 + bytes(600) + b"aabbccdd" * 40
+DATA = TEXT + RUNS + b"ab" * 300
+
+
+def _both(data, block_size, cfg=None, checksums=False):
+    mine = tpuzip_torch.compress(
+        data, codec="rle", block_size=block_size, device="cpu",
+        config=cfg and config_from_dict(dataclasses.asdict(cfg)),
+        block_checksums=checksums)
+    ref = jrun.compress(data, codec="rle", block_size=block_size, mesh=MESH1,
+                        config=cfg, block_checksums=checksums)
+    assert mine == ref, (len(data), block_size, checksums)
+    assert tpuzip_torch.decompress(ref, device="cpu") == data
+    assert jrun.decompress(mine, mesh=MESH1) == data
+    return mine
+
+
+@pytest.mark.parametrize("block_size", [512, 4096])
+def test_container_identical(block_size):
+    assert native.available()
+    blob = _both(DATA, block_size)
+    assert blob[4] == 2 and blob[5] == 0
+
+
+def test_trailer_checksums_and_small_corpora():
+    """ari knobs other than (8, 8192) set flag 4 and the trailer, as for
+    every codec in tpuzip's runner; per-block Adler-32; a corpus under 13
+    bytes and the empty one."""
+    cfg = Config()
+    cfg.codec.ari.increment = 16
+    assert _both(DATA, 4096, cfg)[5] == 4
+    assert _both(DATA, 1024, checksums=True)[5] == 1
+    for data in (b"", b"z", b"zz", b"aab", bytes(12)):
+        _both(data, 512)
+    nb, = struct.unpack_from("<I", _both(b"", 512), 10)
+    assert nb == 1
+
+
+def _rows(blocks, n):
+    out = np.zeros((len(blocks), n), np.uint8)
+    for i, b in enumerate(blocks):
+        out[i, : len(b)] = np.frombuffer(b, np.uint8)
+    return out, np.array([len(b) for b in blocks], np.int32)
+
+
+def test_plain_encoder_equals_oracle(rng):
+    """Every block's stream equals tpuzip.oracle.rle.encode and the C++
+    encoder's: text, runs over 255, alternating pairs (the 1.5x worst
+    case), random bytes, a constant block, empty; 0 past each stream."""
+    blocks = [TEXT[:2048], RUNS[:2048], b"aabb" * 512,
+              bytes(rng.integers(0, 256, 1500, np.uint8)),
+              bytes(rng.integers(0, 2, 2048, np.uint8)), b"q" * 2048, b"",
+              b"p"]
+    x, lens = _rows(blocks, 2048)
+    comp, clens = rle_coder.rle_encode_batch(torch.from_numpy(x),
+                                             torch.from_numpy(lens))
+    ref, ref_lens = native.rle_encode_batch(x, lens)
+    np.testing.assert_array_equal(clens.numpy(), ref_lens)
+    for i, b in enumerate(blocks):
+        exp = orle.encode(b)
+        assert comp[i, : len(exp)].numpy().tobytes() == exp
+        assert ref[i, : len(exp)].tobytes() == exp
+        assert not comp[i, len(exp):].any()
+
+
+@pytest.mark.parametrize("out_cap", [1200, 300])
+def test_plain_decoder_status_equals_native(out_cap):
+    """Status (length or -1) and bytes equal tpuzip's C++ decoder's on valid
+    streams, tpuzip's XLA encoder's 256-byte segments, a count past the
+    stream (after a pair, and after 255), and output past out_cap (out_cap
+    300 puts the long rows past it)."""
+    seg_in = np.frombuffer(RUNS[:1100], np.uint8)
+    seg, seg_len = jrle.encode(jnp.array(seg_in), jnp.int32(seg_in.size))
+    segmented = np.asarray(seg)[: int(seg_len)].tobytes()
+    streams = [orle.encode(TEXT[:1000]), orle.encode(RUNS[:1100]),
+               segmented, b"", b"ab", b"aab", b"aa\x05b", b"xyzz\x00",
+               *(st for _, st in chip_smoke.rle_corrupt_streams())]
+    assert segmented != streams[1]
+    x, clens = _rows(streams, max(len(s) for s in streams) + 4)
+    ref_out, ref_st = native.rle_decode_batch(x, clens, out_cap)
+    out, st = rle_coder.rle_decode_batch(torch.from_numpy(x),
+                                         torch.from_numpy(clens), out_cap)
+    assert st.dtype == torch.int64
+    np.testing.assert_array_equal(st.numpy(), ref_st)
+    for i in range(len(streams)):
+        n = max(int(ref_st[i]), 0)
+        assert out[i, :n].numpy().tobytes() == ref_out[i, :n].tobytes()
+        assert not out[i, n:].any()
+    assert (ref_st[-3:] == -1).all() and (ref_st[3:8] >= 0).all()
+    assert ((ref_st[:3] >= 0) == (out_cap == 1200)).all()
+    if out_cap == 1200:
+        assert ref_st[1] == ref_st[2] == 1100
+
+
+def _outcome(decode, blob):
+    try:
+        return "ok", decode(blob)
+    except Exception as e:   # noqa: BLE001 - the class is the outcome
+        return type(e).__name__, str(e)
+
+
+def _same_outcome(bad) -> str:
+    mine = _outcome(lambda b: tpuzip_torch.decompress(b, device="cpu"), bad)
+    ref = _outcome(lambda b: jrun.decompress(b, mesh=MESH1), bad)
+    assert mine == ref
+    return mine[0]
+
+
+def test_corrupt_containers_raise_the_same_error():
+    """Both packages raise the same class with the same message (the blocks
+    named): a pair with no count at block 1's end, a decoded length short
+    of the last block's, a payload past the codec's bound, and byte
+    flips."""
+    blob = _both(DATA, 1024)
+    nb, = struct.unpack_from("<I", blob, 10)
+    clens = np.frombuffer(blob, "<u4", nb, 26).astype(np.int64)
+    base = 26 + 4 * nb
+    # block 1 (text) ends in a pair with no count after it
+    cut = bytearray(blob)
+    end1 = base + int(clens[0] + clens[1])
+    cut[end1 - 2: end1] = b"\x01\x01"
+    assert _same_outcome(bytes(cut)) == "CorruptStreamError"
+    short = bytearray(blob)
+    struct.pack_into("<Q", short, 14, len(DATA) - 1)
+    assert _same_outcome(bytes(short)) == "ValueError"
+    big = bytearray(blob)
+    cap = jrle.encode_cap(1024)
+    big[26:30] = struct.pack("<I", cap + 1)
+    big += bytes(cap + 1 - int(clens[0]))
+    assert _same_outcome(bytes(big)) == "BlockLengthError"
+    seen = {_same_outcome(bytes(blob[:k]) + bytes([blob[k] ^ 0x5A])
+                          + blob[k + 1:])
+            for k in range(base + 3, len(blob), 61)}
+    assert {"CorruptStreamError", "ChecksumError"} <= seen

@@ -1,0 +1,35 @@
+"""LZ4 block codec (codec "lz4"): row capacities and the Lz4Config knobs.
+
+Format: the public LZ4 block spec, bytes equal to tpuzip.oracle.lz4's
+greedy single-probe encoder, which is what tpuzip writes off the TPU (its
+C++ ``tpz_lz4_compress``).  The kernels and their plain versions are in
+kernels/lz4_coder.py.
+"""
+
+from __future__ import annotations
+
+HASH_LOG = 16       # tpz_lz4_compress's table when hash_log is out of range
+SLACK = 64          # tpuzip.codecs.lz4's row padding
+
+
+def encode_cap(n: int) -> int:
+    """The largest payload a block of n bytes may declare
+    (tpuzip.codecs.lz4.encode_cap: the spec bound plus SLACK)."""
+    return n + n // 255 + 16 + SLACK
+
+
+def hash_log(value: int) -> int:
+    """The table size the encoder uses: 4..24 as given, else 16, as the C++
+    encoder does (tpuzip's container at hash_log 30 is the default one)."""
+    return value if 4 <= value <= 24 else HASH_LOG
+
+
+def unported_option(cfg) -> str | None:
+    """The Lz4Config option the port cannot honour yet, or None.
+    max_chain > 1 runs tpuzip's C++ chained encoder, device_encode=True its
+    XLA encoder; both write other bytes than the single-probe policy."""
+    if cfg.max_chain > 1:
+        return f"lz4 max_chain={cfg.max_chain} (the chained encoder)"
+    if cfg.device_encode:
+        return "lz4 device_encode=True (tpuzip's XLA encoder)"
+    return None

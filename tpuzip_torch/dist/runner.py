@@ -1,5 +1,5 @@
-"""The tpz container, ari, bwt, bwtdc, bin and apm codecs: compress and
-decompress on one device.
+"""The tpz container, lz4, rle, ari, bwt, bwtdc, bin and apm codecs:
+compress and decompress on one device.
 
 Port of those codecs' parts of tpuzip/dist/runner.py, byte for byte the
 same container:
@@ -10,7 +10,8 @@ same container:
   | [flags&4: <HI> the model knobs when not the codec's defaults:
       (increment, threshold) not (8, 8192), or for bin/apm
       (model_bits, rate) not (12, 5)]
-  | payloads, per block (flags&2, the chunk index):
+  | payloads, per block: lz4, rle: [stream] (flag 2 is never set);
+    the others with flags&2, the chunk index:
       ari:   [u32 idx_len][chunk index][ari stream]
       bwt:   [u32 origin][u32 idx_len][idx][ari(mtf(L)) stream]
       bwtdc: [u32 origin][u32 dc_len][u32 idx_len][idx][ari(dc(L)) stream]
@@ -39,13 +40,15 @@ import numpy as np
 import torch
 
 from tpuzip_torch.codecs import bin_apm, bwt, dc
+from tpuzip_torch.codecs import lz4 as clz4
+from tpuzip_torch.codecs import rle as crle
 from tpuzip_torch.codecs.ari import check_knobs, encode_cap
 from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.checksum import adler32_batch
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.device import resolve
-from tpuzip_torch.kernels import (bin_coder, mtf_scan, range_coder,
-                                  range_decoder)
+from tpuzip_torch.kernels import (bin_coder, lz4_coder, mtf_scan,
+                                  range_coder, range_decoder, rle_coder)
 from tpuzip_torch.kernels.range_decoder import (CHUNK_STEPS,
                                                 pack_chunk_index,
                                                 parse_chunk_index)
@@ -64,9 +67,10 @@ HEAD = {"ari": 0, "bwt": 4, "bwtdc": 8, "bin": 0, "apm": 0}
 SEG_HEAD = 10                 # <IHI> origin, nseg, seg of a flag-8 block
 SEG_THRESHOLD = 1 << 20       # bwt blocks above this segment the entropy stage
 BIN_CODECS = ("bin", "apm")
+LZ_CODECS = ("lz4", "rle")    # one plain stream a block, flag 2 never set
 
 # where ROADMAP.md (queue 1) ports each codec that is not here yet
-_ROADMAP_ITEM = {"lz4": 12, "lz4p": 12, "rle": 12, "deflate": 13}
+_ROADMAP_ITEM = {"lz4p": 12, "deflate": 13}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -78,7 +82,7 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 def _check_codec(codec: str) -> None:
     if codec in _ROADMAP_ITEM:
         raise not_ported(f"codec {codec!r}", _ROADMAP_ITEM[codec])
-    if codec not in HEAD:
+    if codec not in HEAD and codec not in LZ_CODECS:
         raise ValueError(f"unknown codec {codec!r}")
 
 
@@ -176,7 +180,21 @@ def _encode_bin(blocks, lengths, lengths_np, bits: int, rate: int,
             for i in range(blocks.shape[0])]
 
 
-def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
+def _encode_lz(codec: str, blocks, lengths, hash_log: int):
+    """The lz4 or rle streams of every block, compacted on the device (each
+    row's first clen bytes, in order) and downloaded once: (clens on the
+    host, the payload)."""
+    if codec == "lz4":
+        comp, clens = lz4_coder.lz4_encode_batch(blocks, lengths, hash_log)
+    else:
+        comp, clens = rle_coder.rle_encode_batch(blocks, lengths)
+    keep = (torch.arange(comp.shape[1], device=comp.device)[None, :]
+            < clens[:, None])
+    return (clens.cpu().numpy().astype(np.int64),
+            comp[keep].cpu().numpy().tobytes())
+
+
+def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
              device="cuda", config: Config | None = None,
              block_checksums: bool = False) -> bytes:
     """Compress a corpus into a tpz container on `device`.
@@ -185,27 +203,38 @@ def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
     (1 MiB by default) and config.mesh.block_size otherwise (64 KiB), as
     tpuzip does.  `config.codec.ari` supplies the model knobs, (increment,
     threshold) or for bin/apm (bin_bits, bin_rate); values other than the
-    defaults are recorded in the container (flag bit 2).
-    block_checksums=True adds an Adler-32 per block (flag bit 0)."""
+    defaults are recorded in the container (flag bit 2), for lz4 and rle
+    too, which do not use them (tpuzip's rule).  `config.codec.lz4`'s
+    hash_log sizes the lz4 encoder's table.  block_checksums=True adds an
+    Adler-32 per block (flag bit 0)."""
     _check_codec(codec)
     config = config or Config()
+    if codec == "lz4":
+        option = clz4.unported_option(config.codec.lz4)
+        if option:
+            raise not_ported(option, 12)
     if block_size is None:
         block_size = (config.codec.bwt.block_size if codec in ("bwt", "bwtdc")
                       else config.mesh.block_size)
     ari = config.codec.ari
     knobs = ((ari.bin_bits, ari.bin_rate) if codec in BIN_CODECS
              else (ari.increment, ari.threshold))
-    _check_knobs(codec, *knobs)
+    if codec not in LZ_CODECS:   # tpuzip checks no knob a codec ignores
+        _check_knobs(codec, *knobs)
     inc, thr = knobs
     dev = resolve(device)
     blocks_np, lengths_np = blk.chunk(data, block_size)
     nb = blocks_np.shape[0]
     blocks = torch.from_numpy(blocks_np).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
-    flags = 2 | (1 if block_checksums else 0)
+    flags = (0 if codec in LZ_CODECS else 2) | (1 if block_checksums else 0)
     if knobs != _knob_defaults(codec):
         flags |= 4
-    if codec == "ari":
+    blobs = None
+    if codec in LZ_CODECS:
+        clens_np, payload = _encode_lz(
+            codec, blocks, lengths, clz4.hash_log(config.codec.lz4.hash_log))
+    elif codec == "ari":
         coded = _ari_encode(blocks, lengths, inc, thr)
         blobs = [_indexed(lengths_np, *coded, i) for i in range(nb)]
     elif codec in BIN_CODECS:
@@ -224,22 +253,28 @@ def compress(data: bytes, codec: str = "ari", block_size: int | None = None,
                                 inc, thr)
             blobs = [struct.pack("<I", int(origins[i]))
                      + _indexed(lengths_np, *coded, i) for i in range(nb)]
+    if blobs is not None:
+        clens_np, payload = [len(p) for p in blobs], b"".join(blobs)
     hdr = bytearray(MAGIC)
     hdr.append(CODECS[codec])
     hdr.append(flags)
     hdr += struct.pack("<IIQI", block_size, nb, len(data), zlib.adler32(data))
-    hdr += np.array([len(p) for p in blobs], "<u4").tobytes()
+    hdr += np.array(clens_np, "<u4").tobytes()
     if block_checksums:
         hdr += adler32_batch(blocks, lengths).cpu().numpy().astype(
             "<u4").tobytes()
     if flags & 4:
         hdr += struct.pack("<HI", inc, thr)
-    return bytes(hdr) + b"".join(blobs)
+    return bytes(hdr) + payload
 
 
 def _block_cap(codec: str, flags: int, block_size: int) -> int:
     """The largest payload a block of `codec` may declare (tpuzip's
     per-codec bound in its decompress)."""
+    if codec == "lz4":
+        return clz4.encode_cap(block_size)
+    if codec == "rle":
+        return crle.encode_cap(block_size)
     if codec == "bwt" and flags & 8:
         seg, nseg = _seg_geometry(block_size)
         nc_seg = (seg + CHUNK_STEPS - 1) // CHUNK_STEPS
@@ -483,21 +518,48 @@ def _decode_unindexed(container: bytes, codec: str, starts, clens, olens,
     return bwt.decode_batch(L, origins, lens)
 
 
+def _decode_lz(container: bytes, codec: str, starts, clens, olens,
+               block_size: int, dev) -> torch.Tensor:
+    """lz4 or rle blocks -> (nb, block_size) u8 on `dev`, with tpuzip's
+    checks in its order: a decoded length that is not the block's (on a
+    block with a stream and no error) raises ValueError, then a stream in
+    error CorruptStreamError naming its blocks."""
+    spans = np.stack([starts, clens], axis=1) if len(clens) \
+        else np.zeros((0, 2), np.int64)
+    streams = _upload_streams(container, spans, dev)
+    lens = torch.from_numpy(clens.astype(np.int32)).to(dev)
+    decode = (lz4_coder.lz4_decode_batch if codec == "lz4"
+              else rle_coder.rle_decode_batch)
+    out, status = decode(streams, lens, block_size)
+    st = status.cpu().numpy()
+    err = st < 0
+    bad = (np.where(st > 0, st, 0) != olens) & (clens > 0) & ~err
+    if bad.any():
+        raise ValueError(f"block length mismatch at {np.nonzero(bad)[0][:8]}")
+    if err.any():
+        raise CorruptStreamError(np.nonzero(err)[0])
+    return out
+
+
 def decompress(container: bytes, device="cuda") -> bytes:
     """Decode a tpz container of a ported codec on `device`; checks the
     per-block and corpus Adler-32 as tpuzip does."""
     (codec, flags, block_size, nb, orig_len, a32, clens, block_sums,
      (inc, thr), off) = _parse_header(container)
-    try:
-        _check_knobs(codec, inc, thr)
-    except ValueError as e:
-        raise HeaderError(str(e)) from None
+    if codec not in LZ_CODECS:   # lz4 and rle ignore the trailer's knobs
+        try:
+            _check_knobs(codec, inc, thr)
+        except ValueError as e:
+            raise HeaderError(str(e)) from None
     dev = resolve(device)
     olens = np.clip(orig_len - np.arange(nb, dtype=np.int64) * block_size,
                     0, block_size)
     starts = off + np.concatenate([[0], np.cumsum(clens)[:-1]]) if nb \
         else np.zeros(0, np.int64)
-    if codec == "bwt" and flags & 8:   # whatever flag 2 says, as tpuzip
+    if codec in LZ_CODECS:   # whatever the flags say, as tpuzip
+        out = _decode_lz(container, codec, starts, clens, olens, block_size,
+                         dev)
+    elif codec == "bwt" and flags & 8:   # whatever flag 2 says, as tpuzip
         out = _decode_segmented(container, starts, clens, olens, block_size,
                                 nb, inc, thr, dev)
     elif not flags & 2:
