@@ -54,7 +54,14 @@ Phases, one JSON line each:
             and match extensions, a literal run past the stream and a
             truncated offset; rle: counts past the stream, output past
             out_cap), exact to the byte and the status; times side by
-            side.
+            side.  And both table routes of lz4_encode.cu: a table a row
+            in device memory (those rows at each hash_log), the pool past
+            POOL_BYTES (hash_log 20 on 275 rows), and 128 KiB rows whose
+            repeats lie 65,533 to 70,000 bytes back, at hash_log 12, 16
+            and 20; rle
+            encode on 64 KiB rows of one byte, of alternating bytes and of
+            runs of 255k + {0, 1, 2, 3} across rle.cu's warps and tiles
+            (decoded back too), and on rows of 2045 bytes.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -171,6 +178,8 @@ DC_PLAIN_STEPS = 8192     # runs of the DC-walk check on the bwtdc path
 BIN_PLAIN_BYTES = 512     # bytes a block of the bin/apm checks on their paths
 BIN_KNOBS = ((12, 5), (10, 4), (11, 5))   # (model_bits, rate)
 HASH_LOGS = (12, 16, 20, 40)   # the lz4 table's bits; 40 is taken as 16
+FAR_BLOCK = 1 << 17       # lz4 rows past the 65,535-byte offset bound
+FAR_GAPS = (65533, 65534, 65535, 65536, 65537, 70000)   # repeats' distances
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 
 
@@ -617,6 +626,68 @@ def lz_rows(n: int, seed: int):
     return rows, lens
 
 
+def far_rows(seed: int):
+    """(8, FAR_BLOCK) u8 rows and lengths for lz4_encode.cu whose repeats
+    lie near the 65,535-byte offset bound: for each
+    distance D of FAR_GAPS, 3000 random bytes, zeros, and the same bytes
+    again at D, then zeros (the zeros' own match lies D - 1 back); and
+    random bytes of periods 65,535 and 65,536."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((len(FAR_GAPS) + 2, FAR_BLOCK), np.uint8)
+    for r, gap in enumerate(FAR_GAPS):
+        stretch = rng.integers(1, 256, 3000)
+        rows[r, :3000] = stretch
+        rows[r, gap : gap + 3000] = stretch
+    for r, period in ((-2, 65535), (-1, 65536)):
+        rows[r] = np.resize(rng.integers(0, 256, period), FAR_BLOCK)
+    return rows, np.full(len(rows), FAR_BLOCK, np.int32)
+
+
+def lz4_offsets(stream: bytes) -> list:
+    """The match offsets of an LZ4 stream, in order."""
+    def length(nibble: int, p: int):
+        if nibble == 15:
+            while stream[p] == 255:
+                nibble += 255
+                p += 1
+            nibble += stream[p]
+            p += 1
+        return nibble, p
+
+    out, p = [], 0
+    while p < len(stream):
+        token = stream[p]
+        lit, p = length(token >> 4, p + 1)
+        p += lit
+        if p >= len(stream):
+            break
+        out.append(stream[p] | stream[p + 1] << 8)
+        _, p = length(token & 15, p + 2)
+    return out
+
+
+def rle_long_rows():
+    """(6, BLOCK) u8 rows and lengths for rle.cu's scans: a constant row,
+    alternating bytes, and runs of 255k + {0, 1, 2, 3} bytes (k up to 8),
+    each byte other than its neighbours', after 0, 511 and 4095 single
+    bytes, so that runs cross the warps' (512-byte) and the tiles'
+    (4096-byte) boundaries; the last row cut at 65,535 bytes."""
+    rng = np.random.default_rng(SEED + 8)
+    runs = [255 * k + d for k in range(9) for d in range(4) if k or d]
+    rows = [np.full(BLOCK, 0x61), np.resize([0x61, 0x62], BLOCK)]
+    for start in (0, 511, 4095, 4095):
+        parts, val = [np.resize([1, 2], start)], 3
+        while sum(map(len, parts)) < BLOCK:
+            for r in rng.permutation(runs):
+                parts.append(np.full(r, val % 253 + 3))
+                val += 1
+        rows.append(np.concatenate(parts)[:BLOCK])
+    lens = np.array([BLOCK] * 5 + [BLOCK - 1], np.int32)
+    rows = np.stack(rows).astype(np.uint8)
+    rows[-1, -1] = 0
+    return rows, lens
+
+
 def first_offset(stream: bytes) -> int:
     """Where an LZ4 stream's first offset sits: after its token, its literal
     run's extension and its literals."""
@@ -681,10 +752,14 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
         errs["lz4_encode"] = max(errs.get("lz4_encode", 0), err)
         res[f"lz4_encode_hash_log_{hl}"] = {
             "max_abs_err": err, "stream_bytes": int(enc[1].sum()),
+            "route": lz4_route(x, hl),
             "ms": cuda_ms(lambda: lz4_coder.lz4_encode_batch(x, xl, hl), 10),
             "plain_ms": plain_ms}
         if hl == 16:
             lz4_enc = enc
+    res["lz4_encode_routes"] = lz4_route_check(x, xl, n)
+    errs["lz4_encode"] = max(errs["lz4_encode"],
+                             res["lz4_encode_routes"]["max_abs_err"])
     rle_enc = rle_coder.rle_encode_batch(x, xl)
     ref, plain_ms = timed(lambda: rle_coder.rle_encode_batch_plain(x, xl))
     errs["rle_encode"] = max(max_err(a, c) for a, c in zip(rle_enc, ref))
@@ -693,6 +768,9 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
         "stream_bytes": int(rle_enc[1].sum()),
         "ms": cuda_ms(lambda: rle_coder.rle_encode_batch(x, xl), 10),
         "plain_ms": plain_ms}
+    res["rle_long_rows"] = rle_long_check(x, xl, n)
+    errs["rle_encode"] = max(errs["rle_encode"],
+                             res["rle_long_rows"]["max_abs_err"])
     # past out_cap: a text stream of n + 300 bytes, and for rle a fill
     # and a literal stretch longer than n
     lz4_bad = lz4_corrupt_streams(text[:900]) + [
@@ -732,6 +810,100 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
         raise AssertionError(f"lz4 or rle encode disagrees with its plain "
                              f"version: {res}")
     return errs
+
+
+def lz4_route(x: torch.Tensor, hash_log: int) -> str:
+    """Where lz4_encode.cu keeps its tables for rows x at hash_log: one a
+    row in device memory, or a pool of fewer."""
+    b = x.shape[0]
+    ntab = lz4_coder.table_count(b, lz4_coder.resolve_hash_log(hash_log))
+    return "device" if ntab == b else "pool"
+
+
+def lz4_route_check(x, xl, n: int) -> dict:
+    """lz4_encode.cu on what the mixed rows at HASH_LOGS do not reach,
+    exact against the plain version: the pool (hash_log 20 on those rows
+    and 128 more mixed ones, past POOL_BYTES), and far_rows() at hash_log
+    12, 16 and 20, whose streams hold offsets of exactly 65,533 to 65,535
+    and none of 65,536 and 65,537 (the rows with such repeats take 3000
+    bytes more).  Both routes must be reached."""
+    more, mlens = mixed_blocks(128, n, SEED + 7)
+    far, flens = (torch.from_numpy(a).cuda() for a in far_rows(SEED + 9))
+    sets = {"pool": (torch.cat([x, torch.from_numpy(more).cuda()]),
+                     torch.cat([xl, torch.from_numpy(mlens).cuda()]), (20,)),
+            "device": (far, flens, (12, 16, 20))}
+    res, err, routes = {}, 0, set()
+    for want, (rows, lens, hls) in sets.items():
+        for hl in hls:
+            got = lz4_coder.lz4_encode_batch(rows, lens, hl)
+            ref, plain_ms = timed(
+                lambda: lz4_coder.lz4_encode_batch_plain(rows, lens, hl))
+            e = max(max_err(a, c) for a, c in zip(got, ref))
+            err = max(err, e)
+            route = lz4_route(rows, hl)
+            if route != want:
+                raise AssertionError(f"lz4 rows {tuple(rows.shape)} at "
+                                     f"hash_log {hl} took the {route} "
+                                     f"route, not the {want} one")
+            routes.add(route)
+            rec = {"rows": list(rows.shape), "route": route,
+                   "max_abs_err": e, "plain_ms": plain_ms,
+                   "ms": cuda_ms(lambda: lz4_coder.lz4_encode_batch(
+                       rows, lens, hl), 3)}
+            if want == "device":
+                comp, clens = (a.cpu() for a in got)
+                streams = [comp[r, : int(clens[r])].numpy().tobytes()
+                           for r in range(len(clens))]
+                offs = [lz4_offsets(st) for st in streams]
+                rec["stream_bytes"] = [len(st) for st in streams]
+                rec["max_offset"] = [max(o, default=0) for o in offs]
+                near = [g for g, o in zip(FAR_GAPS, offs) if g in o]
+                short = [len(st) < 5000 for st in streams[:len(FAR_GAPS)]]
+                if near != [g for g in FAR_GAPS if g <= 0xFFFF] or short != [
+                        g <= 0xFFFF for g in FAR_GAPS]:
+                    raise AssertionError(f"lz4 at hash_log {hl}: repeats "
+                                         f"near the offset bound taken or "
+                                         f"refused wrong: {rec}")
+            res[f"{want}_hash_log_{hl}"] = rec
+    res["max_abs_err"] = err
+    res["routes"] = sorted(routes)
+    if routes | {lz4_route(x, hl) for hl in HASH_LOGS} != {"device", "pool"}:
+        raise AssertionError(f"lz4_encode.cu's table routes not all "
+                             f"reached: {res}")
+    return res
+
+
+def rle_long_check(x, xl, n: int) -> dict:
+    """rle.cu's encoder on rle_long_rows() and on the mixed rows cut to
+    n - 3 bytes (not 16-byte aligned), exact against the plain version,
+    and the long rows decoded back by the kernel, also exact."""
+    rows, lens = (torch.from_numpy(a).cuda() for a in rle_long_rows())
+    res, err = {}, 0
+    for name, r, rl in (("long", rows, lens),
+                        ("unaligned", x[:, : n - 3].contiguous(),
+                         xl.clamp(max=n - 3))):
+        got = rle_coder.rle_encode_batch(r, rl)
+        ref, plain_ms = timed(lambda: rle_coder.rle_encode_batch_plain(r, rl))
+        e = max(max_err(a, c) for a, c in zip(got, ref))
+        err = max(err, e)
+        res[name] = {"rows": list(r.shape), "max_abs_err": e,
+                     "plain_ms": plain_ms,
+                     "stream_bytes": got[1].tolist() if name == "long"
+                     else int(got[1].sum())}
+    comp, clens = rle_coder.rle_encode_batch(rows, lens)
+    dec = rle_coder.rle_decode_batch(comp, clens, BLOCK)
+    dref = rle_coder.rle_decode_batch_plain(comp, clens, BLOCK)
+    keep = torch.arange(BLOCK, device="cuda")[None, :] < lens[:, None]
+    back = (torch.equal(dec[1], lens.to(torch.int64))
+            and torch.equal(torch.where(keep, dec[0], 0), rows))
+    res["decode_max_abs_err"] = max(max_err(a, c) for a, c in zip(dec, dref))
+    res["round_trip"] = back
+    res["max_abs_err"] = err
+    if err or res["decode_max_abs_err"] or not back:
+        raise AssertionError(f"rle on the long rows: kernel and plain "
+                             f"version disagree, or a row decoded wrong: "
+                             f"{res}")
+    return res
 
 
 def payloads(blob: bytes, head: int):
@@ -1841,7 +2013,7 @@ AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
 AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle"}   # else the name
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
-AB_REDESIGNED = ()
+AB_REDESIGNED = ("lz4_encode", "rle_encode")
 
 
 def ab_entry(lib, kernel: str):
@@ -1984,7 +2156,7 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
         lz4 = kernel == "lz4_encode"
         cap = lz4_coder.encode_cap(n) if lz4 else rle_coder.encode_cap(n)
         hl = lz4_coder.resolve_hash_log(args[2] if len(args) > 2 else 16)
-        ntab = max(1, min(b, lz4_coder.POOL_BYTES // (4 << hl)))
+        ntab = lz4_coder.table_count(b, hl)
         tables = torch.empty(ntab << hl if lz4 else 0, dtype=torch.int32,
                              device="cuda")
 
@@ -2072,11 +2244,13 @@ def ab_child(dirs: list) -> int:
     more row, ari_decode_dot: that kernel against the checkout's dot route
     (ari_decode.cu) at the ari path's decode launch and on phase 5's A/B
     mix.  Beside them: ari_decode's no-index mode at the ari shape; one
-    row alone against all the rows at the bwt, bwtdc, bin and apm shapes,
-    for every build; and whether the SASS of each source that this
-    checkout does not redesign (all but AB_REDESIGNED) equals the DIR's
-    build of it.  One JSON line a kernel and shape, then one line of the
-    whole; exits 1 if any outputs differed."""
+    row alone against all the rows at the bwt, bwtdc, bin, apm, lz4 and
+    rle shapes, for every build; and whether the SASS of each kernel that
+    this checkout does not redesign (all but AB_REDESIGNED) equals the
+    DIR's build of it: the functions that carry the kernel's name (all of
+    the source where none does, as in mtf.cu), so that rle_decode is held
+    apart from rle_encode in rle.cu.  One JSON line a kernel and shape,
+    then one line of the whole; exits 1 if any outputs differed."""
     if not dirs:
         raise SystemExit("chip_smoke.py --ab needs a directory")
     smi = nvidia_smi()
@@ -2104,10 +2278,14 @@ def ab_child(dirs: list) -> int:
             for proc in procs.values():
                 proc.kill()
                 proc.wait()
-        # the kernels' SASS, whatever the unnamed namespace's mangled
-        # name (it hashes the source's path)
+        # the kernel's own functions' SASS (all of a source whose
+        # functions do not carry the kernel's name, as mtf.cu's), whatever
+        # the unnamed namespace's mangled name (it hashes the source's path)
         def sass(name):
-            return sorted(sass_functions(nvcc, so[name]).values())
+            funcs = sass_functions(nvcc, so[name])
+            own = f"{name.split(':')[1]}_kernel"
+            return sorted(v for f, v in funcs.items() if own in f) or sorted(
+                funcs.values())
 
         res["sass_unchanged"] = {
             name: sass(name) == sass("new:" + name.split(":")[1])
@@ -2158,7 +2336,8 @@ def ab_child(dirs: list) -> int:
                     if not torch.equal(flat["new"]()[0], ref[0]):
                         differ.append("ari_decode's no-index mode")
                     row["unindexed_ms"] = cuda_ms(flat["new"], 3)
-                if path in ("bwt", "bin", "apm") or kernel == "dc_decode":
+                if (path in ("bwt", "bin", "apm", "lz4", "rle")
+                        or kernel == "dc_decode"):
                     one, _ = ab_launchers(
                         libs[kernel], kernel,
                         tuple(a[:1].contiguous() if torch.is_tensor(a)

@@ -141,6 +141,39 @@ def test_plain_encoder_equals_oracle(rng, hash_log):
         assert not comp[i, len(exp):].any()
 
 
+@pytest.mark.parametrize("hash_log", [12, 16])
+@pytest.mark.parametrize("window", [1, 7, 32, 64])
+def test_plain_encoder_window_is_the_serial_parse(monkeypatch, rng, window,
+                                                  hash_log):
+    """The window construction that csrc/lz4_encode.cu runs at 32 positions
+    a step (a position's candidate is the last earlier one of the window
+    with its hash, else the table's slot read before the window's writes;
+    the probed positions up to the first match write the table, the last
+    of each hash) gives the serial parse's bytes at any window."""
+    monkeypatch.setattr(lz4_coder, "WINDOW", window)
+    blocks = [TEXT[:2048], TEXT[1000:1400] + bytes(700) + b"xy" * 300,
+              b"abc" * 400, bytes(rng.integers(0, 3, 2048, np.uint8)),
+              b"0123456789abc", b""]
+    x, lens = _rows(blocks, 2048)
+    comp, clens = lz4_coder.lz4_encode_batch(x, lens, hash_log)
+    for i, b in enumerate(blocks):
+        exp = olz4.compress_block(b, hash_log)
+        assert comp[i, : int(clens[i])].numpy().tobytes() == exp
+
+
+def test_far_repeats_container_identical():
+    """Blocks of 128 KiB whose repeats lie 65,533 to 70,000 bytes back
+    (chip_smoke.far_rows): the port's container is tpuzip's, each decodes
+    the other's, and the offset bound binds: a repeat up to 65,535 back is
+    taken, one further back is refused and its 3000 bytes stay literals."""
+    rows, _ = chip_smoke.far_rows(7)
+    blob = _both(rows.tobytes(), 1 << 17)
+    nb, = struct.unpack_from("<I", blob, 10)
+    clens = np.frombuffer(blob, "<u4", nb, 26)
+    near = [g <= 0xFFFF for g in chip_smoke.FAR_GAPS]
+    assert [int(c) < 5000 for c in clens[: len(near)]] == near
+
+
 def _corrupt_streams():
     """(name, stream): valid streams, and the smoke's corrupt ones, one of
     each fault the status reports."""

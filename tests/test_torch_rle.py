@@ -96,6 +96,55 @@ def test_plain_encoder_equals_oracle(rng):
         assert not comp[i, len(exp):].any()
 
 
+def _by_place(block: bytes) -> bytes:
+    """rle bytes from each input byte's place j in its run of R bytes (the
+    rule csrc/rle.cu's encoder writes by): the byte when j is 0 or 1, a 255
+    when j >= 2 and (j - 2) % 255 == 254, then, after a run's last byte
+    with R >= 2, the remainder (j - 1) % 255."""
+    x = np.frombuffer(block, np.uint8)
+    if x.size == 0:
+        return b""
+    q = np.arange(x.size)
+    head = np.concatenate([[True], x[1:] != x[:-1]])
+    j = q - np.maximum.accumulate(np.where(head, q, 0))
+    last = np.concatenate([x[1:] != x[:-1], [True]])
+    val = (j <= 1) | ((j >= 2) & ((j - 2) % 255 == 254))
+    cnt = last & (j >= 1)
+    out = np.full((x.size, 2), -1, np.int64)
+    out[val, 0] = np.where(j[val] <= 1, x[val], 255)
+    out[cnt, 1] = (j[cnt] - 1) % 255
+    out = out.reshape(-1)
+    return out[out >= 0].astype(np.uint8).tobytes()
+
+
+def test_byte_rule_equals_oracle(rng):
+    """The rule on single runs of 1 to 1100 bytes (b b 0 at 2, b b 254 at
+    256, b b 255 0 at 257) and on 2000 random blocks of runs of 1 to 1000
+    bytes, against tpuzip.oracle.rle.encode."""
+    assert _by_place(b"aa") == b"aa\x00"
+    assert _by_place(b"a" * 256) == b"aa\xfe"
+    assert _by_place(b"a" * 257) == b"aa\xff\x00"
+    for r in range(1, 1101):
+        assert _by_place(b"a" * r + b"b") == orle.encode(b"a" * r + b"b"), r
+    for _ in range(2000):
+        runs = rng.integers(1, 1001, rng.integers(1, 5))
+        block = np.repeat(rng.integers(0, 3, runs.size), runs).astype(
+            np.uint8).tobytes()
+        assert _by_place(block) == orle.encode(block)
+
+
+@pytest.mark.parametrize("block_size", [1 << 16, 4096])
+def test_long_runs_container_identical(block_size):
+    """A 64 KiB constant block, then runs of 255k + {0, 1, 2, 3} bytes for
+    k up to 4, each of a byte other than its neighbours': the port's
+    container is tpuzip's and each decodes the other's."""
+    runs = [255 * k + d for k in range(5) for d in range(4) if k or d]
+    data = b"c" * (1 << 16) + b"".join(
+        bytes([i % 250 + 1]) * r for i, r in enumerate(runs * 2))
+    blob = _both(data, block_size)
+    assert blob[4] == 2
+
+
 @pytest.mark.parametrize("out_cap", [1200, 300])
 def test_plain_decoder_status_equals_native(out_cap):
     """Status (length or -1) and bytes equal tpuzip's C++ decoder's on valid

@@ -1,11 +1,13 @@
-// step_clocks.cu — clock64-stamped copies of four kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of five kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
 // apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
-// (csrc/bin_encode.cu, one thread a stream) and the DC walk's
-// (csrc/dc_decode.cu, eight compares and two reductions a run); and the
-// redesigned ari encoder and DC walk, built from their own sources, the
-// encoder stamped by warp, the walk by part.  One stream each (one warp,
-// one thread).  Each part of a step is stamped after its
+// (csrc/bin_encode.cu, one thread a stream), the DC walk's
+// (csrc/dc_decode.cu, eight compares and two reductions a run) and the
+// lz4 encoder's (csrc/lz4_encode.cu, lane 0 probing a position at a time);
+// and the redesigned ari encoder and DC walk, built from their own
+// sources, the encoder stamped by warp, the walk by part.  One stream each
+// (one warp, one thread; the lz4 copy stamps row 0 of B).  Each part of a
+// step is stamped after its
 // result is ready (the stamp waits on it), and its cycles are summed over
 // the stream; STAMP=false runs the same copy with only the two stamps around
 // the whole loop, for the step's cycles as the kernel runs it.  The
@@ -15,6 +17,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "../tpuzip_torch/csrc/ari_encode.cu"
 #include "../tpuzip_torch/csrc/bin_coder.cuh"
@@ -579,6 +582,266 @@ dc_keyed_clocks(const int32_t* vals, const int32_t* first, int length, int T,
   }
 }
 
+// The lz4 encoder as it stood before its redesign (csrc/lz4_encode.cu as
+// ported: lane 0 probes one position at a time, the table in device
+// memory), one warp a row and a table a row, B rows at once.  Block 0's
+// cycles by part: 0 the 4 bytes at i and their hash, 1 the table read, 2
+// the table write (a store, not awaited), 3 the candidate's 4 bytes and
+// the compare, 4 the match extension, 5 the writes of a sequence, 6 the
+// shuffles and the test after a probe run; cycles[7] the whole row, [8]
+// its probes, [9] its matches.
+namespace lz4_old {
+
+constexpr int MIN_MATCH = 4, MF_LIMIT = 12, LAST_LITERALS = 5;
+constexpr uint32_t HASH_MUL = 2654435761u;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ uint32_t load4(const uint8_t* p) {
+  return p[0] | (p[1] << 8) | (p[2] << 16) | (uint32_t(p[3]) << 24);
+}
+
+__device__ __forceinline__ int put_ext(uint8_t* dst, int o, int len,
+                                       int lane) {
+  const int rem = len - 15;
+  const int cnt = rem / 255 + 1;
+  for (int k = lane; k < cnt; k += 32)
+    dst[o + k] = static_cast<uint8_t>(k < cnt - 1 ? 255 : rem % 255);
+  return cnt;
+}
+
+__device__ __forceinline__ int put_literals(uint8_t* dst, int o,
+                                            const uint8_t* src, int anchor,
+                                            int lit, int ml_nibble,
+                                            int lane) {
+  if (lane == 0)
+    dst[o] = static_cast<uint8_t>((min(lit, 15) << 4) | ml_nibble);
+  ++o;
+  if (lit >= 15) o += put_ext(dst, o, lit, lane);
+  for (int k = lane; k < lit; k += 32) dst[o + k] = src[anchor + k];
+  return o + lit;
+}
+
+}  // namespace lz4_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+lz4_encode_clocks(const uint8_t* blocks, const int32_t* lengths, int n,
+                  uint8_t* comp, int cap, int32_t* clens, int32_t* tables,
+                  int hash_log, long long* cycles) {
+  using namespace lz4_old;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  int32_t* table = tables + (static_cast<size_t>(row) << hash_log);
+  const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+  uint8_t* dst = comp + static_cast<size_t>(row) * cap;
+  const int len = min(max(lengths[row], 0), n);
+  for (int k = lane; k < (1 << hash_log) / 4; k += 32)
+    reinterpret_cast<int4*>(table)[k] = make_int4(-1, -1, -1, -1);
+  __syncwarp();
+  const int limit = max(len - MF_LIMIT, 0);
+  const int end = len - LAST_LITERALS;
+  int i = 0, anchor = 0, o = 0;
+  long long probes = 0, matches = 0;
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  for (;;) {
+    int cand = -1;
+    if (lane == 0) {
+      for (; i < limit; ++i) {
+        ++probes;
+        const uint32_t seq = load4(src + i);
+        const uint32_t h = (seq * HASH_MUL) >> (32 - hash_log);
+        k.lap(0, h);
+        const int c = table[h];
+        k.lap(1, static_cast<uint32_t>(c));
+        table[h] = i;
+        k.lap(2, static_cast<uint32_t>(i));
+        const bool ok = c >= 0 && i - c <= 0xFFFF && load4(src + c) == seq;
+        k.lap(3, ok);
+        if (ok) {
+          cand = c;
+          break;
+        }
+      }
+    }
+    i = __shfl_sync(FULL, i, 0);
+    cand = __shfl_sync(FULL, cand, 0);
+    k.lap(6, static_cast<uint32_t>(i ^ cand));
+    if (cand < 0) break;
+    ++matches;
+    int m = i + MIN_MATCH;
+    for (int c = cand + MIN_MATCH;; m += 32, c += 32) {
+      const int p = m + lane;
+      const bool stop = p >= end || src[p] != src[c + lane];
+      const unsigned hit = __ballot_sync(FULL, stop);
+      if (hit) {
+        m += __ffs(hit) - 1;
+        break;
+      }
+    }
+    k.lap(4, static_cast<uint32_t>(m));
+    const int ml = m - i - MIN_MATCH;
+    o = put_literals(dst, o, src, anchor, i - anchor, min(ml, 15), lane);
+    if (lane == 0) {
+      dst[o] = static_cast<uint8_t>((i - cand) & 0xFF);
+      dst[o + 1] = static_cast<uint8_t>((i - cand) >> 8);
+    }
+    o += 2;
+    if (ml >= 15) o += put_ext(dst, o, ml, lane);
+    i = anchor = m;
+    k.lap(5, static_cast<uint32_t>(o));
+  }
+  o = put_literals(dst, o, src, anchor, len - anchor, 0, lane);
+  const long long t1 = stamp(static_cast<uint32_t>(o));
+  if (lane == 0) {
+    clens[row] = o;
+    if (row == 0) {
+      for (int p = 0; p < 7; ++p) cycles[p] = k.sum[p];
+      cycles[7] = t1 - t0;
+      cycles[8] = probes;
+      cycles[9] = matches;
+    }
+  }
+}
+
+// The redesigned lz4 step (csrc/lz4_encode.cu's encode_row, copied here
+// with its stamps), one warp a row, B rows at once, the table in device
+// memory (one a row, int32) or, with SHARED, in shared memory as u16
+// beside the row's bytes; the window first_width positions wide at the
+// row's start and after a match (the source's FIRST_WIDTH), 32 after a
+// window without one.  Block 0's cycles by part: 0 the 4 bytes at each
+// lane's position and their hash, 1 __match_any_sync, 2 the table read,
+// 3 the candidate's 4 bytes, the compare and the ballots, 4 the table
+// write and __syncwarp, 5 the match extension, 6 the writes of a sequence;
+// cycles[7] the whole row, [8] its steps, [9] its matches.
+namespace lz4_new {
+
+struct SharedTable {
+  uint16_t* slot;
+  __device__ __forceinline__ int get(uint32_t h) const {
+    return static_cast<int>(slot[h]) - 1;
+  }
+  __device__ __forceinline__ void put(uint32_t h, int pos) const {
+    slot[h] = static_cast<uint16_t>(pos + 1);
+  }
+};
+
+struct DeviceTable {
+  int32_t* slot;
+  __device__ __forceinline__ int get(uint32_t h) const { return slot[h]; }
+  __device__ __forceinline__ void put(uint32_t h, int pos) const {
+    slot[h] = pos;
+  }
+};
+
+}  // namespace lz4_new
+
+template <bool SHARED, bool STAMP>
+__global__ void __launch_bounds__(32)
+lz4_step_clocks(const uint8_t* blocks, const int32_t* lengths, int n,
+                uint8_t* comp, int cap, int32_t* clens, int32_t* tables,
+                int hash_log, int first_width, long long* cycles) {
+  using namespace lz4_old;
+  using Table = std::conditional_t<SHARED, lz4_new::SharedTable,
+                                   lz4_new::DeviceTable>;
+  extern __shared__ int4 smem[];
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+  uint8_t* dst = comp + static_cast<size_t>(row) * cap;
+  const int len = min(max(lengths[row], 0), n);
+  Table table;
+  if constexpr (SHARED) {
+    table.slot = reinterpret_cast<uint16_t*>(smem);
+    int4* buf = smem + (2 << hash_log) / 16;
+    for (int k = lane; k < (2 << hash_log) / 16; k += 32)
+      smem[k] = make_int4(0, 0, 0, 0);
+    for (int k = lane; k < (len + 15) / 16; k += 32)
+      buf[k] = reinterpret_cast<const int4*>(src)[k];
+    src = reinterpret_cast<const uint8_t*>(buf);
+  } else {
+    table.slot = tables + (static_cast<size_t>(row) << hash_log);
+    for (int k = lane; k < (1 << hash_log) / 4; k += 32)
+      reinterpret_cast<int4*>(table.slot)[k] = make_int4(-1, -1, -1, -1);
+  }
+  __syncwarp();
+  const int limit = max(len - MF_LIMIT, 0);
+  const int end = len - LAST_LITERALS;
+  const unsigned upto_me = (2u << lane) - 1;
+  int i = 0, anchor = 0, o = 0, width = first_width;
+  long long steps = 0, matches = 0;
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  while (i < limit) {
+    ++steps;
+    const int p = i + lane;
+    const bool live = lane < width && p < limit;
+    const uint32_t seq = live ? load4(src + p) : 0;
+    const uint32_t h = live ? (seq * HASH_MUL) >> (32 - hash_log) : FULL;
+    k.lap(0, h);
+    const unsigned group = __match_any_sync(FULL, h);
+    k.lap(1, group);
+    const unsigned earlier = group & upto_me & ~(1u << lane);
+    const int c = earlier ? i + 31 - __clz(earlier)
+                          : (live ? table.get(h) : -1);
+    k.lap(2, static_cast<uint32_t>(c));
+    const bool ok = live && c >= 0 && p - c <= 0xFFFF &&
+                    load4(src + c) == seq;
+    const unsigned hits = __ballot_sync(FULL, ok);
+    const unsigned first = hits & (0u - hits);
+    const unsigned probed = __ballot_sync(FULL, live) & (first | (first - 1));
+    k.lap(3, hits ^ probed);
+    if ((probed >> lane & 1) && !(group & probed & ~upto_me))
+      table.put(h, p);
+    __syncwarp();
+    k.lap(4, probed);
+    if (!hits) {
+      i += width;
+      width = 32;
+      continue;
+    }
+    ++matches;
+    const int kk = __ffs(hits) - 1;
+    const int at = i + kk;
+    const int cand = __shfl_sync(FULL, c, kk);
+    int m = at + MIN_MATCH;
+    for (int cc = cand + MIN_MATCH;; m += 32, cc += 32) {
+      const int q = m + lane;
+      const bool stop = q >= end || src[q] != src[cc + lane];
+      const unsigned hit = __ballot_sync(FULL, stop);
+      if (hit) {
+        m += __ffs(hit) - 1;
+        break;
+      }
+    }
+    k.lap(5, static_cast<uint32_t>(m));
+    const int ml = m - at - MIN_MATCH;
+    o = put_literals(dst, o, src, anchor, at - anchor, min(ml, 15), lane);
+    if (lane == 0) {
+      dst[o] = static_cast<uint8_t>((at - cand) & 0xFF);
+      dst[o + 1] = static_cast<uint8_t>((at - cand) >> 8);
+    }
+    o += 2;
+    if (ml >= 15) o += put_ext(dst, o, ml, lane);
+    i = anchor = m;
+    width = first_width;
+    k.lap(6, static_cast<uint32_t>(o));
+  }
+  o = put_literals(dst, o, src, anchor, len - anchor, 0, lane);
+  const long long t1 = stamp(static_cast<uint32_t>(o));
+  if (lane == 0) {
+    clens[row] = o;
+    if (row == 0) {
+      for (int q = 0; q < 7; ++q) cycles[q] = k.sum[q];
+      cycles[7] = t1 - t0;
+      cycles[8] = steps;
+      cycles[9] = matches;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -653,5 +916,58 @@ extern "C" int tpz_dc_walk_clocks(const void* vals, const void* first,
     dc_keyed_clocks<true><<<1, 32>>>(v, f, length, T, s, l, y, e, c);
   else
     dc_keyed_clocks<false><<<1, 32>>>(v, f, length, T, s, l, y, e, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B lz4 rows of the earlier encoder, one warp and one table (2^hash_log
+// int32 of `tables`) a row; block 0's cycles into cycles (10 int64).
+extern "C" int tpz_lz4_encode_clocks(const void* blocks, const void* lengths,
+                                     int B, int n, void* comp, int cap,
+                                     void* clens, void* tables, int hash_log,
+                                     void* cycles, int stamped) {
+  auto* x = static_cast<const uint8_t*>(blocks);
+  auto* l = static_cast<const int32_t*>(lengths);
+  auto* c = static_cast<uint8_t*>(comp);
+  auto* cl = static_cast<int32_t*>(clens);
+  auto* t = static_cast<int32_t*>(tables);
+  auto* cy = static_cast<long long*>(cycles);
+  if (stamped)
+    lz4_encode_clocks<true><<<B, 32>>>(x, l, n, c, cap, cl, t, hash_log, cy);
+  else
+    lz4_encode_clocks<false><<<B, 32>>>(x, l, n, c, cap, cl, t, hash_log,
+                                         cy);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B lz4 rows of the redesigned step, one warp a row: which = 3 the table in
+// shared memory stamped, 2 unstamped (the rows 16-byte aligned, n a
+// multiple of 16, hash_log <= 16); 1 the table in device memory (2^hash_log
+// int32 of `tables` a row) stamped, 0 unstamped.  Block 0's cycles into
+// cycles (10 int64).
+extern "C" int tpz_lz4_step_clocks(const void* blocks, const void* lengths,
+                                   int B, int n, void* comp, int cap,
+                                   void* clens, void* tables, int hash_log,
+                                   int first_width, void* cycles,
+                                   int which) {
+  auto* x = static_cast<const uint8_t*>(blocks);
+  auto* l = static_cast<const int32_t*>(lengths);
+  auto* c = static_cast<uint8_t*>(comp);
+  auto* cl = static_cast<int32_t*>(clens);
+  auto* t = static_cast<int32_t*>(tables);
+  auto* cy = static_cast<long long*>(cycles);
+  const int smem = (2 << hash_log) + n;
+  if (which >= 2) {
+    auto kern = which == 3 ? lz4_step_clocks<true, true>
+                           : lz4_step_clocks<true, false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<B, 32, smem>>>(x, l, n, c, cap, cl, t, hash_log, first_width,
+                          cy);
+  } else {
+    auto kern = which == 1 ? lz4_step_clocks<false, true>
+                           : lz4_step_clocks<false, false>;
+    kern<<<B, 32>>>(x, l, n, c, cap, cl, t, hash_log, first_width, cy);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Cycles a step, by part, of the ari encoder's, the apm bit decoder's, the
-apm bit encoder's and the DC walk's steps as they stood before their
-redesign, of the redesigned ari encoder by warp and of the redesigned DC
-walk by part (tools/step_clocks.cu), on one real stream each, on one GPU:
+apm bit encoder's, the DC walk's and the lz4 encoder's steps as they stood
+before their redesign, of the redesigned ari encoder by warp and of the
+redesigned DC walk by part (tools/step_clocks.cu), on one real stream each,
+on one GPU:
 
     python3 tools/step_clocks.py        # from the root of a checkout
 
@@ -17,11 +18,17 @@ stream.  Prints one JSON line: for each, the steps, the cycles a step of
 each part (stamped run), of the stamped loop and of the unstamped loop,
 and the unstamped copy's CUDA-event ms (cycles over ms is the SM clock
 under this load); for the DC walk also the walked runs of all 64 streams
-and csrc/dc_decode.cu's ms on row 0 alone and on all 64."""
+and csrc/dc_decode.cu's ms on row 0 alone and on all 64.  The lz4
+encoder's rows are the lz4 path's (the 64 MiB corpus through
+tpuzip_torch.compress with no codec, 1024 rows of 64 KiB), its step one
+probe of one position, stamped on row 0 alone and beside the other 1023
+rows, with csrc/lz4_encode.cu's ms on the same rows; the redesigned step
+(32 positions a probe) likewise, its table in shared or device memory."""
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -36,7 +43,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import tpuzip_torch  # noqa: E402
 from tpuzip_torch.kernels import (_build, bin_coder, dc_scan,  # noqa: E402
-                                  range_coder)
+                                  lz4_coder, range_coder)
 
 ARI_PARTS = ("symbol", "table reads", "division", "multiplies",
              "renormalisation", "update", "chunk test and loop")
@@ -114,6 +121,112 @@ def dc_walk(lib, res) -> None:
         3)
     rec["kernel_all_ms"] = cs.cuda_ms(lambda: dc_scan.dc_decode_lanes(*args),
                                       3)
+
+
+LZ4_PROBE_PARTS = ("4 bytes and hash", "table read",
+                   "table write (not awaited)", "candidate read and compare")
+LZ4_MATCH_PARTS = {4: "match extension", 5: "sequence writes"}
+LZ4_STEP_PARTS = ("4 bytes and hash", "match_any", "table read",
+                  "candidate read, compare and ballots",
+                  "table write and syncwarp")
+LZ4_STEP_MATCH_PARTS = {5: "match extension", 6: "sequence writes"}
+
+
+def lz4_probe(lib, res) -> None:
+    """The earlier lz4 encoder's copy on the lz4 path's rows (tpuzip_torch.
+    compress with no codec on the smoke's 64 MiB corpus: 1024 rows of
+    64 KiB), stamped on row 0 alone and beside the other 1023 rows, held
+    against csrc/lz4_encode.cu's output there, into res["lz4_encode"]; and
+    the redesigned step's copy by part, its table in shared or in device
+    memory, its first window 32 or 8 wide (csrc/lz4_encode.cu's
+    FIRST_WIDTH), on row 0 alone and beside the others."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    with cs.recorded(lz4_coder, "lz4_encode_batch") as calls:
+        tpuzip_torch.compress(data)
+    (args, _, out), = calls
+    blocks, lens, hl = args[0], args[1], lz4_coder.resolve_hash_log(args[2])
+    b_all, n = blocks.shape
+    cap = out[0].shape[1]
+    fn = lib.tpz_lz4_encode_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci, vp, ci]
+    tables = torch.empty(b_all << hl, dtype=torch.int32, device="cuda")
+
+    def launch(b: int, stamped: int):
+        comp = torch.zeros((b, cap), dtype=torch.uint8, device="cuda")
+        clens = torch.empty(b, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(10, dtype=torch.int64, device="cuda")
+        _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                        comp.data_ptr(), cap, clens.data_ptr(),
+                        tables.data_ptr(), hl, cyc.data_ptr(), stamped),
+                     "lz4_encode_clocks")
+        return comp, clens, cyc
+
+    rec = res.setdefault("lz4_encode", {"hash_log": hl, "row_bytes": n})
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            comp, clens, cyc = launch(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(comp, out[0][:b])
+                    and torch.equal(clens, out[1][:b])):
+                raise AssertionError(f"lz4 encode copy (stamped={stamped}, "
+                                     f"{b} rows) differs from "
+                                     "csrc/lz4_encode.cu")
+            cyc = cyc.tolist()
+            probes, matches = cyc[8], cyc[9]
+            rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "probes": probes, "matches": matches,
+                "cycles_a_probe": {
+                    **{p: cyc[i] / probes
+                       for i, p in enumerate(LZ4_PROBE_PARTS)},
+                    "shuffles and test (a probe run)": cyc[6] / probes,
+                    "whole row": cyc[7] / probes},
+                "cycles_a_match": {p: cyc[i] / matches
+                                   for i, p in LZ4_MATCH_PARTS.items()},
+                "whole_row_cycles": cyc[7]}
+        rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0), 3)
+        rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+            lambda: lz4_coder.lz4_encode_batch(blocks[:b], lens[:b], hl), 3)
+    new = lib.tpz_lz4_step_clocks
+    new.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp, ci]
+
+    def launch_new(b: int, which: int, width: int):
+        comp = torch.zeros((b, cap), dtype=torch.uint8, device="cuda")
+        clens = torch.empty(b, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(10, dtype=torch.int64, device="cuda")
+        _build.check(new(blocks.data_ptr(), lens.data_ptr(), b, n,
+                         comp.data_ptr(), cap, clens.data_ptr(),
+                         tables.data_ptr(), hl, width, cyc.data_ptr(),
+                         which),
+                     "lz4_step_clocks")
+        return comp, clens, cyc
+
+    for (which, table), width, b in itertools.product(
+            ((3, "shared"), (2, "shared"), (1, "device"), (0, "device")),
+            (32, 8), (1, 132, b_all)):
+        comp, clens, cyc = launch_new(b, which, width)
+        torch.cuda.synchronize()
+        if not (torch.equal(comp, out[0][:b])
+                and torch.equal(clens, out[1][:b])):
+            raise AssertionError(f"redesigned lz4 step copy ({which}, "
+                                 f"{b} rows) differs from "
+                                 "csrc/lz4_encode.cu")
+        cyc = cyc.tolist()
+        steps, matches = cyc[8], cyc[9]
+        name = f"new_{table}_width_{width}_rows_{b}_" + (
+            "stamped" if which & 1 else "unstamped")
+        rec[name] = {
+            "steps": steps, "matches": matches,
+            "cycles_a_step": {
+                **{p: cyc[i] / steps
+                   for i, p in enumerate(LZ4_STEP_PARTS)},
+                "whole row": cyc[7] / steps},
+            "cycles_a_match": {p: cyc[i] / matches
+                               for i, p in LZ4_STEP_MATCH_PARTS.items()},
+            "whole_row_cycles": cyc[7]}
+        if not which & 1:
+            rec[name + "_ms"] = cs.cuda_ms(
+                lambda: launch_new(b, which, width), 3)
 
 
 def main() -> int:
@@ -233,6 +346,7 @@ def main() -> int:
                 cyc, APM_ENC_PARTS, 8 * elen)
     res["apm_encode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_apm_enc(0), 3)
     dc_walk(lib, res)
+    lz4_probe(lib, res)
     print(json.dumps(res))
     return 0
 

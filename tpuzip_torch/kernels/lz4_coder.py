@@ -19,13 +19,14 @@ are theirs:
           with status -1 is all 0.
 
 The plain versions run every row at once.  The encoder probes a window of
-WINDOW positions a step: inside it a position's candidate is the last
-earlier position of the window with its hash, else the table's entry, so a
-step ends at the window's first verified match or after the window, and
-the sequences are serialised at the end, each output byte computed from its
-sequence.  The decoder parses one sequence a row a step, then resolves
-every output byte to a literal by pointer doubling: byte m of a match at
-o with offset off is byte o - off + (m % off), always before o.
+WINDOW positions a step (the kernel's construction, at 8 or 32): inside
+it a position's candidate is the last earlier position of the window with
+its hash, else the table's entry, so a step ends at the window's first
+verified match or after the window, and the sequences are serialised at
+the end, each output byte computed from its sequence.  The decoder parses
+one sequence a row a step, then resolves every output byte to a literal by
+pointer doubling: byte m of a match at o with offset off is byte
+o - off + (m % off), always before o.
 """
 
 from __future__ import annotations
@@ -288,6 +289,14 @@ def _lib(name: str):
     return fn
 
 
+def table_count(b: int, hash_log: int) -> int:
+    """Hash tables that a launch of csrc/lz4_encode.cu on b rows at
+    hash_log gets: one a CUDA block, or, where b tables would pass
+    POOL_BYTES, a pool of fewer, whose blocks walk the rows by a
+    grid-stride loop."""
+    return max(1, min(b, POOL_BYTES // (4 << hash_log)))
+
+
 def _check_pair(name: str, rows: torch.Tensor, lens: torch.Tensor) -> None:
     if rows.dtype != torch.uint8 or lens.dtype != torch.int32:
         raise TypeError(f"{name} takes u8 rows and i32 lengths")
@@ -321,9 +330,7 @@ def lz4_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
     clens = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return comp, clens
-    # one hash table a block, or a pool of them walked by a grid-stride
-    # loop when that would pass POOL_BYTES
-    ntab = max(1, min(b, POOL_BYTES // (4 << hl)))
+    ntab = table_count(b, hl)
     tables = torch.empty(ntab << hl, dtype=torch.int32, device=dev)
     fn = _lib("lz4_encode")
     with torch.cuda.device(dev):
