@@ -61,7 +61,17 @@ Phases, one JSON line each:
             and 20; rle
             encode on 64 KiB rows of one byte, of alternating bytes and of
             runs of 255k + {0, 1, 2, 3} across rle.cu's warps and tiles
-            (decoded back too), and on rows of 2045 bytes.
+            (decoded back too), and on rows of 2045 bytes.  And both
+            decoders, exact against their plain versions, on the streams
+            no path feeds them (lz_decode_edges): the 128 KiB rows'
+            streams at hash_log 12, 16 and 20 and lz4 streams whose
+            length extensions run 300 bytes across lz4_decode.cu's tile
+            ends, at out_cap 128 KiB; 64 garbage lz4 streams; tpuzip's
+            XLA rle form of the 64 KiB rle rows and 64 garbage rle
+            streams, pairs and chains of 255s across rle.cu's thread, warp
+            and tile ends; one row of each at an out_cap well under its
+            length (status -1, all 0); both of rle_decode's write routes
+            reached.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -737,7 +747,8 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
     each of HASH_LOGS, rle encode; each decoder on the encoded rows plus
     corrupt streams (lz4_corrupt_streams(), rle_corrupt_streams(), and for
     both, streams whose literals or fill pass out_cap), every corrupt row's
-    status -1 and every encoded row decoded back; times side by side."""
+    status -1 and every encoded row decoded back, and on lz_decode_edges()'
+    rows; times side by side."""
     rows_np, rlens_np = lz_rows(blocks_np.shape[1], SEED + 5)
     x = torch.from_numpy(np.concatenate([blocks_np, rows_np])).cuda()
     xl = torch.from_numpy(np.concatenate([lens_np, rlens_np])).cuda()
@@ -804,6 +815,9 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
             raise AssertionError(f"{codec} decode: kernel and plain version "
                                  f"disagree, or a row decoded wrong: "
                                  f"{res[f'{codec}_decode']}")
+    res["decode_edges"], edge_errs = lz_decode_edges(n)
+    for name, e in edge_errs.items():
+        errs[name] = max(errs[name], e)
     emit("kernels", kernel="lz4_rle", rows=b, bytes=n,
          short_rows=int((rlens_np < 13).sum()), **res)
     if errs["lz4_encode"] or errs["rle_encode"]:
@@ -904,6 +918,239 @@ def rle_long_check(x, xl, n: int) -> dict:
                              f"version disagree, or a row decoded wrong: "
                              f"{res}")
     return res
+
+
+def lz4_sequence(lits: bytes, off: int = 0, ml: int = 0) -> bytes:
+    """One LZ4 sequence: its token, its literal run's extension, the
+    literals and, where ml (4 or more) is given, the offset and the match
+    length's extension; without ml, a stream's last sequence."""
+    def ext(v: int) -> bytes:
+        return b"" if v < 15 else b"\xff" * ((v - 15) // 255) + bytes(
+            [(v - 15) % 255])
+
+    m = ml - 4 if ml else 0
+    out = bytes([min(len(lits), 15) << 4 | min(m, 15)]) + ext(len(lits))
+    out += lits
+    return out + (bytes([off & 255, off >> 8]) + ext(m) if ml else b"")
+
+
+def lz4_long_ext_streams(seed: int) -> list:
+    """(stream, decoded length or -1) of LZ4 streams whose length extensions
+    run for 300 bytes across the ends of lz4_decode.cu's staged tiles
+    (lz4_coder.DECODE_TILE) and of its ring of 4 tiles: a match of about
+    76,500 bytes, or a literal run as long, after a first sequence sized so
+    that the extension starts 1, 2 or 7 bytes before the end; and a literal
+    extension that runs to the stream's end (-1)."""
+    rng = np.random.default_rng(seed)
+    tile = lz4_coder.DECODE_TILE
+    out = []
+    for end in (tile, 2 * tile, 4 * tile):
+        for back in (1, 2, 7):
+            long = 4 + 15 + 255 * 299 + int(rng.integers(0, 250))
+            # the extension follows the second sequence's token, literal
+            # and offset (match) or its token alone (literal run)
+            for kind, before in (("match", 4), ("literal", 1)):
+                size = end - back - before
+                k = next(k for k in range(size - 3, 0, -1)
+                         if len(lz4_sequence(bytes(k), 1, 4)) == size)
+                head = lz4_sequence(
+                    rng.integers(1, 256, k).astype(np.uint8).tobytes(), 1, 4)
+                if kind == "match":
+                    out.append((head + lz4_sequence(b"q", 1, long)
+                                + lz4_sequence(b"end"), k + 4 + 1 + long + 3))
+                else:
+                    out.append((head + lz4_sequence(rng.integers(
+                        0, 256, long).astype(np.uint8).tobytes()),
+                        k + 4 + long))
+    out.append((lz4_sequence(bytes(3000), 1, 4) + b"\xf0" + b"\xff" * 600,
+                -1))
+    return out
+
+
+def lz4_garbage(width: int, seed: int) -> list:
+    """64 garbage LZ4 streams of at most `width` bytes: 32 of random bytes,
+    of random lengths; 32 valid streams of 2048 bytes of text with 1 to 4
+    bytes changed, cut at a random place, or both."""
+    rng = np.random.default_rng(seed)
+    text = text_corpus(1 << 16, seed)
+    out = [rng.integers(0, 256, rng.integers(1, width + 1)).astype(
+        np.uint8).tobytes() for _ in range(32)]
+    for j in range(32):
+        at = int(rng.integers(0, len(text) - 2048))
+        st = bytearray(olz4.compress_block(text[at : at + 2048]))
+        if j % 3 != 1:
+            for p in rng.integers(0, len(st), rng.integers(1, 5)):
+                st[p] = int(rng.integers(0, 256))
+        if j % 3 != 0:
+            st = st[: rng.integers(1, len(st))]
+        out.append(bytes(st))
+    return out
+
+
+def rle_segments(block: bytes) -> bytes:
+    """tpuzip's XLA rle form of a block (tpuzip/codecs/rle.py:23-70): each
+    run cut into segments of at most 256 bytes, a segment of L >= 2 bytes
+    written as b b (L - 2), one of 1 byte as b."""
+    out = bytearray()
+    for v, r in zip(*orle.runs_of(block)):
+        for cut in range(0, int(r), 256):
+            seg = min(256, int(r) - cut)
+            out += bytes([v]) if seg == 1 else bytes([v, v, seg - 2])
+    return bytes(out)
+
+
+def rle_decode_model(stream: bytes, out_cap: int):
+    """The 3-state rule of csrc/rle.cu's decoder on one stream: (decoded
+    bytes, or b"" where the status is -1; the status; each stream byte's
+    output bytes).  S0 is a literal with pairing disarmed, S1 a literal
+    armed by the literal before it, S2 a count byte: S0 -> S1; S1 -> S2 if
+    the byte equals the one before it, else S1; S2 -> S2 on a 255, else S0.
+    A literal writes itself, a count byte its value in copies of the last
+    literal before it.  The state before each byte comes from a doubling
+    scan of the bytes' maps (3 states before to 3 after), as the kernel's
+    block scan takes it."""
+    x = np.frombuffer(stream, np.uint8).astype(np.int64)
+    n = x.size
+    prev = np.concatenate([[-1], x[:-1]])
+    pre = np.stack([np.ones(n, np.int64), np.where(x == prev, 2, 1),
+                    np.where(x == 255, 2, 0)], 1)
+    d = 1
+    while d < n:
+        pre[d:] = np.take_along_axis(pre[d:], pre[:-d], 1)
+        d *= 2
+    state = np.concatenate([[0], pre[:-1, 0]]) if n else np.zeros(0, int)
+    count = state == 2
+    sizes = np.where(count, x, 1)
+    total = int(sizes.sum())
+    if (n and pre[-1, 0] == 2) or total > out_cap:
+        return b"", -1, sizes
+    last = np.maximum.accumulate(np.where(count, -1, np.arange(n)))
+    val = np.where(count, x[np.maximum(last, 0)], x)
+    return np.repeat(val, sizes).astype(np.uint8).tobytes(), total, sizes
+
+
+def rle_garbage(seed: int) -> list:
+    """64 garbage rle streams of at most 8192 bytes: 16 of random bytes, 16
+    of random bytes from {0, 1, 255}, 16 valid streams cut at a random
+    place, and 16 of single bytes with a pair and a chain of 255s across a
+    thread's (16-byte), a warp's (512-byte) or a tile's (4096-byte) end of
+    csrc/rle.cu's decoder, some cut inside the chain."""
+    rng = np.random.default_rng(seed)
+    text = text_corpus(1 << 16, seed)
+    out = [rng.integers(0, 256, rng.integers(1, 8193)).astype(
+        np.uint8).tobytes() for _ in range(16)]
+    out += [rng.choice(np.array([0, 1, 255], np.uint8),
+                       rng.integers(1, 8193)).tobytes() for _ in range(16)]
+    for _ in range(16):
+        at = int(rng.integers(0, len(text) - 8192))
+        block = bytearray(text[at : at + 6000])
+        for r in range(0, 6000, 700):
+            block[r : r + int(rng.integers(2, 600))] = bytes(
+                [int(rng.integers(0, 256))]) * 600
+        st = orle.encode(bytes(block[:6000]))
+        out.append(st[: rng.integers(1, len(st))])
+    singles = np.resize(np.arange(1, 255, dtype=np.uint8), 8192)
+    for j, (end, back) in enumerate([(e, b) for e in (16, 512, 4096)
+                                     for b in (1, 2, 3, 9)] + [(4096, 0)] * 4):
+        chain = b"\xff" * int(rng.integers(1, 20)) + bytes(
+            [int(rng.integers(0, 255))])
+        st = singles[: end - back].tobytes() + b"\x00\x00" + chain
+        st += singles[:100].tobytes()
+        out.append(st[: end + int(rng.integers(1, 8))] if j >= 12 else st)
+    return out
+
+
+def decode_against_plain(codec: str, streams: list, out_cap: int) -> dict:
+    """The codec's decoder kernel and its plain version on `streams`, one a
+    row of a tensor 16 bytes wider than the longest, at `out_cap`: the
+    kernel's bytes and statuses, and the error between the two."""
+    coder = LZ[codec][0]
+    width = -(-max(map(len, streams)) // 16) * 16 + 16
+    comp, clens = padded(streams, width)
+    dec = getattr(coder, f"{codec}_decode_batch")(comp, clens, out_cap)
+    ref, plain_ms = timed(lambda: getattr(
+        coder, f"{codec}_decode_batch_plain")(comp, clens, out_cap))
+    return {"out": dec[0], "status": dec[1].tolist(),
+            "max_abs_err": max(max_err(a, c) for a, c in zip(dec, ref)),
+            "rows": [len(streams), width], "plain_ms": plain_ms}
+
+
+def lz_decode_edges(n: int):
+    """Both decoders, exact against their plain versions (bytes and
+    statuses), on the streams that the paths and the rows above do not
+    feed them: lz4 far_rows() encoded at hash_log 12, 16 and 20 and
+    lz4_long_ext_streams(), at out_cap 128 KiB, and lz4_garbage() at n;
+    rle_long_rows() in tpuzip's XLA segment form (rle_segments) and
+    rle_garbage() at 64 KiB; and one row of each codec at an out_cap well
+    under its decoded length (status -1, the row all 0).  The valid rows
+    decode back to their input, and rle_decode's two write routes (a
+    tile's output staged in shared memory, or past rle_coder.DECODE_STAGE
+    written directly) are both reached."""
+    far, flens = (torch.from_numpy(a).cuda() for a in far_rows(SEED + 9))
+    far_streams = []
+    for hl in (12, 16, 20):
+        comp, clens = (a.cpu() for a in lz4_coder.lz4_encode_batch(
+            far, flens, hl))
+        far_streams += [comp[r, : int(clens[r])].numpy().tobytes()
+                        for r in range(len(clens))]
+    longs = lz4_long_ext_streams(SEED + 10)
+    long_rows, long_sizes = zip(*longs)
+    seg_in, seg_lens = rle_long_rows()
+    segs = [rle_segments(seg_in[r, : seg_lens[r]].tobytes())
+            for r in range(len(seg_in))]
+    sets = {
+        "lz4_far_and_long_ext": ("lz4", far_streams + list(long_rows),
+                                 FAR_BLOCK),
+        "lz4_garbage": ("lz4", lz4_garbage(n + 24, SEED + 11), n),
+        "lz4_out_cap": ("lz4", far_streams[:1], 1000),
+        "rle_segments_and_garbage": ("rle", segs + rle_garbage(SEED + 12),
+                                     BLOCK),
+        "rle_out_cap": ("rle", segs[:1], 1000)}
+    res, errs = {}, {"lz4_decode": 0, "rle_decode": 0}
+    for name, (codec, streams, out_cap) in sets.items():
+        got = decode_against_plain(codec, streams, out_cap)
+        status = got["status"]
+        errs[f"{codec}_decode"] = max(errs[f"{codec}_decode"],
+                                      got["max_abs_err"])
+        res[name] = {k: got[k] for k in ("rows", "max_abs_err", "plain_ms")}
+        res[name]["failed_rows"] = sum(s < 0 for s in status)
+        if name.endswith("out_cap"):
+            want = {r: (b"", -1) for r in range(len(streams))}
+        elif name == "lz4_far_and_long_ext":
+            want = {r: (far[r % len(far)].cpu().numpy().tobytes(),
+                        FAR_BLOCK) for r in range(len(far_streams))}
+            want.update({len(far_streams) + r: (None, s)
+                         for r, s in enumerate(long_sizes)})
+        elif codec == "rle":
+            want = {r: (seg_in[r, : seg_lens[r]].tobytes(), int(seg_lens[r]))
+                    for r in range(len(segs))}
+        else:
+            want = {}
+        for r, (data, size) in want.items():
+            row = got["out"][r].cpu().numpy().tobytes()
+            if status[r] != size or (data is not None and (
+                    row[: max(size, 0)] != data
+                    or any(row[max(size, 0):]))):
+                raise AssertionError(f"{name} row {r}: status {status[r]}, "
+                                     f"expected {size}, or wrong bytes")
+        if codec == "rle":
+            tiles = []
+            for st, s in zip(streams, status):
+                if s >= 0 and st:
+                    sizes = rle_decode_model(st, out_cap)[2]
+                    tiles += np.add.reduceat(sizes, np.arange(
+                        0, len(st), rle_coder.DECODE_TILE)).tolist()
+            res[name]["tiles_staged"] = sum(
+                t <= rle_coder.DECODE_STAGE for t in tiles)
+            res[name]["tiles_direct"] = len(tiles) - res[name]["tiles_staged"]
+    if errs["lz4_decode"] or errs["rle_decode"]:
+        raise AssertionError(f"a decoder disagrees with its plain version "
+                             f"on the edge rows: {res}")
+    seg = res["rle_segments_and_garbage"]
+    if not (seg["tiles_staged"] and seg["tiles_direct"]):
+        raise AssertionError(f"rle_decode's write routes not both reached: "
+                             f"{seg}")
+    return res, errs
 
 
 def payloads(blob: bytes, head: int):
@@ -2013,7 +2260,7 @@ AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
 AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle"}   # else the name
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
-AB_REDESIGNED = ("lz4_encode", "rle_encode")
+AB_REDESIGNED = ("lz4_decode", "rle_decode")
 
 
 def ab_entry(lib, kernel: str):
@@ -2047,8 +2294,9 @@ def ab_entry(lib, kernel: str):
 
 def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
     """({build: a closure that launches that build once into new outputs
-    and returns them}, the work's steps: the longest row's symbols, or its
-    bits) for one recorded launch of `kernel`; libs: {build: its CDLL}."""
+    and returns them}, the work's steps: the longest row's symbols, bits,
+    walked runs, stream bytes (rle decode) or sequences (lz4 decode)) for
+    one recorded launch of `kernel`; libs: {build: its CDLL}."""
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     if kernel == "ari_encode":
         blocks, lens = args[:2]
@@ -2189,7 +2437,12 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
                                 stream()), f"tpz_{kernel}")
                 return out
             return run
-        steps = out_cap
+        # the longest row's stream bytes (rle) or sequences (lz4: each
+        # stream of the path ends in a literal run after its matches)
+        rows, lens = comp.cpu().numpy(), clens.cpu().numpy()
+        steps = int(lens.max()) if kernel == "rle_decode" else max(
+            len(lz4_offsets(rows[r, : lens[r]].tobytes())) + 1
+            for r in range(b))
     else:
         if not torch.is_tensor(args[2]):
             # bin_apm.decode_batch(comp, lengths, out_n, bits, rate, apm)
@@ -2239,7 +2492,8 @@ def ab_child(dirs: list) -> int:
     symbols; bits; run triples and err; bytes and statuses), and
     times each DIR's kernel and the checkout's in turns (old, new, new,
     old; each the mean of 3 launches), with ns a step (the longest row's
-    symbols, bits or walked runs).  A DIR that holds ari_decode_dot.cu
+    symbols, bits, walked runs, stream bytes of an rle decode or sequences
+    of an lz4 decode).  A DIR that holds ari_decode_dot.cu
     (tpuzip's v1 decoder on frequency state, since removed) gives one
     more row, ari_decode_dot: that kernel against the checkout's dot route
     (ari_decode.cu) at the ari path's decode launch and on phase 5's A/B

@@ -252,3 +252,108 @@ def test_corrupt_containers_raise_the_same_error():
                           + blob[k + 1:])
             for k in range(base + 3, len(blob), 97)}
     assert {"CorruptStreamError", "ChecksumError"} <= seen
+
+
+def test_plain_decoder_garbage_equals_native():
+    """Status and bytes equal tpuzip's C++ decoder's on the smoke's 64
+    garbage streams (random bytes; text streams with bytes changed, cut,
+    or both) and on a text stream cut at every place: a stream may end
+    right after a match as after a literal run, and decodes to its bytes
+    so far."""
+    good = olz4.compress_block(TEXT[:700])
+    streams = chip_smoke.lz4_garbage(1000, 5) + [
+        good[:k] for k in range(len(good) + 1)]
+    w = max(map(len, streams)) + 8
+    comp = np.zeros((len(streams), w), np.uint8)
+    for i, s in enumerate(streams):
+        comp[i, : len(s)] = np.frombuffer(s, np.uint8)
+    clens = np.array([len(s) for s in streams], np.int32)
+    ref_out, ref_st = native.lz4_decompress_batch(comp, clens, 1024)
+    out, st = lz4_coder.lz4_decode_batch(torch.from_numpy(comp),
+                                         torch.from_numpy(clens), 1024)
+    np.testing.assert_array_equal(st.numpy(), ref_st)
+    for i in range(len(streams)):
+        n = max(int(ref_st[i]), 0)
+        assert out[i, :n].numpy().tobytes() == ref_out[i, :n].tobytes()
+        assert not out[i, n:].any()
+    # some cuts end right after a match and decode
+    ends = chip_smoke.lz4_offsets(good)
+    assert len(ends) > 10 and (ref_st[64:] > 0).sum() > len(ends)
+
+
+def _decode_in_rounds(stream: bytes, batch: int, out_cap: int):
+    """csrc/lz4_decode.cu's rule on a valid stream: literals written as
+    they are parsed, the matches of `batch` sequences at once in rounds.
+    A match is ready when its source's end, start - off + min(off, ml),
+    is at or before the earliest pending match's start; a round loads
+    every ready match's bytes by the periodic rule out[o - off + m % off],
+    then stores them.  Returns (the output, the rounds)."""
+    out = np.zeros(out_cap, np.uint8)
+    src = np.frombuffer(stream, np.uint8)
+    pending, rounds = [], 0
+
+    def length(nib, p):
+        if nib == 15:
+            while src[p] == 255:
+                nib += 255
+                p += 1
+            nib += int(src[p])
+            p += 1
+        return nib, p
+
+    def resolve():
+        nonlocal pending, rounds
+        while pending:
+            first = min(mo for mo, _, _ in pending)
+            ready = [(mo, off, ml) for mo, off, ml in pending
+                     if mo - off + min(off, ml) <= first]
+            assert ready, "the earliest pending match is always ready"
+            loads = [out[mo - off + np.arange(ml) % off] for mo, off, ml
+                     in ready]
+            for (mo, _, ml), v in zip(ready, loads):
+                out[mo : mo + ml] = v
+            pending = [m for m in pending if m not in ready]
+            rounds += 1
+
+    i = o = 0
+    while i < len(src):
+        token = int(src[i])
+        lit, i = length(token >> 4, i + 1)
+        out[o : o + lit] = src[i : i + lit]
+        i, o = i + lit, o + lit
+        if i >= len(src):
+            break
+        off = int(src[i]) | int(src[i + 1]) << 8
+        ml, i = length(token & 15, i + 2)
+        pending.append((o, off, ml + 4))
+        o += ml + 4
+        if len(pending) == batch:
+            resolve()
+    resolve()
+    return out[:o].tobytes(), rounds
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_round_resolution_decodes(rng, batch):
+    """The rounds of csrc/lz4_decode.cu decode tpuzip.oracle.lz4 streams
+    back to their input: text, random bytes of periods 1 to 31 (offsets
+    under the match length) and the smoke's 128 KiB rows whose repeats lie
+    65,533 to 70,000 bytes back.  A batch of 32 takes fewer rounds than
+    one of 8, and a batch of 1 one round a match."""
+    text = chip_smoke.text_corpus(1 << 14, 3)
+    periods = [np.resize(rng.integers(0, 256, p), 3000).astype(
+        np.uint8).tobytes() for p in range(1, 32)]
+    far, _ = chip_smoke.far_rows(7)
+    blocks = [text, TEXT, *periods, *(r.tobytes() for r in far[[1, 2, 7]])]
+    rounds = 0
+    for block in blocks:
+        stream = olz4.compress_block(block)
+        got, r = _decode_in_rounds(stream, batch, len(block))
+        assert got == block
+        rounds += r
+    matches = sum(len(chip_smoke.lz4_offsets(olz4.compress_block(b)))
+                  for b in blocks)
+    if batch == 1:
+        assert rounds == matches
+    else:
+        assert rounds < matches / (2 if batch == 8 else 4)

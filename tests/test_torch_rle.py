@@ -214,3 +214,44 @@ def test_corrupt_containers_raise_the_same_error():
                           + blob[k + 1:])
             for k in range(base + 3, len(blob), 61)}
     assert {"CorruptStreamError", "ChecksumError"} <= seen
+
+
+@pytest.mark.parametrize("out_cap", [1200, 300])
+def test_three_state_rule_equals_native(rng, out_cap):
+    """The rule csrc/rle.cu's decoder runs by block scans
+    (chip_smoke.rle_decode_model: S0 a literal disarmed, S1 a literal
+    armed, S2 a count byte; the status -1 when the last byte leaves S2 or
+    the output passes out_cap) gives tpuzip's C++ decoder's bytes and
+    status on random streams, streams of {0, 1, 255}, valid streams cut at
+    every place, tpuzip's XLA segment form (chip_smoke.rle_segments, held
+    against tpuzip.codecs.rle.encode) and the smoke's garbage rows; the
+    plain decoder does too on the garbage rows."""
+    valid = orle.encode(RUNS[:1100])
+    seg_in = np.frombuffer(RUNS[:1100] + TEXT[:200], np.uint8)
+    seg, seg_len = jrle.encode(jnp.array(seg_in), jnp.int32(seg_in.size))
+    segmented = np.asarray(seg)[: int(seg_len)].tobytes()
+    assert chip_smoke.rle_segments(seg_in.tobytes()) == segmented
+    garbage = chip_smoke.rle_garbage(3)
+    streams = ([bytes(rng.integers(0, 256, rng.integers(1, 600), np.uint8))
+                for _ in range(200)]
+               + [rng.choice(np.array([0, 1, 255], np.uint8),
+                             rng.integers(1, 40)).tobytes()
+                  for _ in range(300)]
+               + [valid[:k] for k in range(len(valid) + 1)]
+               + [segmented] + garbage)
+    x, clens = _rows(streams, max(map(len, streams)))
+    ref_out, ref_st = native.rle_decode_batch(x, clens, out_cap)
+    for i, st in enumerate(streams):
+        got, status, _ = chip_smoke.rle_decode_model(st, out_cap)
+        assert status == ref_st[i], i
+        assert got == ref_out[i, : max(status, 0)].tobytes(), i
+    assert (ref_st >= 0).sum() > 100 and (ref_st < 0).sum() > 100
+    g = len(streams) - len(garbage)
+    out, st = rle_coder.rle_decode_batch(torch.from_numpy(x[g:]),
+                                         torch.from_numpy(clens[g:]),
+                                         out_cap)
+    np.testing.assert_array_equal(st.numpy(), ref_st[g:])
+    for i in range(len(garbage)):
+        n = max(int(ref_st[g + i]), 0)
+        assert out[i, :n].numpy().tobytes() == ref_out[g + i, :n].tobytes()
+        assert not out[i, n:].any()

@@ -1,12 +1,15 @@
-// step_clocks.cu — clock64-stamped copies of five kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of seven kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
 // apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
 // (csrc/bin_encode.cu, one thread a stream), the DC walk's
-// (csrc/dc_decode.cu, eight compares and two reductions a run) and the
-// lz4 encoder's (csrc/lz4_encode.cu, lane 0 probing a position at a time);
-// and the redesigned ari encoder and DC walk, built from their own
-// sources, the encoder stamped by warp, the walk by part.  One stream each
-// (one warp, one thread; the lz4 copy stamps row 0 of B).  Each part of a
+// (csrc/dc_decode.cu, eight compares and two reductions a run), the
+// lz4 encoder's (csrc/lz4_encode.cu, lane 0 probing a position at a time),
+// the lz4 decoder's (csrc/lz4_decode.cu, a sequence at a time) and the rle
+// decoder's (csrc/rle.cu, one thread a row);
+// and the redesigned ari encoder, DC walk, lz4 step and lz4 decoder,
+// built from their own sources, the encoder stamped by warp, the others by
+// part.  One stream each (one warp, one thread; the lz4 and rle copies
+// stamp row 0 of B).  Each part of a
 // step is stamped after its
 // result is ready (the stamp waits on it), and its cycles are summed over
 // the stream; STAMP=false runs the same copy with only the two stamps around
@@ -72,6 +75,10 @@ struct Model {
 }  // namespace bin
 
 namespace {
+
+namespace lz4d {
+#include "../tpuzip_torch/csrc/lz4_decode.cu"
+}  // namespace lz4d
 
 // clock64 once `dep` is ready: the setp waits on it, the mov after it.
 __device__ __forceinline__ long long stamp(uint32_t dep) {
@@ -842,6 +849,372 @@ lz4_step_clocks(const uint8_t* blocks, const int32_t* lengths, int n,
   }
 }
 
+// The lz4 decoder as it stood before its redesign (csrc/lz4_decode.cu as
+// ported: one warp a row, a sequence at a time, every byte from device
+// memory), B rows at once.  Block 0's cycles by part: 0 the token load,
+// 1 the literal and match length extensions, 2 the literal copy, 3 the
+// offset load, 4 the match copy, 5 the two __syncwarp()s; cycles[7] the
+// whole row, [8] its sequences, [9] its matches.
+namespace lz4_dec_old {
+
+constexpr int MIN_MATCH = 4;
+
+__device__ __forceinline__ bool length_ext(const uint8_t* src, int n, int& i,
+                                           long long& len) {
+  for (;;) {
+    if (i >= n) return false;
+    const int b = src[i++];
+    len += b;
+    if (b != 255) return true;
+  }
+}
+
+}  // namespace lz4_dec_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+lz4_decode_clocks(const uint8_t* comp, const int32_t* clens, int w,
+                  uint8_t* out, int out_cap, int64_t* status,
+                  long long* cycles) {
+  using namespace lz4_dec_old;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* src = comp + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * out_cap;
+  const int n = min(max(clens[row], 0), w);
+  int i = 0, o = 0;
+  bool bad = false;
+  long long seqs = 0, matches = 0;
+  Clocks<STAMP> c;
+  c.start(0);
+  const long long t0 = c.t;
+  while (i < n) {
+    ++seqs;
+    const int token = src[i++];
+    c.lap(0, token);
+    long long lit = token >> 4;
+    if (lit == 15 && !length_ext(src, n, i, lit)) {
+      bad = true;
+      break;
+    }
+    c.lap(1, static_cast<uint32_t>(lit));
+    if (i + lit > n || o + lit > out_cap) {
+      bad = true;
+      break;
+    }
+    for (int k = lane; k < lit; k += 32) dst[o + k] = src[i + k];
+    i += static_cast<int>(lit);
+    o += static_cast<int>(lit);
+    c.lap(2, static_cast<uint32_t>(o));
+    if (i >= n) break;
+    if (i + 2 > n) {
+      bad = true;
+      break;
+    }
+    const int off = src[i] | (src[i + 1] << 8);
+    i += 2;
+    c.lap(3, off);
+    if (off == 0 || off > o) {
+      bad = true;
+      break;
+    }
+    long long ml = (token & 15) + MIN_MATCH;
+    if ((token & 15) == 15 && !length_ext(src, n, i, ml)) {
+      bad = true;
+      break;
+    }
+    c.lap(1, static_cast<uint32_t>(ml));
+    if (o + ml > out_cap) {
+      bad = true;
+      break;
+    }
+    ++matches;
+    __syncwarp();
+    c.lap(5, static_cast<uint32_t>(o));
+    const int from = o - off;
+    const int mlen = static_cast<int>(ml);
+    if (off >= mlen) {
+      for (int k = lane; k < mlen; k += 32) dst[o + k] = dst[from + k];
+    } else {
+      for (int k = lane; k < mlen; k += 32) dst[o + k] = dst[from + k % off];
+    }
+    o += mlen;
+    c.lap(4, static_cast<uint32_t>(o));
+    __syncwarp();
+    c.lap(5, static_cast<uint32_t>(o));
+  }
+  const long long t1 = stamp(static_cast<uint32_t>(o));
+  __syncwarp();
+  for (int k = (bad ? 0 : o) + lane; k < out_cap; k += 32) dst[k] = 0;
+  if (lane == 0) {
+    status[row] = bad ? -1 : o;
+    if (row == 0) {
+      for (int p = 0; p < 7; ++p) cycles[p] = c.sum[p];
+      cycles[7] = t1 - t0;
+      cycles[8] = seqs;
+      cycles[9] = matches;
+    }
+  }
+}
+
+// The rle decoder as it stood before its redesign (csrc/rle.cu's
+// rle_decode_kernel as ported: one thread a row, a byte loop), B rows at
+// once.  Block 0's cycles by part: 0 the byte's load, 1 the out_cap test
+// and the byte's store, 2 the compare with the byte before it, 3 a
+// count's bytes (loads), 4 the fill's stores; cycles[7] the whole loop,
+// [8] its stream bytes, [9] its counts.
+template <bool STAMP>
+__global__ void __launch_bounds__(1)
+rle_decode_clocks(const uint8_t* comp, const int32_t* clens, int w,
+                  uint8_t* out, int out_cap, int64_t* status,
+                  long long* cycles) {
+  const int row = blockIdx.x;
+  const uint8_t* src = comp + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * out_cap;
+  const int n = min(max(clens[row], 0), w);
+  int i = 0, o = 0, prev = -1;
+  bool bad = false;
+  long long counts = 0;
+  Clocks<STAMP> c;
+  c.start(0);
+  const long long t0 = c.t;
+  while (i < n && !bad) {
+    const int b = src[i++];
+    c.lap(0, b);
+    if (o >= out_cap) {
+      bad = true;
+      break;
+    }
+    dst[o++] = static_cast<uint8_t>(b);
+    c.lap(1, o);
+    if (b != prev) {
+      prev = b;
+      c.lap(2, prev);
+      continue;
+    }
+    c.lap(2, prev);
+    ++counts;
+    long long extra = 0;
+    for (;;) {
+      if (i >= n) {
+        bad = true;
+        break;
+      }
+      const int x = src[i++];
+      extra += x;
+      if (x != 255) break;
+    }
+    c.lap(3, static_cast<uint32_t>(extra));
+    if (bad || o + extra > out_cap) {
+      bad = true;
+      break;
+    }
+    for (int k = 0; k < extra; ++k) dst[o + k] = static_cast<uint8_t>(b);
+    o += static_cast<int>(extra);
+    prev = -1;
+    c.lap(4, o);
+  }
+  const long long t1 = stamp(static_cast<uint32_t>(o));
+  for (int k = bad ? 0 : o; k < out_cap; ++k) dst[k] = 0;
+  status[row] = bad ? -1 : o;
+  if (row == 0) {
+    for (int p = 0; p < 7; ++p) cycles[p] = c.sum[p];
+    cycles[7] = t1 - t0;
+    cycles[8] = i;
+    cycles[9] = counts;
+  }
+}
+
+// The redesigned lz4 decoder (csrc/lz4_decode.cu's kernel, copied here
+// with its stamps, its helpers taken from that source), one warp a row,
+// B rows at once.  Block 0's cycles by part: 0 the stream's staging and
+// each lane's 4 places, 1 the jump tables and the batch's starts, 2 each
+// lane's sequence, the scan and the checks, 3 the literals into the
+// history, 4 the matches' rounds, 5 the batch's bytes out to device
+// memory, 6 the sequences parsed alone; cycles[7] the whole row, [8] its
+// batches, [9] their rounds, [10] its sequences parsed alone, [11] its
+// sequences in batches.
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+lz4_decode_new_clocks(const uint8_t* comp, const int32_t* clens, int w,
+                      uint8_t* out, int out_cap, int64_t* status,
+                      long long* cycles) {
+  using namespace lz4d;
+  __shared__ __align__(16) uint8_t ring[RING];
+  __shared__ __align__(16) uint8_t hist[HIST + 16];
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* src = comp + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * out_cap;
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  Stream s{ring, src - skew, skew, min(max(clens[row], 0), w), 0};
+  s.start();
+  const int n = s.n;
+  int i = 0, o = 0;
+  int hist_lo = 0;
+  bool bad = false;
+  long long batches = 0, rounds = 0, alone = 0, seqs = 0;
+  Clocks<STAMP> c;
+  c.start(0);
+  const long long t0 = c.t;
+  while (i < n) {
+    s.need(min(i + 2 * END_MAX, n - 1));
+    const int lim = min(min(n, s.end()) - i, END_MAX);
+    unsigned jump = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int q = 4 * lane + r;
+      const Sequence sq(s, i + q);
+      const int e = sq.end - i;
+      jump |= static_cast<unsigned>(e <= lim && !sq.long_ext ? e : q)
+              << (8 * r);
+    }
+    c.lap(0, jump);
+    unsigned jumps[5];
+    jumps[0] = jump;
+#pragma unroll
+    for (int l = 1; l < 5; ++l) {
+      jumps[l] = 0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        jumps[l] |= static_cast<unsigned>(hop(
+                        jumps[l - 1], (jumps[l - 1] >> (8 * r)) & 255))
+                    << (8 * r);
+    }
+    int pos = 0;
+#pragma unroll
+    for (int l = 0; l < 5; ++l) {
+      const int p = hop(jumps[l], pos);
+      if ((lane >> l) & 1) pos = p;
+    }
+    const int next = hop(jump, pos);
+    const int count = __popc(__ballot_sync(
+        FULL, pos < WIN && next != pos && lane < BATCH));
+    const int p = count < 32 ? __shfl_sync(FULL, pos, count & 31)
+                             : __shfl_sync(FULL, next, 31);
+    const bool stopped = count < BATCH && p < WIN;
+    c.lap(1, p + count);
+    ++batches;
+    seqs += count;
+    int lit = 0, ml = 0, off = 1, from = 0;
+    if (lane < count) {
+      const Sequence sq(s, i + pos);
+      lit = sq.lit;
+      ml = sq.ml;
+      from = sq.from;
+      off = s.at(sq.off_at) | (s.at(sq.off_at + 1) << 8);
+    }
+    int incl = lit + ml;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += u;
+    }
+    const int start = o + incl - lit - ml;
+    const int mo = start + lit;
+    if (__any_sync(FULL, lane < count && (off == 0 || off > mo ||
+                                          mo + ml > out_cap))) {
+      bad = true;
+      break;
+    }
+    c.lap(2, start);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      hist[r < lit ? (start + r) & (HIST - 1) : HIST] = s.at(from + r);
+    for (int r = 16; r < lit; ++r)
+      hist[(start + r) & (HIST - 1)] = s.at(from + r);
+    c.lap(3, lit);
+    const int end = o + __shfl_sync(FULL, incl, 31);
+    {
+      const Out h{dst, hist, max(hist_lo, end - HIST), o};
+      bool pending = lane < count;
+      __syncwarp();
+      for (;;) {
+        const int first = __reduce_min_sync(FULL, pending ? mo : NONE);
+        if (first == NONE) break;
+        ++rounds;
+        const bool ready = pending && mo - off + min(off, ml) <= first;
+        if (ready && ml <= LANE_BYTES) copy_lane<true>(h, mo, off, ml);
+        for (unsigned wide = __ballot_sync(FULL, ready && ml > LANE_BYTES);
+             wide; wide &= wide - 1) {
+          const int l = __ffs(wide) - 1;
+          copy_warp<true>(h, __shfl_sync(FULL, mo, l),
+                          __shfl_sync(FULL, off, l),
+                          __shfl_sync(FULL, ml, l));
+        }
+        pending = pending && !ready;
+        __syncwarp();
+      }
+    }
+    c.lap(4, static_cast<uint32_t>(rounds));
+    for (int k = o + lane; k < end; k += 32) dst[k] = hist[k & (HIST - 1)];
+    o = end;
+    i += p;
+    c.lap(5, o);
+    if (!stopped || i >= n) continue;
+    ++alone;
+    s.need(i);
+    const int token = s.at(i++);
+    long long run = token >> 4;
+    if (run == 15 && !length_ext(s, i, run)) {
+      bad = true;
+      break;
+    }
+    if (i + run > n || o + run > out_cap) {
+      bad = true;
+      break;
+    }
+    for (int left = static_cast<int>(run); left > 0;) {
+      s.need(i);
+      const int part = min(left, s.end() - i);
+      for (int k = lane; k < part; k += 32) dst[o + k] = s.at(i + k);
+      i += part;
+      o += part;
+      left -= part;
+    }
+    hist_lo = o;
+    if (i >= n) break;
+    if (i + 2 > n) {
+      bad = true;
+      break;
+    }
+    s.need(i + 1);
+    const int offset = s.at(i) | (s.at(i + 1) << 8);
+    i += 2;
+    if (offset == 0 || offset > o) {
+      bad = true;
+      break;
+    }
+    long long len = (token & 15) + MIN_MATCH;
+    if ((token & 15) == 15 && !length_ext(s, i, len)) {
+      bad = true;
+      break;
+    }
+    if (o + len > out_cap) {
+      bad = true;
+      break;
+    }
+    resolve<false>(Out{dst, hist, NONE, o}, o, offset,
+                   static_cast<int>(len), 1);
+    o += static_cast<int>(len);
+    hist_lo = o;
+    c.lap(6, o);
+  }
+  const long long t1 = stamp(static_cast<uint32_t>(o));
+  cp_wait<0>();
+  __syncwarp();
+  warp_zero(dst, bad ? 0 : o, out_cap);
+  if (lane == 0) {
+    status[row] = bad ? -1 : o;
+    if (row == 0) {
+      for (int k = 0; k < 7; ++k) cycles[k] = c.sum[k];
+      cycles[7] = t1 - t0;
+      cycles[8] = batches;
+      cycles[9] = rounds;
+      cycles[10] = alone;
+      cycles[11] = seqs;
+    }
+  }
+}
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -969,5 +1342,47 @@ extern "C" int tpz_lz4_step_clocks(const void* blocks, const void* lengths,
                            : lz4_step_clocks<false, false>;
     kern<<<B, 32>>>(x, l, n, c, cap, cl, t, hash_log, first_width, cy);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the earlier lz4 decoder (decode = 1) or rle decoder (0), each
+// as its kernel was launched; block 0's cycles into cycles (10 int64).
+extern "C" int tpz_decode_clocks(const void* comp, const void* clens, int B,
+                                 int w, void* out, int out_cap, void* status,
+                                 void* cycles, int lz4, int stamped) {
+  auto* x = static_cast<const uint8_t*>(comp);
+  auto* l = static_cast<const int32_t*>(clens);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* st = static_cast<int64_t*>(status);
+  auto* cy = static_cast<long long*>(cycles);
+  if (lz4 && stamped)
+    lz4_decode_clocks<true><<<B, 32>>>(x, l, w, o, out_cap, st, cy);
+  else if (lz4)
+    lz4_decode_clocks<false><<<B, 32>>>(x, l, w, o, out_cap, st, cy);
+  else if (stamped)
+    rle_decode_clocks<true><<<B, 1>>>(x, l, w, o, out_cap, st, cy);
+  else
+    rle_decode_clocks<false><<<B, 1>>>(x, l, w, o, out_cap, st, cy);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the redesigned lz4 decoder; block 0's cycles into cycles (12
+// int64).
+extern "C" int tpz_lz4_decode_new_clocks(const void* comp, const void* clens,
+                                         int B, int w, void* out,
+                                         int out_cap, void* status,
+                                         void* cycles, int stamped) {
+  auto* x = static_cast<const uint8_t*>(comp);
+  auto* l = static_cast<const int32_t*>(clens);
+  auto* o = static_cast<uint8_t*>(out);
+  auto* st = static_cast<int64_t*>(status);
+  auto* cy = static_cast<long long*>(cycles);
+  auto kern = stamped ? lz4_decode_new_clocks<true>
+                      : lz4_decode_new_clocks<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<B, 32>>>(x, l, w, o, out_cap, st, cy);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,12 @@ encoder's rows are the lz4 path's (the 64 MiB corpus through
 tpuzip_torch.compress with no codec, 1024 rows of 64 KiB), its step one
 probe of one position, stamped on row 0 alone and beside the other 1023
 rows, with csrc/lz4_encode.cu's ms on the same rows; the redesigned step
-(32 positions a probe) likewise, its table in shared or device memory."""
+(32 positions a probe) likewise, its table in shared or device memory.
+The lz4 and rle decoders' earlier steps (a sequence, a stream byte) are
+stamped by part on their paths' rows (the corpus through compress with no
+codec and with codec "rle"), row 0 alone and beside the other 1023 rows,
+each copy held against the real decoder's bytes and statuses.  About
+60-80 s."""
 
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import tpuzip_torch  # noqa: E402
 from tpuzip_torch.kernels import (_build, bin_coder, dc_scan,  # noqa: E402
-                                  lz4_coder, range_coder)
+                                  lz4_coder, range_coder, rle_coder)
 
 ARI_PARTS = ("symbol", "table reads", "division", "multiplies",
              "renormalisation", "update", "chunk test and loop")
@@ -229,6 +234,125 @@ def lz4_probe(lib, res) -> None:
                 lambda: launch_new(b, which, width), 3)
 
 
+LZ4_DEC_PARTS = ("token load", "length extensions", "literal copy",
+                 "offset load", "match copy", "syncwarps")
+RLE_DEC_PARTS = ("byte load", "out_cap test and store", "compare",
+                 "count bytes", "fill stores")
+
+
+def old_decoders(lib, res) -> None:
+    """The earlier lz4 and rle decoders' copies on their paths' rows (the
+    smoke's 64 MiB corpus through tpuzip_torch.compress with no codec and
+    with codec "rle", 1024 rows of 64 KiB), stamped on row 0 alone and
+    beside the other 1023 rows, each held against the real decoder's bytes
+    and statuses there, into res["lz4_decode"] and res["rle_decode"]: the
+    lz4 copy's cycles a sequence by part, the rle copy's cycles a stream
+    byte by part, and the unstamped copy's and the kernel's ms."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    fn = lib.tpz_decode_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci]
+    for codec, coder, parts in (("lz4", lz4_coder, LZ4_DEC_PARTS),
+                                ("rle", rle_coder, RLE_DEC_PARTS)):
+        blob = tpuzip_torch.compress(data, codec=codec)
+        with cs.recorded(coder, f"{codec}_decode_batch") as calls:
+            tpuzip_torch.decompress(blob)
+        (args, _, out), = calls
+        comp, clens, out_cap = args[:3]
+        b_all, w = comp.shape
+
+        def launch(b: int, stamped: int):
+            got = torch.empty((b, out_cap), dtype=torch.uint8, device="cuda")
+            st = torch.empty(b, dtype=torch.int64, device="cuda")
+            cyc = torch.zeros(10, dtype=torch.int64, device="cuda")
+            _build.check(fn(comp.data_ptr(), clens.data_ptr(), b, w,
+                            got.data_ptr(), out_cap, st.data_ptr(),
+                            cyc.data_ptr(), int(codec == "lz4"), stamped),
+                         f"{codec}_decode_clocks")
+            return got, st, cyc
+
+        rec = res.setdefault(f"{codec}_decode", {
+            "rows": [b_all, w], "out_cap": out_cap,
+            "stream_bytes_row0": int(clens[0])})
+        for b in (1, b_all):
+            for stamped in (1, 0):
+                got, st, cyc = launch(b, stamped)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, out[0][:b])
+                        and torch.equal(st, out[1][:b])):
+                    raise AssertionError(f"{codec} decode copy (stamped="
+                                         f"{stamped}, {b} rows) differs "
+                                         f"from the kernel")
+                cyc = cyc.tolist()
+                steps = cyc[8]
+                rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                    "steps": steps, "matches_or_counts": cyc[9],
+                    "cycles_a_step": {
+                        **{p: cyc[i] / steps for i, p in enumerate(parts)},
+                        "whole row": cyc[7] / steps},
+                    "whole_row_cycles": cyc[7]}
+            rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0),
+                                                       3)
+            rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+                lambda: getattr(coder, f"{codec}_decode_batch")(
+                    comp[:b], clens[:b], out_cap), 3)
+
+
+LZ4_NEW_PARTS = ("staging and places", "jump tables and starts",
+                 "lanes' sequences, scan and checks", "literals",
+                 "match rounds", "bytes out", "sequences parsed alone")
+
+
+def new_lz4_decoder(lib, res) -> None:
+    """The redesigned lz4 decoder's copy, stamped by part on the lz4
+    path's rows (row 0 alone and beside the other 1023), held against
+    csrc/lz4_decode.cu's bytes and statuses there, into
+    res["lz4_decode"]["redesign_*"]: cycles a sequence by part, and the
+    batches, rounds and sequences parsed alone of row 0."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    fn = lib.tpz_lz4_decode_new_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci]
+    blob = tpuzip_torch.compress(data)
+    with cs.recorded(lz4_coder, "lz4_decode_batch") as calls:
+        tpuzip_torch.decompress(blob)
+    (args, _, out), = calls
+    comp, clens, out_cap = args[:3]
+    b_all, w = comp.shape
+
+    def launch(b: int, stamped: int):
+        got = torch.empty((b, out_cap), dtype=torch.uint8, device="cuda")
+        st = torch.empty(b, dtype=torch.int64, device="cuda")
+        cyc = torch.zeros(12, dtype=torch.int64, device="cuda")
+        _build.check(fn(comp.data_ptr(), clens.data_ptr(), b, w,
+                        got.data_ptr(), out_cap, st.data_ptr(),
+                        cyc.data_ptr(), stamped), "lz4_decode_new_clocks")
+        return got, st, cyc
+
+    rec = res.setdefault("lz4_decode", {})
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            got, st, cyc = launch(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, out[0][:b])
+                    and torch.equal(st, out[1][:b])):
+                raise AssertionError(f"redesigned lz4 decode copy (stamped="
+                                     f"{stamped}, {b} rows) differs from "
+                                     "the kernel")
+            cyc = cyc.tolist()
+            seqs = cyc[10] + cyc[11]
+            rec[f"redesign_rows_{b}_"
+                f"{'stamped' if stamped else 'unstamped'}"] = {
+                "sequences": seqs, "batches": cyc[8], "rounds": cyc[9],
+                "parsed_alone": cyc[10],
+                "cycles_a_sequence": {
+                    **{p: cyc[i] / seqs for i, p in enumerate(LZ4_NEW_PARTS)},
+                    "whole row": cyc[7] / seqs},
+                "whole_row_cycles": cyc[7]}
+        rec[f"redesign_rows_{b}_unstamped_ms"] = cs.cuda_ms(
+            lambda: launch(b, 0), 3)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("step_clocks: torch.cuda.is_available() is false",
@@ -347,6 +471,8 @@ def main() -> int:
     res["apm_encode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_apm_enc(0), 3)
     dc_walk(lib, res)
     lz4_probe(lib, res)
+    old_decoders(lib, res)
+    new_lz4_decoder(lib, res)
     print(json.dumps(res))
     return 0
 

@@ -1,5 +1,5 @@
-// rle.cu — run-length ENCODER and DECODER (codec "rle"): the encoder a
-// block per CUDA block of 256 threads, the decoder one thread per block.
+// rle.cu — run-length ENCODER and DECODER (codec "rle"), each a block per
+// CUDA block of 256 threads.
 //
 // tpuzip has no Pallas kernel for rle: off the TPU its runner encodes and
 // decodes codec "rle" with the host C++ loops `tpz_rle_encode` and
@@ -14,11 +14,14 @@
 //     after its count bytes; the status is the decoded length, or -1 for a
 //     count past the stream or output past out_cap.  Every byte of the
 //     output row is written: 0 past the decoded length, and a row with
-//     status -1 is all 0.
+//     status -1 is all 0.  Both forms, the C++'s and tpuzip's XLA
+//     segments, decode.
 //
 // What bounds them on this card: bytes, where the work runs in parallel
-// (a byte read, at most 1.5 written); written as the C++ does, one serial
-// byte loop a block, whose next step waits on the byte it reads.
+// (encode: a byte read, at most 1.5 written; decode: a stream byte read,
+// up to 255 written); written as the C++ does, one serial byte loop a
+// block, whose next step waits on the byte it reads (the decoder as
+// ported took 135 cycles a stream byte, its load and store the most).
 //
 // What the design does about it (kernels/rle_coder.py is the plain
 // version, chip_smoke.py holds the two equal):
@@ -37,8 +40,26 @@
 //     which then goes out 32 consecutive bytes a warp's store (written
 //     straight from each thread, a warp's store spread over 32 places,
 //     it took twice the time);
-//   - the decoder: nothing yet.  One thread a block, each in a CUDA block
-//     of its own, so no two blocks' loops share a warp and diverge.
+//   - the decoder needs no loop over pairs either: a stream byte's role
+//     follows from a machine of 3 states (S0 a literal with pairing
+//     disarmed, S1 a literal armed by the literal before it, S2 a count
+//     byte: S0 -> S1; S1 -> S2 if the byte equals the one before it, else
+//     S1; S2 -> S2 on a 255, else S0), and its output from its role: a
+//     literal writes itself, a count byte its value in copies of the last
+//     literal before it (tests/test_torch_rle.py holds the rule against
+//     tpuzip's C++ decoder, statuses included).  A CUDA block takes a row
+//     in tiles of 4096 stream bytes, 16 a thread, on the encoder's
+//     skeleton: each thread composes its bytes' map (the state after them
+//     for each state before them), a block scan of the maps, carried from
+//     tile to tile, gives each thread its state, and one more of the
+//     output sizes (by sum) and of the last literal gives where each
+//     byte's output goes and the pair's byte.  A tile's output of up to
+//     DEC_STAGE bytes is staged in shared memory and goes out 32
+//     consecutive bytes a warp's store; a longer one (long fills: a
+//     constant 64 KiB row is 259 stream bytes) is written straight from
+//     each thread, 16-byte stores where aligned.  Nothing is written past
+//     out_cap, the tiles stop once the output passes it, and the row is
+//     zeroed past the total, or whole where the status is -1.
 
 #include <cuda_runtime.h>
 
@@ -162,48 +183,215 @@ rle_encode_kernel(const uint8_t* __restrict__ blocks,
   if (tid == 0) clens[row] = out;
 }
 
-__global__ void __launch_bounds__(1)
+// The decoder's states before a stream byte: S0 a literal with pairing
+// disarmed, S1 a literal armed by the literal before it, S2 a count byte.
+// A map holds the state after some bytes for each state before them, 2
+// bits a state (S0's at bits 0-1).
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_BYTES = 16;                       // a thread's bytes a tile
+constexpr int DEC_TILE = DEC_THREADS * DEC_BYTES;   // a tile's stream bytes
+constexpr int DEC_STAGE = 2 * DEC_TILE;   // a tile's output staged, at most
+
+__device__ __forceinline__ int after(int map, int s) {
+  return (map >> (2 * s)) & 3;
+}
+
+// The map of `first`, then `second`.
+__device__ __forceinline__ int then(int first, int second) {
+  return after(second, after(first, 0)) |
+         after(second, after(first, 1)) << 2 |
+         after(second, after(first, 2)) << 4;
+}
+
+// The state after byte x in state s; eq: x equals the byte before it.
+__device__ __forceinline__ int step(int s, int x, bool eq) {
+  return s == 0 ? 1 : s == 1 ? (eq ? 2 : 1) : (x == 255 ? 2 : 0);
+}
+
+// Each thread's state before its bytes from each thread's map, seeded with
+// the state before the tile; `end` gets the state after the tile.  `part`
+// holds one map a warp; the caller syncs before its next use.
+__device__ __forceinline__ int scan_states(int map, int carry, int* part,
+                                           int& end) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = map;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl = then(u, incl);
+  }
+  if (lane == 31) part[warp] = incl;
+  const int up = __shfl_up_sync(FULL, incl, 1);
+  __syncthreads();
+  int s = carry;
+  end = carry;
+  for (int w = 0; w < DEC_THREADS / 32; ++w) {
+    if (w < warp) s = after(part[w], s);
+    end = after(part[w], end);
+  }
+  return lane ? after(up, s) : s;
+}
+
+// Exclusive scans over the block of each thread's output bytes (by sum)
+// and of its last literal (the last one that is not -1), seeded with the
+// literal before the tile; `size` and `lit` get the whole tile's, `first`
+// the literal before this thread's bytes.  The caller syncs before the
+// next use of `sizes` and `lits`.
+__device__ __forceinline__ int scan_out(int mine, int last, int* sizes,
+                                        int* lits, int& size, int& lit,
+                                        int& first) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = mine, incl_lit = last;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, d);
+    const int v = __shfl_up_sync(FULL, incl_lit, d);
+    if (lane >= d) {
+      incl += u;
+      if (incl_lit < 0) incl_lit = v;
+    }
+  }
+  if (lane == 31) {
+    sizes[warp] = incl;
+    lits[warp] = incl_lit;
+  }
+  const int up = __shfl_up_sync(FULL, incl, 1);
+  const int up_lit = __shfl_up_sync(FULL, incl_lit, 1);
+  __syncthreads();
+  int excl = 0;
+  first = lit;
+  size = 0;
+  for (int w = 0; w < DEC_THREADS / 32; ++w) {
+    if (w < warp) {
+      excl += sizes[w];
+      if (lits[w] >= 0) first = lits[w];
+    }
+    size += sizes[w];
+    if (lits[w] >= 0) lit = lits[w];
+  }
+  if (lane) {
+    excl += up;
+    if (up_lit >= 0) first = up_lit;
+  }
+  return excl;
+}
+
+// dst[o, min(o + count, cap)) = v, in 16-byte stores where aligned.
+__device__ __forceinline__ void fill(uint8_t* dst, long long o, int count,
+                                     uint8_t v, int cap) {
+  const long long end = min(o + count, static_cast<long long>(cap));
+  long long p = o;
+  for (; p < end && (reinterpret_cast<uintptr_t>(dst + p) & 15); ++p)
+    dst[p] = v;
+  const uint32_t w = v * 0x01010101u;
+  for (; p + 16 <= end; p += 16)
+    *reinterpret_cast<uint4*>(dst + p) = make_uint4(w, w, w, w);
+  for (; p < end; ++p) dst[p] = v;
+}
+
+// dst[from, to) = 0 by the whole block, in 16-byte stores where aligned.
+__device__ __forceinline__ void block_zero(uint8_t* dst, int from, int to) {
+  const int tid = threadIdx.x;
+  const int head = min(to, from + static_cast<int>(
+      (16 - (reinterpret_cast<uintptr_t>(dst + from) & 15)) & 15));
+  const int body = head + ((to - head) & ~15);
+  if (from + tid < head) dst[from + tid] = 0;
+  for (int k = head + 16 * tid; k < body; k += 16 * DEC_THREADS)
+    *reinterpret_cast<uint4*>(dst + k) = make_uint4(0, 0, 0, 0);
+  if (body + tid < to) dst[body + tid] = 0;
+}
+
+__global__ void __launch_bounds__(DEC_THREADS)
 rle_decode_kernel(const uint8_t* __restrict__ comp,
                   const int32_t* __restrict__ clens, int w,
                   uint8_t* __restrict__ out, int out_cap,
                   int64_t* __restrict__ status) {
+  __shared__ int maps[DEC_THREADS / 32], sizes[DEC_THREADS / 32],
+      lits[DEC_THREADS / 32];
+  __shared__ uint8_t staged[DEC_STAGE];
+  const int tid = threadIdx.x;
   const int row = blockIdx.x;
   const uint8_t* src = comp + static_cast<size_t>(row) * w;
   uint8_t* dst = out + static_cast<size_t>(row) * out_cap;
   const int n = min(max(clens[row], 0), w);
-  int i = 0, o = 0, prev = -1;
-  bool bad = false;
-  while (i < n && !bad) {
-    const int b = src[i++];
-    if (o >= out_cap) {
-      bad = true;
-      break;
+  const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  // carried from tile to tile: the state before it, the last literal
+  // before it, and the output bytes before it (the loop stops once they
+  // pass out_cap)
+  int state = 0, lit = -1;
+  long long total = 0;
+  for (int t0 = 0; t0 < n && total <= out_cap; t0 += DEC_TILE) {
+    const int base = t0 + tid * DEC_BYTES;
+    uint8_t x[DEC_BYTES];
+    if (aligned && base + DEC_BYTES <= n) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + base);
+      const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+      for (int k = 0; k < DEC_BYTES; ++k)
+        x[k] = static_cast<uint8_t>(u[k / 4] >> (8 * (k % 4)));
+    } else {
+      for (int k = 0; k < DEC_BYTES; ++k)
+        x[k] = base + k < n ? src[base + k] : 0;
     }
-    dst[o++] = static_cast<uint8_t>(b);
-    if (b != prev) {
-      prev = b;
-      continue;
+    // the byte before this thread's first: the last one of the thread
+    // before it (its lane, or its byte in device memory)
+    int before = __shfl_up_sync(FULL, x[DEC_BYTES - 1], 1);
+    if ((tid & 31) == 0) before = base == 0 ? -1 : base <= n ? src[base - 1]
+                                                              : 0;
+    // this thread's map: its bytes' states after, from each state before
+    int s0 = 0, s1 = 1, s2 = 2;
+    for (int k = 0; k < DEC_BYTES; ++k) {
+      if (base + k >= n) break;
+      const bool eq = x[k] == (k ? x[k - 1] : before);
+      s0 = step(s0, x[k], eq);
+      s1 = step(s1, x[k], eq);
+      s2 = step(s2, x[k], eq);
     }
-    long long extra = 0;
-    for (;;) {
-      if (i >= n) {
-        bad = true;
-        break;
+    int tile_state;
+    const int start = scan_states(s0 | s1 << 2 | s2 << 4, state, maps,
+                                  tile_state);
+    // its output bytes and its last literal
+    int mine = 0, last = -1;
+    for (int k = 0, s = start; k < DEC_BYTES && base + k < n; ++k) {
+      mine += s == 2 ? x[k] : 1;
+      if (s != 2) last = x[k];
+      s = step(s, x[k], x[k] == (k ? x[k - 1] : before));
+    }
+    int tile_size, pair;
+    const int o = scan_out(mine, last, sizes, lits, tile_size, lit, pair);
+    // the bytes: staged in shared memory and written out 32 consecutive
+    // bytes a warp's store, or, past DEC_STAGE, written directly
+    const bool stage = tile_size <= DEC_STAGE;
+    long long p = stage ? o : total + o;
+    for (int k = 0, s = start; k < DEC_BYTES && base + k < n; ++k) {
+      if (s == 2) {
+        if (stage)
+          for (int j = 0; j < x[k]; ++j)
+            staged[p + j] = static_cast<uint8_t>(pair);
+        else
+          fill(dst, p, x[k], pair, out_cap);
+        p += x[k];
+      } else {
+        if (stage)
+          staged[p] = x[k];
+        else if (p < out_cap)
+          dst[p] = x[k];
+        pair = x[k];
+        ++p;
       }
-      const int c = src[i++];
-      extra += c;
-      if (c != 255) break;
+      s = step(s, x[k], x[k] == (k ? x[k - 1] : before));
     }
-    if (bad || o + extra > out_cap) {
-      bad = true;
-      break;
+    if (stage) {
+      __syncthreads();
+      const int room = static_cast<int>(
+          min(static_cast<long long>(tile_size), out_cap - total));
+      for (int k = tid; k < room; k += DEC_THREADS)
+        dst[total + k] = staged[k];
     }
-    for (int k = 0; k < extra; ++k) dst[o + k] = static_cast<uint8_t>(b);
-    o += static_cast<int>(extra);
-    prev = -1;
+    total += tile_size;
+    state = tile_state;
+    __syncthreads();   // the next tile's writes to shared memory wait
   }
-  for (int k = bad ? 0 : o; k < out_cap; ++k) dst[k] = 0;
-  status[row] = bad ? -1 : o;
+  const bool bad = total > out_cap || state == 2;
+  block_zero(dst, bad ? 0 : static_cast<int>(total), out_cap);
+  if (tid == 0) status[row] = bad ? -1 : total;
 }
 
 }  // namespace
@@ -225,12 +413,13 @@ extern "C" int tpz_rle_encode(const void* blocks, const void* lengths, int B,
 
 // comp (B, w) u8 and clens (B,) i32 (a row's stream is its first
 // min(clen, w) bytes) in; out (B, out_cap) u8, every byte written, and
-// status (B,) i64 out.  Launches B blocks of one thread on `stream` and
+// status (B,) i64 out.  Launches B blocks of 256 threads on `stream` and
 // returns cudaGetLastError().
 extern "C" int tpz_rle_decode(const void* comp, const void* clens, int B,
                               int w, void* out, int out_cap, void* status,
                               void* stream) {
-  rle_decode_kernel<<<B, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+  rle_decode_kernel<<<B, DEC_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(clens),
       w, static_cast<uint8_t*>(out), out_cap,
       static_cast<int64_t*>(status));

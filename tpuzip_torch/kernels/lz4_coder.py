@@ -46,6 +46,7 @@ LAST_LITERALS = 5     # nor runs into its last 5
 WINDOW = 64           # positions a step of the plain encoder
 EXT = 256             # bytes a round of the plain match extension
 POOL_BYTES = 1 << 30  # the encoder kernel's hash tables, at most
+DECODE_TILE = 1024    # bytes of a stream tile the decoder kernel stages
 
 
 def encode_cap(n: int) -> int:
@@ -232,6 +233,10 @@ def lz4_decode_batch_plain(comp: torch.Tensor, clens: torch.Tensor,
         return length
 
     while bool(running.any()):
+        # a stream may end after a match, as after a literal run
+        done = running & (i >= n)
+        status = torch.where(done, o, status)
+        running = running & ~done
         token = _read(src, i)
         i = torch.where(running, i + 1, i)
         lit = length_ext(token >> 4, running & (token >> 4 == 15))

@@ -4,8 +4,8 @@ wrappers and their plain PyTorch versions.
 tpuzip has no Pallas kernel for rle.  Off the TPU its runner encodes and
 decodes codec "rle" with the C++ loops ``tpz_rle_encode`` and
 ``tpz_rle_decode`` (csrc/tpuzip_host.cpp:1795, :1822); the port may
-not call them, so the two kernels of csrc/rle.cu replace them, one thread a
-block, and the functions here are theirs:
+not call them, so the two kernels of csrc/rle.cu replace them, 256 threads
+a block, and the functions here are theirs:
 
   encode  the bytes of tpuzip.oracle.rle.encode(block): a byte as it is, a
           run of two or more as the byte twice and a count of the rest,
@@ -32,6 +32,9 @@ import torch
 from tpuzip_torch.codecs.rle import encode_cap
 from tpuzip_torch.kernels import _build
 from tpuzip_torch.kernels.lz4_coder import _check_pair, _gather, _read
+
+DECODE_TILE = 4096    # stream bytes a tile of the decoder kernel
+DECODE_STAGE = 8192   # a tile's output staged in shared memory, at most
 
 
 def _locate(start: torch.Tensor, cap: int):
