@@ -332,13 +332,16 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 def test_unported_entry_points_name_the_roadmap():
+    """lz4p, deflate and open are not ported yet; the corpus calls and
+    compress_from_device are (tests/test_torch_serving.py)."""
     calls = [lambda: tpuzip_torch.compress(b"x", codec="lz4p", device="cpu"),
              lambda: tpuzip_torch.compress(b"x", codec="deflate",
                                            device="cpu"),
-             lambda: tpuzip_torch.compress_corpus(b"x"),
-             lambda: tpuzip_torch.decompress_corpus(b"TPZC"),
-             lambda: tpuzip_torch.decompress(b"TPZC" + bytes(30), "cpu"),
-             lambda: tpuzip_torch.compress_from_device(None, None),
+             lambda: tpuzip_torch.compress_corpus(b"x", codec="lz4p",
+                                                  device="cpu"),
+             lambda: tpuzip_torch.compress_from_device(
+                 np.zeros((1, 8), np.uint8), [8], codec="deflate",
+                 device="cpu"),
              lambda: tpuzip_torch.open(None)]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

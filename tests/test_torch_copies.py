@@ -1,7 +1,7 @@
 """The port's own copies of tpuzip's modules against the originals: block
 chunking, the config tree, the error classes, the format oracles (the LZ4
-block codec and rle among them) and the varint packer of core/bitio
-(tpuzip_torch imports nothing of tpuzip)."""
+block codec, rle and Adler-32 among them) and the varint packer of
+core/bitio (tpuzip_torch imports nothing of tpuzip)."""
 
 import dataclasses
 import inspect
@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from tpuzip.core import bitio as jbitio
 from tpuzip.core import blocks as jblocks
 from tpuzip.core import config as jconfig
+from tpuzip.oracle import adler as jadler
 from tpuzip.oracle import ari as jari
 from tpuzip.oracle import bwt as jbwt
 from tpuzip.oracle import dc as jdc
@@ -27,6 +28,7 @@ import tpuzip_torch
 from tpuzip_torch.core import bitio as tbitio
 from tpuzip_torch.core import blocks as tblocks
 from tpuzip_torch.core import config as tconfig
+from tpuzip_torch.oracle import adler as tadler
 from tpuzip_torch.oracle import ari as tari
 from tpuzip_torch.oracle import bwt as tbwt
 from tpuzip_torch.oracle import dc as tdc
@@ -156,6 +158,27 @@ def test_lz4_block_oracle_same_bytes(samples, hash_log):
     for mod in (tlz4, jlz4):
         with pytest.raises(ValueError, match="zero offset"):
             mod.decompress_block(b"\x10a\x00\x00")
+
+
+def test_adler_oracle_same_sums(samples):
+    """adler32, State32 fed in pieces and combine (zlib's adler32_combine,
+    which the corpus checksum folds with) against the original and
+    zlib."""
+    import zlib
+
+    for data in samples:
+        assert tadler.adler32(data) == jadler.adler32(data) == \
+            zlib.adler32(data)
+        st = tadler.State32()
+        for o in range(0, len(data), 777):
+            st.feed(data[o : o + 777])
+        assert st.result() == zlib.adler32(data)
+        for cut in (0, len(data) // 3, len(data)):
+            a, b = data[:cut], data[cut:]
+            assert tadler.combine(zlib.adler32(a), zlib.adler32(b), len(b)) \
+                == jadler.combine(zlib.adler32(a), zlib.adler32(b), len(b)) \
+                == zlib.adler32(data)
+    assert tadler.adler32(b"abc", start=7) == jadler.adler32(b"abc", start=7)
 
 
 def test_rle_oracle_same_bytes(samples):

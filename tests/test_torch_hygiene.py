@@ -55,12 +55,15 @@ def test_chip_smoke_imports_no_jax():
 
 def test_round_trips_load_no_tpuzip_module():
     """In a fresh interpreter, lz4 (the default codec), rle, ari, bwt (flag
-    2 and the segmented flag 8), bwtdc and apm round trips on the CPU load
-    neither jax nor any tpuzip module, so the port runs its own code there
-    (never tpuzip's C++ coder)."""
+    2 and the segmented flag 8), bwtdc and apm round trips on the CPU,
+    compress_from_device with decompress(to_device=True) (lz4, rle, apm)
+    and the corpus API load neither jax nor any tpuzip module, so the port
+    runs its own code there (never tpuzip's C++ coder)."""
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "import tpuzip_torch\n"
+        "from tpuzip_torch.core import blocks\n"
         "from tpuzip_torch.dist import runner\n"
         "runner.SEG_THRESHOLD = 512\n"
         "d = b'abracadabra ' * 150\n"
@@ -70,6 +73,16 @@ def test_round_trips_load_no_tpuzip_module():
         "    assert tpuzip_torch.decompress(c, device='cpu') == d\n"
         "c = tpuzip_torch.compress(d, device='cpu')\n"
         "assert c[4] == 1 and tpuzip_torch.decompress(c, device='cpu') == d\n"
+        "for codec, bs in (('lz4', 512), ('rle', 512), ('apm', 128)):\n"
+        "    b, n = blocks.chunk(d, bs)\n"
+        "    c = tpuzip_torch.compress_from_device(b, n, codec,\n"
+        "                                          device='cpu')\n"
+        "    out, olens, orig = tpuzip_torch.decompress(c, device='cpu',\n"
+        "                                               to_device=True)\n"
+        "    assert np.array_equal(out.numpy(), b) and orig == len(d)\n"
+        "c = tpuzip_torch.compress_corpus(d, block_size=256, superbatch=512,\n"
+        "                                 device='cpu')\n"
+        "assert tpuzip_torch.decompress(c, device='cpu') == d\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('tpuzip', 'jax', 'jaxlib')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

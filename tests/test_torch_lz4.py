@@ -100,7 +100,8 @@ def test_block_checksums_and_small_corpora():
 def test_port_decodes_tpuzips_other_encoders(option):
     """tpuzip's XLA encoder (device_encode=True) and its chained C++ one
     (max_chain=8) write other bytes, valid LZ4 all the same; the port
-    decodes them and refuses to write them."""
+    decodes them, writes the XLA encoder's (kernels/lz4_dense.py) and
+    refuses to write the chained one's."""
     cfg = Config()
     if option == "device_encode":
         cfg.codec.lz4.device_encode = True
@@ -109,9 +110,14 @@ def test_port_decodes_tpuzips_other_encoders(option):
     ref = jrun.compress(DATA, block_size=4096, mesh=MESH1, config=cfg)
     assert ref != jrun.compress(DATA, block_size=4096, mesh=MESH1)
     assert tpuzip_torch.decompress(ref, device="cpu") == DATA
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpuzip_torch.compress(DATA, device="cpu",
-                              config=config_from_dict(dataclasses.asdict(cfg)))
+    mine = lambda: tpuzip_torch.compress(  # noqa: E731
+        DATA, block_size=4096, device="cpu",
+        config=config_from_dict(dataclasses.asdict(cfg)))
+    if option == "device_encode":
+        assert mine() == ref
+    else:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            mine()
 
 
 def _rows(blocks, n):

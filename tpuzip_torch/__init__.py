@@ -12,7 +12,11 @@ tpuzip's default) and of the rle codec, and the chunk-indexed one of the
 ari codec, of the bwt codec (BWT -> MTF -> ari, with the segmented entropy
 stage of blocks above 1 MiB), of the bwtdc codec (BWT -> DC -> ari) and of
 the bin and apm codecs (a binary adaptive model over each block's bits,
-the apm one refined by an APM/SSE gate).  The other codecs and entry points raise
+the apm one refined by an APM/SSE gate).  For data that lives on the
+device, ``compress_from_device`` and ``decompress(to_device=True)``; for
+large corpora, ``compress_corpus`` and ``decompress_corpus`` (the TPZC
+container of superbatches, which ``decompress`` also reads).  The lz4p
+and deflate codecs, lz4's ``max_chain > 1`` and ``open`` raise
 NotImplementedError naming the ROADMAP.md item that ports them.
 
 ``device="cuda"`` (the default) runs the kernels and raises when there is
@@ -39,30 +43,50 @@ def compress(data: bytes, codec: str = "lz4", block_size: int = 1 << 16,
                            block_checksums=block_checksums)
 
 
-def decompress(container: bytes, device="cuda") -> bytes:
-    """Decode a tpz container (see dist.runner.decompress)."""
+def decompress(container: bytes, device="cuda", to_device: bool = False):
+    """Decode a tpz container, or a TPZC corpus container (see
+    dist.runner.decompress, decompress_corpus).  to_device=True returns
+    (blocks tensor on `device`, olens, orig_len) of a tpz container."""
     from tpuzip_torch.dist import runner
 
-    return runner.decompress(container, device=device)
+    if container[:4] == runner.MAGIC_CORPUS:
+        if to_device:
+            raise ValueError("a TPZC corpus container decodes to bytes; "
+                             "to_device takes one tpz container")
+        return runner.decompress_corpus(container, device=device)
+    return runner.decompress(container, device=device, to_device=to_device)
 
 
-def _not_ported(what: str, item: int):
+def compress_corpus(data: bytes, codec: str = "lz4",
+                    block_size: int = 1 << 16, superbatch: int = 8 << 20,
+                    pipeline: int = 2, **kw) -> bytes:
+    """Compress a large corpus as a TPZC sequence of superbatch containers
+    on a `pipeline`-thread pool (see dist.runner.compress_corpus)."""
     from tpuzip_torch.dist import runner
 
-    raise runner.not_ported(what, item)
+    return runner.compress_corpus(data, codec=codec, block_size=block_size,
+                                  superbatch=superbatch, pipeline=pipeline,
+                                  **kw)
 
 
-def compress_corpus(data: bytes, codec: str = "lz4", **kw) -> bytes:
-    _not_ported("compress_corpus", 11)
+def decompress_corpus(blob: bytes, pipeline: int = 2,
+                      device="cuda") -> bytes:
+    """The inverse of compress_corpus."""
+    from tpuzip_torch.dist import runner
 
-
-def decompress_corpus(blob: bytes, **kw) -> bytes:
-    _not_ported("decompress_corpus", 11)
+    return runner.decompress_corpus(blob, pipeline=pipeline, device=device)
 
 
 def compress_from_device(blocks, lengths, codec: str = "lz4", **kw) -> bytes:
-    _not_ported("compress_from_device", 10)
+    """Compress (B, n) u8 blocks that live on the device into a tpz
+    container (see dist.runner.compress_from_device); the inbound half is
+    ``decompress(..., to_device=True)``."""
+    from tpuzip_torch.dist import runner
+
+    return runner.compress_from_device(blocks, lengths, codec=codec, **kw)
 
 
 def open(file, mode: str = "rb", format: str = "lz4f", **kw):  # noqa: A001
-    _not_ported("open (the streaming adapters)", 15)
+    from tpuzip_torch.dist import runner
+
+    raise runner.not_ported("open (the streaming adapters)", 15)

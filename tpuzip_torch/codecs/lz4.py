@@ -3,7 +3,8 @@
 Format: the public LZ4 block spec, bytes equal to tpuzip.oracle.lz4's
 greedy single-probe encoder, which is what tpuzip writes off the TPU (its
 C++ ``tpz_lz4_compress``).  The kernels and their plain versions are in
-kernels/lz4_coder.py.
+kernels/lz4_coder.py; tpuzip's device encoder (compress_from_device, and
+device_encode=True) is kernels/lz4_dense.py.
 """
 
 from __future__ import annotations
@@ -26,10 +27,9 @@ def hash_log(value: int) -> int:
 
 def unported_option(cfg) -> str | None:
     """The Lz4Config option the port cannot honour yet, or None.
-    max_chain > 1 runs tpuzip's C++ chained encoder, device_encode=True its
-    XLA encoder; both write other bytes than the single-probe policy."""
-    if cfg.max_chain > 1:
+    max_chain > 1 runs tpuzip's C++ chained encoder, which writes other
+    bytes than the single-probe policy; device_encode=True comes first
+    (tpuzip's XLA encoder, kernels/lz4_dense.py), whatever max_chain says."""
+    if cfg.max_chain > 1 and not cfg.device_encode:
         return f"lz4 max_chain={cfg.max_chain} (the chained encoder)"
-    if cfg.device_encode:
-        return "lz4 device_encode=True (tpuzip's XLA encoder)"
     return None

@@ -1,5 +1,5 @@
-// rle.cu — run-length ENCODER and DECODER (codec "rle"), each a block per
-// CUDA block of 256 threads.
+// rle.cu — run-length ENCODER (two forms) and DECODER (codec "rle"), each
+// a block per CUDA block of 256 threads.
 //
 // tpuzip has no Pallas kernel for rle: off the TPU its runner encodes and
 // decodes codec "rle" with the host C++ loops `tpz_rle_encode` and
@@ -10,6 +10,11 @@
 //     of two or more as the byte twice and a count of the rest, whose
 //     bytes chain by 255 without bound (not the 256-byte segments of
 //     tpuzip's XLA encoder);
+//   - encode in segments (rle_encode_kernel<true>, tpz_rle_encode_seg):
+//     the bytes of tpuzip's XLA encoder, tpuzip/codecs/rle.py:30 `encode`,
+//     which tpuzip's compress_from_device runs on the device: each run
+//     cut into segments of at most 256 bytes, a segment of L >= 2 bytes
+//     written as the byte twice and L - 2, one of 1 byte as the byte;
 //   - decode: two equal bytes call for a count, and the pair re-arms only
 //     after its count bytes; the status is the decoded length, or -1 for a
 //     count past the stream or output past out_cap.  Every byte of the
@@ -31,7 +36,12 @@
 //     and, when it is the run's last byte and R >= 2, the count's
 //     remainder (j - 1) % 255 after that (R = 2 gives b b 0, R = 256
 //     b b 254, R = 257 b b 255 0; tests/test_torch_rle.py holds the rule
-//     against the oracle).  So a CUDA block takes a row in tiles of 4096
+//     against the oracle).  In segments the rule is the same with k = j
+//     mod 256 for j: the value at k 0 and 1, no 255s, and k - 1 after a
+//     byte that ends a segment (k = 255, or the run's last byte) with
+//     k >= 1 (R = 257 gives b b 254 b); one template flag picks the rule,
+//     so the chained instance compiles as before.  So a CUDA block takes
+//     a row in tiles of 4096
 //     bytes, 16 a thread (one 16-byte load where the row is aligned): j
 //     from a max-scan of run heads and the output offsets from a sum-scan
 //     of the bytes' sizes, each within a warp by shuffles, across the
@@ -102,6 +112,9 @@ __device__ __forceinline__ int block_scan(int v, int carry, int* part,
   return lane ? combine<MAX>(excl, up) : excl;
 }
 
+// SEGMENTS picks the rule by `if constexpr`, so the chained instance is
+// the source as it was before the flag, statement for statement.
+template <bool SEGMENTS>
 __global__ void __launch_bounds__(ENC_THREADS)
 rle_encode_kernel(const uint8_t* __restrict__ blocks,
                   const int32_t* __restrict__ lengths, int n,
@@ -155,9 +168,17 @@ rle_encode_kernel(const uint8_t* __restrict__ blocks,
       j[k] = q - run_head;
       const bool last = q + 1 == len ||
                         (k + 1 < ENC_BYTES ? x[k + 1] : after) != x[k];
-      if (q < len)
-        mine_out += (j[k] <= 1) + (j[k] >= 2 && (j[k] - 2) % 255 == 254) +
-                    (last && j[k] >= 1);
+      if constexpr (SEGMENTS) {
+        // by j mod 256: the value at 0 and 1, that minus 1 after a
+        // segment's last byte (at 255, or the run's last) past 0
+        if (q < len)
+          mine_out += ((j[k] & 255) <= 1) +
+                      ((last || (j[k] & 255) == 255) && (j[k] & 255) >= 1);
+      } else {
+        if (q < len)
+          mine_out += (j[k] <= 1) + (j[k] >= 2 && (j[k] - 2) % 255 == 254) +
+                      (last && j[k] >= 1);
+      }
     }
     int o = block_scan<false>(mine_out, 0, sizes, tile_out);
     for (int k = 0; k < ENC_BYTES; ++k) {
@@ -165,12 +186,19 @@ rle_encode_kernel(const uint8_t* __restrict__ blocks,
       if (q >= len) break;
       const bool last = q + 1 == len ||
                         (k + 1 < ENC_BYTES ? x[k + 1] : after) != x[k];
-      if (j[k] <= 1)
-        staged[o++] = x[k];
-      else if ((j[k] - 2) % 255 == 254)
-        staged[o++] = 255;
-      if (last && j[k] >= 1)
-        staged[o++] = static_cast<uint8_t>((j[k] - 1) % 255);
+      if constexpr (SEGMENTS) {
+        const int seg = j[k] & 255;
+        if (seg <= 1) staged[o++] = x[k];
+        if ((last || seg == 255) && seg >= 1)
+          staged[o++] = static_cast<uint8_t>(seg - 1);
+      } else {
+        if (j[k] <= 1)
+          staged[o++] = x[k];
+        else if ((j[k] - 2) % 255 == 254)
+          staged[o++] = 255;
+        if (last && j[k] >= 1)
+          staged[o++] = static_cast<uint8_t>((j[k] - 1) % 255);
+      }
     }
     // the tile's stream out in consecutive bytes, a warp's 32 at a time
     __syncthreads();
@@ -399,16 +427,29 @@ rle_decode_kernel(const uint8_t* __restrict__ comp,
 // blocks (B, n) u8 and lengths (B,) i32 in; comp (B, cap) u8, zeroed by the
 // caller (cap >= 2n + 8, above the 1.5n + 1 an encoding can take), and
 // clens (B,) i32 out.  Launches B blocks of 256 threads on `stream` and
-// returns cudaGetLastError().
-extern "C" int tpz_rle_encode(const void* blocks, const void* lengths, int B,
-                              int n, void* comp, int cap, void* clens,
-                              void* stream) {
-  rle_encode_kernel<<<B, ENC_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+// returns cudaGetLastError().  tpz_rle_encode writes the chained counts,
+// tpz_rle_encode_seg the segments.
+template <bool SEGMENTS>
+static int encode(const void* blocks, const void* lengths, int B, int n,
+                  void* comp, int cap, void* clens, void* stream) {
+  rle_encode_kernel<SEGMENTS><<<B, ENC_THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(blocks),
       static_cast<const int32_t*>(lengths), n, static_cast<uint8_t*>(comp),
       cap, static_cast<int32_t*>(clens));
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpz_rle_encode(const void* blocks, const void* lengths, int B,
+                              int n, void* comp, int cap, void* clens,
+                              void* stream) {
+  return encode<false>(blocks, lengths, B, n, comp, cap, clens, stream);
+}
+
+extern "C" int tpz_rle_encode_seg(const void* blocks, const void* lengths,
+                                  int B, int n, void* comp, int cap,
+                                  void* clens, void* stream) {
+  return encode<true>(blocks, lengths, B, n, comp, cap, clens, stream);
 }
 
 // comp (B, w) u8 and clens (B,) i32 (a row's stream is its first

@@ -1,5 +1,7 @@
 """The tpz container, lz4, rle, ari, bwt, bwtdc, bin and apm codecs:
-compress and decompress on one device.
+compress and decompress on one device, compress_from_device and
+decompress(to_device=True) for data that lives on it, and the TPZC corpus
+container of superbatches (compress_corpus, decompress_corpus).
 
 Port of those codecs' parts of tpuzip/dist/runner.py, byte for byte the
 same container:
@@ -11,6 +13,7 @@ same container:
       (increment, threshold) not (8, 8192), or for bin/apm
       (model_bits, rate) not (12, 5)]
   | payloads, per block: lz4, rle: [stream] (flag 2 is never set);
+    bin, apm from compress_from_device: [stream] (flag 2 clear);
     the others with flags&2, the chunk index:
       ari:   [u32 idx_len][chunk index][ari stream]
       bwt:   [u32 origin][u32 idx_len][idx][ari(mtf(L)) stream]
@@ -29,12 +32,19 @@ one (B, block_size) batch, and every stage (BWT, MTF or DC, the coder)
 runs on the whole batch at once.  The port runs on one device, so unlike
 tpuzip it never pads the batch to a mesh width; it decodes tpuzip's padded
 containers all the same.
+
+  TPZC corpus container: 'TPZC' | count u32 LE | per superbatch:
+  [len u64 LE][tpz container]
+
+Each superbatch is one compress call, so device memory is bounded by the
+superbatch and the pipeline depth, not by the corpus.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -47,11 +57,13 @@ from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.checksum import adler32_batch
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.device import resolve
-from tpuzip_torch.kernels import (bin_coder, lz4_coder, mtf_scan,
-                                  range_coder, range_decoder, rle_coder)
+from tpuzip_torch.kernels import (bin_coder, lz4_coder, lz4_dense,
+                                  mtf_scan, range_coder, range_decoder,
+                                  rle_coder)
 from tpuzip_torch.kernels.range_decoder import (CHUNK_STEPS,
                                                 pack_chunk_index,
                                                 parse_chunk_index)
+from tpuzip_torch.oracle import adler as oadler
 from tpuzip_torch.runtime.errors import (BlockLengthError, ChecksumError,
                                          CorruptStreamError, HeaderError)
 
@@ -66,6 +78,8 @@ HEADER = 26                   # bytes before the length table
 HEAD = {"ari": 0, "bwt": 4, "bwtdc": 8, "bin": 0, "apm": 0}
 SEG_HEAD = 10                 # <IHI> origin, nseg, seg of a flag-8 block
 SEG_THRESHOLD = 1 << 20       # bwt blocks above this segment the entropy stage
+PARALLEL_ADLER = 8 << 20      # corpora from here on sum in PARTS threads
+PARTS = 4
 BIN_CODECS = ("bin", "apm")
 LZ_CODECS = ("lz4", "rle")    # one plain stream a block, flag 2 never set
 
@@ -84,6 +98,24 @@ def _check_codec(codec: str) -> None:
         raise not_ported(f"codec {codec!r}", _ROADMAP_ITEM[codec])
     if codec not in HEAD and codec not in LZ_CODECS:
         raise ValueError(f"unknown codec {codec!r}")
+
+
+def corpus_adler32(data) -> int:
+    """The container's Adler-32 of the whole corpus (tpuzip's
+    corpus_adler32): from PARALLEL_ADLER bytes on, zlib.adler32 of PARTS
+    parts on as many threads (it releases the GIL on large buffers),
+    folded by oracle.adler.combine; below it, zlib.adler32."""
+    if len(data) < PARALLEL_ADLER:
+        return zlib.adler32(data)
+    step = -(-len(data) // PARTS)
+    mv = memoryview(data)
+    parts = [mv[o : o + step] for o in range(0, len(data), step)]
+    with ThreadPoolExecutor(max_workers=len(parts)) as ex:
+        sums = list(ex.map(zlib.adler32, parts))
+    total = 1
+    for a, part in zip(sums, parts):
+        total = oadler.combine(total, a, len(part))
+    return total
 
 
 def _knob_defaults(codec: str) -> tuple[int, int]:
@@ -180,18 +212,68 @@ def _encode_bin(blocks, lengths, lengths_np, bits: int, rate: int,
             for i in range(blocks.shape[0])]
 
 
-def _encode_lz(codec: str, blocks, lengths, hash_log: int):
-    """The lz4 or rle streams of every block, compacted on the device (each
-    row's first clen bytes, in order) and downloaded once: (clens on the
-    host, the payload)."""
-    if codec == "lz4":
-        comp, clens = lz4_coder.lz4_encode_batch(blocks, lengths, hash_log)
-    else:
-        comp, clens = rle_coder.rle_encode_batch(blocks, lengths)
+def _compact(comp, clens):
+    """Streams compacted on the device (each row's first clen bytes, in
+    order) and downloaded once: (clens on the host, the payload)."""
     keep = (torch.arange(comp.shape[1], device=comp.device)[None, :]
             < clens[:, None])
     return (clens.cpu().numpy().astype(np.int64),
             comp[keep].cpu().numpy().tobytes())
+
+
+def _encode_blocks(codec: str, blocks, lengths, lengths_np, knobs,
+                   lz_encode=None, bin_index: bool = True):
+    """Every block's payload, the codec's part of compress and
+    compress_from_device: blocks (B, n) u8 and lengths (B,) i32 on the
+    device -> (the flags the payloads set: 2 the chunk index, 8 the
+    segmented bwt stage; their lengths; the payload).  lz4 and rle run
+    lz_encode(blocks, lengths) -> (comp, clens); bin and apm write the
+    stream alone where bin_index is False."""
+    inc, thr = knobs
+    nb, n = blocks.shape
+    if codec in LZ_CODECS:
+        return (0, *_compact(*lz_encode(blocks, lengths)))
+    if codec in BIN_CODECS and not bin_index:
+        streams, slens, _ = bin_coder.bin_encode_indexed(
+            blocks, lengths, inc, thr, codec == "apm")
+        return (0, *_compact(streams, slens))
+    flags = 2
+    if codec == "ari":
+        coded = _ari_encode(blocks, lengths, inc, thr)
+        blobs = [_indexed(lengths_np, *coded, i) for i in range(nb)]
+    elif codec in BIN_CODECS:
+        blobs = _encode_bin(blocks, lengths, lengths_np, inc, thr,
+                            codec == "apm")
+    else:
+        L, origins = bwt.encode_batch(blocks, lengths)
+        origins = origins.cpu().numpy()
+        if codec == "bwtdc":   # never segmented (flag 8 is bwt's alone)
+            blobs = _encode_bwtdc(L, origins, lengths, inc, thr)
+        elif n > SEG_THRESHOLD:
+            flags |= 8
+            blobs = _encode_bwt_segmented(L, origins, lengths_np, inc, thr)
+        else:
+            coded = _ari_encode(mtf_scan.mtf_batch(L, lengths), lengths,
+                                inc, thr)
+            blobs = [struct.pack("<I", int(origins[i]))
+                     + _indexed(lengths_np, *coded, i) for i in range(nb)]
+    return flags, [len(p) for p in blobs], b"".join(blobs)
+
+
+def _header(codec: str, flags: int, block_size: int, nb: int,
+            orig_len: int, a32: int, clens, block_sums, knobs) -> bytes:
+    """The container's header, length table, per-block sums (flags & 1)
+    and knob trailer (flags & 4)."""
+    hdr = bytearray(MAGIC)
+    hdr.append(CODECS[codec])
+    hdr.append(flags)
+    hdr += struct.pack("<IIQI", block_size, nb, orig_len, a32)
+    hdr += np.array(clens, "<u4").tobytes()
+    if flags & 1:
+        hdr += np.asarray(block_sums).astype("<u4").tobytes()
+    if flags & 4:
+        hdr += struct.pack("<HI", *knobs)
+    return bytes(hdr)
 
 
 def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
@@ -205,12 +287,14 @@ def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
     threshold) or for bin/apm (bin_bits, bin_rate); values other than the
     defaults are recorded in the container (flag bit 2), for lz4 and rle
     too, which do not use them (tpuzip's rule).  `config.codec.lz4`'s
-    hash_log sizes the lz4 encoder's table.  block_checksums=True adds an
-    Adler-32 per block (flag bit 0)."""
+    hash_log sizes the lz4 encoder's table; its device_encode=True runs
+    tpuzip's device encoder (kernels/lz4_dense.py) at that hash_log, as it
+    is.  block_checksums=True adds an Adler-32 per block (flag bit 0)."""
     _check_codec(codec)
     config = config or Config()
+    lz4_cfg = config.codec.lz4
     if codec == "lz4":
-        option = clz4.unported_option(config.codec.lz4)
+        option = clz4.unported_option(lz4_cfg)
         if option:
             raise not_ported(option, 12)
     if block_size is None:
@@ -221,51 +305,114 @@ def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
              else (ari.increment, ari.threshold))
     if codec not in LZ_CODECS:   # tpuzip checks no knob a codec ignores
         _check_knobs(codec, *knobs)
-    inc, thr = knobs
     dev = resolve(device)
     blocks_np, lengths_np = blk.chunk(data, block_size)
     nb = blocks_np.shape[0]
     blocks = torch.from_numpy(blocks_np).to(dev)
     lengths = torch.from_numpy(lengths_np).to(dev)
-    flags = (0 if codec in LZ_CODECS else 2) | (1 if block_checksums else 0)
-    if knobs != _knob_defaults(codec):
-        flags |= 4
-    blobs = None
-    if codec in LZ_CODECS:
-        clens_np, payload = _encode_lz(
-            codec, blocks, lengths, clz4.hash_log(config.codec.lz4.hash_log))
-    elif codec == "ari":
-        coded = _ari_encode(blocks, lengths, inc, thr)
-        blobs = [_indexed(lengths_np, *coded, i) for i in range(nb)]
-    elif codec in BIN_CODECS:
-        blobs = _encode_bin(blocks, lengths, lengths_np, inc, thr,
-                            codec == "apm")
+    def lz_encode(b, lens):
+        if codec == "rle":
+            return rle_coder.rle_encode_batch(b, lens)
+        if lz4_cfg.device_encode:   # before max_chain, as tpuzip's runner
+            return lz4_dense.lz4_dense_encode_batch(b, lens, lz4_cfg.hash_log)
+        return lz4_coder.lz4_encode_batch(b, lens,
+                                          clz4.hash_log(lz4_cfg.hash_log))
+
+    flags, clens_np, payload = _encode_blocks(codec, blocks, lengths,
+                                              lengths_np, knobs, lz_encode)
+    flags |= (1 if block_checksums else 0) | (
+        4 if knobs != _knob_defaults(codec) else 0)
+    sums = (adler32_batch(blocks, lengths).cpu().numpy()
+            if block_checksums else None)
+    return _header(codec, flags, block_size, nb, len(data),
+                   corpus_adler32(data), clens_np, sums, knobs) + payload
+
+
+def _device_blocks(blocks, dev):
+    """compress_from_device's blocks as a (B, n) u8 tensor on dev: a numpy
+    array is uploaded, a tensor must lie there already."""
+    if isinstance(blocks, np.ndarray):
+        if blocks.dtype != np.uint8:
+            raise TypeError(f"blocks must be uint8, not {blocks.dtype}")
+        return torch.from_numpy(np.ascontiguousarray(blocks)).to(dev)
+    if not torch.is_tensor(blocks):
+        raise TypeError("blocks must be a tensor or a numpy array")
+    if blocks.dtype != torch.uint8:
+        raise TypeError(f"blocks must be uint8, not {blocks.dtype}")
+    if blocks.device.type != dev.type or (
+            dev.index is not None and blocks.device.index != dev.index):
+        raise ValueError(f"blocks lie on {blocks.device}, not on {dev}: "
+                         "move them there (no silent copy)")
+    return blocks.contiguous()
+
+
+def compress_from_device(blocks, lengths, codec: str = "lz4",
+                         block_checksums: bool = False,
+                         config: Config | None = None,
+                         device="cuda") -> bytes:
+    """Compress blocks that live on `device` into a tpz container
+    (tpuzip's compress_from_device): the data leaves the device
+    compressed, never raw.
+
+    blocks: (B, n) u8 tensor on `device` (a numpy array is uploaded);
+    lengths: (B,) valid bytes a block (a tensor on any device, an array or
+    a list).  Every block but the last must be full, since the container
+    implies the lengths from orig_len and n.  The bytes are tpuzip's:
+    ari, bwt (flag 8 past SEG_THRESHOLD) and bwtdc take the indexed
+    encoders; lz4 takes tpuzip's device encoder at hash_log 15 and rle its
+    256-byte segments, whatever the config says; bin and apm the bit coder
+    at (12, 5), the stream alone.  Flag 4 and its trailer follow the ari
+    knobs for every codec, as in tpuzip; for bin and apm that container
+    would decode with the wrong model (tpuzip reads the trailer as their
+    knobs), so they raise ValueError there.  The corpus Adler-32 is folded
+    from the per-block sums."""
+    _check_codec(codec)
+    config = config or Config()
+    dev = resolve(device)
+    blocks = _device_blocks(blocks, dev)
+    if blocks.dim() != 2:
+        raise ValueError(f"blocks must be (B, n), not {tuple(blocks.shape)}")
+    nb, n = blocks.shape
+    if nb == 0:
+        raise ValueError("compress_from_device needs at least one block")
+    lengths_np = (lengths.cpu().numpy() if torch.is_tensor(lengths)
+                  else np.asarray(lengths)).astype(np.int64).reshape(-1)
+    if lengths_np.shape != (nb,) or (lengths_np[:-1] != n).any() or \
+            not 0 <= lengths_np[-1] <= n:
+        raise ValueError(
+            "compress_from_device requires full blocks except the last "
+            "(the container implies block lengths from orig_len)")
+    ari = config.codec.ari
+    knobs = (ari.increment, ari.threshold)
+    flags = (1 if block_checksums else 0) | (
+        4 if knobs != ARI_DEFAULTS else 0)
+    if codec in BIN_CODECS:
+        if flags & 4:
+            raise ValueError(
+                f"{codec}: tpuzip's compress_from_device writes the ari "
+                f"knobs {knobs} in the trailer that decompress reads as "
+                f"{codec}'s (model_bits, rate); its container would not "
+                "decode, so the port refuses it")
+        enc_knobs = bin_apm.KNOB_DEFAULTS
     else:
-        L, origins = bwt.encode_batch(blocks, lengths)
-        origins = origins.cpu().numpy()
-        if codec == "bwtdc":   # never segmented (flag 8 is bwt's alone)
-            blobs = _encode_bwtdc(L, origins, lengths, inc, thr)
-        elif block_size > SEG_THRESHOLD:
-            flags |= 8
-            blobs = _encode_bwt_segmented(L, origins, lengths_np, inc, thr)
-        else:
-            coded = _ari_encode(mtf_scan.mtf_batch(L, lengths), lengths,
-                                inc, thr)
-            blobs = [struct.pack("<I", int(origins[i]))
-                     + _indexed(lengths_np, *coded, i) for i in range(nb)]
-    if blobs is not None:
-        clens_np, payload = [len(p) for p in blobs], b"".join(blobs)
-    hdr = bytearray(MAGIC)
-    hdr.append(CODECS[codec])
-    hdr.append(flags)
-    hdr += struct.pack("<IIQI", block_size, nb, len(data), zlib.adler32(data))
-    hdr += np.array(clens_np, "<u4").tobytes()
-    if block_checksums:
-        hdr += adler32_batch(blocks, lengths).cpu().numpy().astype(
-            "<u4").tobytes()
-    if flags & 4:
-        hdr += struct.pack("<HI", inc, thr)
-    return bytes(hdr) + payload
+        enc_knobs = knobs
+        if codec not in LZ_CODECS:
+            _check_knobs(codec, *knobs)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    sums = adler32_batch(blocks, lengths).cpu().numpy()
+    a32 = 1
+    for s, ln in zip(sums, lengths_np):
+        a32 = oadler.combine(a32, int(s), int(ln))
+    def lz_encode(b, lens):
+        if codec == "rle":
+            return rle_coder.rle_encode_segments_batch(b, lens)
+        return lz4_dense.lz4_dense_encode_batch(b, lens, lz4_dense.HASH_LOG)
+    more, clens_np, payload = _encode_blocks(
+        codec, blocks, lengths, lengths_np, enc_knobs, lz_encode,
+        bin_index=False)
+    return _header(codec, flags | more, n, nb, int(lengths_np.sum()), a32,
+                   clens_np, sums if block_checksums else None,
+                   knobs) + payload
 
 
 def _block_cap(codec: str, flags: int, block_size: int) -> int:
@@ -297,8 +444,6 @@ def _parse_header(container: bytes):
     """Validate the header and length tables (tpuzip's checks, same error
     classes).  Returns (codec, flags, block_size, nb, orig_len, a32, clens,
     block_sums, knobs, payload offset)."""
-    if container[:4] == MAGIC_CORPUS:
-        raise not_ported("the TPZC corpus container", 11)
     if container[:4] != MAGIC:
         raise HeaderError("bad tpz magic")
     if len(container) < 6 or container[4] not in CODEC_IDS:
@@ -541,9 +686,14 @@ def _decode_lz(container: bytes, codec: str, starts, clens, olens,
     return out
 
 
-def decompress(container: bytes, device="cuda") -> bytes:
+def decompress(container: bytes, device="cuda", to_device: bool = False):
     """Decode a tpz container of a ported codec on `device`; checks the
-    per-block and corpus Adler-32 as tpuzip does."""
+    per-block and corpus Adler-32 as tpuzip does.
+
+    to_device=True returns (blocks (B, block_size) u8 tensor on `device`,
+    olens (B,) np.int64, orig_len) and downloads nothing: the per-block
+    sums are still checked, the corpus checksum (it needs the bytes
+    assembled on the host) is not, as in tpuzip."""
     (codec, flags, block_size, nb, orig_len, a32, clens, block_sums,
      (inc, thr), off) = _parse_header(container)
     if codec not in LZ_CODECS:   # lz4 and rle ignore the trailer's knobs
@@ -620,9 +770,69 @@ def decompress(container: bytes, device="cuda") -> bytes:
         bad = np.nonzero(got.cpu().numpy() != block_sums)[0]
         if bad.size:
             raise CorruptStreamError(bad)
+    if to_device:
+        return out, olens, orig_len
     # every block is full except the tail (the chunking invariant)
     data = out.cpu().numpy().reshape(-1)[:orig_len].tobytes()
-    if a32 and zlib.adler32(data) != a32:
-        raise ChecksumError(f"corpus Adler-32 mismatch: "
-                            f"{zlib.adler32(data):#x} != {a32:#x}")
+    if a32:
+        got = corpus_adler32(data)
+        if got != a32:
+            raise ChecksumError(f"corpus Adler-32 mismatch: {got:#x} != "
+                                f"{a32:#x}")
     return data
+
+
+def compress_corpus(data: bytes, codec: str = "lz4",
+                    block_size: int = 1 << 16,
+                    superbatch: int | None = 8 << 20, pipeline: int = 2,
+                    block_checksums: bool = False,
+                    config: Config | None = None, device="cuda") -> bytes:
+    """Compress a corpus as a TPZC sequence of superbatch containers
+    (tpuzip's compress_corpus): each superbatch of `superbatch` bytes is
+    one compress call, on a pool of `pipeline` threads, so one's host
+    stages overlap another's device work and device memory is bounded by
+    the superbatch.  superbatch=None takes config.mesh.blocks_per_chip
+    blocks (one device).  Empty input is one empty superbatch."""
+    if superbatch is None:
+        superbatch = (config or Config()).mesh.blocks_per_chip * block_size
+    resolve(device)
+    pieces = [data[o : o + superbatch]
+              for o in range(0, max(len(data), 1), superbatch)]
+    out = [MAGIC_CORPUS, struct.pack("<I", len(pieces))]
+    with ThreadPoolExecutor(max_workers=max(pipeline, 1)) as ex:
+        for blob in ex.map(
+                lambda p: compress(p, codec=codec, block_size=block_size,
+                                   device=device, config=config,
+                                   block_checksums=block_checksums),
+                pieces):
+            out.append(struct.pack("<Q", len(blob)))
+            out.append(blob)
+    return b"".join(out)
+
+
+def decompress_corpus(blob: bytes, pipeline: int = 2,
+                      device="cuda") -> bytes:
+    """The inverse of compress_corpus, the superbatches decoded on a pool
+    of `pipeline` threads.  A truncated blob or bytes after its last
+    superbatch raise ValueError."""
+    if blob[:4] != MAGIC_CORPUS:
+        raise ValueError("not a tpz corpus container")
+    if len(blob) < 8:
+        raise ValueError("corpus container truncated")
+    (count,) = struct.unpack_from("<I", blob, 4)
+    pos, parts = 8, []
+    for _ in range(count):
+        if pos + 8 > len(blob):
+            raise ValueError("corpus container truncated")
+        (ln,) = struct.unpack_from("<Q", blob, pos)
+        pos += 8
+        if pos + ln > len(blob):
+            raise ValueError("corpus container truncated")
+        parts.append(blob[pos : pos + ln])
+        pos += ln
+    if pos != len(blob):
+        raise ValueError("trailing bytes after corpus container")
+    resolve(device)
+    with ThreadPoolExecutor(max_workers=max(pipeline, 1)) as ex:
+        return b"".join(ex.map(lambda c: decompress(c, device=device),
+                               parts))

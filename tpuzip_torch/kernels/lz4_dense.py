@@ -1,0 +1,256 @@
+"""tpuzip's device LZ4 block encoder over a batch of blocks: the CUDA
+kernels' wrappers and their plain PyTorch versions.
+
+tpuzip encodes lz4 on the device with XLA, not Pallas:
+``tpuzip/codecs/lz4.py:179`` ``encode``, its candidates from ``_candidates``
+(:153) and its bytes from ``_serialize`` (:265), batched by ``encode_batch``
+(:320).  ``compress_from_device`` runs it at hash_log 15 and
+``compress(config.codec.lz4.device_encode=True)`` at the config's hash_log,
+unclamped.  It writes other bytes than the single-probe parse of
+kernels/lz4_coder.py: a position's candidate is the last earlier position
+with its hash, whatever the parse did there.  csrc/lz4_dense.cu computes it
+in two launches, and the functions here are theirs:
+
+  candidates  cand[p] for every position p of a row: the last q < p whose
+              4 bytes hash as p's, h = (seq * 2654435761 mod 2^32) >>
+              (32 - hash_log), where h is 0 at every position for hash_log
+              <= 0 or >= 33 (XLA's shift by 32 or more, or by a negative
+              count); kept where p - q <= 65535, the 4 bytes are equal and
+              p < length - 12, else -1.  Bytes past the row width read as
+              0; bytes between the length and the width are the row's own.
+  parse       the greedy parse over cand: at i, cand[i]'s match is
+              extended while the bytes agree before length - 5, emitted,
+              and the parse goes on at its end; where cand[i] is -1, at the
+              next position with a candidate.  The last literals are the
+              last sequence; an empty block is the byte 0.
+
+The plain versions run every row at once: the candidates by one stable
+sort of each row's hashes (XLA's construction), the parse one sequence a
+row a step, and lz4_coder's serialisation of the sequences.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from tpuzip_torch.kernels import _build
+from tpuzip_torch.kernels.lz4_coder import (EXT, HASH_MUL, LAST_LITERALS,
+                                            MF_LIMIT, MIN_MATCH, _check_pair,
+                                            _gather, _mul32, _read,
+                                            _serialise, encode_cap)
+
+HASH_LOG = 15          # tpuzip.codecs.lz4.HASH_LOG: compress_from_device's
+# A direct table of 2^hash_log slots up to here (16 KiB: 1024 rows' tables
+# stay in the card's L2 beside the rows), a keyed one past it: on the H100
+# at 1024 x 64 KiB the direct tables at 15 bits took 58 ms, the keyed 6.4
+DIRECT_MAX_LOG = 12
+POOL_BYTES = 1 << 30   # the candidates kernel's tables, at most
+KEY_SLOT = 8           # bytes of a keyed slot: (position, hash)
+
+
+def table_bits(hash_log: int) -> int:
+    """The bits of h: hash_log for 1..32, else 0 (h is 0 everywhere)."""
+    return hash_log if 1 <= hash_log <= 32 else 0
+
+
+def table_route(hash_log: int, n: int) -> tuple[str, int]:
+    """("direct", bits): a table of 2^bits int32 slots indexed by h; or
+    ("keyed", log): open addressing on h over 2^log slots of KEY_SLOT
+    bytes, twice the hashes a row can hold (min(n, 2^bits)) at least, so
+    half full at most."""
+    bits = table_bits(hash_log)
+    if bits <= DIRECT_MAX_LOG:
+        return "direct", bits
+    return "keyed", max(6, min(bits + 1, (2 * max(n, 1) - 1).bit_length()))
+
+
+def table_count(b: int, hash_log: int, n: int) -> int:
+    """Tables that a candidates launch on b rows of n bytes gets: one a
+    row, or where b tables would pass POOL_BYTES a pool of fewer, whose
+    warps walk the rows by a grid-stride loop."""
+    return max(1, min(b, POOL_BYTES // table_bytes(hash_log, n)))
+
+
+def table_bytes(hash_log: int, n: int) -> int:
+    """Bytes of one table (16 at least: the kernel resets 16 at a time)."""
+    route, bits = table_route(hash_log, n)
+    return max(16, (4 if route == "direct" else KEY_SLOT) << bits)
+
+
+def _hashes(blocks: torch.Tensor, hash_log: int):
+    """(seq, h) of every position: its 4 bytes as a u32 (bytes past the
+    row read 0) and their hash, both int64."""
+    n = blocks.shape[1]
+    src = F.pad(blocks, (0, 3)).to(torch.int64)
+    seq = (src[:, :n] | (src[:, 1:n + 1] << 8) | (src[:, 2:n + 2] << 16)
+           | (src[:, 3:n + 3] << 24))
+    bits = table_bits(hash_log)
+    if bits == 0:
+        return seq, torch.zeros_like(seq)
+    return seq, _mul32(seq, HASH_MUL) >> (32 - bits)
+
+
+def lz4_dense_candidates_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                               hash_log: int = HASH_LOG) -> torch.Tensor:
+    """Plain version of the candidates kernel: blocks (B, n) u8, lengths
+    (B,) -> cand (B, n) i32, as the module note says."""
+    b, n = blocks.shape
+    seq, h = _hashes(blocks, hash_log)
+    order = torch.sort(h, dim=1, stable=True).indices  # positions ascending
+    hs = h.gather(1, order)                              # within a hash
+    prev = F.pad(order[:, :-1], (1, 0), value=-1)
+    same = F.pad(hs[:, 1:] == hs[:, :-1], (1, 0), value=False)
+    cand = torch.empty_like(order).scatter_(1, order,
+                                            torch.where(same, prev, -1))
+    idx = torch.arange(n, device=blocks.device)[None, :]
+    limit = lengths.to(torch.int64).clamp(0, n)[:, None] - MF_LIMIT
+    ok = ((cand >= 0) & (idx - cand <= 0xFFFF) & (idx < limit)
+          & (_gather(seq, cand) == seq))
+    return torch.where(ok, cand, -1).to(torch.int32)
+
+
+def lz4_dense_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                          cand: torch.Tensor):
+    """Plain version of the parse kernel: blocks (B, n) u8, lengths (B,),
+    cand (B, n) i32 -> (comp (B, encode_cap(n)) u8, zero past each stream,
+    clens (B,) i32)."""
+    b, n = blocks.shape
+    dev = blocks.device
+    lens = lengths.to(torch.int64).clamp(0, n)
+    end = lens - LAST_LITERALS
+    col = torch.arange(n, device=dev)
+    # the first position at or after j with a candidate (n where none);
+    # column n for a parse that ran off the row
+    nxt = torch.where(cand >= 0, col, n).flip(1).cummin(1).values.flip(1)
+    nxt = F.pad(nxt, (0, 1), value=n)
+    src = F.pad(blocks, (0, EXT)).to(torch.int64)
+    cand = cand.to(torch.int64)
+    ext = torch.arange(EXT, device=dev)
+    zero = torch.zeros(b, dtype=torch.int64, device=dev)
+    i, anchor, nseq = zero.clone(), zero.clone(), zero.clone()
+    seqs = []          # per step: (literal start, literal length, offset,
+    #                     match length), one sequence of every live row
+    while True:
+        i = _read(nxt, i)
+        live = i < n
+        if not bool(live.any()):
+            break
+        c = _read(cand, i)
+        # extend the matches forward, EXT bytes a round, up to length - 5
+        m, mc, run = i + MIN_MATCH, c + MIN_MATCH, live.clone()
+        while bool(run.any()):
+            a, bb = m[:, None] + ext, mc[:, None] + ext
+            stop = ((a >= end[:, None])
+                    | (_gather(src, a) != _gather(src, bb)))
+            first = torch.where(stop.any(dim=1),
+                                stop.to(torch.int8).argmax(dim=1), EXT)
+            m = torch.where(run, m + first, m)
+            mc = torch.where(run, mc + first, mc)
+            run &= first == EXT
+        seqs.append((anchor, i - anchor, i - c, m - i))
+        nseq += live
+        anchor = torch.where(live, m, anchor)
+        i = torch.where(live, m, i)
+    # a row's sequences sit in its first nseq columns (a row stays live
+    # until its parse ends), its last literals in column nseq
+    cols = ([torch.stack(c, dim=1) for c in zip(*seqs)] if seqs
+            else [zero[:, None][:, :0]] * 4)
+    lit_start, lit_len, off, mlen = (F.pad(c, (0, 1)) for c in cols)
+    last = nseq[:, None]
+    lit_start.scatter_(1, last, anchor[:, None])
+    lit_len.scatter_(1, last, (lens - anchor)[:, None])
+    return _serialise(src, lit_start, lit_len, off, mlen, nseq,
+                      encode_cap(n))
+
+
+def _lib(name: str):
+    """The typed C entry point tpz_lz4_dense_<name> of csrc/lz4_dense.cu."""
+    fn = getattr(_build.load("lz4_dense"), f"tpz_lz4_dense_{name}")
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp]
+                       if name == "candidates"
+                       else [vp, vp, vp, ci, ci, vp, ci, vp, vp])
+        fn.restype = ci
+    return fn
+
+
+def lz4_dense_candidates(blocks: torch.Tensor, lengths: torch.Tensor,
+                         hash_log: int = HASH_LOG) -> torch.Tensor:
+    """cand (B, n) i32 of every row, as the module note says: blocks
+    (B, n) u8, lengths (B,) i32; any integer hash_log.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_dense.cu's candidates kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_dense_candidates", blocks, lengths)
+    if blocks.device.type == "cpu":
+        return lz4_dense_candidates_plain(blocks, lengths, hash_log)
+    b, n = blocks.shape
+    dev = blocks.device
+    cand = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return cand
+    route, bits = table_route(hash_log, n)
+    ntab = table_count(b, hash_log, n)
+    tables = torch.empty(ntab * table_bytes(hash_log, n) // 4,
+                         dtype=torch.int32, device=dev)
+    fn = _lib("candidates")
+    with torch.cuda.device(dev):
+        err = fn(blocks.data_ptr(), lengths.data_ptr(), b, n,
+                 cand.data_ptr(), tables.data_ptr(), ntab,
+                 table_bits(hash_log), bits, int(route == "keyed"),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_dense_candidates")
+    lz4_dense_candidates.launches += 1
+    return cand
+
+
+def lz4_dense_parse(blocks: torch.Tensor, lengths: torch.Tensor,
+                    cand: torch.Tensor):
+    """The LZ4 streams of the greedy parse over cand: blocks (B, n) u8,
+    lengths (B,) i32, cand (B, n) i32 from lz4_dense_candidates ->
+    (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,) i32).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_dense.cu's parse kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_dense_parse", blocks, lengths)
+    if cand.shape != blocks.shape or cand.dtype != torch.int32 or \
+            cand.device != blocks.device:
+        raise ValueError("cand must be (B, n) i32 beside the blocks")
+    if blocks.device.type == "cpu":
+        return lz4_dense_parse_plain(blocks, lengths, cand)
+    b, n = blocks.shape
+    cap = encode_cap(n)
+    dev = blocks.device
+    comp = torch.zeros((b, cap), dtype=torch.uint8, device=dev)
+    clens = torch.empty(b, dtype=torch.int32, device=dev)
+    if b == 0:
+        return comp, clens
+    cand = cand.contiguous()
+    fn = _lib("parse")
+    with torch.cuda.device(dev):
+        err = fn(blocks.data_ptr(), lengths.data_ptr(), cand.data_ptr(), b,
+                 n, comp.data_ptr(), cap, clens.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_dense_parse")
+    lz4_dense_parse.launches += 1
+    return comp, clens
+
+
+def lz4_dense_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
+                           hash_log: int = HASH_LOG):
+    """tpuzip's device LZ4 encode of every row (both launches): blocks
+    (B, n) u8, lengths (B,) i32 -> (comp (B, encode_cap(n)) u8, zero past
+    each stream, clens (B,) i32).  hash_log is taken as it is, not clamped
+    (any integer; outside 1..32 every position hashes to 0)."""
+    return lz4_dense_parse(blocks, lengths,
+                           lz4_dense_candidates(blocks, lengths, hash_log))
+
+
+lz4_dense_candidates.launches = 0
+lz4_dense_parse.launches = 0

@@ -10,6 +10,12 @@ a block, and the functions here are theirs:
   encode  the bytes of tpuzip.oracle.rle.encode(block): a byte as it is, a
           run of two or more as the byte twice and a count of the rest,
           chained by 255 without bound.
+  encode, segments
+          the bytes of tpuzip's XLA encoder (tpuzip/codecs/rle.py:30
+          ``encode``, which compress_from_device runs): each run cut into
+          segments of at most 256 bytes, one of L >= 2 bytes written as
+          the byte twice and L - 2, one of 1 byte as the byte (a run of
+          257 is b b 254 b).  rle.cu's encoder under a template flag.
   decode  tpz_rle_decode's status: the decoded length, or -1 for a count
           past the stream or output past out_cap.  Two equal bytes call
           for a count; the pair re-arms only after its count bytes.  The
@@ -35,6 +41,7 @@ from tpuzip_torch.kernels.lz4_coder import _check_pair, _gather, _read
 
 DECODE_TILE = 4096    # stream bytes a tile of the decoder kernel
 DECODE_STAGE = 8192   # a tile's output staged in shared memory, at most
+SEGMENT = 256         # bytes of a run's segment in tpuzip's XLA form
 
 
 def _locate(start: torch.Tensor, cap: int):
@@ -47,9 +54,11 @@ def _locate(start: torch.Tensor, cap: int):
     return p, k, p - start.gather(1, k)
 
 
-def rle_encode_batch_plain(blocks: torch.Tensor, lengths: torch.Tensor):
+def rle_encode_batch_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                           segments: bool = False):
     """Plain version of the encoder: blocks (B, n) u8, lengths (B,) ->
-    (comp (B, 2n + 8) u8, zero past each stream, clens (B,) i32)."""
+    (comp (B, 2n + 8) u8, zero past each stream, clens (B,) i32); with
+    segments, tpuzip's XLA form."""
     b, n = blocks.shape
     dev = blocks.device
     cap = encode_cap(n)
@@ -71,14 +80,25 @@ def rle_encode_batch_plain(blocks: torch.Tensor, lengths: torch.Tensor):
     run_val.scatter_(1, torch.where(head, run, trash), x)
     run_len, run_val = run_len[:, :n], run_val[:, :n]
     extra = (run_len - 2).clamp(min=0)
-    size = torch.where(run_len > 1, 3 + extra // 255, run_len)
+    if segments:
+        # 3 bytes a segment of 256, then 3 for a last one of 2..255 bytes,
+        # 1 for a last one of 1
+        rest = run_len % SEGMENT
+        size = 3 * (run_len // SEGMENT) + torch.where(rest > 1, 3, rest)
+    else:
+        size = torch.where(run_len > 1, 3 + extra // 255, run_len)
     ends = size.cumsum(1)
     total = ends[:, -1]
     p, k, q = _locate(ends - size, cap)
     R, V, E = run_len.gather(1, k), run_val.gather(1, k), extra.gather(1, k)
-    # a run of R > 1: the byte twice, E // 255 bytes of 255, E % 255
-    val = torch.where((R == 1) | (q < 2), V,
-                      torch.where(q < 2 + E // 255, 255, E % 255))
+    if segments:
+        # byte q of a run: segment q // 3 of L bytes gives b b (L - 2)
+        seg = (R - SEGMENT * (q // 3)).clamp(max=SEGMENT)
+        val = torch.where(q % 3 < 2, V, seg - 2)
+    else:
+        # a run of R > 1: the byte twice, E // 255 bytes of 255, E % 255
+        val = torch.where((R == 1) | (q < 2), V,
+                          torch.where(q < 2 + E // 255, 255, E % 255))
     val = torch.where(p < total[:, None], val, 0)
     return val.to(torch.uint8), total.to(torch.int32)
 
@@ -166,20 +186,48 @@ def rle_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor):
     _check_pair("rle_encode_batch", blocks, lengths)
     if blocks.device.type == "cpu":
         return rle_encode_batch_plain(blocks, lengths)
+    return _encode(blocks, lengths, "rle_encode", rle_encode_batch)
+
+
+def _encode(blocks, lengths, name: str, wrapper):
+    """Launch tpz_<name> of csrc/rle.cu on CUDA rows and count it on
+    `wrapper`."""
     b, n = blocks.shape
     cap = encode_cap(n)
     comp = torch.zeros((b, cap), dtype=torch.uint8, device=blocks.device)
     clens = torch.empty(b, dtype=torch.int32, device=blocks.device)
     if b == 0:
         return comp, clens
-    fn = _lib("rle_encode")
+    fn = _lib(name)
     with torch.cuda.device(blocks.device):
         err = fn(blocks.data_ptr(), lengths.data_ptr(), b, n,
                  comp.data_ptr(), cap, clens.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "rle_encode")
-    rle_encode_batch.launches += 1
+    _build.check(err, name)
+    wrapper.launches += 1
     return comp, clens
+
+
+def rle_encode_segments_batch_plain(blocks: torch.Tensor,
+                                    lengths: torch.Tensor):
+    """Plain version of the segment mode: rle_encode_batch_plain with
+    segments."""
+    return rle_encode_batch_plain(blocks, lengths, segments=True)
+
+
+def rle_encode_segments_batch(blocks: torch.Tensor, lengths: torch.Tensor):
+    """rle encode of every row in tpuzip's XLA form (runs cut into segments
+    of at most 256 bytes): blocks (B, n) u8, lengths (B,) i32 -> (comp
+    (B, 2n + 8) u8, zero past each stream, clens (B,) i32).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/rle.cu's encoder in its segment mode on the current stream (no
+    synchronisation)."""
+    _check_pair("rle_encode_segments_batch", blocks, lengths)
+    if blocks.device.type == "cpu":
+        return rle_encode_segments_batch_plain(blocks, lengths)
+    return _encode(blocks, lengths, "rle_encode_seg",
+                   rle_encode_segments_batch)
 
 
 def rle_decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
@@ -208,4 +256,5 @@ def rle_decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
 
 
 rle_encode_batch.launches = 0
+rle_encode_segments_batch.launches = 0
 rle_decode_batch.launches = 0
