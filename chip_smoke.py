@@ -6,7 +6,7 @@
                                      # bin_decode.cu, mtf.cu, bin_encode.cu,
                                      # dc_decode.cu, lz4_encode.cu,
                                      # lz4_decode.cu, rle.cu against DIR's
-                                     # (not lz4_dense.cu)
+                                     # (lz4_dense.cu: its SASS only)
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -22,7 +22,9 @@ lz4_decode.cu, which replace tpuzip's host C++ coder: LZ4 has no Pallas
 kernel), and the rle codec's (csrc/rle.cu, both directions); and, on data
 that lives on the card, compress_from_device and decompress(to_device=True)
 of every codec (tpuzip's device lz4 encoder, csrc/lz4_dense.cu, and
-rle.cu's segment mode), and the TPZC corpus API.  tpuzip's v1 decoder
+rle.cu's segment mode), and the TPZC corpus API; lz4 at max_chain > 1
+(tpuzip's chained encoder, csrc/lz4_chain.cu) and the lz4p codec
+(csrc/lz4p.cu, both directions).  tpuzip's v1 decoder
 (frequency state, ``ari_decode_indexed(algo="dot")``, the wrapper
 ari_decode_dot_indexed)
 runs on no container path; on the card it launches ari_decode.cu, and
@@ -85,6 +87,16 @@ Phases, one JSON line each:
             and the 64 KiB rle rows (runs of 255k + {0..3}: 256, 257, 511,
             512, 513 across the thread, warp and tile ends), also against
             this script's model of the form, every row decoded back.
+            And tpuzip's chained lz4 encoder (csrc/lz4_chain.cu, both
+            launches) at hash_log 4, 12, 16 and 24 and max_chain 2, 8 and
+            64 on those rows with zero, b"ab" and random rows added, on
+            the 128 KiB far rows at 12 and 16 and in a pool at 24, both
+            table routes asserted, every stream decoded back; lz4p.cu's
+            pack under both rules (runs split or refused) on those rows,
+            a 64 KiB row where no 4 bytes repeat (65,535 + 1 literals;
+            refused under the XLA rule) and a 256 KiB zero row, and its
+            decoder on every packed row and 64 garbage streams, status
+            and bytes.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -165,6 +177,21 @@ Phases, one JSON line each:
             1 MiB blocks through compress_corpus on 64 and 256 MiB, its peak
             device memory growing by less than 10% (phase 8's one call
             beside it).
+15. lz4_chain  the 64 MiB corpus through compress(config with
+            max_chain 8) and decompress: the bytes round-trip; both
+            lz4_chain.cu launches, not lz4_encode.cu; a payload smaller
+            than phase 11's; each launch held, exact, against its plain
+            version on the path's first 8 rows cut to 4096 bytes (the
+            links also on the path's own output there, a causal prefix);
+            MB/s, ratio, peak memory.
+16. lz4p    the 64 MiB corpus through compress(codec="lz4p") and
+            decompress (lz4_encode.cu, lz4p.cu's pack with runs split, its
+            decode), and the serving tensor through compress_from_device
+            and decompress(to_device=True) (lz4_dense.cu, the pack
+            unsplit): the bytes round-trip; each path's lz4p.cu launches
+            held, exact, against their plain versions on 8 whole rows of
+            the path's own tensors; MB/s, ratio, peak memory, and traces of
+            both paths taken in a fresh process.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the dot route must have none on a container path.  The
@@ -199,9 +226,9 @@ from tpuzip_torch.codecs import bin_apm, bwt, dc
 from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.dist import runner
-from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, lz4_coder,
-                                  lz4_dense, mtf_scan, range_coder,
-                                  range_decoder, rle_coder)
+from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, lz4_chain,
+                                  lz4_coder, lz4_dense, lz4p_coder, mtf_scan,
+                                  range_coder, range_decoder, rle_coder)
 from tpuzip_torch.oracle import ari as oari
 from tpuzip_torch.oracle import bwt as obwt
 from tpuzip_torch.oracle import dc as odc
@@ -226,6 +253,10 @@ HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
 # tpuzip's device lz4 encoder takes any hash_log: both table routes of
 # csrc/lz4_dense.cu (direct up to 12 bits, keyed past), and h = 0 at 0, 40
 DENSE_HASH_LOGS = (0, 4, 12, 15, 20, 32, 40)
+CHAIN_DEPTHS = (2, 8, 64)         # max_chain of lz4_chain.cu's checks
+CHAIN_HASH_LOGS = (4, 12, 16, 24)
+CHAIN_PATH_DEPTH = 8              # max_chain of the lz4_chain path
+CHAIN_PLAIN_BYTES = 4096          # bytes a row of that path's plain check
 SERVE_TAIL = 64536        # the serving tensor's last row: its length
 CODECS = ("lz4", "rle", "ari", "bwt", "bwtdc", "bin", "apm")
 
@@ -352,7 +383,8 @@ def mixed_blocks(b: int, n: int, seed: int):
 
 
 SOURCES = ("ari_encode", "ari_decode", "mtf", "dc_decode", "bin_encode",
-           "bin_decode", "lz4_encode", "lz4_decode", "rle", "lz4_dense")
+           "bin_decode", "lz4_encode", "lz4_decode", "rle", "lz4_dense",
+           "lz4_chain", "lz4p")
 
 
 def ptxas_report(procs) -> dict:
@@ -403,6 +435,10 @@ def phase_build() -> None:
     rle_coder._lib("rle_decode")
     lz4_dense._lib("candidates")
     lz4_dense._lib("parse")
+    lz4_chain._lib("links")
+    lz4_chain._lib("parse")
+    lz4p_coder._lib("pack")
+    lz4p_coder._lib("decode")
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in secs.items()}, ptxas=ptxas)
 
@@ -866,6 +902,9 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
     res["dense"], dense_errs = dense_kernel_check(x, xl, n)
     res["rle_segments"] = rle_segments_check(x, xl)
     errs.update(dense_errs, rle_encode_seg=res["rle_segments"]["max_abs_err"])
+    res["chain"], chain_errs = chain_kernel_check(x, xl, n)
+    res["lz4p"], lz4p_errs = lz4p_kernel_check(x, xl, n)
+    errs.update(chain_errs, **lz4p_errs)
     emit("kernels", kernel="lz4_rle", rows=b, bytes=n,
          short_rows=int((rlens_np < 13).sum()), **res)
     if errs["lz4_encode"] or errs["rle_encode"]:
@@ -1002,6 +1041,247 @@ def rle_segments_check(x, xl) -> dict:
                                  f"{res[name]}")
     res["max_abs_err"] = err
     return res
+
+
+def chain_route(rows: torch.Tensor, hash_log: int) -> str:
+    """Where csrc/lz4_chain.cu keeps its links tables for rows at hash_log:
+    one a "row", or a "pool" of fewer."""
+    b, n = rows.shape
+    return "pool" if lz4_chain.table_count(b, hash_log, n) < b else "row"
+
+
+def chain_check(rows, lens, hash_log: int, depths) -> dict:
+    """Both launches of csrc/lz4_chain.cu on rows at hash_log against their
+    plain versions (the links, then the parse on the plain links at each
+    max_chain of depths), exact, and the streams decoded back by
+    lz4_decode."""
+    prev = lz4_chain.lz4_chain_links(rows, lens, hash_log)
+    pref, links_plain_ms = timed(
+        lambda: lz4_chain.lz4_chain_links_plain(rows, lens, hash_log))
+    err = {"lz4_chain_links": max_err(prev, pref), "lz4_chain_parse": 0}
+    keep = torch.arange(rows.shape[1], device="cuda")[None, :] < lens[:, None]
+    rec = {"rows": list(rows.shape), "route": chain_route(rows, hash_log),
+           "links_ms": cuda_ms(lambda: lz4_chain.lz4_chain_links(
+               rows, lens, hash_log), 3), "links_plain_ms": links_plain_ms}
+    for mc in depths:
+        got = lz4_chain.lz4_chain_parse(rows, lens, prev, mc)
+        ref, plain_ms = timed(
+            lambda: lz4_chain.lz4_chain_parse_plain(rows, lens, pref, mc))
+        e = max(max_err(a, c) for a, c in zip(got, ref))
+        out, status = lz4_coder.lz4_decode_batch(*got, rows.shape[1])
+        back = (torch.equal(status, lens.to(torch.int64))
+                and torch.equal(out, torch.where(keep, rows, 0)))
+        rec[f"max_chain_{mc}"] = {
+            "max_abs_err": e, "round_trip": back,
+            "stream_bytes": int(got[1].sum()), "plain_ms": plain_ms,
+            "ms": cuda_ms(lambda: lz4_chain.lz4_chain_parse(
+                rows, lens, prev, mc), 3), "comp": got}
+        err["lz4_chain_parse"] = max(err["lz4_chain_parse"], e)
+        if not back:
+            raise AssertionError(f"lz4_chain streams at hash_log {hash_log}, "
+                                 f"max_chain {mc} did not decode back")
+    rec["max_abs_err"] = err
+    return rec
+
+
+def chain_kernel_check(x, xl, n: int):
+    """csrc/lz4_chain.cu (tpuzip's chained lz4 encoder) against its plain
+    versions: on the mixed rows (constant, random and small-alphabet rows,
+    runs, periods 2 to 31, rows of 0 to 12 bytes) with an all-zero row, a
+    b"ab" row and random rows added (the stop at length - 5 on the first
+    link, the lazy step on every match, every position probed), at
+    hash_log 4, 12, 16 and 24 and max_chain 2, 8 and 64; on far_rows()
+    (128 KiB, repeats 65,533 to 70,000 back) at 12 and 16, max_chain 8,
+    the offsets up to 65,535 taken and the others refused; and in a pool
+    (POOL_BYTES cut to 4 tables) at 24.  Both table routes must be
+    reached.  Returns (the results, each launch's max_abs_err)."""
+    rng = np.random.default_rng(SEED + 12)
+    extra = np.stack([np.zeros(n), np.resize([97, 98], n),
+                      rng.integers(0, 256, n), rng.integers(0, 256, n)])
+    rows = torch.cat([x, torch.from_numpy(extra.astype(np.uint8)).cuda()])
+    lens = torch.cat([xl, torch.full((4,), n, dtype=torch.int32,
+                                     device="cuda")])
+    res = {}
+    for hl in CHAIN_HASH_LOGS:
+        res[f"hash_log_{hl}"] = chain_check(rows, lens, hl, CHAIN_DEPTHS)
+    far, flens = (torch.from_numpy(a).cuda() for a in far_rows(SEED + 9))
+    for hl in (12, 16):
+        rec = chain_check(far, flens, hl, (CHAIN_PATH_DEPTH,))
+        comp, clens = rec[f"max_chain_{CHAIN_PATH_DEPTH}"]["comp"]
+        offs = [max(lz4_offsets(comp[r, : int(clens[r])].cpu().numpy()
+                                .tobytes()), default=0)
+                for r in range(len(FAR_GAPS))]
+        rec["max_offset"] = offs
+        if offs[:3] != [65533, 65534, 65535] or max(offs[3:]) >= 65533:
+            raise AssertionError(f"lz4_chain at hash_log {hl}: repeats near "
+                                 f"the offset bound taken or refused wrong: "
+                                 f"{offs}")
+        res[f"far_hash_log_{hl}"] = rec
+    pool = lz4_chain.POOL_BYTES
+    try:
+        lz4_chain.POOL_BYTES = 4 * (lz4_dense.KEY_SLOT
+                                    << lz4_chain.slots_log(24, n))
+        res["pool_hash_log_24"] = chain_check(rows, lens, 24, (8,))
+    finally:
+        lz4_chain.POOL_BYTES = pool
+    errs = {"lz4_chain_links": 0, "lz4_chain_parse": 0}
+    routes = set()
+    for rec in res.values():
+        routes.add(rec["route"])
+        for k, e in rec["max_abs_err"].items():
+            errs[k] = max(errs[k], e)
+        for v in rec.values():
+            if isinstance(v, dict):
+                v.pop("comp", None)
+    res["routes"] = sorted(routes)
+    if routes != {"row", "pool"} or any(errs.values()):
+        raise AssertionError(f"lz4_chain disagrees with its plain version, "
+                             f"or a table route was not reached: {res}")
+    return res, errs
+
+
+def unrepeated_row(n: int, seed: int) -> np.ndarray:
+    """n random bytes in which no 4 bytes repeat (no LZ4 match at all): the
+    first such row of seeds from `seed` on."""
+    while True:
+        row = np.random.default_rng(seed).integers(0, 256, n, np.uint8)
+        words = row[:-3].astype(np.uint32) | (row[1:-2].astype(np.uint32)
+                                              << 8) | (
+            row[2:-1].astype(np.uint32) << 16) | (row[3:].astype(np.uint32)
+                                                  << 24)
+        if len(np.unique(words)) == len(words):
+            return row
+        seed += 1
+
+
+def lz4p_garbage(seed: int) -> list:
+    """64 lz4p streams of up to 6 sequences of random lengths and offsets
+    (at most 354 bytes of output): a quarter as made, a quarter with one
+    bit flipped, a quarter cut short, a quarter with bytes after the
+    literals (which a decoder accepts)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(64):
+        nseq = int(rng.integers(0, 7))
+        ll = rng.integers(0, 20, nseq)
+        ml = np.where(rng.random(nseq) < 0.7, rng.integers(4, 40, nseq), 0)
+        offs, o = np.zeros(nseq, np.int64), 0
+        for t in range(nseq):
+            o += int(ll[t])
+            offs[t] = int(rng.integers(1, o + 1)) if ml[t] and o else 0
+            ml[t] = ml[t] if offs[t] else 0
+            o += int(ml[t])
+        g = bytearray(struct.pack("<II", nseq, o)
+                      + b"".join(c.astype("<u2").tobytes()
+                                 for c in (ll, ml, offs))
+                      + rng.integers(0, 256, int(ll.sum()),
+                                     np.uint8).tobytes())
+        if k % 4 == 1:
+            g[int(rng.integers(0, len(g)))] ^= 1 << int(rng.integers(0, 8))
+        elif k % 4 == 2:
+            g = g[: int(rng.integers(0, len(g)))]
+        elif k % 4 == 3:
+            g += rng.integers(0, 256, int(rng.integers(1, 20)),
+                              np.uint8).tobytes()
+        out.append(bytes(g))
+    return out
+
+
+def lz4p_check(name: str, comp, clens, n: int, split: bool) -> dict:
+    """lz4p.cu's pack of LZ4 streams of blocks of n bytes, then its decode
+    of the packed rows, each against its plain version, exact; the rows
+    decoded back to the LZ4 streams' own decode."""
+    got = lz4p_coder.lz4p_pack(comp, clens, n, split)
+    ref, pack_plain_ms = timed(
+        lambda: lz4p_coder.lz4p_pack_plain(comp, clens, n, split))
+    rec = {"rows": list(comp.shape), "split": split,
+           "olens": got[1].tolist()[:4],
+           "pack_max_abs_err": max(max_err(a, c) for a, c in zip(got, ref)),
+           "pack_ms": cuda_ms(lambda: lz4p_coder.lz4p_pack(
+               comp, clens, n, split), 3), "pack_plain_ms": pack_plain_ms}
+    ok = got[1] >= 0
+    dec = lz4p_coder.lz4p_decode_batch(got[0], got[1].clamp(min=0), n)
+    dref, dec_plain_ms = timed(lambda: lz4p_coder.lz4p_decode_batch_plain(
+        got[0], got[1].clamp(min=0), n))
+    want, wstatus = lz4_coder.lz4_decode_batch(comp, clens, n)
+    back = (torch.equal(dec[1][ok], wstatus[ok])
+            and torch.equal(dec[0][ok], want[ok]))
+    rec.update(decode_max_abs_err=max(max_err(a, c)
+                                      for a, c in zip(dec, dref)),
+               decode_ms=cuda_ms(lambda: lz4p_coder.lz4p_decode_batch(
+                   got[0], got[1].clamp(min=0), n), 3),
+               decode_plain_ms=dec_plain_ms, round_trip=back)
+    if not back:
+        raise AssertionError(f"lz4p {name}: rows did not decode back")
+    return rec
+
+
+def lz4p_kernel_check(x, xl, n: int):
+    """csrc/lz4p.cu against its plain versions, exact: the pack under the
+    C++ rule (split) on lz4_encode.cu's streams of the mixed rows at
+    hash_log 16, of a 64 KiB row where no 4 bytes repeat (65,535 + 1
+    literals) and of a 256 KiB zero row (its match in pieces of 65,535);
+    under the XLA rule (unsplit) on lz4_dense.cu's streams at 15 of the
+    mixed rows and of the 64 KiB row, which it refuses (length -1, fault
+    7); the pack also on lz4_garbage()'s 64 streams no encoder writes
+    (literals past the stream, columns past the row: length -1 both ways);
+    the decoder on every packed row (each decoded back to the LZ4
+    stream's bytes) and on lz4p_garbage(), status and bytes equal to the
+    plain version's.  Returns (the results, each launch's
+    max_abs_err)."""
+    big = torch.from_numpy(unrepeated_row(1 << 16, SEED + 13)[None]).cuda()
+    blen = torch.full((1,), 1 << 16, dtype=torch.int32, device="cuda")
+    zero = torch.zeros((1, 1 << 18), dtype=torch.uint8, device="cuda")
+    zlen = torch.full((1,), 1 << 18, dtype=torch.int32, device="cuda")
+    res = {
+        "cpp_mixed": lz4p_check("cpp_mixed", *lz4_coder.lz4_encode_batch(
+            x, xl, 16), n, True),
+        "xla_mixed": lz4p_check("xla_mixed", *lz4_dense.lz4_dense_encode_batch(
+            x, xl, lz4_dense.HASH_LOG), n, False),
+        "cpp_64KiB_unrepeated": lz4p_check(
+            "cpp_64KiB", *lz4_coder.lz4_encode_batch(big, blen), 1 << 16,
+            True),
+        "xla_64KiB_unrepeated": lz4p_check(
+            "xla_64KiB", *lz4_dense.lz4_dense_encode_batch(
+                big, blen, lz4_dense.HASH_LOG), 1 << 16, False),
+        "cpp_256KiB_zero": lz4p_check(
+            "cpp_zero", *lz4_coder.lz4_encode_batch(zero, zlen), 1 << 18,
+            True)}
+    if res["cpp_64KiB_unrepeated"]["olens"] != [65556] or \
+            res["xla_64KiB_unrepeated"]["olens"] != [-1]:
+        raise AssertionError(f"lz4p pack of the 64 KiB row: {res}")
+    bad, blens = padded(lz4_garbage(2200, SEED + 15), 2200)
+    res["lz4_garbage"] = {"rows": int(bad.shape[0])}
+    for split in (True, False):
+        got = lz4p_coder.lz4p_pack(bad, blens, 2048, split)
+        ref = lz4p_coder.lz4p_pack_plain(bad, blens, 2048, split)
+        res["lz4_garbage"][f"split_{split}"] = {
+            "pack_max_abs_err": max(max_err(a, c) for a, c in zip(got, ref)),
+            "refused": int((got[1] < 0).sum())}
+    res["lz4_garbage"]["pack_max_abs_err"] = max(
+        r["pack_max_abs_err"] for k, r in res["lz4_garbage"].items()
+        if k.startswith("split"))
+    garbage = lz4p_garbage(SEED + 14)
+    g, glens = padded(garbage, max(map(len, garbage)))
+    got = lz4p_coder.lz4p_decode_batch(g, glens, 512)
+    ref = lz4p_coder.lz4p_decode_batch_plain(g, glens, 512)
+    status = got[1].tolist()
+    res["garbage"] = {"rows": len(garbage),
+                      "max_abs_err": max(max_err(a, c)
+                                         for a, c in zip(got, ref)),
+                      "valid": sum(st > 0 for st in status),
+                      "refused": status.count(-1)}
+    errs = {"lz4p_pack": max(r["pack_max_abs_err"] for r in res.values()
+                             if "pack_max_abs_err" in r),
+            "lz4p_decode": max(max(r["decode_max_abs_err"]
+                                   for r in res.values()
+                                   if "decode_max_abs_err" in r),
+                               res["garbage"]["max_abs_err"])}
+    if any(errs.values()) or not res["garbage"]["valid"] or \
+            not res["garbage"]["refused"]:
+        raise AssertionError(f"lz4p disagrees with its plain version, or the "
+                             f"garbage rows missed a status: {res}")
+    return res, errs
 
 
 def lz4_route(x: torch.Tensor, hash_log: int) -> str:
@@ -1464,6 +1744,10 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "lz4_dense_candidates": (lz4_dense, "lz4_dense_candidates"),
             "lz4_dense_parse": (lz4_dense, "lz4_dense_parse"),
             "rle_encode_seg": (rle_coder, "rle_encode_segments_batch"),
+            "lz4_chain_links": (lz4_chain, "lz4_chain_links"),
+            "lz4_chain_parse": (lz4_chain, "lz4_chain_parse"),
+            "lz4p_pack": (lz4p_coder, "lz4p_pack"),
+            "lz4p_decode": (lz4p_coder, "lz4p_decode_batch"),
             # the same two kernels in their modes without the chunk index
             "ari_decode_unindexed": (range_decoder, "decode_batch"),
             "bin_decode_unindexed": (bin_apm, "decode_batch")}
@@ -1481,7 +1765,11 @@ PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (rle_coder, "rle_decode_batch_plain"),
           (lz4_dense, "lz4_dense_candidates_plain"),
           (lz4_dense, "lz4_dense_parse_plain"),
-          (rle_coder, "rle_encode_segments_batch_plain"))
+          (rle_coder, "rle_encode_segments_batch_plain"),
+          (lz4_chain, "lz4_chain_links_plain"),
+          (lz4_chain, "lz4_chain_parse_plain"),
+          (lz4p_coder, "lz4p_pack_plain"),
+          (lz4p_coder, "lz4p_decode_batch_plain"))
 
 
 @contextlib.contextmanager
@@ -2332,7 +2620,11 @@ SERVE_KERNELS = {
     "lz4_dense_parse": (lz4_dense, "lz4_dense_parse",
                         "lz4_dense_parse_plain"),
     "rle_encode_seg": (rle_coder, "rle_encode_segments_batch",
-                       "rle_encode_segments_batch_plain")}
+                       "rle_encode_segments_batch_plain"),
+    # and the lz4p path's (phase 16), in compress and in serving
+    "lz4p_pack": (lz4p_coder, "lz4p_pack", "lz4p_pack_plain"),
+    "lz4p_decode": (lz4p_coder, "lz4p_decode_batch",
+                    "lz4p_decode_batch_plain")}
 
 
 def serving_tensor():
@@ -2352,8 +2644,15 @@ def serving_tensor():
 def serve_bound(name: str, args, out) -> dict:
     """bound() of one launch of a serving kernel at its own inputs: the
     valid bytes and the lengths read, and cand (the candidates write it,
-    the parse reads it), the streams and their lengths written."""
+    the parse reads it), the streams and their lengths written; lz4p's
+    pack reads LZ4 streams and writes lz4p rows, its decode reads those
+    and writes every byte of its rows and the statuses."""
     rows, lens = args[:2]
+    if name == "lz4p_decode":
+        return lz_bound("decode", args, out)
+    if name == "lz4p_pack":
+        return bound(int(lens.sum()) + 4 * lens.numel()
+                     + int(out[1].clamp(min=0).sum()) + 4 * out[1].numel())
     nbytes = int(lens.sum()) + 4 * lens.numel()
     if name == "lz4_dense_candidates":
         return bound(nbytes + 4 * out.numel())
@@ -2575,6 +2874,169 @@ def phase_corpus(smi: str, lz4_payload: int, dc_peak: int):
     return counts
 
 
+def chain_against_plain(calls) -> dict:
+    """The lz4_chain path's launches held, exact, against their plain
+    versions on its first 8 rows cut to CHAIN_PLAIN_BYTES (the plain parse
+    takes a Python step a sequence): each kernel on the cut equal to the
+    plain version, and the path's own links on the cut's causal prefix
+    (below length - 12 a link depends on no later byte) too.  Times of
+    each kernel at the path's shape and on the cut, of the plain version
+    on the cut; the bound at the path's shape."""
+    for name in ("lz4_chain_links", "lz4_chain_parse"):
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} launches on "
+                                 "the path, expected 1")
+    (largs, lkw, prev), = calls["lz4_chain_links"]
+    (pargs, pkw, (comp, clens)), = calls["lz4_chain_parse"]
+    blocks, lens, hash_log = largs[0], largs[1], largs[2]
+    max_chain = pargs[3]
+    cut = blocks[:8, :CHAIN_PLAIN_BYTES].contiguous()
+    clen = lens[:8].clamp(max=CHAIN_PLAIN_BYTES).contiguous()
+    pref, links_plain_ms = timed(
+        lambda: lz4_chain.lz4_chain_links_plain(cut, clen, hash_log))
+    got = lz4_chain.lz4_chain_links(cut, clen, hash_log)
+    causal = CHAIN_PLAIN_BYTES - lz4_coder.MF_LIMIT
+    links_err = max(max_err(got, pref),
+                    max_err(prev[:8, :causal], pref[:, :causal]))
+    ref, parse_plain_ms = timed(lambda: lz4_chain.lz4_chain_parse_plain(
+        cut, clen, pref, max_chain))
+    parse_err = max(max_err(a, c) for a, c in zip(
+        lz4_chain.lz4_chain_parse(cut, clen, pref, max_chain), ref))
+    if links_err or parse_err:
+        raise AssertionError(f"lz4_chain disagrees with its plain version "
+                             f"on the path's inputs: {links_err} {parse_err}")
+    valid = int(lens.sum()) + 4 * lens.numel()
+    plain = {"plain_inputs": list(cut.shape), "plain_rows": list(range(8))}
+    return {
+        "lz4_chain_links": {
+            "inputs": [list(blocks.shape), list(lens.shape)],
+            "max_abs_err": links_err, **plain, "hash_log": hash_log,
+            "ms": cuda_ms(lambda: lz4_chain.lz4_chain_links(*largs, **lkw),
+                          3),
+            "ms_at_plain_inputs": cuda_ms(
+                lambda: lz4_chain.lz4_chain_links(cut, clen, hash_log), 3),
+            "plain_ms": links_plain_ms, **bound(valid + 4 * prev.numel())},
+        "lz4_chain_parse": {
+            "inputs": [list(blocks.shape), list(lens.shape),
+                       list(prev.shape)],
+            "max_abs_err": parse_err, **plain, "max_chain": max_chain,
+            "ms": cuda_ms(lambda: lz4_chain.lz4_chain_parse(*pargs, **pkw),
+                          3),
+            "ms_at_plain_inputs": cuda_ms(
+                lambda: lz4_chain.lz4_chain_parse(cut, clen, pref,
+                                                  max_chain), 3),
+            "plain_ms": parse_plain_ms,
+            **bound(valid + 4 * prev.numel() + int(clens.sum())
+                    + 4 * clens.numel())}}
+
+
+def phase_lz4_chain(smi: str, lz4_payload: int):
+    """Phase 15: lz4 at max_chain CHAIN_PATH_DEPTH (tpuzip's chained
+    encoder): compress of the 64 MiB corpus at 64 KiB blocks, then
+    decompress (lz4_decode.cu reads any LZ4).  The bytes round-trip; both
+    lz4_chain.cu launches and lz4_decode.cu run, lz4_encode.cu does not;
+    the payload is smaller than phase 11's; each launch held against its
+    plain version on the path's first rows cut to CHAIN_PLAIN_BYTES."""
+    data = text_corpus(CORPUS_BYTES, SEED)
+    cfg = Config()
+    cfg.codec.lz4.max_chain = CHAIN_PATH_DEPTH
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK],
+                                                  config=cfg))
+    blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+        data, config=cfg)
+    need(counts, {"lz4_chain_links": 1, "lz4_chain_parse": 1,
+                  "lz4_decode": 1}, "lz4_chain")
+    if counts["lz4_encode"] or blob[4:6] != bytes([1, 0]):
+        raise AssertionError(f"lz4_chain: codec id {blob[4]}, flags "
+                             f"{blob[5]}, launches {counts}")
+    payload = sum(map(len, lz_streams(blob)))
+    if payload >= lz4_payload:
+        raise AssertionError(f"max_chain {CHAIN_PATH_DEPTH} wrote {payload} "
+                             f"bytes, the single probe {lz4_payload}")
+    kernels = chain_against_plain(calls)
+    calls.clear()
+    emit("lz4_chain", corpus_bytes=len(data), block_size=BLOCK,
+         max_chain=CHAIN_PATH_DEPTH, container_bytes=len(blob),
+         ratio=len(blob) / len(data), payload_bytes=payload,
+         payload_over_lz4=payload / lz4_payload, launches=counts,
+         encode_mb_s=len(data) / 1e6 / t_enc,
+         decode_mb_s=len(data) / 1e6 / t_dec,
+         encode_kernel_mb_s=len(data) / 1e3 / (
+             kernels["lz4_chain_links"]["ms"]
+             + kernels["lz4_chain_parse"]["ms"]),
+         peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
+         kernels=kernels, card=smi)
+    return counts, kernels
+
+
+def phase_lz4p(smi: str):
+    """Phase 16: the lz4p codec.  compress(codec="lz4p") and decompress of
+    the 64 MiB corpus (tpuzip's C++ rule: lz4_encode.cu, then lz4p.cu's
+    pack with runs split; lz4p.cu's decode), and compress_from_device and
+    decompress(to_device=True) of the serving tensor (the XLA rule:
+    lz4_dense.cu at hash_log 15, the pack unsplit).  The bytes round-trip
+    both ways; each path's launches of lz4p.cu held against the plain
+    versions on 8 whole rows of its own tensors; MB/s, ratio, peak memory
+    and a device trace of each direction of both paths, taken in a fresh
+    process."""
+    data = text_corpus(CORPUS_BYTES, SEED)
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK],
+                                                  codec="lz4p"))
+    blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+        data, codec="lz4p")
+    need(counts, {"lz4_encode": 1, "lz4p_pack": 1, "lz4p_decode": 1}, "lz4p")
+    if blob[4:6] != bytes([7, 0]) or counts["lz4_decode"]:
+        raise AssertionError(f"lz4p: codec id {blob[4]}, flags {blob[5]}, "
+                             f"launches {counts}")
+    nb = len(data) // BLOCK
+    rows = sorted({0, 1, 2, nb // 3, nb // 2, 2 * nb // 3, nb - 2, nb - 1})
+    kernels = {name: rows_against_plain(name, calls, rows)
+               for name in ("lz4p_pack", "lz4p_decode")}
+    calls.clear()
+    x, lens, sdata = serving_tensor()
+    keep = torch.arange(BLOCK, device="cuda")[None, :] < lens[:, None]
+    tpuzip_torch.decompress(tpuzip_torch.compress_from_device(
+        x[:2].contiguous(), lens[:2], codec="lz4p"), to_device=True)
+    with counted_run() as (calls, serve_counts):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sblob = tpuzip_torch.compress_from_device(x, lens, codec="lz4p")
+        torch.cuda.synchronize()
+        s_enc = time.perf_counter() - t0
+        speak_enc = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, olens, orig = tpuzip_torch.decompress(sblob, to_device=True)
+        torch.cuda.synchronize()
+        s_dec = time.perf_counter() - t0
+        speak_dec = torch.cuda.max_memory_allocated()
+    need(serve_counts, {"lz4_dense_candidates": 1, "lz4_dense_parse": 1,
+                        "lz4p_pack": 1, "lz4p_decode": 1}, "lz4p serving")
+    if not (torch.equal(torch.where(keep, out, 0), torch.where(keep, x, 0))
+            and list(olens) == lens.tolist() and orig == len(sdata)
+            and tpuzip_torch.decompress(sblob) == sdata):
+        raise AssertionError("lz4p serving did not round-trip")
+    serve_kernels = {name: rows_against_plain(name, calls, rows)
+                     for name in ("lz4p_pack", "lz4p_decode")}
+    calls.clear()
+    emit("lz4p", corpus_bytes=len(data), block_size=BLOCK, blocks=nb,
+         container_bytes=len(blob), ratio=len(blob) / len(data),
+         launches=counts, encode_mb_s=len(data) / 1e6 / t_enc,
+         decode_mb_s=len(data) / 1e6 / t_dec,
+         peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
+         kernels=kernels, serving={
+             "container_bytes": len(sblob), "ratio": len(sblob) / len(sdata),
+             "launches": serve_counts,
+             "encode_mb_s": len(sdata) / 1e6 / s_enc,
+             "decode_mb_s": len(sdata) / 1e6 / s_dec,
+             "peak_device_bytes": {"encode": speak_enc,
+                                   "decode": speak_dec},
+             "kernels": serve_kernels},
+         trace={"compress": trace_in_child("lz4p"),
+                "serving": trace_in_child("serve_lz4p")}, card=smi)
+    return counts, serve_counts, kernels, serve_kernels
+
+
 TRACED = {"bwtdc": (("ari_encode_kernel",),
                     ("ari_decode_kernel", "dc_decode_kernel")),
           "apm": (("bin_encode_kernel",), ("bin_decode_kernel",)),
@@ -2582,7 +3044,12 @@ TRACED = {"bwtdc": (("ari_encode_kernel",),
           "rle": (("rle_encode_kernel",), ("rle_decode_kernel",)),
           "serve_lz4": (("lz4_dense_candidates_kernel",
                          "lz4_dense_parse_kernel"), ("lz4_decode_kernel",)),
-          "serve_rle": (("rle_encode_kernel",), ("rle_decode_kernel",))}
+          "serve_rle": (("rle_encode_kernel",), ("rle_decode_kernel",)),
+          "lz4p": (("lz4_encode_kernel", "lz4p_pack_kernel"),
+                   ("lz4p_decode_kernel",)),
+          "serve_lz4p": (("lz4_dense_candidates_kernel",
+                          "lz4_dense_parse_kernel", "lz4p_pack_kernel"),
+                         ("lz4p_decode_kernel",))}
 
 
 def trace_in_child(codec: str) -> dict:
@@ -2600,7 +3067,7 @@ def trace_in_child(codec: str) -> dict:
 
 
 def trace_child(codec: str) -> int:
-    if codec == "serve":
+    if codec.startswith("serve"):
         return trace_serving(codec)
     data = text_corpus(CORPUS_BYTES, SEED)
     block = BWT_BLOCK if codec == "bwtdc" else BLOCK
@@ -2617,15 +3084,15 @@ def trace_child(codec: str) -> int:
 
 def trace_serving(path: str) -> int:
     """--trace serve: traced() of one compress_from_device and one
-    decompress(to_device=True) of the serving tensor through lz4 and
-    rle."""
+    decompress(to_device=True) of the serving tensor through lz4 and rle;
+    --trace serve_CODEC: through CODEC alone."""
     x, lens, _ = serving_tensor()
     out = {}
-    for codec in ("lz4", "rle"):
+    for codec in ("lz4", "rle") if path == "serve" else (path[6:],):
         tpuzip_torch.decompress(tpuzip_torch.compress_from_device(
             x[:2].contiguous(), lens[:2], codec=codec), to_device=True)
         blob = tpuzip_torch.compress_from_device(x, lens, codec=codec)
-        enc, dec = TRACED[f"{path}_{codec}"]
+        enc, dec = TRACED[f"serve_{codec}"]
         out[codec] = {
             "encode": traced(lambda: tpuzip_torch.compress_from_device(
                 x, lens, codec=codec), enc),
@@ -2731,6 +3198,9 @@ AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle"}   # else the name
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
 AB_REDESIGNED = ()
+# sources whose SASS --ab compares and does not time (no launch of theirs
+# is recorded for it)
+AB_SASS_ONLY = ("lz4_dense",)
 
 
 def ab_entry(lib, kernel: str):
@@ -2970,8 +3440,9 @@ def ab_child(dirs: list) -> int:
     mix.  Beside them: ari_decode's no-index mode at the ari shape; one
     row alone against all the rows at the bwt, bwtdc, bin, apm, lz4 and
     rle shapes, for every build; and whether the SASS of each kernel that
-    this checkout does not redesign (all but AB_REDESIGNED) equals the
-    DIR's build of it: the functions that carry the kernel's name (all of
+    this checkout does not redesign (all but AB_REDESIGNED), and of each
+    source of AB_SASS_ONLY (csrc/lz4_dense.cu), equals the DIR's build of
+    it: the functions that carry the kernel's name (all of
     the source where none does, as in mtf.cu), so that rle_decode is held
     apart from rle_encode in rle.cu.  One JSON line a kernel and shape,
     then one line of the whole; exits 1 if any outputs differed."""
@@ -2980,9 +3451,9 @@ def ab_child(dirs: list) -> int:
     smi = nvidia_smi()
     nvcc = _build.find_nvcc()
     jobs = {}
-    for kernel in AB_KERNELS + ("ari_decode_dot",):
+    for kernel in AB_KERNELS + AB_SASS_ONLY + ("ari_decode_dot",):
         src = AB_SOURCE.get(kernel, kernel)
-        if kernel in AB_KERNELS:
+        if kernel != "ari_decode_dot":
             jobs[f"new:{kernel}"] = _build.CSRC / f"{src}.cu"
         for i, d in enumerate(dirs):
             if os.path.exists(f"{d}/{src}.cu"):
@@ -3025,7 +3496,7 @@ def ab_child(dirs: list) -> int:
         res["sass_unchanged"] = {
             name: kept(sass(name), sass("new:" + name.split(":")[1]))
             for name in jobs if not name.startswith("new")
-            and name.split(":")[1] in AB_KERNELS
+            and name.split(":")[1] in AB_KERNELS + AB_SASS_ONLY
             and name.split(":")[1] not in AB_REDESIGNED}
         libs = {}
         for name in jobs:
@@ -3124,6 +3595,9 @@ def main() -> int:
     rle_launches, rle_kernels, _ = phase_lz(smi, "rle")
     serve_launches, serve_kernels, encode_launches = phase_serving(smi)
     corpus_launches = phase_corpus(smi, lz4_payload, dc_peak)
+    chain_launches, chain_kernels = phase_lz4_chain(smi, lz4_payload)
+    (lz4p_launches, lz4p_serve_launches, lz4p_kernels,
+     lz4p_serve_kernels) = phase_lz4p(smi)
     if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
                                    for m in sys.modules):
         raise AssertionError("the port's path imported jax or tpuzip")
@@ -3133,21 +3607,25 @@ def main() -> int:
                "dot": dot_launches, "legacy": legacy_launches,
                "lz4": lz4_launches, "rle": rle_launches,
                "serving": serve_launches, "device_encode": encode_launches,
-               "corpus": corpus_launches}
+               "corpus": corpus_launches, "lz4_chain": chain_launches,
+               "lz4p": lz4p_launches, "lz4p_serving": lz4p_serve_launches}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
     # the ari path's decode inputs, lz4 and rle at theirs (1024 x 64 KiB),
-    # the dense lz4 and rle segment kernels at the serving path's; the
-    # error over every phase
+    # the dense lz4 and rle segment kernels at the serving path's, the
+    # chained lz4 kernels at the lz4_chain path's, lz4p's at its compress
+    # path's; the error over every phase
     dot_kernels = {"ari_decode_dot": dot_kernel}
     at_shape = {**bwt_kernels, **ari_kernels,
                 "dc_decode": dc_kernels["dc_decode"], **bin_kernels,
-                **dot_kernels, **lz4_kernels, **rle_kernels, **serve_kernels}
+                **dot_kernels, **lz4_kernels, **rle_kernels, **serve_kernels,
+                **chain_kernels, **lz4p_kernels}
     checked = ({k: {"max_abs_err": e} for k, e in small.items()},
                ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels,
                dot_kernels, legacy_kernels, lz4_kernels, rle_kernels,
-               serve_kernels)
+               serve_kernels, chain_kernels, lz4p_kernels,
+               lz4p_serve_kernels)
     print(smi)
     rows = []
     for name, source, replaces in (
@@ -3179,7 +3657,20 @@ def main() -> int:
              "tpuzip/codecs/lz4.py:153 _candidates"),
             ("lz4_dense_parse", "lz4_dense.cu",
              "tpuzip/codecs/lz4.py:179 encode"),
-            ("rle_encode_seg", "rle.cu", "tpuzip/codecs/rle.py:30 encode")):
+            ("rle_encode_seg", "rle.cu", "tpuzip/codecs/rle.py:30 encode"),
+            # tpuzip's chained lz4 encoder (host C++) and its lz4p coder
+            # (host C++ and XLA)
+            ("lz4_chain_links", "lz4_chain.cu",
+             "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained (its "
+             "hash chain)"),
+            ("lz4_chain_parse", "lz4_chain.cu",
+             "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained"),
+            ("lz4p_pack", "lz4p.cu",
+             "csrc/tpuzip_host.cpp:333 tpz_lz4p_encode; "
+             "tpuzip/codecs/lz4p.py:50 encode"),
+            ("lz4p_decode", "lz4p.cu",
+             "csrc/tpuzip_host.cpp:409 tpz_lz4p_decode; "
+             "tpuzip/codecs/lz4p.py:156 decode")):
         k = at_shape[name]
         extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}
         rows.append({

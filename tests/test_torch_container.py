@@ -29,6 +29,19 @@ from tpuzip_torch.kernels import _build
 MESH1 = meshlib.make_mesh(1)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for each test here: the plain versions run
+    thousands of small tensor ops, and beside the other pytest-xdist
+    workers each op's thread pool waits for cores they hold (with 8
+    threads a worker under 6 workers, one case took 219 s against 0.8 s
+    alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _small(samples):
     return [s for s in samples if len(s) <= 4096]
 
@@ -332,12 +345,13 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    """lz4p, deflate and open are not ported yet; the corpus calls and
-    compress_from_device are (tests/test_torch_serving.py)."""
-    calls = [lambda: tpuzip_torch.compress(b"x", codec="lz4p", device="cpu"),
-             lambda: tpuzip_torch.compress(b"x", codec="deflate",
+    """deflate and open are not ported yet and name their ROADMAP.md items;
+    lz4p, the corpus calls and compress_from_device are ported
+    (tests/test_torch_lz4p.py, tests/test_torch_serving.py): lz4p's calls
+    here give tpuzip's bytes."""
+    calls = [lambda: tpuzip_torch.compress(b"x", codec="deflate",
                                            device="cpu"),
-             lambda: tpuzip_torch.compress_corpus(b"x", codec="lz4p",
+             lambda: tpuzip_torch.compress_corpus(b"x", codec="deflate",
                                                   device="cpu"),
              lambda: tpuzip_torch.compress_from_device(
                  np.zeros((1, 8), np.uint8), [8], codec="deflate",
@@ -346,9 +360,15 @@ def test_unported_entry_points_name_the_roadmap():
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    deflate = jrun.compress(b"abc" * 100, codec="deflate", mesh=MESH1)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tpuzip_torch.decompress(deflate, device="cpu")
+    assert tpuzip_torch.compress(b"x", codec="lz4p", device="cpu") == \
+        jrun.compress(b"x", codec="lz4p", block_size=1 << 16, mesh=MESH1)
+    assert tpuzip_torch.compress_corpus(b"x", codec="lz4p", device="cpu") \
+        == jrun.compress_corpus(b"x", codec="lz4p", mesh=MESH1)
     lz4p = jrun.compress(b"abc" * 100, codec="lz4p", mesh=MESH1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpuzip_torch.decompress(lz4p, device="cpu")
+    assert tpuzip_torch.decompress(lz4p, device="cpu") == b"abc" * 100
     with pytest.raises(ValueError):
         tpuzip_torch.compress(b"x", codec="zstd", device="cpu")
 

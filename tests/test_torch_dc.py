@@ -22,6 +22,19 @@ from tpuzip_torch.kernels import dc_scan
 N = 2048
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for each test here: the plain versions run
+    thousands of small tensor ops, and beside the other pytest-xdist
+    workers each op's thread pool waits for cores they hold (with 8
+    threads a worker under 6 workers, one case took 219 s against 0.8 s
+    alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cases(rng):
     """Rows of width N: empty, length 1, constant, periodic, random, BWT'd
     text, ragged and small-alphabet."""

@@ -54,11 +54,12 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_round_trips_load_no_tpuzip_module():
-    """In a fresh interpreter, lz4 (the default codec), rle, ari, bwt (flag
-    2 and the segmented flag 8), bwtdc and apm round trips on the CPU,
-    compress_from_device with decompress(to_device=True) (lz4, rle, apm)
-    and the corpus API load neither jax nor any tpuzip module, so the port
-    runs its own code there (never tpuzip's C++ coder)."""
+    """In a fresh interpreter, lz4 (the default codec, and at max_chain
+    8), rle, lz4p, ari, bwt (flag 2 and the segmented flag 8), bwtdc and
+    apm round trips on the CPU, compress_from_device with
+    decompress(to_device=True) (lz4, rle, lz4p, apm) and the corpus API
+    load neither jax nor any tpuzip module, so the port runs its own code
+    there (never tpuzip's C++ coder)."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -67,13 +68,20 @@ def test_round_trips_load_no_tpuzip_module():
         "from tpuzip_torch.dist import runner\n"
         "runner.SEG_THRESHOLD = 512\n"
         "d = b'abracadabra ' * 150\n"
-        "for codec, bs in (('rle', 512), ('ari', 512), ('bwt', 256),\n"
-        "                  ('bwt', 1024), ('bwtdc', 1024), ('apm', 128)):\n"
+        "for codec, bs in (('rle', 512), ('lz4p', 512), ('ari', 512),\n"
+        "                  ('bwt', 256), ('bwt', 1024), ('bwtdc', 1024),\n"
+        "                  ('apm', 128)):\n"
         "    c = tpuzip_torch.compress(d, codec, bs, device='cpu')\n"
         "    assert tpuzip_torch.decompress(c, device='cpu') == d\n"
         "c = tpuzip_torch.compress(d, device='cpu')\n"
         "assert c[4] == 1 and tpuzip_torch.decompress(c, device='cpu') == d\n"
-        "for codec, bs in (('lz4', 512), ('rle', 512), ('apm', 128)):\n"
+        "cfg = tpuzip_torch.Config()\n"
+        "cfg.codec.lz4.max_chain = 8\n"
+        "c8 = tpuzip_torch.compress(d, device='cpu', config=cfg)\n"
+        "assert len(c8) < len(c)\n"
+        "assert tpuzip_torch.decompress(c8, device='cpu') == d\n"
+        "for codec, bs in (('lz4', 512), ('rle', 512), ('lz4p', 512),\n"
+        "                  ('apm', 128)):\n"
         "    b, n = blocks.chunk(d, bs)\n"
         "    c = tpuzip_torch.compress_from_device(b, n, codec,\n"
         "                                          device='cpu')\n"

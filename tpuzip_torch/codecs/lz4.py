@@ -1,10 +1,13 @@
 """LZ4 block codec (codec "lz4"): row capacities and the Lz4Config knobs.
 
-Format: the public LZ4 block spec, bytes equal to tpuzip.oracle.lz4's
-greedy single-probe encoder, which is what tpuzip writes off the TPU (its
-C++ ``tpz_lz4_compress``).  The kernels and their plain versions are in
-kernels/lz4_coder.py; tpuzip's device encoder (compress_from_device, and
-device_encode=True) is kernels/lz4_dense.py.
+Format: the public LZ4 block spec.  At max_chain 1 (the default) the bytes
+equal tpuzip.oracle.lz4's greedy single-probe encoder, which is what tpuzip
+writes off the TPU (its C++ ``tpz_lz4_compress``): kernels/lz4_coder.py
+holds the kernels and their plain versions.  max_chain > 1 writes the
+bytes of tpuzip's chained C++ encoder (``tpz_lz4_compress_chained``), a
+best-of-chain parse with one step of lazy matching: kernels/lz4_chain.py.
+tpuzip's device encoder (compress_from_device, and device_encode=True,
+which wins over max_chain) is kernels/lz4_dense.py.
 """
 
 from __future__ import annotations
@@ -23,13 +26,3 @@ def hash_log(value: int) -> int:
     """The table size the encoder uses: 4..24 as given, else 16, as the C++
     encoder does (tpuzip's container at hash_log 30 is the default one)."""
     return value if 4 <= value <= 24 else HASH_LOG
-
-
-def unported_option(cfg) -> str | None:
-    """The Lz4Config option the port cannot honour yet, or None.
-    max_chain > 1 runs tpuzip's C++ chained encoder, which writes other
-    bytes than the single-probe policy; device_encode=True comes first
-    (tpuzip's XLA encoder, kernels/lz4_dense.py), whatever max_chain says."""
-    if cfg.max_chain > 1 and not cfg.device_encode:
-        return f"lz4 max_chain={cfg.max_chain} (the chained encoder)"
-    return None

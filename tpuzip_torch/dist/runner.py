@@ -1,4 +1,4 @@
-"""The tpz container, lz4, rle, ari, bwt, bwtdc, bin and apm codecs:
+"""The tpz container, lz4, rle, lz4p, ari, bwt, bwtdc, bin and apm codecs:
 compress and decompress on one device, compress_from_device and
 decompress(to_device=True) for data that lives on it, and the TPZC corpus
 container of superbatches (compress_corpus, decompress_corpus).
@@ -12,7 +12,7 @@ same container:
   | [flags&4: <HI> the model knobs when not the codec's defaults:
       (increment, threshold) not (8, 8192), or for bin/apm
       (model_bits, rate) not (12, 5)]
-  | payloads, per block: lz4, rle: [stream] (flag 2 is never set);
+  | payloads, per block: lz4, rle, lz4p: [stream] (flag 2 is never set);
     bin, apm from compress_from_device: [stream] (flag 2 clear);
     the others with flags&2, the chunk index:
       ari:   [u32 idx_len][chunk index][ari stream]
@@ -51,15 +51,16 @@ import torch
 
 from tpuzip_torch.codecs import bin_apm, bwt, dc
 from tpuzip_torch.codecs import lz4 as clz4
+from tpuzip_torch.codecs import lz4p as clz4p
 from tpuzip_torch.codecs import rle as crle
 from tpuzip_torch.codecs.ari import check_knobs, encode_cap
 from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.checksum import adler32_batch
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.device import resolve
-from tpuzip_torch.kernels import (bin_coder, lz4_coder, lz4_dense,
-                                  mtf_scan, range_coder, range_decoder,
-                                  rle_coder)
+from tpuzip_torch.kernels import (bin_coder, lz4_chain, lz4_coder,
+                                  lz4_dense, lz4p_coder, mtf_scan,
+                                  range_coder, range_decoder, rle_coder)
 from tpuzip_torch.kernels.range_decoder import (CHUNK_STEPS,
                                                 pack_chunk_index,
                                                 parse_chunk_index)
@@ -81,10 +82,11 @@ SEG_THRESHOLD = 1 << 20       # bwt blocks above this segment the entropy stage
 PARALLEL_ADLER = 8 << 20      # corpora from here on sum in PARTS threads
 PARTS = 4
 BIN_CODECS = ("bin", "apm")
-LZ_CODECS = ("lz4", "rle")    # one plain stream a block, flag 2 never set
+# one plain stream a block, flag 2 never set
+LZ_CODECS = ("lz4", "rle", "lz4p")
 
 # where ROADMAP.md (queue 1) ports each codec that is not here yet
-_ROADMAP_ITEM = {"lz4p": 12, "deflate": 13}
+_ROADMAP_ITEM = {"deflate": 13}
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -285,18 +287,18 @@ def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
     (1 MiB by default) and config.mesh.block_size otherwise (64 KiB), as
     tpuzip does.  `config.codec.ari` supplies the model knobs, (increment,
     threshold) or for bin/apm (bin_bits, bin_rate); values other than the
-    defaults are recorded in the container (flag bit 2), for lz4 and rle
-    too, which do not use them (tpuzip's rule).  `config.codec.lz4`'s
-    hash_log sizes the lz4 encoder's table; its device_encode=True runs
-    tpuzip's device encoder (kernels/lz4_dense.py) at that hash_log, as it
-    is.  block_checksums=True adds an Adler-32 per block (flag bit 0)."""
+    defaults are recorded in the container (flag bit 2), for lz4, rle and
+    lz4p too, which do not use them (tpuzip's rule).  `config.codec.lz4`'s
+    hash_log sizes the lz4 and lz4p encoders' table (clamped to 4..24, else
+    16); its max_chain > 1 runs tpuzip's chained lz4 encoder
+    (kernels/lz4_chain.py; lz4p ignores it); its device_encode=True, which
+    comes first, runs tpuzip's device encoder (kernels/lz4_dense.py): lz4
+    at that hash_log as it is, lz4p at 15 with its columns unsplit
+    (kernels/lz4p_coder.py).  block_checksums=True adds an Adler-32 per
+    block (flag bit 0)."""
     _check_codec(codec)
     config = config or Config()
     lz4_cfg = config.codec.lz4
-    if codec == "lz4":
-        option = clz4.unported_option(lz4_cfg)
-        if option:
-            raise not_ported(option, 12)
     if block_size is None:
         block_size = (config.codec.bwt.block_size if codec in ("bwt", "bwtdc")
                       else config.mesh.block_size)
@@ -313,10 +315,15 @@ def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
     def lz_encode(b, lens):
         if codec == "rle":
             return rle_coder.rle_encode_batch(b, lens)
+        if codec == "lz4p":
+            return lz4p_coder.lz4p_encode_batch(b, lens, lz4_cfg.hash_log,
+                                                xla=lz4_cfg.device_encode)
         if lz4_cfg.device_encode:   # before max_chain, as tpuzip's runner
             return lz4_dense.lz4_dense_encode_batch(b, lens, lz4_cfg.hash_log)
-        return lz4_coder.lz4_encode_batch(b, lens,
-                                          clz4.hash_log(lz4_cfg.hash_log))
+        if lz4_cfg.max_chain > 1:
+            return lz4_chain.lz4_chain_encode_batch(
+                b, lens, lz4_cfg.hash_log, lz4_cfg.max_chain)
+        return lz4_coder.lz4_encode_batch(b, lens, lz4_cfg.hash_log)
 
     flags, clens_np, payload = _encode_blocks(codec, blocks, lengths,
                                               lengths_np, knobs, lz_encode)
@@ -359,8 +366,10 @@ def compress_from_device(blocks, lengths, codec: str = "lz4",
     a list).  Every block but the last must be full, since the container
     implies the lengths from orig_len and n.  The bytes are tpuzip's:
     ari, bwt (flag 8 past SEG_THRESHOLD) and bwtdc take the indexed
-    encoders; lz4 takes tpuzip's device encoder at hash_log 15 and rle its
-    256-byte segments, whatever the config says; bin and apm the bit coder
+    encoders; lz4 takes tpuzip's device encoder at hash_log 15, lz4p its
+    parse in unsplit columns (blocks of at most 65536 bytes; a block
+    without a match raises ValueError, fault 7) and rle its 256-byte
+    segments, whatever the config says; bin and apm the bit coder
     at (12, 5), the stream alone.  Flag 4 and its trailer follow the ari
     knobs for every codec, as in tpuzip; for bin and apm that container
     would decode with the wrong model (tpuzip reads the trailer as their
@@ -406,6 +415,8 @@ def compress_from_device(blocks, lengths, codec: str = "lz4",
     def lz_encode(b, lens):
         if codec == "rle":
             return rle_coder.rle_encode_segments_batch(b, lens)
+        if codec == "lz4p":
+            return lz4p_coder.lz4p_encode_batch(b, lens, xla=True)
         return lz4_dense.lz4_dense_encode_batch(b, lens, lz4_dense.HASH_LOG)
     more, clens_np, payload = _encode_blocks(
         codec, blocks, lengths, lengths_np, enc_knobs, lz_encode,
@@ -422,6 +433,8 @@ def _block_cap(codec: str, flags: int, block_size: int) -> int:
         return clz4.encode_cap(block_size)
     if codec == "rle":
         return crle.encode_cap(block_size)
+    if codec == "lz4p":
+        return clz4p.encode_cap(block_size)
     if codec == "bwt" and flags & 8:
         seg, nseg = _seg_geometry(block_size)
         nc_seg = (seg + CHUNK_STEPS - 1) // CHUNK_STEPS
@@ -665,7 +678,7 @@ def _decode_unindexed(container: bytes, codec: str, starts, clens, olens,
 
 def _decode_lz(container: bytes, codec: str, starts, clens, olens,
                block_size: int, dev) -> torch.Tensor:
-    """lz4 or rle blocks -> (nb, block_size) u8 on `dev`, with tpuzip's
+    """lz4, rle or lz4p blocks -> (nb, block_size) u8 on `dev`, with tpuzip's
     checks in its order: a decoded length that is not the block's (on a
     block with a stream and no error) raises ValueError, then a stream in
     error CorruptStreamError naming its blocks."""
@@ -673,8 +686,9 @@ def _decode_lz(container: bytes, codec: str, starts, clens, olens,
         else np.zeros((0, 2), np.int64)
     streams = _upload_streams(container, spans, dev)
     lens = torch.from_numpy(clens.astype(np.int32)).to(dev)
-    decode = (lz4_coder.lz4_decode_batch if codec == "lz4"
-              else rle_coder.rle_decode_batch)
+    decode = {"lz4": lz4_coder.lz4_decode_batch,
+              "rle": rle_coder.rle_decode_batch,
+              "lz4p": lz4p_coder.lz4p_decode_batch}[codec]
     out, status = decode(streams, lens, block_size)
     st = status.cpu().numpy()
     err = st < 0

@@ -1,0 +1,294 @@
+"""tpuzip's chained LZ4 block encoder (``config.codec.lz4.max_chain > 1``)
+over a batch of blocks: the CUDA kernels' wrappers and their plain PyTorch
+versions.
+
+Off the TPU tpuzip's runner encodes lz4 at max_chain > 1 with the C++
+``tpz_lz4_compress_chained`` (csrc/tpuzip_host.cpp:463-568, through
+``native.lz4_compress_batch``); tpuzip has no Pallas or XLA form of it.
+The port may not call it, so csrc/lz4_chain.cu replaces it in two
+launches, and the functions here are theirs:
+
+  links  prev[p] for every position p < length - 12 of a row: the last
+         q < p whose 4 bytes hash as p's, h = (seq * 2654435761 mod 2^32)
+         >> (32 - hash_log), hash_log outside 4..24 taken as 16; -1 where
+         there is none and from length - 12 on.  No filter: the C++ chain
+         links positions of one hash, whatever their bytes.
+  parse  the C++'s greedy parse over those chains.  best(i) walks prev[i],
+         prev[prev[i]], ... while a link lies before i and at most 65535
+         back (links from the links launch always do), up to
+         max_chain links, and takes the longest match, extended while the
+         bytes agree before length - 5 (the nearest on ties).  At i below
+         length - 12: with best(i) under 4, i is a literal; else, while
+         i + 1 < length - 12 and best(i + 1) > best(i), the match is
+         deferred by one (i becomes a literal).  The match is emitted and
+         the parse goes on at its end.  The last literals end the stream;
+         an empty block is the byte 0.
+
+Why prev is all the parse needs: the C++ inserts every position into its
+chain exactly once, before the parse passes it (the lazy step inserts i
+before it probes i + 1, the positions inside a match go in after it is
+emitted), so when it probes i its chain holds exactly the positions before
+i with i's hash, nearest first: prev's chain.  So best(i) does not depend
+on the parse.
+
+The plain versions run every row at once: the links by one stable sort of
+each row's hashes (kernels/lz4_dense.py's construction, unfiltered); best
+at every position, chain link by chain link, each match length a common
+prefix found by doubling over ranks of the row's substrings of 2^k bytes
+(so a run costs no more than text); then the parse one sequence a row a
+step, and lz4_coder's serialisation of the sequences.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from tpuzip_torch.codecs.lz4 import hash_log as resolve_hash_log
+from tpuzip_torch.kernels import _build
+from tpuzip_torch.kernels.lz4_coder import (LAST_LITERALS, MF_LIMIT,
+                                            MIN_MATCH, _check_pair, _read,
+                                            _serialise, encode_cap)
+from tpuzip_torch.kernels.lz4_dense import KEY_SLOT, _hashes
+
+WINDOW = 0xFFFF          # a link further back than this ends the walk
+MAX_CHAIN = 1 << 16      # links a walk can take at most (the window's)
+POOL_BYTES = 1 << 30     # the links kernel's tables, at most
+
+
+def slots_log(hash_log: int, n: int) -> int:
+    """The links kernel's keyed table: 2^slots_log slots of KEY_SLOT bytes,
+    twice the hashes a row of n bytes can hold, so half full at most."""
+    bits = resolve_hash_log(hash_log)
+    return max(6, min(bits + 1, (2 * max(n, 1) - 1).bit_length()))
+
+
+def table_count(b: int, hash_log: int, n: int) -> int:
+    """Tables that a links launch on b rows of n bytes gets: one a row, or
+    where b tables would pass POOL_BYTES a pool of fewer, whose warps walk
+    the rows by a grid-stride loop."""
+    return max(1, min(b, POOL_BYTES // (KEY_SLOT << slots_log(hash_log, n))))
+
+
+def lz4_chain_links_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                          hash_log: int = 16) -> torch.Tensor:
+    """Plain version of the links kernel: blocks (B, n) u8, lengths (B,) ->
+    prev (B, n) i32, as the module note says."""
+    b, n = blocks.shape
+    _, h = _hashes(blocks, resolve_hash_log(hash_log))
+    order = torch.sort(h, dim=1, stable=True).indices  # positions ascending
+    hs = h.gather(1, order)                              # within a hash
+    earlier = F.pad(order[:, :-1], (1, 0), value=-1)
+    same = F.pad(hs[:, 1:] == hs[:, :-1], (1, 0), value=False)
+    prev = torch.empty_like(order).scatter_(1, order,
+                                            torch.where(same, earlier, -1))
+    idx = torch.arange(n, device=blocks.device)[None, :]
+    limit = lengths.to(torch.int64).clamp(0, n)[:, None] - MF_LIMIT
+    return torch.where(idx < limit, prev, -1).to(torch.int32)
+
+
+def _rank_levels(blocks: torch.Tensor) -> list:
+    """levels[k][r, p]: the rank of row r's 2^k bytes from p among the
+    row's (a byte past the row ranks below every byte), so two positions'
+    next 2^k bytes are equal where their ranks are, while both stay in
+    the row."""
+    b, n = blocks.shape
+    rank = blocks.to(torch.int64)
+    levels = [rank]
+    scale = max(n, 256) + 2
+    span = 1
+    while span < n:
+        after = F.pad(rank, (0, span), value=-1)[:, span:]
+        key, order = torch.sort(rank * scale + after + 1, dim=1)
+        step = F.pad(key[:, 1:] != key[:, :-1], (1, 0), value=False)
+        rank = torch.empty_like(rank).scatter_(1, order, step.cumsum(1))
+        levels.append(rank)
+        span *= 2
+    return levels
+
+
+def _common_prefix(levels: list, a: torch.Tensor, c: torch.Tensor,
+                   cap: torch.Tensor) -> torch.Tensor:
+    """min(the bytes that agree from a and from c, cap), for (B, m)
+    positions a and c and caps that keep a + cap inside the row."""
+    n = levels[0].shape[1]
+    got = torch.zeros_like(a)
+    for k in range(len(levels) - 1, -1, -1):
+        fits = got + (1 << k) <= cap
+        ra = levels[k].gather(1, (a + got).clamp(0, n - 1))
+        rc = levels[k].gather(1, (c + got).clamp(0, n - 1))
+        got = torch.where(fits & (ra == rc), got + (1 << k), got)
+    return got
+
+
+def _best_matches(blocks: torch.Tensor, lengths: torch.Tensor,
+                  prev: torch.Tensor, max_chain: int):
+    """(best, at) of every position: the longest match that the first
+    max_chain links of its chain give (0 where there is none), and the link
+    that gives it first."""
+    b, n = blocks.shape
+    dev = blocks.device
+    lens = lengths.to(torch.int64).clamp(0, n)[:, None]
+    p = torch.arange(n, device=dev).expand(b, n)
+    prev = prev.to(torch.int64)
+    cap = (lens - LAST_LITERALS - p).clamp(min=0)
+    best = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    at = torch.full_like(best, -1)
+    c = prev
+    walk = (c >= 0) & (c < p) & (p - c <= WINDOW)
+    if n == 0 or not bool(walk.any()):
+        return best, at
+    levels = _rank_levels(blocks)
+    for _ in range(min(max_chain, MAX_CHAIN)):
+        m = _common_prefix(levels, p, c.clamp(min=0), cap)
+        longer = walk & (m > best)
+        best = torch.where(longer, m, best)
+        at = torch.where(longer, c, at)
+        c = prev.gather(1, c.clamp(min=0))
+        walk &= (c >= 0) & (c < p) & (p - c <= WINDOW)
+        if not bool(walk.any()):
+            break
+    return best, at
+
+
+def lz4_chain_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                          prev: torch.Tensor, max_chain: int):
+    """Plain version of the parse kernel: blocks (B, n) u8, lengths (B,),
+    prev (B, n) i32 from the links -> (comp (B, encode_cap(n)) u8, zero
+    past each stream, clens (B,) i32)."""
+    b, n = blocks.shape
+    dev = blocks.device
+    lens = lengths.to(torch.int64).clamp(0, n)
+    limit = (lens - MF_LIMIT).clamp(min=0)
+    best, at = _best_matches(blocks, lengths, prev, max_chain)
+    col = torch.arange(n, device=dev)
+    # the first position at or after j with a match (n where none), and
+    # column n for a parse that ran off the row
+    nxt = torch.where(best >= MIN_MATCH, col, n).flip(1).cummin(1).values
+    nxt = F.pad(nxt.flip(1), (0, 1), value=n)
+    best = F.pad(best, (0, 1))
+    at = F.pad(at, (0, 1), value=-1)
+    zero = torch.zeros(b, dtype=torch.int64, device=dev)
+    i, anchor, nseq = zero.clone(), zero.clone(), zero.clone()
+    seqs = []          # per step: (literal start, literal length, offset,
+    #                     match length), one sequence of every live row
+    while True:
+        i = _read(nxt, i)
+        live = i < n
+        if not bool(live.any()):
+            break
+        while True:    # the lazy step: defer while the next is longer
+            j = i + 1
+            defer = live & (j < limit) & (_read(best, j) > _read(best, i))
+            if not bool(defer.any()):
+                break
+            i = torch.where(defer, j, i)
+        m = _read(best, i)
+        seqs.append((anchor, i - anchor, i - _read(at, i), m))
+        nseq += live
+        anchor = torch.where(live, i + m, anchor)
+        i = torch.where(live, i + m, i)
+    cols = ([torch.stack(c, dim=1) for c in zip(*seqs)] if seqs
+            else [zero[:, None][:, :0]] * 4)
+    lit_start, lit_len, off, mlen = (F.pad(c, (0, 1)) for c in cols)
+    last = nseq[:, None]
+    lit_start.scatter_(1, last, anchor[:, None])
+    lit_len.scatter_(1, last, (lens - anchor)[:, None])
+    return _serialise(blocks.to(torch.int64), lit_start, lit_len, off, mlen,
+                      nseq, encode_cap(n))
+
+
+def _lib(name: str):
+    """The typed C entry point tpz_lz4_chain_<name> of csrc/lz4_chain.cu."""
+    fn = getattr(_build.load("lz4_chain"), f"tpz_lz4_chain_{name}")
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([vp, vp, ci, ci, vp, vp, ci, ci, ci, vp]
+                       if name == "links"
+                       else [vp, vp, vp, ci, ci, ci, vp, ci, vp, vp])
+        fn.restype = ci
+    return fn
+
+
+def lz4_chain_links(blocks: torch.Tensor, lengths: torch.Tensor,
+                    hash_log: int = 16) -> torch.Tensor:
+    """prev (B, n) i32 of every row, as the module note says: blocks (B, n)
+    u8, lengths (B,) i32; hash_log outside 4..24 taken as 16.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_chain.cu's links kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_chain_links", blocks, lengths)
+    if blocks.device.type == "cpu":
+        return lz4_chain_links_plain(blocks, lengths, hash_log)
+    b, n = blocks.shape
+    dev = blocks.device
+    prev = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return prev
+    slog = slots_log(hash_log, n)
+    ntab = table_count(b, hash_log, n)
+    tables = torch.empty(ntab * (KEY_SLOT << slog) // 4, dtype=torch.int32,
+                         device=dev)
+    fn = _lib("links")
+    with torch.cuda.device(dev):
+        err = fn(blocks.data_ptr(), lengths.data_ptr(), b, n,
+                 prev.data_ptr(), tables.data_ptr(), ntab,
+                 resolve_hash_log(hash_log), slog,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_chain_links")
+    lz4_chain_links.launches += 1
+    return prev
+
+
+def lz4_chain_parse(blocks: torch.Tensor, lengths: torch.Tensor,
+                    prev: torch.Tensor, max_chain: int):
+    """The LZ4 streams of the chained greedy parse over prev: blocks (B, n)
+    u8, lengths (B,) i32, prev (B, n) i32 from lz4_chain_links, max_chain
+    >= 1 -> (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,)
+    i32).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_chain.cu's parse kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_chain_parse", blocks, lengths)
+    if prev.shape != blocks.shape or prev.dtype != torch.int32 or \
+            prev.device != blocks.device:
+        raise ValueError("prev must be (B, n) i32 beside the blocks")
+    if max_chain < 1:
+        raise ValueError(f"max_chain must be at least 1, not {max_chain}")
+    if blocks.device.type == "cpu":
+        return lz4_chain_parse_plain(blocks, lengths, prev, max_chain)
+    b, n = blocks.shape
+    cap = encode_cap(n)
+    dev = blocks.device
+    comp = torch.zeros((b, cap), dtype=torch.uint8, device=dev)
+    clens = torch.empty(b, dtype=torch.int32, device=dev)
+    if b == 0:
+        return comp, clens
+    prev = prev.contiguous()
+    fn = _lib("parse")
+    with torch.cuda.device(dev):
+        err = fn(blocks.data_ptr(), lengths.data_ptr(), prev.data_ptr(), b,
+                 n, min(max_chain, MAX_CHAIN), comp.data_ptr(), cap,
+                 clens.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_chain_parse")
+    lz4_chain_parse.launches += 1
+    return comp, clens
+
+
+def lz4_chain_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
+                           hash_log: int = 16, max_chain: int = 8):
+    """tpuzip's chained LZ4 encode of every row (both launches): blocks
+    (B, n) u8, lengths (B,) i32 -> (comp (B, encode_cap(n)) u8, zero past
+    each stream, clens (B,) i32), the bytes of tpz_lz4_compress_chained at
+    max_chain > 1."""
+    return lz4_chain_parse(blocks, lengths,
+                           lz4_chain_links(blocks, lengths, hash_log),
+                           max_chain)
+
+
+lz4_chain_links.launches = 0
+lz4_chain_parse.launches = 0
