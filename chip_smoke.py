@@ -24,7 +24,9 @@ that lives on the card, compress_from_device and decompress(to_device=True)
 of every codec (tpuzip's device lz4 encoder, csrc/lz4_dense.cu, and
 rle.cu's segment mode), and the TPZC corpus API; lz4 at max_chain > 1
 (tpuzip's chained encoder, csrc/lz4_chain.cu) and the lz4p codec
-(csrc/lz4p.cu, both directions).  tpuzip's v1 decoder
+(csrc/lz4p.cu, both directions); and the deflate codec (tpuzip's C++
+encoder, csrc/deflate_encode.cu, and the inflate, csrc/inflate.cu).
+tpuzip's v1 decoder
 (frequency state, ``ari_decode_indexed(algo="dot")``, the wrapper
 ari_decode_dot_indexed)
 runs on no container path; on the card it launches ari_decode.cu, and
@@ -36,7 +38,8 @@ Phases, one JSON line each:
             and reports each one's registers and spills (nvcc -Xptxas -v).
 3. kernels  each kernel against its plain PyTorch version on the same
             CUDA tensors (128 blocks x 2048 symbols of skewed, random,
-            constant, ragged and empty blocks), exact to the byte: ari at
+            constant, ragged and empty blocks; the bit coders' cut to
+            their first 512 bytes), exact to the byte: ari at
             the default knobs, at threshold=512, at (16, 40000), past
             the 2^15 bound of tpuzip's packed kernels, and at increment 0
             (a model that never grows), both decoders on
@@ -96,7 +99,16 @@ Phases, one JSON line each:
             a 64 KiB row where no 4 bytes repeat (65,535 + 1 literals;
             refused under the XLA rule) and a 256 KiB zero row, and its
             decoder on every packed row and 64 garbage streams, status
-            and bytes.
+            and bytes.  And the deflate coder (deflate_encode.cu's links,
+            parse and tables+emit, inflate.cu) on those rows with zero,
+            b"ab" and random rows added, at max_chain 1, 8 and 128 in the
+            dynamic and fixed modes and stored, every stream inflated
+            back; on 40 KiB rows whose repeats lie 32,767 to 32,769 back
+            (the first two taken, the third refused); on 128 KiB rows
+            (stored blocks of 65,535 + 65,535 + 2, rows of 65,535 and
+            65,536 bytes); inflate.cu also on 64 random and 64 bit-flipped
+            streams, zlib's streams of several blocks and the mixed
+            streams at an out_cap under their lengths, status and bytes.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -192,6 +204,16 @@ Phases, one JSON line each:
             held, exact, against their plain versions on 8 whole rows of
             the path's own tensors; MB/s, ratio, peak memory, and traces of
             both paths taken in a fresh process.
+17. deflate the 64 MiB corpus through compress(codec="deflate") (dynamic
+            blocks at max_chain 128, tpuzip's defaults) and decompress,
+            then decompress(to_device=True): the bytes round-trip; the
+            four launches run; zlib inflates 8 blocks' streams to the
+            blocks; the encoder's launches held, exact, against their
+            plain versions on the path's first 8 rows cut to 4096 bytes
+            (the links also on the path's own output there, a causal
+            prefix), inflate.cu on 8 whole streams of its launch; MB/s,
+            ratio, peak memory, and traces of both directions taken in a
+            fresh process.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the dot route must have none on a container path.  The
@@ -226,9 +248,10 @@ from tpuzip_torch.codecs import bin_apm, bwt, dc
 from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.dist import runner
-from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, lz4_chain,
-                                  lz4_coder, lz4_dense, lz4p_coder, mtf_scan,
-                                  range_coder, range_decoder, rle_coder)
+from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, deflate_coder,
+                                  lz4_chain, lz4_coder, lz4_dense, lz4p_coder,
+                                  mtf_scan, range_coder, range_decoder,
+                                  rle_coder)
 from tpuzip_torch.oracle import ari as oari
 from tpuzip_torch.oracle import bwt as obwt
 from tpuzip_torch.oracle import dc as odc
@@ -384,7 +407,7 @@ def mixed_blocks(b: int, n: int, seed: int):
 
 SOURCES = ("ari_encode", "ari_decode", "mtf", "dc_decode", "bin_encode",
            "bin_decode", "lz4_encode", "lz4_decode", "rle", "lz4_dense",
-           "lz4_chain", "lz4p")
+           "lz4_chain", "lz4p", "deflate_encode", "inflate")
 
 
 def ptxas_report(procs) -> dict:
@@ -439,6 +462,8 @@ def phase_build() -> None:
     lz4_chain._lib("parse")
     lz4p_coder._lib("pack")
     lz4p_coder._lib("decode")
+    for name in ("links", "parse", "emit", "inflate"):
+        deflate_coder._lib(name)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in secs.items()}, ptxas=ptxas)
 
@@ -581,7 +606,10 @@ def phase_kernels() -> dict:
     if errs["mtf_encode"] or errs["mtf_decode"] or not round_trip:
         raise AssertionError("mtf kernel and plain version disagree")
     errs["dc_decode"] = dc_kernel_check(blocks, lens)
-    errs.update(bin_kernel_check(blocks, lens))
+    # the plain bit coder takes a step a bit: its rows cut to
+    # BIN_PLAIN_BYTES, as on the bin and apm paths
+    errs.update(bin_kernel_check(blocks[:, :BIN_PLAIN_BYTES].contiguous(),
+                                 lens.clamp(max=BIN_PLAIN_BYTES)))
     errs.update(lz_kernel_check(blocks_np, lens_np))
     return errs
 
@@ -904,7 +932,8 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
     errs.update(dense_errs, rle_encode_seg=res["rle_segments"]["max_abs_err"])
     res["chain"], chain_errs = chain_kernel_check(x, xl, n)
     res["lz4p"], lz4p_errs = lz4p_kernel_check(x, xl, n)
-    errs.update(chain_errs, **lz4p_errs)
+    deflate_errs = deflate_kernel_check(x, xl, n)
+    errs.update(chain_errs, **lz4p_errs, **deflate_errs)
     emit("kernels", kernel="lz4_rle", rows=b, bytes=n,
          short_rows=int((rlens_np < 13).sum()), **res)
     if errs["lz4_encode"] or errs["rle_encode"]:
@@ -1748,6 +1777,10 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "lz4_chain_parse": (lz4_chain, "lz4_chain_parse"),
             "lz4p_pack": (lz4p_coder, "lz4p_pack"),
             "lz4p_decode": (lz4p_coder, "lz4p_decode_batch"),
+            "deflate_links": (deflate_coder, "deflate_links"),
+            "deflate_parse": (deflate_coder, "deflate_parse"),
+            "deflate_emit": (deflate_coder, "deflate_emit"),
+            "inflate": (deflate_coder, "inflate_batch"),
             # the same two kernels in their modes without the chunk index
             "ari_decode_unindexed": (range_decoder, "decode_batch"),
             "bin_decode_unindexed": (bin_apm, "decode_batch")}
@@ -1769,7 +1802,11 @@ PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (lz4_chain, "lz4_chain_links_plain"),
           (lz4_chain, "lz4_chain_parse_plain"),
           (lz4p_coder, "lz4p_pack_plain"),
-          (lz4p_coder, "lz4p_decode_batch_plain"))
+          (lz4p_coder, "lz4p_decode_batch_plain"),
+          (deflate_coder, "deflate_links_plain"),
+          (deflate_coder, "deflate_parse_plain"),
+          (deflate_coder, "deflate_emit_plain"),
+          (deflate_coder, "inflate_batch_plain"))
 
 
 @contextlib.contextmanager
@@ -3037,6 +3074,341 @@ def phase_lz4p(smi: str):
     return counts, serve_counts, kernels, serve_kernels
 
 
+DEFLATE_CHAINS = (1, 8, 128)     # max_chain of deflate_encode.cu's checks
+DEFLATE_PATH_CHAIN = 128         # the deflate path's: tpuzip's default
+DEFLATE_PLAIN_BYTES = 4096       # bytes a row of that path's plain check
+DEFLATE_GAPS = (32767, 32768, 32769)   # repeats at the window's edge
+DEFLATE_FAR = 40 << 10           # bytes of the rows that hold them
+DEFLATE_NAMES = ("deflate_links", "deflate_parse", "deflate_emit",
+                 "inflate")
+
+
+def deflate_far_rows(seed: int):
+    """(3, DEFLATE_FAR) u8 rows and lengths: random bytes whose 300 bytes
+    at 33,000 repeat those DEFLATE_GAPS[r] back (taken up to 32,768, the
+    window, and refused past it)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (len(DEFLATE_GAPS), DEFLATE_FAR), np.uint8)
+    for r, gap in enumerate(DEFLATE_GAPS):
+        rows[r, 33000:33300] = rows[r, 33000 - gap : 33300 - gap]
+    return rows, np.full(len(rows), DEFLATE_FAR, np.int32)
+
+
+def deflate_big_rows(seed: int):
+    """(4, 128 KiB) u8 rows and lengths past the stored blocks' 65,535
+    bytes: text, random bytes, and text cut to 65,535 and 65,536 bytes."""
+    rng = np.random.default_rng(seed)
+    n = 1 << 17
+    text = np.frombuffer(text_corpus(n, seed), np.uint8)
+    rows = np.stack([text, rng.integers(0, 256, n, np.uint8), text, text])
+    lens = np.array([n, n, 65535, 65536], np.int32)
+    rows[np.arange(n)[None, :] >= lens[:, None]] = 0
+    return rows, lens
+
+
+def deflate_check(x, xl, chains, modes=(0, 1)) -> dict:
+    """deflate_encode.cu's launches on the rows against their plain
+    versions, exact: the links, the parse at each max_chain of `chains`
+    (on the plain links), the emit in each mode of `modes` on the plain
+    tokens and stored (mode 2); and inflate.cu on every stream, each
+    decoded back to its row."""
+    dc = deflate_coder
+    prev = dc.deflate_links(x, xl)
+    pref, links_plain_ms = timed(lambda: dc.deflate_links_plain(x, xl))
+    err = {"deflate_links": max_err(prev, pref), "deflate_parse": 0,
+           "deflate_emit": 0, "inflate": 0}
+    rec = {"rows": list(x.shape), "links_plain_ms": links_plain_ms}
+    streams = {}
+    for mc in chains:
+        tok = dc.deflate_parse(x, xl, prev, mc)
+        tref, plain_ms = timed(
+            lambda: dc.deflate_parse_plain(x, xl, pref, mc))
+        err["deflate_parse"] = max(err["deflate_parse"], *(
+            max_err(a, c) for a, c in zip(tok, tref)))
+        rec[f"parse_{mc}_plain_ms"] = plain_ms
+        for mode in modes:
+            got = dc.deflate_emit(x, xl, *tref, mode)
+            ref = dc.deflate_emit_plain(x, xl, *tref, mode)
+            err["deflate_emit"] = max(err["deflate_emit"], *(
+                max_err(a, c) for a, c in zip(got, ref)))
+            streams[f"mode_{mode}_chain_{mc}"] = got
+    got = dc.deflate_emit(x, xl, None, None, 2)
+    ref = dc.deflate_emit_plain(x, xl, None, None, 2)
+    err["deflate_emit"] = max(err["deflate_emit"], *(
+        max_err(a, c) for a, c in zip(got, ref)))
+    streams["stored"] = got
+    n = x.shape[1]
+    keep = torch.arange(n, device="cuda")[None, :] < xl[:, None]
+    want = torch.where(keep, x, 0)
+    for name, (comp, clens) in streams.items():
+        out, status = dc.inflate_batch(comp, clens, n)
+        ref = dc.inflate_batch_plain(comp, clens, n)
+        err["inflate"] = max(err["inflate"], max_err(out, ref[0]),
+                             max_err(status, ref[1]))
+        back = (torch.equal(status, xl.to(torch.int64))
+                and torch.equal(out, want))
+        rec[name] = {"stream_bytes": int(clens.sum()), "round_trip": back}
+        if not back:
+            raise AssertionError(f"deflate {name} streams did not decode "
+                                 "back")
+    rec["max_abs_err"] = err
+    rec["streams"] = streams
+    return rec
+
+
+def deflate_garbage(seed: int) -> list:
+    """Streams no encoder of the port writes: 64 of random bytes under each
+    block type, 64 of tpuzip-form streams with one bit flipped, and zlib's
+    streams of several blocks (sync and full flushes, stored blocks between
+    Huffman ones, levels 0, 1 and 9)."""
+    rng = np.random.default_rng(seed)
+    text = text_corpus(6000, seed)
+    out = []
+    for k in range(64):
+        s = rng.integers(0, 256, int(rng.integers(1, 300)), np.uint8)
+        s[0] = (int(s[0]) & 0xF9) | (2 * (k % 4))
+        out.append(s.tobytes())
+    good = zlib.compress(text[:3000], 9)[2:-4]
+    for _ in range(64):
+        s = bytearray(good)
+        s[int(rng.integers(0, len(s)))] ^= 1 << int(rng.integers(0, 8))
+        out.append(bytes(s))
+    for level in (0, 1, 6, 9):
+        co = zlib.compressobj(level, zlib.DEFLATED, -15)
+        s = b""
+        for k in range(6):
+            part = (text[k * 900 : (k + 1) * 900] if k % 2 else
+                    rng.integers(0, 256, 500, np.uint8).tobytes())
+            s += co.compress(part) + co.flush(
+                (zlib.Z_SYNC_FLUSH, zlib.Z_FULL_FLUSH, zlib.Z_NO_FLUSH)[k % 3])
+        out.append(s + co.flush())
+    return out
+
+
+def deflate_kernel_check(x, xl, n: int):
+    """csrc/deflate_encode.cu and csrc/inflate.cu against their plain
+    versions: on the mixed rows (rows of 0 to 12 bytes, empty rows, runs,
+    periods) with zero, b"ab" and random rows added, at max_chain 1, 8 and
+    128 in the dynamic and fixed modes and stored; on 40 KiB rows whose
+    repeats lie 32,767 to 32,769 back (the first two taken, the third not);
+    on 128 KiB rows (stored blocks of 65,535 + 65,535 + 2, and rows of
+    65,535 and 65,536 bytes); the decoder also on deflate_garbage() and on
+    the mixed streams at an out_cap under their lengths.  Emits its
+    kernels line; returns each launch's max_abs_err."""
+    rng = np.random.default_rng(SEED + 17)
+    extra = np.stack([np.zeros(n), np.resize([97, 98], n),
+                      rng.integers(0, 256, n), rng.integers(0, 256, n)])
+    rows = torch.cat([x, torch.from_numpy(extra.astype(np.uint8)).cuda()])
+    lens = torch.cat([xl, torch.full((4,), n, dtype=torch.int32,
+                                     device="cuda")])
+    res = {"mixed": deflate_check(rows, lens, DEFLATE_CHAINS)}
+    far, flens = (torch.from_numpy(a).cuda()
+                  for a in deflate_far_rows(SEED + 18))
+    res["far"] = deflate_check(far, flens, (8, DEFLATE_PATH_CHAIN))
+    tok, nt = deflate_coder.deflate_parse(
+        far, flens, deflate_coder.deflate_links(far, flens), 8)
+    dists = [sorted({t & 0xFFFF for t in tok[r, : int(nt[r])].tolist()
+                     if t >= 256}) for r in range(len(DEFLATE_GAPS))]
+    res["far"]["far_distances"] = [d[-3:] for d in dists]
+    if not (DEFLATE_GAPS[0] in dists[0] and DEFLATE_GAPS[1] in dists[1]
+            and DEFLATE_GAPS[2] not in dists[2]
+            and max(max(d, default=0) for d in dists) <= 32768):
+        raise AssertionError(f"deflate repeats at the window's edge taken "
+                             f"or refused wrong: {res['far']}")
+    big, blens = (torch.from_numpy(a).cuda()
+                  for a in deflate_big_rows(SEED + 19))
+    res["big"] = deflate_check(big, blens, (DEFLATE_PATH_CHAIN,))
+    comp, clens = res["big"]["streams"]["stored"]
+    want = [5 * max(1, -(-int(ln) // 65535)) + int(ln) for ln in blens]
+    if clens.tolist() != want:
+        raise AssertionError(f"stored blocks of {blens.tolist()} bytes took "
+                             f"{clens.tolist()}, not {want}")
+    garbage = deflate_garbage(SEED + 20)
+    gx, gl = padded(garbage, max(map(len, garbage)))
+    mixed, mlens = res["mixed"]["streams"]["mode_0_chain_128"]
+    decode = {"garbage": (gx, gl, 8192), "short_cap": (mixed, mlens, n // 2)}
+    errs = {}
+    for name, (s, sl, cap) in decode.items():
+        out, status = deflate_coder.inflate_batch(s, sl, cap)
+        (oref, sref), plain_ms = timed(
+            lambda: deflate_coder.inflate_batch_plain(s, sl, cap))
+        e = max(max_err(out, oref), max_err(status, sref))
+        errs["inflate"] = max(errs.get("inflate", 0), e)
+        res[f"decode_{name}"] = {
+            "rows": list(s.shape), "out_cap": cap, "max_abs_err": e,
+            "statuses": {str(int(k)): int(v) for k, v in zip(
+                *torch.unique(status, return_counts=True))}
+            if name == "short_cap" else status.tolist()[-4:],
+            "plain_ms": plain_ms}
+    multi = [zlib.decompress(s, -15) for s in garbage[-4:]]
+    got = res["decode_garbage"]["statuses"]
+    if got != [len(m) for m in multi]:
+        raise AssertionError(f"zlib's multi-block streams decoded to {got}, "
+                             f"not {[len(m) for m in multi]}")
+    for rec in (res["mixed"], res["far"], res["big"]):
+        for k, e in rec["max_abs_err"].items():
+            errs[k] = max(errs.get(k, 0), e)
+        rec.pop("streams")
+    emit("kernels", kernel="deflate", **res)
+    if any(errs.values()):
+        raise AssertionError(f"deflate kernels disagree with their plain "
+                             f"versions: {res}")
+    return errs
+
+
+def deflate_bound(name: str, args, out) -> dict:
+    """bound() of one deflate launch at its own inputs: each reads the
+    valid bytes or tokens or stream bytes it needs and the lengths, and
+    writes its output (prev, the tokens, the streams, the decoded rows)
+    and its lengths."""
+    if name == "inflate":
+        streams, lens = args[:2]
+        nbytes = (int(lens.clamp(max=streams.shape[1]).sum())
+                  + 4 * lens.numel() + out[0].numel() + 8 * out[1].numel())
+    elif name == "deflate_emit":
+        lens, ntok = args[1], args[3]
+        nbytes = (4 * int(ntok.sum()) + 8 * lens.numel()
+                  + int(out[1].sum()) + 4 * out[1].numel())
+    else:
+        lens = args[1]
+        valid = int(lens.sum()) + 4 * lens.numel()
+        nbytes = valid + 4 * args[0].numel() + (
+            4 * int(out[1].sum()) + 4 * out[1].numel()
+            if name == "deflate_parse" else 0)
+    return bound(nbytes)
+
+
+def deflate_against_plain(calls, rows: list) -> dict:
+    """The deflate path's launches held, exact, against their plain
+    versions: the encoder's on its first 8 rows cut to DEFLATE_PLAIN_BYTES
+    (the plain parse and tables take a Python step a token): each kernel
+    on the cut equal to the plain version, and the path's own links on the
+    cut's causal prefix (below length - 2 a link depends on no later byte)
+    too; inflate.cu on `rows` whole streams of its own launch, the
+    kernel's own rows equal too.  Times of each kernel at the path's shape
+    and on the cut, of the plain version on the cut; the bound at the
+    path's shape."""
+    dc = deflate_coder
+    for name in DEFLATE_NAMES:
+        if len(calls[name]) != 1:
+            raise AssertionError(f"{name}: {len(calls[name])} launches on "
+                                 "the path, expected 1")
+    launch = {name: calls[name][0] for name in DEFLATE_NAMES}
+    (largs, _, prev) = launch["deflate_links"]
+    (pargs, _, _) = launch["deflate_parse"]
+    (eargs, _, _) = launch["deflate_emit"]
+    blocks, lens = largs[:2]
+    max_chain, mode = pargs[3], eargs[4]
+    cut = blocks[:8, :DEFLATE_PLAIN_BYTES].contiguous()
+    clen = lens[:8].clamp(max=DEFLATE_PLAIN_BYTES).contiguous()
+    pref, links_plain_ms = timed(lambda: dc.deflate_links_plain(cut, clen))
+    causal = DEFLATE_PLAIN_BYTES - 2
+    links_err = max(max_err(dc.deflate_links(cut, clen), pref),
+                    max_err(prev[:8, :causal], pref[:, :causal]))
+    tref, parse_plain_ms = timed(
+        lambda: dc.deflate_parse_plain(cut, clen, pref, max_chain))
+    parse_err = max(max_err(a, c) for a, c in zip(
+        dc.deflate_parse(cut, clen, pref, max_chain), tref))
+    eref, emit_plain_ms = timed(
+        lambda: dc.deflate_emit_plain(cut, clen, *tref, mode))
+    emit_err = max(max_err(a, c) for a, c in zip(
+        dc.deflate_emit(cut, clen, *tref, mode), eref))
+    (iargs, ikw, iout) = launch["inflate"]
+    pick = torch.tensor(rows, device="cuda")
+    icut = (iargs[0][pick].contiguous(), iargs[1][pick].contiguous(),
+            *iargs[2:])
+    iref, inflate_plain_ms = timed(lambda: dc.inflate_batch_plain(*icut))
+    inflate_err = max(max(max_err(a, c) for a, c in zip(
+        dc.inflate_batch(*icut), iref)), max(
+        max_err(a[pick], c) for a, c in zip(iout, iref)))
+    errs = {"deflate_links": links_err, "deflate_parse": parse_err,
+            "deflate_emit": emit_err, "inflate": inflate_err}
+    if any(errs.values()):
+        raise AssertionError(f"deflate kernels disagree with their plain "
+                             f"versions on the path's inputs: {errs}")
+    plain = {"plain_inputs": list(cut.shape), "plain_rows": list(range(8))}
+    cut_args = {"deflate_links": (cut, clen),
+                "deflate_parse": (cut, clen, pref, max_chain),
+                "deflate_emit": (cut, clen, *tref, mode), "inflate": icut}
+    plain_ms = {"deflate_links": links_plain_ms,
+                "deflate_parse": parse_plain_ms,
+                "deflate_emit": emit_plain_ms, "inflate": inflate_plain_ms}
+    res = {}
+    for name in DEFLATE_NAMES:
+        args, kw, out = launch[name]
+        run = getattr(dc, "inflate_batch" if name == "inflate" else name)
+        res[name] = {
+            "inputs": [list(a.shape) for a in args if torch.is_tensor(a)],
+            "max_abs_err": errs[name],
+            **(plain if name != "inflate" else
+               {"plain_inputs": list(icut[0].shape), "plain_rows": rows}),
+            "ms": cuda_ms(lambda: run(*args, **kw), 3),
+            "ms_at_plain_inputs": cuda_ms(lambda: run(*cut_args[name]), 3),
+            "plain_ms": plain_ms[name], **deflate_bound(name, args, out)}
+    res["deflate_parse"]["max_chain"] = max_chain
+    return res
+
+
+def phase_deflate(smi: str):
+    """Phase 17: the deflate codec (tpuzip's C++ encoder, dynamic blocks at
+    max_chain DEFLATE_PATH_CHAIN, tpuzip's defaults): compress and
+    decompress of the 64 MiB corpus at 64 KiB blocks, then
+    decompress(to_device=True).  The bytes round-trip both ways; the four
+    launches run (deflate_encode.cu's links, parse and tables+emit, and
+    inflate.cu); 8 blocks' streams inflate by zlib to the blocks; each
+    launch held against its plain version (deflate_against_plain); MB/s,
+    ratio, peak memory and a device trace of each direction in a fresh
+    process."""
+    data = text_corpus(CORPUS_BYTES, SEED)
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK],
+                                                  codec="deflate"))
+    blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec = round_trip(
+        data, codec="deflate")
+    need(counts, dict.fromkeys(DEFLATE_NAMES, 1), "deflate")
+    if blob[4:6] != bytes([5, 0]):
+        raise AssertionError(f"deflate: codec id {blob[4]}, flags {blob[5]}")
+    blocks_np, lens_np = blk.chunk(data, BLOCK)
+    streams = lz_streams(blob)
+    nb = len(streams)
+    rows = sorted({0, 1, 2, nb // 3, nb // 2, 2 * nb // 3, nb - 2, nb - 1})
+    for i in rows:
+        if zlib.decompress(streams[i], -15) != \
+                blocks_np[i, : lens_np[i]].tobytes():
+            raise AssertionError(f"deflate block {i}: zlib inflates it to "
+                                 "other bytes")
+    kernels = deflate_against_plain(calls, rows)
+    calls.clear()
+    with counted_run() as (calls, dev_counts):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, olens, orig = tpuzip_torch.decompress(blob, to_device=True)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        peak_dev = torch.cuda.max_memory_allocated()
+    calls.clear()
+    need(dev_counts, {"inflate": 1}, "deflate to_device")
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(-1, BLOCK)
+    if not (torch.equal(out.cpu(), x) and orig == len(data)
+            and list(olens) == lens_np.tolist()):
+        raise AssertionError("deflate decompress(to_device=True) did not "
+                             "give the blocks")
+    emit("deflate", corpus_bytes=len(data), block_size=BLOCK, blocks=nb,
+         max_chain=DEFLATE_PATH_CHAIN, mode="dynamic",
+         container_bytes=len(blob), ratio=len(blob) / len(data),
+         launches=counts, zlib_blocks=rows,
+         encode_mb_s=len(data) / 1e6 / t_enc,
+         decode_mb_s=len(data) / 1e6 / t_dec,
+         encode_kernel_mb_s=len(data) / 1e3 / sum(
+             kernels[k]["ms"] for k in DEFLATE_NAMES[:3]),
+         decode_kernel_mb_s=len(data) / 1e3 / kernels["inflate"]["ms"],
+         peak_device_bytes={"encode": peak_enc, "decode": peak_dec,
+                            "decode_to_device": peak_dev},
+         to_device={"launches": dev_counts,
+                    "decode_mb_s": len(data) / 1e6 / t_dev},
+         kernels=kernels, trace=trace_in_child("deflate"), card=smi)
+    return counts, dev_counts, kernels
+
+
 TRACED = {"bwtdc": (("ari_encode_kernel",),
                     ("ari_decode_kernel", "dc_decode_kernel")),
           "apm": (("bin_encode_kernel",), ("bin_decode_kernel",)),
@@ -3049,7 +3421,10 @@ TRACED = {"bwtdc": (("ari_encode_kernel",),
                    ("lz4p_decode_kernel",)),
           "serve_lz4p": (("lz4_dense_candidates_kernel",
                           "lz4_dense_parse_kernel", "lz4p_pack_kernel"),
-                         ("lz4p_decode_kernel",))}
+                         ("lz4p_decode_kernel",)),
+          "deflate": (("deflate_links_kernel", "deflate_parse_kernel",
+                       "deflate_tables_kernel", "deflate_emit_kernel"),
+                      ("inflate_kernel",))}
 
 
 def trace_in_child(codec: str) -> dict:
@@ -3598,6 +3973,8 @@ def main() -> int:
     chain_launches, chain_kernels = phase_lz4_chain(smi, lz4_payload)
     (lz4p_launches, lz4p_serve_launches, lz4p_kernels,
      lz4p_serve_kernels) = phase_lz4p(smi)
+    deflate_launches, deflate_dev_launches, deflate_kernels = \
+        phase_deflate(smi)
     if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
                                    for m in sys.modules):
         raise AssertionError("the port's path imported jax or tpuzip")
@@ -3608,24 +3985,26 @@ def main() -> int:
                "lz4": lz4_launches, "rle": rle_launches,
                "serving": serve_launches, "device_encode": encode_launches,
                "corpus": corpus_launches, "lz4_chain": chain_launches,
-               "lz4p": lz4p_launches, "lz4p_serving": lz4p_serve_launches}
+               "lz4p": lz4p_launches, "lz4p_serving": lz4p_serve_launches,
+               "deflate": deflate_launches,
+               "deflate_to_device": deflate_dev_launches}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
     # the ari path's decode inputs, lz4 and rle at theirs (1024 x 64 KiB),
     # the dense lz4 and rle segment kernels at the serving path's, the
     # chained lz4 kernels at the lz4_chain path's, lz4p's at its compress
-    # path's; the error over every phase
+    # path's, deflate's at its path's; the error over every phase
     dot_kernels = {"ari_decode_dot": dot_kernel}
     at_shape = {**bwt_kernels, **ari_kernels,
                 "dc_decode": dc_kernels["dc_decode"], **bin_kernels,
                 **dot_kernels, **lz4_kernels, **rle_kernels, **serve_kernels,
-                **chain_kernels, **lz4p_kernels}
+                **chain_kernels, **lz4p_kernels, **deflate_kernels}
     checked = ({k: {"max_abs_err": e} for k, e in small.items()},
                ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels,
                dot_kernels, legacy_kernels, lz4_kernels, rle_kernels,
                serve_kernels, chain_kernels, lz4p_kernels,
-               lz4p_serve_kernels)
+               lz4p_serve_kernels, deflate_kernels)
     print(smi)
     rows = []
     for name, source, replaces in (
@@ -3670,7 +4049,16 @@ def main() -> int:
              "tpuzip/codecs/lz4p.py:50 encode"),
             ("lz4p_decode", "lz4p.cu",
              "csrc/tpuzip_host.cpp:409 tpz_lz4p_decode; "
-             "tpuzip/codecs/lz4p.py:156 decode")):
+             "tpuzip/codecs/lz4p.py:156 decode"),
+            # tpuzip's deflate coder (host C++)
+            ("deflate_links", "deflate_encode.cu",
+             "csrc/tpuzip_host.cpp:1338 tpz_deflate (its hash chain)"),
+            ("deflate_parse", "deflate_encode.cu",
+             "csrc/tpuzip_host.cpp:1356 tpz_deflate (its lazy parse)"),
+            ("deflate_emit", "deflate_encode.cu",
+             "csrc/tpuzip_host.cpp:1409 tpz_deflate (tables and bits)"),
+            ("inflate", "inflate.cu",
+             "csrc/tpuzip_host.cpp:1020 tpz_inflate")):
         k = at_shape[name]
         extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}
         rows.append({

@@ -332,7 +332,8 @@ def test_cuda_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tdevice.resolve("cuda")
-    for codec in ("lz4", "rle", "ari", "bwt", "bwtdc", "bin", "apm"):
+    for codec in ("lz4", "rle", "ari", "bwt", "bwtdc", "bin", "apm",
+                  "deflate"):
         with pytest.raises(RuntimeError):
             tpuzip_torch.compress(b"abc", codec=codec)
         blob = tpuzip_torch.compress(b"abc", codec=codec, block_size=256,
@@ -345,28 +346,24 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    """deflate and open are not ported yet and name their ROADMAP.md items;
-    lz4p, the corpus calls and compress_from_device are ported
-    (tests/test_torch_lz4p.py, tests/test_torch_serving.py): lz4p's calls
-    here give tpuzip's bytes."""
-    calls = [lambda: tpuzip_torch.compress(b"x", codec="deflate",
-                                           device="cpu"),
-             lambda: tpuzip_torch.compress_corpus(b"x", codec="deflate",
-                                                  device="cpu"),
-             lambda: tpuzip_torch.compress_from_device(
-                 np.zeros((1, 8), np.uint8), [8], codec="deflate",
-                 device="cpu"),
-             lambda: tpuzip_torch.open(None)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    """open and compress_from_device(codec="deflate") are not ported yet
+    and name their ROADMAP.md items (15 and 13b); deflate and lz4p are
+    ported (tests/test_torch_deflate.py, tests/test_torch_lz4p.py), and so
+    are the corpus calls and compress_from_device
+    (tests/test_torch_serving.py): their calls here give tpuzip's bytes."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 15"):
+        tpuzip_torch.open(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13b"):
+        tpuzip_torch.compress_from_device(np.zeros((1, 8), np.uint8), [8],
+                                          codec="deflate", device="cpu")
+    for codec in ("deflate", "lz4p"):
+        assert tpuzip_torch.compress(b"x", codec=codec, device="cpu") == \
+            jrun.compress(b"x", codec=codec, block_size=1 << 16, mesh=MESH1)
+        assert tpuzip_torch.compress_corpus(b"x", codec=codec,
+                                            device="cpu") \
+            == jrun.compress_corpus(b"x", codec=codec, mesh=MESH1)
     deflate = jrun.compress(b"abc" * 100, codec="deflate", mesh=MESH1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpuzip_torch.decompress(deflate, device="cpu")
-    assert tpuzip_torch.compress(b"x", codec="lz4p", device="cpu") == \
-        jrun.compress(b"x", codec="lz4p", block_size=1 << 16, mesh=MESH1)
-    assert tpuzip_torch.compress_corpus(b"x", codec="lz4p", device="cpu") \
-        == jrun.compress_corpus(b"x", codec="lz4p", mesh=MESH1)
+    assert tpuzip_torch.decompress(deflate, device="cpu") == b"abc" * 100
     lz4p = jrun.compress(b"abc" * 100, codec="lz4p", mesh=MESH1)
     assert tpuzip_torch.decompress(lz4p, device="cpu") == b"abc" * 100
     with pytest.raises(ValueError):

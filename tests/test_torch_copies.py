@@ -1,7 +1,7 @@
 """The port's own copies of tpuzip's modules against the originals: block
 chunking, the config tree, the error classes, the format oracles (the LZ4
-block codec, rle and Adler-32 among them) and the varint packer of
-core/bitio (tpuzip_torch imports nothing of tpuzip)."""
+block codec, rle, Adler-32 and the DEFLATE decoder among them) and the
+varint packer of core/bitio (tpuzip_torch imports nothing of tpuzip)."""
 
 import dataclasses
 import inspect
@@ -20,6 +20,7 @@ from tpuzip.oracle import adler as jadler
 from tpuzip.oracle import ari as jari
 from tpuzip.oracle import bwt as jbwt
 from tpuzip.oracle import dc as jdc
+from tpuzip.oracle import deflate as jdeflate
 from tpuzip.oracle import lz4 as jlz4
 from tpuzip.oracle import mtf as jmtf
 from tpuzip.oracle import rle as jrle
@@ -32,6 +33,7 @@ from tpuzip_torch.oracle import adler as tadler
 from tpuzip_torch.oracle import ari as tari
 from tpuzip_torch.oracle import bwt as tbwt
 from tpuzip_torch.oracle import dc as tdc
+from tpuzip_torch.oracle import deflate as tdeflate
 from tpuzip_torch.oracle import lz4 as tlz4
 from tpuzip_torch.oracle import mtf as tmtf
 from tpuzip_torch.oracle import rle as trle
@@ -231,3 +233,39 @@ def test_bitio_varint_packer_matches(rng):
                                    cap)
             np.testing.assert_array_equal(out[i].numpy(), np.asarray(e_out))
             assert int(total[i]) == int(e_total)
+
+
+def test_deflate_tables_and_codes_match():
+    """The length and distance tables, their code lookups and
+    canonical_codes equal tpuzip's oracle."""
+    for name in ("CLCL_ORDER", "LENGTH_TABLE", "DIST_TABLE", "MAX_BITS",
+                 "MAX_CL_BITS", "WINDOW", "MIN_MATCH", "MAX_MATCH"):
+        assert getattr(tdeflate, name) == getattr(jdeflate, name), name
+    for length in range(3, 259):
+        assert tdeflate.length_to_code(length) == \
+            jdeflate.length_to_code(length)
+    for dist in range(1, 32769):
+        assert tdeflate.dist_to_code(dist) == jdeflate.dist_to_code(dist)
+    for lens in ([2, 1, 3, 3], [0, 0, 5], tdeflate.fixed_lit_lengths(),
+                 tdeflate.fixed_dist_lengths(), []):
+        assert tdeflate.canonical_codes(lens) == \
+            jdeflate.canonical_codes(lens)
+
+
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+def test_deflate_decoder_same_output(samples, level):
+    """decompress_ex on zlib's raw streams of every sample equals the
+    original's, bytes consumed included; a corrupt stream raises ValueError
+    in both."""
+    import zlib
+
+    for data in samples:
+        stream = zlib.compress(data, level)[2:-4] + b"tail"
+        assert tdeflate.decompress_ex(stream) == \
+            jdeflate.decompress_ex(stream)
+        assert tdeflate.decompress(stream) == data
+    for bad in (b"\x07", b"\x04\x00", b""):
+        with pytest.raises(ValueError):
+            jdeflate.decompress(bad)
+        with pytest.raises(ValueError):
+            tdeflate.decompress(bad)

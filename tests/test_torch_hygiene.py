@@ -55,8 +55,8 @@ def test_chip_smoke_imports_no_jax():
 
 def test_round_trips_load_no_tpuzip_module():
     """In a fresh interpreter, lz4 (the default codec, and at max_chain
-    8), rle, lz4p, ari, bwt (flag 2 and the segmented flag 8), bwtdc and
-    apm round trips on the CPU, compress_from_device with
+    8), rle, lz4p, deflate, ari, bwt (flag 2 and the segmented flag 8),
+    bwtdc and apm round trips on the CPU, compress_from_device with
     decompress(to_device=True) (lz4, rle, lz4p, apm) and the corpus API
     load neither jax nor any tpuzip module, so the port runs its own code
     there (never tpuzip's C++ coder)."""
@@ -68,7 +68,8 @@ def test_round_trips_load_no_tpuzip_module():
         "from tpuzip_torch.dist import runner\n"
         "runner.SEG_THRESHOLD = 512\n"
         "d = b'abracadabra ' * 150\n"
-        "for codec, bs in (('rle', 512), ('lz4p', 512), ('ari', 512),\n"
+        "for codec, bs in (('rle', 512), ('lz4p', 512), ('deflate', 512),\n"
+        "                  ('ari', 512),\n"
         "                  ('bwt', 256), ('bwt', 1024), ('bwtdc', 1024),\n"
         "                  ('apm', 128)):\n"
         "    c = tpuzip_torch.compress(d, codec, bs, device='cpu')\n"

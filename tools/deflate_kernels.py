@@ -1,0 +1,273 @@
+#!/usr/bin/env python3
+"""Check and time csrc/deflate_encode.cu and csrc/inflate.cu on one GPU:
+
+    python3 tools/deflate_kernels.py [--ab DIR ...]
+
+Builds both sources with nvcc -Xptxas -v (registers and spills), then
+holds every launch exact against its plain version on 40 rows of 4 KiB
+(text, zeros, random bytes, 3 and 6 symbols, b"ab", at lengths 4096,
+4095, 1365, 777 and 4, one row of each length with random bytes past
+it, and text rows of 0, 1, 2, 3, 5, 259, 260 and 1000 bytes) and on 40
+KiB rows whose repeats lie 32,767 to 32,769 back: the links, the parse
+at max_chain 1, 8 and 128, the emit in the three modes, and the inflate
+of every stream; the inflate also on 64 random and 64 bit-flipped
+streams and zlib's streams of several blocks.  Then one timed launch of each (CUDA
+events) at 1024 x 64 KiB of chip_smoke's text corpus, dynamic at
+max_chain 128.  With --ab, each DIR's deflate_encode.cu parse entry
+(tpz_deflate_parse, with or without its best_at scratch argument) against
+the checkout's, outputs held equal, timed in turns (DIR, checkout,
+checkout, DIR) at 1024 x 64 KiB of text at max_chain 8 and 128, of zero
+rows and of random rows at 128.  Prints the card, the ptxas lines and one
+JSON line a group."""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import traceback
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from tpuzip_torch.kernels import _build, deflate_coder as dc  # noqa: E402
+
+
+def ptxas() -> None:
+    nvcc = _build.find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("deflate_encode", "inflate"):
+            r = subprocess.run(
+                [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                 f"{tmp}/{name}.so", str(_build.CSRC / f"{name}.cu")],
+                capture_output=True, text=True, timeout=300)
+            print(name, r.returncode, "\n".join(
+                line for line in (r.stdout + r.stderr).splitlines()
+                if "registers" in line or "error" in line
+                or "spill" in line or "smem" in line), flush=True)
+    _build.build("deflate_encode", "inflate")
+
+
+def rows(n: int):
+    """(40, n) rows and lengths on the card, as the module note says."""
+    rng = np.random.default_rng(5)
+    text = np.frombuffer(cs.text_corpus(8 * n, 3), np.uint8)
+    kinds = [text[:n], text[n : 2 * n], np.zeros(n), rng.integers(0, 256, n),
+             rng.integers(0, 3, n), rng.integers(0, 6, n) * 37,
+             np.resize(np.frombuffer(b"ab", np.uint8), n), text[2 * n : 3 * n]]
+    out, lens = [], []
+    for k, row in enumerate(kinds * 4):
+        out.append(np.asarray(row, np.uint8))
+        lens.append([n, n - 1, n // 3, 777, 4][k // len(kinds)]
+                    if k % len(kinds) != 1 else n // 2)
+    for ln in (0, 1, 2, 3, 5, 259, 260, 1000):
+        out.append(text[:n].copy())
+        lens.append(ln)
+    x = np.stack(out)
+    keep = np.arange(n)[None, :] < np.array(lens)[:, None]
+    x = np.where(keep | (np.arange(len(x)) % 5 == 1)[:, None], x, 0)
+    return (torch.from_numpy(x.astype(np.uint8)).cuda(),
+            torch.tensor(lens, dtype=torch.int32).cuda())
+
+
+def far_rows():
+    """Rows of 40 KiB whose second copy of a 300-byte run lies 32,767,
+    32,768 and 32,769 bytes after the first."""
+    rng = np.random.default_rng(9)
+    n = 40 << 10
+    out = []
+    for gap in (32767, 32768, 32769):
+        row = rng.integers(0, 256, n).astype(np.uint8)
+        row[gap : gap + 300] = row[:300]
+        out.append(row)
+    x = torch.from_numpy(np.stack(out)).cuda()
+    return x, torch.full((3,), n, dtype=torch.int32).cuda()
+
+
+def check(x, xl, label: str) -> dict:
+    res = {"rows": list(x.shape)}
+    prev = dc.deflate_links(x, xl)
+    pref = dc.deflate_links_plain(x, xl)
+    res["links_err"] = cs.max_err(prev, pref)
+    streams = []
+    for mc in (1, 8, 128):
+        tok, nt = dc.deflate_parse(x, xl, prev, mc)
+        tref, ntref = dc.deflate_parse_plain(x, xl, pref, mc)
+        res[f"parse_{mc}_err"] = max(cs.max_err(tok, tref),
+                                     cs.max_err(nt, ntref))
+        for mode in (0, 1):
+            comp, clens = dc.deflate_emit(x, xl, tok, nt, mode)
+            cref, clref = dc.deflate_emit_plain(x, xl, tref, ntref, mode)
+            res[f"emit_{mode}_{mc}_err"] = max(cs.max_err(comp, cref),
+                                               cs.max_err(clens, clref))
+            streams.append((comp, clens))
+    comp, clens = dc.deflate_emit(x, xl, None, None, 2)
+    cref, clref = dc.deflate_emit_plain(x, xl, None, None, 2)
+    res["emit_stored_err"] = max(cs.max_err(comp, cref),
+                                 cs.max_err(clens, clref))
+    streams.append((comp, clens))
+    n = x.shape[1]
+    keep = torch.arange(n, device="cuda")[None, :] < xl[:, None]
+    want = torch.where(keep, x, 0)
+    for k, (comp, clens) in enumerate(streams):
+        out, st = dc.inflate_batch(comp, clens, n)
+        oref, sref = dc.inflate_batch_plain(comp, clens, n)
+        res[f"inflate_{k}_err"] = max(cs.max_err(out, oref),
+                                      cs.max_err(st, sref))
+        res[f"inflate_{k}_round_trip"] = bool(
+            torch.equal(st, xl.to(torch.int64)) and torch.equal(out, want))
+    print(json.dumps({"group": label, **res}), flush=True)
+    return res
+
+
+def garbage() -> dict:
+    rng = np.random.default_rng(11)
+    text = cs.text_corpus(3000, 4)
+    import zlib
+    streams = [rng.integers(0, 256, int(rng.integers(1, 300)),
+                            dtype=np.uint8).tobytes() for _ in range(64)]
+    good = zlib.compress(text, 6)[2:-4]
+    for k in range(64):
+        s = bytearray(good)
+        s[int(rng.integers(0, len(s)))] ^= 1 << int(rng.integers(0, 8))
+        streams.append(bytes(s))
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    multi = b""
+    for k in range(6):
+        multi += co.compress(text[k * 400 : (k + 1) * 400])
+        multi += co.flush(zlib.Z_SYNC_FLUSH if k % 2 else zlib.Z_FULL_FLUSH)
+    multi += co.flush()
+    streams += [multi, multi[:-3], zlib.compress(text, 0)[2:-4],
+                zlib.compress(text, 1)[2:-4], zlib.compress(text, 9)[2:-4]]
+    w = max(map(len, streams))
+    arr = np.zeros((len(streams), w), np.uint8)
+    for i, s in enumerate(streams):
+        arr[i, : len(s)] = np.frombuffer(s, np.uint8)
+    x = torch.from_numpy(arr).cuda()
+    lens = torch.tensor([len(s) for s in streams], dtype=torch.int32).cuda()
+    res = {}
+    for cap in (4096, 2000):
+        out, st = dc.inflate_batch(x, lens, cap)
+        oref, sref = dc.inflate_batch_plain(x, lens, cap)
+        res[f"cap_{cap}_err"] = max(cs.max_err(out, oref),
+                                    cs.max_err(st, sref))
+        res[f"cap_{cap}_status"] = st.tolist()[-6:]
+    print(json.dumps({"group": "garbage", **res}), flush=True)
+    return res
+
+
+def timing() -> None:
+    n = 1 << 16
+    data = cs.text_corpus(1024 * n, cs.SEED)
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).reshape(
+        1024, n).cuda()
+    xl = torch.full((1024,), n, dtype=torch.int32).cuda()
+    res = {}
+    prev = dc.deflate_links(x, xl)
+    res["links_ms"] = cs.cuda_ms(lambda: dc.deflate_links(x, xl), 3)
+    tok, nt = dc.deflate_parse(x, xl, prev, 128)
+    res["parse_128_ms"] = cs.cuda_ms(
+        lambda: dc.deflate_parse(x, xl, prev, 128), 2)
+    comp, clens = dc.deflate_emit(x, xl, tok, nt, 0)
+    res["emit_ms"] = cs.cuda_ms(lambda: dc.deflate_emit(x, xl, tok, nt, 0),
+                                3)
+    res["ratio"] = int(clens.sum()) / len(data)
+    res["stored_ms"] = cs.cuda_ms(
+        lambda: dc.deflate_emit(x, xl, None, None, 2), 3)
+    out, st = dc.inflate_batch(comp, clens, n)
+    res["inflate_ms"] = cs.cuda_ms(lambda: dc.inflate_batch(comp, clens, n),
+                                   3)
+    res["round_trip"] = bool(torch.equal(out, x))
+    print(json.dumps({"group": "timing", "card": cs.nvidia_smi(), **res}),
+          flush=True)
+
+
+def parse_entry(lib):
+    """(call(blocks, lens, prev, max_chain) -> (tokens, ntok)) of a build's
+    tpz_deflate_parse, whichever of its two signatures the source has."""
+    fn = lib.tpz_deflate_parse
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    scratch = "void* best_at" in lib._source
+    fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp] + (
+        [vp, vp] if scratch else [vp])
+    fn.restype = ci
+
+    def call(x, xl, prev, mc):
+        b, n = x.shape
+        tok = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+        nt = torch.empty(b, dtype=torch.int32, device="cuda")
+        extra = [torch.empty((b, n), dtype=torch.int32,
+                             device="cuda").data_ptr()] if scratch else []
+        err = fn(x.data_ptr(), xl.data_ptr(), prev.data_ptr(), b, n, mc,
+                 tok.data_ptr(), nt.data_ptr(), *extra,
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "tpz_deflate_parse")
+        return tok, nt
+    return call
+
+
+def load_dir(path: str):
+    """DIR's deflate_encode.cu built with the checkout's flags."""
+    nvcc = _build.find_nvcc()
+    src = os.path.join(path, "deflate_encode.cu")
+    so = os.path.join(tempfile.mkdtemp(), "libdeflate_ab.so")
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", so, src], check=True,
+                   capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(so)
+    lib._source = open(src).read()
+    return lib
+
+
+def ab(dirs: list) -> None:
+    n = 1 << 16
+    data = cs.text_corpus(1024 * n, cs.SEED)
+    text = torch.frombuffer(bytearray(data), dtype=torch.uint8).reshape(
+        1024, n).cuda()
+    rng = np.random.default_rng(13)
+    xl = torch.full((1024,), n, dtype=torch.int32).cuda()
+    shapes = {"text": text, "zero": torch.zeros_like(text),
+              "random": torch.from_numpy(rng.integers(
+                  0, 256, (1024, n), np.uint8)).cuda()}
+    mine = _build.load("deflate_encode")
+    mine._source = open(_build.CSRC / "deflate_encode.cu").read()
+    new = parse_entry(mine)
+    for d in dirs:
+        old = parse_entry(load_dir(d))
+        for name, mc in (("text", 8), ("text", 128), ("zero", 128),
+                         ("random", 128)):
+            x = shapes[name]
+            prev = dc.deflate_links(x, xl)
+            a, b = old(x, xl, prev, mc), new(x, xl, prev, mc)
+            same = all(torch.equal(u, v) for u, v in zip(a, b))
+            t = [cs.cuda_ms(lambda: f(x, xl, prev, mc), 2)
+                 for f in (old, new, new, old)]
+            print(json.dumps({"group": "ab", "dir": d, "rows": name,
+                              "max_chain": mc, "outputs_equal": same,
+                              "old_ms": (t[0] + t[3]) / 2,
+                              "new_ms": (t[1] + t[2]) / 2,
+                              "turns_ms": t}), flush=True)
+
+
+def main() -> int:
+    print(cs.nvidia_smi(), flush=True)
+    ptxas()
+    if sys.argv[1:2] == ["--ab"]:
+        ab(sys.argv[2:])
+    for fn in (lambda: check(*rows(4096), "rows_4096"),
+               lambda: check(*far_rows(), "far_rows"), garbage, timing):
+        try:
+            fn()
+        except Exception:
+            traceback.print_exc()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,19 +7,22 @@ of tpuzip becomes a CUDA kernel written for Hopper (``sm_90a``) under
 against; the port imports nothing of it and keeps its own copies of what
 it needs (``runtime.errors``, ``core.blocks``, ``core.config``, ``oracle``).
 
-Ported so far: the container round trip of the lz4 codec (LZ4 blocks,
-tpuzip's default; ``config.codec.lz4.max_chain > 1`` runs tpuzip's
-chained encoder), of the rle codec and of the lz4p codec (LZ4's parse in
-u16 columns), and the chunk-indexed one of the ari codec, of the bwt
-codec (BWT -> MTF -> ari, with the segmented entropy stage of blocks
-above 1 MiB), of the bwtdc codec (BWT -> DC -> ari) and of the bin and
-apm codecs (a binary adaptive model over each block's bits, the apm one
-refined by an APM/SSE gate).  For data that lives on the device,
-``compress_from_device`` and ``decompress(to_device=True)``; for large
-corpora, ``compress_corpus`` and ``decompress_corpus`` (the TPZC
-container of superbatches, which ``decompress`` also reads).  The
-deflate codec and ``open`` raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+Ported so far: every codec of the tpz container.  The container round
+trip of the lz4 codec (LZ4 blocks, tpuzip's default;
+``config.codec.lz4.max_chain > 1`` runs tpuzip's chained encoder), of the
+rle codec, of the lz4p codec (LZ4's parse in u16 columns) and of the
+deflate codec (raw RFC 1951 streams in dynamic, fixed or stored blocks,
+``config.codec.deflate``; the inflate reads any RFC 1951 stream), and the
+chunk-indexed one of the ari codec, of the bwt codec (BWT -> MTF -> ari,
+with the segmented entropy stage of blocks above 1 MiB), of the bwtdc
+codec (BWT -> DC -> ari) and of the bin and apm codecs (a binary adaptive
+model over each block's bits, the apm one refined by an APM/SSE gate).
+For data that lives on the device, ``compress_from_device`` and
+``decompress(to_device=True)``; for large corpora, ``compress_corpus``
+and ``decompress_corpus`` (the TPZC container of superbatches, which
+``decompress`` also reads).  ``open`` and
+``compress_from_device(codec="deflate")`` (tpuzip's XLA deflate encoder)
+raise NotImplementedError naming the ROADMAP.md item that ports them.
 
 ``device="cuda"`` (the default) runs the kernels and raises when there is
 no usable GPU; ``device="cpu"`` runs their plain PyTorch versions.

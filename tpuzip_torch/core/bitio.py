@@ -8,7 +8,8 @@ fall at or past the capacity are dropped.  tpuzip's sort variant
 scatter was slow on the TPU; it computes the same function, so the port
 has only the scatter, ``pack_bytes_varlen``.
 The bit packers (``bit_reverse``, ``pack_bits_lsb``, ``unpack_bits_lsb``)
-come with DEFLATE (ROADMAP.md, queue 1, item 13).
+come with tpuzip's XLA deflate encoder (ROADMAP.md, queue 1, item 13b)
+if its plain version needs them; the C++ encoder's does not.
 """
 
 from __future__ import annotations

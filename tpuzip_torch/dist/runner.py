@@ -1,4 +1,5 @@
-"""The tpz container, lz4, rle, lz4p, ari, bwt, bwtdc, bin and apm codecs:
+"""The tpz container, lz4, rle, lz4p, deflate, ari, bwt, bwtdc, bin and apm
+codecs:
 compress and decompress on one device, compress_from_device and
 decompress(to_device=True) for data that lives on it, and the TPZC corpus
 container of superbatches (compress_corpus, decompress_corpus).
@@ -12,7 +13,8 @@ same container:
   | [flags&4: <HI> the model knobs when not the codec's defaults:
       (increment, threshold) not (8, 8192), or for bin/apm
       (model_bits, rate) not (12, 5)]
-  | payloads, per block: lz4, rle, lz4p: [stream] (flag 2 is never set);
+  | payloads, per block: lz4, rle, lz4p, deflate: [stream] (flag 2 is never
+    set);
     bin, apm from compress_from_device: [stream] (flag 2 clear);
     the others with flags&2, the chunk index:
       ari:   [u32 idx_len][chunk index][ari stream]
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from tpuzip_torch.codecs import bin_apm, bwt, dc
+from tpuzip_torch.codecs import deflate as cdeflate
 from tpuzip_torch.codecs import lz4 as clz4
 from tpuzip_torch.codecs import lz4p as clz4p
 from tpuzip_torch.codecs import rle as crle
@@ -58,8 +61,8 @@ from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.checksum import adler32_batch
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.device import resolve
-from tpuzip_torch.kernels import (bin_coder, lz4_chain, lz4_coder,
-                                  lz4_dense, lz4p_coder, mtf_scan,
+from tpuzip_torch.kernels import (bin_coder, deflate_coder, lz4_chain,
+                                  lz4_coder, lz4_dense, lz4p_coder, mtf_scan,
                                   range_coder, range_decoder, rle_coder)
 from tpuzip_torch.kernels.range_decoder import (CHUNK_STEPS,
                                                 pack_chunk_index,
@@ -83,21 +86,16 @@ PARALLEL_ADLER = 8 << 20      # corpora from here on sum in PARTS threads
 PARTS = 4
 BIN_CODECS = ("bin", "apm")
 # one plain stream a block, flag 2 never set
-LZ_CODECS = ("lz4", "rle", "lz4p")
-
-# where ROADMAP.md (queue 1) ports each codec that is not here yet
-_ROADMAP_ITEM = {"deflate": 13}
+LZ_CODECS = ("lz4", "rle", "lz4p", "deflate")
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to tpuzip_torch yet (ROADMAP.md, queue 1, "
         f"item {item})")
 
 
 def _check_codec(codec: str) -> None:
-    if codec in _ROADMAP_ITEM:
-        raise not_ported(f"codec {codec!r}", _ROADMAP_ITEM[codec])
     if codec not in HEAD and codec not in LZ_CODECS:
         raise ValueError(f"unknown codec {codec!r}")
 
@@ -228,8 +226,9 @@ def _encode_blocks(codec: str, blocks, lengths, lengths_np, knobs,
     """Every block's payload, the codec's part of compress and
     compress_from_device: blocks (B, n) u8 and lengths (B,) i32 on the
     device -> (the flags the payloads set: 2 the chunk index, 8 the
-    segmented bwt stage; their lengths; the payload).  lz4 and rle run
-    lz_encode(blocks, lengths) -> (comp, clens); bin and apm write the
+    segmented bwt stage; their lengths; the payload).  lz4, rle, lz4p and
+    deflate run lz_encode(blocks, lengths) -> (comp, clens); bin and apm
+    write the
     stream alone where bin_index is False."""
     inc, thr = knobs
     nb, n = blocks.shape
@@ -294,11 +293,16 @@ def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
     (kernels/lz4_chain.py; lz4p ignores it); its device_encode=True, which
     comes first, runs tpuzip's device encoder (kernels/lz4_dense.py): lz4
     at that hash_log as it is, lz4p at 15 with its columns unsplit
-    (kernels/lz4p_coder.py).  block_checksums=True adds an Adler-32 per
-    block (flag bit 0)."""
+    (kernels/lz4p_coder.py).  deflate writes the bytes of tpuzip's C++
+    encoder at `config.codec.deflate`'s mode (dynamic, fixed or stored;
+    any other raises ValueError) and max_chain (kernels/deflate_coder.py).
+    block_checksums=True adds an Adler-32 per block (flag bit 0)."""
     _check_codec(codec)
     config = config or Config()
     lz4_cfg = config.codec.lz4
+    deflate_cfg = config.codec.deflate
+    if codec == "deflate":
+        mode = cdeflate.mode_id(deflate_cfg.mode)
     if block_size is None:
         block_size = (config.codec.bwt.block_size if codec in ("bwt", "bwtdc")
                       else config.mesh.block_size)
@@ -315,6 +319,9 @@ def compress(data: bytes, codec: str = "lz4", block_size: int | None = None,
     def lz_encode(b, lens):
         if codec == "rle":
             return rle_coder.rle_encode_batch(b, lens)
+        if codec == "deflate":
+            return deflate_coder.deflate_encode_batch(
+                b, lens, deflate_cfg.max_chain, mode)
         if codec == "lz4p":
             return lz4p_coder.lz4p_encode_batch(b, lens, lz4_cfg.hash_log,
                                                 xla=lz4_cfg.device_encode)
@@ -373,9 +380,14 @@ def compress_from_device(blocks, lengths, codec: str = "lz4",
     at (12, 5), the stream alone.  Flag 4 and its trailer follow the ari
     knobs for every codec, as in tpuzip; for bin and apm that container
     would decode with the wrong model (tpuzip reads the trailer as their
-    knobs), so they raise ValueError there.  The corpus Adler-32 is folded
-    from the per-block sums."""
+    knobs), so they raise ValueError there.  deflate raises
+    NotImplementedError: tpuzip writes its XLA encoder's bytes there, a
+    second encoder rule.  The corpus Adler-32 is folded from the per-block
+    sums."""
     _check_codec(codec)
+    if codec == "deflate":
+        raise not_ported("compress_from_device(codec='deflate'), tpuzip's "
+                         "XLA deflate encoder,", "13b")
     config = config or Config()
     dev = resolve(device)
     blocks = _device_blocks(blocks, dev)
@@ -435,6 +447,8 @@ def _block_cap(codec: str, flags: int, block_size: int) -> int:
         return crle.encode_cap(block_size)
     if codec == "lz4p":
         return clz4p.encode_cap(block_size)
+    if codec == "deflate":
+        return cdeflate.decode_cap(block_size)
     if codec == "bwt" and flags & 8:
         seg, nseg = _seg_geometry(block_size)
         nc_seg = (seg + CHUNK_STEPS - 1) // CHUNK_STEPS
@@ -678,19 +692,28 @@ def _decode_unindexed(container: bytes, codec: str, starts, clens, olens,
 
 def _decode_lz(container: bytes, codec: str, starts, clens, olens,
                block_size: int, dev) -> torch.Tensor:
-    """lz4, rle or lz4p blocks -> (nb, block_size) u8 on `dev`, with tpuzip's
-    checks in its order: a decoded length that is not the block's (on a
-    block with a stream and no error) raises ValueError, then a stream in
-    error CorruptStreamError naming its blocks."""
+    """lz4, rle, lz4p or deflate blocks -> (nb, block_size) u8 on `dev`,
+    with tpuzip's checks in its order: a decoded length that is not the
+    block's (on a block with a stream and no error) raises ValueError, then
+    a stream in error CorruptStreamError naming its blocks.  deflate has
+    tpuzip's own rule: any block with a stream whose status is not its
+    length, a corrupt one included, raises ValueError."""
     spans = np.stack([starts, clens], axis=1) if len(clens) \
         else np.zeros((0, 2), np.int64)
     streams = _upload_streams(container, spans, dev)
     lens = torch.from_numpy(clens.astype(np.int32)).to(dev)
     decode = {"lz4": lz4_coder.lz4_decode_batch,
               "rle": rle_coder.rle_decode_batch,
-              "lz4p": lz4p_coder.lz4p_decode_batch}[codec]
+              "lz4p": lz4p_coder.lz4p_decode_batch,
+              "deflate": deflate_coder.inflate_batch}[codec]
     out, status = decode(streams, lens, block_size)
     st = status.cpu().numpy()
+    if codec == "deflate":
+        bad = (st != olens) & (clens > 0)
+        if bad.any():
+            raise ValueError(
+                f"deflate length mismatch at {np.nonzero(bad)[0][:8]}")
+        return out
     err = st < 0
     bad = (np.where(st > 0, st, 0) != olens) & (clens > 0) & ~err
     if bad.any():
@@ -710,7 +733,7 @@ def decompress(container: bytes, device="cuda", to_device: bool = False):
     assembled on the host) is not, as in tpuzip."""
     (codec, flags, block_size, nb, orig_len, a32, clens, block_sums,
      (inc, thr), off) = _parse_header(container)
-    if codec not in LZ_CODECS:   # lz4 and rle ignore the trailer's knobs
+    if codec not in LZ_CODECS:   # these ignore the trailer's knobs
         try:
             _check_knobs(codec, inc, thr)
         except ValueError as e:

@@ -1,0 +1,858 @@
+"""The deflate codec's encoder and inflate over a batch of blocks: the CUDA
+kernels' wrappers and their plain PyTorch versions.
+
+Off the TPU tpuzip's runner encodes codec "deflate" with its C++
+``tpz_deflate`` (csrc/tpuzip_host.cpp:1314-1583, through
+``native.deflate_batch_native``) and decodes it with ``tpz_inflate``
+(:1020-1111, through ``native.inflate_batch_native``); tpuzip has no
+Pallas form of either.  The port may not call them, so
+csrc/deflate_encode.cu and csrc/inflate.cu replace them, and the
+functions here are theirs:
+
+  links  prev[p] for every position p with p + 2 < length: the last
+         q < p whose 3 bytes hash as p's, h = (v * 2654435761 mod 2^32)
+         >> 17 (15 bits); -1 where there is none and from length - 2 on.
+         The C++ inserts every position into its chain once, before its
+         parse reaches it (the lazy step inserts i before it probes
+         i + 1), so when it probes p the chain is prev's.
+  parse  best(p): the longest match over the first max_chain links of
+         p's chain that lie at most 32,768 back, extended to at most
+         min(258, length - p) bytes, the first link on ties; 0 from
+         length - 2 on.  At i: best(i) under 3 makes i a literal; else
+         the match is deferred while i + 4 <= length and best(i + 1) >
+         best(i) (i becomes a literal), then emitted, and the parse goes on
+         at its end.  Tokens, one an i32: a literal is its byte, a match
+         length << 16 | distance.
+  emit   the block from the tokens.  Dynamic (mode 0): histograms (EOB
+         counted once), package-merge code lengths for literals/lengths
+         (286 symbols, 15 bits) and distances (30, 15), the degenerate
+         tables fixed as the C++ fixes them, canonical codes, hlit/hdist
+         trimmed, the lengths run-length coded with 16/17/18, their code
+         (19 symbols, 7 bits) by package-merge too, hclen trimmed; then
+         the header, the tokens and EOB.  Fixed (mode 1): the RFC's codes.
+         Stored (mode 2, no tokens): blocks of at most 65,535 bytes.
+         Every stream is one final block but stored ones; comp is zero past
+         each stream.
+  inflate  tpz_inflate's status, the decoded length or -1, on any RFC 1951
+         stream (stored, fixed and dynamic blocks in sequence): -1 for a
+         read past the stream, BTYPE 3, a stored LEN/NLEN mismatch, hlit
+         over 286 or hdist over 30, an empty or oversubscribed
+         code-length or literal table, a repeat with no previous length or
+         past hlit + hdist, a code that decodes to no symbol, length
+         symbol 286/287, distance symbol 30/31, a distance past the bytes
+         decoded so far, or output past out_cap.  An empty or
+         oversubscribed distance table fails the block's first match (-1;
+         tpuzip reads uninitialised memory there), and a stored block
+         after a Huffman block is read from the next byte boundary, as
+         the RFC says (tpuzip's reader drops whole bytes it has buffered
+         there).  The output row holds the bytes decoded until the end or
+         the fault, 0 after them; an empty stream decodes to 0 bytes.
+
+package-merge sorts each level's items with std::sort on the weight
+alone (tpuzip_host.cpp:1262), which is not stable: the order of equal
+weights decides which items are paired and taken, so code lengths, and
+the bytes, follow libstdc++'s introsort.  ``std_sort`` replicates it:
+median of three moved to the first place, the unguarded partition, a
+threshold of 16, the final insertion sort, and the heap sort at the depth
+limit 2 floor(log2 n).
+
+The plain versions: the links by one stable sort of each row's hashes;
+best at every position, chain link by chain link over the positions still
+walking, each match length a common prefix by doubling over ranks of the
+row's substrings (kernels/lz4_chain.py's); then the lazy parse, the
+tables and the bits of each row one after another.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from tpuzip_torch.codecs.deflate import encode_cap
+from tpuzip_torch.kernels import _build
+from tpuzip_torch.kernels.lz4_chain import _rank_levels
+from tpuzip_torch.kernels.lz4_coder import _check_pair, _mul32
+from tpuzip_torch.oracle.deflate import (CLCL_ORDER, DIST_TABLE,
+                                         LENGTH_TABLE, canonical_codes,
+                                         fixed_dist_lengths,
+                                         fixed_lit_lengths)
+
+HASH_MUL = 2654435761
+HASH_BITS = 15
+MIN_MATCH = 3
+MAX_MATCH = 258
+WINDOW = 32768        # a link further back than this ends the walk
+MAX_CHAIN = 1 << 16   # links a walk can take at most
+STORED_MAX = 65535    # bytes of a stored block, at most
+POOL_BYTES = 1 << 30  # the links kernel's tables, at most
+KEY_SLOT = 8          # bytes of a keyed table's slot
+THRESHOLD = 16        # libstdc++'s _S_threshold
+PKG = 1 << 10         # package-merge node ids: a leaf s, or PKG + package
+MATCH_SHIFT = 16      # a match token: length << 16 | distance
+SCRATCH_BYTES = 20480  # a row's package-merge levels and tables in emit
+
+LEN_BASE = [b for _, b in LENGTH_TABLE]
+LEN_EXTRA = [e for e, _ in LENGTH_TABLE]
+DIST_BASE = [b for _, b in DIST_TABLE]
+DIST_EXTRA = [e for e, _ in DIST_TABLE]
+
+
+def slots_log(n: int) -> int:
+    """The links kernel's keyed table: 2^slots_log slots of KEY_SLOT bytes,
+    twice the hashes a row of n bytes can hold, so half full at most."""
+    return max(6, min(HASH_BITS + 1, (2 * max(n, 1) - 1).bit_length()))
+
+
+def table_count(b: int, n: int) -> int:
+    """Tables that a links launch on b rows of n bytes gets: one a row, or
+    where b tables would pass POOL_BYTES a pool of fewer, whose warps walk
+    the rows by a grid-stride loop."""
+    return max(1, min(b, POOL_BYTES // (KEY_SLOT << slots_log(n))))
+
+
+# ---------------------------------------------------------------- std::sort
+
+def _lt(a: list, i: int, j: int) -> bool:
+    return a[i][0] < a[j][0]
+
+
+def _insertion_sort(a: list, first: int, last: int) -> None:
+    for i in range(first + 1, last):
+        if a[i][0] < a[first][0]:
+            val = a[i]
+            a[first + 1 : i + 1] = a[first:i]
+            a[first] = val
+        else:
+            _unguarded_linear_insert(a, i)
+
+
+def _unguarded_linear_insert(a: list, last: int) -> None:
+    val = a[last]
+    nxt = last - 1
+    while val[0] < a[nxt][0]:
+        a[last] = a[nxt]
+        last = nxt
+        nxt -= 1
+    a[last] = val
+
+
+def _adjust_heap(a: list, first: int, hole: int, n: int, val) -> None:
+    top = hole
+    child = hole
+    while child < (n - 1) // 2:
+        child = 2 * (child + 1)
+        if a[first + child][0] < a[first + child - 1][0]:
+            child -= 1
+        a[first + hole] = a[first + child]
+        hole = child
+    if n % 2 == 0 and child == (n - 2) // 2:
+        child = 2 * (child + 1)
+        a[first + hole] = a[first + child - 1]
+        hole = child - 1
+    parent = (hole - 1) // 2
+    while hole > top and a[first + parent][0] < val[0]:
+        a[first + hole] = a[first + parent]
+        hole = parent
+        parent = (hole - 1) // 2
+    a[first + hole] = val
+
+
+def _heap_sort(a: list, first: int, last: int) -> None:
+    """__partial_sort(first, last, last): make_heap, then sort_heap."""
+    n = last - first
+    if n >= 2:
+        parent = (n - 2) // 2
+        while True:
+            _adjust_heap(a, first, parent, n, a[first + parent])
+            if parent == 0:
+                break
+            parent -= 1
+    while last - first > 1:
+        last -= 1
+        val = a[last]
+        a[last] = a[first]
+        _adjust_heap(a, first, 0, last - first, val)
+
+
+def _move_median_to_first(a: list, result: int, x: int, y: int,
+                          z: int) -> None:
+    if _lt(a, x, y):
+        pick = y if _lt(a, y, z) else z if _lt(a, x, z) else x
+    else:
+        pick = x if _lt(a, x, z) else z if _lt(a, y, z) else y
+    a[result], a[pick] = a[pick], a[result]
+
+
+def _unguarded_partition(a: list, first: int, last: int, pivot: int) -> int:
+    while True:
+        while a[first][0] < a[pivot][0]:
+            first += 1
+        last -= 1
+        while a[pivot][0] < a[last][0]:
+            last -= 1
+        if not first < last:
+            return first
+        a[first], a[last] = a[last], a[first]
+        first += 1
+
+
+def _introsort_loop(a: list, first: int, last: int, depth: int) -> int:
+    fallbacks = 0
+    while last - first > THRESHOLD:
+        if depth == 0:
+            _heap_sort(a, first, last)
+            return fallbacks + 1
+        depth -= 1
+        mid = first + (last - first) // 2
+        _move_median_to_first(a, first, first + 1, mid, last - 1)
+        cut = _unguarded_partition(a, first + 1, last, first)
+        fallbacks += _introsort_loop(a, cut, last, depth)
+        last = cut
+    return fallbacks
+
+
+def std_sort(a: list) -> int:
+    """libstdc++'s std::sort of a list of (weight, node) pairs, in place,
+    ordered by the weight alone; returns how often its heap-sort fallback
+    ran."""
+    n = len(a)
+    if n == 0:
+        return 0
+    fallbacks = _introsort_loop(a, 0, n, 2 * (n.bit_length() - 1))
+    if n > THRESHOLD:
+        _insertion_sort(a, 0, THRESHOLD)
+        for i in range(THRESHOLD, n):
+            _unguarded_linear_insert(a, i)
+    else:
+        _insertion_sort(a, 0, n)
+    return fallbacks
+
+
+def package_merge(freq: list, maxbits: int) -> list:
+    """tpuzip's package_merge (tpuzip_host.cpp:1244-1271): code lengths of
+    at most maxbits for the symbols with freq > 0 (a lone symbol gets 1),
+    each level's items ordered by std_sort."""
+    lens = [0] * len(freq)
+    active = [s for s, f in enumerate(freq) if f > 0]
+    if len(active) == 1:
+        lens[active[0]] = 1
+    if len(active) < 2:
+        return lens
+    levels, prev = [], []
+    for _ in range(maxbits):
+        cur = [(freq[s], s) for s in active]
+        cur += [(prev[i][0] + prev[i + 1][0], PKG + i // 2)
+                for i in range(0, len(prev) - 1, 2)]
+        std_sort(cur)
+        levels.append([node for _, node in cur])
+        prev = cur
+    taken = range(min(2 * len(active) - 2, len(prev)))
+    for nodes in reversed(levels):   # a taken package takes its pair below
+        below = []
+        for at in taken:
+            node = nodes[at]
+            if node < PKG:
+                lens[node] += 1
+            else:
+                below += (2 * (node - PKG), 2 * (node - PKG) + 1)
+        taken = below
+    return lens
+
+
+# ---------------------------------------------------------------- tables
+
+def _reversed_codes(lens: list) -> list:
+    """Canonical codes, bit-reversed for LSB-first emission (canon_codes)."""
+    return [int(f"{c:0{ln}b}"[::-1], 2) if ln else 0
+            for c, ln in zip(canonical_codes(lens), lens)]
+
+
+def _one_code(lens: list) -> None:
+    """A table with one code gets a second: both of length 1 (:1474)."""
+    if sum(1 for ln in lens if ln) == 1:
+        s = next(s for s, ln in enumerate(lens) if ln)
+        lens[s] = 1
+        lens[1 if s == 0 else 0] = 1
+
+
+def _rle_lengths(all_lens: list) -> list:
+    """The code-length sequence in the code-length alphabet, as the C++
+    runs it (:1496-1528): (symbol, extra value, extra bits)."""
+    out, s = [], 0
+    while s < len(all_lens):
+        v, run = all_lens[s], 1
+        while s + run < len(all_lens) and all_lens[s + run] == v:
+            run += 1
+        s += run
+        if v == 0:
+            while run >= 3:
+                take = min(run, 138)
+                out.append((18, take - 11, 7) if take >= 11
+                           else (17, take - 3, 3))
+                run -= take
+            out += [(0, 0, 0)] * run
+        else:
+            out.append((v, 0, 0))
+            run -= 1
+            while run >= 3:
+                take = min(run, 6)
+                out.append((16, take - 3, 2))
+                run -= take
+            out += [(v, 0, 0)] * run
+    return out
+
+
+def block_tables(tokens: list, mode: int):
+    """A dynamic or fixed block's tables from its tokens: (literal/length
+    lengths, distance lengths, header fields as (value, bits) pairs)."""
+    if mode == 1:
+        return fixed_lit_lengths(), fixed_dist_lengths(), [(1, 1), (1, 2)]
+    lfreq, dfreq = [0] * 286, [0] * 30
+    for t in tokens:
+        if t < 256:
+            lfreq[t] += 1
+        else:
+            lfreq[257 + len_code(t >> MATCH_SHIFT)] += 1
+            dfreq[dist_code(t & 0xFFFF)] += 1
+    lfreq[256] = 1
+    llen = package_merge(lfreq, 15)
+    dlen = package_merge(dfreq, 15)
+    _one_code(llen)
+    nd = sum(1 for ln in dlen if ln)
+    if nd == 0:
+        dlen[0] = 1
+    hlit, hdist = 286, 30
+    while hlit > 257 and llen[hlit - 1] == 0:
+        hlit -= 1
+    while hdist > 1 and dlen[hdist - 1] == 0:
+        hdist -= 1
+    runs = _rle_lengths(llen[:hlit] + dlen[:hdist])
+    clfreq = [0] * 19
+    for sym, _, _ in runs:
+        clfreq[sym] += 1
+    cllen = package_merge(clfreq, 7)
+    _one_code(cllen)
+    clcode = _reversed_codes(cllen)
+    hclen = 19
+    while hclen > 4 and cllen[CLCL_ORDER[hclen - 1]] == 0:
+        hclen -= 1
+    head = [(1, 1), (2, 2), (hlit - 257, 5), (hdist - 1, 5), (hclen - 4, 4)]
+    head += [(cllen[CLCL_ORDER[s]], 3) for s in range(hclen)]
+    for sym, extra, bits in runs:
+        head.append((clcode[sym], cllen[sym]))
+        if bits:
+            head.append((extra, bits))
+    return llen, dlen, head
+
+
+def len_code(length: int) -> int:
+    """The length code 0..28 of a match length 3..258."""
+    return max(i for i, b in enumerate(LEN_BASE) if length >= b)
+
+
+def dist_code(dist: int) -> int:
+    """The distance code 0..29 of a distance 1..32768."""
+    return max(i for i, b in enumerate(DIST_BASE) if dist >= b)
+
+
+def _pack_fields(values: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
+    """The bytes of (value, bits) fields written LSB-first one after
+    another, the last byte zero-filled."""
+    b = torch.arange(32, dtype=torch.int64)
+    bits = (values[:, None] >> b) & 1
+    bits = bits[b[None, :] < nbits[:, None]]
+    bits = F.pad(bits, (0, -len(bits) % 8)).reshape(-1, 8)
+    return (bits << torch.arange(8)).sum(1).to(torch.uint8)
+
+
+def _emit_row(row: bytes, tokens: list, mode: int) -> bytes:
+    """One block's stream (deflate_impl, final_flag 1)."""
+    if mode == 2:
+        out, i = bytearray(), 0
+        while True:
+            take = min(len(row) - i, STORED_MAX)
+            last = i + take >= len(row)
+            out += bytes([int(last), take & 0xFF, take >> 8,
+                          ~take & 0xFF, (~take >> 8) & 0xFF])
+            out += row[i : i + take]
+            i += take
+            if last:
+                return bytes(out)
+    llen, dlen, head = block_tables(tokens, mode)
+    lcode, dcode = _reversed_codes(llen), _reversed_codes(dlen)
+    fields = list(head)
+    for t in tokens:
+        if t < 256:
+            fields.append((lcode[t], llen[t]))
+            continue
+        ln, d = t >> MATCH_SHIFT, t & 0xFFFF
+        lc, dc = len_code(ln), dist_code(d)
+        fields.append((lcode[257 + lc] | (ln - LEN_BASE[lc]) << llen[257 + lc],
+                       llen[257 + lc] + LEN_EXTRA[lc]))
+        fields.append((dcode[dc] | (d - DIST_BASE[dc]) << dlen[dc],
+                       dlen[dc] + DIST_EXTRA[dc]))
+    fields.append((lcode[256], llen[256]))
+    vals, bits = torch.tensor(fields, dtype=torch.int64).T
+    return _pack_fields(vals, bits).numpy().tobytes()
+
+
+# ---------------------------------------------------------------- plain
+
+def deflate_links_plain(blocks: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of the links kernel: blocks (B, n) u8, lengths (B,) ->
+    prev (B, n) i32, as the module note says."""
+    b, n = blocks.shape
+    src = F.pad(blocks, (0, 2)).to(torch.int64)
+    v = src[:, :n] | (src[:, 1 : n + 1] << 8) | (src[:, 2 : n + 2] << 16)
+    h = _mul32(v, HASH_MUL) >> (32 - HASH_BITS)
+    order = torch.sort(h, dim=1, stable=True).indices  # positions ascending
+    hs = h.gather(1, order)                              # within a hash
+    earlier = F.pad(order[:, :-1], (1, 0), value=-1)
+    same = F.pad(hs[:, 1:] == hs[:, :-1], (1, 0), value=False)
+    prev = torch.empty_like(order).scatter_(1, order,
+                                            torch.where(same, earlier, -1))
+    idx = torch.arange(n, device=blocks.device)[None, :]
+    limit = lengths.to(torch.int64).clamp(0, n)[:, None] - 2
+    return torch.where(idx < limit, prev, -1).to(torch.int32)
+
+
+def _best_matches(blocks: torch.Tensor, lengths: torch.Tensor,
+                  prev: torch.Tensor, max_chain: int):
+    """(best, at) of every position: the longest match that the first
+    max_chain links of its chain give (0 where there is none), and the
+    link that gives it first.  Only the positions still walking are
+    carried from link to link."""
+    b, n = blocks.shape
+    dev = blocks.device
+    best = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    at = torch.full_like(best, -1)
+    prev = prev.to(torch.int64)
+    r, p = torch.nonzero((prev >= 0) & (
+        torch.arange(n, device=dev)[None, :] - prev <= WINDOW), as_tuple=True)
+    if r.numel() == 0:
+        return best, at
+    levels = _rank_levels(blocks, MAX_MATCH)
+    lens = lengths.to(torch.int64).clamp(0, n)
+    cap = (lens[r] - p).clamp(max=MAX_MATCH)
+    c = prev[r, p]
+    got = torch.zeros_like(p)
+    for _ in range(max_chain):
+        m = torch.zeros_like(p)
+        for k in range(len(levels) - 1, -1, -1):
+            fits = m + (1 << k) <= cap
+            ra = levels[k][r, (p + m).clamp(max=n - 1)]
+            rc = levels[k][r, (c + m).clamp(max=n - 1)]
+            m = torch.where(fits & (ra == rc), m + (1 << k), m)
+        longer = m > got
+        got = torch.where(longer, m, got)
+        best[r, p] = got
+        at[r, p] = torch.where(longer, c, at[r, p])
+        c = prev[r, c]
+        walk = (c >= 0) & (p - c <= WINDOW) & (got < cap)
+        if not bool(walk.any()):
+            break
+        r, p, c, cap, got = r[walk], p[walk], c[walk], cap[walk], got[walk]
+    return best, at
+
+
+def deflate_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                        prev: torch.Tensor, max_chain: int):
+    """Plain version of the parse kernel: blocks (B, n) u8, lengths (B,),
+    prev (B, n) i32 from the links -> (tokens (B, n) i32, zero past each
+    row's, ntok (B,) i32)."""
+    b, n = blocks.shape
+    best, at = _best_matches(blocks, lengths, prev, max_chain)
+    tokens = torch.zeros((b, n), dtype=torch.int32)
+    ntok = torch.zeros(b, dtype=torch.int32)
+    for r, (row, bst, lnk, ln) in enumerate(zip(
+            blocks.tolist(), best.tolist(), at.tolist(), lengths.tolist())):
+        ln = min(max(ln, 0), n)
+        out, i = [], 0
+        while i < ln:
+            m = bst[i]
+            if m < MIN_MATCH:
+                out.append(row[i])
+                i += 1
+                continue
+            while i + 1 + MIN_MATCH <= ln and bst[i + 1] > m:
+                out.append(row[i])
+                i += 1
+                m = bst[i]
+            out.append(m << MATCH_SHIFT | (i - lnk[i]))
+            i += m
+        tokens[r, : len(out)] = torch.tensor(out, dtype=torch.int32)
+        ntok[r] = len(out)
+    return tokens.to(blocks.device), ntok.to(blocks.device)
+
+
+def deflate_emit_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                       tokens: torch.Tensor | None,
+                       ntok: torch.Tensor | None, mode: int):
+    """Plain version of the emit launch (its tables and its bits): blocks
+    (B, n) u8, lengths (B,), tokens (B, n) i32 and ntok (B,) from the
+    parse (None in mode 2) -> (comp (B, encode_cap(n)) u8, zero past each
+    stream, clens (B,) i32)."""
+    b, n = blocks.shape
+    comp = torch.zeros((b, encode_cap(n)), dtype=torch.uint8)
+    clens = torch.zeros(b, dtype=torch.int32)
+    lens = lengths.tolist()
+    toks = tokens.tolist() if mode != 2 else [[]] * b
+    counts = ntok.tolist() if mode != 2 else [0] * b
+    for r, (row, ln) in enumerate(zip(blocks.tolist(), lens)):
+        ln = min(max(ln, 0), n)
+        s = _emit_row(bytes(row[:ln]), toks[r][: counts[r]], mode)
+        comp[r, : len(s)] = torch.frombuffer(bytearray(s), dtype=torch.uint8)
+        clens[r] = len(s)
+    return comp.to(blocks.device), clens.to(blocks.device)
+
+
+class _Fault(Exception):
+    pass
+
+
+class _Reader:
+    """An LSB-first bit reader over one stream; a read past its end
+    faults."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos, self.end = data, 0, 8 * len(data)
+
+    def peek(self, k: int) -> int:
+        at = self.pos >> 3
+        word = int.from_bytes(self.data[at : at + 4], "little")
+        return (word >> (self.pos & 7)) & ((1 << k) - 1)
+
+    def bits(self, k: int) -> int:
+        if self.pos + k > self.end:
+            raise _Fault
+        v = self.peek(k)
+        self.pos += k
+        return v
+
+
+def _huffman(lens: list):
+    """tpz_inflate's Huf::build: None for no code at all or an
+    oversubscribed set; else (lookup of 2^maxlen entries by the next
+    maxlen bits: (symbol, length) or None, maxlen)."""
+    count = [0] * 16
+    for ln in lens:
+        count[ln] += 1
+    if count[0] == len(lens):
+        return None
+    left = 1
+    for ln in range(1, 16):
+        left = 2 * left - count[ln]
+        if left < 0:
+            return None
+    top = max(lens)
+    table = [None] * (1 << top)
+    for s, (c, ln) in enumerate(zip(_reversed_codes(lens), lens)):
+        if ln:
+            table[c :: 1 << ln] = [(s, ln)] * (1 << (top - ln))
+    return table, top
+
+
+def _decode(rd: _Reader, huff) -> int:
+    if huff is None:
+        raise _Fault
+    table, top = huff
+    hit = table[rd.peek(top)]
+    if hit is None or rd.pos + hit[1] > rd.end:
+        raise _Fault
+    rd.pos += hit[1]
+    return hit[0]
+
+
+def _inflate_row(data: bytes, out: bytearray, cap: int) -> None:
+    """Decode one stream into out (tpz_inflate); _Fault on any fault."""
+    rd = _Reader(data)
+    while True:
+        final, btype = rd.bits(1), rd.bits(2)
+        if btype == 0:
+            rd.pos = -(-rd.pos // 8) * 8
+            at = rd.pos >> 3
+            if at + 4 > len(data):
+                raise _Fault
+            ln = data[at] | data[at + 1] << 8
+            if ln != ~(data[at + 2] | data[at + 3] << 8) & 0xFFFF:
+                raise _Fault
+            at += 4
+            if at + ln > len(data) or len(out) + ln > cap:
+                raise _Fault
+            out += data[at : at + ln]
+            rd.pos = 8 * (at + ln)
+        elif btype == 3:
+            raise _Fault
+        else:
+            if btype == 1:
+                lit = _huffman(fixed_lit_lengths())
+                dist = _huffman(fixed_dist_lengths())
+            else:
+                lit, dist = _dynamic_header(rd)
+            _inflate_symbols(rd, lit, dist, out, cap)
+        if final:
+            return
+
+
+def _dynamic_header(rd: _Reader):
+    hlit, hdist, hclen = rd.bits(5) + 257, rd.bits(5) + 1, rd.bits(4) + 4
+    if hlit > 286 or hdist > 30:
+        raise _Fault
+    cl = [0] * 19
+    for i in range(hclen):
+        cl[CLCL_ORDER[i]] = rd.bits(3)
+    clh = _huffman(cl)
+    if clh is None:
+        raise _Fault
+    lens = []
+    while len(lens) < hlit + hdist:
+        s = _decode(rd, clh)
+        if s < 16:
+            lens.append(s)
+            continue
+        if s == 16:
+            if not lens:
+                raise _Fault
+            val, rep = lens[-1], 3 + rd.bits(2)
+        else:
+            val, rep = 0, 3 + rd.bits(3) if s == 17 else 11 + rd.bits(7)
+        if len(lens) + rep > hlit + hdist:
+            raise _Fault
+        lens += [val] * rep
+    lit = _huffman(lens[:hlit])
+    if lit is None:
+        raise _Fault
+    return lit, _huffman(lens[hlit:] + [0] * (30 - hdist))
+
+
+def _inflate_symbols(rd: _Reader, lit, dist, out: bytearray,
+                     cap: int) -> None:
+    while True:
+        s = _decode(rd, lit)
+        if s < 256:
+            if len(out) >= cap:
+                raise _Fault
+            out.append(s)
+            continue
+        if s == 256:
+            return
+        s -= 257
+        if s >= 29:
+            raise _Fault
+        mlen = LEN_BASE[s] + rd.bits(LEN_EXTRA[s])
+        ds = _decode(rd, dist)
+        if ds >= 30:
+            raise _Fault
+        d = DIST_BASE[ds] + rd.bits(DIST_EXTRA[ds])
+        o = len(out)
+        if d > o or o + mlen > cap:
+            raise _Fault
+        if d >= mlen:
+            out += out[o - d : o - d + mlen]
+        else:
+            for k in range(mlen):
+                out.append(out[o - d + k])
+
+
+def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
+                        out_cap: int):
+    """Plain version of inflate.cu: streams (B, w) u8, lens (B,) i32 (read
+    as at most w) -> (out (B, out_cap) u8, status (B,) i64), as the module
+    note says."""
+    b, w = streams.shape
+    out = torch.zeros((b, out_cap), dtype=torch.uint8)
+    status = torch.zeros(b, dtype=torch.int64)
+    for r, (row, ln) in enumerate(zip(streams.cpu().numpy(),
+                                      lens.tolist())):
+        ln = min(max(ln, 0), w)
+        if ln == 0:
+            continue
+        got = bytearray()
+        try:
+            _inflate_row(row[:ln].tobytes(), got, out_cap)
+            status[r] = len(got)
+        except _Fault:
+            status[r] = -1
+        if got:
+            out[r, : len(got)] = torch.frombuffer(got, dtype=torch.uint8)
+    return out.to(streams.device), status.to(streams.device)
+
+
+# ---------------------------------------------------------------- wrappers
+
+def _lib(name: str):
+    """The typed C entry point tpz_<name> of csrc/deflate_encode.cu (links,
+    parse, emit) or csrc/inflate.cu (inflate)."""
+    source = "inflate" if name == "inflate" else "deflate_encode"
+    fn = getattr(_build.load(source), f"tpz_{name}" if name == "inflate"
+                 else f"tpz_deflate_{name}")
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = {
+            "links": [vp, vp, ci, ci, vp, vp, ci, ci, vp],
+            "parse": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp],
+            "emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp],
+            "inflate": [vp, vp, ci, ci, vp, ci, vp, vp]}[name]
+        fn.restype = ci
+    return fn
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def deflate_links(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """prev (B, n) i32 of every row, as the module note says: blocks (B, n)
+    u8, lengths (B,) i32.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/deflate_encode.cu's links kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("deflate_links", blocks, lengths)
+    if blocks.device.type == "cpu":
+        return deflate_links_plain(blocks, lengths)
+    b, n = blocks.shape
+    dev = blocks.device
+    prev = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return prev
+    slog = slots_log(n)
+    ntab = table_count(b, n)
+    tables = torch.empty(ntab * (KEY_SLOT << slog) // 4, dtype=torch.int32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        err = _lib("links")(blocks.data_ptr(), lengths.data_ptr(), b, n,
+                            prev.data_ptr(), tables.data_ptr(), ntab, slog,
+                            _stream(dev))
+    _build.check(err, "deflate_links")
+    deflate_links.launches += 1
+    return prev
+
+
+def deflate_parse(blocks: torch.Tensor, lengths: torch.Tensor,
+                  prev: torch.Tensor, max_chain: int):
+    """The tokens of the lazy parse over prev: blocks (B, n) u8, lengths
+    (B,) i32, prev (B, n) i32 from deflate_links, max_chain links a walk
+    (0 or less: no match, as in the C++) ->
+    (tokens (B, n) i32, zero past each row's, ntok (B,) i32).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/deflate_encode.cu's best kernel (best(p) of every position), then
+    its parse kernel, on the current stream (no synchronisation); one
+    launch is counted."""
+    _check_pair("deflate_parse", blocks, lengths)
+    if prev.shape != blocks.shape or prev.dtype != torch.int32 or \
+            prev.device != blocks.device:
+        raise ValueError("prev must be (B, n) i32 beside the blocks")
+    max_chain = min(max(max_chain, 0), MAX_CHAIN)   # 0: no match at all
+    if blocks.device.type == "cpu":
+        return deflate_parse_plain(blocks, lengths, prev, max_chain)
+    b, n = blocks.shape
+    dev = blocks.device
+    tokens = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    ntok = torch.empty(b, dtype=torch.int32, device=dev)
+    if b == 0:
+        return tokens, ntok
+    prev = prev.contiguous()
+    best_at = torch.empty((b, n), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib("parse")(blocks.data_ptr(), lengths.data_ptr(),
+                            prev.data_ptr(), b, n, max_chain,
+                            tokens.data_ptr(), ntok.data_ptr(),
+                            best_at.data_ptr(), _stream(dev))
+    _build.check(err, "deflate_parse")
+    deflate_parse.launches += 1
+    return tokens, ntok
+
+
+def deflate_emit(blocks: torch.Tensor, lengths: torch.Tensor,
+                 tokens: torch.Tensor | None, ntok: torch.Tensor | None,
+                 mode: int):
+    """Each row's stream from its tokens (mode 0 dynamic, 1 fixed), or from
+    its bytes (mode 2 stored, tokens None): blocks (B, n) u8, lengths (B,)
+    i32 -> (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,)
+    i32).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/deflate_encode.cu's tables kernel, then its emit kernel (one
+    launch of the stored kernel in mode 2) on the current stream (no
+    synchronisation)."""
+    _check_pair("deflate_emit", blocks, lengths)
+    if mode not in (0, 1, 2):
+        raise ValueError(f"deflate mode {mode} is not 0, 1 or 2")
+    if mode != 2 and (tokens is None or tokens.shape != blocks.shape
+                      or tokens.dtype != torch.int32
+                      or ntok.shape != lengths.shape
+                      or ntok.dtype != torch.int32):
+        raise ValueError("tokens must be (B, n) i32 and ntok (B,) i32")
+    if blocks.device.type == "cpu":
+        return deflate_emit_plain(blocks, lengths, tokens, ntok, mode)
+    b, n = blocks.shape
+    dev = blocks.device
+    cap = encode_cap(n)
+    comp = torch.zeros((b, cap), dtype=torch.uint8, device=dev)
+    clens = torch.empty(b, dtype=torch.int32, device=dev)
+    if b == 0:
+        return comp, clens
+    if mode == 2:
+        tokens = ntok = scratch = blocks
+    else:
+        tokens, ntok = tokens.contiguous(), ntok.contiguous()
+        scratch = torch.empty(b * SCRATCH_BYTES, dtype=torch.uint8,
+                              device=dev)
+    with torch.cuda.device(dev):
+        err = _lib("emit")(blocks.data_ptr(), lengths.data_ptr(),
+                           tokens.data_ptr(), ntok.data_ptr(), b, n, mode,
+                           comp.data_ptr(), cap, clens.data_ptr(),
+                           scratch.data_ptr(), _stream(dev))
+    _build.check(err, "deflate_emit")
+    deflate_emit.launches += 1
+    return comp, clens
+
+
+def deflate_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
+                         max_chain: int = 128, mode: int = 0):
+    """tpuzip's tpz_deflate of every row: blocks (B, n) u8, lengths (B,)
+    i32 -> (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,)
+    i32).  Modes 0 and 1 run the links, the parse and the emit; mode 2 the
+    emit alone."""
+    if mode == 2:
+        return deflate_emit(blocks, lengths, None, None, 2)
+    prev = deflate_links(blocks, lengths)
+    return deflate_emit(blocks, lengths,
+                        *deflate_parse(blocks, lengths, prev, max_chain),
+                        mode)
+
+
+def inflate_batch(streams: torch.Tensor, lens: torch.Tensor, out_cap: int):
+    """RFC 1951 inflate of every row: streams (B, w) u8, lens (B,) i32
+    (read as at most w) -> (out (B, out_cap) u8, status (B,) i64), as the
+    module note says.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/inflate.cu on the current stream (no synchronisation)."""
+    _check_pair("inflate_batch", streams, lens)
+    if streams.device.type == "cpu":
+        return inflate_batch_plain(streams, lens, out_cap)
+    b, w = streams.shape
+    dev = streams.device
+    out = torch.zeros((b, out_cap), dtype=torch.uint8, device=dev)
+    status = torch.empty(b, dtype=torch.int64, device=dev)
+    if b == 0:
+        return out, status
+    with torch.cuda.device(dev):
+        err = _lib("inflate")(streams.data_ptr(), lens.data_ptr(), b, w,
+                              out.data_ptr(), out_cap, status.data_ptr(),
+                              _stream(dev))
+    _build.check(err, "inflate")
+    inflate_batch.launches += 1
+    return out, status
+
+
+deflate_links.launches = 0
+deflate_parse.launches = 0
+deflate_emit.launches = 0
+inflate_batch.launches = 0

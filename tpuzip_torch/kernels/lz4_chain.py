@@ -89,17 +89,17 @@ def lz4_chain_links_plain(blocks: torch.Tensor, lengths: torch.Tensor,
     return torch.where(idx < limit, prev, -1).to(torch.int32)
 
 
-def _rank_levels(blocks: torch.Tensor) -> list:
+def _rank_levels(blocks: torch.Tensor, most: int | None = None) -> list:
     """levels[k][r, p]: the rank of row r's 2^k bytes from p among the
     row's (a byte past the row ranks below every byte), so two positions'
     next 2^k bytes are equal where their ranks are, while both stay in
-    the row."""
+    the row.  With `most`, the levels stop at the first 2^k >= most."""
     b, n = blocks.shape
     rank = blocks.to(torch.int64)
     levels = [rank]
     scale = max(n, 256) + 2
     span = 1
-    while span < n:
+    while span < min(n, most or n):
         after = F.pad(rank, (0, span), value=-1)[:, span:]
         key, order = torch.sort(rank * scale + after + 1, dim=1)
         step = F.pad(key[:, 1:] != key[:, :-1], (1, 0), value=False)

@@ -1,6 +1,7 @@
 """Pure-Python format oracles of the port: copies of the parts of
 tpuzip/oracle that the port reads (ari with the bin/APM bit models, mtf,
-bwt, dc, the LZ4 block codec, rle and Adler-32).  The compress and
-decompress paths import only adler (its combine folds the corpus
-checksum from parts); chip_smoke.py holds the card's output against the
+bwt, dc, the LZ4 block codec, rle, Adler-32 and the DEFLATE decoder with
+its tables).  The compress and decompress paths import only adler (its
+combine folds the corpus checksum from parts) and deflate (its length and
+distance tables); chip_smoke.py holds the card's output against the
 others."""
