@@ -5,8 +5,8 @@
     python3 chip_smoke.py --ab DIR   # csrc/ari_encode.cu, ari_decode.cu,
                                      # bin_decode.cu, mtf.cu, bin_encode.cu,
                                      # dc_decode.cu, lz4_encode.cu,
-                                     # lz4_decode.cu, rle.cu against DIR's
-                                     # (lz4_dense.cu: its SASS only)
+                                     # lz4_decode.cu, rle.cu, lz4_chain.cu
+                                     # and lz4_dense.cu against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -44,7 +44,8 @@ Phases, one JSON line each:
             the 2^15 bound of tpuzip's packed kernels, and at increment 0
             (a model that never grows), both decoders on
             those rows and 4 garbage rows with a random chunk index (the
-            dot route also equal to the cum one), ari_decode.cu's
+            dot route also equal to the cum one; its own plain version
+            at the default knobs alone), ari_decode.cu's
             no-index mode at the default knobs; MTF encode and
             decode, also on rows across csrc/mtf.cu's chunks of C bytes
             (lengths 0, 1, C-1, C, C+1 and 3C+17); the DC walk on the
@@ -81,20 +82,31 @@ Phases, one JSON line each:
             streams, pairs and chains of 255s across rle.cu's thread, warp
             and tile ends; one row of each at an out_cap well under its
             length (status -1, all 0); both of rle_decode's write routes
-            reached.  And tpuzip's device lz4 encoder (csrc/lz4_dense.cu,
-            both launches, the candidates compared too) at hash_log 0, 4,
-            12, 15, 20, 32 and 40 on those rows (one with random bytes past
-            its length), on the 128 KiB far rows at 12 and 15 and in pools
-            at 12 and 20, both table routes and the pool asserted, every
-            stream decoded back; rle.cu's segment mode on the mixed rows
+            reached.  And tpuzip's device lz4 encoder (csrc/lz4_dense.cu):
+            the keyed route's two launches (the candidates compared too)
+            at hash_log 0, 4, 12, 15, 20, 32 and 40 on those rows (one with
+            random bytes past its length), on the 128 KiB far rows at 12
+            and 15 and in pools at 12 and 20, both table routes and the
+            pool asserted; the shared route's words and their parse at
+            hash_log 0, 4, 12, 15, 16 and
+            40 on those rows, on cap_rows (matches of WORD_CAP - 1,
+            WORD_CAP and WORD_CAP + 1 bytes) and the 65,536-byte edge rows
+            at 15 and 16; the route lz4_dense_encode_batch takes at 16 and
+            17 bits and on the far rows asserted; every stream decoded
+            back; rle.cu's segment mode on the mixed rows
             and the 64 KiB rle rows (runs of 255k + {0..3}: 256, 257, 511,
             512, 513 across the thread, warp and tile ends), also against
             this script's model of the form, every row decoded back.
-            And tpuzip's chained lz4 encoder (csrc/lz4_chain.cu, both
-            launches) at hash_log 4, 12, 16 and 24 and max_chain 2, 8 and
-            64 on those rows with zero, b"ab" and random rows added, on
-            the 128 KiB far rows at 12 and 16 and in a pool at 24, both
-            table routes asserted, every stream decoded back; lz4p.cu's
+            And tpuzip's chained lz4 encoder (csrc/lz4_chain.cu, its links,
+            best words and parse) at hash_log 4, 12, 16 and 24 and
+            max_chain 2, 8 and 64 on those rows with zero, b"ab" and random
+            rows added; on cap_rows at 16 (matches of BEST_CAP - 1,
+            BEST_CAP and BEST_CAP + 1 bytes, two earlier copies that both
+            reach it, a lazy step between two MARKED words); on
+            65,536-byte edge rows at 12 and 16 (the repeat 65,523 back
+            taken); on the 128 KiB far rows at 12 and 16 and in a pool at
+            24; the links' shared, keyed and pool routes and best's staged
+            and device routes asserted, every stream decoded back; lz4p.cu's
             pack under both rules (runs split or refused) on those rows,
             a 64 KiB row where no 4 bytes repeat (65,535 + 1 literals;
             refused under the XLA rule) and a 256 KiB zero row, and its
@@ -178,11 +190,14 @@ Phases, one JSON line each:
             compress_from_device and decompress(to_device=True) for each of
             the seven codecs: the tensor comes back up to the lengths,
             decompress gives the corpus bytes, the container's Adler-32 is
-            zlib's; lz4 launches lz4_dense.cu and not lz4_encode.cu, rle the
-            segment mode; each new launch held, exact, against its plain
-            version on 8 whole rows of the path's own tensors; one
-            compress(device_encode=True) at hash_log 16 round-trips; MB/s
-            (wall, synchronised) and peak memory.
+            zlib's; lz4 launches lz4_dense.cu's shared route (its words
+            and their parse) and not lz4_encode.cu, rle the segment mode;
+            each new launch held, exact, against its plain version on 8
+            whole rows of the path's own tensors; compress(device_encode=
+            True) round-trips at hash_log 16 (the shared route) and 20
+            (the keyed route's two launches, held against their plain
+            versions on 8 rows); MB/s (wall, synchronised) and peak
+            memory.
 14. corpus  the 64 MiB corpus four times (256 MiB) through compress_corpus
             and decompress (TPZC) at the defaults (lz4): the payload four
             times phase 11's; corpus_adler32 equal to zlib.adler32; bwtdc at
@@ -190,20 +205,21 @@ Phases, one JSON line each:
             device memory growing by less than 10% (phase 8's one call
             beside it).
 15. lz4_chain  the 64 MiB corpus through compress(config with
-            max_chain 8) and decompress: the bytes round-trip; both
+            max_chain 8) and decompress: the bytes round-trip; the three
             lz4_chain.cu launches, not lz4_encode.cu; a payload smaller
             than phase 11's; each launch held, exact, against its plain
             version on the path's first 8 rows cut to 4096 bytes (the
             links also on the path's own output there, a causal prefix);
-            MB/s, ratio, peak memory.
+            MB/s, ratio, peak memory, and a device trace taken in a fresh
+            process.
 16. lz4p    the 64 MiB corpus through compress(codec="lz4p") and
             decompress (lz4_encode.cu, lz4p.cu's pack with runs split, its
             decode), and the serving tensor through compress_from_device
-            and decompress(to_device=True) (lz4_dense.cu, the pack
-            unsplit): the bytes round-trip; each path's lz4p.cu launches
-            held, exact, against their plain versions on 8 whole rows of
-            the path's own tensors; MB/s, ratio, peak memory, and traces of
-            both paths taken in a fresh process.
+            and decompress(to_device=True) (lz4_dense.cu's shared route,
+            the pack unsplit): the bytes round-trip; each path's lz4p.cu
+            launches held, exact, against their plain versions on 8 whole
+            rows of the path's own tensors; MB/s, ratio, peak memory, and
+            traces of both paths taken in a fresh process.
 17. deflate the 64 MiB corpus through compress(codec="deflate") (dynamic
             blocks at max_chain 128, tpuzip's defaults) and decompress,
             then decompress(to_device=True): the bytes round-trip; the
@@ -280,6 +296,7 @@ CHAIN_DEPTHS = (2, 8, 64)         # max_chain of lz4_chain.cu's checks
 CHAIN_HASH_LOGS = (4, 12, 16, 24)
 CHAIN_PATH_DEPTH = 8              # max_chain of the lz4_chain path
 CHAIN_PLAIN_BYTES = 4096          # bytes a row of that path's plain check
+ODD_WIDTH = 2045    # lz4 rows not 16-byte aligned: the kernels' other paths
 SERVE_TAIL = 64536        # the serving tensor's last row: its length
 CODECS = ("lz4", "rle", "ari", "bwt", "bwtdc", "bin", "apm")
 
@@ -456,10 +473,10 @@ def phase_build() -> None:
     rle_coder._lib("rle_encode")
     rle_coder._lib("rle_encode_seg")
     rle_coder._lib("rle_decode")
-    lz4_dense._lib("candidates")
-    lz4_dense._lib("parse")
-    lz4_chain._lib("links")
-    lz4_chain._lib("parse")
+    for name in ("candidates", "parse", "words", "words_parse"):
+        lz4_dense._lib(name)
+    for name in ("links", "links_shared", "best", "parse"):
+        lz4_chain._lib(name)
     lz4p_coder._lib("pack")
     lz4p_coder._lib("decode")
     for name in ("links", "parse", "emit", "inflate"):
@@ -517,9 +534,13 @@ def phase_kernels() -> dict:
                                                            glens, inc, thr))
         dot = range_decoder.ari_decode_dot_indexed(streams, deltas, glens,
                                                    inc, thr)
-        dot_ref, dot_plain_ms = timed(
+        # the dot route's plain version (the v1 step, 3.3 s) at the first
+        # knobs; at the others the dot kernel must equal the cum kernel,
+        # itself held exact against its plain version
+        dot_ref, dot_plain_ms = (timed(
             lambda: range_decoder.ari_decode_dot_indexed_plain(
                 streams, deltas, glens, inc, thr))
+            if (inc, thr) == KNOBS[0] else (dec_ref, None))
         enc_err = max(max_err(x, y) for x, y in zip(enc, enc_ref))
         dec_err = max_err(dec, dec_ref)
         dot_err = max_err(dot, dot_ref)
@@ -762,6 +783,80 @@ def far_rows(seed: int):
     return rows, np.full(len(rows), FAR_BLOCK, np.int32)
 
 
+def cap_rows(n: int, cap: int, seed: int):
+    """(4, n) u8 rows and lengths (n >= 8 cap + 1000) of random bytes
+    around repeats at the edge of lz4_chain.cu's best cap: matches of cap -
+    1, cap and cap + 1 bytes; two earlier copies that both reach the cap
+    (the nearer the shorter, so the exact walk must pass it); a lazy step
+    between two positions that both reach it (at i, "A" and a match of cap
+    + 20 bytes; at i + 1, one of 2 cap + 30); and the first and second
+    kinds in one row.  Each repeat ends at a byte that differs."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (4, n)).astype(np.uint8)
+
+    def copy(r, to, frm, length):
+        rows[r, to : to + length] = rows[r, frm : frm + length]
+        rows[r, to + length] = rows[r, frm + length] ^ 0x5A
+
+    step = n // 8
+    for k, extra in enumerate((-1, 0, 1)):
+        for r in (0, 3):
+            copy(r, 4 * step + k * (cap + 40), 100 + k * (cap + 20),
+                 cap + extra)
+    copy(1, step, 100, cap + 10)           # the nearer, shorter copy
+    copy(1, 5 * step, 100, cap + 30)       # reaches both
+    copy(3, 6 * step, 100, cap + 30)
+    tail = rng.integers(0, 256, 2 * cap + 31).astype(np.uint8)
+    far = 2 * cap + 200
+    rows[2, 100] = 0x41
+    rows[2, 101 : 101 + cap + 21] = tail[: cap + 21]
+    rows[2, 101 + cap + 20] ^= 0x5A        # "A" + cap + 20 of the tail
+    rows[2, far - 1] = 0x42
+    rows[2, far : far + 2 * cap + 31] = tail
+    rows[2, 5 * step] = 0x41
+    rows[2, 5 * step + 1 : 5 * step + 2 * cap + 32] = tail
+    rows[2, 5 * step + 2 * cap + 31] ^= 0x5A
+    return rows, np.full(4, n, np.int32)
+
+
+def run_rows(n: int, seed: int):
+    """(4, n) u8 rows and lengths of text broken by byte runs of 1 to 1,000
+    bytes (zeros, then any byte; the last row runs only): the shared
+    routes' scans of 128 positions that lie inside a run skip the queue
+    while it holds the text's positions, and runs start and end at every
+    offset of a scan."""
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(text_corpus(4 * n, seed + 1), np.uint8)
+    rows = np.zeros((4, n), np.uint8)
+    for r in range(4):
+        at = 0
+        while at < n:
+            if r < 3:
+                k = min(int(rng.integers(1, 300)), n - at)
+                rows[r, at : at + k] = text[r * n + at : r * n + at + k]
+                at += k
+            k = int(rng.integers(1, 1001))
+            rows[r, at : at + k] = 0 if r == 0 else rng.integers(0, 256)
+            at += k
+    return rows, np.full(4, n, np.int32)
+
+
+def stage_edge_rows(seed: int):
+    """(2, 65536) u8 rows and lengths at the shared-memory routes' edge: 16
+    random bytes, zeros, and at the last matchable positions (65,515 and
+    65,523: a position matches below length - 12) the first 6 and 13 of
+    those bytes again, two other bytes between, the farthest repeats a
+    65,536-byte row holds (the chained walk takes the one 65,523 back);
+    and a zero row."""
+    n = 1 << 16
+    rows = np.zeros((2, n), np.uint8)
+    rows[0, :16] = np.random.default_rng(seed).integers(1, 256, 16)
+    rows[0, 65515:65521] = rows[0, :6]
+    rows[0, 65521:65523] = (0xFE, 0xFD)    # no match across the gap
+    rows[0, 65523:] = rows[0, :13]
+    return rows, np.full(2, n, np.int32)
+
+
 def lz4_offsets(stream: bytes) -> list:
     """The match offsets of an LZ4 stream, in order."""
     def length(nibble: int, p: int):
@@ -977,6 +1072,85 @@ def dense_check(rows, lens, hash_log: int) -> dict:
             "parse_plain_ms": parse_plain_ms}
 
 
+def shared_check(rows, lens, hash_log: int) -> dict:
+    """The shared route of csrc/lz4_dense.cu on rows at hash_log against
+    its plain versions (the words; the parse over the plain words), exact,
+    and the streams decoded back."""
+    words = lz4_dense.lz4_dense_words(rows, lens, hash_log)
+    wref, words_plain_ms = timed(
+        lambda: lz4_dense.lz4_dense_words_plain(rows, lens, hash_log))
+    got = lz4_dense.lz4_dense_words_parse(rows, lens, words)
+    ref, parse_plain_ms = timed(
+        lambda: lz4_dense.lz4_dense_words_parse_plain(rows, lens, wref))
+    err = {"lz4_dense_words": max_err(words, wref),
+           "lz4_dense_words_parse": max(max_err(a, c)
+                                        for a, c in zip(got, ref))}
+    out, status = lz4_coder.lz4_decode_batch(*got, rows.shape[1])
+    keep = torch.arange(rows.shape[1], device="cuda")[None, :] < lens[:, None]
+    back = (torch.equal(status, lens.to(torch.int64))
+            and torch.equal(out, torch.where(keep, rows, 0)))
+    if any(err.values()) or not back:
+        raise AssertionError(f"lz4_dense's shared route at hash_log "
+                             f"{hash_log} on {list(rows.shape)}: max_abs_err "
+                             f"{err}, round trip {back}")
+    return {"rows": list(rows.shape), "max_abs_err": err, "round_trip": back,
+            "marked": int((words < 0).sum()),
+            "stream_bytes": int(got[1].sum()),
+            "words_plain_ms": words_plain_ms, "parse_plain_ms": parse_plain_ms,
+            "words_ms": cuda_ms(lambda: lz4_dense.lz4_dense_words(
+                rows, lens, hash_log), 3),
+            "parse_ms": cuda_ms(lambda: lz4_dense.lz4_dense_words_parse(
+                rows, lens, words), 3)}
+
+
+def dense_shared_check(xr, xl):
+    """The shared route (encode_route "shared": rows of at most 65,536
+    bytes, hash bits at most 16) against its plain versions: on the mixed
+    rows (one with random bytes past its length) at hash_log 0, 4, 12, 15,
+    16 and 40; on cap_rows(4096, WORD_CAP) (matches of WORD_CAP - 1,
+    WORD_CAP and WORD_CAP + 1 bytes), run_rows(4096) (scans inside a run
+    while the queue holds text) and stage_edge_rows() (65,536 bytes:
+    the route's widest rows, its u16 slots up to 65,524) at 15 and 16; the
+    mixed rows cut to ODD_WIDTH bytes (rows not 16-byte aligned) at 15.  And
+    the route choice through lz4_dense_encode_batch: the words and their
+    parse alone at 16 bits on the mixed rows, the candidates and parse at
+    17 bits and on the 128 KiB far rows at 15.  Returns (the results, each
+    launch's max_abs_err)."""
+    res = {f"hash_log_{hl}": shared_check(xr, xl, hl)
+           for hl in (0, 4, 12, 15, 16, 40)}
+    # rows of an odd width: not 16-byte aligned, so no TMA stream; the
+    # words read at every skew
+    odd = xr[:, :ODD_WIDTH].contiguous()
+    res["odd_width_hash_log_15"] = shared_check(
+        odd, xl.clamp(max=ODD_WIDTH), 15)
+    for name, (rx, rl) in (
+            ("cap_rows", cap_rows(4096, lz4_dense.WORD_CAP, SEED + 14)),
+            ("run_rows", run_rows(4096, SEED + 42)),
+            ("stage_edge", stage_edge_rows(SEED + 15))):
+        rx, rl = torch.from_numpy(rx).cuda(), torch.from_numpy(rl).cuda()
+        for hl in (15, 16):
+            res[f"{name}_hash_log_{hl}"] = shared_check(rx, rl, hl)
+    far, flens = (torch.from_numpy(a).cuda() for a in far_rows(SEED + 9))
+    routes = {}
+    names = ("lz4_dense_words", "lz4_dense_words_parse",
+             "lz4_dense_candidates", "lz4_dense_parse")
+    for name, rows, lens, hl in (("mixed_16", xr, xl, 16),
+                                 ("mixed_17", xr, xl, 17),
+                                 ("far_15", far, flens, 15)):
+        with counted_run() as (calls, counts):
+            lz4_dense.lz4_dense_encode_batch(rows, lens, hl)
+        calls.clear()
+        routes[name] = [k for k in names if counts[k]]
+    res["routes"] = routes
+    if routes != {"mixed_16": list(names[:2]), "mixed_17": list(names[2:]),
+                  "far_15": list(names[2:])}:
+        raise AssertionError(f"lz4_dense took a wrong route: {routes}")
+    errs = {k: max(rec["max_abs_err"][k] for rec in res.values()
+                   if "max_abs_err" in rec)
+            for k in ("lz4_dense_words", "lz4_dense_words_parse")}
+    return res, errs
+
+
 def dense_kernel_check(x, xl, n: int):
     """csrc/lz4_dense.cu (tpuzip's device lz4 encoder) against its plain
     versions: on the mixed rows, one of them with random bytes past its
@@ -1015,6 +1189,7 @@ def dense_kernel_check(x, xl, n: int):
     finally:
         lz4_dense.POOL_BYTES = pool
     errs = {"lz4_dense_candidates": 0, "lz4_dense_parse": 0}
+    shared, shared_errs = dense_shared_check(xr, xl)
     for rec in res.values():
         if isinstance(rec, dict):
             routes.add(rec["route"])
@@ -1027,6 +1202,8 @@ def dense_kernel_check(x, xl, n: int):
     if routes != {"direct", "keyed", "pool"} or any(errs.values()):
         raise AssertionError(f"lz4_dense disagrees with its plain version, or "
                              f"a table route was not reached: {res}")
+    res["shared"] = shared
+    errs.update(shared_errs)
     return res, errs
 
 
@@ -1073,29 +1250,38 @@ def rle_segments_check(x, xl) -> dict:
 
 
 def chain_route(rows: torch.Tensor, hash_log: int) -> str:
-    """Where csrc/lz4_chain.cu keeps its links tables for rows at hash_log:
-    one a "row", or a "pool" of fewer."""
+    """Where csrc/lz4_chain.cu's links keep their table for rows at
+    hash_log: "shared" (beside the staged row), or keyed in device memory,
+    one a "row" or a "pool" of fewer."""
     b, n = rows.shape
+    if lz4_chain.routes(hash_log, n)[0] == "shared":
+        return "shared"
     return "pool" if lz4_chain.table_count(b, hash_log, n) < b else "row"
 
 
 def chain_check(rows, lens, hash_log: int, depths) -> dict:
-    """Both launches of csrc/lz4_chain.cu on rows at hash_log against their
-    plain versions (the links, then the parse on the plain links at each
-    max_chain of depths), exact, and the streams decoded back by
-    lz4_decode."""
+    """The three launches of csrc/lz4_chain.cu on rows at hash_log against
+    their plain versions (the links; best at each max_chain of depths on
+    the plain links; the parse on the plain links and words), exact, and
+    the streams decoded back by lz4_decode."""
     prev = lz4_chain.lz4_chain_links(rows, lens, hash_log)
     pref, links_plain_ms = timed(
         lambda: lz4_chain.lz4_chain_links_plain(rows, lens, hash_log))
-    err = {"lz4_chain_links": max_err(prev, pref), "lz4_chain_parse": 0}
+    err = {"lz4_chain_links": max_err(prev, pref), "lz4_chain_best": 0,
+           "lz4_chain_parse": 0}
     keep = torch.arange(rows.shape[1], device="cuda")[None, :] < lens[:, None]
     rec = {"rows": list(rows.shape), "route": chain_route(rows, hash_log),
+           "best_route": lz4_chain.routes(hash_log, rows.shape[1])[1],
            "links_ms": cuda_ms(lambda: lz4_chain.lz4_chain_links(
                rows, lens, hash_log), 3), "links_plain_ms": links_plain_ms}
     for mc in depths:
-        got = lz4_chain.lz4_chain_parse(rows, lens, prev, mc)
-        ref, plain_ms = timed(
-            lambda: lz4_chain.lz4_chain_parse_plain(rows, lens, pref, mc))
+        wref = lz4_chain.lz4_chain_best_plain(rows, lens, pref, mc)
+        err["lz4_chain_best"] = max(err["lz4_chain_best"], max_err(
+            lz4_chain.lz4_chain_best(rows, lens, pref, mc), wref))
+        words = lz4_chain.lz4_chain_best(rows, lens, prev, mc)
+        got = lz4_chain.lz4_chain_parse(rows, lens, prev, mc, words)
+        ref, plain_ms = timed(lambda: lz4_chain.lz4_chain_parse_plain(
+            rows, lens, pref, mc, wref))
         e = max(max_err(a, c) for a, c in zip(got, ref))
         out, status = lz4_coder.lz4_decode_batch(*got, rows.shape[1])
         back = (torch.equal(status, lens.to(torch.int64))
@@ -1103,8 +1289,11 @@ def chain_check(rows, lens, hash_log: int, depths) -> dict:
         rec[f"max_chain_{mc}"] = {
             "max_abs_err": e, "round_trip": back,
             "stream_bytes": int(got[1].sum()), "plain_ms": plain_ms,
+            "marked": int((words == lz4_chain.MARKED).sum()),
+            "best_ms": cuda_ms(lambda: lz4_chain.lz4_chain_best(
+                rows, lens, prev, mc), 3),
             "ms": cuda_ms(lambda: lz4_chain.lz4_chain_parse(
-                rows, lens, prev, mc), 3), "comp": got}
+                rows, lens, prev, mc, words), 3), "comp": got}
         err["lz4_chain_parse"] = max(err["lz4_chain_parse"], e)
         if not back:
             raise AssertionError(f"lz4_chain streams at hash_log {hash_log}, "
@@ -1119,11 +1308,22 @@ def chain_kernel_check(x, xl, n: int):
     runs, periods 2 to 31, rows of 0 to 12 bytes) with an all-zero row, a
     b"ab" row and random rows added (the stop at length - 5 on the first
     link, the lazy step on every match, every position probed), at
-    hash_log 4, 12, 16 and 24 and max_chain 2, 8 and 64; on far_rows()
-    (128 KiB, repeats 65,533 to 70,000 back) at 12 and 16, max_chain 8,
-    the offsets up to 65,535 taken and the others refused; and in a pool
-    (POOL_BYTES cut to 4 tables) at 24.  Both table routes must be
-    reached.  Returns (the results, each launch's max_abs_err)."""
+    hash_log 4, 12, 16 and 24 and max_chain 2, 8 and 64; on
+    cap_rows(4096, BEST_CAP) (matches of BEST_CAP - 1, BEST_CAP and BEST_CAP
+    + 1 bytes, two earlier copies that both reach it, a lazy step between
+    two MARKED words) at 16, max_chain 8 and 64; on run_rows(4096) (scans
+    inside a run while the queue holds text) at 12 and 16, max_chain 8 and
+    64; on
+    stage_edge_rows() (65,536 bytes: the shared routes' widest rows, the
+    farthest repeat they hold) at 12 and 16; the mixed rows cut to
+    ODD_WIDTH bytes and the far rows to 131,069 (rows not 16-byte aligned:
+    no TMA, best at every skew) at 16; on far_rows() (128 KiB:
+    keyed links and best from device memory; repeats 65,533 to 70,000
+    back) at 12 and 16, max_chain 8, the offsets up to 65,535 taken and the
+    others refused; and in a pool (POOL_BYTES cut to 4 tables) at 24.
+    Every route of the links (shared, a keyed table a row, a pool) and of
+    best (staged, device) must be reached.  Returns (the results, each
+    launch's max_abs_err)."""
     rng = np.random.default_rng(SEED + 12)
     extra = np.stack([np.zeros(n), np.resize([97, 98], n),
                       rng.integers(0, 256, n), rng.integers(0, 256, n)])
@@ -1133,6 +1333,28 @@ def chain_kernel_check(x, xl, n: int):
     res = {}
     for hl in CHAIN_HASH_LOGS:
         res[f"hash_log_{hl}"] = chain_check(rows, lens, hl, CHAIN_DEPTHS)
+    cx, cl = (torch.from_numpy(a).cuda()
+              for a in cap_rows(4096, lz4_chain.BEST_CAP, SEED + 40))
+    res["cap_rows"] = chain_check(cx, cl, 16, (8, 64))
+    rx, rl = (torch.from_numpy(a).cuda() for a in run_rows(4096, SEED + 41))
+    for hl in (12, 16):
+        res[f"run_rows_hash_log_{hl}"] = chain_check(rx, rl, hl, (8, 64))
+    # rows of an odd width: no TMA, the rows staged byte by byte and the
+    # parse reading device memory; and 128 KiB rows so cut, best walking
+    # device memory at every skew
+    res["odd_width"] = chain_check(rows[:, :ODD_WIDTH].contiguous(),
+                                   lens.clamp(max=ODD_WIDTH), 16, (8, 64))
+    ex, el = (torch.from_numpy(a).cuda() for a in stage_edge_rows(SEED + 13))
+    for hl in (12, 16):
+        rec = chain_check(ex, el, hl, (CHAIN_PATH_DEPTH,))
+        comp, clens = rec[f"max_chain_{CHAIN_PATH_DEPTH}"]["comp"]
+        rec["max_offset"] = max(lz4_offsets(comp[0, : int(clens[0])].cpu()
+                                            .numpy().tobytes()))
+        if rec["max_offset"] != 65523:
+            raise AssertionError(f"lz4_chain at hash_log {hl}: the 65,536-"
+                                 f"byte row's farthest repeat not taken: "
+                                 f"{rec['max_offset']}")
+        res[f"stage_edge_hash_log_{hl}"] = rec
     far, flens = (torch.from_numpy(a).cuda() for a in far_rows(SEED + 9))
     for hl in (12, 16):
         rec = chain_check(far, flens, hl, (CHAIN_PATH_DEPTH,))
@@ -1146,6 +1368,9 @@ def chain_kernel_check(x, xl, n: int):
                                  f"the offset bound taken or refused wrong: "
                                  f"{offs}")
         res[f"far_hash_log_{hl}"] = rec
+    res["far_odd_width"] = chain_check(
+        far[:, : FAR_BLOCK - 3].contiguous(),
+        flens.clamp(max=FAR_BLOCK - 3), 16, (CHAIN_PATH_DEPTH,))
     pool = lz4_chain.POOL_BYTES
     try:
         lz4_chain.POOL_BYTES = 4 * (lz4_dense.KEY_SLOT
@@ -1153,19 +1378,21 @@ def chain_kernel_check(x, xl, n: int):
         res["pool_hash_log_24"] = chain_check(rows, lens, 24, (8,))
     finally:
         lz4_chain.POOL_BYTES = pool
-    errs = {"lz4_chain_links": 0, "lz4_chain_parse": 0}
-    routes = set()
+    errs = {"lz4_chain_links": 0, "lz4_chain_best": 0, "lz4_chain_parse": 0}
+    routes, best_routes = set(), set()
     for rec in res.values():
         routes.add(rec["route"])
+        best_routes.add(rec["best_route"])
         for k, e in rec["max_abs_err"].items():
             errs[k] = max(errs[k], e)
         for v in rec.values():
             if isinstance(v, dict):
                 v.pop("comp", None)
-    res["routes"] = sorted(routes)
-    if routes != {"row", "pool"} or any(errs.values()):
+    res["routes"], res["best_routes"] = sorted(routes), sorted(best_routes)
+    if routes != {"shared", "row", "pool"} or \
+            best_routes != {"staged", "device"} or any(errs.values()):
         raise AssertionError(f"lz4_chain disagrees with its plain version, "
-                             f"or a table route was not reached: {res}")
+                             f"or a route was not reached: {res}")
     return res, errs
 
 
@@ -1772,8 +1999,11 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "rle_decode": (rle_coder, "rle_decode_batch"),
             "lz4_dense_candidates": (lz4_dense, "lz4_dense_candidates"),
             "lz4_dense_parse": (lz4_dense, "lz4_dense_parse"),
+            "lz4_dense_words": (lz4_dense, "lz4_dense_words"),
+            "lz4_dense_words_parse": (lz4_dense, "lz4_dense_words_parse"),
             "rle_encode_seg": (rle_coder, "rle_encode_segments_batch"),
             "lz4_chain_links": (lz4_chain, "lz4_chain_links"),
+            "lz4_chain_best": (lz4_chain, "lz4_chain_best"),
             "lz4_chain_parse": (lz4_chain, "lz4_chain_parse"),
             "lz4p_pack": (lz4p_coder, "lz4p_pack"),
             "lz4p_decode": (lz4p_coder, "lz4p_decode_batch"),
@@ -1798,8 +2028,11 @@ PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (rle_coder, "rle_decode_batch_plain"),
           (lz4_dense, "lz4_dense_candidates_plain"),
           (lz4_dense, "lz4_dense_parse_plain"),
+          (lz4_dense, "lz4_dense_words_plain"),
+          (lz4_dense, "lz4_dense_words_parse_plain"),
           (rle_coder, "rle_encode_segments_batch_plain"),
           (lz4_chain, "lz4_chain_links_plain"),
+          (lz4_chain, "lz4_chain_best_plain"),
           (lz4_chain, "lz4_chain_parse_plain"),
           (lz4p_coder, "lz4p_pack_plain"),
           (lz4p_coder, "lz4p_decode_batch_plain"),
@@ -2641,8 +2874,9 @@ def phase_lz(smi: str, codec: str):
 
 # the kernels the serving path launches and does not, by codec
 SERVE_NEEDS = {
-    "lz4": ({"lz4_dense_candidates": 1, "lz4_dense_parse": 1,
-             "lz4_decode": 1}, ("lz4_encode",)),
+    "lz4": ({"lz4_dense_words": 1, "lz4_dense_words_parse": 1,
+             "lz4_decode": 1},
+            ("lz4_encode", "lz4_dense_candidates", "lz4_dense_parse")),
     "rle": ({"rle_encode_seg": 1, "rle_decode": 1}, ("rle_encode",)),
     "ari": ({"ari_encode": 1, "ari_decode": 1}, ()),
     "bwt": ({"ari_encode": 1, "ari_decode": 1, "mtf": 2}, ()),
@@ -2656,6 +2890,10 @@ SERVE_KERNELS = {
                              "lz4_dense_candidates_plain"),
     "lz4_dense_parse": (lz4_dense, "lz4_dense_parse",
                         "lz4_dense_parse_plain"),
+    "lz4_dense_words": (lz4_dense, "lz4_dense_words",
+                        "lz4_dense_words_plain"),
+    "lz4_dense_words_parse": (lz4_dense, "lz4_dense_words_parse",
+                              "lz4_dense_words_parse_plain"),
     "rle_encode_seg": (rle_coder, "rle_encode_segments_batch",
                        "rle_encode_segments_batch_plain"),
     # and the lz4p path's (phase 16), in compress and in serving
@@ -2681,7 +2919,8 @@ def serving_tensor():
 def serve_bound(name: str, args, out) -> dict:
     """bound() of one launch of a serving kernel at its own inputs: the
     valid bytes and the lengths read, and cand (the candidates write it,
-    the parse reads it), the streams and their lengths written; lz4p's
+    the parse reads it; the words likewise), the streams and their lengths
+    written; lz4p's
     pack reads LZ4 streams and writes lz4p rows, its decode reads those
     and writes every byte of its rows and the statuses."""
     rows, lens = args[:2]
@@ -2691,11 +2930,12 @@ def serve_bound(name: str, args, out) -> dict:
         return bound(int(lens.sum()) + 4 * lens.numel()
                      + int(out[1].clamp(min=0).sum()) + 4 * out[1].numel())
     nbytes = int(lens.sum()) + 4 * lens.numel()
-    if name == "lz4_dense_candidates":
+    if name in ("lz4_dense_candidates", "lz4_dense_words"):
         return bound(nbytes + 4 * out.numel())
     comp, clens = out
     nbytes += int(clens.sum()) + 4 * clens.numel()
-    return bound(nbytes + (4 * args[2].numel() if len(args) > 2 else 0))
+    return bound(nbytes + (4 * args[2].numel() if len(args) > 2
+                           and torch.is_tensor(args[2]) else 0))
 
 
 def rows_against_plain(name: str, calls, rows: list) -> dict:
@@ -2791,23 +3031,36 @@ def phase_serving(smi: str):
                                             "decode": peak_dec},
                       "launches": {k: v for k, v in counts.items() if v}}
         del out, blob
-    cfg = Config()
-    cfg.codec.lz4.device_encode, cfg.codec.lz4.hash_log = True, 16
-    with counted_run() as (calls, enc_counts):
-        t0 = time.perf_counter()
-        blob = tpuzip_torch.compress(data, config=cfg)
-        torch.cuda.synchronize()
-        t_enc = time.perf_counter() - t0
-        back = tpuzip_torch.decompress(blob)
-    calls.clear()
-    need(enc_counts, {"lz4_dense_candidates": 1, "lz4_dense_parse": 1,
-                      "lz4_decode": 1}, "device_encode")
-    if back != data or enc_counts["lz4_encode"]:
-        raise AssertionError("compress(device_encode=True) did not round-trip "
-                             f"on the dense encoder: {enc_counts}")
-    res["device_encode_hash_log_16"] = {
-        "container_bytes": len(blob), "ratio": len(blob) / len(data),
-        "encode_mb_s": len(data) / 1e6 / t_enc}
+    # device_encode=True at 16 bits takes the shared route, at 20 the keyed
+    # tables (lz4_dense.encode_route)
+    enc_counts = {}
+    for hl, needs in ((16, {"lz4_dense_words": 1,
+                            "lz4_dense_words_parse": 1}),
+                      (20, {"lz4_dense_candidates": 1,
+                            "lz4_dense_parse": 1})):
+        cfg = Config()
+        cfg.codec.lz4.device_encode, cfg.codec.lz4.hash_log = True, hl
+        with counted_run() as (calls, enc_counts[hl]):
+            t0 = time.perf_counter()
+            blob = tpuzip_torch.compress(data, config=cfg)
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+            back = tpuzip_torch.decompress(blob)
+        need(enc_counts[hl], {**needs, "lz4_decode": 1},
+             f"device_encode at hash_log {hl}")
+        if back != data or enc_counts[hl]["lz4_encode"] or sum(
+                enc_counts[hl][k] for k in ("lz4_dense_words",
+                                            "lz4_dense_candidates")) != 1:
+            raise AssertionError("compress(device_encode=True) did not "
+                                 "round-trip on its dense route: "
+                                 f"{enc_counts[hl]}")
+        if hl == 20:
+            for name in needs:
+                kernels[name] = rows_against_plain(name, calls, rows)
+        calls.clear()
+        res[f"device_encode_hash_log_{hl}"] = {
+            "container_bytes": len(blob), "ratio": len(blob) / len(data),
+            "encode_mb_s": len(data) / 1e6 / t_enc}
     emit("serving", corpus_bytes=len(data), rows=list(x.shape),
          last_length=SERVE_TAIL, codecs=res, kernels=kernels,
          trace=trace_in_child("serve"),
@@ -2919,11 +3172,12 @@ def chain_against_plain(calls) -> dict:
     (below length - 12 a link depends on no later byte) too.  Times of
     each kernel at the path's shape and on the cut, of the plain version
     on the cut; the bound at the path's shape."""
-    for name in ("lz4_chain_links", "lz4_chain_parse"):
+    for name in ("lz4_chain_links", "lz4_chain_best", "lz4_chain_parse"):
         if len(calls[name]) != 1:
             raise AssertionError(f"{name}: {len(calls[name])} launches on "
                                  "the path, expected 1")
     (largs, lkw, prev), = calls["lz4_chain_links"]
+    (bargs, bkw, words), = calls["lz4_chain_best"]
     (pargs, pkw, (comp, clens)), = calls["lz4_chain_parse"]
     blocks, lens, hash_log = largs[0], largs[1], largs[2]
     max_chain = pargs[3]
@@ -2935,35 +3189,55 @@ def chain_against_plain(calls) -> dict:
     causal = CHAIN_PLAIN_BYTES - lz4_coder.MF_LIMIT
     links_err = max(max_err(got, pref),
                     max_err(prev[:8, :causal], pref[:, :causal]))
-    ref, parse_plain_ms = timed(lambda: lz4_chain.lz4_chain_parse_plain(
+    wref, best_plain_ms = timed(lambda: lz4_chain.lz4_chain_best_plain(
         cut, clen, pref, max_chain))
+    wcut = lz4_chain.lz4_chain_best(cut, clen, pref, max_chain)
+    best_err = max_err(wcut, wref)
+    ref, parse_plain_ms = timed(lambda: lz4_chain.lz4_chain_parse_plain(
+        cut, clen, pref, max_chain, wref))
     parse_err = max(max_err(a, c) for a, c in zip(
-        lz4_chain.lz4_chain_parse(cut, clen, pref, max_chain), ref))
-    if links_err or parse_err:
+        lz4_chain.lz4_chain_parse(cut, clen, pref, max_chain, wref), ref))
+    if links_err or best_err or parse_err:
         raise AssertionError(f"lz4_chain disagrees with its plain version "
-                             f"on the path's inputs: {links_err} {parse_err}")
+                             f"on the path's inputs: {links_err} {best_err} "
+                             f"{parse_err}")
     valid = int(lens.sum()) + 4 * lens.numel()
     plain = {"plain_inputs": list(cut.shape), "plain_rows": list(range(8))}
+    routes = lz4_chain.routes(hash_log, blocks.shape[1])
     return {
         "lz4_chain_links": {
             "inputs": [list(blocks.shape), list(lens.shape)],
             "max_abs_err": links_err, **plain, "hash_log": hash_log,
+            "route": routes[0],
             "ms": cuda_ms(lambda: lz4_chain.lz4_chain_links(*largs, **lkw),
                           3),
             "ms_at_plain_inputs": cuda_ms(
                 lambda: lz4_chain.lz4_chain_links(cut, clen, hash_log), 3),
             "plain_ms": links_plain_ms, **bound(valid + 4 * prev.numel())},
-        "lz4_chain_parse": {
+        "lz4_chain_best": {
             "inputs": [list(blocks.shape), list(lens.shape),
                        list(prev.shape)],
+            "max_abs_err": best_err, **plain, "max_chain": max_chain,
+            "cap": lz4_chain.BEST_CAP, "route": routes[1],
+            "marked": int((words == lz4_chain.MARKED).sum()),
+            "ms": cuda_ms(lambda: lz4_chain.lz4_chain_best(*bargs, **bkw),
+                          3),
+            "ms_at_plain_inputs": cuda_ms(
+                lambda: lz4_chain.lz4_chain_best(cut, clen, pref,
+                                                 max_chain), 3),
+            "plain_ms": best_plain_ms,
+            **bound(valid + 4 * prev.numel() + 4 * words.numel())},
+        "lz4_chain_parse": {
+            "inputs": [list(blocks.shape), list(lens.shape),
+                       list(prev.shape), list(words.shape)],
             "max_abs_err": parse_err, **plain, "max_chain": max_chain,
             "ms": cuda_ms(lambda: lz4_chain.lz4_chain_parse(*pargs, **pkw),
                           3),
             "ms_at_plain_inputs": cuda_ms(
                 lambda: lz4_chain.lz4_chain_parse(cut, clen, pref,
-                                                  max_chain), 3),
+                                                  max_chain, wcut), 3),
             "plain_ms": parse_plain_ms,
-            **bound(valid + 4 * prev.numel() + int(clens.sum())
+            **bound(valid + 4 * words.numel() + int(clens.sum())
                     + 4 * clens.numel())}}
 
 
@@ -2981,8 +3255,8 @@ def phase_lz4_chain(smi: str, lz4_payload: int):
                                                   config=cfg))
     blob, calls, counts, t_enc, t_dec, peak_enc, peak_dec = round_trip(
         data, config=cfg)
-    need(counts, {"lz4_chain_links": 1, "lz4_chain_parse": 1,
-                  "lz4_decode": 1}, "lz4_chain")
+    need(counts, {"lz4_chain_links": 1, "lz4_chain_best": 1,
+                  "lz4_chain_parse": 1, "lz4_decode": 1}, "lz4_chain")
     if counts["lz4_encode"] or blob[4:6] != bytes([1, 0]):
         raise AssertionError(f"lz4_chain: codec id {blob[4]}, flags "
                              f"{blob[5]}, launches {counts}")
@@ -2998,11 +3272,11 @@ def phase_lz4_chain(smi: str, lz4_payload: int):
          payload_over_lz4=payload / lz4_payload, launches=counts,
          encode_mb_s=len(data) / 1e6 / t_enc,
          decode_mb_s=len(data) / 1e6 / t_dec,
-         encode_kernel_mb_s=len(data) / 1e3 / (
-             kernels["lz4_chain_links"]["ms"]
-             + kernels["lz4_chain_parse"]["ms"]),
+         encode_kernel_mb_s=len(data) / 1e3 / sum(
+             kernels[k]["ms"] for k in ("lz4_chain_links", "lz4_chain_best",
+                                        "lz4_chain_parse")),
          peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
-         kernels=kernels, card=smi)
+         kernels=kernels, trace=trace_in_child("lz4_chain"), card=smi)
     return counts, kernels
 
 
@@ -3047,7 +3321,7 @@ def phase_lz4p(smi: str):
         torch.cuda.synchronize()
         s_dec = time.perf_counter() - t0
         speak_dec = torch.cuda.max_memory_allocated()
-    need(serve_counts, {"lz4_dense_candidates": 1, "lz4_dense_parse": 1,
+    need(serve_counts, {"lz4_dense_words": 1, "lz4_dense_words_parse": 1,
                         "lz4p_pack": 1, "lz4p_decode": 1}, "lz4p serving")
     if not (torch.equal(torch.where(keep, out, 0), torch.where(keep, x, 0))
             and list(olens) == lens.tolist() and orig == len(sdata)
@@ -3414,14 +3688,18 @@ TRACED = {"bwtdc": (("ari_encode_kernel",),
           "apm": (("bin_encode_kernel",), ("bin_decode_kernel",)),
           "lz4": (("lz4_encode_kernel",), ("lz4_decode_kernel",)),
           "rle": (("rle_encode_kernel",), ("rle_decode_kernel",)),
-          "serve_lz4": (("lz4_dense_candidates_kernel",
-                         "lz4_dense_parse_kernel"), ("lz4_decode_kernel",)),
+          "serve_lz4": (("lz4_dense_words_kernel",
+                         "lz4_dense_words_parse_kernel"),
+                        ("lz4_decode_kernel",)),
           "serve_rle": (("rle_encode_kernel",), ("rle_decode_kernel",)),
           "lz4p": (("lz4_encode_kernel", "lz4p_pack_kernel"),
                    ("lz4p_decode_kernel",)),
-          "serve_lz4p": (("lz4_dense_candidates_kernel",
-                          "lz4_dense_parse_kernel", "lz4p_pack_kernel"),
+          "serve_lz4p": (("lz4_dense_words_kernel",
+                          "lz4_dense_words_parse_kernel", "lz4p_pack_kernel"),
                          ("lz4p_decode_kernel",)),
+          "lz4_chain": (("lz4_chain_links_shared_kernel",
+                         "lz4_chain_best_kernel", "lz4_chain_parse_kernel"),
+                        ("lz4_decode_kernel",)),
           "deflate": (("deflate_links_kernel", "deflate_parse_kernel",
                        "deflate_tables_kernel", "deflate_emit_kernel"),
                       ("inflate_kernel",))}
@@ -3442,17 +3720,22 @@ def trace_in_child(codec: str) -> dict:
 
 
 def trace_child(codec: str) -> int:
+    """--trace CODEC: traced() of one compress and one decompress of the
+    corpus through CODEC; --trace lz4_chain: lz4 at CHAIN_PATH_DEPTH."""
     if codec.startswith("serve"):
         return trace_serving(codec)
     data = text_corpus(CORPUS_BYTES, SEED)
     block = BWT_BLOCK if codec == "bwtdc" else BLOCK
-    tpuzip_torch.decompress(tpuzip_torch.compress(
-        data[: 2 * block], codec=codec, block_size=block))
-    blob = tpuzip_torch.compress(data, codec=codec, block_size=block)
+    kw = {"codec": codec, "block_size": block}
+    if codec == "lz4_chain":
+        cfg = Config()
+        cfg.codec.lz4.max_chain = CHAIN_PATH_DEPTH
+        kw = {"codec": "lz4", "block_size": block, "config": cfg}
+    tpuzip_torch.decompress(tpuzip_torch.compress(data[: 2 * block], **kw))
+    blob = tpuzip_torch.compress(data, **kw)
     enc, dec = TRACED[codec]
     print(json.dumps({
-        "encode": traced(lambda: tpuzip_torch.compress(
-            data, codec=codec, block_size=block), enc),
+        "encode": traced(lambda: tpuzip_torch.compress(data, **kw), enc),
         "decode": traced(lambda: tpuzip_torch.decompress(blob), dec)}))
     return 0
 
@@ -3575,7 +3858,10 @@ AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle"}   # else the name
 AB_REDESIGNED = ()
 # sources whose SASS --ab compares and does not time (no launch of theirs
 # is recorded for it)
-AB_SASS_ONLY = ("lz4_dense",)
+AB_SASS_ONLY = ()
+# sources whose encoders --ab times against a DIR's at their paths' shapes
+# (ab_lz4): the chained lz4 encoder's launches and the dense one's
+AB_LZ4_SOURCES = ("lz4_chain", "lz4_dense")
 
 
 def ab_entry(lib, kernel: str):
@@ -3786,12 +4072,224 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
     return {k: make(lib) for k, lib in libs.items()}, steps
 
 
+def ab_chain_runs(lib, blocks, lens, hash_log: int, max_chain: int) -> dict:
+    """{launch: a closure that runs it once} for one build of
+    csrc/lz4_chain.cu on rows at (hash_log, max_chain): a DIR's links and
+    parse over prev, or the checkout's links on either route, best at each
+    and the parse over the words; and "encode", the whole
+    encode as the build's wrapper runs it -> (comp, clens)."""
+    b, n = blocks.shape
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    bits = lz4_coder.resolve_hash_log(hash_log)
+    slog = lz4_chain.slots_log(hash_log, n)
+    ntab = lz4_chain.table_count(b, hash_log, n)
+    tables = torch.empty(ntab * (lz4_dense.KEY_SLOT << slog) // 4,
+                         dtype=torch.int32, device="cuda")
+    cap_n = lz4_coder.encode_cap(n)
+    new = hasattr(lib, "tpz_lz4_chain_best")
+
+    def links(shared: bool):
+        prev = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        if shared:
+            fn = lib.tpz_lz4_chain_links_shared
+            fn.argtypes = [vp, vp, ci, ci, vp, ci, vp]
+            err = fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                     prev.data_ptr(), bits, stream())
+        else:
+            fn = lib.tpz_lz4_chain_links
+            fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, vp]
+            err = fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                     prev.data_ptr(), tables.data_ptr(), ntab, bits, slog,
+                     stream())
+        _build.check(err, "tpz_lz4_chain_links")
+        return prev
+
+    def best(prev):
+        words = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        fn = lib.tpz_lz4_chain_best
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp]
+        _build.check(fn(blocks.data_ptr(), lens.data_ptr(), prev.data_ptr(),
+                        b, n, max_chain, words.data_ptr(), stream()),
+                     "tpz_lz4_chain_best")
+        return words
+
+    def parse(prev, words=None):
+        comp = torch.zeros((b, cap_n), dtype=torch.uint8, device="cuda")
+        clens = torch.empty(b, dtype=torch.int32, device="cuda")
+        fn = lib.tpz_lz4_chain_parse
+        if new:
+            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]
+            head = (prev.data_ptr(), words.data_ptr())
+        else:
+            fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]
+            head = (prev.data_ptr(),)
+        _build.check(fn(blocks.data_ptr(), lens.data_ptr(), *head, b, n,
+                        max_chain, comp.data_ptr(), cap_n, clens.data_ptr(),
+                        stream()), "tpz_lz4_chain_parse")
+        return comp, clens
+
+    if not new:
+        prev = links(False)
+        return {"links": lambda: links(False),
+                "parse": lambda: parse(prev),
+                "encode": lambda: parse(links(False))}
+    shared = lz4_chain.routes(hash_log, n)[0] == "shared"
+    prev = links(shared)
+    words = best(prev)
+
+    def encode():
+        p = links(shared)
+        return parse(p, best(p))
+
+    runs = {"links": lambda: links(shared),
+            f"links_{'keyed' if shared else 'shared'}":
+                lambda: links(not shared),
+            "best": lambda: best(prev), "parse": lambda: parse(prev, words),
+            "encode": encode}
+    if n > lz4_chain.STAGE_MAX or bits > lz4_chain.SHARED_MAX_LOG:
+        del runs["links_shared"]
+    return runs
+
+
+def ab_dense_runs(lib, rows, lens, hash_log: int) -> dict:
+    """{launch: a closure} for one build of csrc/lz4_dense.cu at hash_log:
+    the candidates then the parse (a DIR's, and the checkout's keyed or
+    direct route); the checkout's shared route's words and the parse over
+    them; "encode" as the build's wrapper runs it -> (comp, clens)."""
+    b, n = rows.shape
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    route, tbits = lz4_dense.table_route(hash_log, n)
+    ntab = lz4_dense.table_count(b, hash_log, n)
+    tables = torch.empty(ntab * lz4_dense.table_bytes(hash_log, n) // 4,
+                         dtype=torch.int32, device="cuda")
+    cap_n = lz4_coder.encode_cap(n)
+
+    def out():
+        return (torch.zeros((b, cap_n), dtype=torch.uint8, device="cuda"),
+                torch.empty(b, dtype=torch.int32, device="cuda"))
+
+    def two_step():
+        cand = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        fn = lib.tpz_lz4_dense_candidates
+        fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp]
+        _build.check(fn(rows.data_ptr(), lens.data_ptr(), b, n,
+                        cand.data_ptr(), tables.data_ptr(), ntab,
+                        lz4_dense.table_bits(hash_log), tbits,
+                        int(route == "keyed"), stream()),
+                     "tpz_lz4_dense_candidates")
+        comp, clens = out()
+        fn = lib.tpz_lz4_dense_parse
+        fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp]
+        _build.check(fn(rows.data_ptr(), lens.data_ptr(), cand.data_ptr(), b,
+                        n, comp.data_ptr(), cap_n, clens.data_ptr(),
+                        stream()), "tpz_lz4_dense_parse")
+        return comp, clens
+
+    if not hasattr(lib, "tpz_lz4_dense_words"):
+        return {"encode": two_step}
+
+    bits = lz4_dense.table_bits(hash_log)
+
+    def words_of():
+        words = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        fn = lib.tpz_lz4_dense_words
+        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+        _build.check(fn(rows.data_ptr(), lens.data_ptr(), b, n, bits,
+                        words.data_ptr(), stream()), "tpz_lz4_dense_words")
+        return words
+
+    def words_parse(words):
+        comp, clens = out()
+        fn = lib.tpz_lz4_dense_words_parse
+        fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp]
+        _build.check(fn(rows.data_ptr(), lens.data_ptr(), words.data_ptr(),
+                        b, n, comp.data_ptr(), cap_n, clens.data_ptr(),
+                        stream()), "tpz_lz4_dense_words_parse")
+        return comp, clens
+
+    words = words_of()
+    shared = lz4_dense.encode_route(hash_log, n) == "shared"
+    return {"encode": (lambda: words_parse(words_of())) if shared
+            else two_step, "two_step": two_step, "words": words_of,
+            "words_parse": functools.partial(words_parse, words)}
+
+
+def ab_lz4(src: str, libs: dict) -> dict:
+    """{shape: row}: each build's encode of `src` (csrc/lz4_chain.cu or
+    csrc/lz4_dense.cu) at its paths' shapes, outputs checked equal, timed
+    in turns (old, new, new, old; each the mean of 3 launches), and each
+    launch of each build timed alone.  lz4_chain: the lz4_chain path's
+    1024 x 64 KiB rows at hash_log 16 and max_chain 2, 8 and 64, 1024 zero
+    rows at 8 and 64 and 1024 random rows at 8.  lz4_dense: the serving
+    path's tensor at compress_from_device's 15 bits, one row and 132 rows
+    of it, and as many zero rows (a row of one hash, whose candidates fall
+    on one warp of the shared route's eight)."""
+    if src == "lz4_chain":
+        data = text_corpus(CORPUS_BYTES, SEED)
+        cfg = Config()
+        cfg.codec.lz4.max_chain = CHAIN_PATH_DEPTH
+        with recorded(lz4_chain, "lz4_chain_links") as calls:
+            tpuzip_torch.compress(data, config=cfg)
+        (args, _, _), = calls
+        x, lens, hl = args[0].contiguous(), args[1].contiguous(), args[2]
+        rng = np.random.default_rng(SEED + 16)
+        rand = torch.from_numpy(rng.integers(0, 256, tuple(x.shape),
+                                             np.uint8)).cuda()
+        shapes = {f"text_max_chain_{mc}": (x, lens, mc) for mc in (2, 8, 64)}
+        shapes.update(zero_max_chain_8=(torch.zeros_like(x), lens, 8),
+                      zero_max_chain_64=(torch.zeros_like(x), lens, 64),
+                      random_max_chain_8=(rand, lens, 8))
+        make = {k: (lambda lib, a=a: ab_chain_runs(lib, a[0], a[1], hl, a[2]))
+                for k, a in shapes.items()}
+    else:
+        x, lens, _ = serving_tensor()
+        hl = lz4_dense.HASH_LOG
+        make = {f"serving_{r}_rows": (
+            lambda lib, r=r: ab_dense_runs(lib, x[:r].contiguous(),
+                                           lens[:r].contiguous(), hl))
+                for r in (x.shape[0], 132, 1)}
+        make["serving_zero_rows"] = (
+            lambda lib: ab_dense_runs(lib, torch.zeros_like(x), lens, hl))
+    res = {}
+    for shape, mk in make.items():
+        runs = {k: mk(lib) for k, lib in libs.items()}
+        ref = runs["new"]["encode"]()
+        row = {"outputs_equal": {
+            k: all(torch.equal(a, c) for a, c in zip(r["encode"](), ref))
+            for k, r in runs.items()}}
+        for k in runs:
+            if k == "new":
+                continue
+            t = [cuda_ms(runs[j]["encode"], 3) for j in (k, "new", "new", k)]
+            old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            row[k] = {"old_ms": old_ms, "new_ms": new_ms,
+                      "new_over_old": new_ms / old_ms, "turns_ms": t}
+        row["launch_ms"] = {k: {name: cuda_ms(fn, 3) for name, fn in r.items()
+                                if name != "encode"}
+                            for k, r in runs.items()}
+        # each variant of a launch gives that launch's output
+        new = runs["new"]
+        for name, base in (("two_step", "encode"), ("links_keyed", "links"),
+                           ("links_shared", "links")):
+            if name in new:
+                got, want = new[name](), new[base]()
+                if not isinstance(got, tuple):
+                    got, want = (got,), (want,)
+                row["outputs_equal"][f"new:{name}"] = all(
+                    torch.equal(a, c) for a, c in zip(got, want))
+        del runs
+        res[shape] = row
+    return res
+
+
 def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
     csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu,
-    dc_decode.cu, lz4_encode.cu, lz4_decode.cu and rle.cu against the same
-    files in each DIR (beside the headers they include), for instance a
-    parent commit's:
+    dc_decode.cu, lz4_encode.cu, lz4_decode.cu, rle.cu, lz4_chain.cu and
+    lz4_dense.cu against the same files in each DIR (beside the headers
+    they include), for instance a parent commit's:
 
         mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
             tpuzip_torch/csrc/); do git show REV:$f > _parent/${f##*/}; done
@@ -3814,10 +4312,11 @@ def ab_child(dirs: list) -> int:
     (ari_decode.cu) at the ari path's decode launch and on phase 5's A/B
     mix.  Beside them: ari_decode's no-index mode at the ari shape; one
     row alone against all the rows at the bwt, bwtdc, bin, apm, lz4 and
-    rle shapes, for every build; and whether the SASS of each kernel that
-    this checkout does not redesign (all but AB_REDESIGNED), and of each
-    source of AB_SASS_ONLY (csrc/lz4_dense.cu), equals the DIR's build of
-    it: the functions that carry the kernel's name (all of
+    rle shapes, for every build; the chained and dense lz4 encoders at
+    their paths' shapes (ab_lz4); and whether the SASS of each kernel of
+    AB_KERNELS that this checkout does not redesign (all but
+    AB_REDESIGNED), and of each source of AB_SASS_ONLY, equals the DIR's
+    build of it: the functions that carry the kernel's name (all of
     the source where none does, as in mtf.cu), so that rle_decode is held
     apart from rle_encode in rle.cu.  One JSON line a kernel and shape,
     then one line of the whole; exits 1 if any outputs differed."""
@@ -3826,7 +4325,8 @@ def ab_child(dirs: list) -> int:
     smi = nvidia_smi()
     nvcc = _build.find_nvcc()
     jobs = {}
-    for kernel in AB_KERNELS + AB_SASS_ONLY + ("ari_decode_dot",):
+    for kernel in (AB_KERNELS + AB_SASS_ONLY + AB_LZ4_SOURCES
+                   + ("ari_decode_dot",)):
         src = AB_SOURCE.get(kernel, kernel)
         if kernel != "ari_decode_dot":
             jobs[f"new:{kernel}"] = _build.CSRC / f"{src}.cu"
@@ -3887,7 +4387,9 @@ def ab_child(dirs: list) -> int:
             print(json.dumps({"kernel": kernel, "skipped": "no DIR holds "
                               f"{AB_SOURCE.get(kernel, kernel)}.cu"}),
                   flush=True)
-        for kernel, paths in ab_inputs().items():
+        inputs = ({} if set(res["skipped"]) == set(AB_KERNELS)
+                  else ab_inputs())
+        for kernel, paths in inputs.items():
             if kernel not in libs or kernel in res["skipped"]:
                 continue
             for path, (args, kw) in paths.items():
@@ -3930,6 +4432,17 @@ def ab_child(dirs: list) -> int:
                 shapes.setdefault(kernel, {})[path] = row
                 print(json.dumps({"kernel": kernel, "path": path, **row}),
                       flush=True)
+        for src in AB_LZ4_SOURCES:
+            if set(libs[src]) == {"new"}:
+                print(json.dumps({"kernel": src, "skipped":
+                                  f"no DIR holds {src}.cu"}), flush=True)
+                continue
+            for shape, row in ab_lz4(src, libs[src]).items():
+                if not all(row["outputs_equal"].values()):
+                    differ.append(f"{src} at {shape}: {row['outputs_equal']}")
+                shapes.setdefault(src, {})[shape] = row
+                print(json.dumps({"kernel": src, "path": shape, **row}),
+                      flush=True)
     res["shapes"] = shapes
     res["outputs_differ"] = differ
     print(json.dumps(res))
@@ -3969,6 +4482,7 @@ def main() -> int:
     lz4_launches, lz4_kernels, lz4_payload = phase_lz(smi, "lz4")
     rle_launches, rle_kernels, _ = phase_lz(smi, "rle")
     serve_launches, serve_kernels, encode_launches = phase_serving(smi)
+    # the fused route at 16 bits, the keyed tables at 20
     corpus_launches = phase_corpus(smi, lz4_payload, dc_peak)
     chain_launches, chain_kernels = phase_lz4_chain(smi, lz4_payload)
     (lz4p_launches, lz4p_serve_launches, lz4p_kernels,
@@ -3983,7 +4497,9 @@ def main() -> int:
                "bin": bin_launches["bin"], "apm": bin_launches["apm"],
                "dot": dot_launches, "legacy": legacy_launches,
                "lz4": lz4_launches, "rle": rle_launches,
-               "serving": serve_launches, "device_encode": encode_launches,
+               "serving": serve_launches,
+               "device_encode": encode_launches[16],
+               "device_encode_20": encode_launches[20],
                "corpus": corpus_launches, "lz4_chain": chain_launches,
                "lz4p": lz4p_launches, "lz4p_serving": lz4p_serve_launches,
                "deflate": deflate_launches,
@@ -3992,7 +4508,8 @@ def main() -> int:
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
     # the ari path's decode inputs, lz4 and rle at theirs (1024 x 64 KiB),
-    # the dense lz4 and rle segment kernels at the serving path's, the
+    # the dense lz4 words and rle segment kernels at the serving path's, the
+    # dense lz4 candidates and parse at device_encode's at hash_log 20, the
     # chained lz4 kernels at the lz4_chain path's, lz4p's at its compress
     # path's, deflate's at its path's; the error over every phase
     dot_kernels = {"ari_decode_dot": dot_kernel}
@@ -4036,12 +4553,19 @@ def main() -> int:
              "tpuzip/codecs/lz4.py:153 _candidates"),
             ("lz4_dense_parse", "lz4_dense.cu",
              "tpuzip/codecs/lz4.py:179 encode"),
+            ("lz4_dense_words", "lz4_dense.cu",
+             "tpuzip/codecs/lz4.py:153 _candidates"),
+            ("lz4_dense_words_parse", "lz4_dense.cu",
+             "tpuzip/codecs/lz4.py:179 encode"),
             ("rle_encode_seg", "rle.cu", "tpuzip/codecs/rle.py:30 encode"),
             # tpuzip's chained lz4 encoder (host C++) and its lz4p coder
             # (host C++ and XLA)
             ("lz4_chain_links", "lz4_chain.cu",
              "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained (its "
              "hash chain)"),
+            ("lz4_chain_best", "lz4_chain.cu",
+             "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained (its "
+             "find_best)"),
             ("lz4_chain_parse", "lz4_chain.cu",
              "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained"),
             ("lz4p_pack", "lz4p.cu",

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Check and time csrc/lz4_chain.cu and csrc/lz4p.cu on one GPU:
+"""Check and time csrc/lz4_chain.cu, csrc/lz4_dense.cu and csrc/lz4p.cu on
+one GPU:
 
     python3 tools/lz4_chain_depths.py
 
-Builds both sources with nvcc -Xptxas -v (registers and spills), then
+Builds the three sources with nvcc -Xptxas -v (registers and spills), then
 holds every launch exact against its plain version: the chained encoder's
-links and parse at hash_log 4, 12, 16 and 24 and max_chain 2, 8 and 64 on
-72 rows of 4 KiB (text, text cut short with random bytes past its length,
-zeros, b"ab", 4 symbols, random bytes, 13 and 17 bytes, and chip_smoke's
-mixed rows) and at max_chain 8 on chip_smoke's 128 KiB far rows; lz4p's
-pack under both rules (lz4_encode.cu's streams at hash_log 12 and 16,
-lz4_dense.cu's at 15, two 64 KiB rows where no 4 bytes repeat) and its
-decode on the packed rows and 64 garbage streams.  Then one timed launch
-of each (CUDA events) at 1024 x 64 KiB of chip_smoke's text corpus: the
-links at hash_log 16, the parse at max_chain 2, 8 and 64 with each one's
-ratio, lz4_encode.cu, the pack and the decode; and the links and parse of
-1024 all-zero rows (max_chain 64) and of 1024 random rows (max_chain 8).
-Prints the card, the ptxas lines and one JSON line a group."""
+links, best words and parse at hash_log 4, 12, 16 and 24 and max_chain 2, 8
+and 64 on 72 rows of 4 KiB (text, text cut short with random bytes past its
+length, zeros, b"ab", 4 symbols, random bytes, 13 and 17 bytes, and
+chip_smoke's mixed rows), on chip_smoke's cap rows, run rows and
+65,536-byte edge rows, and at max_chain 8 on its 128 KiB far rows; the dense encoder's
+shared route (its words and the parse over them) at hash_log 0, 4, 12, 15
+and 16 on the same rows; lz4p's pack under
+both rules (lz4_encode.cu's streams at hash_log 12 and 16, lz4_dense.cu's
+at 15, two 64 KiB rows where no 4 bytes repeat) and its decode on the
+packed rows and 64 garbage streams.  Then one timed launch of each (CUDA
+events) at 1024 x 64 KiB of chip_smoke's text corpus: the links at hash_log
+16, best and the parse at max_chain 2, 8 and 64 with each one's ratio, the
+dense words and their parse against the candidates and parse at 15 bits, lz4_encode.cu, the pack and the decode; and the links, best and
+parse of 1024 all-zero rows (max_chain 64), 1024 b"ab" rows (8) and 1024
+random rows (8).  Prints the card, the ptxas lines and one JSON line a
+group."""
 
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from tpuzip_torch.kernels import (_build, lz4_chain, lz4_coder,  # noqa: E402
 def ptxas() -> None:
     nvcc = _build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("lz4_chain", "lz4p"):
+        for name in ("lz4_chain", "lz4_dense", "lz4p"):
             r = subprocess.run(
                 [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                  f"{tmp}/{name}.so", str(_build.CSRC / f"{name}.cu")],
@@ -49,7 +54,7 @@ def ptxas() -> None:
                 line for line in (r.stdout + r.stderr).splitlines()
                 if "registers" in line or "error" in line
                 or "spill" in line), flush=True)
-    _build.build("lz4_chain", "lz4p")
+    _build.build("lz4_chain", "lz4_dense", "lz4p")
 
 
 def rows(n: int):
@@ -70,25 +75,62 @@ def rows(n: int):
     return torch.from_numpy(x).cuda(), torch.from_numpy(lens).cuda()
 
 
-def chain_checks(x, xl) -> dict:
-    res = {}
-    for hl in (4, 12, 16, 24):
-        pk = lz4_chain.lz4_chain_links(x, xl, hl)
-        pp = lz4_chain.lz4_chain_links_plain(x, xl, hl)
-        res[f"links{hl}"] = cs.max_err(pk, pp)
-        for mc in (2, 8, 64):
-            ck, lk = lz4_chain.lz4_chain_parse(x, xl, pk, mc)
-            cp, lp = lz4_chain.lz4_chain_parse_plain(x, xl, pp, mc)
-            res[f"parse{hl}_{mc}"] = max(cs.max_err(ck, cp),
-                                         cs.max_err(lk, lp))
+def edge_rows():
+    """chip_smoke's cap rows (4 KiB, at the best words' cap), run rows (4
+    KiB of text broken by byte runs) and 65,536-byte edge rows, each on the
+    card with its lengths."""
+    sets = {"cap": cs.cap_rows(4096, lz4_chain.BEST_CAP, 20),
+            "runs": cs.run_rows(4096, 21),
+            "stage_edge": cs.stage_edge_rows(4)}
+    x, lens = rows(4096)
+    sets["odd_width"] = (x[:, : cs.ODD_WIDTH].cpu().numpy().copy(),
+                         lens.clamp(max=cs.ODD_WIDTH).cpu().numpy())
+    return {k: tuple(torch.from_numpy(a).cuda() for a in v)
+            for k, v in sets.items()}
+
+
+def chain_check(x, xl, hl: int, depths) -> int:
+    """The largest error of the links, the best words and the parse at
+    each depth against their plain versions."""
+    pk = lz4_chain.lz4_chain_links(x, xl, hl)
+    pp = lz4_chain.lz4_chain_links_plain(x, xl, hl)
+    err = cs.max_err(pk, pp)
+    for mc in depths:
+        wk = lz4_chain.lz4_chain_best(x, xl, pk, mc)
+        wp = lz4_chain.lz4_chain_best_plain(x, xl, pp, mc)
+        ck, lk = lz4_chain.lz4_chain_parse(x, xl, pk, mc, wk)
+        cp, lp = lz4_chain.lz4_chain_parse_plain(x, xl, pp, mc, wp)
+        err = max(err, cs.max_err(wk, wp), cs.max_err(ck, cp),
+                  cs.max_err(lk, lp))
+    return err
+
+
+def chain_checks(x, xl, edges) -> dict:
+    res = {f"chain{hl}": chain_check(x, xl, hl, (2, 8, 64))
+           for hl in (4, 12, 16, 24)}
+    for name, (ex, el) in edges.items():
+        res[name] = chain_check(ex, el, 16, (2, 8, 64))
     fx, fl = (torch.from_numpy(a).cuda() for a in cs.far_rows(7))
     for hl in (12, 16):
-        pk = lz4_chain.lz4_chain_links(fx, fl, hl)
-        pp = lz4_chain.lz4_chain_links_plain(fx, fl, hl)
-        ck, lk = lz4_chain.lz4_chain_parse(fx, fl, pk, 8)
-        cp, lp = lz4_chain.lz4_chain_parse_plain(fx, fl, pp, 8)
-        res[f"far{hl}"] = max(cs.max_err(pk, pp), cs.max_err(ck, cp),
-                              cs.max_err(lk, lp))
+        res[f"far{hl}"] = chain_check(fx, fl, hl, (8,))
+    res["far_odd"] = chain_check(fx[:, :-3].contiguous(),
+                                 fl.clamp(max=fx.shape[1] - 3), 16, (8,))
+    return res
+
+
+def dense_checks(x, xl, edges) -> dict:
+    """The dense shared route (the words and the parse over them) against
+    the plain candidates' stream."""
+    res = {}
+    for name, (rx, rl) in {"mixed": (x, xl), **edges}.items():
+        for hl in (0, 4, 12, 15, 16):
+            cp, lp = lz4_dense.lz4_dense_parse_plain(
+                rx, rl, lz4_dense.lz4_dense_candidates_plain(rx, rl, hl))
+            wp = lz4_dense.lz4_dense_words_plain(rx, rl, hl)
+            wk = lz4_dense.lz4_dense_words(rx, rl, hl)
+            ck, lk = lz4_dense.lz4_dense_words_parse(rx, rl, wk)
+            res[f"dense_{name}_{hl}"] = max(
+                cs.max_err(ck, cp), cs.max_err(lk, lp), cs.max_err(wk, wp))
     return res
 
 
@@ -126,6 +168,17 @@ def lz4p_checks(x, xl, n: int) -> dict:
     return res
 
 
+def chain_times(t: dict, name: str, x, lens, depths) -> None:
+    prev, t[f"links_{name}_ms"] = cs.timed(
+        lambda: lz4_chain.lz4_chain_links(x, lens, 16))
+    for mc in depths:
+        w, t[f"best_{name}{mc}_ms"] = cs.timed(
+            lambda: lz4_chain.lz4_chain_best(x, lens, prev, mc))
+        (_, cl), t[f"parse_{name}{mc}_ms"] = cs.timed(
+            lambda: lz4_chain.lz4_chain_parse(x, lens, prev, mc, w))
+        t[f"ratio_{name}{mc}"] = float(cl.sum()) / x.numel()
+
+
 def times() -> dict:
     data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
     x = torch.from_numpy(np.frombuffer(data, np.uint8).reshape(
@@ -133,12 +186,16 @@ def times() -> dict:
     lens = torch.full((x.shape[0],), cs.BLOCK, dtype=torch.int32,
                       device="cuda")
     t = {}
-    prev, t["links16_ms"] = cs.timed(
-        lambda: lz4_chain.lz4_chain_links(x, lens, 16))
-    for mc in (2, 8, 64):
-        (_, cl), t[f"parse{mc}_ms"] = cs.timed(
-            lambda: lz4_chain.lz4_chain_parse(x, lens, prev, mc))
-        t[f"ratio{mc}"] = float(cl.sum()) / x.numel()
+    chain_times(t, "text", x, lens, (2, 8, 64))
+    w, t["words15_ms"] = cs.timed(
+        lambda: lz4_dense.lz4_dense_words(x, lens, 15))
+    (_, cl), t["words_parse15_ms"] = cs.timed(
+        lambda: lz4_dense.lz4_dense_words_parse(x, lens, w))
+    cand, t["candidates15_ms"] = cs.timed(
+        lambda: lz4_dense.lz4_dense_candidates(x, lens, 15))
+    (_, cl2), t["parse15_ms"] = cs.timed(
+        lambda: lz4_dense.lz4_dense_parse(x, lens, cand))
+    t["shared_equal"] = bool(torch.equal(cl, cl2))
     (c, cl), t["lz4_encode_ms"] = cs.timed(
         lambda: lz4_coder.lz4_encode_batch(x, lens, 16))
     (p, pl), t["pack_ms"] = cs.timed(
@@ -147,14 +204,14 @@ def times() -> dict:
     (d, _), t["decode_ms"] = cs.timed(
         lambda: lz4p_coder.lz4p_decode_batch(p, pl, cs.BLOCK))
     t["decoded"] = bool(torch.equal(d, x))
+    del c, p, d, cand
     for name, rows_, mc in (
             ("zero", torch.zeros_like(x), 64),
+            ("ab", x.new_tensor(np.resize(np.frombuffer(b"ab", np.uint8),
+                                          tuple(x.shape))), 8),
             ("random", torch.from_numpy(np.random.default_rng(3).integers(
                 0, 256, tuple(x.shape), np.uint8)).cuda(), 8)):
-        pr, t[f"links_{name}_ms"] = cs.timed(
-            lambda: lz4_chain.lz4_chain_links(rows_, lens, 16))
-        _, t[f"parse_{name}{mc}_ms"] = cs.timed(
-            lambda: lz4_chain.lz4_chain_parse(rows_, lens, pr, mc))
+        chain_times(t, name, rows_, lens, (mc,))
     return t
 
 
@@ -166,7 +223,9 @@ def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     ptxas()
     x, xl = rows(4096)
-    checks = {**chain_checks(x, xl), **lz4p_checks(x, xl, 4096)}
+    edges = edge_rows()
+    checks = {**chain_checks(x, xl, edges), **dense_checks(x, xl, edges),
+              **lz4p_checks(x, xl, 4096)}
     print(json.dumps(checks), flush=True)
     print(json.dumps(times()), flush=True)
     errs = [v[0] if isinstance(v, list) else v

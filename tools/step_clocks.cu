@@ -1,11 +1,13 @@
-// step_clocks.cu — clock64-stamped copies of seven kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of nine kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
 // apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
 // (csrc/bin_encode.cu, one thread a stream), the DC walk's
 // (csrc/dc_decode.cu, eight compares and two reductions a run), the
 // lz4 encoder's (csrc/lz4_encode.cu, lane 0 probing a position at a time),
-// the lz4 decoder's (csrc/lz4_decode.cu, a sequence at a time) and the rle
-// decoder's (csrc/rle.cu, one thread a row);
+// the lz4 decoder's (csrc/lz4_decode.cu, a sequence at a time), the rle
+// decoder's (csrc/rle.cu, one thread a row), the chained lz4 parse's
+// (csrc/lz4_chain.cu, a window of 32 chain walks) and the dense lz4
+// candidates step (csrc/lz4_dense.cu, a table in device memory);
 // and the redesigned ari encoder, DC walk, lz4 step and lz4 decoder,
 // built from their own sources, the encoder stamped by warp, the others by
 // part.  One stream each (one warp, one thread; the lz4 and rle copies
@@ -1215,6 +1217,289 @@ lz4_decode_new_clocks(const uint8_t* comp, const int32_t* clens, int w,
     }
   }
 }
+
+// The chained lz4 parse as it stood before its redesign (csrc/lz4_chain.cu's
+// parse kernel: one warp a row, a window of 32 positions probed a lane
+// each, every link and byte from device memory), B rows at once, the
+// lanes' chain walks run in lock step (a lane whose walk has ended idles)
+// so that each part is the warp's.  Block 0's cycles by part: 0 the links'
+// loads (prev[p], then prev[c] a link), 1 the cheap rejects' byte loads and
+// compares, 2 the extensions, 3 the parse's ballots, shuffles and lazy
+// tests, 4 the writes of a sequence; cycles[7] the whole row, [8] its
+// windows, [9] the positions probed, [10] those whose best the parse read,
+// [11] its matches, [12] the links walked over all lanes, [13] those walked
+// for positions the parse read.
+namespace chain_old {
+
+constexpr int WINDOW = 0xFFFF;
+
+__device__ __forceinline__ uint32_t load4_aligned(const uint8_t* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
+  const unsigned shift = (a & 3) * 8;
+  return shift ? __funnelshift_r(w[0], w[1], shift) : w[0];
+}
+
+__device__ __forceinline__ int extend(const uint8_t* src, int c, int p,
+                                      int most) {
+  for (int m = 0; m < most; m += 4) {
+    const uint32_t d = load4_aligned(src + c + m) ^ load4_aligned(src + p + m);
+    if (d) return min(m + ((__ffs(d) - 1) >> 3), most);
+  }
+  return max(most, 0);
+}
+
+}  // namespace chain_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+chain_parse_clocks(const uint8_t* blocks, const int32_t* lengths,
+                   const int32_t* prev, int n, int max_chain, uint8_t* comp,
+                   int cap, int32_t* clens, long long* cycles) {
+  using namespace lz4_old;
+  using namespace chain_old;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+  const int32_t* prv = prev + static_cast<size_t>(row) * n;
+  uint8_t* dst = comp + static_cast<size_t>(row) * cap;
+  const int len = min(max(lengths[row], 0), n);
+  const int limit = max(len - MF_LIMIT, 0);
+  const int lim = len - LAST_LITERALS;
+  long long windows = 0, probed = 0, read = 0, matches = 0, links = 0,
+            links_read = 0;
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  int wbase = 0, best_l = 0, at_l = -1, walked = 0;
+  bool used = false;
+  // the window just left: its lanes' links, and those of the lanes read
+  auto account = [&]() {
+    links += __reduce_add_sync(FULL, walked);
+    links_read += __reduce_add_sync(FULL, used ? walked : 0);
+    read += __popc(__ballot_sync(FULL, used));
+  };
+  auto probe = [&](int from) {
+    account();
+    ++windows;
+    wbase = from;
+    used = false;
+    walked = 0;
+    const int p = from + lane;
+    bool on = p < limit;
+    probed += __popc(__ballot_sync(FULL, on));
+    int best = 0, at = -1, chain = max_chain;
+    int c = on ? prv[p] : -1;
+    k.lap(0, static_cast<uint32_t>(c));
+    on = on && c >= 0 && c < p && p - c <= WINDOW && chain > 0;
+    while (__any_sync(FULL, on)) {
+      walked += on;
+      const bool pass = on && src[c + best] == src[p + best];
+      k.lap(1, pass);
+      bool stop = false;
+      if (__any_sync(FULL, pass)) {
+        const int m = pass ? extend(src, c, p, lim - p) : 0;
+        k.lap(2, static_cast<uint32_t>(m));
+        if (pass && m > best) {
+          best = m;
+          at = c;
+          stop = p + m >= lim;
+        }
+      }
+      if (on && !stop) c = prv[c];
+      k.lap(0, static_cast<uint32_t>(c));
+      --chain;
+      on = on && !stop && c >= 0 && c < p && p - c <= WINDOW && chain > 0;
+    }
+    best_l = best;
+    at_l = at;
+  };
+  probe(0);
+  int i = 0, anchor = 0, o = 0;
+  while (i < limit) {
+    if (i >= wbase + 32) probe(i);
+    const unsigned hits =
+        __ballot_sync(FULL, best_l >= MIN_MATCH && wbase + lane >= i);
+    if (!hits) {
+      used |= wbase + lane >= i && wbase + lane < limit;
+      i = wbase + 32;
+      k.lap(3, hits);
+      continue;
+    }
+    ++matches;
+    int at = wbase + __ffs(hits) - 1;
+    used |= wbase + lane >= i && wbase + lane <= at;
+    int best = __shfl_sync(FULL, best_l, at - wbase);
+    while (at + 1 < limit) {
+      if (at + 1 >= wbase + 32) probe(at);
+      const int next = __shfl_sync(FULL, best_l, at + 1 - wbase);
+      used |= wbase + lane == at + 1;
+      if (next <= best) break;
+      ++at;
+      best = next;
+    }
+    const int c = __shfl_sync(FULL, at_l, at - wbase);
+    used |= wbase + lane == at;
+    k.lap(3, static_cast<uint32_t>(c));
+    const int ml = best - MIN_MATCH;
+    o = put_literals(dst, o, src, anchor, at - anchor, min(ml, 15), lane);
+    if (lane == 0) {
+      dst[o] = static_cast<uint8_t>((at - c) & 0xFF);
+      dst[o + 1] = static_cast<uint8_t>((at - c) >> 8);
+    }
+    o += 2;
+    if (ml >= 15) o += put_ext(dst, o, ml, lane);
+    i = anchor = at + best;
+    k.lap(4, static_cast<uint32_t>(o));
+  }
+  o = put_literals(dst, o, src, anchor, len - anchor, 0, lane);
+  account();
+  const long long t1 = stamp(static_cast<uint32_t>(o));
+  if (lane == 0) {
+    clens[row] = o;
+    if (row == 0) {
+      for (int q = 0; q < 7; ++q) cycles[q] = k.sum[q];
+      cycles[7] = t1 - t0;
+      cycles[8] = windows;
+      cycles[9] = probed;
+      cycles[10] = read;
+      cycles[11] = matches;
+      cycles[12] = links;
+      cycles[13] = links_read;
+    }
+  }
+}
+
+// The dense lz4 encoder's candidates step as it stood before its redesign
+// (csrc/lz4_dense.cu's keyed instance, the route of compress_from_device's
+// 15 bits: one warp a row, 32 positions a step, a keyed table of 8-byte
+// slots in device memory), B rows at once.  Block 0's cycles by part: 0 the
+// 4 bytes at each lane's position, the hash and __match_any_sync, 1 the
+// table read (keyed_find, or the group's earlier lane), 2 the table write
+// (keyed_put between the two __syncwarp), 3 the verify load of the
+// candidate's 4 bytes, the filter and the store of cand, 4 the closing
+// __syncwarp; cycles[7] the whole row, [8] its steps, [9] the keyed slots
+// read past the first (probe lengths over the lanes).  KEYED=false runs the
+// direct route instead (2^bits int32 slots a row in device memory, salted
+// as the source salted them), which the source took at 15 bits before it
+// lost to the keyed tables (PERF.md section 6).
+namespace dense_old {
+
+constexpr uint32_t SLOT_MUL = 0x9E3779B1u;
+constexpr unsigned long long EMPTY = ~0ull;
+
+__device__ __forceinline__ uint32_t keyed_slot(uint32_t h, uint32_t salt,
+                                               int slots_log) {
+  return ((h ^ salt) * SLOT_MUL) >> (32 - slots_log);
+}
+
+__device__ __forceinline__ int keyed_find(const unsigned long long* t,
+                                          uint32_t h, uint32_t salt,
+                                          int slots_log, int& extra) {
+  const uint32_t mask = (1u << slots_log) - 1;
+  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
+    const unsigned long long v = t[s];
+    if (v == EMPTY) return -1;
+    if (static_cast<uint32_t>(v) == h) return static_cast<int>(v >> 32);
+    ++extra;
+  }
+}
+
+__device__ __forceinline__ void keyed_put(unsigned long long* t, uint32_t h,
+                                          uint32_t salt, int p,
+                                          int slots_log) {
+  const uint32_t mask = (1u << slots_log) - 1;
+  const unsigned long long entry =
+      static_cast<unsigned long long>(static_cast<uint32_t>(p)) << 32 | h;
+  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
+    unsigned long long v = t[s];
+    if (v == EMPTY) {
+      v = atomicCAS(t + s, EMPTY, entry);
+      if (v == EMPTY) return;
+    }
+    if (static_cast<uint32_t>(v) == h) {
+      t[s] = entry;
+      return;
+    }
+  }
+}
+
+}  // namespace dense_old
+
+template <bool KEYED, bool STAMP>
+__global__ void __launch_bounds__(32)
+dense_candidates_clocks(const uint8_t* blocks, const int32_t* lengths,
+                        int n, int32_t* cand, unsigned long long* tables,
+                        int bits, int slots_log, long long* cycles) {
+  using namespace lz4_old;
+  using namespace dense_old;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const unsigned below = (1u << lane) - 1;
+  const unsigned above = ~((2u << lane) - 1);
+  const int tlog = KEYED ? slots_log : bits;
+  const size_t words =
+      max((size_t{1} << tlog) * (KEYED ? 8 : 4) / 16, size_t{1});
+  int4* table = reinterpret_cast<int4*>(tables) + row * words;
+  unsigned long long* keyed = reinterpret_cast<unsigned long long*>(table);
+  int32_t* direct = reinterpret_cast<int32_t*>(table);
+  for (size_t q = lane; q < words; q += 32)
+    table[q] = make_int4(-1, -1, -1, -1);
+  __syncwarp();
+  const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+  int32_t* out = cand + static_cast<size_t>(row) * n;
+  const int len = min(max(lengths[row], 0), n);
+  const int limit = max(len - MF_LIMIT, 0);
+  const uint32_t salt = static_cast<uint32_t>(row) * SLOT_MUL;
+  const uint32_t dslot_salt = bits ? salt >> (32 - bits) : 0u;
+  long long steps = 0;
+  int extra = 0;
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  for (int base = 0; base < limit; base += 32) {
+    ++steps;
+    const int p = base + lane;
+    const bool live = p < limit;
+    const uint32_t seq = live ? load4(src + p) : 0;
+    const uint32_t h = bits ? (seq * HASH_MUL) >> (32 - bits) : 0u;
+    const unsigned lanes = __ballot_sync(FULL, live);
+    unsigned group = 0;
+    if (live) group = __match_any_sync(lanes, h);
+    k.lap(0, group);
+    const unsigned earlier = group & below;
+    int c = -1;
+    if (live)
+      c = earlier ? base + 31 - __clz(earlier)
+            : KEYED ? keyed_find(keyed, h, salt, slots_log, extra)
+                    : direct[h ^ dslot_salt];
+    k.lap(1, static_cast<uint32_t>(c));
+    __syncwarp();
+    if (live && !(group & above)) {
+      if (KEYED)
+        keyed_put(keyed, h, salt, p, slots_log);
+      else
+        direct[h ^ dslot_salt] = p;
+    }
+    __syncwarp();
+    k.lap(2, group);
+    const int kept =
+        live && c >= 0 && p - c <= 0xFFFF && load4(src + c) == seq ? c : -1;
+    if (live) out[p] = kept;
+    k.lap(3, static_cast<uint32_t>(kept));
+    __syncwarp();
+    k.lap(4, 0);
+  }
+  for (int p = limit + lane; p < n; p += 32) out[p] = -1;
+  const long long t1 = stamp(static_cast<uint32_t>(steps));
+  const int extra_all = __reduce_add_sync(FULL, extra);
+  if (lane == 0 && row == 0) {
+    for (int q = 0; q < 7; ++q) cycles[q] = k.sum[q];
+    cycles[7] = t1 - t0;
+    cycles[8] = steps;
+    cycles[9] = extra_all;
+  }
+}
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -1384,5 +1669,44 @@ extern "C" int tpz_lz4_decode_new_clocks(const void* comp, const void* clens,
       cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<B, 32>>>(x, l, w, o, out_cap, st, cy);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the chained lz4 parse as it stood before its redesign, over
+// prev from csrc/lz4_chain.cu's links; block 0's cycles into cycles (14
+// int64).
+extern "C" int tpz_chain_parse_clocks(const void* blocks, const void* lengths,
+                                      const void* prev, int B, int n,
+                                      int max_chain, void* comp, int cap,
+                                      void* clens, void* cycles,
+                                      int stamped) {
+  auto kern = stamped ? chain_parse_clocks<true> : chain_parse_clocks<false>;
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(blocks),
+                  static_cast<const int32_t*>(lengths),
+                  static_cast<const int32_t*>(prev), n, max_chain,
+                  static_cast<uint8_t*>(comp), cap,
+                  static_cast<int32_t*>(clens),
+                  static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the dense candidates step as it stood before its redesign:
+// keyed, 2^slots_log slots of 8 bytes of `tables` a row, or direct, 2^bits
+// int32 a row (bits >= 2); block 0's cycles into cycles (10 int64).
+extern "C" int tpz_dense_candidates_clocks(const void* blocks,
+                                           const void* lengths, int B, int n,
+                                           void* cand, void* tables,
+                                           int bits, int slots_log,
+                                           int keyed, void* cycles,
+                                           int stamped) {
+  auto kern = keyed ? (stamped ? dense_candidates_clocks<true, true>
+                               : dense_candidates_clocks<true, false>)
+                    : (stamped ? dense_candidates_clocks<false, true>
+                               : dense_candidates_clocks<false, false>);
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(blocks),
+                  static_cast<const int32_t*>(lengths), n,
+                  static_cast<int32_t*>(cand),
+                  static_cast<unsigned long long*>(tables), bits, slots_log,
+                  static_cast<long long*>(cycles));
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,7 @@ before their redesign, of the redesigned ari encoder by warp and of the
 redesigned DC walk by part (tools/step_clocks.cu), on one real stream each,
 on one GPU:
 
-    python3 tools/step_clocks.py        # from the root of a checkout
+    python3 tools/step_clocks.py [SECTION ...]   # from a checkout's root
 
 The encoder's stream is block 0 of the bwt path (the smoke's corpus at
 1 MiB blocks, the ari encoder's input after BWT and MTF), and for the
@@ -14,7 +14,7 @@ is block 0 of the apm path at 64 KiB, and the bit encoder's that block's
 bytes; the DC walk's is block 0 of the bwtdc path on the smoke's 64 MiB
 corpus (the walk's own vals, first and length), a step there being one
 walked run.  Each copy's output must equal the real kernel's on that
-stream.  Prints one JSON line: for each, the steps, the cycles a step of
+stream.  Reports for each the steps, the cycles a step of
 each part (stamped run), of the stamped loop and of the unstamped loop,
 and the unstamped copy's CUDA-event ms (cycles over ms is the SM clock
 under this load); for the DC walk also the walked runs of all 64 streams
@@ -27,8 +27,16 @@ rows, with csrc/lz4_encode.cu's ms on the same rows; the redesigned step
 The lz4 and rle decoders' earlier steps (a sequence, a stream byte) are
 stamped by part on their paths' rows (the corpus through compress with no
 codec and with codec "rle"), row 0 alone and beside the other 1023 rows,
-each copy held against the real decoder's bytes and statuses.  About
-60-80 s."""
+each copy held against the real decoder's bytes and statuses.  The
+chained lz4 parse's window step as it stood before its redesign (a lane a
+position, each walking its chain from device memory) is stamped by part
+on the lz4_chain path's rows (max_chain 8 and 64), counting the positions
+the parse never reads; the dense lz4 candidates step as it stood before
+its redesign (keyed tables in device memory, and the direct ones of 15
+bits it had before them) on the serving path's tensor; both on row 0
+alone and beside the other 1023 rows, held against the kernels' output.
+One JSON line a section (SECTIONS; all of them without arguments, about
+60-90 s; lz4_chain and lz4_dense alone about 30 s)."""
 
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import tpuzip_torch  # noqa: E402
 from tpuzip_torch.kernels import (_build, bin_coder, dc_scan,  # noqa: E402
-                                  lz4_coder, range_coder, rle_coder)
+                                  lz4_chain, lz4_coder, lz4_dense,
+                                  range_coder, rle_coder)
 
 ARI_PARTS = ("symbol", "table reads", "division", "multiplies",
              "renormalisation", "update", "chunk test and loop")
@@ -353,11 +362,140 @@ def new_lz4_decoder(lib, res) -> None:
             lambda: launch(b, 0), 3)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("step_clocks: torch.cuda.is_available() is false",
-              file=sys.stderr)
-        return 1
+CHAIN_PARTS = ("link loads", "cheap rejects", "extensions",
+               "parse ballots, shuffles and lazy tests", "sequence writes")
+DENSE_PARTS = ("4 bytes, hash and match_any", "table read", "table write",
+               "verify load, filter and store", "closing syncwarp")
+
+
+def chain_parse(lib, res) -> None:
+    """The chained lz4 parse as it stood before its redesign, on the
+    lz4_chain path's rows (the smoke's 64 MiB corpus through
+    tpuzip_torch.compress at max_chain 8, 1024 rows of 64 KiB, hash_log
+    16) and at max_chain 64 on the same links, stamped by part on row 0
+    alone and beside the other 1023 rows, held against csrc/lz4_chain.cu's
+    streams there, into res["lz4_chain_parse"]: cycles a window by part,
+    the positions probed and read (the rest are the window's waste), the
+    links walked for each, and the unstamped copy's and the kernel's ms."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    cfg = cs.Config()
+    cfg.codec.lz4.max_chain = cs.CHAIN_PATH_DEPTH
+    with cs.recorded(lz4_chain, "lz4_chain_links") as calls:
+        tpuzip_torch.compress(data, config=cfg)
+    (args, _, prev), = calls
+    blocks, lens = args[0], args[1]
+    b_all, n = blocks.shape
+    fn = lib.tpz_chain_parse_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, ci]
+    cap = lz4_coder.encode_cap(n)
+
+    def launch(b: int, depth: int, stamped: int):
+        comp = torch.zeros((b, cap), dtype=torch.uint8, device="cuda")
+        clens = torch.empty(b, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(14, dtype=torch.int64, device="cuda")
+        _build.check(fn(blocks.data_ptr(), lens.data_ptr(), prev.data_ptr(),
+                        b, n, depth, comp.data_ptr(), cap, clens.data_ptr(),
+                        cyc.data_ptr(), stamped), "chain_parse_clocks")
+        return comp, clens, cyc
+
+    rec = res.setdefault("lz4_chain_parse", {"rows": [b_all, n],
+                                             "hash_log": 16})
+    for depth in (cs.CHAIN_PATH_DEPTH, 64):
+        words = lz4_chain.lz4_chain_best(blocks, lens, prev, depth)
+        ref = lz4_chain.lz4_chain_parse(blocks, lens, prev, depth, words)
+        for b in (1, b_all):
+            for stamped in (1, 0):
+                comp, clens, cyc = launch(b, depth, stamped)
+                torch.cuda.synchronize()
+                if not (torch.equal(comp, ref[0][:b])
+                        and torch.equal(clens, ref[1][:b])):
+                    raise AssertionError(
+                        f"chained parse copy (max_chain {depth}, stamped="
+                        f"{stamped}, {b} rows) differs from "
+                        "csrc/lz4_chain.cu")
+                cyc = cyc.tolist()
+                windows = cyc[8]
+                rec[f"max_chain_{depth}_rows_{b}_"
+                    f"{'stamped' if stamped else 'unstamped'}"] = {
+                    "windows": windows, "positions_probed": cyc[9],
+                    "positions_read": cyc[10], "matches": cyc[11],
+                    "links_walked": cyc[12], "links_walked_read": cyc[13],
+                    "wasted_probe_share": 1 - cyc[10] / cyc[9],
+                    "wasted_link_share": 1 - cyc[13] / max(cyc[12], 1),
+                    "cycles_a_window": {
+                        **{p: cyc[i] / windows
+                           for i, p in enumerate(CHAIN_PARTS)},
+                        "whole row": cyc[7] / windows},
+                    "whole_row_cycles": cyc[7]}
+            rec[f"max_chain_{depth}_rows_{b}_unstamped_ms"] = cs.cuda_ms(
+                lambda: launch(b, depth, 0), 3)
+            rec[f"max_chain_{depth}_rows_{b}_kernel_ms"] = cs.cuda_ms(
+                lambda: lz4_chain.lz4_chain_parse(
+                    blocks[:b], lens[:b], prev[:b], depth, words[:b]), 3)
+
+
+def dense_candidates(lib, res) -> None:
+    """The dense lz4 candidates step as it stood before its redesign (the
+    keyed route at compress_from_device's 15 bits), on the serving path's
+    tensor (1024 rows of 64 KiB), stamped by part on row 0 alone and
+    beside the other 1023 rows, held against csrc/lz4_dense.cu's
+    candidates there, into res["lz4_dense_candidates"]: cycles a step by
+    part and the unstamped copy's and the kernel's ms; and the same step
+    on the direct route it took at 15 bits before it was keyed (2^15
+    int32 slots a row in device memory), into "direct_*"."""
+    x, lens, _ = cs.serving_tensor()
+    b_all, n = x.shape
+    bits = lz4_dense.table_bits(lz4_dense.HASH_LOG)
+    route, slog = lz4_dense.table_route(lz4_dense.HASH_LOG, n)
+    assert route == "keyed"
+    fn = lib.tpz_dense_candidates_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, vp, ci]
+    tables = torch.empty(b_all << slog, dtype=torch.int64, device="cuda")
+    ref = lz4_dense.lz4_dense_candidates(x, lens, lz4_dense.HASH_LOG)
+
+    def launch(b: int, stamped: int, keyed: int = 1):
+        cand = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(10, dtype=torch.int64, device="cuda")
+        _build.check(fn(x.data_ptr(), lens.data_ptr(), b, n, cand.data_ptr(),
+                        tables.data_ptr(), bits, slog, keyed, cyc.data_ptr(),
+                        stamped), "dense_candidates_clocks")
+        return cand, cyc
+
+    rec = res.setdefault("lz4_dense_candidates", {
+        "rows": [b_all, n], "hash_log": lz4_dense.HASH_LOG,
+        "slots_log": slog})
+    for (keyed, name), b in itertools.product(((1, ""), (0, "direct_")),
+                                              (1, b_all)):
+        for stamped in (1, 0):
+            cand, cyc = launch(b, stamped, keyed)
+            torch.cuda.synchronize()
+            if not torch.equal(cand, ref[:b]):
+                raise AssertionError(f"dense candidates copy ({name}stamped="
+                                     f"{stamped}, {b} rows) differs from "
+                                     "csrc/lz4_dense.cu")
+            cyc = cyc.tolist()
+            steps = cyc[8]
+            rec[f"{name}rows_{b}_"
+                f"{'stamped' if stamped else 'unstamped'}"] = {
+                "steps": steps, "extra_slots_read": cyc[9],
+                "cycles_a_step": {
+                    **{p: cyc[i] / steps for i, p in enumerate(DENSE_PARTS)},
+                    "whole row": cyc[7] / steps},
+                "whole_row_cycles": cyc[7]}
+        rec[f"{name}rows_{b}_unstamped_ms"] = cs.cuda_ms(
+            lambda: launch(b, 0, keyed), 3)
+        if keyed:
+            rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+                lambda: lz4_dense.lz4_dense_candidates(
+                    x[:b], lens[:b], lz4_dense.HASH_LOG), 3)
+
+
+def coders(lib, res) -> None:
+    """The ari encoder's steps on the bwt and bwtdc rows, the apm bit
+    decoder's and encoder's on the apm row, into res["ari_encode_*"],
+    res["apm_decode"] and res["apm_encode"]."""
     data = cs.text_corpus(cs.BWT_BLOCK, cs.SEED)
     rows = {}
     for codec in ("bwt", "bwtdc"):
@@ -370,18 +508,11 @@ def main() -> int:
     with cs.recorded(bin_coder, "bin_decode_indexed") as dcalls:
         tpuzip_torch.decompress(blob)
     (dargs, _, dout), = dcalls
-    with tempfile.TemporaryDirectory() as tmp:
-        so = f"{tmp}/step_clocks.so"
-        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                        os.path.join(ROOT, "tools", "step_clocks.cu")],
-                       check=True, timeout=600)
-        lib = ctypes.CDLL(so)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     enc = lib.tpz_ari_encode_clocks
     enc.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, ci]
     dec = lib.tpz_apm_decode_clocks
     dec.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci]
-    res = {"nvidia_smi": cs.nvidia_smi()}
 
     def run_enc(syms, lens, ref, stamped: int):
         out = torch.zeros(ref[0].shape[1], dtype=torch.uint8, device="cuda")
@@ -469,13 +600,39 @@ def main() -> int:
             "stamped" if stamped else "unstamped"] = per_step(
                 cyc, APM_ENC_PARTS, 8 * elen)
     res["apm_encode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_apm_enc(0), 3)
-    dc_walk(lib, res)
-    lz4_probe(lib, res)
-    old_decoders(lib, res)
-    new_lz4_decoder(lib, res)
-    print(json.dumps(res))
+
+
+SECTIONS = {"coders": coders, "dc_walk": dc_walk, "lz4_encode": lz4_probe,
+            "lz4_decode": lambda lib, res: (old_decoders(lib, res),
+                                            new_lz4_decoder(lib, res)),
+            "lz4_chain": chain_parse, "lz4_dense": dense_candidates}
+
+
+def main(names: list) -> int:
+    """python3 tools/step_clocks.py [SECTION ...]: every section of
+    SECTIONS, or the named ones (lz4_chain and lz4_dense: about 30 s)."""
+    if not torch.cuda.is_available():
+        print("step_clocks: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    unknown = set(names) - set(SECTIONS)
+    if unknown:
+        raise SystemExit(f"step_clocks: no section {sorted(unknown)}; "
+                         f"the sections are {list(SECTIONS)}")
+    res = {"nvidia_smi": cs.nvidia_smi()}
+    with tempfile.TemporaryDirectory() as tmp:
+        so = f"{tmp}/step_clocks.so"
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                        os.path.join(ROOT, "tools", "step_clocks.cu")],
+                       check=True, timeout=600)
+        lib = ctypes.CDLL(so)
+    for name in names or SECTIONS:
+        SECTIONS[name](lib, res)
+        print(json.dumps({name: {k: v for k, v in res.items()
+                                 if k != "nvidia_smi"}}), flush=True)
+        res = {"nvidia_smi": res["nvidia_smi"]}
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

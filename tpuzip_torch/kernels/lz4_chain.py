@@ -5,7 +5,7 @@ versions.
 Off the TPU tpuzip's runner encodes lz4 at max_chain > 1 with the C++
 ``tpz_lz4_compress_chained`` (csrc/tpuzip_host.cpp:463-568, through
 ``native.lz4_compress_batch``); tpuzip has no Pallas or XLA form of it.
-The port may not call it, so csrc/lz4_chain.cu replaces it in two
+The port may not call it, so csrc/lz4_chain.cu replaces it in three
 launches, and the functions here are theirs:
 
   links  prev[p] for every position p < length - 12 of a row: the last
@@ -13,6 +13,10 @@ launches, and the functions here are theirs:
          >> (32 - hash_log), hash_log outside 4..24 taken as 16; -1 where
          there is none and from length - 12 on.  No filter: the C++ chain
          links positions of one hash, whatever their bytes.
+  best   a word a position: best(i) << 16 | (i - the link that gives it),
+         0 where none does, and MARKED where best(i) >= cap (BEST_CAP)
+         and i + cap < length - 5 (the kernel caps each extension at cap,
+         and below the cap every capped length is the exact one).
   parse  the C++'s greedy parse over those chains.  best(i) walks prev[i],
          prev[prev[i]], ... while a link lies before i and at most 65535
          back (links from the links launch always do), up to
@@ -30,6 +34,15 @@ before it probes i + 1, the positions inside a match go in after it is
 emitted), so when it probes i its chain holds exactly the positions before
 i with i's hash, nearest first: prev's chain.  So best(i) does not depend
 on the parse.
+
+The parse reads best(i) from the words, and walks the chain exactly only
+where a word is MARKED.
+
+Routes, by shape alone (`routes`): the links of rows of at most 65,536
+bytes at hash_log <= 16 take a direct table of u16 slots in shared memory
+beside the staged row ("shared"), others a keyed table in device memory
+("keyed"); best stages such rows and their links in shared memory
+("staged") and walks device memory past them ("device").
 
 The plain versions run every row at once: the links by one stable sort of
 each row's hashes (kernels/lz4_dense.py's construction, unfiltered); best
@@ -51,11 +64,22 @@ from tpuzip_torch.kernels import _build
 from tpuzip_torch.kernels.lz4_coder import (LAST_LITERALS, MF_LIMIT,
                                             MIN_MATCH, _check_pair, _read,
                                             _serialise, encode_cap)
-from tpuzip_torch.kernels.lz4_dense import KEY_SLOT, _hashes
+from tpuzip_torch.kernels.lz4_dense import (KEY_SLOT, MARKED, SHARED_MAX_LOG,
+                                            STAGE_MAX, _hashes)
 
 WINDOW = 0xFFFF          # a link further back than this ends the walk
 MAX_CHAIN = 1 << 16      # links a walk can take at most (the window's)
 POOL_BYTES = 1 << 30     # the links kernel's tables, at most
+BEST_CAP = 64            # the best kernel's cap (csrc/lz4_chain.cu's)
+
+
+def routes(hash_log: int, n: int) -> tuple[str, str]:
+    """(the links' route, best's) for rows of n bytes at hash_log: "shared"
+    or "keyed", and "staged" or "device", as the module note says."""
+    bits = resolve_hash_log(hash_log)
+    staged = n <= STAGE_MAX
+    return ("shared" if staged and bits <= SHARED_MAX_LOG else "keyed",
+            "staged" if staged else "device")
 
 
 def slots_log(hash_log: int, n: int) -> int:
@@ -153,16 +177,50 @@ def _best_matches(blocks: torch.Tensor, lengths: torch.Tensor,
     return best, at
 
 
+def lz4_chain_best_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                         prev: torch.Tensor, max_chain: int,
+                         cap: int = BEST_CAP) -> torch.Tensor:
+    """Plain version of the best kernel: blocks (B, n) u8, lengths (B,),
+    prev (B, n) i32 from the links -> words (B, n) i32, as the module note
+    says, from the exact best and link at every position."""
+    b, n = blocks.shape
+    best, at = _best_matches(blocks, lengths, prev, max_chain)
+    p = torch.arange(n, device=blocks.device)[None, :]
+    lim = lengths.to(torch.int64).clamp(0, n)[:, None] - LAST_LITERALS
+    word = torch.where(at >= 0, best << 16 | (p - at), 0)
+    word = torch.where((best >= cap) & (p + cap < lim), MARKED, word)
+    return word.to(torch.int32)
+
+
+def _words_best(blocks, lengths, prev, words, max_chain: int):
+    """(best, at) of every position as the parse kernel reads them: from
+    the words where they are not MARKED, else walked exactly (on the rows
+    that hold a MARKED word)."""
+    w = words.to(torch.int64)
+    p = torch.arange(blocks.shape[1], device=blocks.device)[None, :]
+    best = torch.where(w > 0, w >> 16, 0)
+    at = torch.where(w > 0, p - (w & 0xFFFF), -1)
+    marked = w == MARKED
+    rows = torch.nonzero(marked.any(1)).flatten()
+    if len(rows):
+        eb, ea = _best_matches(blocks[rows], lengths[rows], prev[rows],
+                               max_chain)
+        best[rows] = torch.where(marked[rows], eb, best[rows])
+        at[rows] = torch.where(marked[rows], ea, at[rows])
+    return best, at
+
+
 def lz4_chain_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
-                          prev: torch.Tensor, max_chain: int):
+                          prev: torch.Tensor, max_chain: int,
+                          words: torch.Tensor):
     """Plain version of the parse kernel: blocks (B, n) u8, lengths (B,),
-    prev (B, n) i32 from the links -> (comp (B, encode_cap(n)) u8, zero
-    past each stream, clens (B,) i32)."""
+    prev (B, n) i32 from the links, words (B, n) i32 from best -> (comp
+    (B, encode_cap(n)) u8, zero past each stream, clens (B,) i32)."""
     b, n = blocks.shape
     dev = blocks.device
     lens = lengths.to(torch.int64).clamp(0, n)
     limit = (lens - MF_LIMIT).clamp(min=0)
-    best, at = _best_matches(blocks, lengths, prev, max_chain)
+    best, at = _words_best(blocks, lengths, prev, words, max_chain)
     col = torch.arange(n, device=dev)
     # the first position at or after j with a match (n where none), and
     # column n for a parse that ran off the row
@@ -205,9 +263,11 @@ def _lib(name: str):
     fn = getattr(_build.load("lz4_chain"), f"tpz_lz4_chain_{name}")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp, vp, ci, ci, vp, vp, ci, ci, ci, vp]
-                       if name == "links"
-                       else [vp, vp, vp, ci, ci, ci, vp, ci, vp, vp])
+        fn.argtypes = {
+            "links": [vp, vp, ci, ci, vp, vp, ci, ci, ci, vp],
+            "links_shared": [vp, vp, ci, ci, vp, ci, vp],
+            "best": [vp, vp, vp, ci, ci, ci, vp, vp],
+            "parse": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]}[name]
         fn.restype = ci
     return fn
 
@@ -218,8 +278,9 @@ def lz4_chain_links(blocks: torch.Tensor, lengths: torch.Tensor,
     u8, lengths (B,) i32; hash_log outside 4..24 taken as 16.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/lz4_chain.cu's links kernel on the current stream (no
-    synchronisation)."""
+    csrc/lz4_chain.cu's links kernel on its route (`routes`) on the current
+    stream (no synchronisation); the keyed route's tables are freed when it
+    returns."""
     _check_pair("lz4_chain_links", blocks, lengths)
     if blocks.device.type == "cpu":
         return lz4_chain_links_plain(blocks, lengths, hash_log)
@@ -228,39 +289,81 @@ def lz4_chain_links(blocks: torch.Tensor, lengths: torch.Tensor,
     prev = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return prev
-    slog = slots_log(hash_log, n)
-    ntab = table_count(b, hash_log, n)
-    tables = torch.empty(ntab * (KEY_SLOT << slog) // 4, dtype=torch.int32,
-                         device=dev)
-    fn = _lib("links")
+    bits = resolve_hash_log(hash_log)
     with torch.cuda.device(dev):
-        err = fn(blocks.data_ptr(), lengths.data_ptr(), b, n,
-                 prev.data_ptr(), tables.data_ptr(), ntab,
-                 resolve_hash_log(hash_log), slog,
-                 torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if routes(hash_log, n)[0] == "shared":
+            err = _lib("links_shared")(blocks.data_ptr(), lengths.data_ptr(),
+                                       b, n, prev.data_ptr(), bits, stream)
+        else:
+            slog = slots_log(hash_log, n)
+            ntab = table_count(b, hash_log, n)
+            tables = torch.empty(ntab * (KEY_SLOT << slog) // 4,
+                                 dtype=torch.int32, device=dev)
+            err = _lib("links")(blocks.data_ptr(), lengths.data_ptr(), b, n,
+                                prev.data_ptr(), tables.data_ptr(), ntab,
+                                bits, slog, stream)
     _build.check(err, "lz4_chain_links")
     lz4_chain_links.launches += 1
     return prev
 
 
+def _check_rows(name: str, blocks: torch.Tensor, t: torch.Tensor | None,
+                max_chain: int) -> None:
+    """t must be (B, n) i32 beside the blocks, max_chain at least 1."""
+    if t is None or t.shape != blocks.shape or t.dtype != torch.int32 or \
+            t.device != blocks.device:
+        raise ValueError(f"{name} must be (B, n) i32 beside the blocks")
+    if max_chain < 1:
+        raise ValueError(f"max_chain must be at least 1, not {max_chain}")
+
+
+def lz4_chain_best(blocks: torch.Tensor, lengths: torch.Tensor,
+                   prev: torch.Tensor, max_chain: int) -> torch.Tensor:
+    """The best words of every position, as the module note says: blocks
+    (B, n) u8, lengths (B,) i32, prev (B, n) i32 from lz4_chain_links,
+    max_chain >= 1 -> words (B, n) i32, capped at BEST_CAP.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_chain.cu's best kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_chain_best", blocks, lengths)
+    _check_rows("prev", blocks, prev, max_chain)
+    if blocks.device.type == "cpu":
+        return lz4_chain_best_plain(blocks, lengths, prev, max_chain)
+    b, n = blocks.shape
+    dev = blocks.device
+    words = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return words
+    prev = prev.contiguous()
+    with torch.cuda.device(dev):
+        err = _lib("best")(blocks.data_ptr(), lengths.data_ptr(),
+                           prev.data_ptr(), b, n, min(max_chain, MAX_CHAIN),
+                           words.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_chain_best")
+    lz4_chain_best.launches += 1
+    return words
+
+
 def lz4_chain_parse(blocks: torch.Tensor, lengths: torch.Tensor,
-                    prev: torch.Tensor, max_chain: int):
+                    prev: torch.Tensor, max_chain: int,
+                    words: torch.Tensor | None = None):
     """The LZ4 streams of the chained greedy parse over prev: blocks (B, n)
     u8, lengths (B,) i32, prev (B, n) i32 from lz4_chain_links, max_chain
-    >= 1 -> (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,)
-    i32).
+    >= 1, words (B, n) i32 from lz4_chain_best at that max_chain (without
+    them the call raises ValueError) -> (comp (B, encode_cap(n)) u8, zero
+    past each stream, clens (B,) i32).
 
     A CPU tensor runs the plain version; a CUDA tensor launches
     csrc/lz4_chain.cu's parse kernel on the current stream (no
     synchronisation)."""
     _check_pair("lz4_chain_parse", blocks, lengths)
-    if prev.shape != blocks.shape or prev.dtype != torch.int32 or \
-            prev.device != blocks.device:
-        raise ValueError("prev must be (B, n) i32 beside the blocks")
-    if max_chain < 1:
-        raise ValueError(f"max_chain must be at least 1, not {max_chain}")
+    _check_rows("prev", blocks, prev, max_chain)
+    _check_rows("words", blocks, words, max_chain)
     if blocks.device.type == "cpu":
-        return lz4_chain_parse_plain(blocks, lengths, prev, max_chain)
+        return lz4_chain_parse_plain(blocks, lengths, prev, max_chain, words)
     b, n = blocks.shape
     cap = encode_cap(n)
     dev = blocks.device
@@ -268,12 +371,13 @@ def lz4_chain_parse(blocks: torch.Tensor, lengths: torch.Tensor,
     clens = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return comp, clens
-    prev = prev.contiguous()
-    fn = _lib("parse")
+    prev, words = prev.contiguous(), words.contiguous()
     with torch.cuda.device(dev):
-        err = fn(blocks.data_ptr(), lengths.data_ptr(), prev.data_ptr(), b,
-                 n, min(max_chain, MAX_CHAIN), comp.data_ptr(), cap,
-                 clens.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        err = _lib("parse")(blocks.data_ptr(), lengths.data_ptr(),
+                            prev.data_ptr(), words.data_ptr(), b, n,
+                            min(max_chain, MAX_CHAIN), comp.data_ptr(), cap,
+                            clens.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "lz4_chain_parse")
     lz4_chain_parse.launches += 1
     return comp, clens
@@ -281,14 +385,15 @@ def lz4_chain_parse(blocks: torch.Tensor, lengths: torch.Tensor,
 
 def lz4_chain_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
                            hash_log: int = 16, max_chain: int = 8):
-    """tpuzip's chained LZ4 encode of every row (both launches): blocks
-    (B, n) u8, lengths (B,) i32 -> (comp (B, encode_cap(n)) u8, zero past
-    each stream, clens (B,) i32), the bytes of tpz_lz4_compress_chained at
-    max_chain > 1."""
-    return lz4_chain_parse(blocks, lengths,
-                           lz4_chain_links(blocks, lengths, hash_log),
-                           max_chain)
+    """tpuzip's chained LZ4 encode of every row (the three launches):
+    blocks (B, n) u8, lengths (B,) i32 -> (comp (B, encode_cap(n)) u8, zero
+    past each stream, clens (B,) i32), the bytes of
+    tpz_lz4_compress_chained at max_chain > 1."""
+    prev = lz4_chain_links(blocks, lengths, hash_log)
+    words = lz4_chain_best(blocks, lengths, prev, max_chain)
+    return lz4_chain_parse(blocks, lengths, prev, max_chain, words)
 
 
 lz4_chain_links.launches = 0
+lz4_chain_best.launches = 0
 lz4_chain_parse.launches = 0

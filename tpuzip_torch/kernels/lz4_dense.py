@@ -9,7 +9,8 @@ tpuzip encodes lz4 on the device with XLA, not Pallas:
 unclamped.  It writes other bytes than the single-probe parse of
 kernels/lz4_coder.py: a position's candidate is the last earlier position
 with its hash, whatever the parse did there.  csrc/lz4_dense.cu computes it
-in two launches, and the functions here are theirs:
+in two launches on either of two routes, and the functions here are
+theirs:
 
   candidates  cand[p] for every position p of a row: the last q < p whose
               4 bytes hash as p's, h = (seq * 2654435761 mod 2^32) >>
@@ -24,9 +25,24 @@ in two launches, and the functions here are theirs:
               next position with a candidate.  The last literals are the
               last sequence; an empty block is the byte 0.
 
+  words       the shared route's first launch, on rows of at most 65,536
+              bytes at table_bits(hash_log) <= 16 (a direct table of u16
+              slots in shared memory): at each candidate c of p, its
+              match's length m (the 4 bytes, then while the bytes agree
+              before length - 5) as m << 16 | (p - c), or MARKED | (p - c)
+              where m reaches WORD_CAP first; 0 without a candidate.
+  words_parse the parse over the words: the candidates' parse, each
+              match's length read from its word unless MARKED.
+
+The route is chosen by shape alone (`encode_route`): "shared" where it
+fits, else the candidates' table route, "direct" (up to DIRECT_MAX_LOG
+bits) or "keyed", and the parse.
+
 The plain versions run every row at once: the candidates by one stable
 sort of each row's hashes (XLA's construction), the parse one sequence a
-row a step, and lz4_coder's serialisation of the sequences.
+row a step, and lz4_coder's serialisation of the sequences; the words'
+lengths by doubling over ranks of the row's substrings
+(kernels/lz4_chain.py's), their parse the candidates' parse.
 """
 
 from __future__ import annotations
@@ -49,6 +65,14 @@ HASH_LOG = 15          # tpuzip.codecs.lz4.HASH_LOG: compress_from_device's
 DIRECT_MAX_LOG = 12
 POOL_BYTES = 1 << 30   # the candidates kernel's tables, at most
 KEY_SLOT = 8           # bytes of a keyed slot: (position, hash)
+# lz4_shared.cuh's: the shared routes of both encoders (this one's and
+# kernels/lz4_chain.py's) take rows of at most STAGE_MAX bytes and u16
+# direct tables of at most SHARED_MAX_LOG bits; a word is MARKED where its
+# match reached the cap (WORD_CAP here, lz4_chain's BEST_CAP there)
+STAGE_MAX = 1 << 16
+SHARED_MAX_LOG = 16
+MARKED = -(1 << 31)
+WORD_CAP = 64          # the words' match lengths, at most (the kernel's)
 
 
 def table_bits(hash_log: int) -> int:
@@ -65,6 +89,16 @@ def table_route(hash_log: int, n: int) -> tuple[str, int]:
     if bits <= DIRECT_MAX_LOG:
         return "direct", bits
     return "keyed", max(6, min(bits + 1, (2 * max(n, 1) - 1).bit_length()))
+
+
+def encode_route(hash_log: int, n: int) -> str:
+    """How lz4_dense_encode_batch encodes rows of n bytes at hash_log:
+    "shared" (the words, their table in shared memory, and their parse),
+    else the candidates' table_route, "direct" or "keyed", then the
+    parse."""
+    if n <= STAGE_MAX and table_bits(hash_log) <= SHARED_MAX_LOG:
+        return "shared"
+    return table_route(hash_log, n)[0]
 
 
 def table_count(b: int, hash_log: int, n: int) -> int:
@@ -166,14 +200,50 @@ def lz4_dense_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
                       encode_cap(n))
 
 
+def lz4_dense_words_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                          hash_log: int = HASH_LOG,
+                          cap: int = WORD_CAP) -> torch.Tensor:
+    """Plain version of the words kernel: blocks (B, n) u8, lengths (B,) ->
+    words (B, n) i32: at a position p with a candidate c, the match's
+    length m (the 4 bytes, then while the bytes agree before length - 5)
+    capped at cap, as m << 16 | (p - c), or MARKED | (p - c) where m reaches
+    cap and p + cap < length - 5; else 0."""
+    from tpuzip_torch.kernels.lz4_chain import _common_prefix, _rank_levels
+
+    b, n = blocks.shape
+    cand = lz4_dense_candidates_plain(blocks, lengths, hash_log).to(
+        torch.int64)
+    p = torch.arange(n, device=blocks.device)[None, :]
+    end = lengths.to(torch.int64).clamp(0, n)[:, None] - LAST_LITERALS
+    has = cand >= 0
+    c = torch.where(has, cand, 0)
+    most = torch.minimum(end - p, torch.tensor(cap))
+    agree = _common_prefix(_rank_levels(blocks, cap), p + MIN_MATCH,
+                           c + MIN_MATCH, (most - MIN_MATCH).clamp(min=0))
+    m = MIN_MATCH + agree
+    head = torch.where(has & (m >= cap) & (p + cap < end), MARKED, m << 16)
+    return torch.where(has, head | (p - c), 0).to(torch.int32)
+
+
+def lz4_dense_words_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                                words: torch.Tensor):
+    """Plain version of the parse over the words: the parse's over the
+    candidates they carry."""
+    p = torch.arange(blocks.shape[1], device=blocks.device)[None, :]
+    cand = torch.where(words != 0, p - (words & 0xFFFF), -1)
+    return lz4_dense_parse_plain(blocks, lengths, cand.to(torch.int32))
+
+
 def _lib(name: str):
     """The typed C entry point tpz_lz4_dense_<name> of csrc/lz4_dense.cu."""
     fn = getattr(_build.load("lz4_dense"), f"tpz_lz4_dense_{name}")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp]
-                       if name == "candidates"
-                       else [vp, vp, vp, ci, ci, vp, ci, vp, vp])
+        fn.argtypes = {
+            "candidates": [vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp],
+            "parse": [vp, vp, vp, ci, ci, vp, ci, vp, vp],
+            "words": [vp, vp, ci, ci, ci, vp, vp],
+            "words_parse": [vp, vp, vp, ci, ci, vp, ci, vp, vp]}[name]
         fn.restype = ci
     return fn
 
@@ -242,15 +312,84 @@ def lz4_dense_parse(blocks: torch.Tensor, lengths: torch.Tensor,
     return comp, clens
 
 
+def lz4_dense_words(blocks: torch.Tensor, lengths: torch.Tensor,
+                    hash_log: int = HASH_LOG) -> torch.Tensor:
+    """The shared route's words of every row (lz4_dense_words_plain's, at
+    WORD_CAP): blocks (B, n) u8 with n <= STAGE_MAX, lengths (B,) i32,
+    table_bits(hash_log) <= SHARED_MAX_LOG -> words (B, n) i32.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_dense.cu's words kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_dense_words", blocks, lengths)
+    b, n = blocks.shape
+    if encode_route(hash_log, n) != "shared":
+        raise ValueError(f"no shared route for rows of {n} bytes at "
+                         f"hash_log {hash_log}")
+    if blocks.device.type == "cpu":
+        return lz4_dense_words_plain(blocks, lengths, hash_log)
+    dev = blocks.device
+    words = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return words
+    with torch.cuda.device(dev):
+        err = _lib("words")(blocks.data_ptr(), lengths.data_ptr(), b, n,
+                            table_bits(hash_log), words.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_dense_words")
+    lz4_dense_words.launches += 1
+    return words
+
+
+def lz4_dense_words_parse(blocks: torch.Tensor, lengths: torch.Tensor,
+                          words: torch.Tensor):
+    """The LZ4 streams of the greedy parse over the words: blocks (B, n)
+    u8, lengths (B,) i32, words (B, n) i32 from lz4_dense_words -> (comp (B,
+    encode_cap(n)) u8, zero past each stream, clens (B,) i32).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_dense.cu's parse over words on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_dense_words_parse", blocks, lengths)
+    if words.shape != blocks.shape or words.dtype != torch.int32 or \
+            words.device != blocks.device:
+        raise ValueError("words must be (B, n) i32 beside the blocks")
+    if blocks.device.type == "cpu":
+        return lz4_dense_words_parse_plain(blocks, lengths, words)
+    b, n = blocks.shape
+    cap = encode_cap(n)
+    dev = blocks.device
+    comp = torch.zeros((b, cap), dtype=torch.uint8, device=dev)
+    clens = torch.empty(b, dtype=torch.int32, device=dev)
+    if b == 0:
+        return comp, clens
+    words = words.contiguous()
+    with torch.cuda.device(dev):
+        err = _lib("words_parse")(blocks.data_ptr(), lengths.data_ptr(),
+                                  words.data_ptr(), b, n, comp.data_ptr(),
+                                  cap, clens.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_dense_words_parse")
+    lz4_dense_words_parse.launches += 1
+    return comp, clens
+
+
 def lz4_dense_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
                            hash_log: int = HASH_LOG):
-    """tpuzip's device LZ4 encode of every row (both launches): blocks
-    (B, n) u8, lengths (B,) i32 -> (comp (B, encode_cap(n)) u8, zero past
-    each stream, clens (B,) i32).  hash_log is taken as it is, not clamped
-    (any integer; outside 1..32 every position hashes to 0)."""
+    """tpuzip's device LZ4 encode of every row, on its route
+    (`encode_route`): blocks (B, n) u8, lengths (B,) i32 -> (comp (B,
+    encode_cap(n)) u8, zero past each stream, clens (B,) i32).  hash_log is
+    taken as it is, not clamped (any integer; outside 1..32 every position
+    hashes to 0)."""
+    if blocks.dim() == 2 and encode_route(hash_log,
+                                          blocks.shape[1]) == "shared":
+        return lz4_dense_words_parse(
+            blocks, lengths, lz4_dense_words(blocks, lengths, hash_log))
     return lz4_dense_parse(blocks, lengths,
                            lz4_dense_candidates(blocks, lengths, hash_log))
 
 
 lz4_dense_candidates.launches = 0
 lz4_dense_parse.launches = 0
+lz4_dense_words.launches = 0
+lz4_dense_words_parse.launches = 0
