@@ -5,8 +5,9 @@
     python3 chip_smoke.py --ab DIR   # csrc/ari_encode.cu, ari_decode.cu,
                                      # bin_decode.cu, mtf.cu, bin_encode.cu,
                                      # dc_decode.cu, lz4_encode.cu,
-                                     # lz4_decode.cu, rle.cu, lz4_chain.cu
-                                     # and lz4_dense.cu against DIR's
+                                     # lz4_decode.cu, rle.cu, inflate.cu,
+                                     # lz4p.cu, lz4_chain.cu and
+                                     # lz4_dense.cu against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -109,9 +110,11 @@ Phases, one JSON line each:
             and device routes asserted, every stream decoded back; lz4p.cu's
             pack under both rules (runs split or refused) on those rows,
             a 64 KiB row where no 4 bytes repeat (65,535 + 1 literals;
-            refused under the XLA rule) and a 256 KiB zero row, and its
-            decoder on every packed row and 64 garbage streams, status
-            and bytes.  And the deflate coder (deflate_encode.cu's links,
+            refused under the XLA rule), a 256 KiB zero row and 64 KiB
+            rows at odd skews whose batches cross the staged tiles and
+            whose lengths take extensions of 2-6 bytes, and its decoder
+            on every packed row and 64 garbage streams, status and
+            bytes.  And the deflate coder (deflate_encode.cu's links,
             parse and tables+emit, inflate.cu) on those rows with zero,
             b"ab" and random rows added, at max_chain 1, 8 and 128 in the
             dynamic and fixed modes and stored, every stream inflated
@@ -119,8 +122,11 @@ Phases, one JSON line each:
             (the first two taken, the third refused); on 128 KiB rows
             (stored blocks of 65,535 + 65,535 + 2, rows of 65,535 and
             65,536 bytes); inflate.cu also on 64 random and 64 bit-flipped
-            streams, zlib's streams of several blocks and the mixed
-            streams at an out_cap under their lengths, status and bytes.
+            streams, zlib's streams of several blocks, the mixed streams
+            at an out_cap under their lengths, and edge streams (codes of
+            12-15 bits, which take the subtables, in dynamic and fixed
+            blocks; stored blocks after Huffman blocks across the staged
+            tiles), status and bytes.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -1443,6 +1449,38 @@ def lz4p_garbage(seed: int) -> list:
     return out
 
 
+def pack_edge_rows(seed: int):
+    """(comp, clens, n) on the card for the pack's batch parse: the LZ4
+    streams (lz4_encode.cu at hash_log 16) of 4 text rows of 16 KiB, whose
+    batches cross the staged tiles, and of 2 rows of 64 KiB of random runs
+    of 300-1,500 bytes between runs of zeros (literal and match extensions
+    of 2 to 6 bytes; asserted), laid in a tensor of an odd width so that
+    each row starts at another skew from 16 bytes.  (The plain pack takes
+    a step a sequence: 16 KiB of text keeps it to about 1,700.)"""
+    n = BLOCK
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(text_corpus(4 * n, seed), np.uint8).reshape(4, n)
+    runs = np.zeros((2, n), np.uint8)
+    for r in range(2):
+        at = 0
+        while at < n:
+            k = int(rng.integers(300, 1500))
+            runs[r, at : at + k] = rng.integers(0, 256, min(k, n - at),
+                                                np.uint8)
+            at += k + int(rng.integers(300, 1500))
+    x = torch.from_numpy(np.concatenate([text, runs])).cuda()
+    xl = torch.tensor([n // 4] * 4 + [n] * 2, dtype=torch.int32,
+                      device="cuda")
+    comp, clens = lz4_coder.lz4_encode_batch(x, xl, 16)
+    w = comp.shape[1] | 1
+    odd = torch.zeros((6, w + 2), dtype=torch.uint8, device="cuda")
+    odd[:, : comp.shape[1]] = comp
+    seqs = lz4p_coder._lz4_sequences(comp[4:].cpu(), clens[4:].cpu())
+    if int(seqs[1].max()) < 15 + 255 or int(seqs[2].max()) < 19 + 255:
+        raise AssertionError("pack edge rows: no extension of 2 bytes")
+    return odd, clens, n
+
+
 def lz4p_check(name: str, comp, clens, n: int, split: bool) -> dict:
     """lz4p.cu's pack of LZ4 streams of blocks of n bytes, then its decode
     of the packed rows, each against its plain version, exact; the rows
@@ -1476,7 +1514,9 @@ def lz4p_kernel_check(x, xl, n: int):
     """csrc/lz4p.cu against its plain versions, exact: the pack under the
     C++ rule (split) on lz4_encode.cu's streams of the mixed rows at
     hash_log 16, of a 64 KiB row where no 4 bytes repeat (65,535 + 1
-    literals) and of a 256 KiB zero row (its match in pieces of 65,535);
+    literals), of a 256 KiB zero row (its match in pieces of 65,535) and
+    of pack_edge_rows() (batches across the staged tiles, at every skew,
+    extensions of 2 bytes or more);
     under the XLA rule (unsplit) on lz4_dense.cu's streams at 15 of the
     mixed rows and of the 64 KiB row, which it refuses (length -1, fault
     7); the pack also on lz4_garbage()'s 64 streams no encoder writes
@@ -1503,6 +1543,7 @@ def lz4p_kernel_check(x, xl, n: int):
         "cpp_256KiB_zero": lz4p_check(
             "cpp_zero", *lz4_coder.lz4_encode_batch(zero, zlen), 1 << 18,
             True)}
+    res["cpp_edges"] = lz4p_check("edges", *pack_edge_rows(SEED + 16), True)
     if res["cpp_64KiB_unrepeated"]["olens"] != [65556] or \
             res["xla_64KiB_unrepeated"]["olens"] != [-1]:
         raise AssertionError(f"lz4p pack of the 64 KiB row: {res}")
@@ -3459,6 +3500,110 @@ def deflate_garbage(seed: int) -> list:
     return out
 
 
+def long_code_row(seed: int, n: int = 1 << 16):
+    """(a row of at most n bytes, its deflate tokens) whose literal and
+    distance codes reach past the inflate's root tables: after 300 random
+    bytes and runs to 33,000 bytes, literals of 40 byte values and matches
+    of 3-5 bytes whose distance codes fall with geometric frequencies (half
+    as often each code), so the rare ones get codes of 12-15 bits."""
+    rng = np.random.default_rng(seed)
+    row = bytearray(rng.integers(0, 256, 300, np.uint8).tobytes())
+    tokens = list(row)
+    while len(row) < 33000:
+        tokens.append(258 << deflate_coder.MATCH_SHIFT | 1)
+        row += row[-1:] * 258
+    while True:
+        if rng.random() < 0.2:
+            b = 97 + min(int(rng.geometric(0.5)) - 1, 39)
+            if len(row) + 1 > n:
+                return bytes(row), tokens
+            tokens.append(b)
+            row.append(b)
+            continue
+        k = min(int(rng.geometric(0.5)) - 1, 29)
+        d = deflate_coder.DIST_BASE[k] + int(
+            rng.integers(0, 1 << deflate_coder.DIST_EXTRA[k]))
+        ln = int(rng.integers(3, 6))
+        if len(row) + ln > n:
+            return bytes(row), tokens
+        tokens.append(ln << deflate_coder.MATCH_SHIFT | d)
+        for _ in range(ln):
+            row.append(row[-d])
+
+
+def inflate_edge_streams(seed: int) -> list:
+    """[(stream, raw bytes)] for the inflate's table and staging edges:
+    two dynamic blocks (tpuzip's C++ form) whose literal codes reach 13-14
+    bits and distance codes 12 (long_code_row; asserted), so they take the
+    subtables, and the same tokens in a fixed block; zlib streams of text
+    and random bytes in several blocks, whose random parts zlib stores
+    right after Huffman blocks (fault 8's case, unaligned) in blocks that
+    cross the stream's staged tiles, with and without flushes."""
+    out = []
+    for k in range(2):
+        raw, tokens = long_code_row(seed + k)
+        stream = deflate_coder._emit_row(raw, tokens, 0)
+        rd = deflate_coder._Reader(stream)
+        rd.bits(3)
+        lit, dist = deflate_coder._dynamic_header(rd)
+        if lit[1] < 12 or dist[1] < 12:
+            raise AssertionError(f"long-code row {k}: its longest codes are "
+                                 f"{lit[1]} and {dist[1]} bits")
+        out.append((stream, raw))
+        if k == 0:
+            out.append((deflate_coder._emit_row(raw, tokens, 1), raw))
+    rng = np.random.default_rng(seed)
+    text = text_corpus(40000, seed)
+    for k, flush in enumerate((zlib.Z_NO_FLUSH, zlib.Z_SYNC_FLUSH,
+                               zlib.Z_FULL_FLUSH)):
+        co = zlib.compressobj(6, zlib.DEFLATED, -15)
+        raw, stream = b"", b""
+        for j in range(4):
+            part = (text[j * 9000 : j * 9000 + 7000 + 1000 * k] if j % 2 == 0
+                    else rng.integers(0, 256, 3000 + 700 * j,
+                                      np.uint8).tobytes())
+            raw += part
+            stream += co.compress(part) + co.flush(flush)
+        out.append((stream + co.flush(), raw))
+    for stream, raw in out:
+        if zlib.decompress(stream, -15) != raw:
+            raise AssertionError("an inflate edge stream is not its bytes")
+    return out
+
+
+def inflate_symbols(stream: bytes) -> int:
+    """The symbols (literals, matches and block ends) of a deflate stream,
+    read with the plain decoder's parts; a fault ends the count."""
+    dfc = deflate_coder
+    rd = dfc._Reader(stream)
+    count = 0
+    try:
+        while True:
+            final, btype = rd.bits(1), rd.bits(2)
+            if btype == 0:
+                rd.pos = -(-rd.pos // 8) * 8
+                at = rd.pos >> 3
+                rd.pos = 8 * (at + 4 + (stream[at] | stream[at + 1] << 8))
+            elif btype == 3:
+                return count
+            else:
+                lit, dist = ((dfc._huffman(dfc.fixed_lit_lengths()),
+                              dfc._huffman(dfc.fixed_dist_lengths()))
+                             if btype == 1 else dfc._dynamic_header(rd))
+                while True:
+                    sym = dfc._decode(rd, lit)
+                    count += 1
+                    if sym == 256:
+                        break
+                    if sym > 256:
+                        rd.bits(dfc.LEN_EXTRA[sym - 257])
+                        rd.bits(dfc.DIST_EXTRA[dfc._decode(rd, dist)])
+            if final:
+                return count
+    except (dfc._Fault, IndexError):
+        return count
+
+
 def deflate_kernel_check(x, xl, n: int):
     """csrc/deflate_encode.cu and csrc/inflate.cu against their plain
     versions: on the mixed rows (rows of 0 to 12 bytes, empty rows, runs,
@@ -3466,9 +3611,11 @@ def deflate_kernel_check(x, xl, n: int):
     128 in the dynamic and fixed modes and stored; on 40 KiB rows whose
     repeats lie 32,767 to 32,769 back (the first two taken, the third not);
     on 128 KiB rows (stored blocks of 65,535 + 65,535 + 2, and rows of
-    65,535 and 65,536 bytes); the decoder also on deflate_garbage() and on
-    the mixed streams at an out_cap under their lengths.  Emits its
-    kernels line; returns each launch's max_abs_err."""
+    65,535 and 65,536 bytes); the decoder also on deflate_garbage(), on
+    the mixed streams at an out_cap under their lengths and on
+    inflate_edge_streams() (codes of 12-15 bits, stored blocks after
+    Huffman blocks across the staged tiles), each of those decoded to its
+    bytes.  Emits its kernels line; returns each launch's max_abs_err."""
     rng = np.random.default_rng(SEED + 17)
     extra = np.stack([np.zeros(n), np.resize([97, 98], n),
                       rng.integers(0, 256, n), rng.integers(0, 256, n)])
@@ -3500,7 +3647,10 @@ def deflate_kernel_check(x, xl, n: int):
     garbage = deflate_garbage(SEED + 20)
     gx, gl = padded(garbage, max(map(len, garbage)))
     mixed, mlens = res["mixed"]["streams"]["mode_0_chain_128"]
-    decode = {"garbage": (gx, gl, 8192), "short_cap": (mixed, mlens, n // 2)}
+    edges = inflate_edge_streams(SEED + 21)
+    ex, el = padded([s for s, _ in edges], max(len(s) for s, _ in edges))
+    decode = {"garbage": (gx, gl, 8192), "short_cap": (mixed, mlens, n // 2),
+              "edges": (ex, el, 1 << 16)}
     errs = {}
     for name, (s, sl, cap) in decode.items():
         out, status = deflate_coder.inflate_batch(s, sl, cap)
@@ -3512,8 +3662,15 @@ def deflate_kernel_check(x, xl, n: int):
             "rows": list(s.shape), "out_cap": cap, "max_abs_err": e,
             "statuses": {str(int(k)): int(v) for k, v in zip(
                 *torch.unique(status, return_counts=True))}
-            if name == "short_cap" else status.tolist()[-4:],
+            if name == "short_cap" else status.tolist()[-4:]
+            if name == "garbage" else status.tolist(),
             "plain_ms": plain_ms}
+        if name == "edges" and not (
+                status.tolist() == [len(raw) for _, raw in edges]
+                and all(out[r, : len(raw)].cpu().numpy().tobytes() == raw
+                        for r, (_, raw) in enumerate(edges))):
+            raise AssertionError("inflate.cu did not decode the edge "
+                                 f"streams to their bytes: {status}")
     multi = [zlib.decompress(s, -15) for s in garbage[-4:]]
     got = res["decode_garbage"]["statuses"]
     if got != [len(m) for m in multi]:
@@ -3779,18 +3936,24 @@ def sass_functions(nvcc: str, lib: str) -> dict:
     return funcs
 
 
-def ab_inputs() -> dict:
-    """{kernel: {path: (args, kw)}}: the one launch of each A/B kernel on
-    the container paths, recorded through its wrapper: ari_encode_indexed
-    at the ari, bwt, bwt_big and bwtdc paths' compress, ari_decode_indexed
-    at their decompress; mtf_batch at the bwt and bwt_big paths' compress
-    (encode) and decompress (decode); bin_encode_indexed at the bin and
-    apm paths' compress, bin_decode_indexed at their decompress, and
-    bin_apm.decode_batch at the apm container's without the chunk index;
-    dc_decode_lanes at the bwtdc path's decompress.  And for the dot row
-    (ari_decode.cu through the dot route): the ari path's decode launch
-    and the decode of phase 5's A/B mix.  lz4_encode / lz4_decode and
-    rle_encode / rle_decode at the lz4 and rle paths."""
+def ab_inputs(wanted) -> dict:
+    """{kernel: {path: (args, kw)}} for each kernel of `wanted`: the one
+    launch of each A/B kernel on the container paths, recorded through its
+    wrapper: ari_encode_indexed at the ari, bwt, bwt_big and bwtdc paths'
+    compress, ari_decode_indexed at their decompress; mtf_batch at the bwt
+    and bwt_big paths' compress (encode) and decompress (decode);
+    bin_encode_indexed at the bin and apm paths' compress,
+    bin_decode_indexed at their decompress, and bin_apm.decode_batch at
+    the apm container's without the chunk index; dc_decode_lanes at the
+    bwtdc path's decompress.  And for the dot row (ari_decode.cu through
+    the dot route): the ari path's decode launch and the decode of phase
+    5's A/B mix.  lz4_encode / lz4_decode and rle_encode / rle_decode at
+    the lz4 and rle paths; inflate_batch at the deflate path's
+    decompress and on phase 3's inflate_edge_streams() and
+    deflate_garbage(); lz4p_pack at the lz4p path's compress (runs split),
+    at its serving path's compress_from_device (unsplit) and on phase 3's
+    pack_edge_rows() both ways, lz4p_decode_batch at the lz4p path's
+    decompress.  A path none of whose kernels is wanted is not run."""
     data = text_corpus(CORPUS_BYTES, SEED)
     out = {kernel: {} for kernel in AB_KERNELS}
 
@@ -3805,6 +3968,10 @@ def ab_inputs() -> dict:
             ("bwtdc", "bwtdc", BWT_BLOCK, data), ("bin", "bin", BLOCK, data),
             ("apm", "apm", BLOCK, data)):
         ari = codec != "bin" and codec != "apm"
+        if not set(wanted) & ({"ari_encode", "ari_decode", "ari_decode_dot",
+                               "mtf", "dc_decode"} if ari
+                              else {"bin_encode", "bin_decode"}):
+            continue
         with (recorded(range_coder, "ari_encode_indexed") as enc,
               recorded(bin_coder, "bin_encode_indexed") as benc,
               recorded(mtf_scan, "mtf_batch") as menc):
@@ -3834,6 +4001,8 @@ def ab_inputs() -> dict:
                                          "round-trip")
             keep("bin_decode", "apm_unindexed", flat)
     for codec, (coder, _, _) in LZ.items():
+        if not set(wanted) & {f"{codec}_encode", f"{codec}_decode"}:
+            continue
         with recorded(coder, f"{codec}_encode_batch") as enc:
             blob = tpuzip_torch.compress(data, codec=codec)
         with recorded(coder, f"{codec}_decode_batch") as dec:
@@ -3841,24 +4010,57 @@ def ab_inputs() -> dict:
                 raise AssertionError(f"{codec} did not round-trip")
         keep(f"{codec}_encode", codec, enc)
         keep(f"{codec}_decode", codec, dec)
-    mix = torch.from_numpy(ab_mix(128, BLOCK, SEED)).cuda()
-    mix_lens = torch.full((128,), BLOCK, dtype=torch.int32, device="cuda")
-    mix_streams, _, mix_deltas = range_coder.ari_encode_indexed(mix, mix_lens)
-    out["ari_decode_dot"] = {"ari": out["ari_decode"]["ari"],
-                             "mix": ((mix_streams, mix_deltas, mix_lens), {})}
+    if "inflate" in wanted:
+        blob = tpuzip_torch.compress(data, codec="deflate")
+        with recorded(deflate_coder, "inflate_batch") as dec:
+            if tpuzip_torch.decompress(blob) != data:
+                raise AssertionError("deflate did not round-trip")
+        keep("inflate", "deflate", dec)
+        edges = [st for st, _ in inflate_edge_streams(SEED + 21)]
+        out["inflate"]["edges"] = (
+            (*padded(edges, max(map(len, edges))), 1 << 16), {})
+        garbage = deflate_garbage(SEED + 20)
+        out["inflate"]["garbage"] = (
+            (*padded(garbage, max(map(len, garbage))), 8192), {})
+    if set(wanted) & {"lz4p_pack", "lz4p_decode"}:
+        with recorded(lz4p_coder, "lz4p_pack") as enc:
+            blob = tpuzip_torch.compress(data, codec="lz4p")
+        with recorded(lz4p_coder, "lz4p_decode_batch") as dec:
+            if tpuzip_torch.decompress(blob) != data:
+                raise AssertionError("lz4p did not round-trip")
+        keep("lz4p_pack", "lz4p", enc)
+        keep("lz4p_decode", "lz4p", dec)
+        x, lens, _ = serving_tensor()
+        with recorded(lz4p_coder, "lz4p_pack") as enc:
+            tpuzip_torch.compress_from_device(x, lens, codec="lz4p")
+        keep("lz4p_pack", "lz4p_serving", enc)
+        comp, clens, n = pack_edge_rows(SEED + 16)
+        for split in (True, False):
+            out["lz4p_pack"][f"edges_split_{split}"] = (
+                (comp, clens, n, split), {})
+    if set(wanted) & {"ari_decode", "ari_decode_dot"}:
+        mix = torch.from_numpy(ab_mix(128, BLOCK, SEED)).cuda()
+        mix_lens = torch.full((128,), BLOCK, dtype=torch.int32,
+                              device="cuda")
+        mix_streams, _, mix_deltas = range_coder.ari_encode_indexed(mix,
+                                                                    mix_lens)
+        out["ari_decode_dot"] = {"ari": out["ari_decode"]["ari"],
+                                 "mix": ((mix_streams, mix_deltas, mix_lens),
+                                         {})}
     return out
 
 
 AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
               "dc_decode", "lz4_encode", "lz4_decode", "rle_encode",
-              "rle_decode")
-AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle"}   # else the name
+              "rle_decode", "inflate", "lz4p_pack", "lz4p_decode")
+AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle",   # else the name
+             "lz4p_pack": "lz4p", "lz4p_decode": "lz4p"}
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
-AB_REDESIGNED = ()
+AB_REDESIGNED = ("inflate", "lz4p_pack")
 # sources whose SASS --ab compares and does not time (no launch of theirs
 # is recorded for it)
-AB_SASS_ONLY = ()
+AB_SASS_ONLY = ("deflate_encode",)
 # sources whose encoders --ab times against a DIR's at their paths' shapes
 # (ab_lz4): the chained lz4 encoder's launches and the dense one's
 AB_LZ4_SOURCES = ("lz4_chain", "lz4_dense")
@@ -3888,7 +4090,10 @@ def ab_entry(lib, kernel: str):
         "lz4_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp],
         "lz4_decode": [vp, vp, ci, ci, vp, ci, vp, vp],
         "rle_encode": [vp, vp, ci, ci, vp, ci, vp, vp],
-        "rle_decode": [vp, vp, ci, ci, vp, ci, vp, vp]}[kernel]
+        "rle_decode": [vp, vp, ci, ci, vp, ci, vp, vp],
+        "inflate": [vp, vp, ci, ci, vp, ci, vp, vp],
+        "lz4p_pack": [vp, vp, ci, ci, vp, ci, vp, ci, vp],
+        "lz4p_decode": [vp, vp, ci, ci, vp, ci, vp, vp]}[kernel]
     fn.restype = ci
     return fn
 
@@ -4022,28 +4227,60 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
                 return out
             return run
         steps = int(lens.max())
-    elif kernel in ("lz4_decode", "rle_decode"):
+    elif kernel in ("lz4_decode", "rle_decode", "lz4p_decode", "inflate"):
         comp, clens, out_cap = args[:3]
         b, w = comp.shape
+        # inflate's output rows are zeroed by its caller
+        alloc = torch.zeros if kernel == "inflate" else torch.empty
 
         def make(lib):
             fn = ab_entry(lib, kernel)
 
             def run():
-                out = (torch.empty((b, out_cap), dtype=torch.uint8,
-                                   device="cuda"),
+                out = (alloc((b, out_cap), dtype=torch.uint8, device="cuda"),
                        torch.empty(b, dtype=torch.int64, device="cuda"))
                 _build.check(fn(comp.data_ptr(), clens.data_ptr(), b, w,
                                 out[0].data_ptr(), out_cap, out[1].data_ptr(),
                                 stream()), f"tpz_{kernel}")
                 return out
             return run
-        # the longest row's stream bytes (rle) or sequences (lz4: each
-        # stream of the path ends in a literal run after its matches)
-        rows, lens = comp.cpu().numpy(), clens.cpu().numpy()
-        steps = int(lens.max()) if kernel == "rle_decode" else max(
-            len(lz4_offsets(rows[r, : lens[r]].tobytes())) + 1
-            for r in range(b))
+        # the longest row's stream bytes (rle), sequences (lz4: each stream
+        # of the path ends in a literal run after its matches; lz4p: its
+        # S) or the longest stream's symbols (inflate)
+        rows, lens = comp.cpu().numpy(), clens.cpu().numpy().clip(0, w)
+        if kernel == "rle_decode":
+            steps = int(lens.max())
+        elif kernel == "lz4_decode":
+            steps = max(len(lz4_offsets(rows[r, : lens[r]].tobytes())) + 1
+                        for r in range(b))
+        elif kernel == "lz4p_decode":
+            steps = max(int(rows[r, :4].view("<u4")[0]) if lens[r] >= 8
+                        else 0 for r in range(b))
+        else:
+            r = int(lens.argmax())
+            steps = inflate_symbols(rows[r, : lens[r]].tobytes())
+    elif kernel == "lz4p_pack":
+        comp, clens, n = args[:3]
+        split = kw.get("split", args[3] if len(args) > 3 else True)
+        b, w = comp.shape
+        cap = lz4p_coder.encode_cap(n)
+
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
+            def run():
+                out = (torch.zeros((b, cap), dtype=torch.uint8,
+                                   device="cuda"),
+                       torch.empty(b, dtype=torch.int32, device="cuda"))
+                _build.check(fn(comp.data_ptr(), clens.data_ptr(), b, w,
+                                out[0].data_ptr(), cap, out[1].data_ptr(),
+                                int(split), stream()), "tpz_lz4p_pack")
+                return out
+            return run
+        # the longest stream's sequences
+        r = int(clens.argmax())
+        steps = int(lz4p_coder._lz4_sequences(comp[r : r + 1].cpu(),
+                                              clens[r : r + 1].cpu())[4].sum())
     else:
         if not torch.is_tensor(args[2]):
             # bin_apm.decode_batch(comp, lengths, out_n, bits, rate, apm)
@@ -4287,9 +4524,9 @@ def ab_lz4(src: str, libs: dict) -> dict:
 def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
     csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu,
-    dc_decode.cu, lz4_encode.cu, lz4_decode.cu, rle.cu, lz4_chain.cu and
-    lz4_dense.cu against the same files in each DIR (beside the headers
-    they include), for instance a parent commit's:
+    dc_decode.cu, lz4_encode.cu, lz4_decode.cu, rle.cu, inflate.cu,
+    lz4p.cu, lz4_chain.cu and lz4_dense.cu against the same files in each
+    DIR (beside the headers they include), for instance a parent commit's:
 
         mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
             tpuzip_torch/csrc/); do git show REV:$f > _parent/${f##*/}; done
@@ -4299,21 +4536,26 @@ def ab_child(dirs: list) -> int:
     the ari, bwt, bwt_big and bwtdc paths; mtf both ways at the bwt and
     bwt_big paths; bin_encode and bin_decode at the bin and apm paths, and
     bin_decode at apm without the chunk index; dc_decode at the bwtdc
-    path; the lz4 and rle kernels at their paths; a kernel whose source no
-    DIR holds gets a line that says so and no row), checks that every
-    build gives the same outputs there (streams, lengths and chunk index;
-    symbols; bits; run triples and err; bytes and statuses), and
-    times each DIR's kernel and the checkout's in turns (old, new, new,
-    old; each the mean of 3 launches), with ns a step (the longest row's
-    symbols, bits, walked runs, stream bytes of an rle decode or sequences
-    of an lz4 decode).  A DIR that holds ari_decode_dot.cu
-    (tpuzip's v1 decoder on frequency state, since removed) gives one
-    more row, ari_decode_dot: that kernel against the checkout's dot route
-    (ari_decode.cu) at the ari path's decode launch and on phase 5's A/B
-    mix.  Beside them: ari_decode's no-index mode at the ari shape; one
-    row alone against all the rows at the bwt, bwtdc, bin, apm, lz4 and
-    rle shapes, for every build; the chained and dense lz4 encoders at
-    their paths' shapes (ab_lz4); and whether the SASS of each kernel of
+    path; the lz4 and rle kernels at their paths; inflate at the deflate
+    path and on phase 3's edge and garbage streams; lz4p's pack at the
+    lz4p and lz4p serving paths and on phase 3's pack edge rows, its
+    decode at the lz4p path; a kernel whose source no DIR holds gets a
+    line that says so and no row, and the paths of no other kernel are
+    not run), checks that every build gives the same outputs there
+    (streams, lengths and chunk index; symbols; bits; run triples and
+    err; bytes and statuses), and times each DIR's kernel and the
+    checkout's in turns (old, new, new, old; each the mean of 3
+    launches), with ns a step (the longest row's symbols, bits, walked
+    runs, stream bytes of an rle decode, sequences of an lz4 or lz4p
+    decode or a pack, or the longest stream's symbols of an inflate).  A
+    DIR that holds ari_decode_dot.cu (tpuzip's v1 decoder on frequency
+    state, since removed) gives one more row, ari_decode_dot: that kernel
+    against the checkout's dot route (ari_decode.cu) at the ari path's
+    decode launch and on phase 5's A/B mix.  Beside them: ari_decode's
+    no-index mode at the ari shape; one row alone against all the rows at
+    the bwt, bwtdc, bin, apm, lz4, rle, deflate and lz4p shapes, for every
+    build; the chained and dense lz4 encoders at their paths' shapes
+    (ab_lz4); and whether the SASS of each kernel of
     AB_KERNELS that this checkout does not redesign (all but
     AB_REDESIGNED), and of each source of AB_SASS_ONLY, equals the DIR's
     build of it: the functions that carry the kernel's name (all of
@@ -4387,8 +4629,7 @@ def ab_child(dirs: list) -> int:
             print(json.dumps({"kernel": kernel, "skipped": "no DIR holds "
                               f"{AB_SOURCE.get(kernel, kernel)}.cu"}),
                   flush=True)
-        inputs = ({} if set(res["skipped"]) == set(AB_KERNELS)
-                  else ab_inputs())
+        inputs = ab_inputs(set(AB_KERNELS) - set(res["skipped"]))
         for kernel, paths in inputs.items():
             if kernel not in libs or kernel in res["skipped"]:
                 continue
@@ -4408,8 +4649,8 @@ def ab_child(dirs: list) -> int:
                     old_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
                     row[k] = {"old_ms": old_ms, "new_ms": new_ms,
                               "new_over_old": new_ms / old_ms, "turns_ms": t,
-                              "ns_a_step": [old_ms * 1e6 / steps,
-                                            new_ms * 1e6 / steps]}
+                              "ns_a_step": [old_ms * 1e6 / max(steps, 1),
+                                            new_ms * 1e6 / max(steps, 1)]}
                 if kernel == "ari_decode" and path == "ari":
                     # the no-index mode on the same stream rows (a row's
                     # stream bytes do not depend on the index beside it)
@@ -4419,8 +4660,8 @@ def ab_child(dirs: list) -> int:
                     if not torch.equal(flat["new"]()[0], ref[0]):
                         differ.append("ari_decode's no-index mode")
                     row["unindexed_ms"] = cuda_ms(flat["new"], 3)
-                if (path in ("bwt", "bin", "apm", "lz4", "rle")
-                        or kernel == "dc_decode"):
+                if (path in ("bwt", "bin", "apm", "lz4", "rle", "deflate",
+                             "lz4p") or kernel == "dc_decode"):
                     one, _ = ab_launchers(
                         libs[kernel], kernel,
                         tuple(a[:1].contiguous() if torch.is_tensor(a)

@@ -244,3 +244,164 @@ def test_plain_decoder_status_equals_native():
     ok = rst >= 0
     assert np.array_equal(out.numpy()[ok], ref[ok])
     assert not out.numpy()[~ok].any()
+
+
+# csrc/lz4p.cu's pack: its staging and batch constants
+TILE, WIN, END_MAX = 1024, 128, 254
+
+
+def _batch_parse(stream: bytes, skew: int):
+    """csrc/lz4p.cu's walk of one stream, replicated step for step: the
+    ready bytes of a ring of TILE-byte tiles (the stream at `skew` past a
+    16-byte boundary), the map of places to where a sequence starting
+    there ends, its tables of 1, 2, 4, 8 and 16 jumps and the k-th start,
+    and the sequences parsed alone -> [(literal source, literal length,
+    match length, offset)] in order, and the sequences the batches took.
+    Bytes the ring holds past the stream read as 0 here (the kernel reads
+    whatever lies there; no such read decides a start)."""
+    n = len(stream)
+
+    def at(p):
+        return stream[p] if p < n else 0
+
+    lo = 0
+
+    def need(p):
+        nonlocal lo
+        while p >= (lo + 2) * TILE - skew:
+            lo += 1
+
+    def hop(table, p):
+        return table[p] if p < WIN else p
+
+    out, batched, i = [], 0, 0
+    while i < n:
+        need(min(i + 2 * END_MAX, n - 1))
+        lim = min(min(n, (lo + 2) * TILE - skew) - i, END_MAX)
+        jump = []
+        for q in range(WIN):
+            t, b1 = at(i + q), at(i + q + 1)
+            lext, mext = t >= 0xF0, t & 15 == 15
+            lit = 15 + b1 if lext else t >> 4
+            b2 = at(i + q + 1 + lext + lit + 2)
+            end = q + 1 + lext + lit + 2 + mext
+            long_ext = (lext and b1 == 255) or (mext and b2 == 255)
+            jump.append(end if end <= lim and not long_ext else q)
+        jumps = [jump]
+        for _ in range(4):
+            jumps.append([hop(jumps[-1], hop(jumps[-1], q))
+                          for q in range(WIN)])
+        starts = []
+        for k in range(32):
+            pos = 0
+            for lvl in range(5):
+                if (k >> lvl) & 1:
+                    pos = hop(jumps[lvl], pos)
+            starts.append(pos)
+        # the tables give what stepping the map k times gives
+        pos = 0
+        for k in range(32):
+            assert starts[k] == pos
+            pos = hop(jump, pos)
+        taken = [starts[k] < WIN and hop(jump, starts[k]) != starts[k]
+                 for k in range(32)]
+        count = sum(taken)
+        assert all(taken[:count])
+        p = starts[count] if count < 32 else hop(jump, starts[31])
+        for q in starts[:count]:
+            t, b1 = at(i + q), at(i + q + 1)
+            lext = t >= 0xF0
+            lit = 15 + b1 if lext else t >> 4
+            frm = i + q + 1 + lext
+            ml = (t & 15) + 4 + (at(frm + lit + 2) if t & 15 == 15 else 0)
+            out.append((frm, lit, ml, at(frm + lit) | at(frm + lit + 1) << 8))
+        batched += count
+        i += p
+        if not (count < 32 and p < WIN) or i >= n:
+            continue
+        token = at(i)
+        i += 1
+        run = token >> 4
+        if run == 15:
+            while True:
+                b = at(i)
+                i += 1
+                run += b
+                if not (b == 255 and i < n):
+                    break
+        src = i
+        i = min(src + run, n)
+        ml = off = 0
+        if i < n:
+            off = at(i) | at(i + 1) << 8
+            i += 2
+            ml = (token & 15) + 4
+            if token & 15 == 15:
+                while True:
+                    b = at(i)
+                    i += 1
+                    ml += b
+                    if not (b == 255 and i < n):
+                        break
+        out.append((src, run, ml, off))
+        if ml == 0:
+            break
+    return out, batched
+
+
+def _sequences(streams: list) -> list:
+    """lz4p_coder._lz4_sequences of each stream, as _batch_parse's
+    tuples."""
+    w = max(map(len, streams))
+    x = np.zeros((len(streams), w), np.uint8)
+    for r, s in enumerate(streams):
+        x[r, : len(s)] = np.frombuffer(s, np.uint8)
+    cols = lz4p_coder._lz4_sequences(
+        torch.from_numpy(x), torch.tensor([len(s) for s in streams],
+                                          dtype=torch.int32))
+    start, lit, ml, off, valid = (c.tolist() for c in cols)
+    return [[(start[r][t], lit[r][t], ml[r][t], off[r][t])
+             for t in range(len(valid[r])) if valid[r][t]]
+            for r in range(len(streams))]
+
+
+def _unrepeated(n: int) -> bytes:
+    """n random bytes in which no 4 bytes repeat (no LZ4 match at all)."""
+    for seed in range(100):
+        row = np.random.default_rng(seed).integers(0, 256, n, np.uint8)
+        words = np.lib.stride_tricks.sliding_window_view(row, 4).copy()
+        if len(np.unique(words.view("<u4"))) == n - 3:
+            return row.tobytes()
+    raise AssertionError("no seed below 100 gives such a row")
+
+
+def test_batch_parse_finds_the_sequences():
+    """The pack kernel's batch parse finds the same sequences as the plain
+    version's one-at-a-time parse, on streams of tpuzip's C++ encoder and
+    of the port's plain one: text whose batches cross ring tiles, runs
+    with extensions of 2 or more bytes, a 64 KiB block with no match
+    (65,536 literals, split 65,535 + 1), zero rows, and at every skew of
+    a row's start."""
+    text = (TEXT * 3)[: 1 << 16]
+    rand = _unrepeated(1 << 16)
+    ext = bytes(600) + TEXT[:300] + b"xy" * 400 + bytes(3000) + TEXT[:40]
+    streams = [native.lz4_compress(d) for d in
+               (text, rand, bytes(1 << 16), ext, TEXT[:N], b"", b"abc")]
+    x = torch.from_numpy(np.frombuffer(DATA[: 2 * N], np.uint8)
+                         .reshape(2, N).copy())
+    comp, clens = lz4p_coder.lz4_coder.lz4_encode_batch(
+        x, torch.full((2,), N, dtype=torch.int32))
+    streams += [comp[r, : clens[r]].numpy().tobytes() for r in range(2)]
+    want = _sequences(streams)
+    batched = 0
+    for r, s in enumerate(streams):
+        for skew in ((0, 5, 15) if r < 2 else (0,)):
+            got, taken = _batch_parse(s, skew)
+            assert got == want[r], (r, skew)
+            batched += taken
+    # the batches take most of the text's sequences, and the long
+    # extensions (the random row's 257 bytes, the zero runs') are parsed
+    # alone
+    assert batched > 0.9 * len(want[0]) * 3
+    assert max(t[1] for t in want[1]) == 1 << 16
+    assert max(t[2] for t in want[3]) > 255 + 19

@@ -1,4 +1,4 @@
-// step_clocks.cu — clock64-stamped copies of nine kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of eleven kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
 // apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
 // (csrc/bin_encode.cu, one thread a stream), the DC walk's
@@ -6,8 +6,10 @@
 // lz4 encoder's (csrc/lz4_encode.cu, lane 0 probing a position at a time),
 // the lz4 decoder's (csrc/lz4_decode.cu, a sequence at a time), the rle
 // decoder's (csrc/rle.cu, one thread a row), the chained lz4 parse's
-// (csrc/lz4_chain.cu, a window of 32 chain walks) and the dense lz4
-// candidates step (csrc/lz4_dense.cu, a table in device memory);
+// (csrc/lz4_chain.cu, a window of 32 chain walks), the dense lz4
+// candidates step (csrc/lz4_dense.cu, a table in device memory), the
+// deflate decoder's (csrc/inflate.cu, lane 0 decoding a symbol at a time)
+// and lz4p's pack (csrc/lz4p.cu, two walks a sequence at a time);
 // and the redesigned ari encoder, DC walk, lz4 step and lz4 decoder,
 // built from their own sources, the encoder stamped by warp, the others by
 // part.  One stream each (one warp, one thread; the lz4 and rle copies
@@ -81,6 +83,10 @@ namespace {
 namespace lz4d {
 #include "../tpuzip_torch/csrc/lz4_decode.cu"
 }  // namespace lz4d
+
+namespace infl {
+#include "../tpuzip_torch/csrc/inflate.cu"
+}  // namespace infl
 
 // clock64 once `dep` is ready: the setp waits on it, the mov after it.
 __device__ __forceinline__ long long stamp(uint32_t dep) {
@@ -1500,6 +1506,721 @@ dense_candidates_clocks(const uint8_t* blocks, const int32_t* lengths,
     cycles[9] = extra_all;
   }
 }
+// The deflate decoder as it stood before its redesign (csrc/inflate.cu as
+// ported: one warp a stream, lane 0 decoding from a byte-at-a-time bit
+// reader and the canonical tables (a 10-bit root table and the count/
+// symbol walk past it), the warp copying each match), B rows at once, one
+// warp a block.  Lane 0 of block 0 stamps by part: 0 the byte fill, 1 the
+// root lookup, 2 the walk past the root, 3 the literal store, 4 the extra
+// bits and the match's checks, 5 the match's hand-off to the warp (its
+// shuffles and two __syncwarp) and its copy, 6 block headers and table
+// builds and stored blocks; cycles[7] the whole stream, [8] its symbols
+// (literals, matches and block ends), [9] its matches, [10] its literals.
+namespace inflate_old {
+
+constexpr int FAST_BITS = 10;
+
+__constant__ int16_t kLenBase[29] = {3,   4,   5,   6,   7,  8,  9,  10,
+                                     11,  13,  15,  17,  19, 23, 27, 31,
+                                     35,  43,  51,  59,  67, 83, 99, 115,
+                                     131, 163, 195, 227, 258};
+__constant__ int8_t kLenEb[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                                  2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+__constant__ int32_t kDistBase[30] = {
+    1,    2,    3,    4,    5,    7,     9,     13,    17,    25,
+    33,   49,   65,   97,   129,  193,   257,   385,   513,   769,
+    1025, 1537, 2049, 3073, 4097, 6145,  8193,  12289, 16385, 24577};
+__constant__ int8_t kDistEb[30] = {0, 0, 0, 0, 1, 1, 2,  2,  3,  3,
+                                   4, 4, 5, 5, 6, 6, 7,  7,  8,  8,
+                                   9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+__constant__ int8_t kOrder[19] = {16, 17, 18, 0, 8,  7, 9,  6, 10, 5,
+                                  11, 4,  12, 3, 13, 2, 14, 1, 15};
+
+template <bool STAMP>
+struct Reader {
+  const uint8_t* p;
+  int n;
+  Clocks<STAMP>* k;
+  int next = 0;
+  unsigned long long buf = 0;
+  int cnt = 0;
+  __device__ void fill() {
+    while (cnt <= 56 && next < n) {
+      buf |= static_cast<unsigned long long>(p[next++]) << cnt;
+      cnt += 8;
+    }
+    k->lap(0, static_cast<uint32_t>(buf));
+  }
+  __device__ bool bits(int kk, int& v) {
+    if (cnt < kk) fill();
+    if (cnt < kk) return false;
+    v = static_cast<int>(buf & ((1ull << kk) - 1));
+    buf >>= kk;
+    cnt -= kk;
+    return true;
+  }
+};
+
+struct Huf {
+  int16_t count[16];
+  int16_t sym[288];
+  uint16_t fast[1 << FAST_BITS];
+  bool ok;
+};
+
+__device__ bool build(Huf& h, const uint8_t* lengths, int n) {
+  for (int i = 0; i < 16; ++i) h.count[i] = 0;
+  for (int i = 0; i < n; ++i) h.count[lengths[i]]++;
+  h.ok = false;
+  if (h.count[0] == n) return false;
+  int left = 1;
+  for (int l = 1; l < 16; ++l) {
+    left = (left << 1) - h.count[l];
+    if (left < 0) return false;
+  }
+  int16_t offs[16];
+  offs[1] = 0;
+  for (int l = 1; l < 15; ++l) offs[l + 1] = offs[l] + h.count[l];
+  for (int i = 0; i < n; ++i)
+    if (lengths[i]) h.sym[offs[lengths[i]]++] = static_cast<int16_t>(i);
+  for (int j = 0; j < (1 << FAST_BITS); ++j) h.fast[j] = 0;
+  int code = 0, index = 0;
+  for (int l = 1; l <= FAST_BITS; ++l) {
+    code <<= 1;
+    for (int q = 0; q < h.count[l]; ++q, ++code, ++index) {
+      const uint32_t rev = __brev(static_cast<uint32_t>(code)) >> (32 - l);
+      const uint16_t entry = static_cast<uint16_t>((l << 12) | h.sym[index]);
+      for (uint32_t j = rev; j < (1u << FAST_BITS); j += 1u << l)
+        h.fast[j] = entry;
+    }
+  }
+  h.ok = true;
+  return true;
+}
+
+template <bool STAMP>
+__device__ int decode(const Huf& h, Reader<STAMP>& r) {
+  if (!h.ok) return -1;
+  if (r.cnt < FAST_BITS) r.fill();
+  const uint16_t e = h.fast[r.buf & ((1u << FAST_BITS) - 1)];
+  r.k->lap(1, e);
+  if (e) {
+    const int l = e >> 12;
+    if (r.cnt < l) return -1;
+    r.buf >>= l;
+    r.cnt -= l;
+    return e & 0xFFF;
+  }
+  int code = 0, first = 0, index = 0;
+  for (int l = 1; l < 16; ++l) {
+    int b;
+    if (!r.bits(1, b)) return -1;
+    code |= b;
+    const int c = h.count[l];
+    if (code - first < c) {
+      const int s = h.sym[index + (code - first)];
+      r.k->lap(2, static_cast<uint32_t>(s));
+      return s;
+    }
+    index += c;
+    first = (first + c) << 1;
+    code <<= 1;
+  }
+  return -1;
+}
+
+struct Shared {
+  Huf lit, dist;
+  uint8_t lens[320];
+};
+
+enum Action { COPY_MATCH, COPY_STORED, DONE };
+
+struct State {
+  int block = 0;
+  bool last = false;
+  bool ended = false;
+  long long o = 0;
+};
+
+template <bool STAMP>
+__device__ Action step(Shared& sh, Reader<STAMP>& r, State& st, uint8_t* dst,
+                       int cap, int& a, int& len, long long& status,
+                       long long* counts) {
+  Clocks<STAMP>& k = *r.k;
+  for (;;) {
+    if (st.block == 0) {
+      if (st.ended) {
+        status = st.o;
+        return DONE;
+      }
+      int fin, btype;
+      if (!r.bits(1, fin) || !r.bits(2, btype)) break;
+      st.last = fin;
+      if (btype == 0) {
+        const int drop = r.cnt & 7;
+        r.buf >>= drop;
+        r.cnt -= drop;
+        int at = r.next - r.cnt / 8;
+        if (at + 4 > r.n) break;
+        const int ln = r.p[at] | (r.p[at + 1] << 8);
+        const int nln = r.p[at + 2] | (r.p[at + 3] << 8);
+        if (ln != (~nln & 0xFFFF)) break;
+        at += 4;
+        if (at + ln > r.n || st.o + ln > cap) break;
+        r.next = at + ln;
+        r.buf = 0;
+        r.cnt = 0;
+        st.ended = fin;
+        a = at;
+        len = ln;
+        k.lap(6, static_cast<uint32_t>(ln));
+        return COPY_STORED;
+      }
+      if (btype == 3) break;
+      if (btype == 1) {
+        for (int i = 0; i < 288; ++i)
+          sh.lens[i] = i < 144 ? 8 : i < 256 ? 9 : i < 280 ? 7 : 8;
+        build(sh.lit, sh.lens, 288);
+        for (int i = 0; i < 30; ++i) sh.lens[i] = 5;
+        build(sh.dist, sh.lens, 30);
+      } else {
+        int hlit, hdist, hclen;
+        if (!r.bits(5, hlit) || !r.bits(5, hdist) || !r.bits(4, hclen))
+          break;
+        hlit += 257;
+        hdist += 1;
+        hclen += 4;
+        if (hlit > 286 || hdist > 30) break;
+        uint8_t* cl = sh.lens + 300;
+        for (int i = 0; i < 19; ++i) cl[i] = 0;
+        bool ok = true;
+        for (int i = 0; i < hclen && ok; ++i) {
+          int v;
+          ok = r.bits(3, v);
+          cl[kOrder[i]] = static_cast<uint8_t>(v);
+        }
+        Huf& clh = sh.dist;
+        if (!ok || !build(clh, cl, 19)) break;
+        int i = 0;
+        while (i < hlit + hdist && ok) {
+          const int s = decode(clh, r);
+          if (s < 0) {
+            ok = false;
+            break;
+          }
+          if (s < 16) {
+            sh.lens[i++] = static_cast<uint8_t>(s);
+            continue;
+          }
+          int rep, val = 0;
+          if (s == 16) {
+            if (i == 0) {
+              ok = false;
+              break;
+            }
+            val = sh.lens[i - 1];
+            ok = r.bits(2, rep);
+            rep += 3;
+          } else if (s == 17) {
+            ok = r.bits(3, rep);
+            rep += 3;
+          } else {
+            ok = r.bits(7, rep);
+            rep += 11;
+          }
+          if (!ok || i + rep > hlit + hdist) {
+            ok = false;
+            break;
+          }
+          while (rep--) sh.lens[i++] = static_cast<uint8_t>(val);
+        }
+        if (!ok || !build(sh.lit, sh.lens, hlit)) break;
+        uint8_t* dl = sh.lens + 288;
+        for (int q = hdist - 1; q >= 0; --q) dl[q] = sh.lens[hlit + q];
+        for (int q = hdist; q < 30; ++q) dl[q] = 0;
+        build(sh.dist, dl, 30);
+      }
+      st.block = 1;
+      k.lap(6, static_cast<uint32_t>(sh.lit.fast[0]));
+    }
+    const int s = decode(sh.lit, r);
+    if (s < 0) break;
+    ++counts[0];
+    if (s < 256) {
+      if (st.o >= cap) break;
+      dst[st.o++] = static_cast<uint8_t>(s);
+      ++counts[2];
+      k.lap(3, static_cast<uint32_t>(st.o));
+      continue;
+    }
+    if (s == 256) {
+      st.block = 0;
+      st.ended = st.last;
+      continue;
+    }
+    const int lc = s - 257;
+    if (lc >= 29) break;
+    int extra;
+    const bool got_len = r.bits(kLenEb[lc], extra);
+    const int mlen = kLenBase[lc] + (got_len ? extra : 0);
+    k.lap(4, static_cast<uint32_t>(mlen));
+    const int ds = decode(sh.dist, r);
+    if (ds < 0 || ds >= 30) break;
+    int dextra;
+    const bool got_dist = r.bits(kDistEb[ds], dextra);
+    if (!got_len || !got_dist) break;
+    const long long d = kDistBase[ds] + dextra;
+    if (d > st.o || st.o + mlen > cap) break;
+    a = static_cast<int>(d);
+    len = mlen;
+    ++counts[1];
+    k.lap(4, static_cast<uint32_t>(d));
+    return COPY_MATCH;
+  }
+  status = -1;
+  return DONE;
+}
+
+}  // namespace inflate_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+inflate_clocks(const uint8_t* streams, const int32_t* lens, int w,
+               uint8_t* out, int cap, long long* status, long long* cycles) {
+  using namespace inflate_old;
+  __shared__ Shared sh;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* src = streams + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * cap;
+  const int n = min(max(lens[row], 0), w);
+  if (n == 0) {
+    if (lane == 0) status[row] = 0;
+    return;
+  }
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  long long counts[3] = {0, 0, 0};   // symbols, matches, literals
+  Reader<STAMP> r{src, n, &k};
+  State st;
+  long long done = 0;
+  for (;;) {
+    int action = DONE, a = 0, len = 0;
+    long long o = 0;
+    if (lane == 0) {
+      action = step(sh, r, st, dst, cap, a, len, done, counts);
+      o = st.o;
+      if (action != DONE) st.o += len;
+    }
+    action = __shfl_sync(FULL, action, 0);
+    if (action == DONE) break;
+    a = __shfl_sync(FULL, a, 0);
+    len = __shfl_sync(FULL, len, 0);
+    o = __shfl_sync(FULL, o, 0);
+    __syncwarp();
+    if (action == COPY_MATCH) {
+      for (int q = lane; q < len; q += 32) dst[o + q] = dst[o - a + q % a];
+    } else {
+      for (int q = lane; q < len; q += 32) dst[o + q] = src[a + q];
+    }
+    __syncwarp();
+    k.lap(action == COPY_MATCH ? 5 : 6, static_cast<uint32_t>(o));
+  }
+  const long long t1 = stamp(static_cast<uint32_t>(done));
+  if (lane == 0) {
+    status[row] = done;
+    if (row == 0) {
+      for (int p = 0; p < 7; ++p) cycles[p] = k.sum[p];
+      cycles[7] = t1 - t0;
+      cycles[8] = counts[0];
+      cycles[9] = counts[1];
+      cycles[10] = counts[2];
+    }
+  }
+}
+
+// lz4p's pack as it stood before its redesign (csrc/lz4p.cu's pack kernel as
+// ported: one warp a row, two walks of the LZ4 stream, a sequence at a time
+// from device memory, every lane in step), B rows at once.  Block 0's
+// cycles by part: 0 the first walk's sequence reads, 1 its sums, 2 the
+// header, 3 the second walk's sequence reads, 4 its column writes, 5 its
+// literal copies; cycles[7] the whole row, [8] its sequences, [9] its
+// column entries S.
+namespace pack_old {
+
+constexpr int HDR = 8;
+constexpr int U16 = 0xFFFF;
+constexpr int MIN_MATCH = 4;
+
+struct Sequence {
+  int lit_src, lit, ml, off, next;
+  bool last;
+};
+
+__device__ __forceinline__ Sequence read_sequence(const uint8_t* s, int i,
+                                                  int n) {
+  auto at = [&](int q) { return q < n ? static_cast<int>(s[q]) : 0; };
+  Sequence q;
+  const int token = at(i++);
+  q.lit = token >> 4;
+  if (q.lit == 15) {
+    int b;
+    do {
+      b = at(i++);
+      q.lit += b;
+    } while (b == 255 && i < n);
+  }
+  q.lit_src = i;
+  i += q.lit;
+  q.last = i >= n;
+  q.ml = q.off = 0;
+  if (!q.last) {
+    q.off = at(i) | (at(i + 1) << 8);
+    i += 2;
+    q.ml = (token & 15) + MIN_MATCH;
+    if ((token & 15) == 15) {
+      int b;
+      do {
+        b = at(i++);
+        q.ml += b;
+      } while (b == 255 && i < n);
+    }
+  }
+  q.next = i;
+  return q;
+}
+
+__device__ __forceinline__ int extra_pieces(int len, bool split) {
+  return split && len > U16 ? (len - 1) / U16 : 0;
+}
+
+__device__ __forceinline__ void put_u16(uint8_t* p, int v) {
+  p[0] = static_cast<uint8_t>(v & 0xFF);
+  p[1] = static_cast<uint8_t>((v >> 8) & 0xFF);
+}
+
+}  // namespace pack_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+pack_clocks(const uint8_t* comp, const int32_t* clens, int w, uint8_t* out,
+            int cap, int32_t* olens, bool split, long long* cycles) {
+  using namespace pack_old;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* s = comp + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * cap;
+  const int n = min(max(clens[row], 0), w);
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  long long nseq = 0, lits = 0, orig = 0, seqs = 0;
+  bool over = false, bad = false;
+  for (int i = 0; i < n;) {
+    const Sequence q = read_sequence(s, i, n);
+    k.lap(0, static_cast<uint32_t>(q.next));
+    ++seqs;
+    nseq += 1 + extra_pieces(q.lit, split) + extra_pieces(q.ml, split);
+    over |= q.lit > U16 || q.ml > U16;
+    bad |= q.lit_src + q.lit > n;
+    lits += q.lit;
+    orig += q.lit + q.ml;
+    i = q.next;
+    k.lap(1, static_cast<uint32_t>(orig));
+    if (q.last) break;
+  }
+  const long long base = HDR + 6 * nseq;
+  if ((over && !split) || bad || base + lits > cap) {
+    if (lane == 0) olens[row] = -1;
+  } else {
+    if (lane < 8)
+      dst[lane] = static_cast<uint8_t>(
+          ((lane < 4 ? nseq : orig) >> (8 * (lane & 3))) & 0xFF);
+    if (lane == 0) olens[row] = static_cast<int32_t>(base + lits);
+    k.lap(2, static_cast<uint32_t>(base));
+    long long e = 0, lo = 0;
+    for (int i = 0; i < n;) {
+      const Sequence q = read_sequence(s, i, n);
+      k.lap(3, static_cast<uint32_t>(q.next));
+      const int xl = extra_pieces(q.lit, split);
+      const int xm = extra_pieces(q.ml, split);
+      for (int j = lane; j <= xl + xm; j += 32) {
+        const int mp = j - xl;
+        const int ll = j < xl ? U16 : mp == 0 ? q.lit - U16 * xl : 0;
+        const int ml = mp < 0 ? 0 : mp < xm ? U16 : q.ml - U16 * xm;
+        uint8_t* col = dst + HDR + 2 * (e + j);
+        put_u16(col, ll);
+        put_u16(col + 2 * nseq, ml);
+        put_u16(col + 4 * nseq, ml > 0 ? q.off : 0);
+      }
+      k.lap(4, static_cast<uint32_t>(e));
+      for (int q2 = lane; q2 < q.lit; q2 += 32)
+        dst[base + lo + q2] = s[q.lit_src + q2];
+      e += 1 + xl + xm;
+      lo += q.lit;
+      i = q.next;
+      k.lap(5, static_cast<uint32_t>(lo));
+      if (q.last) break;
+    }
+  }
+  const long long t1 = stamp(static_cast<uint32_t>(nseq));
+  if (lane == 0 && row == 0) {
+    for (int p = 0; p < 7; ++p) cycles[p] = k.sum[p];
+    cycles[7] = t1 - t0;
+    cycles[8] = seqs;
+    cycles[9] = nseq;
+  }
+}
+
+// The redesigned deflate decoder (csrc/inflate.cu, included above in
+// namespace infl; this kernel body and its batch step are copies: keep them
+// in step with the source), B rows at once.  Block 0's cycles by part: 0
+// the batch's symbols (tokens) less what follows, 1 the scan of the
+// tokens' lengths and the literals' stores, 2 the match rounds, 3 the
+// batch's bytes out to device memory, 4 block headers, tables, the
+// batch's staging and stored blocks, 5 the bit window's reads, 6 the
+// table lookups with their fault tests; cycles[7] the whole stream, [8]
+// its batches, [9] its tokens, [10] its match rounds, [11] its matches.
+namespace infl_clocks {
+
+using namespace infl;
+
+template <bool STAMP>
+__device__ __forceinline__ Stop batch(Inflater& f, int& nq, int& ql, int& qv,
+                                      Clocks<STAMP>& k) {
+  const int lane = threadIdx.x;
+  nq = 0;
+  for (;;) {
+    if (!f.in_block) {
+      if (f.ended) return S_END;
+      int fin, btype;
+      if (!f.r.take(f.s, 1, fin) || !f.r.take(f.s, 2, btype)) return S_FAULT;
+      f.last = fin;
+      if (btype == 0) return S_STORED;
+      if (btype == 3) return S_FAULT;
+      if (btype == 1)
+        f.fixed_tables();
+      else if (!f.dynamic_tables())
+        return S_FAULT;
+      f.in_block = true;
+    }
+    f.s.need((f.r.pos >> 3) + LOOKAHEAD);
+    k.lap(4, static_cast<uint32_t>(f.r.pos));
+    for (;;) {
+      const unsigned long long buf = f.r.peek(f.s);
+      const int left = f.r.end - f.r.pos;
+      k.lap(5, static_cast<uint32_t>(buf));
+      uint32_t e = s_root[buf & ((1u << LIT_ROOT) - 1)];
+      if (((e >> 4) & 7) >= K_END || (e & 15) > left ||
+          (((e >> 4) & 7) == K_LIT && f.o >= f.cap)) {
+        e = past_root<0, T_LIT>(e, buf);
+        const int kind = (e >> 4) & 7;
+        if (kind == K_BAD || (e & 15) > left ||
+            (kind == K_LIT && f.o >= f.cap))
+          return S_FAULT;
+        if (kind == K_END) {
+          f.r.pos += e & 15;
+          f.in_block = false;
+          f.ended = f.last;
+          break;
+        }
+      }
+      k.lap(6, e);
+      const int l = e & 15;
+      f.r.pos += l;
+      if (((e >> 4) & 7) == K_LIT) {
+        if (lane == nq) {
+          ql = 1;
+          qv = e >> 16;
+        }
+        ++f.o;
+        k.lap(0, static_cast<uint32_t>(f.r.pos));
+        if (++nq == 32) return S_FULL;
+        continue;
+      }
+      const int eb = (e >> 8) & 15;
+      const int mlen = (e >> 16) + static_cast<int>((buf >> l) &
+                                                    ((1u << eb) - 1));
+      const unsigned long long dbuf = buf >> (l + eb);
+      k.lap(0, static_cast<uint32_t>(dbuf));
+      uint32_t g = s_root[(1 << LIT_ROOT) + (dbuf & ((1u << DIST_ROOT) - 1))];
+      int dl = g & 15, deb = (g >> 8) & 15;
+      int d = (g >> 16) + static_cast<int>((dbuf >> dl) & ((1u << deb) - 1));
+      if (((g >> 4) & 7) != K_BASE || l + eb + dl + deb > left || d > f.o ||
+          f.o + mlen > f.cap) {
+        g = past_root<1, T_DIST>(g, dbuf);
+        dl = g & 15;
+        deb = (g >> 8) & 15;
+        d = (g >> 16) + static_cast<int>((dbuf >> dl) & ((1u << deb) - 1));
+        if (((g >> 4) & 7) != K_BASE || l + eb + dl + deb > left ||
+            d > f.o || f.o + mlen > f.cap)
+          return S_FAULT;
+      }
+      k.lap(6, g);
+      f.r.pos += eb + dl + deb;
+      if (lane == nq) {
+        ql = mlen;
+        qv = d;
+      }
+      f.o += mlen;
+      k.lap(0, static_cast<uint32_t>(f.r.pos));
+      if (++nq == 32) return S_FULL;
+    }
+  }
+}
+
+// resolve(), counting its rounds.
+__device__ __forceinline__ int resolve_counted(const Out& out, int mo,
+                                               int off, int ml,
+                                               bool pending) {
+  int rounds = 0;
+  const int lane = threadIdx.x;
+  __syncwarp();   // the literals, every lane's, are written
+  for (;;) {
+    const int first = __reduce_min_sync(FULL, pending ? mo : NONE);
+    if (first == NONE) break;
+    ++rounds;
+    const bool ready = pending && mo - off + min(off, ml) <= first;
+    if (ready && ml <= LANE_BYTES) copy_lane(out, mo, off, ml);
+    if (__any_sync(FULL, ready && ml > LANE_BYTES)) {
+      const int len = ready && ml > LANE_BYTES ? ml : 0;
+      int incl = len;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += u;
+      }
+      const int total = __shfl_sync(FULL, incl, 31);
+      const int excl = incl - len;
+      for (int t0 = 0; t0 < total; t0 += 32) {
+        const int t = t0 + lane;
+        int j = 0;
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (__shfl_sync(FULL, incl, j + step - 1) <= t) j += step;
+        const int m = t - __shfl_sync(FULL, excl, j);
+        const int jo = __shfl_sync(FULL, mo, j);
+        const int joff = __shfl_sync(FULL, off, j);
+        if (t < total)
+          s_hist[(jo + m) & (HIST - 1)] =
+              out.get(jo - joff + (m < joff ? m : m % joff));
+      }
+    }
+    pending = pending && !ready;
+    __syncwarp();
+  }
+  return rounds;
+}
+
+}  // namespace infl_clocks
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+inflate_new_clocks(const uint8_t* streams, const int32_t* lens, int w,
+                   uint8_t* out, int cap, long long* status,
+                   long long* cycles) {
+  using namespace infl;
+  using namespace infl_clocks;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* src = streams + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * cap;
+  const int n = min(max(lens[row], 0), w);
+  if (n == 0) {
+    if (lane == 0) status[row] = 0;
+    return;
+  }
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  long long batches = 0, tokens = 0, rounds = 0, matches = 0;
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  Inflater f;
+  f.s = Stream{src - skew, skew, n, 0};
+  f.s.start();
+  f.r = Bits{0, 8 * n};
+  f.cap = cap;
+  f.o = 0;
+  f.in_block = f.last = f.ended = false;
+  int hist_lo = 0;
+  long long result;
+  for (;;) {
+    const int o0 = f.o;
+    int nq, ql = 0, qv = 0;
+    const Stop stop = infl_clocks::batch(f, nq, ql, qv, k);
+    if (nq) {
+      ++batches;
+      tokens += nq;
+      matches += __popc(__ballot_sync(FULL, ql > 1));
+      int incl = ql;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += u;
+      }
+      const int at = o0 + incl - ql;
+      if (ql == 1) s_hist[at & (HIST - 1)] = static_cast<uint8_t>(qv);
+      const int end = f.o;
+      k.lap(1, static_cast<uint32_t>(incl));
+      rounds += resolve_counted(Out{dst, max(hist_lo, end - HIST), o0}, at,
+                                qv, ql, ql > 1);
+      k.lap(2, s_hist[o0 & (HIST - 1)]);
+      for (int q = o0 + lane; q < end; q += 32)
+        dst[q] = s_hist[q & (HIST - 1)];
+      k.lap(3, static_cast<uint32_t>(end));
+    }
+    if (stop == S_FULL) continue;
+    if (stop == S_END) {
+      result = f.o;
+      break;
+    }
+    if (stop == S_FAULT) {
+      result = -1;
+      break;
+    }
+    Stream& s = f.s;
+    int at = (f.r.pos + 7) >> 3;
+    if (at + 4 > n) {
+      result = -1;
+      break;
+    }
+    s.need(at + 3);
+    const int ln = s.at(at) | (s.at(at + 1) << 8);
+    const int nln = s.at(at + 2) | (s.at(at + 3) << 8);
+    at += 4;
+    if (ln != (~nln & 0xFFFF) || at + ln > n || f.o + ln > cap) {
+      result = -1;
+      break;
+    }
+    for (int left = ln; left > 0;) {
+      s.need(at);
+      const int part = min(left, s.end() - at);
+      for (int q = lane; q < part; q += 32) dst[f.o + q] = s.at(at + q);
+      at += part;
+      f.o += part;
+      left -= part;
+    }
+    __syncwarp();
+    hist_lo = f.o;
+    f.r.pos = 8 * at;
+    f.ended = f.last;
+    k.lap(4, static_cast<uint32_t>(at));
+  }
+  cp_wait<0>();
+  const long long t1 = stamp(static_cast<uint32_t>(result));
+  if (lane == 0) {
+    status[row] = result;
+    if (row == 0) {
+      for (int p = 0; p < 7; ++p) cycles[p] = k.sum[p];
+      cycles[7] = t1 - t0;
+      cycles[8] = batches;
+      cycles[9] = tokens;
+      cycles[10] = rounds;
+      cycles[11] = matches;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -1707,6 +2428,53 @@ extern "C" int tpz_dense_candidates_clocks(const void* blocks,
                   static_cast<const int32_t*>(lengths), n,
                   static_cast<int32_t*>(cand),
                   static_cast<unsigned long long*>(tables), bits, slots_log,
+                  static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the deflate decoder as it stood before its redesign; block 0's
+// cycles into cycles (11 int64).
+extern "C" int tpz_inflate_clocks(const void* streams, const void* lens,
+                                  int B, int w, void* out, int cap,
+                                  void* status, void* cycles, int stamped) {
+  auto kern = stamped ? inflate_clocks<true> : inflate_clocks<false>;
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(streams),
+                  static_cast<const int32_t*>(lens), w,
+                  static_cast<uint8_t*>(out), cap,
+                  static_cast<long long*>(status),
+                  static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of lz4p's pack as it stood before its redesign; block 0's cycles
+// into cycles (10 int64).
+extern "C" int tpz_pack_clocks(const void* comp, const void* clens, int B,
+                               int w, void* out, int cap, void* olens,
+                               int split, void* cycles, int stamped) {
+  auto kern = stamped ? pack_clocks<true> : pack_clocks<false>;
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(comp),
+                  static_cast<const int32_t*>(clens), w,
+                  static_cast<uint8_t*>(out), cap,
+                  static_cast<int32_t*>(olens), split != 0,
+                  static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the redesigned deflate decoder; block 0's cycles into cycles
+// (12 int64).
+extern "C" int tpz_inflate_new_clocks(const void* streams, const void* lens,
+                                      int B, int w, void* out, int cap,
+                                      void* status, void* cycles,
+                                      int stamped) {
+  auto kern = stamped ? inflate_new_clocks<true> : inflate_new_clocks<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(streams),
+                  static_cast<const int32_t*>(lens), w,
+                  static_cast<uint8_t*>(out), cap,
+                  static_cast<long long*>(status),
                   static_cast<long long*>(cycles));
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,8 +35,14 @@ the parse never reads; the dense lz4 candidates step as it stood before
 its redesign (keyed tables in device memory, and the direct ones of 15
 bits it had before them) on the serving path's tensor; both on row 0
 alone and beside the other 1023 rows, held against the kernels' output.
+The deflate decoder's step as it stood before its redesign (lane 0
+decoding a symbol at a time) is stamped by part on the deflate path's
+streams, and lz4p's pack as it stood before its redesign (two walks, a
+sequence at a time) on the lz4p path's LZ4 streams, row 0 alone and
+beside the other 1023 rows, each held against the real kernel's output.
 One JSON line a section (SECTIONS; all of them without arguments, about
-60-90 s; lz4_chain and lz4_dense alone about 30 s)."""
+60-90 s; lz4_chain and lz4_dense alone about 30 s, inflate and lz4p_pack
+about 30 s)."""
 
 from __future__ import annotations
 
@@ -56,8 +62,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import tpuzip_torch  # noqa: E402
 from tpuzip_torch.kernels import (_build, bin_coder, dc_scan,  # noqa: E402
-                                  lz4_chain, lz4_coder, lz4_dense,
-                                  range_coder, rle_coder)
+                                  deflate_coder, lz4_chain, lz4_coder,
+                                  lz4_dense, lz4p_coder, range_coder,
+                                  rle_coder)
 
 ARI_PARTS = ("symbol", "table reads", "division", "multiplies",
              "renormalisation", "update", "chunk test and loop")
@@ -602,10 +609,168 @@ def coders(lib, res) -> None:
     res["apm_encode"]["unstamped_ms"] = cs.cuda_ms(lambda: run_apm_enc(0), 3)
 
 
+INFLATE_PARTS = ("byte fill", "root lookup", "walk past the root",
+                 "literal store", "extra bits and checks",
+                 "match hand-off and copy", "headers, tables, stored")
+INFLATE_NEW_PARTS = ("symbols", "scan and literal stores", "match rounds",
+                     "bytes out", "headers, tables, staging, stored",
+                     "bit window reads", "lookups")
+PACK_PARTS = ("walk 1 sequence reads", "walk 1 sums", "header",
+              "walk 2 sequence reads", "walk 2 column writes",
+              "walk 2 literal copies")
+
+
+def inflate(lib, res) -> None:
+    """The deflate decoder as it stood before its redesign (lane 0
+    decoding a symbol at a time, the warp copying each match), on the
+    deflate path's rows (the smoke's 64 MiB corpus through
+    tpuzip_torch.compress(codec="deflate"), 1024 streams of 64 KiB
+    blocks), stamped by part on row 0 alone and beside the other 1023
+    rows, held against csrc/inflate.cu's bytes and statuses there, into
+    res["inflate"]: cycles a symbol by part, the symbols, matches and
+    literals of row 0, and the unstamped copy's and the kernel's ms; and
+    the redesigned kernel's copy likewise ("new_*": cycles a token by part,
+    its batches and match rounds)."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    blob = tpuzip_torch.compress(data, codec="deflate")
+    with cs.recorded(deflate_coder, "inflate_batch") as calls:
+        tpuzip_torch.decompress(blob)
+    (args, _, ref), = calls
+    streams, lens, cap = args[0].contiguous(), args[1].contiguous(), args[2]
+    b_all, w = streams.shape
+    fn = lib.tpz_inflate_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci]
+
+    def launch(b: int, stamped: int):
+        out = torch.zeros((b, cap), dtype=torch.uint8, device="cuda")
+        status = torch.empty(b, dtype=torch.int64, device="cuda")
+        cyc = torch.zeros(11, dtype=torch.int64, device="cuda")
+        _build.check(fn(streams.data_ptr(), lens.data_ptr(), b, w,
+                        out.data_ptr(), cap, status.data_ptr(),
+                        cyc.data_ptr(), stamped), "inflate_clocks")
+        return out, status, cyc
+
+    rec = res.setdefault("inflate", {"rows": [b_all, w], "out_cap": cap,
+                                     "row0_stream_bytes": int(lens[0])})
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            out, status, cyc = launch(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref[0][:b])
+                    and torch.equal(status, ref[1][:b])):
+                raise AssertionError(f"inflate copy (stamped={stamped}, "
+                                     f"{b} rows) differs from "
+                                     "csrc/inflate.cu")
+            cyc = cyc.tolist()
+            symbols = cyc[8]
+            rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "symbols": symbols, "matches": cyc[9], "literals": cyc[10],
+                "cycles_a_symbol": {
+                    **{p: cyc[i] / symbols
+                       for i, p in enumerate(INFLATE_PARTS)},
+                    "whole row": cyc[7] / symbols},
+                "whole_row_cycles": cyc[7]}
+        rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0), 3)
+        rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+            lambda: deflate_coder.inflate_batch(streams[:b], lens[:b], cap),
+            3)
+    # the redesign (csrc/inflate.cu's kernel), by part a token
+    new = lib.tpz_inflate_new_clocks
+    new.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci]
+
+    def launch_new(b: int, stamped: int):
+        out = torch.zeros((b, cap), dtype=torch.uint8, device="cuda")
+        status = torch.empty(b, dtype=torch.int64, device="cuda")
+        cyc = torch.zeros(12, dtype=torch.int64, device="cuda")
+        _build.check(new(streams.data_ptr(), lens.data_ptr(), b, w,
+                         out.data_ptr(), cap, status.data_ptr(),
+                         cyc.data_ptr(), stamped), "inflate_new_clocks")
+        return out, status, cyc
+
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            out, status, cyc = launch_new(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref[0][:b])
+                    and torch.equal(status, ref[1][:b])):
+                raise AssertionError(f"redesigned inflate copy (stamped="
+                                     f"{stamped}, {b} rows) differs from "
+                                     "csrc/inflate.cu")
+            cyc = cyc.tolist()
+            tokens = cyc[9]
+            rec[f"new_rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "batches": cyc[8], "tokens": tokens, "match_rounds": cyc[10],
+                "matches": cyc[11],
+                "cycles_a_token": {
+                    **{p: cyc[i] / tokens
+                       for i, p in enumerate(INFLATE_NEW_PARTS)},
+                    "whole row": cyc[7] / tokens},
+                "whole_row_cycles": cyc[7]}
+        rec[f"new_rows_{b}_unstamped_ms"] = cs.cuda_ms(
+            lambda: launch_new(b, 0), 3)
+
+
+def lz4p_pack(lib, res) -> None:
+    """lz4p's pack as it stood before its redesign (two walks of each LZ4
+    stream, a sequence at a time from device memory), on the lz4p path's
+    rows (the smoke's 64 MiB corpus through
+    tpuzip_torch.compress(codec="lz4p"): lz4_encode.cu's streams of 1024
+    blocks of 64 KiB, runs split), stamped by part on row 0 alone and
+    beside the other 1023 rows, held against csrc/lz4p.cu's rows and
+    lengths there, into res["lz4p_pack"]: cycles a sequence by part, the
+    sequences and column entries of row 0, and the unstamped copy's and
+    the kernel's ms."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    with cs.recorded(lz4p_coder, "lz4p_pack") as calls:
+        tpuzip_torch.compress(data, codec="lz4p")
+    (args, kw, ref), = calls
+    comp, clens, n = args[0].contiguous(), args[1].contiguous(), args[2]
+    split = kw.get("split", args[3] if len(args) > 3 else True)
+    b_all, w = comp.shape
+    cap = ref[0].shape[1]
+    fn = lib.tpz_pack_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, ci, vp, ci]
+
+    def launch(b: int, stamped: int):
+        out = torch.zeros((b, cap), dtype=torch.uint8, device="cuda")
+        olens = torch.empty(b, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(10, dtype=torch.int64, device="cuda")
+        _build.check(fn(comp.data_ptr(), clens.data_ptr(), b, w,
+                        out.data_ptr(), cap, olens.data_ptr(), int(split),
+                        cyc.data_ptr(), stamped), "pack_clocks")
+        return out, olens, cyc
+
+    rec = res.setdefault("lz4p_pack", {"rows": [b_all, w], "split": split,
+                                       "row0_stream_bytes": int(clens[0])})
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            out, olens, cyc = launch(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref[0][:b])
+                    and torch.equal(olens, ref[1][:b])):
+                raise AssertionError(f"lz4p pack copy (stamped={stamped}, "
+                                     f"{b} rows) differs from "
+                                     "csrc/lz4p.cu")
+            cyc = cyc.tolist()
+            seqs = cyc[8]
+            rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "sequences": seqs, "entries": cyc[9],
+                "cycles_a_sequence": {
+                    **{p: cyc[i] / seqs for i, p in enumerate(PACK_PARTS)},
+                    "whole row": cyc[7] / seqs},
+                "whole_row_cycles": cyc[7]}
+        rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0), 3)
+        rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+            lambda: lz4p_coder.lz4p_pack(comp[:b], clens[:b], n, split), 3)
+
+
 SECTIONS = {"coders": coders, "dc_walk": dc_walk, "lz4_encode": lz4_probe,
             "lz4_decode": lambda lib, res: (old_decoders(lib, res),
                                             new_lz4_decoder(lib, res)),
-            "lz4_chain": chain_parse, "lz4_dense": dense_candidates}
+            "lz4_chain": chain_parse, "lz4_dense": dense_candidates,
+            "inflate": inflate, "lz4p_pack": lz4p_pack}
 
 
 def main(names: list) -> int:

@@ -27,16 +27,30 @@
 //     Bytes after the literals are allowed.  The row holds the output and
 //     0 after it; a row with status -1 is all 0.
 //
-// What bounds it on this card: pack, a chain of dependent loads a sequence
-// (an LZ4 token's place follows from the last sequence's lengths); decode,
-// the matches, each of which reads bytes that earlier sequences wrote.
-// Neither comes near the bytes' bound.
+// What bounds it on this card: pack, the parse (an LZ4 token's place
+// follows from the last sequence's lengths); decode, the matches, each of
+// which reads bytes that earlier sequences wrote.  Neither comes near the
+// bytes' bound.  As first ported, the pack read a sequence at a time from
+// device memory, a chain of dependent loads: about 940 cycles a sequence
+// over its two walks beside 1023 rows (PERF.md §6, row 16).
 //
 // What the design does about it:
-//   - pack: two walks of the stream, the lanes in step (every load a
-//     broadcast): the first counts the column entries S (the columns' places
-//     follow from it), the second writes them, a lane an entry of a split
-//     run, and copies the literals 32 bytes a step;
+//   - pack: one warp a row, two walks of the stream, staged in a ring of
+//     shared memory by cp.async two tiles ahead (4 KiB a row, so 1024 rows
+//     are resident at once).  The first walk sums the column entries S
+//     (the columns' places follow from it), the literals and the block's
+//     length; the second writes the columns and the literals.  Each walk
+//     parses a batch of up to 32 sequences at once, as lz4_decode.cu does:
+//     each lane reads 4 places and, for each, where a sequence starting
+//     there would end (at most one extension byte a length, its bytes
+//     ready and in the stream), with no branch; tables of 1, 2, 4, 8 and
+//     16 jumps give lane k the k-th start in 5 shuffles.  A batch writes
+//     its 32 entries of each column at once and copies its literals a lane
+//     a byte (each byte's sequence by a binary search over the scan of the
+//     literal lengths).  A sequence the batch does not take (the stream's
+//     last, one with a longer extension, one past the ready bytes; every
+//     run that the C++ rule splits) is parsed alone: a lane an entry of its
+//     pieces, its literals copied 32 bytes a step;
 //   - decode: the columns give every sequence's output offset and literal
 //     source by prefix sums, so there is no serial parse: 32 sequences a
 //     step, a lane each, scanned across the warp.  A first pass checks
@@ -55,56 +69,301 @@ constexpr int HDR = 8;
 constexpr int U16 = 0xFFFF;
 constexpr int MIN_MATCH = 4;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-
-// One LZ4 sequence of a well-formed stream: its literals at lit_src, and,
-// unless it is the stream's last, a match of ml bytes off back; `next` is
-// the next token's place.  Reads past the stream give 0.
-struct Sequence {
-  int lit_src, lit, ml, off, next;
-  bool last;
-};
-
-__device__ __forceinline__ Sequence read_sequence(const uint8_t* s, int i,
-                                                  int n) {
-  auto at = [&](int k) { return k < n ? static_cast<int>(s[k]) : 0; };
-  Sequence q;
-  const int token = at(i++);
-  q.lit = token >> 4;
-  if (q.lit == 15) {
-    int b;
-    do {
-      b = at(i++);
-      q.lit += b;
-    } while (b == 255 && i < n);
-  }
-  q.lit_src = i;
-  i += q.lit;
-  q.last = i >= n;
-  q.ml = q.off = 0;
-  if (!q.last) {
-    q.off = at(i) | (at(i + 1) << 8);
-    i += 2;
-    q.ml = (token & 15) + MIN_MATCH;
-    if ((token & 15) == 15) {
-      int b;
-      do {
-        b = at(i++);
-        q.ml += b;
-      } while (b == 255 && i < n);
-    }
-  }
-  q.next = i;
-  return q;
-}
+constexpr int TILE = 1024;       // stream bytes a staged tile
+constexpr int RING = 4 * TILE;   // two tiles parsed from, two in flight
+constexpr int WIN = 128;         // places a batch's sequences start at
+constexpr int END_MAX = 254;     // a batch's sequence ends by this place
 
 // The extra entries a run of `len` bytes takes when split (0 unsplit).
-__device__ __forceinline__ int extra_pieces(int len, bool split) {
-  return split && len > U16 ? (len - 1) / U16 : 0;
+__device__ __forceinline__ int extra_pieces(long long len, bool split) {
+  return split && len > U16 ? static_cast<int>((len - 1) / U16) : 0;
 }
 
 __device__ __forceinline__ void put_u16(uint8_t* p, int v) {
   p[0] = static_cast<uint8_t>(v & 0xFF);
   p[1] = static_cast<uint8_t>((v >> 8) & 0xFF);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The pack's ring, named here so that every access is to a fixed shared
+// address.
+__shared__ __align__(16) uint8_t s_ring[RING];
+
+// A row's stream, staged through shared memory: tile t holds the bytes
+// [t * TILE, (t + 1) * TILE) past `base`, the row's start rounded down to
+// 16 bytes, in slot t % 4 of s_ring; tiles lo and lo + 1 are ready, lo + 2
+// and lo + 3 in flight.
+struct Stream {
+  const uint8_t* base;
+  int skew;   // the row's first byte's place past base
+  int n;      // the stream's bytes
+  int lo;
+
+  __device__ __forceinline__ void load(int tile) {
+    uint8_t* slot = s_ring + (tile & 3) * TILE;
+    for (int c = threadIdx.x; c < TILE / 16; c += 32) {
+      const int g = tile * TILE + 16 * c;
+      if (g < skew + n) cp_async16(slot + 16 * c, base + g);
+    }
+    cp_commit();
+  }
+
+  // Stages the stream from its start (after any earlier staging's copies
+  // have landed).
+  __device__ __forceinline__ void start() {
+    cp_wait<0>();
+    __syncwarp();
+    lo = 0;
+    for (int t = 0; t < 4; ++t) load(t);
+    cp_wait<2>();
+    __syncwarp();
+  }
+
+  // The end of the ready tiles, as a place in the stream.
+  __device__ __forceinline__ int end() const {
+    return (lo + 2) * TILE - skew;
+  }
+
+  // Byte p, which lies in the ready tiles to mean anything (any p reads
+  // some byte of the ring).
+  __device__ __forceinline__ int at(int p) const {
+    return s_ring[(p + skew) & (RING - 1)];
+  }
+
+  // Makes byte p ready, dropping the oldest tile while p lies past the
+  // ready ones: the caller needs no byte more than a tile before p.
+  __device__ __forceinline__ void need(int p) {
+    while (p >= end()) {
+      __syncwarp();   // every lane is done with tile lo
+      load(lo + 4);
+      ++lo;
+      cp_wait<2>();
+      __syncwarp();
+    }
+  }
+
+  // Byte p of the stream, 0 past its end (a sequence parsed alone).
+  __device__ __forceinline__ int byte(int p) {
+    if (p >= n) return 0;
+    need(p);
+    return at(p);
+  }
+};
+
+// A batch's sequence at stream byte q: its lengths, each with its one
+// extension byte where the nibble is 15, where its literals and offset
+// lie and where it ends.  Every read is of the ring, so it is safe at any
+// q; the caller decides whether the sequence is one a batch takes.
+struct Sequence {
+  int lit, ml, from, off_at, end;
+  bool long_ext;   // an extension of more than one byte: a batch does not
+                   // take it
+
+  __device__ __forceinline__ Sequence(const Stream& s, int q) {
+    const int t = s.at(q), b1 = s.at(q + 1);
+    const bool lext = t >= 0xF0, mext = (t & 15) == 15;
+    lit = lext ? 15 + b1 : t >> 4;
+    from = q + 1 + lext;
+    off_at = from + lit;
+    const int b2 = s.at(off_at + 2);
+    ml = (t & 15) + MIN_MATCH + (mext ? b2 : 0);
+    end = off_at + 2 + mext;
+    long_ext = (lext && b1 == 255) || (mext && b2 == 255);
+  }
+};
+
+// Table t's entry for place p (t holds places 4 * lane .. 4 * lane + 3, a
+// byte each), by every lane at its own p; a place past WIN is its own.
+__device__ __forceinline__ int hop(unsigned t, int p) {
+  const unsigned w = __shfl_sync(FULL, t, (p >> 2) & 31);
+  return p < WIN ? (w >> (8 * (p & 3))) & 255 : p;
+}
+
+// What a walk of a row's stream sums (the first) or where it writes (the
+// second): the column entries and literal bytes so far, the block's
+// length, and the faults of the first walk.
+struct Walk {
+  long long entries, lits, orig;
+  bool over, bad;
+};
+
+// One walk of the stream s (n bytes).  WRITE: the second walk, which puts
+// each entry in the columns of a row of nseq entries at dst and each
+// literal at dst + base + the literals before it.
+template <bool WRITE>
+__device__ __forceinline__ Walk walk(Stream& s, bool split, uint8_t* dst,
+                                     long long nseq, long long base) {
+  const int lane = threadIdx.x;
+  const int n = s.n;
+  Walk k{0, 0, 0, false, false};
+  s.start();
+  int i = 0;
+  while (i < n) {
+    // a batch: the sequences from i whose bytes lie in the stream and the
+    // first END_MAX ready places, with at most one byte a length
+    // extension.  jump: for each of this lane's 4 places, the place after
+    // a sequence starting there, or the place itself where the batch
+    // cannot take one
+    s.need(min(i + 2 * END_MAX, n - 1));
+    const int lim = min(min(n, s.end()) - i, END_MAX);
+    unsigned jump = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int q = 4 * lane + r;
+      const Sequence sq(s, i + q);
+      const int e = sq.end - i;
+      jump |= static_cast<unsigned>(e <= lim && !sq.long_ext ? e : q)
+              << (8 * r);
+    }
+    // the k-th start from place 0 in lane k, by jumps of 1, 2, 4, 8 and
+    // 16 sequences (each table the one before it taken twice)
+    unsigned jumps[5];
+    jumps[0] = jump;
+#pragma unroll
+    for (int l = 1; l < 5; ++l) {
+      jumps[l] = 0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        jumps[l] |= static_cast<unsigned>(hop(
+                        jumps[l - 1], (jumps[l - 1] >> (8 * r)) & 255))
+                    << (8 * r);
+    }
+    int pos = 0;
+#pragma unroll
+    for (int l = 0; l < 5; ++l) {
+      const int p = hop(jumps[l], pos);
+      if ((lane >> l) & 1) pos = p;
+    }
+    const int next = hop(jump, pos);
+    const int count =
+        __popc(__ballot_sync(FULL, pos < WIN && next != pos));
+    // where the batch ends: the next start, or the sequence to parse
+    // alone (stopped)
+    const int p = count < 32 ? __shfl_sync(FULL, pos, count & 31)
+                             : __shfl_sync(FULL, next, 31);
+    const bool stopped = count < 32 && p < WIN;
+    int lit = 0, ml = 0, from = 0, off = 0;
+    if (lane < count) {
+      const Sequence sq(s, i + pos);
+      lit = sq.lit;
+      ml = sq.ml;
+      from = sq.from;
+      off = s.at(sq.off_at) | (s.at(sq.off_at + 1) << 8);
+    }
+    // the literals before each sequence's, by a scan
+    int incl = lit;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += u;
+    }
+    const int batch_lits = __shfl_sync(FULL, incl, 31);
+    if (WRITE) {
+      // the batch's column entries, 32 of each column at once
+      if (lane < count) {
+        uint8_t* col = dst + HDR + 2 * (k.entries + lane);
+        put_u16(col, lit);
+        put_u16(col + 2 * nseq, ml);
+        put_u16(col + 4 * nseq, off);
+      }
+      // its literals, a lane a byte: byte b belongs to the sequence of the
+      // lanes whose literals end at or before it
+      for (int b0 = 0; b0 < batch_lits; b0 += 32) {
+        const int b = b0 + lane;
+        int j = 0;
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (__shfl_sync(FULL, incl, j + step - 1) <= b) j += step;
+        const int at = __shfl_sync(FULL, from - (incl - lit), j) + b;
+        if (b < batch_lits)
+          dst[base + k.lits + b] = static_cast<uint8_t>(s.at(at));
+      }
+    } else {
+      k.orig += __reduce_add_sync(FULL, static_cast<unsigned>(lit + ml));
+    }
+    k.entries += count;
+    k.lits += batch_lits;
+    i += p;
+    if (!stopped || i >= n) continue;
+    // the sequence at i, parsed alone: the stream's last (literals only),
+    // or one the batch does not take.  Reads past the stream give 0.
+    const int token = s.byte(i++);
+    long long run = token >> 4;
+    if (run == 15) {
+      int b;
+      do {
+        b = s.byte(i++);
+        run += b;
+      } while (b == 255 && i < n);
+    }
+    const int lit_src = i;
+    if (WRITE) {
+      // the literals, from the ready tiles, a tile's worth at a time
+      for (long long left = run; left > 0;) {
+        s.need(i);
+        const int part = static_cast<int>(min(left, static_cast<long long>(
+                                                        s.end() - i)));
+        for (int q = lane; q < part; q += 32)
+          dst[base + k.lits + (i - lit_src) + q] =
+              static_cast<uint8_t>(s.at(i + q));
+        i += part;
+        left -= part;
+      }
+    } else {
+      i = static_cast<int>(min(lit_src + run, static_cast<long long>(n)));
+      k.bad |= lit_src + run > n;
+    }
+    long long mlen = 0;
+    int offset = 0;
+    const bool last = i >= n;
+    if (!last) {
+      offset = s.byte(i) | (s.byte(i + 1) << 8);
+      i += 2;
+      mlen = (token & 15) + MIN_MATCH;
+      if ((token & 15) == 15) {
+        int b;
+        do {
+          b = s.byte(i++);
+          mlen += b;
+        } while (b == 255 && i < n);
+      }
+    }
+    const int xl = extra_pieces(run, split);
+    const int xm = extra_pieces(mlen, split);
+    if (WRITE) {
+      // a lane an entry of the sequence's pieces
+      for (int j = lane; j <= xl + xm; j += 32) {
+        const int mp = j - xl;   // the entry's match piece, from 0
+        const int ll = j < xl ? U16 : mp == 0 ? run - U16 * xl : 0;
+        const int m = mp < 0 ? 0 : mp < xm ? U16 : mlen - U16 * xm;
+        uint8_t* col = dst + HDR + 2 * (k.entries + j);
+        put_u16(col, ll);
+        put_u16(col + 2 * nseq, m);
+        put_u16(col + 4 * nseq, m > 0 ? offset : 0);
+      }
+    } else {
+      k.over |= run > U16 || mlen > U16;
+      k.orig += run + mlen;
+    }
+    k.entries += 1 + xl + xm;
+    k.lits += run;
+    if (last) break;
+  }
+  return k;
 }
 
 __global__ void __launch_bounds__(32)
@@ -114,56 +373,28 @@ lz4p_pack_kernel(const uint8_t* __restrict__ comp,
                  int32_t* __restrict__ olens, bool split) {
   const int lane = threadIdx.x;
   const int row = blockIdx.x;
-  const uint8_t* s = comp + static_cast<size_t>(row) * w;
+  const uint8_t* src = comp + static_cast<size_t>(row) * w;
   uint8_t* dst = out + static_cast<size_t>(row) * cap;
-  const int n = min(max(clens[row], 0), w);
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  Stream s{src - skew, skew, min(max(clens[row], 0), w), 0};
   // walk 1: the entries, the literal bytes and the block's length
-  long long nseq = 0, lits = 0, orig = 0;
-  bool over = false, bad = false;
-  for (int i = 0; i < n;) {
-    const Sequence q = read_sequence(s, i, n);
-    nseq += 1 + extra_pieces(q.lit, split) + extra_pieces(q.ml, split);
-    over |= q.lit > U16 || q.ml > U16;
-    bad |= q.lit_src + q.lit > n;
-    lits += q.lit;
-    orig += q.lit + q.ml;
-    i = q.next;
-    if (q.last) break;
-  }
+  const Walk sums = walk<false>(s, split, dst, 0, 0);
+  const long long nseq = sums.entries;
   const long long base = HDR + 6 * nseq;
   // a run the XLA rule cannot write; or, from no encoder of the port,
   // literals past the stream or a row past its capacity
-  if ((over && !split) || bad || base + lits > cap) {
+  if ((sums.over && !split) || sums.bad || base + sums.lits > cap) {
+    cp_wait<0>();
     if (lane == 0) olens[row] = -1;
     return;
   }
   if (lane < 8)
     dst[lane] = static_cast<uint8_t>(
-        ((lane < 4 ? nseq : orig) >> (8 * (lane & 3))) & 0xFF);
-  if (lane == 0) olens[row] = static_cast<int32_t>(base + lits);
-  // walk 2: the column entries, a lane an entry of a sequence's pieces,
-  // and the literals
-  long long e = 0, lo = 0;
-  for (int i = 0; i < n;) {
-    const Sequence q = read_sequence(s, i, n);
-    const int xl = extra_pieces(q.lit, split);
-    const int xm = extra_pieces(q.ml, split);
-    for (int j = lane; j <= xl + xm; j += 32) {
-      const int mp = j - xl;   // the entry's match piece, from 0
-      const int ll = j < xl ? U16 : mp == 0 ? q.lit - U16 * xl : 0;
-      const int ml = mp < 0 ? 0 : mp < xm ? U16 : q.ml - U16 * xm;
-      uint8_t* col = dst + HDR + 2 * (e + j);
-      put_u16(col, ll);
-      put_u16(col + 2 * nseq, ml);
-      put_u16(col + 4 * nseq, ml > 0 ? q.off : 0);
-    }
-    for (int k = lane; k < q.lit; k += 32)
-      dst[base + lo + k] = s[q.lit_src + k];
-    e += 1 + xl + xm;
-    lo += q.lit;
-    i = q.next;
-    if (q.last) break;
-  }
+        ((lane < 4 ? nseq : sums.orig) >> (8 * (lane & 3))) & 0xFF);
+  if (lane == 0) olens[row] = static_cast<int32_t>(base + sums.lits);
+  // walk 2: the column entries and the literals
+  walk<true>(s, split, dst, nseq, base);
+  cp_wait<0>();
 }
 
 // A warp's inclusive prefix sum of v.
