@@ -6,8 +6,9 @@
                                      # bin_decode.cu, mtf.cu, bin_encode.cu,
                                      # dc_decode.cu, lz4_encode.cu,
                                      # lz4_decode.cu, rle.cu, inflate.cu,
-                                     # lz4p.cu, lz4_chain.cu and
-                                     # lz4_dense.cu against DIR's
+                                     # lz4p.cu, deflate_encode.cu's links,
+                                     # lz4_chain.cu and lz4_dense.cu
+                                     # against DIR's
 
 Every container path goes through ``tpuzip_torch.compress`` /
 ``decompress``: the ari codec's chunk-indexed container round trip
@@ -26,7 +27,8 @@ of every codec (tpuzip's device lz4 encoder, csrc/lz4_dense.cu, and
 rle.cu's segment mode), and the TPZC corpus API; lz4 at max_chain > 1
 (tpuzip's chained encoder, csrc/lz4_chain.cu) and the lz4p codec
 (csrc/lz4p.cu, both directions); and the deflate codec (tpuzip's C++
-encoder, csrc/deflate_encode.cu, and the inflate, csrc/inflate.cu).
+encoder, csrc/deflate_encode.cu, and the inflate, csrc/inflate.cu), at
+64 KiB blocks and at 128 KiB (the links' keyed route).
 tpuzip's v1 decoder
 (frequency state, ``ari_decode_indexed(algo="dot")``, the wrapper
 ari_decode_dot_indexed)
@@ -1449,6 +1451,52 @@ def lz4p_garbage(seed: int) -> list:
     return out
 
 
+def lz4p_stream(seqs, lits: bytes) -> bytes:
+    """An lz4p stream of sequences (literal length, match length, offset)
+    and their literals."""
+    ll, ml, off = (np.array([q[c] for q in seqs], "<u2") for c in range(3))
+    orig = int(ll.astype(np.int64).sum() + ml.astype(np.int64).sum())
+    if len(lits) != int(ll.astype(np.int64).sum()):
+        raise ValueError("the literals do not add up")
+    return (struct.pack("<II", len(seqs), orig) + ll.tobytes()
+            + ml.tobytes() + off.tobytes() + lits)
+
+
+def lz4p_serial(stream: bytes) -> bytes:
+    """A valid lz4p stream's bytes, a sequence and a byte at a time."""
+    nseq = struct.unpack_from("<I", stream)[0]
+    ll, ml, off = np.frombuffer(stream, "<u2", 3 * nseq, 8).reshape(3, nseq)
+    lits = memoryview(stream)[8 + 6 * nseq :]
+    out, at = bytearray(), 0
+    for a, m, d in zip(ll.tolist(), ml.tolist(), off.tolist()):
+        out += lits[at : at + a]
+        at += a
+        for _ in range(m):
+            out.append(out[-d])
+    return bytes(out)
+
+
+def lz4p_edge_streams(seed: int) -> list:
+    """[(stream, its bytes)] of lz4p streams no encoder of the paths
+    writes, for the decode's batches: 65,535 literals, then matches
+    65,535 back (a batch of more than the decoder's 16 KiB history, built
+    in device memory, then batches in the history whose sources only
+    device memory holds); matches of offset 1, 2 and 3 under lengths of
+    257 to 20,000 (in the history and past it); a batch whose matches read
+    the matches of the same batch, each starting inside the last one's
+    output; one literal run of 40,000 bytes."""
+    rng = np.random.default_rng(seed)
+    lit = lambda k: rng.integers(0, 256, k, np.uint8).tobytes()  # noqa: E731
+    far = [(65535, 0, 0)] + [(1, 4, 1)] * 31 + [(2, 10, 65535)] * 70
+    over = [(3, 300, 1), (2, 1000, 2), (5, 257, 3), (1, 20000, 3),
+            (4, 9, 4), (0, 600, 2)]
+    chain = [(8, 8, 8)] + [(1, 12, 9 + (k % 5)) for k in range(90)]
+    streams = [lz4p_stream(far, lit(65535 + 31 + 140)),
+               lz4p_stream(over, lit(15)), lz4p_stream(chain, lit(98)),
+               lz4p_stream([(40000, 0, 0)], lit(40000))]
+    return [(st, lz4p_serial(st)) for st in streams]
+
+
 def pack_edge_rows(seed: int):
     """(comp, clens, n) on the card for the pack's batch parse: the LZ4
     streams (lz4_encode.cu at hash_log 16) of 4 text rows of 16 KiB, whose
@@ -1522,9 +1570,9 @@ def lz4p_kernel_check(x, xl, n: int):
     7); the pack also on lz4_garbage()'s 64 streams no encoder writes
     (literals past the stream, columns past the row: length -1 both ways);
     the decoder on every packed row (each decoded back to the LZ4
-    stream's bytes) and on lz4p_garbage(), status and bytes equal to the
-    plain version's.  Returns (the results, each launch's
-    max_abs_err)."""
+    stream's bytes), on lz4p_edge_streams() (each decoded to its bytes)
+    and on lz4p_garbage(), status and bytes equal to the plain version's.
+    Returns (the results, each launch's max_abs_err)."""
     big = torch.from_numpy(unrepeated_row(1 << 16, SEED + 13)[None]).cuda()
     blen = torch.full((1,), 1 << 16, dtype=torch.int32, device="cuda")
     zero = torch.zeros((1, 1 << 18), dtype=torch.uint8, device="cuda")
@@ -1558,6 +1606,21 @@ def lz4p_kernel_check(x, xl, n: int):
     res["lz4_garbage"]["pack_max_abs_err"] = max(
         r["pack_max_abs_err"] for k, r in res["lz4_garbage"].items()
         if k.startswith("split"))
+    edges = lz4p_edge_streams(SEED + 22)
+    e, elens = padded([st for st, _ in edges], max(len(st) for st, _ in edges))
+    got = lz4p_coder.lz4p_decode_batch(e, elens, 1 << 17)
+    ref, plain_ms = timed(lambda: lz4p_coder.lz4p_decode_batch_plain(
+        e, elens, 1 << 17))
+    res["edges"] = {"rows": list(e.shape), "statuses": got[1].tolist(),
+                    "decode_max_abs_err": max(max_err(a, c)
+                                              for a, c in zip(got, ref)),
+                    "decode_ms": cuda_ms(lambda: lz4p_coder.lz4p_decode_batch(
+                        e, elens, 1 << 17), 3), "decode_plain_ms": plain_ms}
+    if got[1].tolist() != [len(raw) for _, raw in edges] or not all(
+            got[0][r, : len(raw)].cpu().numpy().tobytes() == raw
+            for r, (_, raw) in enumerate(edges)):
+        raise AssertionError(f"lz4p.cu did not decode the edge streams to "
+                             f"their bytes: {res['edges']}")
     garbage = lz4p_garbage(SEED + 14)
     g, glens = padded(garbage, max(map(len, garbage)))
     got = lz4p_coder.lz4p_decode_batch(g, glens, 512)
@@ -2048,7 +2111,8 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "lz4_chain_parse": (lz4_chain, "lz4_chain_parse"),
             "lz4p_pack": (lz4p_coder, "lz4p_pack"),
             "lz4p_decode": (lz4p_coder, "lz4p_decode_batch"),
-            "deflate_links": (deflate_coder, "deflate_links"),
+            "deflate_links": (deflate_coder, "deflate_links_keyed"),
+            "deflate_links_shared": (deflate_coder, "deflate_links_shared"),
             "deflate_parse": (deflate_coder, "deflate_parse"),
             "deflate_emit": (deflate_coder, "deflate_emit"),
             "inflate": (deflate_coder, "inflate_batch"),
@@ -3394,8 +3458,11 @@ DEFLATE_PATH_CHAIN = 128         # the deflate path's: tpuzip's default
 DEFLATE_PLAIN_BYTES = 4096       # bytes a row of that path's plain check
 DEFLATE_GAPS = (32767, 32768, 32769)   # repeats at the window's edge
 DEFLATE_FAR = 40 << 10           # bytes of the rows that hold them
-DEFLATE_NAMES = ("deflate_links", "deflate_parse", "deflate_emit",
+# the deflate path's four launches (its 64 KiB rows take the shared links)
+DEFLATE_NAMES = ("deflate_links_shared", "deflate_parse", "deflate_emit",
                  "inflate")
+DEFLATE_WIDE_BLOCK = 1 << 17     # the wide path's blocks: the keyed links
+DEFLATE_WIDE_BYTES = 8 << 20     # its corpus
 
 
 def deflate_far_rows(seed: int):
@@ -3421,6 +3488,10 @@ def deflate_big_rows(seed: int):
     return rows, lens
 
 
+# the smoke's name of each route's links kernel
+LINKS_ROUTE = {"shared": "deflate_links_shared", "keyed": "deflate_links"}
+
+
 def deflate_check(x, xl, chains, modes=(0, 1)) -> dict:
     """deflate_encode.cu's launches on the rows against their plain
     versions, exact: the links, the parse at each max_chain of `chains`
@@ -3430,9 +3501,11 @@ def deflate_check(x, xl, chains, modes=(0, 1)) -> dict:
     dc = deflate_coder
     prev = dc.deflate_links(x, xl)
     pref, links_plain_ms = timed(lambda: dc.deflate_links_plain(x, xl))
-    err = {"deflate_links": max_err(prev, pref), "deflate_parse": 0,
+    route = dc.links_route(x.shape[1])
+    err = {LINKS_ROUTE[route]: max_err(prev, pref), "deflate_parse": 0,
            "deflate_emit": 0, "inflate": 0}
-    rec = {"rows": list(x.shape), "links_plain_ms": links_plain_ms}
+    rec = {"rows": list(x.shape), "links_route": route,
+           "links_plain_ms": links_plain_ms}
     streams = {}
     for mc in chains:
         tok = dc.deflate_parse(x, xl, prev, mc)
@@ -3469,6 +3542,78 @@ def deflate_check(x, xl, chains, modes=(0, 1)) -> dict:
     rec["max_abs_err"] = err
     rec["streams"] = streams
     return rec
+
+
+def deflate_link_rows(seed: int) -> dict:
+    """{name: (rows, lengths, the links' route)} at the links' edges:
+    65,536-byte rows (text, zeros after 16 random bytes, whose last slot
+    takes p + 1 = 65,534, and run_rows()'s), a 65,537-byte row of text
+    (the keyed route), zero rows, b"ab" rows (two hashes: six warps of the
+    shared route's eight idle, no run) and rows of 0-3 bytes."""
+    n = 1 << 16
+    rng = np.random.default_rng(seed)
+    edge = np.zeros((2, n), np.uint8)
+    edge[0] = np.frombuffer(text_corpus(n, seed), np.uint8)
+    edge[1, :16] = rng.integers(1, 256, 16)
+    runs, _ = run_rows(n, seed + 1)
+    wide = np.frombuffer(text_corpus(n + 1, seed + 2), np.uint8)[None]
+    small = 4096
+    rows = {"rows_65536": np.concatenate([edge, runs]),
+            "row_65537": wide, "zero": np.zeros((4, small), np.uint8),
+            "ab": np.tile(np.resize(np.array([97, 98], np.uint8), small),
+                          (4, 1)),
+            "bytes_0_to_3": np.tile(np.array([97, 98, 97, 99], np.uint8),
+                                    (4, 1))}
+    lens = {k: np.full(len(v), v.shape[1], np.int32)
+            for k, v in rows.items()}
+    lens["bytes_0_to_3"] = np.arange(4, dtype=np.int32)
+    return {k: (rows[k], lens[k], deflate_coder.links_route(rows[k].shape[1]))
+            for k in rows}
+
+
+def links_edge_check(seed: int) -> dict:
+    """deflate_encode.cu's links on deflate_link_rows(), each group on the
+    route its shape gives (asserted by the route's launch count), exact
+    against the plain links, then parsed at max_chain 8, emitted as
+    dynamic blocks and inflated back to its rows by the kernels (zlib too
+    on each group's first stream); an empty batch launches nothing."""
+    dc = deflate_coder
+    res, errs = {}, {}
+    for name, (rows_np, lens_np, route) in deflate_link_rows(seed).items():
+        x = torch.from_numpy(rows_np).cuda()
+        xl = torch.from_numpy(lens_np).cuda()
+        kernel = LINKS_ROUTE[route]
+        wrapper = getattr(*WRAPPERS[kernel])
+        before = wrapper.launches
+        prev = dc.deflate_links(x, xl)
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"links of {name}: not on the {route} "
+                                 "route")
+        e = max_err(prev, dc.deflate_links_plain(x, xl))
+        errs[kernel] = max(errs.get(kernel, 0), e)
+        tok, nt = dc.deflate_parse(x, xl, prev, 8)
+        comp, clens = dc.deflate_emit(x, xl, tok, nt, 0)
+        out, st = dc.inflate_batch(comp, clens, x.shape[1])
+        keep = torch.arange(x.shape[1], device="cuda")[None, :] < xl[:, None]
+        back = (torch.equal(st, xl.to(torch.int64))
+                and torch.equal(out, torch.where(keep, x, 0))
+                and zlib.decompress(comp[0, : clens[0]].cpu().numpy()
+                                    .tobytes(), -15)
+                == rows_np[0, : lens_np[0]].tobytes())
+        res[name] = {"rows": list(x.shape), "route": route,
+                     "max_abs_err": e, "round_trip": back,
+                     "links_ms": cuda_ms(lambda: dc.deflate_links(x, xl), 3)}
+        if not back:
+            raise AssertionError(f"links edge rows {name} did not decode "
+                                 "back")
+    x = torch.zeros((0, 1 << 16), dtype=torch.uint8, device="cuda")
+    before = dc.deflate_links_shared.launches
+    if dc.deflate_links(x, torch.zeros(0, dtype=torch.int32, device="cuda")
+                        ).shape != x.shape or \
+            dc.deflate_links_shared.launches != before:
+        raise AssertionError("links of an empty batch")
+    res["max_abs_err"] = errs
+    return res
 
 
 def deflate_garbage(seed: int) -> list:
@@ -3611,7 +3756,8 @@ def deflate_kernel_check(x, xl, n: int):
     128 in the dynamic and fixed modes and stored; on 40 KiB rows whose
     repeats lie 32,767 to 32,769 back (the first two taken, the third not);
     on 128 KiB rows (stored blocks of 65,535 + 65,535 + 2, and rows of
-    65,535 and 65,536 bytes); the decoder also on deflate_garbage(), on
+    65,535 and 65,536 bytes); the links on links_edge_check()'s rows at
+    both routes' edges; the decoder also on deflate_garbage(), on
     the mixed streams at an out_cap under their lengths and on
     inflate_edge_streams() (codes of 12-15 bits, stored blocks after
     Huffman blocks across the staged tiles), each of those decoded to its
@@ -3639,6 +3785,7 @@ def deflate_kernel_check(x, xl, n: int):
     big, blens = (torch.from_numpy(a).cuda()
                   for a in deflate_big_rows(SEED + 19))
     res["big"] = deflate_check(big, blens, (DEFLATE_PATH_CHAIN,))
+    res["links_edges"] = links_edge_check(SEED + 23)
     comp, clens = res["big"]["streams"]["stored"]
     want = [5 * max(1, -(-int(ln) // 65535)) + int(ln) for ln in blens]
     if clens.tolist() != want:
@@ -3676,10 +3823,10 @@ def deflate_kernel_check(x, xl, n: int):
     if got != [len(m) for m in multi]:
         raise AssertionError(f"zlib's multi-block streams decoded to {got}, "
                              f"not {[len(m) for m in multi]}")
-    for rec in (res["mixed"], res["far"], res["big"]):
+    for rec in (res["mixed"], res["far"], res["big"], res["links_edges"]):
         for k, e in rec["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0), e)
-        rec.pop("streams")
+        rec.pop("streams", None)
     emit("kernels", kernel="deflate", **res)
     if any(errs.values()):
         raise AssertionError(f"deflate kernels disagree with their plain "
@@ -3715,7 +3862,8 @@ def deflate_against_plain(calls, rows: list) -> dict:
     (the plain parse and tables take a Python step a token): each kernel
     on the cut equal to the plain version, and the path's own links on the
     cut's causal prefix (below length - 2 a link depends on no later byte)
-    too; inflate.cu on `rows` whole streams of its own launch, the
+    and on every row whole too; inflate.cu on `rows` whole streams of its
+    own launch, the
     kernel's own rows equal too.  Times of each kernel at the path's shape
     and on the cut, of the plain version on the cut; the bound at the
     path's shape."""
@@ -3725,7 +3873,7 @@ def deflate_against_plain(calls, rows: list) -> dict:
             raise AssertionError(f"{name}: {len(calls[name])} launches on "
                                  "the path, expected 1")
     launch = {name: calls[name][0] for name in DEFLATE_NAMES}
-    (largs, _, prev) = launch["deflate_links"]
+    (largs, _, prev) = launch[DEFLATE_NAMES[0]]
     (pargs, _, _) = launch["deflate_parse"]
     (eargs, _, _) = launch["deflate_emit"]
     blocks, lens = largs[:2]
@@ -3734,8 +3882,11 @@ def deflate_against_plain(calls, rows: list) -> dict:
     clen = lens[:8].clamp(max=DEFLATE_PLAIN_BYTES).contiguous()
     pref, links_plain_ms = timed(lambda: dc.deflate_links_plain(cut, clen))
     causal = DEFLATE_PLAIN_BYTES - 2
+    # and the path's own links, every row whole (the plain links are one
+    # sort a row)
     links_err = max(max_err(dc.deflate_links(cut, clen), pref),
-                    max_err(prev[:8, :causal], pref[:, :causal]))
+                    max_err(prev[:8, :causal], pref[:, :causal]),
+                    max_err(prev, dc.deflate_links_plain(blocks, lens)))
     tref, parse_plain_ms = timed(
         lambda: dc.deflate_parse_plain(cut, clen, pref, max_chain))
     parse_err = max(max_err(a, c) for a, c in zip(
@@ -3752,16 +3903,16 @@ def deflate_against_plain(calls, rows: list) -> dict:
     inflate_err = max(max(max_err(a, c) for a, c in zip(
         dc.inflate_batch(*icut), iref)), max(
         max_err(a[pick], c) for a, c in zip(iout, iref)))
-    errs = {"deflate_links": links_err, "deflate_parse": parse_err,
+    errs = {DEFLATE_NAMES[0]: links_err, "deflate_parse": parse_err,
             "deflate_emit": emit_err, "inflate": inflate_err}
     if any(errs.values()):
         raise AssertionError(f"deflate kernels disagree with their plain "
                              f"versions on the path's inputs: {errs}")
     plain = {"plain_inputs": list(cut.shape), "plain_rows": list(range(8))}
-    cut_args = {"deflate_links": (cut, clen),
+    cut_args = {DEFLATE_NAMES[0]: (cut, clen),
                 "deflate_parse": (cut, clen, pref, max_chain),
                 "deflate_emit": (cut, clen, *tref, mode), "inflate": icut}
-    plain_ms = {"deflate_links": links_plain_ms,
+    plain_ms = {DEFLATE_NAMES[0]: links_plain_ms,
                 "deflate_parse": parse_plain_ms,
                 "deflate_emit": emit_plain_ms, "inflate": inflate_plain_ms}
     res = {}
@@ -3780,12 +3931,52 @@ def deflate_against_plain(calls, rows: list) -> dict:
     return res
 
 
+def deflate_wide(data: bytes):
+    """The deflate path at DEFLATE_WIDE_BLOCK blocks (tpuzip's block_size
+    knob past 64 KiB): compress and decompress of `data`, the bytes back,
+    its four launches run, its links on the keyed route; the links held
+    exact against their plain version on every row whole and on the path's
+    first 8 rows cut to DEFLATE_PLAIN_BYTES (the keyed kernel called
+    there directly) -> (the path's launch counts, the keyed links' row:
+    times at the path's shape and on the cut, the bound)."""
+    dc = deflate_coder
+    with counted_run() as (calls, counts):
+        blob = tpuzip_torch.compress(data, codec="deflate",
+                                     block_size=DEFLATE_WIDE_BLOCK)
+        back = tpuzip_torch.decompress(blob)
+    need(counts, {"deflate_links": 1, "deflate_parse": 1, "deflate_emit": 1,
+                  "inflate": 1}, "deflate wide")
+    if back != data or counts["deflate_links_shared"]:
+        raise AssertionError(f"deflate at {DEFLATE_WIDE_BLOCK}-byte blocks: "
+                             f"round trip {back == data}, {counts}")
+    (args, kw, prev), = calls["deflate_links"]
+    calls.clear()
+    blocks, lens = args[:2]
+    cut = blocks[:8, :DEFLATE_PLAIN_BYTES].contiguous()
+    clen = lens[:8].clamp(max=DEFLATE_PLAIN_BYTES).contiguous()
+    pref, plain_ms = timed(lambda: dc.deflate_links_plain(cut, clen))
+    err = max(max_err(dc.deflate_links_keyed(cut, clen), pref),
+              max_err(prev, dc.deflate_links_plain(blocks, lens)))
+    if err:
+        raise AssertionError(f"the keyed links disagree with their plain "
+                             f"version at the wide path: {err}")
+    return counts, {
+        "inputs": [list(a.shape) for a in args if torch.is_tensor(a)],
+        "route": dc.links_route(blocks.shape[1]), "max_abs_err": err,
+        "plain_inputs": list(cut.shape), "plain_rows": list(range(8)),
+        "ms": cuda_ms(lambda: dc.deflate_links_keyed(blocks, lens), 3),
+        "ms_at_plain_inputs": cuda_ms(
+            lambda: dc.deflate_links_keyed(cut, clen), 3),
+        "plain_ms": plain_ms, **deflate_bound("deflate_links", args, prev)}
+
+
 def phase_deflate(smi: str):
     """Phase 17: the deflate codec (tpuzip's C++ encoder, dynamic blocks at
     max_chain DEFLATE_PATH_CHAIN, tpuzip's defaults): compress and
     decompress of the 64 MiB corpus at 64 KiB blocks, then
-    decompress(to_device=True).  The bytes round-trip both ways; the four
-    launches run (deflate_encode.cu's links, parse and tables+emit, and
+    decompress(to_device=True), then the wide path (deflate_wide: 8 MiB
+    at 128 KiB blocks, the keyed links).  The bytes round-trip both ways;
+    the four launches run (deflate_encode.cu's links, parse and tables+emit, and
     inflate.cu); 8 blocks' streams inflate by zlib to the blocks; each
     launch held against its plain version (deflate_against_plain); MB/s,
     ratio, peak memory and a device trace of each direction in a fresh
@@ -3818,6 +4009,7 @@ def phase_deflate(smi: str):
         peak_dev = torch.cuda.max_memory_allocated()
     calls.clear()
     need(dev_counts, {"inflate": 1}, "deflate to_device")
+    wide_counts, wide_links = deflate_wide(data[:DEFLATE_WIDE_BYTES])
     x = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(-1, BLOCK)
     if not (torch.equal(out.cpu(), x) and orig == len(data)
             and list(olens) == lens_np.tolist()):
@@ -3836,8 +4028,10 @@ def phase_deflate(smi: str):
                             "decode_to_device": peak_dev},
          to_device={"launches": dev_counts,
                     "decode_mb_s": len(data) / 1e6 / t_dev},
+         wide={"launches": wide_counts, "deflate_links": wide_links},
          kernels=kernels, trace=trace_in_child("deflate"), card=smi)
-    return counts, dev_counts, kernels
+    return counts, dev_counts, wide_counts, {**kernels,
+                                             "deflate_links": wide_links}
 
 
 TRACED = {"bwtdc": (("ari_encode_kernel",),
@@ -3857,7 +4051,8 @@ TRACED = {"bwtdc": (("ari_encode_kernel",),
           "lz4_chain": (("lz4_chain_links_shared_kernel",
                          "lz4_chain_best_kernel", "lz4_chain_parse_kernel"),
                         ("lz4_decode_kernel",)),
-          "deflate": (("deflate_links_kernel", "deflate_parse_kernel",
+          "deflate": (("deflate_links_shared_kernel",
+                       "deflate_parse_kernel",
                        "deflate_tables_kernel", "deflate_emit_kernel"),
                       ("inflate_kernel",))}
 
@@ -3948,9 +4143,11 @@ def ab_inputs(wanted) -> dict:
     bwtdc path's decompress.  And for the dot row (ari_decode.cu through
     the dot route): the ari path's decode launch and the decode of phase
     5's A/B mix.  lz4_encode / lz4_decode and rle_encode / rle_decode at
-    the lz4 and rle paths; inflate_batch at the deflate path's
-    decompress and on phase 3's inflate_edge_streams() and
-    deflate_garbage(); lz4p_pack at the lz4p path's compress (runs split),
+    the lz4 and rle paths; deflate_links at the deflate path's compress
+    (its shared route), on as many zero, b"ab" and random rows and on
+    the wide path's 128 KiB rows (the keyed route);
+    inflate_batch at the deflate path's decompress and on phase 3's
+    inflate_edge_streams() and deflate_garbage(); lz4p_pack at the lz4p path's compress (runs split),
     at its serving path's compress_from_device (unsplit) and on phase 3's
     pack_edge_rows() both ways, lz4p_decode_batch at the lz4p path's
     decompress.  A path none of whose kernels is wanted is not run."""
@@ -4010,8 +4207,27 @@ def ab_inputs(wanted) -> dict:
                 raise AssertionError(f"{codec} did not round-trip")
         keep(f"{codec}_encode", codec, enc)
         keep(f"{codec}_decode", codec, dec)
+    if set(wanted) & {"inflate", "deflate_links"}:
+        with recorded(deflate_coder, "deflate_links_shared") as links:
+            blob = tpuzip_torch.compress(data, codec="deflate")
+        keep("deflate_links", "deflate", links)
+        x, lens = out["deflate_links"]["deflate"][0]
+        rng = np.random.default_rng(SEED + 22)
+        for name, rows in (
+                ("zero", torch.zeros_like(x)),
+                ("ab", torch.tensor([97, 98], dtype=torch.uint8,
+                                    device="cuda").repeat(
+                                        x.numel() // 2).view(x.shape)),
+                ("random", torch.from_numpy(rng.integers(
+                    0, 256, tuple(x.shape), np.uint8)).cuda())):
+            out["deflate_links"][f"deflate_{name}"] = ((rows, lens), {})
+        wide = torch.frombuffer(bytearray(data[:DEFLATE_WIDE_BYTES]),
+                                dtype=torch.uint8).view(
+                                    -1, DEFLATE_WIDE_BLOCK).cuda()
+        out["deflate_links"]["deflate_wide"] = (
+            (wide, torch.full((wide.shape[0],), DEFLATE_WIDE_BLOCK,
+                              dtype=torch.int32, device="cuda")), {})
     if "inflate" in wanted:
-        blob = tpuzip_torch.compress(data, codec="deflate")
         with recorded(deflate_coder, "inflate_batch") as dec:
             if tpuzip_torch.decompress(blob) != data:
                 raise AssertionError("deflate did not round-trip")
@@ -4052,17 +4268,21 @@ def ab_inputs(wanted) -> dict:
 
 AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
               "dc_decode", "lz4_encode", "lz4_decode", "rle_encode",
-              "rle_decode", "inflate", "lz4p_pack", "lz4p_decode")
+              "rle_decode", "inflate", "lz4p_pack", "lz4p_decode",
+              "deflate_links")
 AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle",   # else the name
-             "lz4p_pack": "lz4p", "lz4p_decode": "lz4p"}
+             "lz4p_pack": "lz4p", "lz4p_decode": "lz4p",
+             "deflate_links": "deflate_encode"}
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
-AB_REDESIGNED = ("inflate", "lz4p_pack")
+AB_REDESIGNED = ("lz4p_decode", "deflate_links")
 # sources whose SASS --ab compares and does not time (no launch of theirs
-# is recorded for it)
+# is recorded for it): deflate_encode.cu's best, parse, tables, emit and
+# stored kernels, and its keyed links, all of the DIR's functions
 AB_SASS_ONLY = ("deflate_encode",)
 # sources whose encoders --ab times against a DIR's at their paths' shapes
-# (ab_lz4): the chained lz4 encoder's launches and the dense one's
+# (ab_lz4), and whose SASS it holds to the DIR's: the chained lz4
+# encoder's launches and the dense one's
 AB_LZ4_SOURCES = ("lz4_chain", "lz4_dense")
 
 
@@ -4259,6 +4479,41 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
         else:
             r = int(lens.argmax())
             steps = inflate_symbols(rows[r, : lens[r]].tobytes())
+    elif kernel == "deflate_links":
+        blocks, lens = args[:2]
+        b, n = blocks.shape
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        slog = deflate_coder.slots_log(n)
+        ntab = deflate_coder.table_count(b, n)
+
+        def make(lib):
+            if (hasattr(lib, "tpz_deflate_links_shared")
+                    and deflate_coder.links_route(n) == "shared"):
+                fn = lib.tpz_deflate_links_shared
+                fn.argtypes = [vp, vp, ci, ci, vp, vp]
+                fn.restype = ci
+            else:
+                fn = lib.tpz_deflate_links
+                fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, vp]
+                fn.restype = ci
+            # the keyed route's tables, alive as long as the closure
+            tables = torch.empty(
+                0 if hasattr(lib, "tpz_deflate_links_shared")
+                and deflate_coder.links_route(n) == "shared"
+                else ntab * (deflate_coder.KEY_SLOT << slog) // 4,
+                dtype=torch.int32, device="cuda")
+
+            def run():
+                prev = torch.empty((b, n), dtype=torch.int32, device="cuda")
+                tail = (tables.data_ptr(), ntab, slog) if tables.numel() \
+                    else ()
+                _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                                prev.data_ptr(), *tail, stream()),
+                             "tpz_deflate_links")
+                return (prev,)
+            return run
+        # the longest row's positions
+        steps = int(lens.max())
     elif kernel == "lz4p_pack":
         comp, clens, n = args[:3]
         split = kw.get("split", args[3] if len(args) > 3 else True)
@@ -4525,7 +4780,8 @@ def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
     csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu,
     dc_decode.cu, lz4_encode.cu, lz4_decode.cu, rle.cu, inflate.cu,
-    lz4p.cu, lz4_chain.cu and lz4_dense.cu against the same files in each
+    lz4p.cu, deflate_encode.cu's links, lz4_chain.cu and lz4_dense.cu
+    against the same files in each
     DIR (beside the headers they include), for instance a parent commit's:
 
         mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
@@ -4539,7 +4795,9 @@ def ab_child(dirs: list) -> int:
     path; the lz4 and rle kernels at their paths; inflate at the deflate
     path and on phase 3's edge and garbage streams; lz4p's pack at the
     lz4p and lz4p serving paths and on phase 3's pack edge rows, its
-    decode at the lz4p path; a kernel whose source no DIR holds gets a
+    decode at the lz4p path; deflate_encode.cu's links at the deflate
+    path and on as many zero, b"ab" and random rows (a DIR's keyed links
+    against the checkout's route); a kernel whose source no DIR holds gets a
     line that says so and no row, and the paths of no other kernel are
     not run), checks that every build gives the same outputs there
     (streams, lengths and chunk index; symbols; bits; run triples and
@@ -4557,10 +4815,13 @@ def ab_child(dirs: list) -> int:
     build; the chained and dense lz4 encoders at their paths' shapes
     (ab_lz4); and whether the SASS of each kernel of
     AB_KERNELS that this checkout does not redesign (all but
-    AB_REDESIGNED), and of each source of AB_SASS_ONLY, equals the DIR's
-    build of it: the functions that carry the kernel's name (all of
-    the source where none does, as in mtf.cu), so that rle_decode is held
-    apart from rle_encode in rle.cu.  One JSON line a kernel and shape,
+    AB_REDESIGNED), and of each source of AB_SASS_ONLY and AB_LZ4_SOURCES,
+    equals the DIR's build of it: the functions that carry the kernel's
+    name (all of the source where none does, as in mtf.cu, less the
+    functions of the A/B kernels timed from it, as deflate_encode.cu's
+    links), so that rle_decode is held apart from rle_encode in rle.cu;
+    and, to be read, whether each of a redesigned kernel's old functions
+    is still among the checkout's (sass_kept_in_redesigned).  One JSON line a kernel and shape,
     then one line of the whole; exits 1 if any outputs differed."""
     if not dirs:
         raise SystemExit("chip_smoke.py --ab needs a directory")
@@ -4595,9 +4856,14 @@ def ab_child(dirs: list) -> int:
         # the unnamed namespace's mangled name (it hashes the source's path)
         def sass(name):
             funcs = sass_functions(nvcc, so[name])
-            own = f"{name.split(':')[1]}_kernel"
+            kernel = name.split(":")[1]
+            own = f"{kernel}_kernel"
+            # a source whose functions do not carry its name: all of them
+            # but those of the A/B kernels timed from it (deflate_encode.cu's
+            # links, both routes)
+            timed = [k for k, src in AB_SOURCE.items() if src == kernel]
             return sorted(v for f, v in funcs.items() if own in f) or sorted(
-                funcs.values())
+                v for f, v in funcs.items() if not any(k in f for k in timed))
 
         # each of the DIR's functions found in the checkout's build (a
         # kernel the checkout turned into a template, as rle_encode_kernel,
@@ -4613,8 +4879,16 @@ def ab_child(dirs: list) -> int:
         res["sass_unchanged"] = {
             name: kept(sass(name), sass("new:" + name.split(":")[1]))
             for name in jobs if not name.startswith("new")
-            and name.split(":")[1] in AB_KERNELS + AB_SASS_ONLY
+            and name.split(":")[1] in (AB_KERNELS + AB_SASS_ONLY
+                                       + AB_LZ4_SOURCES)
             and name.split(":")[1] not in AB_REDESIGNED}
+        # and, to be read and not required, whether each of the DIR's
+        # functions of a redesigned kernel is still among the checkout's
+        # (the keyed links beside the new shared ones)
+        res["sass_kept_in_redesigned"] = {
+            name: kept(sass(name), sass("new:" + name.split(":")[1]))
+            for name in jobs if not name.startswith("new")
+            and name.split(":")[1] in AB_REDESIGNED}
         libs = {}
         for name in jobs:
             build, kernel = name.split(":")
@@ -4728,8 +5002,8 @@ def main() -> int:
     chain_launches, chain_kernels = phase_lz4_chain(smi, lz4_payload)
     (lz4p_launches, lz4p_serve_launches, lz4p_kernels,
      lz4p_serve_kernels) = phase_lz4p(smi)
-    deflate_launches, deflate_dev_launches, deflate_kernels = \
-        phase_deflate(smi)
+    (deflate_launches, deflate_dev_launches, deflate_wide_launches,
+     deflate_kernels) = phase_deflate(smi)
     if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
                                    for m in sys.modules):
         raise AssertionError("the port's path imported jax or tpuzip")
@@ -4744,7 +5018,8 @@ def main() -> int:
                "corpus": corpus_launches, "lz4_chain": chain_launches,
                "lz4p": lz4p_launches, "lz4p_serving": lz4p_serve_launches,
                "deflate": deflate_launches,
-               "deflate_to_device": deflate_dev_launches}
+               "deflate_to_device": deflate_dev_launches,
+               "deflate_wide": deflate_wide_launches}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
@@ -4752,7 +5027,8 @@ def main() -> int:
     # the dense lz4 words and rle segment kernels at the serving path's, the
     # dense lz4 candidates and parse at device_encode's at hash_log 20, the
     # chained lz4 kernels at the lz4_chain path's, lz4p's at its compress
-    # path's, deflate's at its path's; the error over every phase
+    # path's, deflate's at its path's (the keyed links at the wide path's
+    # 128 KiB rows); the error over every phase
     dot_kernels = {"ari_decode_dot": dot_kernel}
     at_shape = {**bwt_kernels, **ari_kernels,
                 "dc_decode": dc_kernels["dc_decode"], **bin_kernels,
@@ -4817,6 +5093,8 @@ def main() -> int:
              "tpuzip/codecs/lz4p.py:156 decode"),
             # tpuzip's deflate coder (host C++)
             ("deflate_links", "deflate_encode.cu",
+             "csrc/tpuzip_host.cpp:1338 tpz_deflate (its hash chain)"),
+            ("deflate_links_shared", "deflate_encode.cu",
              "csrc/tpuzip_host.cpp:1338 tpz_deflate (its hash chain)"),
             ("deflate_parse", "deflate_encode.cu",
              "csrc/tpuzip_host.cpp:1356 tpz_deflate (its lazy parse)"),

@@ -1,4 +1,4 @@
-// step_clocks.cu — clock64-stamped copies of eleven kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of thirteen kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
 // apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
 // (csrc/bin_encode.cu, one thread a stream), the DC walk's
@@ -8,11 +8,14 @@
 // decoder's (csrc/rle.cu, one thread a row), the chained lz4 parse's
 // (csrc/lz4_chain.cu, a window of 32 chain walks), the dense lz4
 // candidates step (csrc/lz4_dense.cu, a table in device memory), the
-// deflate decoder's (csrc/inflate.cu, lane 0 decoding a symbol at a time)
-// and lz4p's pack (csrc/lz4p.cu, two walks a sequence at a time);
-// and the redesigned ari encoder, DC walk, lz4 step and lz4 decoder,
-// built from their own sources, the encoder stamped by warp, the others by
-// part.  One stream each (one warp, one thread; the lz4 and rle copies
+// deflate decoder's (csrc/inflate.cu, lane 0 decoding a symbol at a time),
+// lz4p's pack (csrc/lz4p.cu, two walks a sequence at a time), lz4p's
+// decode (csrc/lz4p.cu, a sequence at a time after a pass of prefix sums)
+// and the deflate links (csrc/deflate_encode.cu, a keyed table in device
+// memory);
+// and the redesigned ari encoder, DC walk, lz4 step, lz4 decoder,
+// deflate decoder and lz4p decode, built from their own sources, the
+// encoder stamped by warp, the others by part.  One stream each (one warp, one thread; the lz4 and rle copies
 // stamp row 0 of B).  Each part of a
 // step is stamped after its
 // result is ready (the stamp waits on it), and its cycles are summed over
@@ -87,6 +90,10 @@ namespace lz4d {
 namespace infl {
 #include "../tpuzip_torch/csrc/inflate.cu"
 }  // namespace infl
+
+namespace lz4pn {
+#include "../tpuzip_torch/csrc/lz4p.cu"
+}  // namespace lz4pn
 
 // clock64 once `dep` is ready: the setp waits on it, the mov after it.
 __device__ __forceinline__ long long stamp(uint32_t dep) {
@@ -2221,6 +2228,428 @@ inflate_new_clocks(const uint8_t* streams, const int32_t* lens, int w,
   }
 }
 
+// lz4p's decode as it stood before its redesign (csrc/lz4p.cu: a warp a
+// row, a first pass checking every sequence's faults 32 at once by prefix
+// sums, then a second copying each sequence's literals and its match in
+// order, 32 bytes a step, five shuffles and two __syncwarp a sequence),
+// B rows at once.  Block 0's cycles by part: 0 pass 1, 1 pass 2's column
+// entries and their scans, 2 the five shuffles of a sequence, 3 its
+// literals, 4 its match, 5 the two __syncwarp, 6 the zeros after the
+// output; cycles[7] the whole row, [8] its sequences, [9] its literal
+// bytes, [10] its match bytes.
+namespace lz4p_old {
+
+using lz4_old::FULL;
+constexpr int HDR = 8;
+
+__device__ __forceinline__ long long warp_scan(long long v, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long u = __shfl_up_sync(FULL, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+struct Entry {
+  long long o, lp;
+  int ll, ml, off;
+};
+
+__device__ __forceinline__ Entry column_entry(const uint8_t* s, long long S,
+                                              long long t0, int lane,
+                                              long long& o_carry,
+                                              long long& lp_carry) {
+  Entry q;
+  const long long t = t0 + lane;
+  q.ll = q.ml = q.off = 0;
+  if (t < S) {
+    const uint8_t* c = s + HDR + 2 * t;
+    q.ll = c[0] | (c[1] << 8);
+    q.ml = c[2 * S] | (c[2 * S + 1] << 8);
+    q.off = c[4 * S] | (c[4 * S + 1] << 8);
+  }
+  const long long size = warp_scan(q.ll + q.ml, lane);
+  const long long lit = warp_scan(q.ll, lane);
+  q.o = o_carry + size - (q.ll + q.ml);
+  q.lp = lp_carry + lit - q.ll;
+  o_carry += __shfl_sync(FULL, size, 31);
+  lp_carry += __shfl_sync(FULL, lit, 31);
+  return q;
+}
+
+}  // namespace lz4p_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+lz4p_decode_clocks(const uint8_t* comp, const int32_t* clens, int w,
+                   uint8_t* out, int out_cap, int64_t* status,
+                   long long* cycles) {
+  using namespace lz4p_old;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* s = comp + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * out_cap;
+  const int n = min(max(clens[row], 0), w);
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  long long S = 0, orig = 0, st;
+  if (n == 0) {
+    st = 0;
+  } else if (n < HDR) {
+    st = -1;
+  } else {
+    S = s[0] | (s[1] << 8) | (s[2] << 16) | (static_cast<uint32_t>(s[3])
+                                             << 24);
+    orig = s[4] | (s[5] << 8) | (s[6] << 16) | (static_cast<uint32_t>(s[7])
+                                                << 24);
+    st = orig > out_cap || HDR + 6 * S > n ? -1 : orig;
+  }
+  const long long base = HDR + 6 * S;
+  long long o_carry = 0, lp_carry = 0;
+  for (long long b0 = 0; st > 0 && b0 < S; b0 += 32) {
+    const Entry q = column_entry(s, S, b0, lane, o_carry, lp_carry);
+    const long long ms = q.o + q.ll;
+    const bool fault = b0 + lane < S &&
+                       (base + q.lp + q.ll > n || ms > orig ||
+                        (q.ml > 0 && (q.off == 0 || q.off > ms ||
+                                      ms + q.ml > orig)));
+    if (__ballot_sync(FULL, fault)) st = -1;
+  }
+  if (st > 0 && o_carry != orig) st = -1;
+  if (lane == 0) status[row] = st;
+  const long long end = st > 0 ? st : 0;
+  k.lap(0, static_cast<uint32_t>(end));
+  long long lit_bytes = 0, match_bytes = 0;
+  o_carry = lp_carry = 0;
+  for (long long b0 = 0; end > 0 && b0 < S; b0 += 32) {
+    const Entry q = column_entry(s, S, b0, lane, o_carry, lp_carry);
+    k.lap(1, static_cast<uint32_t>(q.o ^ q.lp));
+    const int count = static_cast<int>(min(S - b0, 32LL));
+    for (int j = 0; j < count; ++j) {
+      const long long o = __shfl_sync(FULL, q.o, j);
+      const long long lp = __shfl_sync(FULL, q.lp, j);
+      const int ll = __shfl_sync(FULL, q.ll, j);
+      const int ml = __shfl_sync(FULL, q.ml, j);
+      const int off = __shfl_sync(FULL, q.off, j);
+      k.lap(2, static_cast<uint32_t>(o ^ lp ^ ll ^ ml ^ off));
+      uint32_t v = 0;
+      for (int c = lane; c < ll; c += 32) {
+        const uint8_t b = s[base + lp + c];
+        dst[o + c] = b;
+        v ^= b;
+      }
+      k.lap(3, v);
+      __syncwarp();   // the literals before a match that reads them
+      k.lap(5, 0);
+      const long long ms = o + ll;
+      for (int c = lane; c < ml; c += 32) {
+        const uint8_t b = dst[ms - off + (c < off ? c : c % off)];
+        dst[ms + c] = b;
+        v ^= b;
+      }
+      k.lap(4, v);
+      __syncwarp();   // this match before the next sequence's reads
+      k.lap(5, 0);
+      lit_bytes += ll;
+      match_bytes += ml;
+    }
+  }
+  for (long long p = end + lane; p < out_cap; p += 32) dst[p] = 0;
+  k.lap(6, 0);
+  const long long t1 = stamp(static_cast<uint32_t>(end));
+  if (lane == 0 && row == 0) {
+    for (int p = 0; p < 7; ++p) cycles[p] = k.sum[p];
+    cycles[7] = t1 - t0;
+    cycles[8] = S;
+    cycles[9] = lit_bytes;
+    cycles[10] = match_bytes;
+  }
+}
+
+// The deflate links as they stood before their redesign
+// (csrc/deflate_encode.cu: a warp a row, 32 positions a step, the lanes of
+// one 3-byte hash grouped by __match_any_sync, a keyed table of 8-byte
+// slots in device memory), ntab tables and warps walking B rows.  Block
+// 0's row 0 cycles by part: 0 the 3 bytes and the hash, 1 the ballot and
+// __match_any_sync, 2 keyed_find (or the group's earlier lane), 3 the
+// first __syncwarp and keyed_put, 4 the prev store and the second
+// __syncwarp, 5 the table's reset, 6 the -1 past the limit; cycles[7] the
+// whole row, [8] its steps, [9] the keyed slots read past each lane's
+// first (probe lengths over the lanes of row 0).
+namespace links_old {
+
+using lz4_old::FULL;
+using lz4_old::HASH_MUL;
+constexpr int HASH_BITS = 15;
+constexpr uint32_t SLOT_MUL = 0x9E3779B1u;
+constexpr unsigned long long EMPTY = ~0ull;
+
+__device__ __forceinline__ uint32_t keyed_slot(uint32_t h, uint32_t salt,
+                                               int slots_log) {
+  return ((h ^ salt) * SLOT_MUL) >> (32 - slots_log);
+}
+
+__device__ __forceinline__ int keyed_find(const unsigned long long* t,
+                                          uint32_t h, uint32_t salt,
+                                          int slots_log, int& extra) {
+  const uint32_t mask = (1u << slots_log) - 1;
+  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
+    const unsigned long long v = t[s];
+    if (v == EMPTY) return -1;
+    if (static_cast<uint32_t>(v) == h) return static_cast<int>(v >> 32);
+    ++extra;
+  }
+}
+
+__device__ __forceinline__ void keyed_put(unsigned long long* t, uint32_t h,
+                                          uint32_t salt, int p,
+                                          int slots_log) {
+  const uint32_t mask = (1u << slots_log) - 1;
+  const unsigned long long entry =
+      static_cast<unsigned long long>(static_cast<uint32_t>(p)) << 32 | h;
+  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
+    unsigned long long v = t[s];
+    if (v == EMPTY) {
+      v = atomicCAS(t + s, EMPTY, entry);
+      if (v == EMPTY) return;
+    }
+    if (static_cast<uint32_t>(v) == h) {
+      t[s] = entry;
+      return;
+    }
+  }
+}
+
+}  // namespace links_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+deflate_links_clocks(const uint8_t* blocks, const int32_t* lengths, int B,
+                     int n, int32_t* prev, unsigned long long* tables,
+                     int slots_log, long long* cycles) {
+  using namespace links_old;
+  const int lane = threadIdx.x;
+  const unsigned below = (1u << lane) - 1;
+  const unsigned above = ~((2u << lane) - 1);
+  const size_t words = (size_t{1} << slots_log) / 2;
+  int4* table = reinterpret_cast<int4*>(tables) + blockIdx.x * words;
+  unsigned long long* keyed = reinterpret_cast<unsigned long long*>(table);
+  for (int row = blockIdx.x; row < B; row += gridDim.x) {
+    Clocks<STAMP> k;
+    k.start(0);
+    const long long t0 = k.t;
+    for (size_t q = lane; q < words; q += 32)
+      table[q] = make_int4(-1, -1, -1, -1);
+    __syncwarp();
+    k.lap(5, 0);
+    const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+    int32_t* out = prev + static_cast<size_t>(row) * n;
+    const int len = min(max(lengths[row], 0), n);
+    const int limit = max(len - 2, 0);
+    const uint32_t salt = static_cast<uint32_t>(row) * SLOT_MUL;
+    long long steps = 0;
+    int extra = 0;
+    for (int base = 0; base < limit; base += 32) {
+      ++steps;
+      const int p = base + lane;
+      const bool live = p < limit;
+      const uint32_t v = live ? src[p] | (src[p + 1] << 8) |
+                                    (uint32_t(src[p + 2]) << 16)
+                              : 0u;
+      const uint32_t h = (v * HASH_MUL) >> (32 - HASH_BITS);
+      k.lap(0, h);
+      const unsigned lanes = __ballot_sync(FULL, live);
+      unsigned group = 0;
+      if (live) group = __match_any_sync(lanes, h);
+      k.lap(1, group);
+      const unsigned earlier = group & below;
+      int c = -1;
+      if (live)
+        c = earlier ? base + 31 - __clz(earlier)
+                    : keyed_find(keyed, h, salt, slots_log, extra);
+      k.lap(2, static_cast<uint32_t>(c));
+      __syncwarp();
+      if (live && !(group & above)) keyed_put(keyed, h, salt, p, slots_log);
+      k.lap(3, 0);
+      if (live) out[p] = c;
+      __syncwarp();
+      k.lap(4, 0);
+    }
+    for (int p = limit + lane; p < n; p += 32) out[p] = -1;
+    __syncwarp();
+    k.lap(6, 0);
+    const long long t1 = stamp(static_cast<uint32_t>(steps));
+    const int extra_all = __reduce_add_sync(FULL, extra);
+    if (lane == 0 && row == 0) {
+      for (int q = 0; q < 7; ++q) cycles[q] = k.sum[q];
+      cycles[7] = t1 - t0;
+      cycles[8] = steps;
+      cycles[9] = extra_all;
+    }
+  }
+}
+
+// The redesigned lz4p decode (csrc/lz4p.cu, included above in namespace
+// lz4pn; this kernel body is a copy of its lz4p_decode_kernel: keep the two
+// in step), B rows at once.  Block 0's cycles by part: 0 pass 1, 1 pass
+// 2's column entries, 2 the literals with the first round's matches whose
+// sources lie before the batch, 3 the other matches' rounds, 4 the bytes
+// out of the history, 5 the batches built in device memory (past HIST
+// bytes), 6 the zeros after the output; cycles[7] the whole row, [8] its
+// batches, [9] their match rounds past the first round's early matches,
+// [10] its sequences, [11] its literal bytes, [12] its early matches.
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+lz4p_decode_new_clocks(const uint8_t* __restrict__ comp,
+                       const int32_t* __restrict__ clens, int w,
+                       uint8_t* __restrict__ out, int out_cap,
+                       int64_t* __restrict__ status, long long* cycles) {
+  using namespace lz4pn;
+  __shared__ __align__(16) uint8_t hist[HIST];
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* s = comp + static_cast<size_t>(row) * w;
+  uint8_t* dst = out + static_cast<size_t>(row) * out_cap;
+  const int n = min(max(clens[row], 0), w);
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0c = k.t;
+  long long S = 0, orig = 0, st;
+  if (n == 0) {
+    st = 0;
+  } else if (n < HDR) {
+    st = -1;
+  } else {
+    S = s[0] | (s[1] << 8) | (s[2] << 16) | (static_cast<uint32_t>(s[3])
+                                             << 24);
+    orig = s[4] | (s[5] << 8) | (s[6] << 16) | (static_cast<uint32_t>(s[7])
+                                                << 24);
+    st = orig > out_cap || HDR + 6 * S > n ? -1 : orig;
+  }
+  const long long base = HDR + 6 * S;
+  long long o_carry = 0, lp_carry = 0;
+  Cols next = st > 0 ? load_cols(s, S, lane) : Cols{0, 0, 0};
+  for (long long t0 = 0; st > 0 && t0 < S; t0 += 32) {
+    const Cols cur = next;
+    next = load_cols(s, S, t0 + 32 + lane);
+    const Entry q = column_entry(cur, lane, o_carry, lp_carry);
+    const long long ms = q.o + q.ll;
+    const bool fault = t0 + lane < S &&
+                       (base + q.lp + q.ll > n || ms > orig ||
+                        (q.ml > 0 && (q.off == 0 || q.off > ms ||
+                                      ms + q.ml > orig)));
+    if (__ballot_sync(FULL, fault)) st = -1;
+  }
+  if (st > 0 && o_carry != orig) st = -1;
+  if (lane == 0) status[row] = st;
+  const long long end = st > 0 ? st : 0;
+  k.lap(0, static_cast<uint32_t>(end));
+  long long batches = 0, rounds = 0, lit_bytes = 0, earlies = 0;
+  o_carry = lp_carry = 0;
+  int hist_lo = 0;
+  if (end > 0) next = load_cols(s, S, lane);
+  for (long long t0 = 0; end > 0 && t0 < S; t0 += 32) {
+    const long long lp0 = lp_carry;
+    const uint8_t* from = s + base + lp0;
+    const uint8_t lit0 = base + lp0 + lane < n ? from[lane] : 0;
+    const uint8_t lit1 = base + lp0 + 32 + lane < n ? from[32 + lane] : 0;
+    const Cols cur = next;
+    next = load_cols(s, S, t0 + 32 + lane);
+    const Entry q = column_entry(cur, lane, o_carry, lp_carry);
+    const int o0 = static_cast<int>(__shfl_sync(FULL, q.o, 0));
+    const int o1 = static_cast<int>(o_carry);
+    const int lits = static_cast<int>(lp_carry - lp0);
+    const int lit_end = static_cast<int>(q.lp - lp0) + q.ll;
+    const int shift = static_cast<int>(q.o - (q.lp - lp0));
+    const bool direct = o1 - o0 > HIST;
+    const Out o{dst, hist, direct ? NONE : max(hist_lo, o1 - HIST),
+                direct ? o1 : o0};
+    k.lap(1, static_cast<uint32_t>(o1 ^ lits ^ shift));
+    const int mo = static_cast<int>(q.o) + q.ll;
+    const bool has = t0 + lane < S && q.ml > 0;
+    const bool early =
+        has && q.ml <= LANE_BYTES && mo - q.off + min(q.off, q.ml) <= o0;
+    uint8_t v[LANE_BYTES];
+    if (early) load_lane(o, mo, q.off, q.ml, v);
+    uint32_t x0 = 0;
+    for (int b0 = 0; b0 < lits; b0 += 32) {
+      const int b = b0 + lane;
+      int j = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(FULL, lit_end, j + step - 1) <= b) j += step;
+      const int at = __shfl_sync(FULL, shift, j) + b;
+      if (b < lits) {
+        const uint8_t x = b0 == 0 ? lit0 : b0 == 32 ? lit1 : from[b];
+        if (direct)
+          o.put<false>(at, x);
+        else
+          o.put<true>(at, x);
+        x0 ^= x;
+      }
+    }
+    if (early) {
+      if (direct)
+        store_lane<false>(o, mo, q.ml, v);
+      else
+        store_lane<true>(o, mo, q.ml, v);
+      x0 ^= v[0];
+    }
+    k.lap(direct ? 5 : 2, x0);
+    bool pending = has && !early;
+    __syncwarp();
+    for (;;) {
+      const int first = __reduce_min_sync(FULL, pending ? mo : NONE);
+      if (first == NONE) break;
+      ++rounds;
+      const bool ready = pending && mo - q.off + min(q.off, q.ml) <= first;
+      if (ready && q.ml <= LANE_BYTES) {
+        if (direct)
+          copy_lane<false>(o, mo, q.off, q.ml);
+        else
+          copy_lane<true>(o, mo, q.off, q.ml);
+      }
+      for (unsigned wide = __ballot_sync(FULL, ready && q.ml > LANE_BYTES);
+           wide; wide &= wide - 1) {
+        const int l = __ffs(wide) - 1;
+        const int wmo = __shfl_sync(FULL, mo, l);
+        const int woff = __shfl_sync(FULL, q.off, l);
+        const int wml = __shfl_sync(FULL, q.ml, l);
+        if (direct)
+          copy_warp<false>(o, wmo, woff, wml);
+        else
+          copy_warp<true>(o, wmo, woff, wml);
+      }
+      pending = pending && !ready;
+      __syncwarp();
+    }
+    k.lap(direct ? 5 : 3, static_cast<uint32_t>(rounds));
+    if (direct) {
+      hist_lo = o1;
+    } else {
+      for (int c = o0 + lane; c < o1; c += 32) dst[c] = hist[c & (HIST - 1)];
+      k.lap(4, 0);
+    }
+    ++batches;
+    lit_bytes += lits;
+    earlies += __popc(__ballot_sync(FULL, early));
+  }
+  __syncwarp();
+  warp_zero(dst, static_cast<int>(end), out_cap);
+  k.lap(6, 0);
+  const long long t1 = stamp(static_cast<uint32_t>(end));
+  if (lane == 0 && row == 0) {
+    for (int p = 0; p < 7; ++p) cycles[p] = k.sum[p];
+    cycles[7] = t1 - t0c;
+    cycles[8] = batches;
+    cycles[9] = rounds;
+    cycles[10] = S;
+    cycles[11] = lit_bytes;
+    cycles[12] = earlies;
+  }
+}
+
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -2475,6 +2904,55 @@ extern "C" int tpz_inflate_new_clocks(const void* streams, const void* lens,
                   static_cast<const int32_t*>(lens), w,
                   static_cast<uint8_t*>(out), cap,
                   static_cast<long long*>(status),
+                  static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of lz4p's decode as it stood before its redesign; block 0's cycles
+// into cycles (11 int64).
+extern "C" int tpz_lz4p_decode_clocks(const void* comp, const void* clens,
+                                      int B, int w, void* out, int out_cap,
+                                      void* status, void* cycles,
+                                      int stamped) {
+  auto kern = stamped ? lz4p_decode_clocks<true> : lz4p_decode_clocks<false>;
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(comp),
+                  static_cast<const int32_t*>(clens), w,
+                  static_cast<uint8_t*>(out), out_cap,
+                  static_cast<int64_t*>(status),
+                  static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the deflate links as they stood before their redesign, ntab
+// keyed tables of 2^slots_log slots of 8 bytes; block 0's row 0 cycles
+// into cycles (10 int64).
+extern "C" int tpz_deflate_links_clocks(const void* blocks,
+                                        const void* lengths, int B, int n,
+                                        void* prev, void* tables, int ntab,
+                                        int slots_log, void* cycles,
+                                        int stamped) {
+  auto kern =
+      stamped ? deflate_links_clocks<true> : deflate_links_clocks<false>;
+  kern<<<ntab, 32>>>(static_cast<const uint8_t*>(blocks),
+                     static_cast<const int32_t*>(lengths), B, n,
+                     static_cast<int32_t*>(prev),
+                     static_cast<unsigned long long*>(tables), slots_log,
+                     static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the redesigned lz4p decode; block 0's cycles into cycles (13
+// int64).
+extern "C" int tpz_lz4p_decode_new_clocks(const void* comp, const void* clens,
+                                          int B, int w, void* out,
+                                          int out_cap, void* status,
+                                          void* cycles, int stamped) {
+  auto kern = stamped ? lz4p_decode_new_clocks<true>
+                      : lz4p_decode_new_clocks<false>;
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(comp),
+                  static_cast<const int32_t*>(clens), w,
+                  static_cast<uint8_t*>(out), out_cap,
+                  static_cast<int64_t*>(status),
                   static_cast<long long*>(cycles));
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,7 +39,11 @@ The deflate decoder's step as it stood before its redesign (lane 0
 decoding a symbol at a time) is stamped by part on the deflate path's
 streams, and lz4p's pack as it stood before its redesign (two walks, a
 sequence at a time) on the lz4p path's LZ4 streams, row 0 alone and
-beside the other 1023 rows, each held against the real kernel's output.
+beside the other 1023 rows, each held against the real kernel's output;
+likewise lz4p's decode as it stood before its redesign (a sequence at a
+time after a pass of prefix sums) on the lz4p path's rows, and the deflate
+links as they stood before theirs (a warp a row, a keyed table in device
+memory) on the deflate path's rows.
 One JSON line a section (SECTIONS; all of them without arguments, about
 60-90 s; lz4_chain and lz4_dense alone about 30 s, inflate and lz4p_pack
 about 30 s)."""
@@ -766,11 +770,168 @@ def lz4p_pack(lib, res) -> None:
             lambda: lz4p_coder.lz4p_pack(comp[:b], clens[:b], n, split), 3)
 
 
+
+LZ4P_DECODE_PARTS = ("pass 1", "pass 2 column entries", "shuffles",
+                     "literals", "matches", "syncs", "zeros after the output")
+LZ4P_NEW_PARTS = ("pass 1", "pass 2 column entries",
+                  "literals and early matches", "match rounds", "bytes out",
+                  "batches past the history", "zeros after the output")
+LINKS_PARTS = ("bytes and hash", "ballot and __match_any_sync", "keyed_find",
+               "keyed_put", "prev store", "table reset", "-1 past the limit")
+
+
+def lz4p_decode(lib, res) -> None:
+    """lz4p's decode as it stood before its redesign (a pass of prefix sums
+    over the columns, then each sequence's literals and match in order), on
+    the lz4p path's rows (the smoke's 64 MiB corpus through
+    tpuzip_torch.compress(codec="lz4p"), then decompress), stamped by part
+    on row 0 alone and beside the other 1023 rows, held against
+    csrc/lz4p.cu's bytes and statuses there, into res["lz4p_decode"]:
+    cycles a sequence by part, the sequences, literal and match bytes of
+    row 0, and the unstamped copy's and the kernel's ms; and the
+    redesigned kernel's copy likewise ("new_*": cycles a batch of 32
+    sequences by part, its batches and match rounds)."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    blob = tpuzip_torch.compress(data, codec="lz4p")
+    with cs.recorded(lz4p_coder, "lz4p_decode_batch") as calls:
+        tpuzip_torch.decompress(blob)
+    (args, _, ref), = calls
+    comp, clens, cap = args[0].contiguous(), args[1].contiguous(), args[2]
+    b_all, w = comp.shape
+    fn = lib.tpz_lz4p_decode_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci]
+
+    def launch(b: int, stamped: int):
+        out = torch.empty((b, cap), dtype=torch.uint8, device="cuda")
+        status = torch.empty(b, dtype=torch.int64, device="cuda")
+        cyc = torch.zeros(11, dtype=torch.int64, device="cuda")
+        _build.check(fn(comp.data_ptr(), clens.data_ptr(), b, w,
+                        out.data_ptr(), cap, status.data_ptr(),
+                        cyc.data_ptr(), stamped), "lz4p_decode_clocks")
+        return out, status, cyc
+
+    rec = res.setdefault("lz4p_decode", {"rows": [b_all, w], "out_cap": cap,
+                                         "row0_stream_bytes": int(clens[0])})
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            out, status, cyc = launch(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref[0][:b])
+                    and torch.equal(status, ref[1][:b])):
+                raise AssertionError(f"lz4p decode copy (stamped={stamped}, "
+                                     f"{b} rows) differs from csrc/lz4p.cu")
+            cyc = cyc.tolist()
+            seqs = cyc[8]
+            rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "sequences": seqs, "literal_bytes": cyc[9],
+                "match_bytes": cyc[10],
+                "cycles_a_sequence": {
+                    **{p: cyc[i] / seqs
+                       for i, p in enumerate(LZ4P_DECODE_PARTS)},
+                    "whole row": cyc[7] / seqs},
+                "whole_row_cycles": cyc[7]}
+        rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0), 3)
+        rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+            lambda: lz4p_coder.lz4p_decode_batch(comp[:b], clens[:b], cap),
+            3)
+    # the redesign (csrc/lz4p.cu's kernel), by part a batch
+    new = lib.tpz_lz4p_decode_new_clocks
+    new.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, ci]
+
+    def launch_new(b: int, stamped: int):
+        out = torch.empty((b, cap), dtype=torch.uint8, device="cuda")
+        status = torch.empty(b, dtype=torch.int64, device="cuda")
+        cyc = torch.zeros(13, dtype=torch.int64, device="cuda")
+        _build.check(new(comp.data_ptr(), clens.data_ptr(), b, w,
+                         out.data_ptr(), cap, status.data_ptr(),
+                         cyc.data_ptr(), stamped), "lz4p_decode_new_clocks")
+        return out, status, cyc
+
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            out, status, cyc = launch_new(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref[0][:b])
+                    and torch.equal(status, ref[1][:b])):
+                raise AssertionError(f"redesigned lz4p decode copy (stamped="
+                                     f"{stamped}, {b} rows) differs from "
+                                     "csrc/lz4p.cu")
+            cyc = cyc.tolist()
+            batches = cyc[8]
+            rec[f"new_rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "batches": batches, "match_rounds": cyc[9],
+                "sequences": cyc[10], "literal_bytes": cyc[11],
+                "early_matches": cyc[12],
+                "cycles_a_batch": {
+                    **{p: cyc[i] / batches
+                       for i, p in enumerate(LZ4P_NEW_PARTS)},
+                    "whole row": cyc[7] / batches},
+                "whole_row_cycles": cyc[7]}
+        rec[f"new_rows_{b}_unstamped_ms"] = cs.cuda_ms(
+            lambda: launch_new(b, 0), 3)
+
+
+def deflate_links(lib, res) -> None:
+    """The deflate links as they stood before their redesign (a warp a row,
+    32 positions a step, a keyed table in device memory), on the deflate
+    path's rows (the smoke's 64 MiB corpus through
+    tpuzip_torch.compress(codec="deflate"), 1024 rows of 64 KiB), stamped
+    by part on row 0 alone and beside the other 1023 rows (a table a row,
+    as deflate_coder.table_count gives), held against the links there, into
+    res["deflate_links"]: cycles a step of 32 positions by part, the steps
+    and extra probes of row 0, and the unstamped copy's and the links'
+    ms (the path's route: the shared one at its 64 KiB rows)."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    with cs.recorded(deflate_coder, "deflate_links_shared") as calls:
+        tpuzip_torch.compress(data, codec="deflate")
+    (args, _, ref), = calls
+    blocks, lens = args[0].contiguous(), args[1].contiguous()
+    b_all, n = blocks.shape
+    fn = lib.tpz_deflate_links_clocks
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, vp, ci]
+    slog = deflate_coder.slots_log(n)
+
+    def launch(b: int, stamped: int):
+        ntab = deflate_coder.table_count(b, n)
+        tables = torch.empty(ntab * (deflate_coder.KEY_SLOT << slog) // 4,
+                             dtype=torch.int32, device="cuda")
+        prev = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(10, dtype=torch.int64, device="cuda")
+        _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
+                        prev.data_ptr(), tables.data_ptr(), ntab, slog,
+                        cyc.data_ptr(), stamped), "deflate_links_clocks")
+        return prev, cyc
+
+    rec = res.setdefault("deflate_links", {"rows": [b_all, n],
+                                           "slots_log": slog})
+    for b in (1, b_all):
+        for stamped in (1, 0):
+            prev, cyc = launch(b, stamped)
+            torch.cuda.synchronize()
+            if not torch.equal(prev, ref[:b]):
+                raise AssertionError(f"deflate links copy (stamped="
+                                     f"{stamped}, {b} rows) differs from "
+                                     "csrc/deflate_encode.cu")
+            cyc = cyc.tolist()
+            steps = cyc[8]
+            rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "steps": steps, "extra_probes": cyc[9],
+                "cycles_a_step": {
+                    **{p: cyc[i] / steps for i, p in enumerate(LINKS_PARTS)},
+                    "whole row": cyc[7] / steps},
+                "whole_row_cycles": cyc[7]}
+        rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0), 3)
+        rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+            lambda: deflate_coder.deflate_links(blocks[:b], lens[:b]), 3)
+
 SECTIONS = {"coders": coders, "dc_walk": dc_walk, "lz4_encode": lz4_probe,
             "lz4_decode": lambda lib, res: (old_decoders(lib, res),
                                             new_lz4_decoder(lib, res)),
             "lz4_chain": chain_parse, "lz4_dense": dense_candidates,
-            "inflate": inflate, "lz4p_pack": lz4p_pack}
+            "inflate": inflate, "lz4p_pack": lz4p_pack,
+            "lz4p_decode": lz4p_decode, "deflate_links": deflate_links}
 
 
 def main(names: list) -> int:

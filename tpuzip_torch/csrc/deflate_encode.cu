@@ -1,6 +1,7 @@
 // deflate_encode.cu — tpuzip's deflate ENCODER (codec "deflate", id 5),
-// in four kernels: links and parse one warp a row, tables one warp a row,
-// emit one block a row (or, for stored blocks, the stored kernel alone).
+// in four kernels: links (8 warps a row, or one on rows past 64 KiB),
+// parse one warp a row, tables one warp a row, emit one block a row (or,
+// for stored blocks, the stored kernel alone).
 //
 // It replaces tpuzip's host C++ `tpz_deflate` (csrc/tpuzip_host.cpp:
 // 1314-1583, called from tpuzip/dist/runner.py:884-900 through
@@ -34,12 +35,21 @@
 // weights decides the code lengths: an introsort, serial by nature.
 //
 // What the design does about it:
-//   - links, 32 positions a warp step: lz4_chain.cu's links step (the
-//     lanes of one hash grouped by __match_any_sync, a lane's link the
-//     highest earlier lane of its group, else the keyed table's slot read
-//     before the step writes it), copied with the 3-byte hash.  The table
-//     is keyed (open addressing on h, at most half full): direct tables of
-//     15 bits took 58 ms at 1024 rows of lz4_dense.cu, keyed ones 6.2;
+//   - links, on rows of at most 65,536 bytes (the path's 64 KiB blocks):
+//     lz4_shared.cuh's split_row under the 3-byte key, as lz4_chain.cu's
+//     shared links: a CTA of 8 warps a row beside a direct table of 2^15
+//     u16 slots (64 KiB) in shared memory, the row read through L1 (staged
+//     beside the table too, one CTA an SM took 2.24 ms against 1.65 at the
+//     path's shape); warp w takes the positions whose hash is w mod 8, so
+//     each runs an eighth of the row's table steps, and 128 positions
+//     inside a run of one hash skip them.  As first ported, the links were
+//     one warp a row over a keyed table of 8-byte slots in device memory,
+//     512 KiB a row (PERF.md §6, row 18); wider rows keep that form, 32
+//     positions a warp step: lz4_chain.cu's keyed step (the lanes of one
+//     hash grouped by __match_any_sync, a lane's link the highest earlier
+//     lane of its group, else the keyed table's slot read before the step
+//     writes it), copied with the 3-byte hash (open addressing on h, at
+//     most half full);
 //   - parse, in two kernels: best(p) does not depend on the parse, so the
 //     best kernel computes it for every position, a thread a position, the
 //     whole card's worth of warps (each thread walks its own chain, with a
@@ -67,6 +77,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "lz4_shared.cuh"
 
 namespace {
 
@@ -216,6 +228,43 @@ deflate_links_kernel(const uint8_t* __restrict__ blocks,
     }
     for (int p = limit + lane; p < n; p += 32) out[p] = -1;
     __syncwarp();     // this row's table writes before the next row's reset
+  }
+}
+
+// links on the shared route (n <= 65536), rows blockIdx.x, + gridDim.x,
+// ...: a direct table of 2^15 u16 slots in shared memory (64 KiB, three
+// CTAs an SM), lz4_shared.cuh's split_row over SPLIT_CLASSES warps under
+// deflate's key (its hash is hash_bits of the 3 bytes at 15 bits), the row
+// read through L1, 3 bytes a position, none past the row.
+struct Key3 {
+  __device__ __forceinline__ uint32_t operator()(const uint8_t* row,
+                                                 int q) const {
+    return row[q] | row[q + 1] << 8 | static_cast<uint32_t>(row[q + 2]) << 16;
+  }
+};
+
+__global__ void __launch_bounds__(32 * lz4s::SPLIT_CLASSES)
+deflate_links_shared_kernel(const uint8_t* __restrict__ blocks,
+                            const int32_t* __restrict__ lengths, int B,
+                            int n, int32_t* __restrict__ prev) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int THREADS = 32 * lz4s::SPLIT_CLASSES;
+  uint32_t* queues = reinterpret_cast<uint32_t*>(smem);
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem + lz4s::QUEUE_BYTES);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int row = blockIdx.x; row < B; row += gridDim.x) {
+    const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+    int32_t* out = prev + static_cast<size_t>(row) * n;
+    const int len = min(max(lengths[row], 0), n);
+    const int limit = max(len - (MIN_MATCH - 1), 0);   // p + 2 < len
+    __syncthreads();   // the last row's steps on the table done
+    for (int k = tid; k < lz4s::table_bytes(HASH_BITS) / 16; k += THREADS)
+      reinterpret_cast<int4*>(table)[k] = make_int4(0, 0, 0, 0);
+    for (int p = limit + tid; p < n; p += THREADS) out[p] = -1;
+    __syncthreads();
+    lz4s::split_row<Key3>(src, 0, limit, HASH_BITS, table,
+                          queues + 64 * warp, warp, lane,
+                          [&](int p, int c) { out[p] = c; });
   }
 }
 
@@ -873,8 +922,32 @@ extern "C" int tpz_deflate_links(const void* blocks, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
+// links on the shared route: blocks (B, n) u8 and lengths (B,) i32 in,
+// prev (B, n) i32 out, every entry written; n <= 65536.  Sets the kernel's
+// dynamic shared memory, launches as many CTAs of SPLIT_CLASSES warps as
+// fit the card at once (at most B), each walking rows, on `stream`, and
+// returns the first CUDA error.
+extern "C" int tpz_deflate_links_shared(const void* blocks,
+                                        const void* lengths, int B, int n,
+                                        void* prev, void* stream) {
+  if (n > lz4s::STAGE_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 * lz4s::SPLIT_CLASSES;
+  const int smem = lz4s::QUEUE_BYTES + lz4s::table_bytes(HASH_BITS);
+  int grid = 0;
+  const cudaError_t err = lz4s::persistent_grid(
+      reinterpret_cast<const void*>(deflate_links_shared_kernel), threads,
+      smem, B, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deflate_links_shared_kernel<<<grid, threads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(blocks),
+      static_cast<const int32_t*>(lengths), B, n,
+      static_cast<int32_t*>(prev));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // blocks (B, n) u8, lengths (B,) i32 and prev (B, n) i32 from
-// tpz_deflate_links in; max_chain >= 0 links a walk; best_at (B, n) i32
+// tpz_deflate_links or tpz_deflate_links_shared in; max_chain >= 0 links a walk; best_at (B, n) i32
 // scratch; tokens (B, n) i32, zeroed by the caller, and ntok (B,) i32
 // out.  Launches the best kernel (a thread a position), then the parse
 // kernel (B blocks of one warp), on `stream`; returns cudaGetLastError().

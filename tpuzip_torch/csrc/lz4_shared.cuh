@@ -1,8 +1,9 @@
 // lz4_shared.cuh — what csrc/lz4_dense.cu and csrc/lz4_chain.cu share on
 // their shared-memory routes (rows of at most 65,536 bytes, hashes of at
-// most 16 bits): a row staged in shared memory by one TMA bulk copy and the
-// mbarriers that order it; the candidates step split over the hash's
-// classes (split_row); and, for the parses over words, a row streamed
+// most 16 bits), and csrc/deflate_encode.cu's links on theirs: a row
+// staged in shared memory by one TMA bulk copy and the mbarriers that
+// order it; the candidates step split over the hash's classes
+// (split_row); and, for the parses over words, a row streamed
 // through shared memory (RowStream) and sequences written 32 at a time
 // (put_batch).
 //
@@ -15,9 +16,11 @@
 // table's slot, and the group's last lane writes p there.  128 positions
 // inside a run of one hash skip the queue (each takes p - 1).  The table is
 // direct: 2^bits u16 slots, position + 1 (0 empty); positions stay below
-// 65,524, as a row holds at most 65,536 bytes.  Both table forms are
-// exact (a slot holds its hash's last position), so the step gives the
-// keyed step's candidates.
+// the row's limit, at most 65,534 (deflate's length - 2), as a row holds
+// at most 65,536 bytes.  Both table forms are exact (a slot holds its
+// hash's last position), so the step gives the keyed step's candidates.
+// The key is the 4 bytes at a position (LZ4's, Key4) or, by another
+// functor, its first 3 (deflate's).
 
 #pragma once
 
@@ -167,6 +170,14 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t seq, int bits) {
   return bits ? (seq * HASH_MUL) >> (32 - bits) : 0u;
 }
 
+// split_row's key of LZ4's hash: the 4 bytes at base + q (load4_at).
+struct Key4 {
+  __device__ __forceinline__ uint32_t operator()(const uint8_t* base,
+                                                 int q) const {
+    return load4_at(base, q);
+  }
+};
+
 // A row's candidates split over the SPLIT_CLASSES warps of a CTA: warp w
 // takes the positions below limit whose hash h has h % SPLIT_CLASSES ==
 // w, in order, gathered 32 at a time in its queue (64 u32 entries of
@@ -187,9 +198,10 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t seq, int bits) {
 // queue holds and sets the slot to the scan's last position.  A zero row
 // is then one queue of 128 entries, where it put all of its 2,048 steps on
 // one warp of the 8.
+// The hash is of Key{}(row, p + skew): by default (Key4) the 4 bytes at p.
 // emit(p, c) gets every position below limit and its candidate (-1 for
 // none).
-template <class Emit>
+template <class Key = Key4, class Emit>
 __device__ __forceinline__ void split_row(const uint8_t* row, int skew,
                                           int limit, int bits,
                                           uint16_t* table, uint32_t* queue,
@@ -222,8 +234,7 @@ __device__ __forceinline__ void split_row(const uint8_t* row, int skew,
     for (int k = 0; k < 4; ++k) {
       const int p = first + 32 * k + lane;
       const bool live = p < limit;
-      const uint32_t h =
-          hash_bits(live ? load4_at(row, p + skew) : 0u, bits);
+      const uint32_t h = hash_bits(live ? Key{}(row, p + skew) : 0u, bits);
       entry[k] = static_cast<uint32_t>(p) | h << 16;
       mine[k] = live && (h & (SPLIT_CLASSES - 1)) ==
                             static_cast<uint32_t>(warp);

@@ -32,7 +32,11 @@
 // which reads bytes that earlier sequences wrote.  Neither comes near the
 // bytes' bound.  As first ported, the pack read a sequence at a time from
 // device memory, a chain of dependent loads: about 940 cycles a sequence
-// over its two walks beside 1023 rows (PERF.md §6, row 16).
+// over its two walks beside 1023 rows (PERF.md §6, row 16); the decode
+// copied a sequence at a time, its literals and then its match from bytes
+// the warp had stored moments before in device memory, with five shuffles
+// and two __syncwarp a sequence: 733 cycles a sequence beside 1023 rows,
+// 59% of them the matches (PERF.md §6, row 17).
 //
 // What the design does about it:
 //   - pack: one warp a row, two walks of the stream, staged in a ring of
@@ -53,11 +57,29 @@
 //     pieces, its literals copied 32 bytes a step;
 //   - decode: the columns give every sequence's output offset and literal
 //     source by prefix sums, so there is no serial parse: 32 sequences a
-//     step, a lane each, scanned across the warp.  A first pass checks
-//     every sequence at once (every fault gives -1, so their order does not
-//     matter); a second copies each sequence's literals and then its match
-//     32 bytes a step, in order, byte k of a match at o from o - off + k %
-//     off, which lies before o.
+//     step, a lane each, scanned across the warp, each batch's columns
+//     loaded a batch ahead.  A first pass checks every sequence at once
+//     (every fault gives -1, so their order does not matter).  The second
+//     builds each batch of 32 sequences in a shared-memory history of the
+//     last HIST bytes written, as lz4_decode.cu does: every literal byte
+//     of the batch, a lane a byte (its sequence by a binary search over the
+//     scan of the literal lengths; the batch's literals lie together in
+//     the stream, its first 64 bytes loaded beside its scans), while the
+//     matches of up to LANE_BYTES whose sources lie before the batch (final
+//     bytes; 90% of a text row's) load theirs, stored after the literals;
+//     then the other matches in rounds: a match is ready when its source's
+//     end, start - offset + min(offset, length), lies at or before the
+//     earliest pending match's start, so every byte it reads is final.  A
+//     lane copies a match of up to LANE_BYTES alone, the warp a longer one,
+//     byte k of a match at o from o - off + k % off, in the history or,
+//     further back (offsets reach 65,535), in device memory, where every
+//     earlier batch's bytes already are.  The batch's bytes then go out to
+//     device memory.  A batch of more than HIST bytes (a long run) is built
+//     the same way straight in device memory.  Kept off (PERF.md §6):
+//     batches of 64 sequences, a pair a lane (2.5% faster at 212
+//     registers), a round's long matches copied together, the long early
+//     ones loaded beside the literals, a lane copying 32 bytes alone, one
+//     branch-free load path, word stores out.
 
 #include <cuda_runtime.h>
 
@@ -397,10 +419,11 @@ lz4p_pack_kernel(const uint8_t* __restrict__ comp,
   cp_wait<0>();
 }
 
-// A warp's inclusive prefix sum of v.
-__device__ __forceinline__ long long warp_scan(long long v, int lane) {
+// A warp's inclusive prefix sum of v (32 values below 2^17: an int).
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const long long u = __shfl_up_sync(FULL, v, d);
+    const int u = __shfl_up_sync(FULL, v, d);
     if (lane >= d) v += u;
   }
   return v;
@@ -414,21 +437,32 @@ struct Entry {
   int ll, ml, off;
 };
 
-__device__ __forceinline__ Entry column_entry(const uint8_t* s, long long S,
-                                              long long t0, int lane,
+// Sequence t's column entries (zeros past S), loaded a batch ahead.
+struct Cols {
+  int ll, ml, off;
+};
+
+__device__ __forceinline__ Cols load_cols(const uint8_t* s, long long S,
+                                          long long t) {
+  Cols c{0, 0, 0};
+  if (t < S) {
+    const uint8_t* p = s + HDR + 2 * t;
+    c.ll = p[0] | (p[1] << 8);
+    c.ml = p[2 * S] | (p[2 * S + 1] << 8);
+    c.off = p[4 * S] | (p[4 * S + 1] << 8);
+  }
+  return c;
+}
+
+__device__ __forceinline__ Entry column_entry(Cols c, int lane,
                                               long long& o_carry,
                                               long long& lp_carry) {
   Entry q;
-  const long long t = t0 + lane;
-  q.ll = q.ml = q.off = 0;
-  if (t < S) {
-    const uint8_t* c = s + HDR + 2 * t;
-    q.ll = c[0] | (c[1] << 8);
-    q.ml = c[2 * S] | (c[2 * S + 1] << 8);
-    q.off = c[4 * S] | (c[4 * S + 1] << 8);
-  }
-  const long long size = warp_scan(q.ll + q.ml, lane);
-  const long long lit = warp_scan(q.ll, lane);
+  q.ll = c.ll;
+  q.ml = c.ml;
+  q.off = c.off;
+  const int size = warp_scan(q.ll + q.ml, lane);
+  const int lit = warp_scan(q.ll, lane);
   q.o = o_carry + size - (q.ll + q.ml);
   q.lp = lp_carry + lit - q.ll;
   o_carry += __shfl_sync(FULL, size, 31);
@@ -436,11 +470,146 @@ __device__ __forceinline__ Entry column_entry(const uint8_t* s, long long S,
   return q;
 }
 
+// The decode's output: every byte in device memory (dst) up to `done`,
+// and the last HIST written in shared memory (hist, byte p at p % HIST)
+// from `lo` on.  A batch writes to hist (its bytes go out to dst after
+// it), or, past HIST bytes, to dst (lo = NONE).
+constexpr int HIST = 16384;      // output bytes kept in shared memory
+constexpr int LANE_BYTES = 18;   // a lane copies a match this long alone
+constexpr int WARP_BYTES = 8;    // a lane's bytes a step of a warp's copy
+constexpr int NONE = 0x7FFFFFFF;
+
+struct Out {
+  uint8_t* dst;
+  uint8_t* hist;
+  int lo;
+  int done;
+
+  __device__ __forceinline__ uint8_t get(int p) const {
+    return p >= lo ? hist[p & (HIST - 1)] : dst[p];
+  }
+
+  template <bool HIST_OUT>
+  __device__ __forceinline__ void put(int p, uint8_t v) const {
+    if (HIST_OUT)
+      hist[p & (HIST - 1)] = v;
+    else
+      dst[p] = v;
+  }
+};
+
+// One lane's match of ml <= LANE_BYTES bytes at o: its source bytes into
+// registers (load_lane), then out (store_lane).  The source is one run of
+// bytes, in hist or in dst, where it can be (a generic pointer, no branch
+// a byte); else each byte from where it lies.
+__device__ __forceinline__ void load_lane(const Out& out, int o, int off,
+                                          int ml, uint8_t (&v)[LANE_BYTES]) {
+  const int from = o - off, span = min(off, ml);
+  const uint8_t* run = nullptr;
+  if (from >= out.lo && (from & (HIST - 1)) + span <= HIST)
+    run = out.hist + (from & (HIST - 1));
+  else if (from + span <= out.done)
+    run = out.dst + from;
+  if (run && off >= ml) {
+#pragma unroll
+    for (int k = 0; k < LANE_BYTES; ++k)
+      if (k < ml) v[k] = run[k];
+  } else {
+    int r = 0;
+#pragma unroll
+    for (int k = 0; k < LANE_BYTES; ++k) {
+      if (k < ml) v[k] = run ? run[r] : out.get(from + r);
+      r = r + 1 == off ? 0 : r + 1;
+    }
+  }
+}
+
+template <bool HIST_OUT>
+__device__ __forceinline__ void store_lane(const Out& out, int o, int ml,
+                                           const uint8_t (&v)[LANE_BYTES]) {
+#pragma unroll
+  for (int k = 0; k < LANE_BYTES; ++k)
+    if (k < ml) out.put<HIST_OUT>(o + k, v[k]);
+}
+
+template <bool HIST_OUT>
+__device__ __forceinline__ void copy_lane(const Out& out, int o, int off,
+                                          int ml) {
+  uint8_t v[LANE_BYTES];
+  load_lane(out, o, off, ml, v);
+  store_lane<HIST_OUT>(out, o, ml, v);
+}
+
+// A match of any length at o, by the whole warp: byte m from
+// from + m % off, 32 x WARP_BYTES bytes a step, each step's loads before
+// its stores (every byte read lies before o).
+template <bool HIST_OUT>
+__device__ __forceinline__ void copy_warp(const Out& out, int o, int off,
+                                          int ml) {
+  const int lane = threadIdx.x;
+  const int from = o - off;
+  const int step = 32 % off;
+  int r = lane % off;   // m % off for this lane's next byte m
+  for (int m0 = 0; m0 < ml; m0 += 32 * WARP_BYTES) {
+    uint8_t v[WARP_BYTES];
+#pragma unroll
+    for (int k = 0; k < WARP_BYTES; ++k) {
+      const int m = m0 + 32 * k + lane;
+      if (m < ml) v[k] = out.get(from + (off >= ml ? m : r));
+      r += step;
+      if (r >= off) r -= off;
+    }
+#pragma unroll
+    for (int k = 0; k < WARP_BYTES; ++k) {
+      const int m = m0 + 32 * k + lane;
+      if (m < ml) out.put<HIST_OUT>(o + m, v[k]);
+    }
+  }
+}
+
+// The matches of a batch, a lane each where `pending`, in rounds: the
+// ready ones each round (at most 32 rounds: the earliest pending match is
+// always ready).  __syncwarp() orders the literals before the first
+// round's loads and each round's stores before the next round's loads.
+template <bool HIST_OUT>
+__device__ __forceinline__ void resolve(const Out& out, int mo, int off,
+                                        int ml, bool pending) {
+  __syncwarp();
+  for (;;) {
+    const int first = __reduce_min_sync(FULL, pending ? mo : NONE);
+    if (first == NONE) break;
+    const bool ready = pending && mo - off + min(off, ml) <= first;
+    if (ready && ml <= LANE_BYTES) copy_lane<HIST_OUT>(out, mo, off, ml);
+    for (unsigned wide = __ballot_sync(FULL, ready && ml > LANE_BYTES);
+         wide; wide &= wide - 1) {
+      const int l = __ffs(wide) - 1;
+      copy_warp<HIST_OUT>(out, __shfl_sync(FULL, mo, l),
+                          __shfl_sync(FULL, off, l),
+                          __shfl_sync(FULL, ml, l));
+    }
+    pending = pending && !ready;
+    __syncwarp();
+  }
+}
+
+// dst[from, to) = 0 by the warp, in 16-byte stores where aligned.
+__device__ __forceinline__ void warp_zero(uint8_t* dst, int from, int to) {
+  const int lane = threadIdx.x;
+  const int head = min(to, from + static_cast<int>(
+      (16 - (reinterpret_cast<uintptr_t>(dst + from) & 15)) & 15));
+  const int body = head + ((to - head) & ~15);
+  if (from + lane < head) dst[from + lane] = 0;
+  for (int k = head + 16 * lane; k < body; k += 16 * 32)
+    *reinterpret_cast<uint4*>(dst + k) = make_uint4(0, 0, 0, 0);
+  if (body + lane < to) dst[body + lane] = 0;
+}
+
 __global__ void __launch_bounds__(32)
 lz4p_decode_kernel(const uint8_t* __restrict__ comp,
                    const int32_t* __restrict__ clens, int w,
                    uint8_t* __restrict__ out, int out_cap,
                    int64_t* __restrict__ status) {
+  __shared__ __align__(16) uint8_t hist[HIST];
   const int lane = threadIdx.x;
   const int row = blockIdx.x;
   const uint8_t* s = comp + static_cast<size_t>(row) * w;
@@ -461,8 +630,12 @@ lz4p_decode_kernel(const uint8_t* __restrict__ comp,
   const long long base = HDR + 6 * S;
   // pass 1: every sequence's faults, 32 at once
   long long o_carry = 0, lp_carry = 0;
+  // (the columns lie in the stream only where the header passed)
+  Cols next = st > 0 ? load_cols(s, S, lane) : Cols{0, 0, 0};
   for (long long t0 = 0; st > 0 && t0 < S; t0 += 32) {
-    const Entry q = column_entry(s, S, t0, lane, o_carry, lp_carry);
+    const Cols cur = next;
+    next = load_cols(s, S, t0 + 32 + lane);
+    const Entry q = column_entry(cur, lane, o_carry, lp_carry);
     const long long ms = q.o + q.ll;   // where the match starts
     const bool fault = t0 + lane < S &&
                        (base + q.lp + q.ll > n || ms > orig ||
@@ -473,26 +646,68 @@ lz4p_decode_kernel(const uint8_t* __restrict__ comp,
   if (st > 0 && o_carry != orig) st = -1;
   if (lane == 0) status[row] = st;
   const long long end = st > 0 ? st : 0;
-  // pass 2: literals, then the match, a sequence at a time
+  // pass 2: each batch of 32 sequences, its literals, then its matches in
+  // rounds, in hist (or, past HIST bytes, in dst), then out to dst
   o_carry = lp_carry = 0;
+  int hist_lo = 0;   // the output bytes before it are not in hist
+  if (end > 0) next = load_cols(s, S, lane);
   for (long long t0 = 0; end > 0 && t0 < S; t0 += 32) {
-    const Entry q = column_entry(s, S, t0, lane, o_carry, lp_carry);
-    const int count = static_cast<int>(min(S - t0, 32LL));
-    for (int j = 0; j < count; ++j) {
-      const long long o = __shfl_sync(FULL, q.o, j);
-      const long long lp = __shfl_sync(FULL, q.lp, j);
-      const int ll = __shfl_sync(FULL, q.ll, j);
-      const int ml = __shfl_sync(FULL, q.ml, j);
-      const int off = __shfl_sync(FULL, q.off, j);
-      for (int k = lane; k < ll; k += 32) dst[o + k] = s[base + lp + k];
-      __syncwarp();   // the literals before a match that reads them
-      const long long ms = o + ll;
-      for (int k = lane; k < ml; k += 32)
-        dst[ms + k] = dst[ms - off + (k < off ? k : k % off)];
-      __syncwarp();   // this match before the next sequence's reads
+    const long long lp0 = lp_carry;
+    // the batch's first 64 literal bytes, loaded beside its scans
+    const uint8_t* from = s + base + lp0;
+    const uint8_t lit0 = base + lp0 + lane < n ? from[lane] : 0;
+    const uint8_t lit1 = base + lp0 + 32 + lane < n ? from[32 + lane] : 0;
+    const Cols cur = next;
+    next = load_cols(s, S, t0 + 32 + lane);
+    const Entry q = column_entry(cur, lane, o_carry, lp_carry);
+    // pass 1 held every output place and literal inside the row and the
+    // stream, so they fit an int
+    const int o0 = static_cast<int>(__shfl_sync(FULL, q.o, 0));
+    const int o1 = static_cast<int>(o_carry);
+    const int lits = static_cast<int>(lp_carry - lp0);
+    const int lit_end = static_cast<int>(q.lp - lp0) + q.ll;   // inclusive
+    // literal byte b goes to shift + b
+    const int shift = static_cast<int>(q.o - (q.lp - lp0));
+    const bool direct = o1 - o0 > HIST;
+    const Out o{dst, hist, direct ? NONE : max(hist_lo, o1 - HIST),
+                direct ? o1 : o0};
+    const int mo = static_cast<int>(q.o) + q.ll;
+    const bool has = t0 + lane < S && q.ml > 0;
+    // the first round's short matches whose sources lie before the batch
+    // (final bytes): loaded beside the literals, stored after them
+    const bool early =
+        has && q.ml <= LANE_BYTES && mo - q.off + min(q.off, q.ml) <= o0;
+    uint8_t v[LANE_BYTES];
+    if (early) load_lane(o, mo, q.off, q.ml, v);
+    // the literals, a lane a byte: byte b is the sequence's whose literals
+    // end first after it
+    for (int b0 = 0; b0 < lits; b0 += 32) {
+      const int b = b0 + lane;
+      int j = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(FULL, lit_end, j + step - 1) <= b) j += step;
+      const int at = __shfl_sync(FULL, shift, j) + b;
+      if (b < lits) {
+        const uint8_t x = b0 == 0 ? lit0 : b0 == 32 ? lit1 : from[b];
+        if (direct)
+          o.put<false>(at, x);
+        else
+          o.put<true>(at, x);
+      }
+    }
+    if (direct) {
+      if (early) store_lane<false>(o, mo, q.ml, v);
+      resolve<false>(o, mo, q.off, q.ml, has && !early);
+      hist_lo = o1;
+    } else {
+      if (early) store_lane<true>(o, mo, q.ml, v);
+      resolve<true>(o, mo, q.off, q.ml, has && !early);
+      for (int k = o0 + lane; k < o1; k += 32) dst[k] = hist[k & (HIST - 1)];
     }
   }
-  for (long long p = end + lane; p < out_cap; p += 32) dst[p] = 0;
+  __syncwarp();   // then zero past the output, or the whole row
+  warp_zero(dst, static_cast<int>(end), out_cap);
 }
 
 }  // namespace

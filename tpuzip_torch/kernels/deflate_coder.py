@@ -14,7 +14,9 @@ functions here are theirs:
          >> 17 (15 bits); -1 where there is none and from length - 2 on.
          The C++ inserts every position into its chain once, before its
          parse reaches it (the lazy step inserts i before it probes
-         i + 1), so when it probes p the chain is prev's.
+         i + 1), so when it probes p the chain is prev's.  Rows of at
+         most 65,536 bytes take the shared route, wider ones the keyed
+         route (links_route); both give the same prev.
   parse  best(p): the longest match over the first max_chain links of
          p's chain that lie at most 32,768 back, extended to at most
          min(258, length - p) bytes, the first link on ties; 0 from
@@ -86,7 +88,8 @@ MAX_MATCH = 258
 WINDOW = 32768        # a link further back than this ends the walk
 MAX_CHAIN = 1 << 16   # links a walk can take at most
 STORED_MAX = 65535    # bytes of a stored block, at most
-POOL_BYTES = 1 << 30  # the links kernel's tables, at most
+POOL_BYTES = 1 << 30  # the keyed links kernel's tables, at most
+STAGE_MAX = 1 << 16   # bytes of a row the shared links kernel takes
 KEY_SLOT = 8          # bytes of a keyed table's slot
 THRESHOLD = 16        # libstdc++'s _S_threshold
 PKG = 1 << 10         # package-merge node ids: a leaf s, or PKG + package
@@ -100,15 +103,15 @@ DIST_EXTRA = [e for e, _ in DIST_TABLE]
 
 
 def slots_log(n: int) -> int:
-    """The links kernel's keyed table: 2^slots_log slots of KEY_SLOT bytes,
+    """The keyed links kernel's table: 2^slots_log slots of KEY_SLOT bytes,
     twice the hashes a row of n bytes can hold, so half full at most."""
     return max(6, min(HASH_BITS + 1, (2 * max(n, 1) - 1).bit_length()))
 
 
 def table_count(b: int, n: int) -> int:
-    """Tables that a links launch on b rows of n bytes gets: one a row, or
-    where b tables would pass POOL_BYTES a pool of fewer, whose warps walk
-    the rows by a grid-stride loop."""
+    """Tables that a keyed links launch on b rows of n bytes gets: one a
+    row, or where b tables would pass POOL_BYTES a pool of fewer, whose
+    warps walk the rows by a grid-stride loop."""
     return max(1, min(b, POOL_BYTES // (KEY_SLOT << slots_log(n))))
 
 
@@ -685,7 +688,7 @@ def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
 
 def _lib(name: str):
     """The typed C entry point tpz_<name> of csrc/deflate_encode.cu (links,
-    parse, emit) or csrc/inflate.cu (inflate)."""
+    links_shared, parse, emit) or csrc/inflate.cu (inflate)."""
     source = "inflate" if name == "inflate" else "deflate_encode"
     fn = getattr(_build.load(source), f"tpz_{name}" if name == "inflate"
                  else f"tpz_deflate_{name}")
@@ -693,6 +696,7 @@ def _lib(name: str):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
             "links": [vp, vp, ci, ci, vp, vp, ci, ci, vp],
+            "links_shared": [vp, vp, ci, ci, vp, vp],
             "parse": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp],
             "emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp],
             "inflate": [vp, vp, ci, ci, vp, ci, vp, vp]}[name]
@@ -704,14 +708,67 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def links_route(n: int) -> str:
+    """The links' route for rows of n bytes, by shape alone: "shared" (a
+    CTA of 8 warps a row, a direct table of 2^15 u16 slots in shared
+    memory) for n <= STAGE_MAX, else "keyed" (a warp a row, keyed tables
+    in device memory)."""
+    return "shared" if n <= STAGE_MAX else "keyed"
+
+
 def deflate_links(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """prev (B, n) i32 of every row, as the module note says: blocks (B, n)
     u8, lengths (B,) i32.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/deflate_encode.cu's links kernel on the current stream (no
-    synchronisation)."""
+    csrc/deflate_encode.cu's links on the route of links_route(n), through
+    deflate_links_shared or deflate_links_keyed, which count their own
+    launches."""
     _check_pair("deflate_links", blocks, lengths)
+    if blocks.device.type == "cpu":
+        return deflate_links_plain(blocks, lengths)
+    if links_route(blocks.shape[1]) == "shared":
+        return deflate_links_shared(blocks, lengths)
+    return deflate_links_keyed(blocks, lengths)
+
+
+def deflate_links_shared(blocks: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """deflate_links on the shared route, rows of at most STAGE_MAX bytes.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/deflate_encode.cu's shared links kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("deflate_links_shared", blocks, lengths)
+    if blocks.device.type == "cpu":
+        return deflate_links_plain(blocks, lengths)
+    b, n = blocks.shape
+    if n > STAGE_MAX:
+        raise ValueError(f"deflate_links_shared takes rows of at most "
+                         f"{STAGE_MAX} bytes, not {n}")
+    # a slot holds p + 1 for p below the limit, n - 2: it must fit a u16
+    assert n - (MIN_MATCH - 1) <= 0xFFFF
+    dev = blocks.device
+    prev = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return prev
+    with torch.cuda.device(dev):
+        err = _lib("links_shared")(blocks.data_ptr(), lengths.data_ptr(), b,
+                                   n, prev.data_ptr(), _stream(dev))
+    _build.check(err, "deflate_links_shared")
+    deflate_links_shared.launches += 1
+    return prev
+
+
+def deflate_links_keyed(blocks: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """deflate_links on the keyed route, rows of any width: one keyed table
+    a row in device memory, or a pool of fewer (table_count).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/deflate_encode.cu's keyed links kernel on the current stream (no
+    synchronisation)."""
+    _check_pair("deflate_links_keyed", blocks, lengths)
     if blocks.device.type == "cpu":
         return deflate_links_plain(blocks, lengths)
     b, n = blocks.shape
@@ -727,8 +784,8 @@ def deflate_links(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         err = _lib("links")(blocks.data_ptr(), lengths.data_ptr(), b, n,
                             prev.data_ptr(), tables.data_ptr(), ntab, slog,
                             _stream(dev))
-    _build.check(err, "deflate_links")
-    deflate_links.launches += 1
+    _build.check(err, "deflate_links_keyed")
+    deflate_links_keyed.launches += 1
     return prev
 
 
@@ -852,7 +909,8 @@ def inflate_batch(streams: torch.Tensor, lens: torch.Tensor, out_cap: int):
     return out, status
 
 
-deflate_links.launches = 0
+deflate_links_shared.launches = 0
+deflate_links_keyed.launches = 0
 deflate_parse.launches = 0
 deflate_emit.launches = 0
 inflate_batch.launches = 0
