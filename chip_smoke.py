@@ -3616,6 +3616,140 @@ def links_edge_check(seed: int) -> dict:
     return res
 
 
+def table_row(lits: dict, lcodes: dict, dcodes: dict, seed: int):
+    """(tokens, raw bytes) of a valid token row whose literal bytes, length
+    codes and distance codes come as often as the dicts say ({symbol:
+    count}; the two match counts sum alike): the literals first, in an order
+    mixed by the seed, then the matches by distance code, each at its
+    codes' base length and base distance (asserted within the bytes before
+    it), their length codes mixed by the seed."""
+    dcf = deflate_coder
+    rng = np.random.default_rng(seed)
+    lit = rng.permutation(np.repeat(np.array(list(lits), np.int64),
+                                    list(lits.values())))
+    lcs = rng.permutation(np.repeat(np.array(list(lcodes), np.int64),
+                                    list(lcodes.values())))
+    dcs = np.repeat(sorted(dcodes), [dcodes[c] for c in sorted(dcodes)])
+    if len(lcs) != len(dcs):
+        raise AssertionError("a table row's length and distance counts "
+                             "differ")
+    raw = bytearray(lit.astype(np.uint8).tobytes())
+    tokens = lit.tolist()
+    for lc, code in zip(lcs.tolist(), dcs.tolist()):
+        ln, d = dcf.LEN_BASE[lc], dcf.DIST_BASE[code]
+        if d > len(raw):
+            raise AssertionError("a table row's match reaches before it")
+        for _ in range(ln):
+            raw.append(raw[-d])
+        tokens.append(ln << dcf.MATCH_SHIFT | d)
+    return tokens, bytes(raw)
+
+
+def table_specs() -> dict:
+    """{row width: {name: table_row()'s three counts}} of the token rows
+    built to stress deflate_encode.cu's tables: at 64 KiB every symbol of
+    the three trees at one count, two counts only, counts in powers of
+    two, Fibonacci counts (the literal/length tree past its 15-bit limit),
+    a single literal, and literals with no match (one distance length); at
+    the wide path's 128 KiB, Fibonacci and equal counts."""
+    fib = [1, 1]
+    while len(fib) < 24:
+        fib.append(fib[-1] + fib[-2])
+    return {
+        65536: {
+            "equal": ({s: 30 for s in range(256)},
+                      dict.fromkeys(range(29), 30),
+                      dict.fromkeys(range(30), 29)),
+            "two_counts": ({s: 1 if s % 2 else 50 for s in range(256)},
+                           {c: 15 if c < 14 else 30 for c in range(29)},
+                           {c: 4 if c < 15 else 40 for c in range(30)}),
+            "powers_of_two": ({s: 1 << s % 9 for s in range(256)},
+                              {c: 1 << c % 8 for c in range(16)},
+                              {c: 1 << c % 8 for c in range(16)}),
+            "fibonacci": ({97 + k: fib[k] for k in range(22)},
+                          {c: fib[c] for c in range(10)},
+                          {c: fib[c] for c in range(10)}),
+            "one_literal": ({120: 1}, {}, {}),
+            "no_match": ({s: 1 + s % 37 for s in range(256)}, {}, {})},
+        DEFLATE_WIDE_BLOCK: {
+            "wide_fibonacci": ({k: fib[k] for k in range(22)},
+                               {c: fib[c] for c in range(16)},
+                               {c: fib[c] for c in range(16)}),
+            "wide_equal": ({s: 60 for s in range(256)},
+                           dict.fromkeys(range(29), 60),
+                           dict.fromkeys(range(30), 58))}}
+
+
+def table_rows(seed: int) -> dict:
+    """{group: (tokens (B, n) i32, ntok (B,), raw rows (B, n) u8 zero past
+    each row's bytes, their lengths (B,), the rows' names)} on the card:
+    table_specs()'s rows by table_row(), and beside the 128 KiB ones 4 rows
+    of the wide path's text through the links and the parse at max_chain
+    128."""
+    specs = table_specs()
+    out = {}
+    for n, rows in specs.items():
+        built = [table_row(*spec, seed + k)
+                 for k, spec in enumerate(rows.values())]
+        names = list(rows)
+        if n == DEFLATE_WIDE_BLOCK:
+            text = np.frombuffer(text_corpus(4 * n, seed), np.uint8)
+            x = torch.from_numpy(text.reshape(4, n).copy()).cuda()
+            xl = torch.full((4,), n, dtype=torch.int32, device="cuda")
+            tok, nt = deflate_coder.deflate_parse(
+                x, xl, deflate_coder.deflate_links(x, xl), DEFLATE_PATH_CHAIN)
+            built += [(tok[r, : int(nt[r])].tolist(), text[r * n:(r + 1) * n]
+                       .tobytes()) for r in range(4)]
+            names += [f"wide_text_{r}" for r in range(4)]
+        tok = np.zeros((len(built), n), np.int32)
+        for r, (t, raw) in enumerate(built):
+            if len(raw) > n:
+                raise AssertionError(f"table row {names[r]}: {len(raw)} "
+                                     f"bytes past {n}")
+            tok[r, : len(t)] = t
+        raw, rl = padded([raw for _, raw in built], n)
+        out[f"rows_{n}"] = (
+            torch.from_numpy(tok).cuda(),
+            torch.tensor([len(t) for t, _ in built], dtype=torch.int32,
+                         device="cuda"), raw, rl, names)
+    return out
+
+
+def table_rows_check(seed: int) -> dict:
+    """deflate_encode.cu's tables and emit (dynamic) on table_rows(),
+    exact against deflate_emit_plain, each stream inflated back to its
+    bytes by inflate.cu and by zlib."""
+    dc = deflate_coder
+    res, errs = {}, {"deflate_emit": 0, "inflate": 0}
+    for group, (tok, nt, raw, rl, names) in table_rows(seed).items():
+        got = dc.deflate_emit(raw, rl, tok, nt, 0)
+        ref, plain_ms = timed(
+            lambda: dc.deflate_emit_plain(raw, rl, tok, nt, 0))
+        e = max(max_err(a, c) for a, c in zip(got, ref))
+        errs["deflate_emit"] = max(errs["deflate_emit"], e)
+        n = raw.shape[1]
+        out, st = dc.inflate_batch(*got, n)
+        iref = dc.inflate_batch_plain(*got, n)
+        errs["inflate"] = max(errs["inflate"], max_err(out, iref[0]),
+                              max_err(st, iref[1]))
+        comp, clens = (a.cpu().numpy() for a in got)
+        rows, lens = raw.cpu().numpy(), rl.tolist()
+        back = (torch.equal(st, rl.to(torch.int64)) and torch.equal(out, raw)
+                and all(zlib.decompress(comp[r, : clens[r]].tobytes(), -15)
+                        == rows[r, : lens[r]].tobytes()
+                        for r in range(len(names))))
+        res[group] = {"rows": names, "bytes": lens,
+                      "tokens": nt.tolist(), "stream_bytes": clens.tolist(),
+                      "max_abs_err": e, "round_trip": back,
+                      "emit_ms": cuda_ms(
+                          lambda: dc.deflate_emit(raw, rl, tok, nt, 0), 3),
+                      "plain_ms": plain_ms}
+        if not back:
+            raise AssertionError(f"table rows {group} did not decode back")
+    res["max_abs_err"] = errs
+    return res
+
+
 def deflate_garbage(seed: int) -> list:
     """Streams no encoder of the port writes: 64 of random bytes under each
     block type, 64 of tpuzip-form streams with one bit flipped, and zlib's
@@ -3786,6 +3920,7 @@ def deflate_kernel_check(x, xl, n: int):
                   for a in deflate_big_rows(SEED + 19))
     res["big"] = deflate_check(big, blens, (DEFLATE_PATH_CHAIN,))
     res["links_edges"] = links_edge_check(SEED + 23)
+    res["table_rows"] = table_rows_check(SEED + 24)
     comp, clens = res["big"]["streams"]["stored"]
     want = [5 * max(1, -(-int(ln) // 65535)) + int(ln) for ln in blens]
     if clens.tolist() != want:
@@ -3823,7 +3958,8 @@ def deflate_kernel_check(x, xl, n: int):
     if got != [len(m) for m in multi]:
         raise AssertionError(f"zlib's multi-block streams decoded to {got}, "
                              f"not {[len(m) for m in multi]}")
-    for rec in (res["mixed"], res["far"], res["big"], res["links_edges"]):
+    for rec in (res["mixed"], res["far"], res["big"], res["links_edges"],
+                res["table_rows"]):
         for k, e in rec["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0), e)
         rec.pop("streams", None)
@@ -4145,7 +4281,10 @@ def ab_inputs(wanted) -> dict:
     5's A/B mix.  lz4_encode / lz4_decode and rle_encode / rle_decode at
     the lz4 and rle paths; deflate_links at the deflate path's compress
     (its shared route), on as many zero, b"ab" and random rows and on
-    the wide path's 128 KiB rows (the keyed route);
+    the wide path's 128 KiB rows (the keyed route); deflate_emit (the
+    tables and the emit) at the deflate and wide paths' compress, on those
+    zero, b"ab" and random rows' tokens (the links and the parse at
+    max_chain 128) and on phase 3's table_rows();
     inflate_batch at the deflate path's decompress and on phase 3's
     inflate_edge_streams() and deflate_garbage(); lz4p_pack at the lz4p path's compress (runs split),
     at its serving path's compress_from_device (unsplit) and on phase 3's
@@ -4207,10 +4346,12 @@ def ab_inputs(wanted) -> dict:
                 raise AssertionError(f"{codec} did not round-trip")
         keep(f"{codec}_encode", codec, enc)
         keep(f"{codec}_decode", codec, dec)
-    if set(wanted) & {"inflate", "deflate_links"}:
-        with recorded(deflate_coder, "deflate_links_shared") as links:
+    if set(wanted) & {"inflate", "deflate_links", "deflate_emit"}:
+        with (recorded(deflate_coder, "deflate_links_shared") as links,
+              recorded(deflate_coder, "deflate_emit") as emit):
             blob = tpuzip_torch.compress(data, codec="deflate")
         keep("deflate_links", "deflate", links)
+        keep("deflate_emit", "deflate", emit)
         x, lens = out["deflate_links"]["deflate"][0]
         rng = np.random.default_rng(SEED + 22)
         for name, rows in (
@@ -4221,12 +4362,28 @@ def ab_inputs(wanted) -> dict:
                 ("random", torch.from_numpy(rng.integers(
                     0, 256, tuple(x.shape), np.uint8)).cuda())):
             out["deflate_links"][f"deflate_{name}"] = ((rows, lens), {})
+            if "deflate_emit" in wanted:
+                tok = deflate_coder.deflate_parse(
+                    rows, lens, deflate_coder.deflate_links(rows, lens),
+                    DEFLATE_PATH_CHAIN)
+                out["deflate_emit"][f"deflate_{name}"] = (
+                    (rows, lens, *tok, 0), {})
         wide = torch.frombuffer(bytearray(data[:DEFLATE_WIDE_BYTES]),
                                 dtype=torch.uint8).view(
                                     -1, DEFLATE_WIDE_BLOCK).cuda()
         out["deflate_links"]["deflate_wide"] = (
             (wide, torch.full((wide.shape[0],), DEFLATE_WIDE_BLOCK,
                               dtype=torch.int32, device="cuda")), {})
+        if "deflate_emit" in wanted:
+            with recorded(deflate_coder, "deflate_emit") as emit:
+                tpuzip_torch.compress(data[:DEFLATE_WIDE_BYTES],
+                                      codec="deflate",
+                                      block_size=DEFLATE_WIDE_BLOCK)
+            keep("deflate_emit", "deflate_wide", emit)
+            for group, (tok, nt, raw, rl, _) in table_rows(
+                    SEED + 24).items():
+                out["deflate_emit"][f"table_{group}"] = (
+                    (raw, rl, tok, nt, 0), {})
     if "inflate" in wanted:
         with recorded(deflate_coder, "inflate_batch") as dec:
             if tpuzip_torch.decompress(blob) != data:
@@ -4269,17 +4426,28 @@ def ab_inputs(wanted) -> dict:
 AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
               "dc_decode", "lz4_encode", "lz4_decode", "rle_encode",
               "rle_decode", "inflate", "lz4p_pack", "lz4p_decode",
-              "deflate_links")
+              "deflate_links", "deflate_emit")
 AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle",   # else the name
              "lz4p_pack": "lz4p", "lz4p_decode": "lz4p",
-             "deflate_links": "deflate_encode"}
+             "deflate_links": "deflate_encode",
+             "deflate_emit": "deflate_encode"}
+# an A/B kernel's functions, where they are not those whose names hold
+# "<kernel>_kernel": the links' two routes, tpz_deflate_emit's tables and
+# emit kernels
+AB_FUNCTIONS = {"deflate_links": ("deflate_links_kernel",
+                                  "deflate_links_shared_kernel"),
+                "deflate_emit": ("deflate_tables_kernel",
+                                 "deflate_emit_kernel")}
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
-AB_REDESIGNED = ("lz4p_decode", "deflate_links")
+AB_REDESIGNED = ("deflate_emit",)
 # sources whose SASS --ab compares and does not time (no launch of theirs
-# is recorded for it): deflate_encode.cu's best, parse, tables, emit and
-# stored kernels, and its keyed links, all of the DIR's functions
+# is recorded for it): deflate_encode.cu's best, parse and stored kernels,
+# all of the DIR's functions but the A/B kernels'
 AB_SASS_ONLY = ("deflate_encode",)
+# csrc/deflate_encode.cu's record in a row's scratch (SCRATCH_BYTES a row):
+# the codes, their lengths and the header's bits, [from, to)
+DEFLATE_RECORD = (17408, 17408 + 640 + 320 + 4)
 # sources whose encoders --ab times against a DIR's at their paths' shapes
 # (ab_lz4), and whose SASS it holds to the DIR's: the chained lz4
 # encoder's launches and the dense one's
@@ -4313,7 +4481,9 @@ def ab_entry(lib, kernel: str):
         "rle_decode": [vp, vp, ci, ci, vp, ci, vp, vp],
         "inflate": [vp, vp, ci, ci, vp, ci, vp, vp],
         "lz4p_pack": [vp, vp, ci, ci, vp, ci, vp, ci, vp],
-        "lz4p_decode": [vp, vp, ci, ci, vp, ci, vp, vp]}[kernel]
+        "lz4p_decode": [vp, vp, ci, ci, vp, ci, vp, vp],
+        "deflate_emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp,
+                         vp]}[kernel]
     fn.restype = ci
     return fn
 
@@ -4514,6 +4684,30 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
             return run
         # the longest row's positions
         steps = int(lens.max())
+    elif kernel == "deflate_emit":
+        blocks, lens, tokens, ntok, mode = args[:5]
+        b, n = blocks.shape
+        cap = deflate_coder.encode_cap(n)
+        lo, hi = DEFLATE_RECORD
+
+        def make(lib):
+            fn = ab_entry(lib, kernel)
+
+            def run():
+                out = (torch.zeros((b, cap), dtype=torch.uint8,
+                                   device="cuda"),
+                       torch.empty(b, dtype=torch.int32, device="cuda"),
+                       torch.empty((b, deflate_coder.SCRATCH_BYTES),
+                                   dtype=torch.uint8, device="cuda"))
+                _build.check(fn(blocks.data_ptr(), lens.data_ptr(),
+                                tokens.data_ptr(), ntok.data_ptr(), b, n,
+                                mode, out[0].data_ptr(), cap,
+                                out[1].data_ptr(), out[2].data_ptr(),
+                                stream()), "tpz_deflate_emit")
+                return out[0], out[1], out[2][:, lo:hi]
+            return run
+        # the longest row's tokens
+        steps = int(ntok.max())
     elif kernel == "lz4p_pack":
         comp, clens, n = args[:3]
         split = kw.get("split", args[3] if len(args) > 3 else True)
@@ -4780,7 +4974,8 @@ def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
     csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu,
     dc_decode.cu, lz4_encode.cu, lz4_decode.cu, rle.cu, inflate.cu,
-    lz4p.cu, deflate_encode.cu's links, lz4_chain.cu and lz4_dense.cu
+    lz4p.cu, deflate_encode.cu's links and its tables and emit,
+    lz4_chain.cu and lz4_dense.cu
     against the same files in each
     DIR (beside the headers they include), for instance a parent commit's:
 
@@ -4797,7 +4992,10 @@ def ab_child(dirs: list) -> int:
     lz4p and lz4p serving paths and on phase 3's pack edge rows, its
     decode at the lz4p path; deflate_encode.cu's links at the deflate
     path and on as many zero, b"ab" and random rows (a DIR's keyed links
-    against the checkout's route); a kernel whose source no DIR holds gets a
+    against the checkout's route), its tables and emit (tpz_deflate_emit,
+    streams, lengths and the record in the scratch) at the deflate and
+    wide paths, on those rows' tokens and on phase 3's table rows; a
+    kernel whose source no DIR holds gets a
     line that says so and no row, and the paths of no other kernel are
     not run), checks that every build gives the same outputs there
     (streams, lengths and chunk index; symbols; bits; run triples and
@@ -4811,15 +5009,16 @@ def ab_child(dirs: list) -> int:
     against the checkout's dot route (ari_decode.cu) at the ari path's
     decode launch and on phase 5's A/B mix.  Beside them: ari_decode's
     no-index mode at the ari shape; one row alone against all the rows at
-    the bwt, bwtdc, bin, apm, lz4, rle, deflate and lz4p shapes, for every
-    build; the chained and dense lz4 encoders at their paths' shapes
+    the bwt, bwtdc, bin, apm, lz4, rle, deflate (the links, and the
+    tables with the emit) and lz4p shapes, for every build; the chained and dense lz4 encoders at their paths' shapes
     (ab_lz4); and whether the SASS of each kernel of
     AB_KERNELS that this checkout does not redesign (all but
     AB_REDESIGNED), and of each source of AB_SASS_ONLY and AB_LZ4_SOURCES,
     equals the DIR's build of it: the functions that carry the kernel's
-    name (all of the source where none does, as in mtf.cu, less the
-    functions of the A/B kernels timed from it, as deflate_encode.cu's
-    links), so that rle_decode is held apart from rle_encode in rle.cu;
+    name, or the AB_FUNCTIONS it names (all of the source where none
+    does, as in mtf.cu, less the functions of the A/B kernels timed from
+    it, as deflate_encode.cu's links, tables and emit), so that
+    rle_decode is held apart from rle_encode in rle.cu;
     and, to be read, whether each of a redesigned kernel's old functions
     is still among the checkout's (sass_kept_in_redesigned).  One JSON line a kernel and shape,
     then one line of the whole; exits 1 if any outputs differed."""
@@ -4857,12 +5056,14 @@ def ab_child(dirs: list) -> int:
         def sass(name):
             funcs = sass_functions(nvcc, so[name])
             kernel = name.split(":")[1]
-            own = f"{kernel}_kernel"
+            own = AB_FUNCTIONS.get(kernel, (f"{kernel}_kernel",))
             # a source whose functions do not carry its name: all of them
             # but those of the A/B kernels timed from it (deflate_encode.cu's
-            # links, both routes)
-            timed = [k for k, src in AB_SOURCE.items() if src == kernel]
-            return sorted(v for f, v in funcs.items() if own in f) or sorted(
+            # links, both routes, and its tables and emit)
+            timed = [part for k, src in AB_SOURCE.items() if src == kernel
+                     for part in AB_FUNCTIONS.get(k, (k,))]
+            return sorted(v for f, v in funcs.items()
+                          if any(o in f for o in own)) or sorted(
                 v for f, v in funcs.items() if not any(k in f for k in timed))
 
         # each of the DIR's functions found in the checkout's build (a

@@ -10,9 +10,10 @@
 // candidates step (csrc/lz4_dense.cu, a table in device memory), the
 // deflate decoder's (csrc/inflate.cu, lane 0 decoding a symbol at a time),
 // lz4p's pack (csrc/lz4p.cu, two walks a sequence at a time), lz4p's
-// decode (csrc/lz4p.cu, a sequence at a time after a pass of prefix sums)
-// and the deflate links (csrc/deflate_encode.cu, a keyed table in device
-// memory);
+// decode (csrc/lz4p.cu, a sequence at a time after a pass of prefix sums),
+// the deflate links (csrc/deflate_encode.cu, a keyed table in device
+// memory) and the deflate tables (csrc/deflate_encode.cu, lane 0's
+// package-merge);
 // and the redesigned ari encoder, DC walk, lz4 step, lz4 decoder,
 // deflate decoder and lz4p decode, built from their own sources, the
 // encoder stamped by warp, the others by part.  One stream each (one warp, one thread; the lz4 and rle copies
@@ -32,6 +33,9 @@
 #include "../tpuzip_torch/csrc/ari_encode.cu"
 #include "../tpuzip_torch/csrc/bin_coder.cuh"
 #include "../tpuzip_torch/csrc/dc_decode.cu"
+// before namespace dfe below: deflate_encode.cu's own include of it is then
+// skipped there, and its lz4s:: names are these
+#include "../tpuzip_torch/csrc/lz4_shared.cuh"
 
 // The bit model as the one-thread-a-stream kernels held it: p0 in a
 // register, the APM cells of a block's 32 streams in shared memory, laid
@@ -94,6 +98,10 @@ namespace infl {
 namespace lz4pn {
 #include "../tpuzip_torch/csrc/lz4p.cu"
 }  // namespace lz4pn
+
+namespace dfe {
+#include "../tpuzip_torch/csrc/deflate_encode.cu"
+}  // namespace dfe
 
 // clock64 once `dep` is ready: the setp waits on it, the mov after it.
 __device__ __forceinline__ long long stamp(uint32_t dep) {
@@ -2650,6 +2658,808 @@ lz4p_decode_new_clocks(const uint8_t* __restrict__ comp,
   }
 }
 
+// The deflate tables as they stood before their redesign
+// (csrc/deflate_encode.cu: a warp a row, two rows a block; the warp's
+// histograms by shared-memory atomics, then lane 0 alone runs
+// package-merge with the std::sort replica on (weight, node) items in
+// shared memory, each level's order stored to device memory and marked
+// level by level), writing its record where the source's emit kernel
+// (included above in namespace dfe) reads it, so that
+// tpz_deflate_tables_clocks can run that kernel after the copy for the
+// stream's bytes.  Block 0's row 0 cycles by part: 0 the histograms, 1 the
+// literal tree's partitions (the median of three, the unguarded partition
+// and the stack), 2 its final insertion sort, 3 its heap-sort fallback, 4
+// building each of its levels' items, 5 storing its levels' orders, 6 its
+// marking, 7 the distance tree, 8 the lengths run-length coded with the
+// code-length tree, 9 the degenerate tables' fixes, the canonical codes,
+// the header's bits and the record's store; cycles[10] the whole row;
+// from [11] the counters of row 0 (tools/step_clocks.py's TABLE_COUNTERS).
+namespace tables_old {
+
+constexpr int PKG = 1 << 10;
+constexpr int LV = 576;
+constexpr int THRESHOLD = 16;
+constexpr int TABLE_WARPS = 2;
+constexpr int LEVEL_BYTES = 20480;   // a row's levels' orders, then the
+constexpr int PREV_PK = 17408;       // previous level's package weights
+constexpr int PARTS = 10;
+constexpr int NCOUNT = 9;
+// counters: 0 literal levels sorted, 1 literal items sorted, 2-4 literal
+// partitions of ranges of 17-32, 33-64 and more items, 5 literal heap
+// sorts, 6 literal levels whose items equal the previous level's, 7 the
+// same for the distance tree, 8 distance items sorted
+
+__constant__ int8_t kOrder[19] = {16, 17, 18, 0, 8,  7, 9,  6, 10, 5,
+                                  11, 4,  12, 3, 13, 2, 14, 1, 15};
+
+template <bool STAMP>
+struct TClocks {
+  long long t, sum[PARTS], cnt[NCOUNT];
+  __device__ __forceinline__ void start() {
+    t = stamp(0);
+    for (int i = 0; i < PARTS; ++i) sum[i] = 0;
+    for (int i = 0; i < NCOUNT; ++i) cnt[i] = 0;
+  }
+  __device__ __forceinline__ void lap(int part, uint32_t dep) {
+    if (!STAMP) return;
+    const long long now = stamp(dep);
+    sum[part] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void count(int c, long long v) {
+    if (STAMP && c >= 0) cnt[c] += v;
+  }
+};
+
+// the parts (and counters, -1 for none) a tree's work is stamped to
+struct TreeParts {
+  int build, store, mark, part, ins, heap;
+  int c_levels, c_items, c_parts, c_heap, c_equal;
+};
+
+struct Items {
+  unsigned long long* w;
+  uint16_t* id;
+  __device__ __forceinline__ void swap(int a, int b) const {
+    const unsigned long long tw = w[a];
+    w[a] = w[b];
+    w[b] = tw;
+    const uint16_t ti = id[a];
+    id[a] = id[b];
+    id[b] = ti;
+  }
+};
+
+__device__ void adjust_heap(const Items& a, int first, int hole, int len,
+                            unsigned long long vw, uint16_t vid) {
+  const int top = hole;
+  int child = hole;
+  while (child < (len - 1) / 2) {
+    child = 2 * (child + 1);
+    if (a.w[first + child] < a.w[first + child - 1]) --child;
+    a.w[first + hole] = a.w[first + child];
+    a.id[first + hole] = a.id[first + child];
+    hole = child;
+  }
+  if ((len & 1) == 0 && child == (len - 2) / 2) {
+    child = 2 * (child + 1);
+    a.w[first + hole] = a.w[first + child - 1];
+    a.id[first + hole] = a.id[first + child - 1];
+    hole = child - 1;
+  }
+  int parent = (hole - 1) / 2;
+  while (hole > top && a.w[first + parent] < vw) {
+    a.w[first + hole] = a.w[first + parent];
+    a.id[first + hole] = a.id[first + parent];
+    hole = parent;
+    parent = (hole - 1) / 2;
+  }
+  a.w[first + hole] = vw;
+  a.id[first + hole] = vid;
+}
+
+__device__ void heap_sort(const Items& a, int first, int last) {
+  const int len = last - first;
+  if (len >= 2) {
+    for (int parent = (len - 2) / 2;; --parent) {
+      adjust_heap(a, first, parent, len, a.w[first + parent],
+                  a.id[first + parent]);
+      if (parent == 0) break;
+    }
+  }
+  while (last - first > 1) {
+    --last;
+    const unsigned long long vw = a.w[last];
+    const uint16_t vid = a.id[last];
+    a.w[last] = a.w[first];
+    a.id[last] = a.id[first];
+    adjust_heap(a, first, 0, last - first, vw, vid);
+  }
+}
+
+__device__ void unguarded_linear_insert(const Items& a, int last) {
+  const unsigned long long vw = a.w[last];
+  const uint16_t vid = a.id[last];
+  int next = last - 1;
+  while (vw < a.w[next]) {
+    a.w[last] = a.w[next];
+    a.id[last] = a.id[next];
+    last = next;
+    --next;
+  }
+  a.w[last] = vw;
+  a.id[last] = vid;
+}
+
+__device__ void insertion_sort(const Items& a, int first, int last) {
+  for (int i = first + 1; i < last; ++i) {
+    if (a.w[i] < a.w[first]) {
+      const unsigned long long vw = a.w[i];
+      const uint16_t vid = a.id[i];
+      for (int k = i; k > first; --k) {
+        a.w[k] = a.w[k - 1];
+        a.id[k] = a.id[k - 1];
+      }
+      a.w[first] = vw;
+      a.id[first] = vid;
+    } else {
+      unguarded_linear_insert(a, i);
+    }
+  }
+}
+
+template <bool STAMP>
+__device__ void std_sort(const Items& a, int n, TClocks<STAMP>& k,
+                         const TreeParts& tp) {
+  if (n == 0) return;
+  k.count(tp.c_levels, 1);
+  k.count(tp.c_items, n);
+  struct Range {
+    int16_t first, last, depth;
+  } stack[48];
+  int sp = 0;
+  stack[sp++] = {0, static_cast<int16_t>(n),
+                 static_cast<int16_t>(2 * (31 - __clz(n)))};
+  while (sp) {
+    const Range r = stack[--sp];
+    int first = r.first, last = r.last, depth = r.depth;
+    while (last - first > THRESHOLD) {
+      if (depth == 0) {
+        k.lap(tp.part, static_cast<uint32_t>(a.w[first]));
+        heap_sort(a, first, last);
+        k.count(tp.c_heap, 1);
+        k.lap(tp.heap, static_cast<uint32_t>(a.w[first]));
+        break;
+      }
+      if (tp.c_parts >= 0)
+        k.count(tp.c_parts + (last - first > 64 ? 2
+                              : last - first > 32 ? 1 : 0), 1);
+      --depth;
+      const int x = first + 1, y = first + (last - first) / 2, z = last - 1;
+      int pick;
+      if (a.w[x] < a.w[y])
+        pick = a.w[y] < a.w[z] ? y : a.w[x] < a.w[z] ? z : x;
+      else
+        pick = a.w[x] < a.w[z] ? x : a.w[y] < a.w[z] ? z : y;
+      a.swap(first, pick);
+      const unsigned long long pivot = a.w[first];
+      int lo = first + 1, hi = last;
+      for (;;) {
+        while (a.w[lo] < pivot) ++lo;
+        --hi;
+        while (pivot < a.w[hi]) --hi;
+        if (!(lo < hi)) break;
+        a.swap(lo, hi);
+        ++lo;
+      }
+      stack[sp++] = {static_cast<int16_t>(lo), static_cast<int16_t>(last),
+                     static_cast<int16_t>(depth)};
+      last = lo;
+    }
+  }
+  k.lap(tp.part, static_cast<uint32_t>(a.w[0]));
+  if (n > THRESHOLD) {
+    insertion_sort(a, 0, THRESHOLD);
+    for (int i = THRESHOLD; i < n; ++i) unguarded_linear_insert(a, i);
+  } else {
+    insertion_sort(a, 0, n);
+  }
+  k.lap(tp.ins, static_cast<uint32_t>(a.w[n - 1]));
+}
+
+struct Merge {
+  Items items;
+  unsigned long long* pk;
+  uint8_t* mark;
+  uint16_t* lv;                 // every level's order (device memory)
+  unsigned long long* prev_pk;  // the previous level's packages (stamped)
+};
+
+template <bool STAMP>
+__device__ void package_merge(const uint32_t* freq, int n, int maxbits,
+                              uint8_t* lens, const Merge& s,
+                              TClocks<STAMP>& k, const TreeParts& tp) {
+  int na = 0, only = 0;
+  for (int q = 0; q < n; ++q) {
+    lens[q] = 0;
+    if (freq[q]) {
+      ++na;
+      only = q;
+    }
+  }
+  if (na < 2) {
+    if (na) lens[only] = 1;
+    k.lap(tp.build, static_cast<uint32_t>(na));
+    return;
+  }
+  int size[16];
+  int m = 0, prev_np = -1;
+  for (int level = 0; level < maxbits; ++level) {
+    const int np = m / 2;
+    for (int q = 0; q < np; ++q)
+      s.pk[q] = s.items.w[2 * q] + s.items.w[2 * q + 1];
+    if (STAMP && tp.c_equal >= 0) {
+      bool same = np == prev_np;
+      for (int q = 0; q < np; ++q) {
+        same = same && s.prev_pk[q] == s.pk[q];
+        s.prev_pk[q] = s.pk[q];
+      }
+      k.count(tp.c_equal, same);
+      prev_np = np;
+    }
+    int j = 0;
+    for (int q = 0; q < n; ++q)
+      if (freq[q]) {
+        s.items.w[j] = freq[q];
+        s.items.id[j++] = static_cast<uint16_t>(q);
+      }
+    for (int q = 0; q < np; ++q) {
+      s.items.w[j] = s.pk[q];
+      s.items.id[j++] = static_cast<uint16_t>(PKG + q);
+    }
+    m = size[level] = j;
+    k.lap(tp.build, static_cast<uint32_t>(s.items.w[j - 1]));
+    std_sort(s.items, m, k, tp);
+    for (int q = 0; q < m; ++q) s.lv[level * LV + q] = s.items.id[q];
+    k.lap(tp.store, static_cast<uint32_t>(m));
+  }
+  uint8_t* cur = s.mark;
+  uint8_t* below = s.mark + LV;
+  const int take = min(2 * na - 2, m);
+  for (int q = 0; q < m; ++q) cur[q] = q < take;
+  for (int level = maxbits - 1; level >= 0; --level) {
+    const int nb = level ? size[level - 1] : 0;
+    for (int q = 0; q < nb; ++q) below[q] = 0;
+    for (int q = 0; q < size[level]; ++q) {
+      if (!cur[q]) continue;
+      const int node = s.lv[level * LV + q];
+      if (node < PKG) {
+        ++lens[node];
+      } else {
+        below[2 * (node - PKG)] = 1;
+        below[2 * (node - PKG) + 1] = 1;
+      }
+    }
+    uint8_t* t = cur;
+    cur = below;
+    below = t;
+  }
+  k.lap(tp.mark, static_cast<uint32_t>(lens[0]));
+}
+
+__device__ void one_code(uint8_t* lens, int n) {
+  int nz = 0, s0 = 0;
+  for (int s = n - 1; s >= 0; --s)
+    if (lens[s]) {
+      ++nz;
+      s0 = s;
+    }
+  if (nz == 1) {
+    lens[s0] = 1;
+    lens[s0 ? 0 : 1] = 1;
+  }
+}
+
+__device__ void canon_codes(const uint8_t* lens, int n, uint16_t* codes) {
+  int cnt[16] = {0};
+  for (int i = 0; i < n; ++i) cnt[lens[i]]++;
+  cnt[0] = 0;
+  uint32_t next[16] = {0};
+  uint32_t code = 0;
+  for (int l = 1; l < 16; ++l) {
+    code = (code + cnt[l - 1]) << 1;
+    next[l] = code;
+  }
+  for (int i = 0; i < n; ++i) {
+    const int l = lens[i];
+    codes[i] = l ? static_cast<uint16_t>(__brev(next[l]++) >> (32 - l)) : 0;
+  }
+}
+
+struct BitWr {
+  uint8_t* p;
+  int pos = 0;
+  unsigned long long buf = 0;
+  int cnt = 0;
+  __device__ void bits(uint32_t v, int k) {
+    buf |= static_cast<unsigned long long>(v) << cnt;
+    cnt += k;
+    while (cnt >= 8) {
+      p[pos++] = static_cast<uint8_t>(buf);
+      buf >>= 8;
+      cnt -= 8;
+    }
+  }
+  __device__ int flush() {
+    if (cnt) p[pos] = static_cast<uint8_t>(buf);
+    return 8 * pos + cnt;
+  }
+};
+
+struct TableShared {
+  uint32_t lfreq[288];
+  uint32_t dfreq[32];
+  unsigned long long w[LV];
+  unsigned long long pk[LV / 2];
+  uint16_t id[LV];
+  uint16_t codes[320];
+  uint8_t lens[320];
+  uint8_t mark[2 * LV];
+  uint8_t clsym[320];
+  uint8_t clextra[320];
+  uint8_t cllen[20];
+  uint16_t clcode[20];
+};
+
+}  // namespace tables_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(32 * tables_old::TABLE_WARPS)
+deflate_tables_clocks(const int32_t* __restrict__ tokens,
+                      const int32_t* __restrict__ ntok, int B, int n,
+                      int mode, uint8_t* __restrict__ comp, int pitch,
+                      uint8_t* __restrict__ scratch,
+                      uint8_t* __restrict__ levels, long long* cycles) {
+  using namespace tables_old;
+  __shared__ TableShared sh_all[TABLE_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * TABLE_WARPS + threadIdx.x / 32;
+  if (row >= B) return;
+  TableShared& sh = sh_all[threadIdx.x / 32];
+  uint8_t* rec = scratch + static_cast<size_t>(row) * dfe::SCRATCH_BYTES;
+  uint8_t* lvl = levels + static_cast<size_t>(row) * LEVEL_BYTES;
+  uint8_t* dst = comp + static_cast<size_t>(row) * pitch;
+  uint8_t* llen = sh.lens;
+  uint8_t* dlen = sh.lens + 288;
+  TClocks<STAMP> k;
+  k.start();
+  const long long t0 = k.t;
+  for (int q = lane; q < 320; q += 32) {
+    sh.lens[q] = 0;
+    sh.codes[q] = 0;
+    if (q < 288) sh.lfreq[q] = 0;
+    if (q < 32) sh.dfreq[q] = 0;
+  }
+  __syncwarp();
+  if (mode == 0) {
+    const int32_t* tok = tokens + static_cast<size_t>(row) * n;
+    const int nt = ntok[row];
+    for (int t = lane; t < nt; t += 32) {
+      const int v = tok[t];
+      if (v < 256) {
+        atomicAdd(&sh.lfreq[v], 1u);
+      } else {
+        atomicAdd(&sh.lfreq[257 + dfe::len_code(v >> 16)], 1u);
+        atomicAdd(&sh.dfreq[dfe::dist_code(v & 0xFFFF)], 1u);
+      }
+    }
+  }
+  __syncwarp();
+  k.lap(0, sh.lfreq[0]);
+  if (lane == 0) {
+    BitWr bw{dst};
+    if (mode == 1) {
+      for (int s = 0; s < 288; ++s)
+        llen[s] = s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
+      for (int s = 0; s < 30; ++s) dlen[s] = 5;
+      canon_codes(llen, 288, sh.codes);
+      canon_codes(dlen, 30, sh.codes + 288);
+      bw.bits(1, 1);
+      bw.bits(1, 2);
+    } else {
+      const Merge s{{sh.w, sh.id}, sh.pk, sh.mark,
+                    reinterpret_cast<uint16_t*>(lvl),
+                    reinterpret_cast<unsigned long long*>(lvl + PREV_PK)};
+      const TreeParts lit{4, 5, 6, 1, 2, 3, 0, 1, 2, 5, 6};
+      const TreeParts dist{7, 7, 7, 7, 7, 7, -1, 8, -1, -1, 7};
+      const TreeParts cl{8, 8, 8, 8, 8, 8, -1, -1, -1, -1, -1};
+      sh.lfreq[256] = 1;
+      package_merge(sh.lfreq, 286, 15, llen, s, k, lit);
+      package_merge(sh.dfreq, 30, 15, dlen, s, k, dist);
+      one_code(llen, 286);
+      int nd = 0;
+      for (int q = 0; q < 30; ++q) nd += dlen[q] != 0;
+      if (nd == 0) dlen[0] = 1;
+      canon_codes(llen, 286, sh.codes);
+      canon_codes(dlen, 30, sh.codes + 288);
+      int hlit = 286, hdist = 30;
+      while (hlit > 257 && llen[hlit - 1] == 0) --hlit;
+      while (hdist > 1 && dlen[hdist - 1] == 0) --hdist;
+      k.lap(9, sh.codes[0]);
+      const int nall = hlit + hdist;
+      auto at = [&](int q) { return q < hlit ? llen[q] : dlen[q - hlit]; };
+      uint32_t* clfreq = sh.lfreq;
+      for (int q = 0; q < 19; ++q) clfreq[q] = 0;
+      int ncl = 0;
+      for (int q = 0; q < nall;) {
+        const int v = at(q);
+        int run = 1;
+        while (q + run < nall && at(q + run) == v) ++run;
+        q += run;
+        if (v == 0) {
+          while (run >= 3) {
+            const int take = min(run, 138);
+            sh.clsym[ncl] = take >= 11 ? 18 : 17;
+            sh.clextra[ncl++] = take - (take >= 11 ? 11 : 3);
+            clfreq[take >= 11 ? 18 : 17]++;
+            run -= take;
+          }
+        } else {
+          sh.clsym[ncl] = v;
+          sh.clextra[ncl++] = 0;
+          clfreq[v]++;
+          --run;
+          while (run >= 3) {
+            const int take = min(run, 6);
+            sh.clsym[ncl] = 16;
+            sh.clextra[ncl++] = take - 3;
+            clfreq[16]++;
+            run -= take;
+          }
+        }
+        for (; run > 0; --run) {
+          sh.clsym[ncl] = v;
+          sh.clextra[ncl++] = 0;
+          clfreq[v]++;
+        }
+      }
+      package_merge(clfreq, 19, 7, sh.cllen, s, k, cl);
+      one_code(sh.cllen, 19);
+      canon_codes(sh.cllen, 19, sh.clcode);
+      int hclen = 19;
+      while (hclen > 4 && sh.cllen[kOrder[hclen - 1]] == 0) --hclen;
+      k.lap(8, sh.clcode[0]);
+      bw.bits(1, 1);
+      bw.bits(2, 2);
+      bw.bits(hlit - 257, 5);
+      bw.bits(hdist - 1, 5);
+      bw.bits(hclen - 4, 4);
+      for (int q = 0; q < hclen; ++q) bw.bits(sh.cllen[kOrder[q]], 3);
+      for (int q = 0; q < ncl; ++q) {
+        const int sym = sh.clsym[q];
+        bw.bits(sh.clcode[sym], sh.cllen[sym]);
+        if (sym >= 16)
+          bw.bits(sh.clextra[q], sym == 16 ? 2 : sym == 17 ? 3 : 7);
+      }
+    }
+    *reinterpret_cast<int32_t*>(rec + dfe::REC_HBITS) = bw.flush();
+  }
+  __syncwarp();
+  uint16_t* codes = reinterpret_cast<uint16_t*>(rec + dfe::REC_CODES);
+  for (int q = lane; q < 320; q += 32) {
+    codes[q] = sh.codes[q];
+    rec[dfe::REC_LENS + q] = sh.lens[q];
+  }
+  __syncwarp();
+  k.lap(9, codes[lane]);
+  const long long t1 = stamp(static_cast<uint32_t>(rec[dfe::REC_LENS]));
+  if (lane == 0 && row == 0) {
+    for (int p = 0; p < PARTS; ++p) cycles[p] = k.sum[p];
+    cycles[PARTS] = t1 - t0;
+    for (int c = 0; c < NCOUNT; ++c) cycles[PARTS + 1 + c] = k.cnt[c];
+  }
+}
+
+// The redesigned deflate tables (csrc/deflate_encode.cu, included above in
+// namespace dfe): this kernel body, its warp_sort and its package_merge
+// are copies of the source's (keep them in step), stamped by part; the
+// rest is the source's own functions.  Row 0's cycles by part, on each
+// warp's lane 0 (warp 0 the literal/length tree then the header, warp 1
+// the distance tree then the canonical codes): 0 the histograms, 1 each
+// level's packages, the test against the last level's and the items, 2
+// the warp's partitions, 3 the final ranges' pass, 4 the level stores, 5
+// the marking, 6 the wait for the other warp's tree, 7 the degenerate
+// tables' fixes, 8 the header (warp 0) or the canonical codes (warp 1), 9
+// the record's store (a lap after a __syncthreads may hold some of the
+// wait before it); then the whole row, and counters: levels sorted,
+// levels skipped, warp partitions, final ranges of 2 items or more, heap
+// sorts.  Warp 0's 16 entries first, then warp 1's.
+namespace tables_new {
+
+constexpr int PARTS = 10;
+constexpr int NCOUNT = 5;
+
+template <bool STAMP>
+struct NClocks {
+  long long t, sum[PARTS], cnt[NCOUNT];
+  __device__ __forceinline__ void start() {
+    t = stamp(0);
+    for (int i = 0; i < PARTS; ++i) sum[i] = 0;
+    for (int i = 0; i < NCOUNT; ++i) cnt[i] = 0;
+  }
+  __device__ __forceinline__ void lap(int part, uint32_t dep) {
+    if (!STAMP) return;
+    const long long now = stamp(dep);
+    sum[part] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void count(int c, long long v) {
+    if (STAMP) cnt[c] += v;
+  }
+};
+
+template <int NV, bool STAMP>
+__device__ __forceinline__ void warp_sort(unsigned long long* a, int n,
+                                          const dfe::SortSpace& s, int lane,
+                                          NClocks<STAMP>& k) {
+  using dfe::THRESHOLD;
+  if (n < 2) return;
+  for (int p = lane; p < n; p += 32) s.block[p] = p | (p + 1) << 16;
+  __syncwarp();
+  int sp = 0;
+  int first = 0, last = n, depth = 2 * (31 - __clz(n));
+  for (;;) {
+    while (last - first > THRESHOLD) {
+      if (depth == 0) {
+        if (lane == 0) dfe::heap_sort(a, first, last);
+        __syncwarp();
+        k.count(4, 1);
+        first = last;
+        break;
+      }
+      --depth;
+      const int cut = dfe::pair_partition(a, first, last, s, lane);
+      k.count(2, 1);
+      if (last - cut > THRESHOLD) {
+        if (lane == 0) s.stack[sp] = dfe::range(cut, last, depth);
+        ++sp;
+      } else {
+        dfe::add_block(s, cut, last, lane);
+        k.count(3, last - cut > 1);
+      }
+      last = cut;
+    }
+    dfe::add_block(s, first, last, lane);
+    k.count(3, last - first > 1);
+    if (sp == 0) break;
+    __syncwarp();
+    const uint32_t r = s.stack[--sp];
+    first = r & 1023;
+    last = (r >> 10) & 1023;
+    depth = r >> 20;
+  }
+  __syncwarp();
+  k.lap(2, static_cast<uint32_t>(a[0]));
+  unsigned long long v[(NV + 31) / 32];
+  int at[(NV + 31) / 32];
+#pragma unroll
+  for (int j = 0; j < (NV + 31) / 32; ++j) {
+    const int p = j * 32 + lane;
+    at[j] = -1;
+    if (p < n) {
+      const uint32_t b = s.block[p];
+      const int f = b & 0xFFFF, l = b >> 16;
+      v[j] = a[p];
+      const unsigned long long w = dfe::wt(v[j]);
+      int r = f;
+      for (int q = f; q < l; ++q) {
+        const unsigned long long x = dfe::wt(a[q]);
+        r += x < w || (x == w && q < p);
+      }
+      at[j] = r;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < (NV + 31) / 32; ++j)
+    if (at[j] >= 0) a[at[j]] = v[j];
+  __syncwarp();
+  k.lap(3, static_cast<uint32_t>(a[0]));
+}
+
+template <int NSYM, int LVN, int MAXBITS, bool STAMP>
+__device__ __forceinline__ void package_merge(const uint32_t* freq,
+                                              uint8_t* lens,
+                                              dfe::Tree<NSYM, LVN>& t,
+                                              uint16_t* lv, int lane,
+                                              NClocks<STAMP>& k) {
+  using dfe::FULL;
+  using dfe::KEY_SHIFT;
+  using dfe::PKG;
+  using dfe::wt;
+  const unsigned below = (1u << lane) - 1;
+  const dfe::SortSpace s{t.left, t.right, t.stack, t.block};
+  int na = 0;
+  for (int s0 = 0; s0 < NSYM; s0 += 32) {
+    const int sym = s0 + lane;
+    const uint32_t f = sym < NSYM ? freq[sym] : 0;
+    if (sym < NSYM) lens[sym] = 0;
+    const unsigned act = __ballot_sync(FULL, f != 0);
+    if (f)
+      t.leaf[na + __popc(act & below)] =
+          static_cast<unsigned long long>(f) << KEY_SHIFT | sym;
+    na += __popc(act);
+  }
+  __syncwarp();
+  if (na < 2) {
+    if (na && lane == 0) lens[t.leaf[0] & 0xFFFF] = 1;
+    __syncwarp();
+    k.lap(1, static_cast<uint32_t>(na));
+    return;
+  }
+  int m = 0, last_np = -1;
+  for (int level = 0; level < MAXBITS; ++level) {
+    const int np = m / 2;
+    unsigned long long* pk = t.pk[level & 1];
+    const unsigned long long* was = t.pk[(level & 1) ^ 1];
+    bool same = np == last_np;
+    for (int k0 = 0; k0 < np; k0 += 32) {
+      const int q = k0 + lane;
+      bool differs = false;
+      if (q < np) {
+        pk[q] = wt(t.a[2 * q]) + wt(t.a[2 * q + 1]);
+        differs = pk[q] != was[q];
+      }
+      same = same && !__any_sync(FULL, differs);
+    }
+    last_np = np;
+    __syncwarp();
+    if (!same) {
+      for (int q = lane; q < na; q += 32) t.a[q] = t.leaf[q];
+      for (int q = lane; q < np; q += 32)
+        t.a[na + q] = pk[q] << KEY_SHIFT | (PKG + q);
+      m = na + np;
+      __syncwarp();
+      k.lap(1, static_cast<uint32_t>(t.a[0]));
+      warp_sort<LVN>(t.a, m, s, lane, k);
+      k.count(0, 1);
+    } else {
+      k.count(1, 1);
+      k.lap(1, 0);
+    }
+    if (lane == 0) t.size[level] = m;
+    for (int q = lane; q < m; q += 32)
+      lv[level * LVN + q] = static_cast<uint16_t>(t.a[q] & 0xFFFF);
+    k.lap(4, static_cast<uint32_t>(m));
+  }
+  uint8_t* cur = t.mark[0];
+  uint8_t* under = t.mark[1];
+  const int take = min(2 * na - 2, m);
+  for (int q = lane; q < m; q += 32) cur[q] = q < take;
+  __syncwarp();
+  for (int level = MAXBITS - 1; level >= 0; --level) {
+    const int nb = level ? t.size[level - 1] : 0, nl = t.size[level];
+    for (int q = lane; q < nb; q += 32) under[q] = 0;
+    uint16_t node[(LVN + 31) / 32];
+#pragma unroll
+    for (int j = 0; j < (LVN + 31) / 32; ++j) {
+      const int q = j * 32 + lane;
+      node[j] = q < nl ? lv[level * LVN + q] : 0;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < (LVN + 31) / 32; ++j) {
+      const int q = j * 32 + lane;
+      if (q < nl && cur[q]) {
+        const int nd = node[j];
+        if (nd < PKG) {
+          ++lens[nd];
+        } else {
+          under[2 * (nd - PKG)] = 1;
+          under[2 * (nd - PKG) + 1] = 1;
+        }
+      }
+    }
+    __syncwarp();
+    uint8_t* tmp = cur;
+    cur = under;
+    under = tmp;
+  }
+  k.lap(5, lens[0]);
+}
+
+}  // namespace tables_new
+
+template <bool STAMP>
+__global__ void __launch_bounds__(dfe::TABLE_THREADS)
+deflate_tables_new_clocks(const int32_t* __restrict__ tokens,
+                          const int32_t* __restrict__ ntok, int n,
+                          uint8_t* __restrict__ comp, int pitch,
+                          uint8_t* __restrict__ scratch, long long* cycles) {
+  using namespace dfe;
+  using tables_new::NClocks;
+  __shared__ TableShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x;
+  uint8_t* rec = scratch + static_cast<size_t>(row) * SCRATCH_BYTES;
+  uint8_t* dst = comp + static_cast<size_t>(row) * pitch;
+  uint8_t* llen = sh.lens;
+  uint8_t* dlen = sh.lens + 288;
+  NClocks<STAMP> k;
+  k.start();
+  const long long t0 = k.t;
+  for (int q = tid; q < 320; q += TABLE_THREADS) {
+    sh.lens[q] = 0;
+    sh.codes[q] = 0;
+    if (q < 288) sh.lfreq[q] = 0;
+    if (q < 32) sh.dfreq[q] = 0;
+  }
+  for (int q = tid; q < HDR_WORDS; q += TABLE_THREADS) sh.hdr[q] = 0;
+  __syncthreads();
+  const int32_t* tok = tokens + static_cast<size_t>(row) * n;
+  const int nt = ntok[row];
+  for (int t0g = 0; t0g < nt; t0g += TABLE_THREADS * HIST_BATCH) {
+    int v[HIST_BATCH];
+#pragma unroll
+    for (int j = 0; j < HIST_BATCH; ++j) {
+      const int t = t0g + j * TABLE_THREADS + tid;
+      v[j] = t < nt ? tok[t] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < HIST_BATCH; ++j) {
+      if (v[j] < 0) continue;
+      if (v[j] < 256) {
+        atomicAdd(&sh.lfreq[v[j]], 1u);
+      } else {
+        atomicAdd(&sh.lfreq[257 + len_code(v[j] >> 16)], 1u);
+        atomicAdd(&sh.dfreq[dist_code(v[j] & 0xFFFF)], 1u);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) sh.lfreq[256] = 1;
+  __syncthreads();
+  k.lap(0, sh.lfreq[0]);
+  if (warp == 0)
+    tables_new::package_merge<286, LIT_LV, 15>(
+        sh.lfreq, llen, sh.lit, reinterpret_cast<uint16_t*>(rec), lane, k);
+  else
+    tables_new::package_merge<30, DIST_LV, 15>(sh.dfreq, dlen, sh.dist,
+                                               sh.dlv, lane, k);
+  __syncthreads();
+  k.lap(6, sh.lens[lane]);
+  if (warp == 0) {
+    one_code(llen, 286, lane);
+    if (!__any_sync(FULL, lane < 30 && dlen[lane]) && lane == 0) dlen[0] = 1;
+  }
+  __syncthreads();
+  k.lap(7, sh.lens[lane]);
+  if (warp == 1) {
+    canon_codes(llen, 286, sh.codes, sh.cnt[1], sh.next[1], lane);
+    canon_codes(dlen, 30, sh.codes + 288, sh.cnt[1], sh.next[1], lane);
+  } else {
+    const int hbits = dynamic_header(sh, dst, lane);
+    if (lane == 0) *reinterpret_cast<int32_t*>(rec + REC_HBITS) = hbits;
+  }
+  k.lap(8, sh.codes[lane]);
+  __syncthreads();
+  uint16_t* codes = reinterpret_cast<uint16_t*>(rec + REC_CODES);
+  for (int q = tid; q < 320; q += TABLE_THREADS) {
+    codes[q] = sh.codes[q];
+    rec[REC_LENS + q] = sh.lens[q];
+  }
+  __syncthreads();
+  k.lap(9, codes[lane]);
+  const long long t1 = stamp(static_cast<uint32_t>(rec[REC_LENS]));
+  if (lane == 0 && row == 0) {
+    long long* c = cycles + 16 * warp;
+    for (int p = 0; p < tables_new::PARTS; ++p) c[p] = k.sum[p];
+    c[tables_new::PARTS] = t1 - t0;
+    for (int q = 0; q < tables_new::NCOUNT; ++q)
+      c[tables_new::PARTS + 1 + q] = k.cnt[q];
+  }
+}
+
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -2954,5 +3764,78 @@ extern "C" int tpz_lz4p_decode_new_clocks(const void* comp, const void* clens,
                   static_cast<uint8_t*>(out), out_cap,
                   static_cast<int64_t*>(status),
                   static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the deflate tables as they stood before their redesign (mode
+// 0 or 1): their records into scratch (the source's layout,
+// dfe::SCRATCH_BYTES a row), their levels' orders into levels
+// (tables_old::LEVEL_BYTES a row), and with emit the source's emit kernel
+// on those records into comp (zeroed) and clens; block 0's row 0 cycles
+// into cycles (20 int64).
+extern "C" int tpz_deflate_tables_clocks(const void* tokens, const void* ntok,
+                                         int B, int n, int mode, void* comp,
+                                         int pitch, void* clens,
+                                         void* scratch, void* levels,
+                                         void* cycles, int stamped,
+                                         int emit) {
+  auto kern = stamped ? deflate_tables_clocks<true>
+                      : deflate_tables_clocks<false>;
+  kern<<<(B + tables_old::TABLE_WARPS - 1) / tables_old::TABLE_WARPS,
+         32 * tables_old::TABLE_WARPS>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      B, n, mode, static_cast<uint8_t*>(comp), pitch,
+      static_cast<uint8_t*>(scratch), static_cast<uint8_t*>(levels),
+      static_cast<long long*>(cycles));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !emit) return static_cast<int>(err);
+  dfe::deflate_emit_kernel<<<B, dfe::EMIT_THREADS>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
+      static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// csrc/deflate_encode.cu's own tables and emit (its tpz_deflate_emit) with
+// a scratch of the caller's, so that the records can be read.
+extern "C" int tpz_deflate_emit_source(const void* blocks, const void* lengths,
+                                       const void* tokens, const void* ntok,
+                                       int B, int n, int mode, void* comp,
+                                       int pitch, void* clens, void* scratch,
+                                       void* stream) {
+  return dfe::tpz_deflate_emit(blocks, lengths, tokens, ntok, B, n, mode,
+                               comp, pitch, clens, scratch, stream);
+}
+
+// The source's scratch layout: a row's bytes, its record's first byte and
+// the record's end (the header's bit count its last 4 bytes).
+extern "C" void tpz_deflate_record_layout(int* out) {
+  out[0] = dfe::SCRATCH_BYTES;
+  out[1] = dfe::REC_CODES;
+  out[2] = dfe::REC_HBITS + 4;
+}
+
+// B rows of the redesigned deflate tables (dynamic blocks) stamped by
+// part: their records into scratch, then with emit the source's emit
+// kernel on them into comp (zeroed) and clens; block 0's row 0 cycles into
+// cycles (32 int64: warp 0's 16, then warp 1's).
+extern "C" int tpz_deflate_tables_new_clocks(const void* tokens,
+                                             const void* ntok, int B, int n,
+                                             void* comp, int pitch,
+                                             void* clens, void* scratch,
+                                             void* cycles, int stamped,
+                                             int emit) {
+  auto kern = stamped ? deflate_tables_new_clocks<true>
+                      : deflate_tables_new_clocks<false>;
+  kern<<<B, dfe::TABLE_THREADS>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      n, static_cast<uint8_t*>(comp), pitch, static_cast<uint8_t*>(scratch),
+      static_cast<long long*>(cycles));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !emit) return static_cast<int>(err);
+  dfe::deflate_emit_kernel<<<B, dfe::EMIT_THREADS>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
+      static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

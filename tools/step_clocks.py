@@ -41,9 +41,11 @@ streams, and lz4p's pack as it stood before its redesign (two walks, a
 sequence at a time) on the lz4p path's LZ4 streams, row 0 alone and
 beside the other 1023 rows, each held against the real kernel's output;
 likewise lz4p's decode as it stood before its redesign (a sequence at a
-time after a pass of prefix sums) on the lz4p path's rows, and the deflate
+time after a pass of prefix sums) on the lz4p path's rows, the deflate
 links as they stood before theirs (a warp a row, a keyed table in device
-memory) on the deflate path's rows.
+memory) on the deflate path's rows, and the deflate tables as they stood
+before theirs (lane 0's package-merge) on that path's tokens, each copy's
+records and streams held against csrc/deflate_encode.cu's.
 One JSON line a section (SECTIONS; all of them without arguments, about
 60-90 s; lz4_chain and lz4_dense alone about 30 s, inflate and lz4p_pack
 about 30 s)."""
@@ -926,12 +928,164 @@ def deflate_links(lib, res) -> None:
         rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
             lambda: deflate_coder.deflate_links(blocks[:b], lens[:b]), 3)
 
+
+TABLE_PARTS = ("histograms", "literal tree: partitions",
+               "literal tree: final insertion sort",
+               "literal tree: heap-sort fallback",
+               "literal tree: level items", "literal tree: level stores",
+               "literal tree: marking", "distance tree",
+               "lengths run-length coded, code-length tree",
+               "fixes, codes, header bits and record store")
+NEW_TABLE_PARTS = ("histograms", "level packages, test and items",
+                   "warp partitions", "final ranges' pass", "level stores",
+                   "marking", "wait for the other tree", "fixes",
+                   "header (warp 0) or codes (warp 1)", "record store")
+NEW_TABLE_COUNTERS = ("levels sorted", "levels skipped", "warp partitions",
+                      "final ranges of 2 or more", "heap sorts")
+TABLE_LEVEL_BYTES = 20480   # tables_old::LEVEL_BYTES: a row's levels' orders
+TABLE_COUNTERS = ("literal levels sorted", "literal items sorted",
+                  "literal partitions of 17-32 items",
+                  "literal partitions of 33-64 items",
+                  "literal partitions past 64 items",
+                  "literal heap sorts",
+                  "literal levels whose items equal the previous level's",
+                  "distance levels whose items equal the previous level's",
+                  "distance items sorted")
+
+
+def deflate_tables(lib, res) -> None:
+    """The deflate tables as they stood before their redesign (a warp a
+    row, lane 0's package-merge with the std::sort replica, the levels'
+    orders in device memory), on the deflate path's tokens (the smoke's
+    64 MiB corpus through tpuzip_torch.compress(codec="deflate"), 1024
+    rows of 64 KiB, dynamic at max_chain 128), stamped by part on row 0
+    alone and beside the other 1023 rows, each copy's records held against
+    csrc/deflate_encode.cu's own (built into the same library) and its
+    streams, through the source's emit kernel, against the path's, into
+    res["deflate_tables"]: cycles of row 0 by part, its counters, and the
+    unstamped copy's ms (its tables alone, and with the emit) beside the
+    path's launch (tables and emit) on the same rows; and the redesigned
+    kernel's copy likewise ("new_*": cycles of row 0 by part on each of
+    its two warps, and counters)."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    with cs.recorded(deflate_coder, "deflate_emit") as calls:
+        tpuzip_torch.compress(data, codec="deflate")
+    (args, _, ref), = calls
+    blocks, lens = args[0].contiguous(), args[1].contiguous()
+    tokens, ntok, mode = args[2].contiguous(), args[3].contiguous(), args[4]
+    b_all, n = tokens.shape
+    cap = ref[0].shape[1]
+    layout = (ctypes.c_int * 3)()
+    lib.tpz_deflate_record_layout(layout)
+    row_bytes, rec_from, rec_to = layout
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.tpz_deflate_tables_clocks
+    fn.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp, vp, vp, ci, ci]
+    src = lib.tpz_deflate_emit_source
+    src.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp]
+
+    def outputs(b: int):
+        return (torch.zeros((b, cap), dtype=torch.uint8, device="cuda"),
+                torch.empty(b, dtype=torch.int32, device="cuda"),
+                torch.zeros((b, row_bytes), dtype=torch.uint8,
+                            device="cuda"))
+
+    def launch(b: int, stamped: int, emit: int = 1):
+        comp, clens, scratch = outputs(b)
+        levels = torch.empty(b * TABLE_LEVEL_BYTES, dtype=torch.uint8,
+                             device="cuda")
+        cyc = torch.zeros(32, dtype=torch.int64, device="cuda")
+        _build.check(fn(tokens.data_ptr(), ntok.data_ptr(), b, n, mode,
+                        comp.data_ptr(), cap, clens.data_ptr(),
+                        scratch.data_ptr(), levels.data_ptr(),
+                        cyc.data_ptr(), stamped, emit),
+                     "deflate_tables_clocks")
+        return comp, clens, scratch, cyc
+
+    def source(b: int):
+        comp, clens, scratch = outputs(b)
+        _build.check(src(blocks.data_ptr(), lens.data_ptr(),
+                         tokens.data_ptr(), ntok.data_ptr(), b, n, mode,
+                         comp.data_ptr(), cap, clens.data_ptr(),
+                         scratch.data_ptr(), None), "deflate_emit_source")
+        return comp, clens, scratch
+
+    rec = res.setdefault("deflate_tables", {
+        "rows": [b_all, n], "mode": mode,
+        "row0_tokens": int(ntok[0]), "record_bytes": rec_to - rec_from})
+    for b in (1, b_all):
+        scomp, sclens, sscratch = source(b)
+        for stamped in (1, 0):
+            comp, clens, scratch, cyc = launch(b, stamped)
+            torch.cuda.synchronize()
+            same = (torch.equal(comp, ref[0][:b])
+                    and torch.equal(clens, ref[1][:b])
+                    and torch.equal(scomp, ref[0][:b])
+                    and torch.equal(scratch[:, rec_from:rec_to],
+                                    sscratch[:, rec_from:rec_to]))
+            if not same:
+                raise AssertionError(f"deflate tables copy (stamped="
+                                     f"{stamped}, {b} rows) differs from "
+                                     "csrc/deflate_encode.cu")
+            cyc = cyc.tolist()
+            whole = cyc[len(TABLE_PARTS)]
+            rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                "cycles": {**{p: cyc[i] for i, p in enumerate(TABLE_PARTS)},
+                           "whole row": whole},
+                "counters": {c: cyc[len(TABLE_PARTS) + 1 + i]
+                             for i, c in enumerate(TABLE_COUNTERS)}}
+        rec[f"rows_{b}_unstamped_tables_ms"] = cs.cuda_ms(
+            lambda: launch(b, 0, 0), 3)
+        rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0), 3)
+        rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
+            lambda: deflate_coder.deflate_emit(blocks[:b], lens[:b],
+                                               tokens[:b], ntok[:b], mode),
+            3)
+    # the redesign (csrc/deflate_encode.cu's kernel), by part on each warp
+    new = lib.tpz_deflate_tables_new_clocks
+    new.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, vp, ci, ci]
+
+    def launch_new(b: int, stamped: int, emit: int = 1):
+        comp, clens, scratch = outputs(b)
+        cyc = torch.zeros(32, dtype=torch.int64, device="cuda")
+        _build.check(new(tokens.data_ptr(), ntok.data_ptr(), b, n,
+                         comp.data_ptr(), cap, clens.data_ptr(),
+                         scratch.data_ptr(), cyc.data_ptr(), stamped, emit),
+                     "deflate_tables_new_clocks")
+        return comp, clens, scratch, cyc
+
+    for b in (1, b_all):
+        scomp, sclens, sscratch = source(b)
+        for stamped in (1, 0):
+            comp, clens, scratch, cyc = launch_new(b, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(comp, ref[0][:b])
+                    and torch.equal(clens, ref[1][:b])
+                    and torch.equal(scratch[:, rec_from:rec_to],
+                                    sscratch[:, rec_from:rec_to])):
+                raise AssertionError(f"redesigned deflate tables copy "
+                                     f"(stamped={stamped}, {b} rows) "
+                                     "differs from csrc/deflate_encode.cu")
+            cyc = cyc.tolist()
+            rec[f"new_rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                f"warp_{w}": {
+                    "cycles": {**{p: cyc[16 * w + i]
+                                  for i, p in enumerate(NEW_TABLE_PARTS)},
+                               "whole row": cyc[16 * w + 10]},
+                    "counters": {c: cyc[16 * w + 11 + i]
+                                 for i, c in enumerate(NEW_TABLE_COUNTERS)}}
+                for w in (0, 1)}
+        rec[f"new_rows_{b}_unstamped_tables_ms"] = cs.cuda_ms(
+            lambda: launch_new(b, 0, 0), 3)
+
+
 SECTIONS = {"coders": coders, "dc_walk": dc_walk, "lz4_encode": lz4_probe,
             "lz4_decode": lambda lib, res: (old_decoders(lib, res),
                                             new_lz4_decoder(lib, res)),
             "lz4_chain": chain_parse, "lz4_dense": dense_candidates,
             "inflate": inflate, "lz4p_pack": lz4p_pack,
-            "lz4p_decode": lz4p_decode, "deflate_links": deflate_links}
+            "lz4p_decode": lz4p_decode, "deflate_links": deflate_links,
+            "deflate_tables": deflate_tables}
 
 
 def main(names: list) -> int:
