@@ -346,16 +346,18 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    """open and compress_from_device(codec="deflate") are not ported yet
-    and name their ROADMAP.md items (15 and 13b); deflate and lz4p are
-    ported (tests/test_torch_deflate.py, tests/test_torch_lz4p.py), and so
-    are the corpus calls and compress_from_device
-    (tests/test_torch_serving.py): their calls here give tpuzip's bytes."""
+    """open is not ported yet and names its ROADMAP.md item (15); deflate
+    and lz4p are ported (tests/test_torch_deflate.py,
+    tests/test_torch_lz4p.py), and so are the corpus calls and
+    compress_from_device, deflate's device rule included
+    (tests/test_torch_serving.py, tests/test_torch_deflate_xla.py): their
+    calls here give tpuzip's bytes."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 15"):
         tpuzip_torch.open(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13b"):
-        tpuzip_torch.compress_from_device(np.zeros((1, 8), np.uint8), [8],
-                                          codec="deflate", device="cpu")
+    zeros = np.zeros((1, 8), np.uint8)
+    assert tpuzip_torch.compress_from_device(
+        zeros, [8], codec="deflate", device="cpu") == \
+        jrun.compress_from_device(zeros, [8], "deflate", mesh=MESH1)
     for codec in ("deflate", "lz4p"):
         assert tpuzip_torch.compress(b"x", codec=codec, device="cpu") == \
             jrun.compress(b"x", codec=codec, block_size=1 << 16, mesh=MESH1)

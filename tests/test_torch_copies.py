@@ -252,6 +252,27 @@ def test_deflate_tables_and_codes_match():
             jdeflate.canonical_codes(lens)
 
 
+def test_deflate_package_merge_matches(samples):
+    """package_merge (the oracle's tuple order, tpuzip's device deflate
+    rule) equals the original on each sample's byte histogram at 15 and 7
+    bits, on tie-heavy histograms and on the edges (no symbol, one, and an
+    alphabet past 2^limit, ValueError in both)."""
+    hists = [dict(enumerate(np.bincount(np.frombuffer(d, np.uint8),
+                                        minlength=256).tolist()))
+             for d in samples]
+    hists += [dict.fromkeys(range(286), 7), {s: 1 + s % 3 for s in range(30)},
+              {s: 1 << s % 9 for s in range(19)}, {}, {5: 9}, {0: 0, 3: 2}]
+    for freqs in hists:
+        for limit in (15, 7):
+            if sum(1 for f in freqs.values() if f) > 1 << limit:
+                continue
+            assert tdeflate.package_merge(freqs, limit) == \
+                jdeflate.package_merge(freqs, limit)
+    for pm in (tdeflate.package_merge, jdeflate.package_merge):
+        with pytest.raises(ValueError):
+            pm(dict.fromkeys(range(9), 1), 3)
+
+
 @pytest.mark.parametrize("level", [0, 1, 6, 9])
 def test_deflate_decoder_same_output(samples, level):
     """decompress_ex on zlib's raw streams of every sample equals the

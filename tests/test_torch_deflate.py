@@ -160,9 +160,10 @@ def test_corpus_and_to_device():
 
 
 def test_decodes_tpuzips_device_container():
-    """tpuzip's compress_from_device writes its XLA encoder's deflate
-    (another parse and other code lengths, ROADMAP.md item 13b); the port
-    decodes it all the same, and refuses to write it."""
+    """tpuzip's compress_from_device writes its device deflate rule
+    (another parse and other code lengths than its C++ encoder's); the port
+    decodes it, and its own compress_from_device writes the same bytes
+    (tests/test_torch_deflate_xla.py)."""
     data = TEXT[:4096 * 2 + 500]
     blocks, lens = blk.chunk(data, 4096)
     blob = jrun.compress_from_device(jax.numpy.asarray(blocks), lens,
@@ -171,9 +172,8 @@ def test_decodes_tpuzips_device_container():
     assert tpuzip_torch.decompress(blob, device="cpu") == data
     out, _, _ = tpuzip_torch.decompress(blob, device="cpu", to_device=True)
     assert np.array_equal(out.numpy(), blocks)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tpuzip_torch.compress_from_device(blocks, lens, codec="deflate",
-                                          device="cpu")
+    assert tpuzip_torch.compress_from_device(blocks, lens, codec="deflate",
+                                             device="cpu") == blob
 
 
 def _refusals(mine: bytes):

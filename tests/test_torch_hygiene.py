@@ -99,6 +99,34 @@ def test_round_trips_load_no_tpuzip_module():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_deflate_device_rule_and_zlib_load_no_tpuzip_module():
+    """In a fresh interpreter, compress_from_device(codec="deflate") (the
+    device rule) with decompress(to_device=True), and a zlib_ round trip
+    read by Python's zlib, on the CPU load neither jax nor any tpuzip
+    module."""
+    code = (
+        "import sys, zlib\n"
+        "import numpy as np\n"
+        "import tpuzip_torch\n"
+        "from tpuzip_torch.codecs import zlib_\n"
+        "from tpuzip_torch.core import blocks\n"
+        "d = b'abracadabra ' * 150\n"
+        "b, n = blocks.chunk(d, 512)\n"
+        "c = tpuzip_torch.compress_from_device(b, n, 'deflate',\n"
+        "                                      device='cpu')\n"
+        "out, olens, orig = tpuzip_torch.decompress(c, device='cpu',\n"
+        "                                           to_device=True)\n"
+        "assert np.array_equal(out.numpy(), b) and orig == len(d)\n"
+        "z = zlib_.compress(d, device='cpu')\n"
+        "assert zlib.decompress(z) == d\n"
+        "assert zlib_.decompress(z, len(d), device='cpu') == d\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('tpuzip', 'jax', 'jaxlib')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_scan_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\n"

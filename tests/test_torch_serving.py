@@ -147,9 +147,9 @@ def test_from_device_bwt_segmented(monkeypatch):
 
 def test_from_device_checks_its_input():
     """No block, a short block before the last, a last length past n or a
-    tensor on another device raise ValueError; deflate names its ROADMAP
-    item (13b: tpuzip's XLA deflate encoder), and lz4p gives tpuzip's
-    container (tests/test_torch_lz4p.py)."""
+    tensor on another device raise ValueError; deflate (tpuzip's device
+    rule, tests/test_torch_deflate_xla.py) and lz4p
+    (tests/test_torch_lz4p.py) give tpuzip's containers."""
     blocks, lens, _ = _device_rows("lz4")
     call = tpuzip_torch.compress_from_device
     with pytest.raises(ValueError, match="at least one"):
@@ -161,11 +161,10 @@ def test_from_device_checks_its_input():
         call(torch.from_numpy(blocks).to("meta"), lens, device="cpu")
     with pytest.raises(TypeError):
         call(blocks.astype(np.int32), lens, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        call(blocks, lens, codec="deflate", device="cpu")
-    assert call(blocks, lens, codec="lz4p", device="cpu") == \
-        jrun.compress_from_device(jax.numpy.asarray(blocks), lens, "lz4p",
-                                  mesh=MESH1)
+    for codec in ("deflate", "lz4p"):
+        assert call(blocks, lens, codec=codec, device="cpu") == \
+            jrun.compress_from_device(jax.numpy.asarray(blocks), lens, codec,
+                                      mesh=MESH1)
     with pytest.raises(RuntimeError):
         call(blocks, lens)                    # cuda, and there is no GPU
     one = call(blocks[:1, :0].copy(), [0], device="cpu")

@@ -9,11 +9,13 @@ holds every launch exact against its plain version on 40 rows of 4 KiB
 4095, 1365, 777 and 4, one row of each length with random bytes past
 it, and text rows of 0, 1, 2, 3, 5, 259, 260 and 1000 bytes) and on 40
 KiB rows whose repeats lie 32,767 to 32,769 back: the links, the parse
-at max_chain 1, 8 and 128, the emit in the three modes, and the inflate
-of every stream; the inflate also on 64 random and 64 bit-flipped
-streams and zlib's streams of several blocks.  Then one timed launch of each (CUDA
-events) at 1024 x 64 KiB of chip_smoke's text corpus, dynamic at
-max_chain 128.  With --ab, each DIR's deflate_encode.cu parse entry
+at max_chain 1, 8 and 128, the emit in the three modes, tpuzip's device
+rule (the greedy parse at max_chain 1, the tables in the tuple order),
+and the inflate of every stream; both table orders also on chip_smoke's
+table rows (each stream read back by zlib); the inflate also on 64 random
+and 64 bit-flipped streams and zlib's streams of several blocks.  Then
+one timed launch of each (CUDA events) at 1024 x 64 KiB of chip_smoke's
+text corpus, dynamic at max_chain 128, and the device rule's two.  With --ab, each DIR's deflate_encode.cu parse entry
 (tpz_deflate_parse, with or without its best_at scratch argument) against
 the checkout's, outputs held equal, timed in turns (DIR, checkout,
 checkout, DIR) at 1024 x 64 KiB of text at max_chain 8 and 128, of zero
@@ -113,6 +115,15 @@ def check(x, xl, label: str) -> dict:
     res["emit_stored_err"] = max(cs.max_err(comp, cref),
                                  cs.max_err(clens, clref))
     streams.append((comp, clens))
+    tok, nt = dc.deflate_parse_greedy(x, xl, prev)
+    tref, ntref = dc.deflate_parse_plain(x, xl, pref, 1, greedy=True)
+    res["parse_greedy_err"] = max(cs.max_err(tok, tref),
+                                  cs.max_err(nt, ntref))
+    comp, clens = dc.deflate_emit_tuple(x, xl, tok, nt)
+    cref, clref = dc.deflate_emit_plain(x, xl, tref, ntref, 0, "tuple")
+    res["emit_tuple_err"] = max(cs.max_err(comp, cref),
+                                cs.max_err(clens, clref))
+    streams.append((comp, clens))
     n = x.shape[1]
     keep = torch.arange(n, device="cuda")[None, :] < xl[:, None]
     want = torch.where(keep, x, 0)
@@ -124,6 +135,28 @@ def check(x, xl, label: str) -> dict:
         res[f"inflate_{k}_round_trip"] = bool(
             torch.equal(st, xl.to(torch.int64)) and torch.equal(out, want))
     print(json.dumps({"group": label, **res}), flush=True)
+    return res
+
+
+def tables() -> dict:
+    """Both table orders on chip_smoke's table rows, exact against the
+    plain emit, each stream read back by zlib."""
+    import zlib
+    res = {}
+    for group, (tok, nt, raw, rl, names) in cs.table_rows(cs.SEED + 24).items():
+        for order in ("std", "tuple"):
+            comp, clens = (dc.deflate_emit(raw, rl, tok, nt, 0)
+                           if order == "std" else
+                           dc.deflate_emit_tuple(raw, rl, tok, nt))
+            cref, clref = dc.deflate_emit_plain(raw, rl, tok, nt, 0, order)
+            c, cl = comp.cpu().numpy(), clens.tolist()
+            rows = raw.cpu().numpy()
+            res[f"{group}_{order}"] = {
+                "err": max(cs.max_err(comp, cref), cs.max_err(clens, clref)),
+                "zlib": all(zlib.decompress(c[r, : cl[r]].tobytes(), -15)
+                            == rows[r, : int(rl[r])].tobytes()
+                            for r in range(len(names)))}
+    print(json.dumps({"group": "tables", **res}), flush=True)
     return res
 
 
@@ -185,6 +218,13 @@ def timing() -> None:
     res["inflate_ms"] = cs.cuda_ms(lambda: dc.inflate_batch(comp, clens, n),
                                    3)
     res["round_trip"] = bool(torch.equal(out, x))
+    tok, nt = dc.deflate_parse_greedy(x, xl, prev)
+    res["parse_greedy_ms"] = cs.cuda_ms(
+        lambda: dc.deflate_parse_greedy(x, xl, prev), 3)
+    comp, clens = dc.deflate_emit_tuple(x, xl, tok, nt)
+    res["emit_tuple_ms"] = cs.cuda_ms(
+        lambda: dc.deflate_emit_tuple(x, xl, tok, nt), 3)
+    res["xla_rule_ratio"] = int(clens.sum()) / len(data)
     print(json.dumps({"group": "timing", "card": cs.nvidia_smi(), **res}),
           flush=True)
 
@@ -261,7 +301,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--ab"]:
         ab(sys.argv[2:])
     for fn in (lambda: check(*rows(4096), "rows_4096"),
-               lambda: check(*far_rows(), "far_rows"), garbage, timing):
+               lambda: check(*far_rows(), "far_rows"), tables, garbage,
+               timing):
         try:
             fn()
         except Exception:

@@ -18,11 +18,12 @@ with the segmented entropy stage of blocks above 1 MiB), of the bwtdc
 codec (BWT -> DC -> ari) and of the bin and apm codecs (a binary adaptive
 model over each block's bits, the apm one refined by an APM/SSE gate).
 For data that lives on the device, ``compress_from_device`` and
-``decompress(to_device=True)``; for large corpora, ``compress_corpus``
-and ``decompress_corpus`` (the TPZC container of superbatches, which
-``decompress`` also reads).  ``open`` and
-``compress_from_device(codec="deflate")`` (tpuzip's XLA deflate encoder)
-raise NotImplementedError naming the ROADMAP.md item that ports them.
+``decompress(to_device=True)`` (deflate there is tpuzip's device rule,
+as in ``codecs.deflate.deflate`` and the zlib wrapper ``codecs.zlib_``);
+for large corpora, ``compress_corpus`` and ``decompress_corpus`` (the
+TPZC container of superbatches, which ``decompress`` also reads).
+``open`` raises NotImplementedError naming the ROADMAP.md item that
+ports it.
 
 ``device="cuda"`` (the default) runs the kernels and raises when there is
 no usable GPU; ``device="cpu"`` runs their plain PyTorch versions.

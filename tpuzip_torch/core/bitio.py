@@ -7,9 +7,10 @@ fall at or past the capacity are dropped.  tpuzip's sort variant
 ``pack_bytes_varlen_sorted`` (which its DC encoder calls) existed because
 scatter was slow on the TPU; it computes the same function, so the port
 has only the scatter, ``pack_bytes_varlen``.
-The bit packers (``bit_reverse``, ``pack_bits_lsb``, ``unpack_bits_lsb``)
-come with tpuzip's XLA deflate encoder (ROADMAP.md, queue 1, item 13b)
-if its plain version needs them; the C++ encoder's does not.
+tpuzip's bit packers (``bit_reverse``, ``pack_bits_lsb``,
+``unpack_bits_lsb``) serve its XLA deflate encoder alone; the port writes
+that rule's bits with the C++ rule's emit (kernels/deflate_coder.py), so
+it has none of them.
 """
 
 from __future__ import annotations

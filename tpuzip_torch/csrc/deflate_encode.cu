@@ -1,7 +1,8 @@
-// deflate_encode.cu — tpuzip's deflate ENCODER (codec "deflate", id 5),
+// deflate_encode.cu — tpuzip's deflate ENCODERS (codec "deflate", id 5),
 // in four kernels: links (8 warps a row, or one on rows past 64 KiB),
 // parse one warp a row, tables a block of two warps a row, emit one block
-// a row (or, for stored blocks, the stored kernel alone).
+// a row (or, for stored blocks, the stored kernel alone); the parse and
+// the tables in an instance for each of tpuzip's two rules.
 //
 // It replaces tpuzip's host C++ `tpz_deflate` (csrc/tpuzip_host.cpp:
 // 1314-1583, called from tpuzip/dist/runner.py:884-900 through
@@ -27,6 +28,12 @@
 //     fixed mode the RFC's codes and a 3-bit header;
 //   - emit: each token's bits behind the header, then EOB;
 //   - stored: blocks of at most 65535 raw bytes, BFINAL on the last.
+// And tpuzip's device rule (its deflate_batch, tpuzip/codecs/deflate.py:
+// 523: compress_from_device, deflate() and the zlib wrapper), the same
+// links, best at max_chain 1 and emit around two instances: the parse
+// without the lazy step (lz77_stage, :250), and the tables with
+// package-merge's levels in the order of tpuzip's oracle, (weight, symbol
+// tuple) (tpuzip/oracle/deflate.py:273), for the three trees.
 //
 // What bounds it on this card: not bytes but chains of dependent steps.  A
 // probe walks its chain (each link a load of prev, then the candidate's
@@ -76,6 +83,9 @@
 //     codes.  As first ported lane 0 ran all of it alone: 2.78 M cycles a
 //     row beside 1023 rows, the distance tree a quarter of them after the
 //     literal tree (tools/step_clocks.py deflate_tables);
+//   - the device rule's tables: the same CTA, each tree's levels kept as
+//     tuples in pools in shared memory, each item ranked by counting the
+//     items below it (tuple_merge's note below); a simple form, not tuned;
 //   - emit: a block of 256 threads a row; each token's bit count, a block
 //     scan for its offset, and its fields OR-ed into the aligned 32-bit
 //     words that hold the row (zeroed by the caller; a word shared with
@@ -341,6 +351,12 @@ deflate_best_kernel(const uint8_t* __restrict__ blocks,
   best_at[static_cast<size_t>(row) * n + p] = v;
 }
 
+// The parse over best_at, a warp a row.  LAZY: the C++ rule's lazy step
+// (a match deferred while the next position's is longer); without it the
+// greedy parse of tpuzip's device rule (lz77_stage, tpuzip/codecs/
+// deflate.py:250), a match taken wherever best(i) reaches 3.  The rule is
+// picked by `if constexpr`, so the lazy instance keeps its SASS.
+template <bool LAZY>
 __global__ void __launch_bounds__(32)
 deflate_parse_kernel(const uint8_t* __restrict__ blocks,
                      const int32_t* __restrict__ lengths,
@@ -375,13 +391,15 @@ deflate_parse_kernel(const uint8_t* __restrict__ blocks,
     }
     int at = wbase + __ffs(hits) - 1;
     int best = __shfl_sync(FULL, best_l, at - wbase);
-    // lazy matching: defer while the next position's match is longer
-    while (at + 1 < limit) {
-      if (at + 1 >= wbase + 32) window(at);
-      const int next = __shfl_sync(FULL, best_l, at + 1 - wbase);
-      if (next <= best) break;
-      ++at;
-      best = next;
+    if constexpr (LAZY) {
+      // lazy matching: defer while the next position's match is longer
+      while (at + 1 < limit) {
+        if (at + 1 >= wbase + 32) window(at);
+        const int next = __shfl_sync(FULL, best_l, at + 1 - wbase);
+        if (next <= best) break;
+        ++at;
+        best = next;
+      }
     }
     const int d = __shfl_sync(FULL, dist_l, at - wbase);
     for (int k = lane; k < at - anchor; k += 32) tok[t + k] = src[anchor + k];
@@ -746,6 +764,204 @@ __device__ __forceinline__ void one_code(uint8_t* lens, int n, int lane) {
   __syncwarp();
 }
 
+// ---------------------------------------------------------------- tuple order
+
+// tpuzip's device rule takes its code lengths from its oracle's
+// package_merge (tpuzip/oracle/deflate.py:273), which sorts each level by
+// (weight, symbol tuple) with Python's sorted: an item's tuple is its
+// leaf's symbol, or a package's pair's tuples one after the other; tuples
+// compare lexicographically, a proper prefix first.  Equal items are
+// equal tuples, so the order is total and every sort gives the same
+// lengths; the last level's first 2n - 2 tuples count each symbol's length.
+// By a warp, a level at a time: a level's tuples lie one after another in
+// its pool, in order, so a package's tuple is a slice of the last level's
+// pool; each item's rank counts the items below it (a lane an item),
+// then its tuple is written at its rank's offset (a lane a symbol).  The
+// leaves stay sorted and the packages' weights do not fall (each sums
+// two neighbours of a sorted level), so the items of lower weight are
+// counted by binary searches; among equal weights a leaf (s,) comes after
+// the packages whose tuple starts below s and before the others, and a
+// package is compared with the equal-weight packages one by one (their
+// tuples need not be in order: one may be a proper prefix of the next).
+constexpr uint16_t LEAF = 0x8000;   // a ranked item's source: a leaf's symbol
+
+// A tree's tuple-order space (shared memory): NSYM symbols, levels of at
+// most LVN items, pools of at most POOL symbols (a level's symbols grow by
+// at most NSYM a level).
+template <int NSYM, int LVN, int POOL>
+struct TupleTree {
+  uint32_t lw[NSYM];                 // the leaves' weights, by (weight, symbol)
+  uint32_t w[2][LVN];                // a level's weights in order, the last's
+  uint32_t starts[(POOL + 31) / 32];  // bits: where the new level's tuples start
+  uint16_t ls[NSYM];                 // the leaves' symbols, in that order
+  uint16_t off[2][LVN + 1];          // a level's tuples' offsets, then the end
+  uint16_t src[LVN];                 // the new level's items by rank: a leaf's
+                                     // symbol | LEAF, or a package's offset
+  uint16_t pool[2][POOL];            // a level's tuples in order, the last's
+};
+
+// The first i in [lo, hi) where pred(i) is false (pred true on a prefix).
+template <class Pred>
+__device__ __forceinline__ int partition_point(int lo, int hi, Pred pred) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (pred(mid))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Python's order of the tuples pool[a0, a0 + al) and pool[b0, b0 + bl):
+// -1, 0 or 1.
+__device__ __forceinline__ int tuple_cmp(const uint16_t* pool, int a0, int al,
+                                         int b0, int bl) {
+  const int k = min(al, bl);
+  for (int i = 0; i < k; ++i) {
+    const int x = pool[a0 + i], y = pool[b0 + i];
+    if (x != y) return x < y ? -1 : 1;
+  }
+  return al < bl ? -1 : al > bl;
+}
+
+// The oracle's package_merge by a warp, as the note says: code lengths of
+// at most LIMIT for the symbols with freq > 0 (a lone one gets 1) into
+// lens; freq is overwritten (with the lengths).  Starts and ends converged.
+template <int NSYM, int LVN, int POOL, int LIMIT>
+__device__ __forceinline__ void tuple_merge(uint32_t* freq, uint8_t* lens,
+                                            TupleTree<NSYM, LVN, POOL>& t,
+                                            int lane) {
+  const unsigned below = (1u << lane) - 1;
+  int na = 0;   // the active symbols, in symbol order (w[1], src for now)
+  for (int s0 = 0; s0 < NSYM; s0 += 32) {
+    const int sym = s0 + lane;
+    const uint32_t f = sym < NSYM ? freq[sym] : 0;
+    if (sym < NSYM) lens[sym] = 0;
+    const unsigned act = __ballot_sync(FULL, f != 0);
+    if (f) {
+      t.w[1][na + __popc(act & below)] = f;
+      t.src[na + __popc(act & below)] = static_cast<uint16_t>(sym);
+    }
+    na += __popc(act);
+  }
+  __syncwarp();
+  if (na < 2) {
+    if (na && lane == 0) lens[t.src[0]] = 1;
+    __syncwarp();
+    return;
+  }
+  for (int k = lane; k < na; k += 32) {   // the leaves by (weight, symbol)
+    const uint32_t f = t.w[1][k];
+    int r = 0;
+    for (int j = 0; j < na; ++j) {
+      const uint32_t g = t.w[1][j];
+      r += g < f || (g == f && j < k);
+    }
+    t.lw[r] = f;
+    t.ls[r] = t.src[k];
+  }
+  __syncwarp();
+  for (int k = lane; k < na; k += 32) {   // level 0: the leaves
+    t.w[0][k] = t.lw[k];
+    t.pool[0][k] = t.ls[k];
+    t.off[0][k] = static_cast<uint16_t>(k);
+  }
+  if (lane == 0) t.off[0][na] = static_cast<uint16_t>(na);
+  __syncwarp();
+  int m = na, cur = 0;
+  for (int level = 1; level < LIMIT; ++level) {
+    const int np = m / 2, mm = na + np, nxt = cur ^ 1;
+    const uint32_t* w = t.w[cur];
+    const uint16_t* off = t.off[cur];
+    const uint16_t* pool = t.pool[cur];
+    auto pw = [&](int j) { return w[2 * j] + w[2 * j + 1]; };
+    const int total = na + off[2 * np];   // the new level's symbols
+    for (int k = lane; k < (total + 31) / 32; k += 32) t.starts[k] = 0;
+    for (int k = lane; k < mm; k += 32) {
+      uint32_t wk;
+      int r, len, from;
+      if (k < na) {   // leaf k: the leaves before it, the packages below it
+        wk = t.lw[k];
+        const int s = t.ls[k];
+        int q = partition_point(0, np, [&](int j) { return pw(j) < wk; });
+        r = k + q;
+        for (; q < np && pw(q) == wk; ++q) r += pool[off[2 * q]] < s;
+        len = 1;
+        from = s | LEAF;
+      } else {        // package j: its pair's tuples, a slice of the pool
+        const int j = k - na;
+        wk = pw(j);
+        from = off[2 * j];
+        len = off[2 * j + 2] - from;
+        const int t0 = pool[from];
+        const int llo =
+            partition_point(0, na, [&](int i) { return t.lw[i] < wk; });
+        r = partition_point(llo, na, [&](int i) {
+          return t.lw[i] == wk && t.ls[i] <= t0;
+        });
+        int q = partition_point(0, np, [&](int i) { return pw(i) < wk; });
+        r += q;
+        for (; q < np && pw(q) == wk; ++q) {
+          if (q == j) continue;
+          const int b0 = off[2 * q];
+          const int c = tuple_cmp(pool, b0, off[2 * q + 2] - b0, from, len);
+          r += c < 0 || (c == 0 && q < j);
+        }
+      }
+      t.w[nxt][r] = wk;
+      t.src[r] = static_cast<uint16_t>(from);
+      t.off[nxt][r + 1] = static_cast<uint16_t>(len);
+    }
+    __syncwarp();
+    // the offsets, a scan of the lengths; a bit where each tuple starts
+    int base = 0;
+    for (int k0 = 0; k0 < mm; k0 += 32) {
+      const int k = k0 + lane;
+      const int len = k < mm ? t.off[nxt][k + 1] : 0;
+      int incl = len;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (k < mm) {
+        const int at = base + incl - len;
+        t.off[nxt][k + 1] = static_cast<uint16_t>(base + incl);
+        atomicOr(&t.starts[at >> 5], 1u << (at & 31));
+      }
+      base += __shfl_sync(FULL, incl, 31);
+    }
+    if (lane == 0) t.off[nxt][0] = 0;
+    __syncwarp();
+    // the new pool: symbol q of the item whose tuple starts last at or
+    // before q
+    int seen = -1;
+    for (int q0 = 0; q0 < total; q0 += 32) {
+      const unsigned bits = t.starts[q0 >> 5];
+      const int q = q0 + lane;
+      if (q < total) {
+        const int r = seen + __popc(bits & ((2u << lane) - 1));
+        const int v = t.src[r];
+        t.pool[nxt][q] = v & LEAF ? static_cast<uint16_t>(v & ~LEAF)
+                                  : pool[v + q - t.off[nxt][r]];
+      }
+      seen += __popc(bits);
+    }
+    __syncwarp();
+    m = mm;
+    cur = nxt;
+  }
+  // each symbol's length: its count in the first 2n - 2 items' tuples
+  const int end = t.off[cur][min(2 * na - 2, m)];
+  for (int s = lane; s < NSYM; s += 32) freq[s] = 0;
+  __syncwarp();
+  for (int q = lane; q < end; q += 32) atomicAdd(&freq[t.pool[cur][q]], 1u);
+  __syncwarp();
+  for (int s = lane; s < NSYM; s += 32)
+    lens[s] = static_cast<uint8_t>(freq[s]);
+  __syncwarp();
+}
+
 // Canonical codes, bit-reversed for LSB-first emission (canon_codes), by a
 // warp: a symbol's code is its length's first code plus the symbols of its
 // length before it (__match_any_sync and a running count a length); cnt
@@ -823,7 +1039,8 @@ constexpr int DIST_LV = 64;        // distance levels' (30 + 29)
 constexpr int CL_LV = 40;          // code-length levels' (19 + 18)
 constexpr int HDR_WORDS = 144;     // a dynamic header's bits, at most 4,498
 
-struct TableShared {
+struct TableShared {   // the C++ rule's (std::sort on the weight)
+  static constexpr bool TUPLE = false;
   uint32_t lfreq[288];
   uint32_t dfreq[32];
   uint32_t clfreq[20];
@@ -834,6 +1051,25 @@ struct TableShared {
   Tree<19, CL_LV> cl;
   uint16_t dlv[15 * DIST_LV];      // the distance levels' orders
   uint16_t cllv[7 * CL_LV];        // the code-length levels'
+  uint16_t runs[320];              // the run starts of the length sequence
+  uint8_t clsym[320];
+  uint8_t clextra[320];
+  uint8_t cllen[20];
+  uint16_t clcode[20];
+  int cnt[2][16], next[2][16];     // canon_codes' of each warp
+  uint32_t hdr[HDR_WORDS];         // the header's bits
+};
+
+struct TupleShared {   // the device rule's (the tuple order)
+  static constexpr bool TUPLE = true;
+  uint32_t lfreq[288];
+  uint32_t dfreq[32];
+  uint32_t clfreq[20];
+  uint16_t codes[320];
+  uint8_t lens[320];               // literal/length 0..287, distance at 288..
+  TupleTree<286, LIT_LV, 15 * 286> lit;
+  TupleTree<30, DIST_LV, 15 * 30> dist;
+  TupleTree<19, CL_LV, 7 * 19> cl;
   uint16_t runs[320];              // the run starts of the length sequence
   uint8_t clsym[320];
   uint8_t clextra[320];
@@ -854,10 +1090,12 @@ __device__ __forceinline__ void put(uint32_t* words, int nwords, int pos,
 }
 
 // Warp 0 of a dynamic block, after the trees: hlit and hdist, the lengths
-// run-length coded (a lane a run), the code-length tree, its codes, hclen,
+// run-length coded (a lane a run), the code-length tree (in the order of
+// sh's rule, Shared::TUPLE), its codes, hclen,
 // and the header's bits into sh.hdr (a lane a field, offsets by a scan)
 // and on to dst; returns the header's bits.
-__device__ __forceinline__ int dynamic_header(TableShared& sh, uint8_t* dst,
+template <class Shared>
+__device__ __forceinline__ int dynamic_header(Shared& sh, uint8_t* dst,
                                               int lane) {
   const unsigned below = (1u << lane) - 1;
   const uint8_t* llen = sh.lens;
@@ -900,7 +1138,10 @@ __device__ __forceinline__ int dynamic_header(TableShared& sh, uint8_t* dst,
     ncl += __shfl_sync(FULL, incl, 31);
   }
   __syncwarp();
-  package_merge<19, CL_LV, 7>(sh.clfreq, sh.cllen, sh.cl, sh.cllv, lane);
+  if constexpr (Shared::TUPLE)
+    tuple_merge<19, CL_LV, 7 * 19, 7>(sh.clfreq, sh.cllen, sh.cl, lane);
+  else
+    package_merge<19, CL_LV, 7>(sh.clfreq, sh.cllen, sh.cl, sh.cllv, lane);
   one_code(sh.cllen, 19, lane);
   canon_codes(sh.cllen, 19, sh.clcode, sh.cnt[0], sh.next[0], lane);
   int hclen = 19;
@@ -940,12 +1181,18 @@ __device__ __forceinline__ int dynamic_header(TableShared& sh, uint8_t* dst,
   return base;
 }
 
+// The tables of a block of two warps a row, package-merge's levels in the
+// C++ rule's order (std::sort on the weight; Shared TableShared) or in the
+// device rule's (the tuple order, its levels all in shared memory;
+// TupleShared).  The rule is picked by `if constexpr` on Shared::TUPLE, so
+// the C++ rule's instance keeps its SASS.
+template <class Shared>
 __global__ void __launch_bounds__(TABLE_THREADS)
 deflate_tables_kernel(const int32_t* __restrict__ tokens,
                       const int32_t* __restrict__ ntok, int n, int mode,
                       uint8_t* __restrict__ comp, int pitch,
                       uint8_t* __restrict__ scratch) {
-  __shared__ TableShared sh;
+  __shared__ Shared sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row = blockIdx.x;
   uint8_t* rec = scratch + static_cast<size_t>(row) * SCRATCH_BYTES;
@@ -1001,11 +1248,18 @@ deflate_tables_kernel(const int32_t* __restrict__ tokens,
     __syncthreads();
     // the two trees side by side; the literal levels' orders in the row's
     // scratch, the distance levels' in shared memory
-    if (warp == 0)
-      package_merge<286, LIT_LV, 15>(sh.lfreq, llen, sh.lit,
-                                     reinterpret_cast<uint16_t*>(rec), lane);
-    else
-      package_merge<30, DIST_LV, 15>(sh.dfreq, dlen, sh.dist, sh.dlv, lane);
+    if constexpr (Shared::TUPLE) {
+      if (warp == 0)
+        tuple_merge<286, LIT_LV, 15 * 286, 15>(sh.lfreq, llen, sh.lit, lane);
+      else
+        tuple_merge<30, DIST_LV, 15 * 30, 15>(sh.dfreq, dlen, sh.dist, lane);
+    } else {
+      if (warp == 0)
+        package_merge<286, LIT_LV, 15>(sh.lfreq, llen, sh.lit,
+                                       reinterpret_cast<uint16_t*>(rec), lane);
+      else
+        package_merge<30, DIST_LV, 15>(sh.dfreq, dlen, sh.dist, sh.dlv, lane);
+    }
     __syncthreads();
     if (warp == 0) {
       one_code(llen, 286, lane);
@@ -1171,15 +1425,13 @@ extern "C" int tpz_deflate_links_shared(const void* blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks (B, n) u8, lengths (B,) i32 and prev (B, n) i32 from
-// tpz_deflate_links or tpz_deflate_links_shared in; max_chain >= 0 links a walk; best_at (B, n) i32
-// scratch; tokens (B, n) i32, zeroed by the caller, and ntok (B,) i32
-// out.  Launches the best kernel (a thread a position), then the parse
-// kernel (B blocks of one warp), on `stream`; returns cudaGetLastError().
-extern "C" int tpz_deflate_parse(const void* blocks, const void* lengths,
-                                 const void* prev, int B, int n,
-                                 int max_chain, void* tokens, void* ntok,
-                                 void* best_at, void* stream) {
+namespace {
+
+// The best kernel, then the parse kernel of the rule LAZY, on `stream`.
+template <bool LAZY>
+int launch_parse(const void* blocks, const void* lengths, const void* prev,
+                 int B, int n, int max_chain, void* tokens, void* ntok,
+                 void* best_at, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long grid =
       static_cast<long long>(B) * ((n + BEST_THREADS - 1) / BEST_THREADS);
@@ -1193,13 +1445,63 @@ extern "C" int tpz_deflate_parse(const void* blocks, const void* lengths,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  deflate_parse_kernel<<<B, 32, 0, s>>>(
+  deflate_parse_kernel<LAZY><<<B, 32, 0, s>>>(
       static_cast<const uint8_t*>(blocks),
       static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(best_at), n,
       static_cast<int32_t*>(tokens), static_cast<int32_t*>(ntok));
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// blocks (B, n) u8, lengths (B,) i32 and prev (B, n) i32 from
+// tpz_deflate_links or tpz_deflate_links_shared in; max_chain >= 0 links a
+// walk; best_at (B, n) i32 scratch; tokens (B, n) i32, zeroed by the
+// caller, and ntok (B,) i32 out.  Launches the best kernel (a thread a
+// position), then the lazy parse kernel (B blocks of one warp), on
+// `stream`; returns cudaGetLastError().
+extern "C" int tpz_deflate_parse(const void* blocks, const void* lengths,
+                                 const void* prev, int B, int n,
+                                 int max_chain, void* tokens, void* ntok,
+                                 void* best_at, void* stream) {
+  return launch_parse<true>(blocks, lengths, prev, B, n, max_chain, tokens,
+                            ntok, best_at, stream);
+}
+
+// tpz_deflate_parse with the greedy parse kernel (tpuzip's device rule at
+// max_chain 1): the same arguments and outputs.
+extern "C" int tpz_deflate_parse_greedy(const void* blocks,
+                                        const void* lengths, const void* prev,
+                                        int B, int n, int max_chain,
+                                        void* tokens, void* ntok,
+                                        void* best_at, void* stream) {
+  return launch_parse<false>(blocks, lengths, prev, B, n, max_chain, tokens,
+                             ntok, best_at, stream);
+}
+
+namespace {
+
+// The tables kernel in the order of the rule whose shared memory is Shared,
+// then the emit kernel, on `stream`.
+template <class Shared>
+int launch_emit(const void* tokens, const void* ntok, int B, int n, int mode,
+                void* comp, int pitch, void* clens, void* scratch,
+                cudaStream_t s) {
+  deflate_tables_kernel<Shared><<<B, TABLE_THREADS, 0, s>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      n, mode, static_cast<uint8_t*>(comp), pitch,
+      static_cast<uint8_t*>(scratch));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deflate_emit_kernel<<<B, EMIT_THREADS, 0, s>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
+      static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // Mode 0 (dynamic) or 1 (fixed): tokens (B, n) i32 and ntok (B,) i32 from
 // tpz_deflate_parse in, scratch SCRATCH_BYTES a row; the tables kernel,
@@ -1219,15 +1521,16 @@ extern "C" int tpz_deflate_emit(const void* blocks, const void* lengths,
         static_cast<uint8_t*>(comp), pitch, static_cast<int32_t*>(clens));
     return static_cast<int>(cudaGetLastError());
   }
-  deflate_tables_kernel<<<B, TABLE_THREADS, 0, s>>>(
-      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
-      n, mode, static_cast<uint8_t*>(comp), pitch,
-      static_cast<uint8_t*>(scratch));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  deflate_emit_kernel<<<B, EMIT_THREADS, 0, s>>>(
-      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
-      n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
-      static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch_emit<TableShared>(tokens, ntok, B, n, mode, comp, pitch, clens,
+                            scratch, s);
+}
+
+// tpz_deflate_emit in mode 0 (dynamic) with the tables in tpuzip's device
+// rule's order (the tuple order): the same arguments, scratch and outputs.
+extern "C" int tpz_deflate_emit_tuple(const void* tokens, const void* ntok,
+                                      int B, int n, void* comp, int pitch,
+                                      void* clens, void* scratch,
+                                      void* stream) {
+  return launch_emit<TupleShared>(tokens, ntok, B, n, 0, comp, pitch, clens,
+                           scratch, static_cast<cudaStream_t>(stream));
 }

@@ -380,14 +380,12 @@ def compress_from_device(blocks, lengths, codec: str = "lz4",
     at (12, 5), the stream alone.  Flag 4 and its trailer follow the ari
     knobs for every codec, as in tpuzip; for bin and apm that container
     would decode with the wrong model (tpuzip reads the trailer as their
-    knobs), so they raise ValueError there.  deflate raises
-    NotImplementedError: tpuzip writes its XLA encoder's bytes there, a
-    second encoder rule.  The corpus Adler-32 is folded from the per-block
-    sums."""
+    knobs), so they raise ValueError there.  deflate takes tpuzip's
+    device rule (codecs.deflate.deflate_batch: a greedy parse at max_chain
+    1, the code lengths in its oracle's order), whatever
+    config.codec.deflate says.  The corpus Adler-32 is folded from the
+    per-block sums."""
     _check_codec(codec)
-    if codec == "deflate":
-        raise not_ported("compress_from_device(codec='deflate'), tpuzip's "
-                         "XLA deflate encoder,", "13b")
     config = config or Config()
     dev = resolve(device)
     blocks = _device_blocks(blocks, dev)
@@ -427,6 +425,8 @@ def compress_from_device(blocks, lengths, codec: str = "lz4",
     def lz_encode(b, lens):
         if codec == "rle":
             return rle_coder.rle_encode_segments_batch(b, lens)
+        if codec == "deflate":
+            return cdeflate.deflate_batch(b, lens)
         if codec == "lz4p":
             return lz4p_coder.lz4p_encode_batch(b, lens, xla=True)
         return lz4_dense.lz4_dense_encode_batch(b, lens, lz4_dense.HASH_LOG)

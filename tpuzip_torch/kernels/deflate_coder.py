@@ -58,11 +58,25 @@ median of three moved to the first place, the unguarded partition, a
 threshold of 16, the final insertion sort, and the heap sort at the depth
 limit 2 floor(log2 n).
 
+tpuzip has a second deflate rule, its device encoder (``deflate_batch``,
+tpuzip/codecs/deflate.py:523, which its compress_from_device, ``deflate``
+and zlib wrapper write): deflate_xla_encode_batch.  It is the
+same links, best(p) at max_chain 1 and emit, with two changes:
+  parse  greedy (deflate_parse_greedy): a match wherever best(i) reaches
+         3, no lazy step (lz77_stage, :250; its candidate is prev[p], the
+         nearest earlier position of the same 15-bit hash, taken when its 3
+         bytes agree within 32,768 back);
+  tables package-merge's levels in (weight, symbol tuple) order, Python's
+         sorted over the oracle's tuples (oracle.deflate.package_merge),
+         for the three trees (deflate_emit_tuple); the histograms, fixes,
+         run-length coding and header are the C++ rule's, which equal
+         tpuzip's _header_fields (:396).
+
 The plain versions: the links by one stable sort of each row's hashes;
 best at every position, chain link by chain link over the positions still
 walking, each match length a common prefix by doubling over ranks of the
-row's substrings (kernels/lz4_chain.py's); then the lazy parse, the
-tables and the bits of each row one after another.
+row's substrings (kernels/lz4_chain.py's); then the lazy (or greedy)
+parse, the tables and the bits of each row one after another.
 """
 
 from __future__ import annotations
@@ -76,6 +90,7 @@ from tpuzip_torch.codecs.deflate import encode_cap
 from tpuzip_torch.kernels import _build
 from tpuzip_torch.kernels.lz4_chain import _rank_levels
 from tpuzip_torch.kernels.lz4_coder import _check_pair, _mul32
+from tpuzip_torch.oracle import deflate as odeflate
 from tpuzip_torch.oracle.deflate import (CLCL_ORDER, DIST_TABLE,
                                          LENGTH_TABLE, canonical_codes,
                                          fixed_dist_lengths,
@@ -307,11 +322,22 @@ def _rle_lengths(all_lens: list) -> list:
     return out
 
 
-def block_tables(tokens: list, mode: int):
+def tuple_package_merge(freq: list, maxbits: int) -> list:
+    """The oracle's package_merge (tpuzip's device rule: each level in
+    (weight, symbol tuple) order) as a list of code lengths by symbol."""
+    got = odeflate.package_merge(
+        {s: f for s, f in enumerate(freq) if f}, maxbits)
+    return [got.get(s, 0) for s in range(len(freq))]
+
+
+def block_tables(tokens: list, mode: int, order: str = "std"):
     """A dynamic or fixed block's tables from its tokens: (literal/length
-    lengths, distance lengths, header fields as (value, bits) pairs)."""
+    lengths, distance lengths, header fields as (value, bits) pairs).
+    order "std" takes package_merge (the C++ rule), "tuple" the oracle's
+    (tpuzip's device rule) for the three trees; the rest is one rule."""
     if mode == 1:
         return fixed_lit_lengths(), fixed_dist_lengths(), [(1, 1), (1, 2)]
+    merge = {"std": package_merge, "tuple": tuple_package_merge}[order]
     lfreq, dfreq = [0] * 286, [0] * 30
     for t in tokens:
         if t < 256:
@@ -320,8 +346,8 @@ def block_tables(tokens: list, mode: int):
             lfreq[257 + len_code(t >> MATCH_SHIFT)] += 1
             dfreq[dist_code(t & 0xFFFF)] += 1
     lfreq[256] = 1
-    llen = package_merge(lfreq, 15)
-    dlen = package_merge(dfreq, 15)
+    llen = merge(lfreq, 15)
+    dlen = merge(dfreq, 15)
     _one_code(llen)
     nd = sum(1 for ln in dlen if ln)
     if nd == 0:
@@ -335,7 +361,7 @@ def block_tables(tokens: list, mode: int):
     clfreq = [0] * 19
     for sym, _, _ in runs:
         clfreq[sym] += 1
-    cllen = package_merge(clfreq, 7)
+    cllen = merge(clfreq, 7)
     _one_code(cllen)
     clcode = _reversed_codes(cllen)
     hclen = 19
@@ -370,8 +396,10 @@ def _pack_fields(values: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
     return (bits << torch.arange(8)).sum(1).to(torch.uint8)
 
 
-def _emit_row(row: bytes, tokens: list, mode: int) -> bytes:
-    """One block's stream (deflate_impl, final_flag 1)."""
+def _emit_row(row: bytes, tokens: list, mode: int,
+              order: str = "std") -> bytes:
+    """One block's stream (deflate_impl, final_flag 1), its tables in
+    `order` (block_tables)."""
     if mode == 2:
         out, i = bytearray(), 0
         while True:
@@ -383,7 +411,7 @@ def _emit_row(row: bytes, tokens: list, mode: int) -> bytes:
             i += take
             if last:
                 return bytes(out)
-    llen, dlen, head = block_tables(tokens, mode)
+    llen, dlen, head = block_tables(tokens, mode, order)
     lcode, dcode = _reversed_codes(llen), _reversed_codes(dlen)
     fields = list(head)
     for t in tokens:
@@ -462,10 +490,11 @@ def _best_matches(blocks: torch.Tensor, lengths: torch.Tensor,
 
 
 def deflate_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
-                        prev: torch.Tensor, max_chain: int):
+                        prev: torch.Tensor, max_chain: int,
+                        greedy: bool = False):
     """Plain version of the parse kernel: blocks (B, n) u8, lengths (B,),
     prev (B, n) i32 from the links -> (tokens (B, n) i32, zero past each
-    row's, ntok (B,) i32)."""
+    row's, ntok (B,) i32).  greedy: no lazy step (tpuzip's device rule)."""
     b, n = blocks.shape
     best, at = _best_matches(blocks, lengths, prev, max_chain)
     tokens = torch.zeros((b, n), dtype=torch.int32)
@@ -480,7 +509,8 @@ def deflate_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
                 out.append(row[i])
                 i += 1
                 continue
-            while i + 1 + MIN_MATCH <= ln and bst[i + 1] > m:
+            while not greedy and i + 1 + MIN_MATCH <= ln and \
+                    bst[i + 1] > m:
                 out.append(row[i])
                 i += 1
                 m = bst[i]
@@ -493,11 +523,12 @@ def deflate_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
 
 def deflate_emit_plain(blocks: torch.Tensor, lengths: torch.Tensor,
                        tokens: torch.Tensor | None,
-                       ntok: torch.Tensor | None, mode: int):
+                       ntok: torch.Tensor | None, mode: int,
+                       order: str = "std"):
     """Plain version of the emit launch (its tables and its bits): blocks
     (B, n) u8, lengths (B,), tokens (B, n) i32 and ntok (B,) from the
-    parse (None in mode 2) -> (comp (B, encode_cap(n)) u8, zero past each
-    stream, clens (B,) i32)."""
+    parse (None in mode 2), the tables in `order` (block_tables) ->
+    (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,) i32)."""
     b, n = blocks.shape
     comp = torch.zeros((b, encode_cap(n)), dtype=torch.uint8)
     clens = torch.zeros(b, dtype=torch.int32)
@@ -506,7 +537,7 @@ def deflate_emit_plain(blocks: torch.Tensor, lengths: torch.Tensor,
     counts = ntok.tolist() if mode != 2 else [0] * b
     for r, (row, ln) in enumerate(zip(blocks.tolist(), lens)):
         ln = min(max(ln, 0), n)
-        s = _emit_row(bytes(row[:ln]), toks[r][: counts[r]], mode)
+        s = _emit_row(bytes(row[:ln]), toks[r][: counts[r]], mode, order)
         comp[r, : len(s)] = torch.frombuffer(bytearray(s), dtype=torch.uint8)
         clens[r] = len(s)
     return comp.to(blocks.device), clens.to(blocks.device)
@@ -688,7 +719,8 @@ def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
 
 def _lib(name: str):
     """The typed C entry point tpz_<name> of csrc/deflate_encode.cu (links,
-    links_shared, parse, emit) or csrc/inflate.cu (inflate)."""
+    links_shared, parse, parse_greedy, emit, emit_tuple) or csrc/inflate.cu
+    (inflate)."""
     source = "inflate" if name == "inflate" else "deflate_encode"
     fn = getattr(_build.load(source), f"tpz_{name}" if name == "inflate"
                  else f"tpz_deflate_{name}")
@@ -698,7 +730,9 @@ def _lib(name: str):
             "links": [vp, vp, ci, ci, vp, vp, ci, ci, vp],
             "links_shared": [vp, vp, ci, ci, vp, vp],
             "parse": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp],
+            "parse_greedy": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp],
             "emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp],
+            "emit_tuple": [vp, vp, ci, ci, vp, ci, vp, vp, vp],
             "inflate": [vp, vp, ci, ci, vp, ci, vp, vp]}[name]
         fn.restype = ci
     return fn
@@ -789,6 +823,12 @@ def deflate_links_keyed(blocks: torch.Tensor,
     return prev
 
 
+def _check_prev(blocks: torch.Tensor, prev: torch.Tensor) -> None:
+    if prev.shape != blocks.shape or prev.dtype != torch.int32 or \
+            prev.device != blocks.device:
+        raise ValueError("prev must be (B, n) i32 beside the blocks")
+
+
 def deflate_parse(blocks: torch.Tensor, lengths: torch.Tensor,
                   prev: torch.Tensor, max_chain: int):
     """The tokens of the lazy parse over prev: blocks (B, n) u8, lengths
@@ -801,12 +841,35 @@ def deflate_parse(blocks: torch.Tensor, lengths: torch.Tensor,
     its parse kernel, on the current stream (no synchronisation); one
     launch is counted."""
     _check_pair("deflate_parse", blocks, lengths)
-    if prev.shape != blocks.shape or prev.dtype != torch.int32 or \
-            prev.device != blocks.device:
-        raise ValueError("prev must be (B, n) i32 beside the blocks")
+    _check_prev(blocks, prev)
     max_chain = min(max(max_chain, 0), MAX_CHAIN)   # 0: no match at all
     if blocks.device.type == "cpu":
         return deflate_parse_plain(blocks, lengths, prev, max_chain)
+    tokens, ntok = _launch_parse("parse", blocks, lengths, prev, max_chain)
+    deflate_parse.launches += 1
+    return tokens, ntok
+
+
+def deflate_parse_greedy(blocks: torch.Tensor, lengths: torch.Tensor,
+                         prev: torch.Tensor):
+    """The tokens of the greedy parse over prev (tpuzip's device rule,
+    lz77_stage: best(i) at max_chain 1, a match wherever it reaches 3, the
+    parse going on at its end), as deflate_parse returns them.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/deflate_encode.cu's best kernel, then the greedy instance of its
+    parse kernel, on the current stream (no synchronisation); one launch
+    is counted."""
+    _check_pair("deflate_parse_greedy", blocks, lengths)
+    _check_prev(blocks, prev)
+    if blocks.device.type == "cpu":
+        return deflate_parse_plain(blocks, lengths, prev, 1, greedy=True)
+    tokens, ntok = _launch_parse("parse_greedy", blocks, lengths, prev, 1)
+    deflate_parse_greedy.launches += 1
+    return tokens, ntok
+
+
+def _launch_parse(entry: str, blocks, lengths, prev, max_chain: int):
     b, n = blocks.shape
     dev = blocks.device
     tokens = torch.zeros((b, n), dtype=torch.int32, device=dev)
@@ -816,13 +879,27 @@ def deflate_parse(blocks: torch.Tensor, lengths: torch.Tensor,
     prev = prev.contiguous()
     best_at = torch.empty((b, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib("parse")(blocks.data_ptr(), lengths.data_ptr(),
-                            prev.data_ptr(), b, n, max_chain,
-                            tokens.data_ptr(), ntok.data_ptr(),
-                            best_at.data_ptr(), _stream(dev))
-    _build.check(err, "deflate_parse")
-    deflate_parse.launches += 1
+        err = _lib(entry)(blocks.data_ptr(), lengths.data_ptr(),
+                          prev.data_ptr(), b, n, max_chain,
+                          tokens.data_ptr(), ntok.data_ptr(),
+                          best_at.data_ptr(), _stream(dev))
+    _build.check(err, f"deflate_{entry}")
     return tokens, ntok
+
+
+def check_row_bits(n: int) -> None:
+    """ValueError for rows whose stream could pass 2^31 bits: the emit
+    kernel counts bit offsets in an int."""
+    if 8 * encode_cap(n) >= 1 << 31:
+        raise ValueError(f"deflate rows of {n} bytes: a stream may pass "
+                         "2^31 bits, past the emit's bit offsets")
+
+
+def _check_tokens(blocks, lengths, tokens, ntok) -> None:
+    if (tokens is None or tokens.shape != blocks.shape
+            or tokens.dtype != torch.int32 or ntok.shape != lengths.shape
+            or ntok.dtype != torch.int32):
+        raise ValueError("tokens must be (B, n) i32 and ntok (B,) i32")
 
 
 def deflate_emit(blocks: torch.Tensor, lengths: torch.Tensor,
@@ -840,34 +917,69 @@ def deflate_emit(blocks: torch.Tensor, lengths: torch.Tensor,
     _check_pair("deflate_emit", blocks, lengths)
     if mode not in (0, 1, 2):
         raise ValueError(f"deflate mode {mode} is not 0, 1 or 2")
-    if mode != 2 and (tokens is None or tokens.shape != blocks.shape
-                      or tokens.dtype != torch.int32
-                      or ntok.shape != lengths.shape
-                      or ntok.dtype != torch.int32):
-        raise ValueError("tokens must be (B, n) i32 and ntok (B,) i32")
+    if mode != 2:
+        _check_tokens(blocks, lengths, tokens, ntok)
+        check_row_bits(blocks.shape[1])
     if blocks.device.type == "cpu":
         return deflate_emit_plain(blocks, lengths, tokens, ntok, mode)
-    b, n = blocks.shape
-    dev = blocks.device
-    cap = encode_cap(n)
-    comp = torch.zeros((b, cap), dtype=torch.uint8, device=dev)
-    clens = torch.empty(b, dtype=torch.int32, device=dev)
-    if b == 0:
+    comp, clens, scratch = _emit_outputs(blocks, mode)
+    if blocks.shape[0] == 0:
         return comp, clens
+    b, n = blocks.shape
     if mode == 2:
-        tokens = ntok = scratch = blocks
+        tokens = ntok = blocks
     else:
         tokens, ntok = tokens.contiguous(), ntok.contiguous()
-        scratch = torch.empty(b * SCRATCH_BYTES, dtype=torch.uint8,
-                              device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(blocks.device):
         err = _lib("emit")(blocks.data_ptr(), lengths.data_ptr(),
                            tokens.data_ptr(), ntok.data_ptr(), b, n, mode,
-                           comp.data_ptr(), cap, clens.data_ptr(),
-                           scratch.data_ptr(), _stream(dev))
+                           comp.data_ptr(), comp.shape[1],
+                           clens.data_ptr(), scratch.data_ptr(),
+                           _stream(blocks.device))
     _build.check(err, "deflate_emit")
     deflate_emit.launches += 1
     return comp, clens
+
+
+def deflate_emit_tuple(blocks: torch.Tensor, lengths: torch.Tensor,
+                       tokens: torch.Tensor, ntok: torch.Tensor):
+    """deflate_emit in mode 0 with package-merge's levels in tpuzip's device
+    rule's order, (weight, symbol tuple) (oracle.deflate.package_merge),
+    for the three trees: the bytes of its deflate_batch.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/deflate_encode.cu's tables kernel in the tuple order, then its
+    emit kernel, on the current stream (no synchronisation)."""
+    _check_pair("deflate_emit_tuple", blocks, lengths)
+    _check_tokens(blocks, lengths, tokens, ntok)
+    check_row_bits(blocks.shape[1])
+    if blocks.device.type == "cpu":
+        return deflate_emit_plain(blocks, lengths, tokens, ntok, 0, "tuple")
+    comp, clens, scratch = _emit_outputs(blocks, 0)
+    b, n = blocks.shape
+    if b == 0:
+        return comp, clens
+    with torch.cuda.device(blocks.device):
+        err = _lib("emit_tuple")(tokens.contiguous().data_ptr(),
+                                 ntok.contiguous().data_ptr(), b, n,
+                                 comp.data_ptr(), comp.shape[1],
+                                 clens.data_ptr(), scratch.data_ptr(),
+                                 _stream(blocks.device))
+    _build.check(err, "deflate_emit_tuple")
+    deflate_emit_tuple.launches += 1
+    return comp, clens
+
+
+def _emit_outputs(blocks: torch.Tensor, mode: int):
+    """(comp zeroed, clens, the rows' scratch; the blocks in mode 2) of an
+    emit launch."""
+    b, n = blocks.shape
+    dev = blocks.device
+    comp = torch.zeros((b, encode_cap(n)), dtype=torch.uint8, device=dev)
+    clens = torch.empty(b, dtype=torch.int32, device=dev)
+    scratch = blocks if mode == 2 else torch.empty(
+        b * SCRATCH_BYTES, dtype=torch.uint8, device=dev)
+    return comp, clens, scratch
 
 
 def deflate_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
@@ -882,6 +994,15 @@ def deflate_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
     return deflate_emit(blocks, lengths,
                         *deflate_parse(blocks, lengths, prev, max_chain),
                         mode)
+
+
+def deflate_xla_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor):
+    """tpuzip's device rule (its deflate_batch) of every row, as
+    deflate_encode_batch returns it: dynamic blocks from the links, the
+    greedy parse and the tables in the tuple order."""
+    prev = deflate_links(blocks, lengths)
+    return deflate_emit_tuple(blocks, lengths,
+                              *deflate_parse_greedy(blocks, lengths, prev))
 
 
 def inflate_batch(streams: torch.Tensor, lens: torch.Tensor, out_cap: int):
@@ -912,5 +1033,7 @@ def inflate_batch(streams: torch.Tensor, lens: torch.Tensor, out_cap: int):
 deflate_links_shared.launches = 0
 deflate_links_keyed.launches = 0
 deflate_parse.launches = 0
+deflate_parse_greedy.launches = 0
 deflate_emit.launches = 0
+deflate_emit_tuple.launches = 0
 inflate_batch.launches = 0

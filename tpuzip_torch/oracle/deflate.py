@@ -1,10 +1,12 @@
 """DEFLATE (RFC 1951) — pure-Python reference decoder: a copy of the
 parts of tpuzip/oracle/deflate.py that the port reads (the length and
 distance tables and their code lookups, the bit reader, the canonical
-Huffman decoder, ``decompress`` / ``decompress_ex`` and
-``canonical_codes``).  The oracle's own encoder is not the deflate
+Huffman decoder, ``decompress`` / ``decompress_ex``, ``package_merge``
+and ``canonical_codes``).  The oracle's own encoder is not the deflate
 codec's format contract: tpuzip's ``compress`` writes the bytes of its
-C++ ``tpz_deflate``, and kernels/deflate_coder.py writes those.
+C++ ``tpz_deflate``, and kernels/deflate_coder.py writes those; its
+``package_merge`` orders the code lengths of tpuzip's device rule
+(``deflate`` / ``deflate_batch``, codecs/deflate.py).
 
 Decoder parity: rust-compress ``src/flate.rs`` (bit reader, canonical
 Huffman table build, stored/fixed/dynamic block decode, 32 KiB LZ77
@@ -234,6 +236,37 @@ def _inflate_block(br: BitReader, lit: HuffmanDecoder, dist: HuffmanDecoder,
             for k in range(length):
                 out.append(out[start + k])
 
+
+
+# ---------------------------------------------------------------------------
+# Length-limited Huffman (package-merge) — encode side
+# ---------------------------------------------------------------------------
+
+def package_merge(freqs: dict[int, int], limit: int) -> dict[int, int]:
+    """Optimal length-limited code lengths via package-merge: each level
+    sorted by (weight, symbol tuple), so ties fall in one total order
+    (tpuzip's device deflate rule; its C++ rule sorts by weight alone,
+    kernels/deflate_coder.package_merge)."""
+    leaves = sorted((f, (s,)) for s, f in freqs.items() if f > 0)
+    n = len(leaves)
+    if n == 0:
+        return {}
+    if n == 1:
+        return {leaves[0][1][0]: 1}
+    if n > (1 << limit):
+        raise ValueError("alphabet too large for length limit")
+    current: list[tuple[int, tuple[int, ...]]] = list(leaves)
+    for _ in range(limit - 1):
+        packaged = [
+            (current[i][0] + current[i + 1][0], current[i][1] + current[i + 1][1])
+            for i in range(0, len(current) - 1, 2)
+        ]
+        current = sorted(leaves + packaged)
+    lengths: dict[int, int] = {s: 0 for _, (s,) in leaves}
+    for _, syms in current[: 2 * n - 2]:
+        for s in syms:
+            lengths[s] += 1
+    return lengths
 
 
 def canonical_codes(lengths: list[int]) -> list[int]:
