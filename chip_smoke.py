@@ -7,6 +7,7 @@
                                      # dc_decode.cu, lz4_encode.cu,
                                      # lz4_decode.cu, rle.cu, inflate.cu,
                                      # lz4p.cu, deflate_encode.cu's links,
+                                     # greedy parse, tables and emit,
                                      # lz4_chain.cu and lz4_dense.cu
                                      # against DIR's
 
@@ -28,7 +29,7 @@ rle.cu's segment mode), and the TPZC corpus API; lz4 at max_chain > 1
 (tpuzip's chained encoder, csrc/lz4_chain.cu) and the lz4p codec
 (csrc/lz4p.cu, both directions); and the deflate codec (tpuzip's C++
 encoder, csrc/deflate_encode.cu, and the inflate, csrc/inflate.cu), at
-64 KiB blocks and at 128 KiB (the links' keyed route).
+64 KiB blocks and at 128 KiB (the links' tiled route).
 tpuzip's v1 decoder
 (frequency state, ``ari_decode_indexed(algo="dot")``, the wrapper
 ari_decode_dot_indexed)
@@ -133,9 +134,17 @@ Phases, one JSON line each:
             kernel at max_chain 1, its tuple-order tables with the emit):
             on 4 KiB rows of text, zeros, b"ab" and random bytes and rows
             of 0 and 1 bytes, 64 KiB rows (the shared links) and 128 KiB
-            rows (the keyed links), and the tables on the token rows built
-            to stress them; every stream inflated back by inflate.cu and
-            zlib.
+            rows (the tiled links), and the tables on the token rows built
+            to stress them; the parse in segments of 2,048 positions on
+            segment_rows() (zero rows and rows of period 258, whose true
+            paths a walk from a segment's start never meets; matches that
+            end on a segment's end and 257 past it; lengths that end
+            inside the last of several segments; rows of one segment);
+            the tiled links on tile_rows() (2-3 tiles of 32 Ki positions:
+            hashes last seen one or two tiles back or only in the first
+            and last tile, zero and b"ab" rows, lengths that end in a
+            tile's last two bytes); every stream inflated back by
+            inflate.cu and zlib.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -252,8 +261,10 @@ Phases, one JSON line each:
             fresh process.
 18. zlib    8 MiB of the corpus through codecs.zlib_.compress and
             decompress (one stream, one row: tpuzip's device deflate rule
-            on the keyed links): Python's zlib reads the stream back, the
-            port reads zlib.compress(data, 6); MB/s of each direction.
+            on the tiled links, its parse in 4,096 segments): Python's
+            zlib reads the stream back, the port reads zlib.compress(data,
+            6); MB/s of each direction; each of the four launches on the
+            row timed alone, with its peak device memory.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the dot route must have none on a container path.  The
@@ -503,7 +514,9 @@ def phase_build() -> None:
         lz4_chain._lib(name)
     lz4p_coder._lib("pack")
     lz4p_coder._lib("decode")
-    for name in ("links", "parse", "emit", "inflate"):
+    for name in ("links_shared", "links_tiled", "links_tiled_scratch",
+                 "parse", "parse_greedy", "parse_scratch", "emit",
+                 "emit_tuple", "inflate"):
         deflate_coder._lib(name)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in secs.items()}, ptxas=ptxas)
@@ -2127,7 +2140,7 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "lz4_chain_parse": (lz4_chain, "lz4_chain_parse"),
             "lz4p_pack": (lz4p_coder, "lz4p_pack"),
             "lz4p_decode": (lz4p_coder, "lz4p_decode_batch"),
-            "deflate_links": (deflate_coder, "deflate_links_keyed"),
+            "deflate_links": (deflate_coder, "deflate_links_tiled"),
             "deflate_links_shared": (deflate_coder, "deflate_links_shared"),
             "deflate_parse": (deflate_coder, "deflate_parse"),
             "deflate_emit": (deflate_coder, "deflate_emit"),
@@ -3539,7 +3552,7 @@ DEFLATE_FAR = 40 << 10           # bytes of the rows that hold them
 # the deflate path's four launches (its 64 KiB rows take the shared links)
 DEFLATE_NAMES = ("deflate_links_shared", "deflate_parse", "deflate_emit",
                  "inflate")
-DEFLATE_WIDE_BLOCK = 1 << 17     # the wide path's blocks: the keyed links
+DEFLATE_WIDE_BLOCK = 1 << 17     # the wide path's blocks: the tiled links
 DEFLATE_WIDE_BYTES = 8 << 20     # its corpus
 
 
@@ -3567,7 +3580,7 @@ def deflate_big_rows(seed: int):
 
 
 # the smoke's name of each route's links kernel
-LINKS_ROUTE = {"shared": "deflate_links_shared", "keyed": "deflate_links"}
+LINKS_ROUTE = {"shared": "deflate_links_shared", "tiled": "deflate_links"}
 
 
 def deflate_check(x, xl, chains, modes=(0, 1)) -> dict:
@@ -3626,7 +3639,7 @@ def deflate_link_rows(seed: int) -> dict:
     """{name: (rows, lengths, the links' route)} at the links' edges:
     65,536-byte rows (text, zeros after 16 random bytes, whose last slot
     takes p + 1 = 65,534, and run_rows()'s), a 65,537-byte row of text
-    (the keyed route), zero rows, b"ab" rows (two hashes: six warps of the
+    (the tiled route), zero rows, b"ab" rows (two hashes: six warps of the
     shared route's eight idle, no run) and rows of 0-3 bytes."""
     n = 1 << 16
     rng = np.random.default_rng(seed)
@@ -3832,7 +3845,7 @@ def xla_rule_rows(seed: int) -> dict:
     """{group: (rows (B, n) u8 on the card, zero past each length,
     lengths)} for tpuzip's device deflate rule: 4 KiB rows of text, zeros,
     b"ab" and random bytes, and rows of 0 and 1 bytes; two 64 KiB rows of
-    text and random bytes (the shared links) and two of 128 KiB (the keyed
+    text and random bytes (the shared links) and two of 128 KiB (the tiled
     links)."""
     rng = np.random.default_rng(seed)
     out = {}
@@ -4043,6 +4056,135 @@ def inflate_symbols(stream: bytes) -> int:
         return count
 
 
+def segment_rows(seg: int, seed: int):
+    """(rows (12, 4 seg) u8, zero past each length, lengths, {row: the
+    match ends it must hold}) for the device rule's parse in segments of
+    seg positions: zero rows and rows of period 258 over several
+    segments, one of each cut inside its last segment (a walk from a
+    segment's start never meets their true paths); random bytes whose
+    copies end on the first segment's end and 257 past the second's;
+    text over several segments cut inside the last, text of one segment
+    and of exactly one, and rows of 1 and 0 bytes."""
+    n = 4 * seg
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(text_corpus(n, seed), np.uint8)
+    period = np.resize(rng.integers(0, 256, 258, np.uint8), n)
+    edge = rng.integers(0, 256, n, np.uint8)
+    for a, length, end in ((5, 100, seg), (110, 258, 2 * seg + 257)):
+        edge[end - length : end] = edge[a : a + length]
+        edge[end] = edge[a + length] ^ 0xFF   # the match stops there
+    rows = [np.zeros(n, np.uint8), np.zeros(n, np.uint8), period, period,
+            edge, text, text, text, text, text, text, text]
+    lens = np.array([n, 3 * seg + 17, n, 2 * seg + 300, n, n, 3 * seg + 100,
+                     3 * seg + 1, seg - 3, seg, 1, 0], np.int32)
+    x = np.stack(rows)
+    x[np.arange(n)[None, :] >= lens[:, None]] = 0
+    return x, lens, {4: {seg, 2 * seg + 257}}
+
+
+def tile_rows(tile: int, seed: int):
+    """(rows (11, 3 tile) u8, zero past each length, lengths) for the
+    links in tiles of tile positions: text (its words' hashes last seen
+    one or two tiles back); random bytes whose second tile copies the
+    first's and whose third copies the first's again (two tiles back); a
+    random first and last tile around a zero tile (their hashes seen only
+    there); zero and b"ab" rows; text cut so that its length ends in a
+    tile's last two bytes, on a tile's end and just past it."""
+    n = 3 * tile
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(text_corpus(n, seed + 1), np.uint8)
+    back = rng.integers(0, 256, n, np.uint8)
+    back[tile + 40 : tile + 140] = back[10:110]
+    back[2 * tile + 7 : 2 * tile + 90] = back[120:203]
+    ends = rng.integers(0, 256, n, np.uint8)
+    ends[tile : 2 * tile] = 0
+    ends[2 * tile + 50 : 2 * tile + 60] = ends[20:30]
+    ab = np.resize(np.frombuffer(b"ab", np.uint8), n)
+    rows = [text, back, ends, np.zeros(n, np.uint8), ab, text, text, text,
+            text, text, text]
+    lens = np.array([n, n, n, n, n - 1, 2 * tile - 1, 2 * tile, 2 * tile + 1,
+                     2 * tile + 2, 2 * tile + 3, tile + 2], np.int32)
+    x = np.stack(rows)
+    x[np.arange(n)[None, :] >= lens[:, None]] = 0
+    return x, lens
+
+
+def match_ends(tok: list) -> set:
+    """The positions where a row's match tokens end."""
+    ends, p = set(), 0
+    for t in tok:
+        p += t >> 16 if t >= 1 << 16 else 1
+        if t >= 1 << 16:
+            ends.add(p)
+    return ends
+
+
+def segments_check(seed: int) -> dict:
+    """The device rule's parse in segments and the tiled links at their
+    edges: the greedy parse on segment_rows() at PARSE_SEG (the shared
+    links) and the links on tile_rows() at LINK_TILE (the tiled route, its
+    launch asserted), each exact against its plain version (the parse on
+    the plain links), the edge row's matches ending on the segments'
+    edges, the zero tile crossed by links; then the device rule's streams
+    of both groups (the kernels' tokens, the tuple tables with the emit)
+    inflated back by inflate.cu and zlib."""
+    dc = deflate_coder
+    res, errs = {}, {}
+    sx, sl, ends = segment_rows(dc.PARSE_SEG, seed)
+    tx, tl = tile_rows(dc.LINK_TILE, seed + 1)
+    for name, (rows_np, lens_np) in (("segment_rows", (sx, sl)),
+                                     ("tile_rows", (tx, tl))):
+        x = torch.from_numpy(rows_np).cuda()
+        xl = torch.from_numpy(lens_np).cuda()
+        links = LINKS_ROUTE[dc.links_route(x.shape[1])]
+        wrapper = getattr(*WRAPPERS[links])
+        before = wrapper.launches
+        prev = dc.deflate_links(x, xl)
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"links of {name}: not on {links}")
+        pref = dc.deflate_links_plain(x, xl)
+        errs[links] = max(errs.get(links, 0), max_err(prev, pref))
+        tok, nt = dc.deflate_parse_greedy(x, xl, pref)
+        tref, plain_ms = timed(
+            lambda: dc.deflate_parse_plain(x, xl, pref, 1, greedy=True))
+        e = max(max_err(tok, tref[0]), max_err(nt, tref[1]))
+        errs["deflate_parse_greedy"] = max(
+            errs.get("deflate_parse_greedy", 0), e)
+        comp, clens = dc.deflate_emit_tuple(x, xl, tok, nt)
+        out, st = dc.inflate_batch(comp, clens, x.shape[1])
+        cb, cl = comp.cpu().numpy(), clens.tolist()
+        back = (torch.equal(st, xl.to(torch.int64)) and torch.equal(out, x)
+                and all(zlib.decompress(cb[r, : cl[r]].tobytes(), -15)
+                        == rows_np[r, : lens_np[r]].tobytes()
+                        for r in range(len(cl))))
+        res[name] = {"rows": list(x.shape), "lengths": lens_np.tolist(),
+                     "links_route": dc.links_route(x.shape[1]),
+                     "links_max_abs_err": max_err(prev, pref),
+                     "parse_max_abs_err": e, "parse_plain_ms": plain_ms,
+                     "ntok": nt.tolist(), "round_trip": back,
+                     "parse_ms": cuda_ms(
+                         lambda: dc.deflate_parse_greedy(x, xl, pref), 3),
+                     "links_ms": cuda_ms(lambda: dc.deflate_links(x, xl), 3)}
+        if not back:
+            raise AssertionError(f"device-rule streams of {name} did not "
+                                 "decode back")
+        if name == "segment_rows":
+            for r, want in ends.items():
+                got = match_ends(tok[r, : int(nt[r])].tolist())
+                if not want <= got:
+                    raise AssertionError(f"segment row {r}: no matches "
+                                         f"ending at {sorted(want - got)}")
+        else:
+            p = torch.arange(x.shape[1], device="cuda")
+            far = int((p - prev[2])[prev[2] >= 0].max())
+            res[name]["row_2_farthest_link"] = far
+            if far <= dc.LINK_TILE:
+                raise AssertionError("tile row 2: no link across its zero "
+                                     "tile")
+    res["max_abs_err"] = errs
+    return res
+
+
 def deflate_kernel_check(x, xl, n: int):
     """csrc/deflate_encode.cu and csrc/inflate.cu against their plain
     versions: on the mixed rows (rows of 0 to 12 bytes, empty rows, runs,
@@ -4082,6 +4224,7 @@ def deflate_kernel_check(x, xl, n: int):
     res["links_edges"] = links_edge_check(SEED + 23)
     res["table_rows"] = table_rows_check(SEED + 24)
     res["xla_rule"] = xla_rule_check(SEED + 25)
+    res["segments"] = segments_check(SEED + 26)
     comp, clens = res["big"]["streams"]["stored"]
     want = [5 * max(1, -(-int(ln) // 65535)) + int(ln) for ln in blens]
     if clens.tolist() != want:
@@ -4120,7 +4263,7 @@ def deflate_kernel_check(x, xl, n: int):
         raise AssertionError(f"zlib's multi-block streams decoded to {got}, "
                              f"not {[len(m) for m in multi]}")
     for rec in (res["mixed"], res["far"], res["big"], res["links_edges"],
-                res["table_rows"], res["xla_rule"]):
+                res["table_rows"], res["xla_rule"], res["segments"]):
         for k, e in rec["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0), e)
         rec.pop("streams", None)
@@ -4231,10 +4374,10 @@ def deflate_against_plain(calls, rows: list) -> dict:
 def deflate_wide(data: bytes):
     """The deflate path at DEFLATE_WIDE_BLOCK blocks (tpuzip's block_size
     knob past 64 KiB): compress and decompress of `data`, the bytes back,
-    its four launches run, its links on the keyed route; the links held
+    its four launches run, its links on the tiled route; the links held
     exact against their plain version on every row whole and on the path's
-    first 8 rows cut to DEFLATE_PLAIN_BYTES (the keyed kernel called
-    there directly) -> (the path's launch counts, the keyed links' row:
+    first 8 rows cut to DEFLATE_PLAIN_BYTES (the tiled kernel called
+    there directly) -> (the path's launch counts, the tiled links' row:
     times at the path's shape and on the cut, the bound)."""
     dc = deflate_coder
     with counted_run() as (calls, counts):
@@ -4252,18 +4395,18 @@ def deflate_wide(data: bytes):
     cut = blocks[:8, :DEFLATE_PLAIN_BYTES].contiguous()
     clen = lens[:8].clamp(max=DEFLATE_PLAIN_BYTES).contiguous()
     pref, plain_ms = timed(lambda: dc.deflate_links_plain(cut, clen))
-    err = max(max_err(dc.deflate_links_keyed(cut, clen), pref),
+    err = max(max_err(dc.deflate_links_tiled(cut, clen), pref),
               max_err(prev, dc.deflate_links_plain(blocks, lens)))
     if err:
-        raise AssertionError(f"the keyed links disagree with their plain "
+        raise AssertionError(f"the tiled links disagree with their plain "
                              f"version at the wide path: {err}")
     return counts, {
         "inputs": [list(a.shape) for a in args if torch.is_tensor(a)],
         "route": dc.links_route(blocks.shape[1]), "max_abs_err": err,
         "plain_inputs": list(cut.shape), "plain_rows": list(range(8)),
-        "ms": cuda_ms(lambda: dc.deflate_links_keyed(blocks, lens), 3),
+        "ms": cuda_ms(lambda: dc.deflate_links_tiled(blocks, lens), 3),
         "ms_at_plain_inputs": cuda_ms(
-            lambda: dc.deflate_links_keyed(cut, clen), 3),
+            lambda: dc.deflate_links_tiled(cut, clen), 3),
         "plain_ms": plain_ms, **deflate_bound("deflate_links", args, prev)}
 
 
@@ -4272,7 +4415,7 @@ def phase_deflate(smi: str):
     max_chain DEFLATE_PATH_CHAIN, tpuzip's defaults): compress and
     decompress of the 64 MiB corpus at 64 KiB blocks, then
     decompress(to_device=True), then the wide path (deflate_wide: 8 MiB
-    at 128 KiB blocks, the keyed links).  The bytes round-trip both ways;
+    at 128 KiB blocks, the tiled links).  The bytes round-trip both ways;
     the four launches run (deflate_encode.cu's links, parse and tables+emit, and
     inflate.cu); 8 blocks' streams inflate by zlib to the blocks; each
     launch held against its plain version (deflate_against_plain); MB/s,
@@ -4337,13 +4480,14 @@ ZLIB_BYTES = 8 << 20        # the zlib phase's input: one stream, one row
 def phase_zlib(smi: str):
     """Phase 18: the zlib wrapper (codecs.zlib_: tpuzip's CLI -f zlib) on
     ZLIB_BYTES of the corpus, one raw stream of one row (tpuzip's device
-    rule on the keyed links route): compress, then decompress, on cuda;
-    Python's zlib reads the stream back, and the port reads
-    zlib.compress(data, 6).  The device rule's launches run and the C++
-    rule's do not; each launch, one warp on one 8 MiB row, is held exact
-    against its plain version on the same inputs; MB/s of each direction
-    (the inflate of one stream is one serial chain).  Returns (the
-    launches, each launch's max_abs_err)."""
+    rule on the tiled links route, its parse in segments): compress, then
+    decompress, on cuda; Python's zlib reads the stream back, and the port
+    reads zlib.compress(data, 6).  The device rule's launches run and the
+    C++ rule's do not; each launch on the one 8 MiB row is held exact
+    against its plain version on the same inputs and timed alone (CUDA
+    events), with the peak device memory it takes beyond what is held
+    before it; MB/s of each direction (the inflate of one stream is one
+    serial chain).  Returns (the launches, each launch's max_abs_err)."""
     data = text_corpus(CORPUS_BYTES, SEED)[:ZLIB_BYTES]
     zlib_.decompress(zlib_.compress(data[:4096]), 4096)
     with counted_run() as (calls, counts):
@@ -4367,12 +4511,20 @@ def phase_zlib(smi: str):
                   *a, 0, "tuple"),
               "inflate": dc.inflate_batch_plain}
     tup = lambda v: v if isinstance(v, tuple) else (v,)   # noqa: E731
-    errs, plain_ms = {}, {}
+    errs, plain_ms, launch_ms, peak = {}, {}, {}, {}
     for name, plain in plains.items():
         (args, kw, out), = calls[name]
         ref, plain_ms[name] = timed(lambda: plain(*args, **kw))
         errs[name] = max(max_err(a, c) for a, c in zip(tup(out), tup(ref)))
         del ref
+        run = getattr(*WRAPPERS[name])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(*args, **kw)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+        launch_ms[name] = cuda_ms(lambda: run(*args, **kw), 3)
     calls.clear()
     if any(errs.values()):
         raise AssertionError("zlib: the device rule's launches on one "
@@ -4390,7 +4542,10 @@ def phase_zlib(smi: str):
                                              if v},
          encode_mb_s=len(data) / 1e6 / t_enc,
          decode_mb_s=len(data) / 1e6 / t_dec, max_abs_err=errs,
-         plain_ms=plain_ms,
+         plain_ms=plain_ms, launch_ms=launch_ms, launch_peak_bytes=peak,
+         encode_kernels_mb_s=len(data) / 1e3 / sum(
+             launch_ms[k] for k in ("deflate_links", "deflate_parse_greedy",
+                                    "deflate_emit_tuple")),
          zlib_level_6={"ratio": len(ref) / len(data),
                        "decode_mb_s": len(data) / 1e6 / t_ref}, card=smi)
     return counts, errs
@@ -4406,8 +4561,10 @@ TRACED = {"bwtdc": (("ari_encode_kernel",),
                         ("lz4_decode_kernel",)),
           "serve_rle": (("rle_encode_kernel",), ("rle_decode_kernel",)),
           "serve_deflate": (("deflate_links_shared_kernel",
-                             "deflate_parse_kernel<false>",
-                             "TupleShared",
+                             "deflate_best_kernel",
+                             "deflate_segment_maps_kernel",
+                             "deflate_segment_chain_kernel",
+                             "deflate_segment_emit_kernel", "TupleShared",
                              "deflate_emit_kernel"), ("inflate_kernel",)),
           "lz4p": (("lz4_encode_kernel", "lz4p_pack_kernel"),
                    ("lz4p_decode_kernel",)),
@@ -4512,8 +4669,12 @@ def ab_inputs(wanted) -> dict:
     the dot route): the ari path's decode launch and the decode of phase
     5's A/B mix.  lz4_encode / lz4_decode and rle_encode / rle_decode at
     the lz4 and rle paths; deflate_links at the deflate path's compress
-    (its shared route), on as many zero, b"ab" and random rows and on
-    the wide path's 128 KiB rows (the keyed route); deflate_emit (the
+    (its shared route) and on as many zero, b"ab" and random rows;
+    deflate_links_wide (a DIR's keyed route, the checkout's tiled one) on
+    the wide path's 128 KiB rows, as many zero rows and phase 18's one
+    8 MiB row; deflate_parse_greedy (the best kernel at max_chain 1, then
+    the greedy parse) on the serving tensor, as many zero and random rows
+    and phase 18's 8 MiB row; deflate_emit (the
     tables and the emit) at the deflate and wide paths' compress, on those
     zero, b"ab" and random rows' tokens (the links and the parse at
     max_chain 128) and on phase 3's table_rows();
@@ -4578,6 +4739,30 @@ def ab_inputs(wanted) -> dict:
                 raise AssertionError(f"{codec} did not round-trip")
         keep(f"{codec}_encode", codec, enc)
         keep(f"{codec}_decode", codec, dec)
+    if set(wanted) & {"deflate_links_wide", "deflate_parse_greedy"}:
+        wide = torch.frombuffer(bytearray(data[:DEFLATE_WIDE_BYTES]),
+                                dtype=torch.uint8).view(
+                                    -1, DEFLATE_WIDE_BLOCK).cuda()
+        wide_lens = torch.full((wide.shape[0],), DEFLATE_WIDE_BLOCK,
+                               dtype=torch.int32, device="cuda")
+        row = wide.view(1, -1)
+        row_len = torch.tensor([row.shape[1]], dtype=torch.int32,
+                               device="cuda")
+        for name, rows, lens in (
+                ("deflate_wide", wide, wide_lens),
+                ("wide_zero", torch.zeros_like(wide), wide_lens),
+                ("zlib_row", row, row_len)):
+            out["deflate_links_wide"][name] = ((rows, lens), {})
+        x, lens, _ = serving_tensor()
+        rng = np.random.default_rng(SEED + 27)
+        for name, rows, lens in (
+                ("serving", x, lens),
+                ("serving_zero", torch.zeros_like(x), lens),
+                ("serving_random", torch.from_numpy(rng.integers(
+                    0, 256, tuple(x.shape), np.uint8)).cuda(), lens),
+                ("zlib_row", row, row_len)):
+            out["deflate_parse_greedy"][name] = (
+                (rows, lens, deflate_coder.deflate_links(rows, lens)), {})
     if set(wanted) & {"inflate", "deflate_links", "deflate_emit"}:
         with (recorded(deflate_coder, "deflate_links_shared") as links,
               recorded(deflate_coder, "deflate_emit") as emit):
@@ -4600,12 +4785,6 @@ def ab_inputs(wanted) -> dict:
                     DEFLATE_PATH_CHAIN)
                 out["deflate_emit"][f"deflate_{name}"] = (
                     (rows, lens, *tok, 0), {})
-        wide = torch.frombuffer(bytearray(data[:DEFLATE_WIDE_BYTES]),
-                                dtype=torch.uint8).view(
-                                    -1, DEFLATE_WIDE_BLOCK).cuda()
-        out["deflate_links"]["deflate_wide"] = (
-            (wide, torch.full((wide.shape[0],), DEFLATE_WIDE_BLOCK,
-                              dtype=torch.int32, device="cuda")), {})
         if "deflate_emit" in wanted:
             with recorded(deflate_coder, "deflate_emit") as emit:
                 tpuzip_torch.compress(data[:DEFLATE_WIDE_BYTES],
@@ -4658,25 +4837,33 @@ def ab_inputs(wanted) -> dict:
 AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
               "dc_decode", "lz4_encode", "lz4_decode", "rle_encode",
               "rle_decode", "inflate", "lz4p_pack", "lz4p_decode",
-              "deflate_links", "deflate_emit")
+              "deflate_links", "deflate_links_wide", "deflate_parse_greedy",
+              "deflate_emit")
 AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle",   # else the name
              "lz4p_pack": "lz4p", "lz4p_decode": "lz4p",
              "deflate_links": "deflate_encode",
+             "deflate_links_wide": "deflate_encode",
+             "deflate_parse_greedy": "deflate_encode",
              "deflate_emit": "deflate_encode"}
 # an A/B kernel's functions, where they are not those whose names hold
-# "<kernel>_kernel": the links' two routes, tpz_deflate_emit's tables and
-# emit kernels
-AB_FUNCTIONS = {"deflate_links": ("deflate_links_kernel",
-                                  "deflate_links_shared_kernel"),
+# "<kernel>_kernel": the links' shared route; their route past 64 KiB
+# (a DIR's keyed kernel, the tiled kernel and its carry); the greedy parse
+# (a DIR's instance of the parse kernel, the segments' three kernels);
+# tpz_deflate_emit's tables and emit kernels
+AB_FUNCTIONS = {"deflate_links": ("deflate_links_shared_kernel",),
+                "deflate_links_wide": ("deflate_links_kernel",
+                                       "deflate_links_tiled_kernel",
+                                       "deflate_links_carry_kernel"),
+                "deflate_parse_greedy": ("deflate_parse_kernelILb0E",
+                                         "deflate_segment_"),
                 "deflate_emit": ("deflate_tables_kernel",
                                  "deflate_emit_kernel")}
 # the A/B kernels this checkout redesigns: every other one must keep the
-# DIR's SASS (none now: deflate_encode.cu's device-rule instances are new
-# functions beside the C++ rule's, whose SASS stays)
-AB_REDESIGNED = ()
+# DIR's SASS
+AB_REDESIGNED = ("deflate_links_wide", "deflate_parse_greedy")
 # sources whose SASS --ab compares and does not time (no launch of theirs
-# is recorded for it): deflate_encode.cu's best, parse and stored kernels,
-# all of the DIR's functions but the A/B kernels'
+# is recorded for it): deflate_encode.cu's best, lazy parse and stored
+# kernels, all of the DIR's functions but the A/B kernels'
 AB_SASS_ONLY = ("deflate_encode",)
 # csrc/deflate_encode.cu's record in a row's scratch (SCRATCH_BYTES a row):
 # the codes, their lengths and the header's bits, [from, to)
@@ -4685,6 +4872,23 @@ DEFLATE_RECORD = (17408, 17408 + 640 + 320 + 4)
 # (ab_lz4), and whose SASS it holds to the DIR's: the chained lz4
 # encoder's launches and the dense one's
 AB_LZ4_SOURCES = ("lz4_chain", "lz4_dense")
+
+
+# the keyed links' tables as a DIR's wrapper sized them (a DIR's keyed
+# route, before the tiled one; tools/step_clocks.py's copy of that kernel
+# too): 2^slots_log slots of KEY_SLOT bytes, twice the hashes a row can
+# hold, one table a row or a pool within KEYED_POOL_BYTES
+KEY_SLOT = 8
+KEYED_POOL_BYTES = 1 << 30
+
+
+def keyed_slots_log(n: int) -> int:
+    return max(6, min(deflate_coder.HASH_BITS + 1,
+                      (2 * max(n, 1) - 1).bit_length()))
+
+
+def keyed_table_count(b: int, n: int) -> int:
+    return max(1, min(b, KEYED_POOL_BYTES // (KEY_SLOT << keyed_slots_log(n))))
 
 
 def ab_entry(lib, kernel: str):
@@ -4882,41 +5086,77 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
         else:
             r = int(lens.argmax())
             steps = inflate_symbols(rows[r, : lens[r]].tobytes())
-    elif kernel == "deflate_links":
+    elif kernel in ("deflate_links", "deflate_links_wide"):
         blocks, lens = args[:2]
         b, n = blocks.shape
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        slog = deflate_coder.slots_log(n)
-        ntab = deflate_coder.table_count(b, n)
 
         def make(lib):
+            # the build's route at this width: shared up to 64 KiB where
+            # the build has it, else tiled (with its scratch) or keyed
+            # (with its tables, as the keyed wrapper sized them)
+            tables = None
             if (hasattr(lib, "tpz_deflate_links_shared")
                     and deflate_coder.links_route(n) == "shared"):
-                fn = lib.tpz_deflate_links_shared
-                fn.argtypes = [vp, vp, ci, ci, vp, vp]
-                fn.restype = ci
+                fn, tail, extra = lib.tpz_deflate_links_shared, [], ()
+            elif hasattr(lib, "tpz_deflate_links_tiled"):
+                size = lib.tpz_deflate_links_tiled_scratch
+                size.argtypes, size.restype = [ci, ci], ctypes.c_longlong
+                tables = torch.empty(size(b, n), dtype=torch.uint8,
+                                     device="cuda")
+                fn, tail, extra = lib.tpz_deflate_links_tiled, [vp], (
+                    tables.data_ptr(),)
             else:
-                fn = lib.tpz_deflate_links
-                fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, vp]
-                fn.restype = ci
-            # the keyed route's tables, alive as long as the closure
-            tables = torch.empty(
-                0 if hasattr(lib, "tpz_deflate_links_shared")
-                and deflate_coder.links_route(n) == "shared"
-                else ntab * (deflate_coder.KEY_SLOT << slog) // 4,
-                dtype=torch.int32, device="cuda")
+                slog, ntab = keyed_slots_log(n), keyed_table_count(b, n)
+                tables = torch.empty(ntab * (KEY_SLOT << slog),
+                                     dtype=torch.uint8, device="cuda")
+                fn, tail, extra = lib.tpz_deflate_links, [vp, ci, ci], (
+                    tables.data_ptr(), ntab, slog)
+            fn.argtypes = [vp, vp, ci, ci, vp, *tail, vp]
+            fn.restype = ci
 
             def run():
                 prev = torch.empty((b, n), dtype=torch.int32, device="cuda")
-                tail = (tables.data_ptr(), ntab, slog) if tables.numel() \
-                    else ()
                 _build.check(fn(blocks.data_ptr(), lens.data_ptr(), b, n,
-                                prev.data_ptr(), *tail, stream()),
+                                prev.data_ptr(), *extra, stream()),
                              "tpz_deflate_links")
                 return (prev,)
+            run.tables = tables   # the scratch, alive as long as the closure
             return run
         # the longest row's positions
         steps = int(lens.max())
+    elif kernel == "deflate_parse_greedy":
+        blocks, lens, prev = args[:3]
+        b, n = blocks.shape
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+
+        def make(lib):
+            fn = lib.tpz_deflate_parse_greedy
+            # since the parse runs in segments, it takes their scratch
+            size = getattr(lib, "tpz_deflate_parse_scratch", None)
+            if size is not None:
+                size.argtypes, size.restype = [ci, ci], ctypes.c_longlong
+            fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp] + (
+                [vp, vp] if size is not None else [vp])
+            fn.restype = ci
+
+            def run():
+                tok = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+                nt = torch.empty(b, dtype=torch.int32, device="cuda")
+                best_at = torch.empty((b, n), dtype=torch.int32,
+                                      device="cuda")
+                scratch = [] if size is None else [torch.empty(
+                    size(b, n), dtype=torch.uint8, device="cuda")]
+                _build.check(fn(blocks.data_ptr(), lens.data_ptr(),
+                                prev.data_ptr(), b, n, 1, tok.data_ptr(),
+                                nt.data_ptr(), best_at.data_ptr(),
+                                *(t.data_ptr() for t in scratch), stream()),
+                             "tpz_deflate_parse_greedy")
+                return tok, nt
+            return run
+        # the longest row's tokens
+        steps = int(deflate_coder.deflate_parse_greedy(blocks, lens,
+                                                       prev)[1].max())
     elif kernel == "deflate_emit":
         blocks, lens, tokens, ntok, mode = args[:5]
         b, n = blocks.shape
@@ -5207,7 +5447,8 @@ def ab_child(dirs: list) -> int:
     """python3 chip_smoke.py --ab DIR [DIR ...]: the checkout's
     csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu,
     dc_decode.cu, lz4_encode.cu, lz4_decode.cu, rle.cu, inflate.cu,
-    lz4p.cu, deflate_encode.cu's links and its tables and emit,
+    lz4p.cu, deflate_encode.cu's links (both routes), its greedy parse and
+    its tables and emit,
     lz4_chain.cu and lz4_dense.cu
     against the same files in each
     DIR (beside the headers they include), for instance a parent commit's:
@@ -5224,8 +5465,12 @@ def ab_child(dirs: list) -> int:
     path and on phase 3's edge and garbage streams; lz4p's pack at the
     lz4p and lz4p serving paths and on phase 3's pack edge rows, its
     decode at the lz4p path; deflate_encode.cu's links at the deflate
-    path and on as many zero, b"ab" and random rows (a DIR's keyed links
-    against the checkout's route), its tables and emit (tpz_deflate_emit,
+    path and on as many zero, b"ab" and random rows (the shared route),
+    its links past 64 KiB (a DIR's keyed route against the checkout's
+    tiled one) at the wide path, on as many zero rows and on phase 18's
+    8 MiB row, its greedy parse (with the best kernel) on the serving
+    tensor, as many zero and random rows and that 8 MiB row, its tables
+    and emit (tpz_deflate_emit,
     streams, lengths and the record in the scratch) at the deflate and
     wide paths, on those rows' tokens and on phase 3's table rows; a
     kernel whose source no DIR holds gets a
@@ -5369,7 +5614,7 @@ def ab_child(dirs: list) -> int:
                         differ.append("ari_decode's no-index mode")
                     row["unindexed_ms"] = cuda_ms(flat["new"], 3)
                 if (path in ("bwt", "bin", "apm", "lz4", "rle", "deflate",
-                             "lz4p") or kernel == "dc_decode"):
+                             "lz4p", "serving") or kernel == "dc_decode"):
                     one, _ = ab_launchers(
                         libs[kernel], kernel,
                         tuple(a[:1].contiguous() if torch.is_tensor(a)

@@ -7,7 +7,9 @@ as they lie) held against the
 plain links, which tpuzip's C++ chain gives (tests/test_torch_deflate.py);
 the route as a function of shape; and the CUDA wrappers refusing to fall
 back to the plain version.  The kernel is held against the plain version
-on the card by chip_smoke.py."""
+on the card by chip_smoke.py.  The tiled route (a tile run as a row of
+this one, then a carry over the tiles) is replicated in
+tests/test_torch_deflate_segments.py."""
 
 import numpy as np
 import pytest
@@ -21,13 +23,14 @@ CLASSES, QUEUE, SCAN = 8, 32, 128
 HASH_MUL, HASH_BITS = 2654435761, 15
 
 
-def _split_row(row: np.ndarray, ln: int) -> tuple[list, dict]:
+def _split_row(row: np.ndarray, ln: int) -> tuple[list, dict, list]:
     """deflate_links_shared_kernel on one row of len(row) bytes, the first
     ln of them the block: each position's 3 bytes read from the row (none
     past it), each warp's queue filled 32 entries at a time from scans of
     128 positions and stepped through __match_any_sync's groups against
     the u16 table, runs emitted at once -> (prev, counts of the queue steps
-    and run scans)."""
+    and run scans, the table after the row: slot h the last position of
+    hash h, + 1, or 0)."""
     n = len(row)
     limit = max(ln - 2, 0)
     prev = [-1] * n
@@ -78,7 +81,7 @@ def _split_row(row: np.ndarray, ln: int) -> tuple[list, dict]:
     for q in queues:
         if q:
             step(q)
-    return prev, counts
+    return prev, counts, table
 
 
 def _rows():
@@ -113,7 +116,7 @@ def test_split_row_replica_equals_plain(group):
     xl = torch.tensor(lens, dtype=torch.int32)
     want = dc.deflate_links_plain(x, xl)
     for r in range(len(rows)):
-        got, counts = _split_row(rows[r], lens[r])
+        got, counts, _ = _split_row(rows[r], lens[r])
         assert got == want[r].tolist(), r
         if group == 0 and r in (1, 3):
             assert counts["runs"] > 0, r
@@ -138,9 +141,9 @@ def test_plain_links_equal_native_chain():
 
 @pytest.mark.parametrize("n", [1, 2048, 65536, 65537, 1 << 17])
 def test_links_route_is_a_function_of_shape(n):
-    """The route: shared for rows of at most 65,536 bytes, keyed past
+    """The route: shared for rows of at most 65,536 bytes, tiled past
     them, whatever the batch or the bytes."""
-    want = "shared" if n <= 65536 else "keyed"
+    want = "shared" if n <= 65536 else "tiled"
     assert dc.links_route(n) == want
     assert dc.STAGE_MAX == 1 << 16
 
@@ -174,9 +177,9 @@ def test_cuda_links_raise_without_gpu(monkeypatch, n):
     x = _OnCuda(torch.zeros((2, n), dtype=torch.uint8))
     xl = _OnCuda(torch.full((2,), n, dtype=torch.int32))
     before = (dc.deflate_links_shared.launches,
-              dc.deflate_links_keyed.launches)
+              dc.deflate_links_tiled.launches)
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|cuda|GPU|driver"):
         dc.deflate_links(x, xl)
     assert (dc.deflate_links_shared.launches,
-            dc.deflate_links_keyed.launches) == before
+            dc.deflate_links_tiled.launches) == before

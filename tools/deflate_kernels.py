@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check and time csrc/deflate_encode.cu and csrc/inflate.cu on one GPU:
 
-    python3 tools/deflate_kernels.py [--ab DIR ...]
+    python3 tools/deflate_kernels.py [--ab DIR ... | --wide]
 
 Builds both sources with nvcc -Xptxas -v (registers and spills), then
 holds every launch exact against its plain version on 40 rows of 4 KiB
@@ -19,7 +19,10 @@ text corpus, dynamic at max_chain 128, and the device rule's two.  With --ab, ea
 (tpz_deflate_parse, with or without its best_at scratch argument) against
 the checkout's, outputs held equal, timed in turns (DIR, checkout,
 checkout, DIR) at 1024 x 64 KiB of text at max_chain 8 and 128, of zero
-rows and of random rows at 128.  Prints the card, the ptxas lines and one
+rows and of random rows at 128.  With --wide, after the build only phase 18's four
+launches on its one 8 MiB row, each alone, and the links at the wide
+path's 64 x 128 KiB (wide()), then each kernel's device ms of the
+greedy parse and of those links from one traced call (parts()).  Prints the card, the ptxas lines and one
 JSON line a group."""
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ def ptxas() -> None:
             print(name, r.returncode, "\n".join(
                 line for line in (r.stdout + r.stderr).splitlines()
                 if "registers" in line or "error" in line
-                or "spill" in line or "smem" in line), flush=True)
+                or "spill" in line or "smem" in line
+                or "entry function" in line), flush=True)
     _build.build("deflate_encode", "inflate")
 
 
@@ -229,6 +233,89 @@ def timing() -> None:
           flush=True)
 
 
+def wide() -> None:
+    """Phase 18's four launches (codecs.zlib_.compress and decompress: one
+    8 MiB row of the smoke's corpus), each alone: the links (the route of
+    that width), the greedy parse with its best kernel, the tuple tables
+    with the emit and the inflate, CUDA-event ms and the peak device
+    memory of each launch over what its inputs hold; then the links at
+    the wide path's 64 x 128 KiB (the same corpus at 128 KiB blocks)."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)[: cs.ZLIB_BYTES]
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(
+        1, -1).cuda()
+    xl = torch.tensor([len(data)], dtype=torch.int32, device="cuda")
+    res = {"rows": list(x.shape), "links_route": dc.links_route(x.shape[1])}
+
+    def alone(name, fn, reps):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        res[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        res[f"{name}_ms"] = cs.cuda_ms(fn, reps)
+        return out
+
+    prev = alone("links", lambda: dc.deflate_links(x, xl), 3)
+    tok, nt = alone("parse_greedy",
+                    lambda: dc.deflate_parse_greedy(x, xl, prev), 2)
+    comp, clens = alone("emit_tuple",
+                        lambda: dc.deflate_emit_tuple(x, xl, tok, nt), 2)
+    out, st = alone("inflate",
+                    lambda: dc.inflate_batch(comp, clens, x.shape[1]), 2)
+    res["ntok"] = int(nt[0])
+    res["ratio"] = int(clens[0]) / len(data)
+    res["round_trip"] = bool(torch.equal(out, x)) and int(st[0]) == len(data)
+    res["encode_kernels_mb_s"] = len(data) / 1e3 / sum(
+        res[f"{k}_ms"] for k in ("links", "parse_greedy", "emit_tuple"))
+    w = x.view(-1, 1 << 17)
+    wl = torch.full((w.shape[0],), 1 << 17, dtype=torch.int32,
+                    device="cuda")
+    res["wide_path_rows"] = list(w.shape)
+    res["wide_path_links_ms"] = cs.cuda_ms(lambda: dc.deflate_links(w, wl),
+                                           3)
+    res["links_exact"] = bool(
+        torch.equal(prev, dc.deflate_links_plain(x, xl))
+        and torch.equal(dc.deflate_links(w, wl), dc.deflate_links_plain(w, wl)))
+    print(json.dumps({"group": "wide", "card": cs.nvidia_smi(), **res}),
+          flush=True)
+
+
+def parts() -> None:
+    """Device ms of each kernel that the greedy parse (with its best
+    kernel) and the links past 64 KiB launch, from one traced call each
+    (chip_smoke.traced): the parse at 1024 x 64 KiB of text, zero and
+    random rows and on phase 18's 8 MiB row, the links at the wide path's
+    64 x 128 KiB and on that row."""
+    n = 1 << 16
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).reshape(
+        -1, n).cuda()
+    xl = torch.full((x.shape[0],), n, dtype=torch.int32).cuda()
+    rng = np.random.default_rng(13)
+    row = x.reshape(-1)[: cs.ZLIB_BYTES].view(1, -1)
+    row_len = torch.tensor([row.shape[1]], dtype=torch.int32).cuda()
+    wide = row.view(-1, 1 << 17)
+    wide_len = torch.full((wide.shape[0],), 1 << 17, dtype=torch.int32).cuda()
+    res = {}
+    for name, rows, lens in (
+            ("text", x, xl), ("zero", torch.zeros_like(x), xl),
+            ("random", torch.from_numpy(rng.integers(
+                0, 256, tuple(x.shape), np.uint8)).cuda(), xl),
+            ("zlib_row", row, row_len)):
+        prev = dc.deflate_links(rows, lens)
+        dc.deflate_parse_greedy(rows, lens, prev)
+        res[f"parse_{name}"] = cs.traced(
+            lambda: dc.deflate_parse_greedy(rows, lens, prev))["top"]
+    for name, rows, lens in (("wide", wide, wide_len),
+                             ("zlib_row", row, row_len)):
+        dc.deflate_links(rows, lens)
+        res[f"links_{name}"] = cs.traced(
+            lambda: dc.deflate_links(rows, lens))["top"]
+    print(json.dumps({"group": "parts", "card": cs.nvidia_smi(), **res}),
+          flush=True)
+
+
 def parse_entry(lib):
     """(call(blocks, lens, prev, max_chain) -> (tokens, ntok)) of a build's
     tpz_deflate_parse, whichever of its two signatures the source has."""
@@ -298,6 +385,10 @@ def ab(dirs: list) -> None:
 def main() -> int:
     print(cs.nvidia_smi(), flush=True)
     ptxas()
+    if sys.argv[1:2] == ["--wide"]:
+        wide()
+        parts()
+        return 0
     if sys.argv[1:2] == ["--ab"]:
         ab(sys.argv[2:])
     for fn in (lambda: check(*rows(4096), "rows_4096"),

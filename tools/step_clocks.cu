@@ -1,4 +1,4 @@
-// step_clocks.cu — clock64-stamped copies of thirteen kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of fifteen kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
 // apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
 // (csrc/bin_encode.cu, one thread a stream), the DC walk's
@@ -12,8 +12,9 @@
 // lz4p's pack (csrc/lz4p.cu, two walks a sequence at a time), lz4p's
 // decode (csrc/lz4p.cu, a sequence at a time after a pass of prefix sums),
 // the deflate links (csrc/deflate_encode.cu, a keyed table in device
-// memory) and the deflate tables (csrc/deflate_encode.cu, lane 0's
-// package-merge);
+// memory), the deflate tables (csrc/deflate_encode.cu, lane 0's
+// package-merge) and the deflate device rule's greedy parse
+// (csrc/deflate_encode.cu, a warp a row over windows of best values);
 // and the redesigned ari encoder, DC walk, lz4 step, lz4 decoder,
 // deflate decoder and lz4p decode, built from their own sources, the
 // encoder stamped by warp, the others by part.  One stream each (one warp, one thread; the lz4 and rle copies
@@ -2498,6 +2499,84 @@ deflate_links_clocks(const uint8_t* blocks, const int32_t* lengths, int B,
   }
 }
 
+// The deflate device rule's greedy parse as it stood before its redesign
+// (csrc/deflate_encode.cu's deflate_parse_kernel<false>: a warp a row over
+// windows of 32 best values read from device memory, a ballot for the
+// next match, literals and the match written by the warp).  Row 0's
+// cycles by part: 0 a window's load, 1 the ballot and shuffles of a step,
+// 2 the literals' loads and stores, 3 the match's token and the jump;
+// cycles[7] the whole row, [8] its tokens, [9] its matches, [10] its
+// windows loaded.
+template <bool STAMP>
+__global__ void __launch_bounds__(32)
+deflate_greedy_clocks(const uint8_t* __restrict__ blocks,
+                      const int32_t* __restrict__ lengths,
+                      const int32_t* __restrict__ best_at, int n,
+                      int32_t* __restrict__ tokens,
+                      int32_t* __restrict__ ntok, long long* cycles) {
+  using lz4_old::FULL;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+  const int32_t* ba = best_at + static_cast<size_t>(row) * n;
+  int32_t* tok = tokens + static_cast<size_t>(row) * n;
+  const int len = min(max(lengths[row], 0), n);
+  const int limit = max(len - 2, 0);
+  Clocks<STAMP> k;
+  k.start(0);
+  const long long t0 = k.t;
+  long long windows = 0, matches = 0;
+  int wbase = 0, best_l = 0, dist_l = 0;
+  auto window = [&](int from) {
+    wbase = from;
+    const int p = from + lane;
+    const int v = p < limit ? ba[p] : 0;
+    best_l = v >> 16;
+    dist_l = v & 0xFFFF;
+    ++windows;
+  };
+  window(0);
+  k.lap(0, static_cast<uint32_t>(best_l));
+  int i = 0, anchor = 0, t = 0;
+  while (i < limit) {
+    if (i >= wbase + 32) {
+      window(i);
+      k.lap(0, static_cast<uint32_t>(best_l));
+    }
+    const unsigned hits =
+        __ballot_sync(FULL, best_l >= 3 && wbase + lane >= i);
+    if (!hits) {
+      i = wbase + 32;
+      k.lap(1, hits);
+      continue;
+    }
+    const int at = wbase + __ffs(hits) - 1;
+    const int best = __shfl_sync(FULL, best_l, at - wbase);
+    const int d = __shfl_sync(FULL, dist_l, at - wbase);
+    k.lap(1, static_cast<uint32_t>(d));
+    for (int q = lane; q < at - anchor; q += 32) tok[t + q] = src[anchor + q];
+    t += at - anchor;
+    k.lap(2, 0);
+    if (lane == 0) tok[t] = best << 16 | d;
+    ++t;
+    ++matches;
+    i = anchor = at + best;
+    k.lap(3, static_cast<uint32_t>(i));
+  }
+  for (int q = lane; q < len - anchor; q += 32) tok[t + q] = src[anchor + q];
+  t += len - anchor;
+  k.lap(2, 0);
+  if (lane == 0) ntok[row] = t;
+  const long long t1 = stamp(static_cast<uint32_t>(t));
+  if (lane == 0 && row == 0) {
+    for (int q = 0; q < 7; ++q) cycles[q] = k.sum[q];
+    cycles[7] = t1 - t0;
+    cycles[8] = t;
+    cycles[9] = matches;
+    cycles[10] = windows;
+  }
+}
+
 // The redesigned lz4p decode (csrc/lz4p.cu, included above in namespace
 // lz4pn; this kernel body is a copy of its lz4p_decode_kernel: keep the two
 // in step), B rows at once.  Block 0's cycles by part: 0 pass 1, 1 pass
@@ -3748,6 +3827,59 @@ extern "C" int tpz_deflate_links_clocks(const void* blocks,
                      static_cast<int32_t*>(prev),
                      static_cast<unsigned long long*>(tables), slots_log,
                      static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the deflate device rule's greedy parse as it stood before its
+// redesign, over best_at; tokens (zeroed by the caller) and ntok out;
+// block 0's cycles into cycles (11 int64).
+extern "C" int tpz_deflate_greedy_clocks(const void* blocks,
+                                         const void* lengths,
+                                         const void* best_at, int B, int n,
+                                         void* tokens, void* ntok,
+                                         void* cycles, int stamped) {
+  auto kern =
+      stamped ? deflate_greedy_clocks<true> : deflate_greedy_clocks<false>;
+  kern<<<B, 32>>>(static_cast<const uint8_t*>(blocks),
+                  static_cast<const int32_t*>(lengths),
+                  static_cast<const int32_t*>(best_at), n,
+                  static_cast<int32_t*>(tokens), static_cast<int32_t*>(ntok),
+                  static_cast<long long*>(cycles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// csrc/deflate_encode.cu's greedy parse after its best kernel (the
+// segments' maps, chain and emit over best_at) on the default stream;
+// scratch of tpz_deflate_parse_scratch bytes.
+extern "C" int tpz_deflate_segments_source(const void* blocks,
+                                           const void* lengths,
+                                           const void* best_at, int B, int n,
+                                           void* tokens, void* ntok,
+                                           void* scratch) {
+  return dfe::launch_segments(blocks, lengths, best_at, B, n, tokens, ntok,
+                              scratch, 0);
+}
+
+// csrc/deflate_encode.cu's tpz_deflate_parse_scratch (the source's entry
+// points lie in an unnamed namespace here).
+extern "C" long long tpz_deflate_parse_scratch_source(int B, int n) {
+  return dfe::tpz_deflate_parse_scratch(B, n);
+}
+
+// csrc/deflate_encode.cu's best kernel alone (best_at of every position at
+// max_chain, the greedy parse's input).
+extern "C" int tpz_deflate_best_source(const void* blocks,
+                                       const void* lengths, const void* prev,
+                                       int B, int n, int max_chain,
+                                       void* best_at) {
+  const long long grid = static_cast<long long>(B) *
+                         ((n + dfe::BEST_THREADS - 1) / dfe::BEST_THREADS);
+  dfe::deflate_best_kernel<<<static_cast<unsigned>(grid),
+                             dfe::BEST_THREADS>>>(
+      static_cast<const uint8_t*>(blocks),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(prev), n, max_chain,
+      static_cast<int32_t*>(best_at));
   return static_cast<int>(cudaGetLastError());
 }
 

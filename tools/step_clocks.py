@@ -43,9 +43,14 @@ beside the other 1023 rows, each held against the real kernel's output;
 likewise lz4p's decode as it stood before its redesign (a sequence at a
 time after a pass of prefix sums) on the lz4p path's rows, the deflate
 links as they stood before theirs (a warp a row, a keyed table in device
-memory) on the deflate path's rows, and the deflate tables as they stood
-before theirs (lane 0's package-merge) on that path's tokens, each copy's
-records and streams held against csrc/deflate_encode.cu's.
+memory) on the deflate path's rows and on phase 18's one 8 MiB row
+(beside the checkout's links there, the tiled route), the deflate tables
+as they stood before theirs (lane 0's package-merge) on that path's
+tokens, each copy's records and streams held against
+csrc/deflate_encode.cu's, and the device rule's greedy parse as it stood
+before its redesign (a warp a row over windows of best values) on the
+serving tensor's rows and that 8 MiB row, beside the checkout's parse in
+segments on the same best values.
 One JSON line a section (SECTIONS; all of them without arguments, about
 60-90 s; lz4_chain and lz4_dense alone about 30 s, inflate and lz4p_pack
 about 30 s)."""
@@ -874,30 +879,40 @@ def lz4p_decode(lib, res) -> None:
             lambda: launch_new(b, 0), 3)
 
 
+def zlib_row():
+    """Phase 18's input as its kernels take it: ZLIB_BYTES of the smoke's
+    corpus as one row (codecs.deflate.deflate's row) and its length."""
+    data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)[: cs.ZLIB_BYTES]
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(1, -1)
+    return x.cuda(), torch.tensor([len(data)], dtype=torch.int32,
+                                  device="cuda")
+
+
 def deflate_links(lib, res) -> None:
     """The deflate links as they stood before their redesign (a warp a row,
     32 positions a step, a keyed table in device memory), on the deflate
     path's rows (the smoke's 64 MiB corpus through
     tpuzip_torch.compress(codec="deflate"), 1024 rows of 64 KiB), stamped
     by part on row 0 alone and beside the other 1023 rows (a table a row,
-    as deflate_coder.table_count gives), held against the links there, into
-    res["deflate_links"]: cycles a step of 32 positions by part, the steps
-    and extra probes of row 0, and the unstamped copy's and the links'
-    ms (the path's route: the shared one at its 64 KiB rows)."""
+    as chip_smoke.keyed_table_count gives), and on phase 18's one 8 MiB row
+    (zlib_row), held against the links there, into res["deflate_links"]:
+    cycles a step of 32 positions by part, the steps and extra probes of
+    row 0, and the unstamped copy's and the checkout's links' ms (the
+    path's route: the shared one at its 64 KiB rows, the tiled one on the
+    8 MiB row)."""
     data = cs.text_corpus(cs.CORPUS_BYTES, cs.SEED)
     with cs.recorded(deflate_coder, "deflate_links_shared") as calls:
         tpuzip_torch.compress(data, codec="deflate")
     (args, _, ref), = calls
-    blocks, lens = args[0].contiguous(), args[1].contiguous()
-    b_all, n = blocks.shape
     fn = lib.tpz_deflate_links_clocks
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, vp, ci]
-    slog = deflate_coder.slots_log(n)
 
-    def launch(b: int, stamped: int):
-        ntab = deflate_coder.table_count(b, n)
-        tables = torch.empty(ntab * (deflate_coder.KEY_SLOT << slog) // 4,
+    def launch(blocks, lens, stamped: int):
+        b, n = blocks.shape
+        slog = cs.keyed_slots_log(n)
+        ntab = cs.keyed_table_count(b, n)
+        tables = torch.empty(ntab * (cs.KEY_SLOT << slog) // 4,
                              dtype=torch.int32, device="cuda")
         prev = torch.empty((b, n), dtype=torch.int32, device="cuda")
         cyc = torch.zeros(10, dtype=torch.int64, device="cuda")
@@ -906,27 +921,130 @@ def deflate_links(lib, res) -> None:
                         cyc.data_ptr(), stamped), "deflate_links_clocks")
         return prev, cyc
 
-    rec = res.setdefault("deflate_links", {"rows": [b_all, n],
-                                           "slots_log": slog})
-    for b in (1, b_all):
+    blocks, lens = args[0].contiguous(), args[1].contiguous()
+    row, row_len = zlib_row()
+    rec = res.setdefault("deflate_links", {
+        "rows": list(blocks.shape), "slots_log": cs.keyed_slots_log(
+            blocks.shape[1]), "zlib_row": list(row.shape)})
+    for name, x, xl, want in (
+            ("rows_1", blocks[:1], lens[:1], ref[:1]),
+            (f"rows_{blocks.shape[0]}", blocks, lens, ref),
+            ("zlib_row", row, row_len,
+             deflate_coder.deflate_links_plain(row, row_len))):
         for stamped in (1, 0):
-            prev, cyc = launch(b, stamped)
+            prev, cyc = launch(x, xl, stamped)
             torch.cuda.synchronize()
-            if not torch.equal(prev, ref[:b]):
+            if not torch.equal(prev, want):
                 raise AssertionError(f"deflate links copy (stamped="
-                                     f"{stamped}, {b} rows) differs from "
-                                     "csrc/deflate_encode.cu")
+                                     f"{stamped}, {name}) differs from the "
+                                     "plain links")
             cyc = cyc.tolist()
             steps = cyc[8]
-            rec[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+            rec[f"{name}_{'stamped' if stamped else 'unstamped'}"] = {
                 "steps": steps, "extra_probes": cyc[9],
                 "cycles_a_step": {
                     **{p: cyc[i] / steps for i, p in enumerate(LINKS_PARTS)},
                     "whole row": cyc[7] / steps},
                 "whole_row_cycles": cyc[7]}
-        rec[f"rows_{b}_unstamped_ms"] = cs.cuda_ms(lambda: launch(b, 0), 3)
-        rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
-            lambda: deflate_coder.deflate_links(blocks[:b], lens[:b]), 3)
+        rec[f"{name}_unstamped_ms"] = cs.cuda_ms(
+            lambda: launch(x, xl, 0), 3)
+        rec[f"{name}_kernel_ms"] = cs.cuda_ms(
+            lambda: deflate_coder.deflate_links(x, xl), 3)
+        rec[f"{name}_kernel_route"] = deflate_coder.links_route(x.shape[1])
+        if not torch.equal(deflate_coder.deflate_links(x, xl), want):
+            raise AssertionError(f"the checkout's links on {name} differ "
+                                 "from the plain links")
+
+
+GREEDY_PARTS = ("window loads", "ballot and shuffles",
+                "literal loads and stores", "match token and jump")
+
+
+def deflate_parse_greedy(lib, res) -> None:
+    """The deflate device rule's greedy parse as it stood before its
+    redesign (a warp a row over windows of 32 best values in device
+    memory), stamped by part on the serving path's tensor
+    (chip_smoke.serving_tensor(), 1024 rows of 64 KiB) row 0 alone and
+    beside the other 1023 rows, and on phase 18's one 8 MiB row
+    (zlib_row), over csrc/deflate_encode.cu's best at max_chain 1 (the
+    source's best kernel, launched alone), held against the checkout's
+    deflate_parse_greedy there, into res["deflate_parse_greedy"]: cycles a
+    token by part, the tokens, matches and windows of row 0, and the
+    unstamped copy's ms beside the checkout's parse's alone (its
+    launches after the best kernel) and with the best kernel."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.tpz_deflate_greedy_clocks
+    fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, ci]
+    best_fn = lib.tpz_deflate_best_source
+    best_fn.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    new_fn = lib.tpz_deflate_segments_source
+    new_fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+    size = lib.tpz_deflate_parse_scratch_source
+    size.argtypes, size.restype = [ci, ci], ctypes.c_longlong
+
+    def best_of(x, xl):
+        b, n = x.shape
+        prev = deflate_coder.deflate_links(x, xl)
+        best_at = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        _build.check(best_fn(x.data_ptr(), xl.data_ptr(), prev.data_ptr(),
+                             b, n, 1, best_at.data_ptr()),
+                     "deflate_best_source")
+        return prev, best_at
+
+    def launch(x, xl, best_at, stamped: int):
+        b, n = x.shape
+        tok = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+        nt = torch.empty(b, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(11, dtype=torch.int64, device="cuda")
+        _build.check(fn(x.data_ptr(), xl.data_ptr(), best_at.data_ptr(), b,
+                        n, tok.data_ptr(), nt.data_ptr(), cyc.data_ptr(),
+                        stamped), "deflate_greedy_clocks")
+        return tok, nt, cyc
+
+    def segments(x, xl, best_at):
+        b, n = x.shape
+        tok = torch.zeros((b, n), dtype=torch.int32, device="cuda")
+        nt = torch.empty(b, dtype=torch.int32, device="cuda")
+        scratch = torch.empty(size(b, n), dtype=torch.uint8, device="cuda")
+        _build.check(new_fn(x.data_ptr(), xl.data_ptr(), best_at.data_ptr(),
+                            b, n, tok.data_ptr(), nt.data_ptr(),
+                            scratch.data_ptr()), "deflate_segments_source")
+        return tok, nt
+
+    x, lens, _ = cs.serving_tensor()
+    row, row_len = zlib_row()
+    rec = res.setdefault("deflate_parse_greedy", {"rows": list(x.shape),
+                                                  "zlib_row": list(row.shape)})
+    for name, xs, xl in (("rows_1", x[:1], lens[:1]),
+                         (f"rows_{x.shape[0]}", x, lens),
+                         ("zlib_row", row, row_len)):
+        prev, best_at = best_of(xs, xl)
+        want = deflate_coder.deflate_parse_greedy(xs, xl, prev)
+        for stamped in (1, 0):
+            tok, nt, cyc = launch(xs, xl, best_at, stamped)
+            torch.cuda.synchronize()
+            if not (torch.equal(tok, want[0]) and torch.equal(nt, want[1])):
+                raise AssertionError(f"greedy parse copy (stamped="
+                                     f"{stamped}, {name}) differs from the "
+                                     "checkout's")
+            cyc = cyc.tolist()
+            tokens = max(cyc[8], 1)
+            rec[f"{name}_{'stamped' if stamped else 'unstamped'}"] = {
+                "tokens": cyc[8], "matches": cyc[9], "windows": cyc[10],
+                "cycles_a_token": {
+                    **{p: cyc[i] / tokens for i, p in enumerate(GREEDY_PARTS)},
+                    "whole row": cyc[7] / tokens},
+                "whole_row_cycles": cyc[7]}
+        rec[f"{name}_unstamped_ms"] = cs.cuda_ms(
+            lambda: launch(xs, xl, best_at, 0), 3 if name != "zlib_row"
+            else 1)
+        rec[f"{name}_kernel_with_best_ms"] = cs.cuda_ms(
+            lambda: deflate_coder.deflate_parse_greedy(xs, xl, prev), 3)
+        got = segments(xs, xl, best_at)
+        if not all(torch.equal(a, c) for a, c in zip(got, want)):
+            raise AssertionError(f"the segment parse on {name} differs")
+        rec[f"{name}_kernel_ms"] = cs.cuda_ms(
+            lambda: segments(xs, xl, best_at), 3)
 
 
 TABLE_PARTS = ("histograms", "literal tree: partitions",
@@ -1085,7 +1203,8 @@ SECTIONS = {"coders": coders, "dc_walk": dc_walk, "lz4_encode": lz4_probe,
             "lz4_chain": chain_parse, "lz4_dense": dense_candidates,
             "inflate": inflate, "lz4p_pack": lz4p_pack,
             "lz4p_decode": lz4p_decode, "deflate_links": deflate_links,
-            "deflate_tables": deflate_tables}
+            "deflate_tables": deflate_tables,
+            "deflate_parse_greedy": deflate_parse_greedy}
 
 
 def main(names: list) -> int:

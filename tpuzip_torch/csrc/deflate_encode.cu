@@ -1,8 +1,10 @@
 // deflate_encode.cu — tpuzip's deflate ENCODERS (codec "deflate", id 5),
-// in four kernels: links (8 warps a row, or one on rows past 64 KiB),
-// parse one warp a row, tables a block of two warps a row, emit one block
+// in four steps: links (8 warps a row, or 8 warps a tile of 32 Ki
+// positions on rows past 64 KiB, then a carry pass), parse (best a thread
+// a position, then one warp a row, or segments of 2,048 positions on
+// tpuzip's device rule), tables a block of two warps a row, emit one block
 // a row (or, for stored blocks, the stored kernel alone); the parse and
-// the tables in an instance for each of tpuzip's two rules.
+// the tables in a form for each of tpuzip's two rules.
 //
 // It replaces tpuzip's host C++ `tpz_deflate` (csrc/tpuzip_host.cpp:
 // 1314-1583, called from tpuzip/dist/runner.py:884-900 through
@@ -51,12 +53,19 @@
 //     each runs an eighth of the row's table steps, and 128 positions
 //     inside a run of one hash skip them.  As first ported, the links were
 //     one warp a row over a keyed table of 8-byte slots in device memory,
-//     512 KiB a row (PERF.md §6, row 18); wider rows keep that form, 32
-//     positions a warp step: lz4_chain.cu's keyed step (the lanes of one
-//     hash grouped by __match_any_sync, a lane's link the highest earlier
-//     lane of its group, else the keyed table's slot read before the step
-//     writes it), copied with the 3-byte hash (open addressing on h, at
-//     most half full);
+//     512 KiB a row (PERF.md §6, row 18);
+//   - links, on wider rows (tiled): the row cut into tiles of LINK_TILE
+//     positions, each run by split_row as a row of its own (positions
+//     relative to the tile, so each fits the u16 slot), a CTA a tile, so
+//     one 8 MiB row fills the card.  Each tile writes out its table (the
+//     tile's last position of each hash) and, for each hash, the first
+//     position that found no link inside it; a carry pass, a thread a
+//     hash of a row, walks the row's tiles in order with the last position
+//     seen before each and gives that first position its link: prev is
+//     the shared route's at any distance.  The tables and first positions
+//     take 4 B x 2^15 a tile of device memory.  The keyed warp a row it
+//     replaced ran 32 positions a step, each step waiting on the keyed
+//     table in device memory;
 //   - parse, in two kernels: best(p) does not depend on the parse, so the
 //     best kernel computes it for every position, a thread a position, the
 //     whole card's worth of warps (each thread walks its own chain, with a
@@ -69,6 +78,29 @@
 //     inside the parse's warp: one warp a row is 8 warps an SM at 1024
 //     rows, and its chain walks' loads waited one after another (174 ms at
 //     1024 x 64 KiB of text at max_chain 128 on the H100);
+//   - the device rule's greedy parse: next(i) = i + best(i) where best(i)
+//     reaches 3, else i + 1, is a function of position alone, so the row
+//     is cut into segments of PARSE_SEG positions, and a token from before
+//     a segment lands on one of its first 258 positions (its entries).
+//     Three launches: the maps, a warp a segment taking its positions
+//     backward 32 a window, each position's exit and token count from its
+//     next's (a literal run's at once from the match start after it, a
+//     later lane's by pointer jumping, or the warp's ring of the values
+//     ahead), those of the entries written out; the chain, a CTA a row,
+//     one lookup a segment from the row's start through maps staged by
+//     TMA, for each segment its true entry and its first token (the only
+//     serial part); the emit, a warp a segment marking its true path's
+//     positions 32 a window by doubling and writing their tokens at their
+//     ranks.  A walk from a segment's start alone would not do: on a zero
+//     row the true path is 1 + 258j, which a walk from k * PARSE_SEG meets
+//     only when (k * PARSE_SEG - 1) mod 258 is 0.  Lost (PERF.md §6, row
+//     23): a lane a segment in the maps (a ring of 258 a lane, 6 warps an
+//     SM) and in the emit (each lane's loads and stores 32 lines a warp
+//     instruction), four windows in flight, and an emit that walks from
+//     match start to match start by ballots (a shuffle's latency a match).
+//     The first form ran a warp a row over windows of 32 best values in
+//     device memory, a window's load waited on at nearly every match: one
+//     warp on the card for a single row;
 //   - tables: a block of two warps a row.  Both build the histograms
 //     (8 tokens a thread loaded at once, shared-memory atomics); then warp
 //     0 runs package-merge for the literal/length tree while warp 1 runs
@@ -105,9 +137,20 @@ constexpr int WINDOW = 32768;              // a link further back ends a walk
 constexpr int HASH_BITS = 15;
 constexpr int STORED_MAX = 65535;
 constexpr uint32_t HASH_MUL = 2654435761u;
-constexpr uint32_t SLOT_MUL = 0x9E3779B1u;  // spreads h over keyed slots
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr unsigned long long EMPTY = ~0ull;  // a keyed slot's empty value
+constexpr int SLOTS = 1 << HASH_BITS;
+constexpr int LINK_TILE = 1 << 15;  // positions a tile of the tiled links
+constexpr int CARRY_THREADS = 256;
+// the device rule's greedy parse in segments
+constexpr int PARSE_SEG = 2048;     // positions a segment
+constexpr int ENTRIES = MAX_MATCH;  // a segment's first positions a token
+                                    // from before it can land on
+constexpr int MAP_STRIDE = 260;     // u32 a segment's map (16-byte rows)
+constexpr int MAP_CHUNK = 32;       // maps the chain stages at once
+constexpr int MAP_WARPS = 8;        // segments a block of the maps
+constexpr int RING = 512;           // a maps warp's values ahead, > 32 + 258
+constexpr int MAP_BUFS = 4;         // map chunks the chain holds, at most
+constexpr int EMIT_WARPS = 4;       // segments a block of the emit
 
 // package-merge items: a leaf s, or PKG + k for the k-th package
 constexpr int PKG = 1 << 10;
@@ -166,89 +209,6 @@ __device__ __forceinline__ uint32_t load4_aligned(const uint8_t* p) {
   return shift ? __funnelshift_r(w[0], w[1], shift) : w[0];
 }
 
-// The keyed table's helpers (as in lz4_chain.cu).
-__device__ __forceinline__ uint32_t keyed_slot(uint32_t h, uint32_t salt,
-                                               int slots_log) {
-  return ((h ^ salt) * SLOT_MUL) >> (32 - slots_log);
-}
-
-__device__ __forceinline__ int keyed_find(const unsigned long long* t,
-                                          uint32_t h, uint32_t salt,
-                                          int slots_log) {
-  const uint32_t mask = (1u << slots_log) - 1;
-  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
-    const unsigned long long v = t[s];
-    if (v == EMPTY) return -1;
-    if (static_cast<uint32_t>(v) == h) return static_cast<int>(v >> 32);
-  }
-}
-
-__device__ __forceinline__ void keyed_put(unsigned long long* t, uint32_t h,
-                                          uint32_t salt, int p,
-                                          int slots_log) {
-  const uint32_t mask = (1u << slots_log) - 1;
-  const unsigned long long entry =
-      static_cast<unsigned long long>(static_cast<uint32_t>(p)) << 32 | h;
-  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
-    unsigned long long v = t[s];
-    if (v == EMPTY) {
-      v = atomicCAS(t + s, EMPTY, entry);
-      if (v == EMPTY) return;
-    }
-    if (static_cast<uint32_t>(v) == h) {
-      t[s] = entry;
-      return;
-    }
-  }
-}
-
-// Rows blockIdx.x, + gridDim.x, ...; table blockIdx.x of `tables`, 2^
-// slots_log slots of 8 bytes (slots_log >= 6).
-__global__ void __launch_bounds__(32)
-deflate_links_kernel(const uint8_t* __restrict__ blocks,
-                     const int32_t* __restrict__ lengths, int B, int n,
-                     int32_t* __restrict__ prev,
-                     unsigned long long* __restrict__ tables, int slots_log) {
-  const int lane = threadIdx.x;
-  const unsigned below = (1u << lane) - 1;     // lanes before this one
-  const unsigned above = ~((2u << lane) - 1);  // lanes after it
-  const size_t words = (size_t{1} << slots_log) / 2;   // 16-byte words
-  int4* table = reinterpret_cast<int4*>(tables) + blockIdx.x * words;
-  unsigned long long* keyed = reinterpret_cast<unsigned long long*>(table);
-  for (int row = blockIdx.x; row < B; row += gridDim.x) {
-    for (size_t k = lane; k < words; k += 32)   // every slot EMPTY
-      table[k] = make_int4(-1, -1, -1, -1);
-    __syncwarp();
-    const uint8_t* src = blocks + static_cast<size_t>(row) * n;
-    int32_t* out = prev + static_cast<size_t>(row) * n;
-    const int len = min(max(lengths[row], 0), n);
-    const int limit = max(len - 2, 0);
-    const uint32_t salt = static_cast<uint32_t>(row) * SLOT_MUL;
-    for (int base = 0; base < limit; base += 32) {
-      const int p = base + lane;
-      const bool live = p < limit;               // p + 2 < len: in the row
-      const uint32_t v = live ? src[p] | (src[p + 1] << 8) |
-                                    (uint32_t(src[p + 2]) << 16)
-                              : 0u;
-      const uint32_t h = (v * HASH_MUL) >> (32 - HASH_BITS);
-      const unsigned lanes = __ballot_sync(FULL, live);
-      unsigned group = 0;
-      if (live) group = __match_any_sync(lanes, h);
-      const unsigned earlier = group & below;
-      int c = -1;
-      if (live)
-        c = earlier ? base + 31 - __clz(earlier)
-                    : keyed_find(keyed, h, salt, slots_log);
-      __syncwarp();   // every slot read before this step writes one
-      if (live && !(group & above)) keyed_put(keyed, h, salt, p, slots_log);
-      if (live) out[p] = c;
-      __syncwarp();   // this step's writes before the next step's reads
-    }
-    for (int p = limit + lane; p < n; p += 32) out[p] = -1;
-    __syncwarp();     // this row's table writes before the next row's reset
-  }
-}
-
 // links on the shared route (n <= 65536), rows blockIdx.x, + gridDim.x,
 // ...: a direct table of 2^15 u16 slots in shared memory (64 KiB, three
 // CTAs an SM), lz4_shared.cuh's split_row over SPLIT_CLASSES warps under
@@ -283,6 +243,101 @@ deflate_links_shared_kernel(const uint8_t* __restrict__ blocks,
     lz4s::split_row<Key3>(src, 0, limit, HASH_BITS, table,
                           queues + 64 * warp, warp, lane,
                           [&](int p, int c) { out[p] = c; });
+  }
+}
+
+// links on the tiled route, tiles blockIdx.x, + gridDim.x, ... of the B
+// rows' ceil(n / LINK_TILE) each: split_row over the tile as over a row of
+// the shared route (positions relative to the tile, the bytes read up to
+// the row's limit, into the next tile), its links inside the tile into
+// prev (-1 where none), then the tile's table (slot h: the tile's last
+// position of hash h, + 1; 0 for none) into lasts and, for each hash the
+// tile holds, the position that found no link inside it into firsts (a
+// hash's first position in the tile; no other entry is read).  A tile past
+// the row's limit writes -1s alone.
+__global__ void __launch_bounds__(32 * lz4s::SPLIT_CLASSES)
+deflate_links_tiled_kernel(const uint8_t* __restrict__ blocks,
+                           const int32_t* __restrict__ lengths, int B,
+                           int n, int32_t* __restrict__ prev,
+                           uint16_t* __restrict__ lasts,
+                           uint16_t* __restrict__ firsts) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int THREADS = 32 * lz4s::SPLIT_CLASSES;
+  uint32_t* queues = reinterpret_cast<uint32_t*>(smem);
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem + lz4s::QUEUE_BYTES);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (n + LINK_TILE - 1) / LINK_TILE;
+  const long long jobs = static_cast<long long>(B) * tiles;
+  for (long long job = blockIdx.x; job < jobs; job += gridDim.x) {
+    const int row = static_cast<int>(job / tiles);
+    const int t0 = static_cast<int>(job % tiles) * LINK_TILE;
+    const uint8_t* src = blocks + static_cast<size_t>(row) * n + t0;
+    int32_t* out = prev + static_cast<size_t>(row) * n + t0;
+    const int len = min(max(lengths[row], 0), n);
+    const int limit = max(len - (MIN_MATCH - 1), 0);   // p + 2 < len
+    const int width = min(LINK_TILE, n - t0);
+    const int live = min(max(limit - t0, 0), width);  // the tile's positions
+    __syncthreads();   // the last tile's steps on the table done
+    if (live)
+      for (int k = tid; k < lz4s::table_bytes(HASH_BITS) / 16; k += THREADS)
+        reinterpret_cast<int4*>(table)[k] = make_int4(0, 0, 0, 0);
+    for (int p = live + tid; p < width; p += THREADS) out[p] = -1;
+    if (!live) continue;
+    __syncthreads();
+    uint16_t* first = firsts + static_cast<size_t>(job) * SLOTS;
+    lz4s::split_row<Key3>(
+        src, 0, live, HASH_BITS, table, queues + 64 * warp, warp, lane,
+        [&](int p, int c) {
+          out[p] = c < 0 ? -1 : t0 + c;
+          if (c < 0)
+            first[lz4s::hash_bits(Key3{}(src, p), HASH_BITS)] =
+                static_cast<uint16_t>(p);
+        });
+    __syncthreads();
+    int4* last = reinterpret_cast<int4*>(lasts + static_cast<size_t>(job) *
+                                                     SLOTS);
+    for (int k = tid; k < SLOTS / 8; k += THREADS)
+      last[k] = reinterpret_cast<const int4*>(table)[k];
+  }
+}
+
+// The tiled links' carry and fix-up, a thread a hash h of a row: walks the
+// row's tiles below its limit in order, carrying the last position of h
+// in the tiles before; where a tile holds h, its first position of h (which
+// found no link inside the tile) takes the carried one.  Tiles' entries
+// are loaded 8 at a time.
+__global__ void __launch_bounds__(CARRY_THREADS)
+deflate_links_carry_kernel(const int32_t* __restrict__ lengths, int B, int n,
+                           int32_t* __restrict__ prev,
+                           const uint16_t* __restrict__ lasts,
+                           const uint16_t* __restrict__ firsts) {
+  constexpr int BATCH = 8;
+  const long long id = blockIdx.x * static_cast<long long>(CARRY_THREADS) +
+                       threadIdx.x;
+  const int row = static_cast<int>(id >> HASH_BITS);
+  const int h = static_cast<int>(id & (SLOTS - 1));
+  if (row >= B) return;
+  const int tiles = (n + LINK_TILE - 1) / LINK_TILE;
+  const int len = min(max(lengths[row], 0), n);
+  const int limit = max(len - (MIN_MATCH - 1), 0);
+  const int used = (limit + LINK_TILE - 1) / LINK_TILE;   // tiles with links
+  const size_t first_job = static_cast<size_t>(row) * tiles;
+  int32_t* out = prev + static_cast<size_t>(row) * n;
+  int carried = -1;
+  for (int base = 0; base < used; base += BATCH) {
+    int last[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k)
+      last[k] = base + k < used
+                    ? lasts[(first_job + base + k) * SLOTS + h] : 0;
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      if (!last[k]) continue;
+      const int t0 = (base + k) * LINK_TILE;
+      if (carried >= 0)
+        out[t0 + firsts[(first_job + base + k) * SLOTS + h]] = carried;
+      carried = t0 + last[k] - 1;
+    }
   }
 }
 
@@ -351,12 +406,8 @@ deflate_best_kernel(const uint8_t* __restrict__ blocks,
   best_at[static_cast<size_t>(row) * n + p] = v;
 }
 
-// The parse over best_at, a warp a row.  LAZY: the C++ rule's lazy step
-// (a match deferred while the next position's is longer); without it the
-// greedy parse of tpuzip's device rule (lz77_stage, tpuzip/codecs/
-// deflate.py:250), a match taken wherever best(i) reaches 3.  The rule is
-// picked by `if constexpr`, so the lazy instance keeps its SASS.
-template <bool LAZY>
+// The C++ rule's parse over best_at, a warp a row, with its lazy step (a
+// match deferred while the next position's is longer).
 __global__ void __launch_bounds__(32)
 deflate_parse_kernel(const uint8_t* __restrict__ blocks,
                      const int32_t* __restrict__ lengths,
@@ -391,7 +442,7 @@ deflate_parse_kernel(const uint8_t* __restrict__ blocks,
     }
     int at = wbase + __ffs(hits) - 1;
     int best = __shfl_sync(FULL, best_l, at - wbase);
-    if constexpr (LAZY) {
+    {
       // lazy matching: defer while the next position's match is longer
       while (at + 1 < limit) {
         if (at + 1 >= wbase + 32) window(at);
@@ -411,6 +462,215 @@ deflate_parse_kernel(const uint8_t* __restrict__ blocks,
   for (int k = lane; k < len - anchor; k += 32) tok[t + k] = src[anchor + k];
   t += len - anchor;
   if (lane == 0) ntok[row] = t;
+}
+
+// The greedy parse's maps, a warp a segment (segments blockIdx.x *
+// MAP_WARPS + warp of the B rows' nseg each, total in all): the segment's
+// positions below the row's length taken backward, 32 a window, each
+// one's token count to the segment's exit and the exit's offset past the
+// segment's end (count << 16 | offset).  A match start's value is its
+// next's, one token more; a literal's is that of the next match start in
+// the window (a ballot finds it), a token a literal more, or, where the
+// run leaves the window, that of the position past it.  A value past the
+// window is read from the warp's ring of the values ahead in shared
+// memory; one inside it is a later lane's, and those links resolve by
+// pointer jumping over the window's lanes (two shuffles a round; only
+// matches chain, so a window of literals or of long matches takes no
+// round).  The window's best values are one coalesced load, the next
+// window's in flight.  The entries' values go to maps (a map of
+// MAP_STRIDE u32 a segment; 0 for an entry at or past the row's length).
+__global__ void __launch_bounds__(32 * MAP_WARPS)
+deflate_segment_maps_kernel(const int32_t* __restrict__ lengths,
+                            const int32_t* __restrict__ best_at, int n,
+                            int nseg, long long total,
+                            uint32_t* __restrict__ maps) {
+  __shared__ uint32_t rings[MAP_WARPS][RING];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned after = ~((2u << lane) - 1);   // the lanes after this one
+  const long long seg = blockIdx.x * static_cast<long long>(MAP_WARPS) +
+                        warp;
+  if (seg >= total) return;
+  const int row = static_cast<int>(seg / nseg);
+  const int s0 = static_cast<int>(seg % nseg) * PARSE_SEG;
+  const int len = min(max(lengths[row], 0), n);
+  const int end = min(PARSE_SEG, len - s0);   // positions below the length
+  if (end <= 0) return;
+  const int32_t* ba = best_at + static_cast<size_t>(row) * n + s0;
+  uint32_t* map = maps + seg * MAP_STRIDE;
+  uint32_t* ring = rings[warp];
+  // the value at a position past the window or at the end: its count and
+  // the exit's offset (the end of the last segment: offset 0)
+  const uint32_t at_end = static_cast<uint32_t>(max(end - PARSE_SEG, 0));
+  for (int j = end + lane; j < ENTRIES; j += 32) map[j] = 0;
+  int w = (end - 1) & ~31;   // the last window
+  int next = w + lane < end ? ba[w + lane] >> 16 : 0;
+  for (; w >= 0; w -= 32) {
+    const int i = w + lane;
+    const int b = next;
+    if (w > 0) next = ba[i - 32] >> 16;   // the next window's load in flight
+    const unsigned starts = __ballot_sync(FULL, i < end && b >= MIN_MATCH);
+    // st: the value where ptr is this lane (resolved), else the tokens to
+    // add to lane ptr's value
+    uint32_t st = 0;
+    int ptr = lane;
+    if (i < end) {
+      if (b >= MIN_MATCH) {
+        const int nx = i + b;
+        if (nx >= end)
+          st = 1u << 16 | static_cast<uint32_t>(max(nx - PARSE_SEG, 0));
+        else if (nx >= w + 32)
+          st = ring[nx & (RING - 1)] + (1u << 16);
+        else {
+          st = 1;
+          ptr = nx - w;
+        }
+      } else if (starts & after) {   // literals up to a match start
+        ptr = __ffs(starts & after) - 1;
+        st = static_cast<uint32_t>(ptr - lane);
+      } else if (w + 32 >= end) {    // literals up to the end
+        st = static_cast<uint32_t>(end - i) << 16 | at_end;
+      } else {                       // literals out of the window
+        st = ring[(w + 32) & (RING - 1)] +
+             (static_cast<uint32_t>(w + 32 - i) << 16);
+      }
+    }
+    while (__any_sync(FULL, ptr != lane)) {
+      const uint32_t ts = __shfl_sync(FULL, st, ptr);
+      const int tp = __shfl_sync(FULL, ptr, ptr);
+      if (ptr != lane) {
+        if (tp == ptr) {   // the target is resolved
+          st = ts + (st << 16);
+          ptr = lane;
+        } else {
+          st += ts;
+          ptr = tp;
+        }
+      }
+    }
+    if (i < end) {
+      ring[i & (RING - 1)] = st;
+      if (i < ENTRIES) map[i] = st;
+    }
+    __syncwarp();   // the window's values before the next window reads them
+  }
+}
+
+// The greedy parse's chain, a CTA a row: lane 0 walks the row's segments
+// from entry 0 of the first, each segment's true entry and first token
+// into segs (x the entry's position, y the token), the next entry and
+// token from the segment's map at its entry; ntok the row's tokens.  The
+// maps come into shared memory MAP_CHUNK segments a TMA bulk copy, into
+// bufs buffers (1 <= bufs <= MAP_BUFS), the next chunks loading while
+// lane 0 walks one.
+__global__ void __launch_bounds__(32)
+deflate_segment_chain_kernel(const int32_t* __restrict__ lengths, int n,
+                             int nseg, int bufs,
+                             const uint32_t* __restrict__ maps,
+                             int2* __restrict__ segs,
+                             int32_t* __restrict__ ntok) {
+  constexpr int CHUNK = MAP_CHUNK * MAP_STRIDE;   // u32 a buffer
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* buf = reinterpret_cast<uint32_t*>(smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + bufs * CHUNK *
+                                                         sizeof(uint32_t));
+  if (threadIdx.x != 0) return;
+  const int row = blockIdx.x;
+  const int len = min(max(lengths[row], 0), n);
+  const int used = (len + PARSE_SEG - 1) / PARSE_SEG;   // segments to walk
+  const int chunks = (used + MAP_CHUNK - 1) / MAP_CHUNK;
+  const uint32_t* row_maps = maps + static_cast<size_t>(row) * nseg *
+                                        MAP_STRIDE;
+  int2* row_segs = segs + static_cast<size_t>(row) * nseg;
+  for (int b = 0; b < bufs; ++b) lz4s::bar_init(bar + b, 1);
+  lz4s::bar_init_fence();
+  auto load = [&](int c) {
+    const int count = min(MAP_CHUNK, used - c * MAP_CHUNK);
+    lz4s::bulk_load(buf + (c % bufs) * CHUNK,
+                    row_maps + static_cast<size_t>(c) * CHUNK,
+                    count * MAP_STRIDE * sizeof(uint32_t), bar + c % bufs);
+  };
+  for (int c = 0; c < min(bufs, chunks); ++c) load(c);
+  unsigned phases = 0;   // bit b: the parity of buffer b's next phase
+  int e = 0, t = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int b = c % bufs;
+    lz4s::bar_wait(bar + b, (phases >> b) & 1);
+    phases ^= 1u << b;
+    const uint32_t* m = buf + b * CHUNK;
+    const int count = min(MAP_CHUNK, used - c * MAP_CHUNK);
+    for (int j = 0; j < count; ++j) {
+      const int k = c * MAP_CHUNK + j;
+      row_segs[k] = make_int2(k * PARSE_SEG + e, t);
+      const uint32_t v = m[j * MAP_STRIDE + e];
+      t += static_cast<int>(v >> 16);
+      e = static_cast<int>(v & 0xFFFF);
+    }
+    if (c + bufs < chunks) load(c + bufs);   // buffer b read through
+  }
+  ntok[row] = t;
+}
+
+// The greedy parse's tokens, a warp a segment: its true path from its
+// entry to the row's length or the segment's end, 32 positions a window.
+// Each lane takes a position of the window and its next (next(i) = i +
+// best(i) where best(i) reaches 3, else i + 1); the path's positions in the
+// window are marked from its entry by doubling, a lane's 2^r-th successor
+// inside the window for r < 5, each round a reduce-or of the marked lanes'
+// jumps (a path inside 32 positions takes at most 31 steps); each marked
+// position is a token, a match as best_at[p] (length << 16 | distance),
+// a literal as its byte, written at its rank among them; the last one's
+// next is the next window's entry.  The window after this one is loaded
+// while this one is worked.
+__global__ void __launch_bounds__(32 * EMIT_WARPS)
+deflate_segment_emit_kernel(const uint8_t* __restrict__ blocks,
+                            const int32_t* __restrict__ lengths,
+                            const int32_t* __restrict__ best_at, int n,
+                            int nseg, long long total,
+                            const int2* __restrict__ segs,
+                            int32_t* __restrict__ tokens) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  const long long seg = blockIdx.x * static_cast<long long>(EMIT_WARPS) +
+                        warp;
+  if (seg >= total) return;
+  const int row = static_cast<int>(seg / nseg);
+  const int s0 = static_cast<int>(seg % nseg) * PARSE_SEG;
+  const int len = min(max(lengths[row], 0), n);
+  if (s0 >= len) return;
+  const int end = min(s0 + PARSE_SEG, len);
+  const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+  const int32_t* ba = best_at + static_cast<size_t>(row) * n;
+  int32_t* tok = tokens + static_cast<size_t>(row) * n;
+  const int2 at = segs[seg];
+  int p = at.x, t = at.y;
+  int ahead = -1, v_ahead = 0, c_ahead = 0;   // the window after the last
+  while (p < end) {
+    const int w = p & ~31, q = w + lane;
+    int v = v_ahead, c = c_ahead;
+    if (w != ahead) {
+      v = q < end ? ba[q] : 0;
+      c = q < end ? src[q] : 0;
+    }
+    ahead = w + 32;
+    v_ahead = ahead + lane < end ? ba[ahead + lane] : 0;
+    c_ahead = ahead + lane < end ? src[ahead + lane] : 0;
+    const int nx = q + (v >> 16 >= MIN_MATCH ? v >> 16 : 1);
+    int jump = nx < min(end, w + 32) ? nx - w : 32;   // 32: out
+    unsigned mask = 1u << (p - w);
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      mask |= __reduce_or_sync(
+          FULL, (mask >> lane & 1) && jump < 32 ? 1u << jump : 0u);
+      if (r < 4) {
+        const int twice = __shfl_sync(FULL, jump, jump & 31);
+        jump = jump < 32 ? twice : jump;
+      }
+    }
+    if (mask >> lane & 1)
+      tok[t + __popc(mask & below)] = v >> 16 >= MIN_MATCH ? v : c;
+    t += __popc(mask);
+    p = __shfl_sync(FULL, nx, 31 - __clz(mask));
+  }
 }
 
 // ---------------------------------------------------------------- sort
@@ -1386,21 +1646,6 @@ deflate_stored_kernel(const uint8_t* __restrict__ blocks,
 
 }  // namespace
 
-// blocks (B, n) u8 and lengths (B,) i32 in; prev (B, n) i32 out, every
-// entry written.  tables: ntab keyed tables of scratch (1 <= ntab <= B),
-// each 2^slots_log slots of 8 bytes, 2^slots_log at least twice min(n,
-// 2^15) and 6 <= slots_log <= 31.  Launches ntab blocks of one warp on
-// `stream` and returns cudaGetLastError().
-extern "C" int tpz_deflate_links(const void* blocks, const void* lengths,
-                                 int B, int n, void* prev, void* tables,
-                                 int ntab, int slots_log, void* stream) {
-  deflate_links_kernel<<<ntab, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(blocks),
-      static_cast<const int32_t*>(lengths), B, n, static_cast<int32_t*>(prev),
-      static_cast<unsigned long long*>(tables), slots_log);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // links on the shared route: blocks (B, n) u8 and lengths (B,) i32 in,
 // prev (B, n) i32 out, every entry written; n <= 65536.  Sets the kernel's
 // dynamic shared memory, launches as many CTAs of SPLIT_CLASSES warps as
@@ -1425,27 +1670,137 @@ extern "C" int tpz_deflate_links_shared(const void* blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// links on the tiled route: blocks (B, n) u8 and lengths (B,) i32 in,
+// prev (B, n) i32 out, every entry written; scratch: 2 x B x
+// ceil(n / LINK_TILE) x 2^15 u16 (tpz_deflate_links_tiled_scratch bytes),
+// the tiles' tables then their first positions.  Launches as many CTAs of
+// SPLIT_CLASSES warps as fit the card at once (at most the tiles), each
+// walking tiles, then the carry kernel (a thread a hash of a row), on
+// `stream`; returns the first CUDA error.
+extern "C" int tpz_deflate_links_tiled(const void* blocks,
+                                       const void* lengths, int B, int n,
+                                       void* prev, void* scratch,
+                                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles =
+      static_cast<long long>(B) * ((n + LINK_TILE - 1) / LINK_TILE);
+  const long long carry = static_cast<long long>(B) * SLOTS / CARRY_THREADS;
+  if (tiles > 0x7FFFFFFF || carry > 0x7FFFFFFF)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles == 0) return static_cast<int>(cudaSuccess);
+  const int threads = 32 * lz4s::SPLIT_CLASSES;
+  const int smem = lz4s::QUEUE_BYTES + lz4s::table_bytes(HASH_BITS);
+  int grid = 0;
+  cudaError_t err = lz4s::persistent_grid(
+      reinterpret_cast<const void*>(deflate_links_tiled_kernel), threads,
+      smem, static_cast<int>(tiles), &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  uint16_t* lasts = static_cast<uint16_t*>(scratch);
+  uint16_t* firsts = lasts + static_cast<size_t>(tiles) * SLOTS;
+  deflate_links_tiled_kernel<<<grid, threads, smem, s>>>(
+      static_cast<const uint8_t*>(blocks),
+      static_cast<const int32_t*>(lengths), B, n,
+      static_cast<int32_t*>(prev), lasts, firsts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deflate_links_carry_kernel<<<static_cast<unsigned>(carry), CARRY_THREADS,
+                               0, s>>>(static_cast<const int32_t*>(lengths),
+                                       B, n, static_cast<int32_t*>(prev),
+                                       lasts, firsts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of tpz_deflate_links_tiled's scratch for B rows of n bytes.
+extern "C" long long tpz_deflate_links_tiled_scratch(int B, int n) {
+  return 2ll * B * ((n + LINK_TILE - 1) / LINK_TILE) * SLOTS *
+         static_cast<long long>(sizeof(uint16_t));
+}
+
+// Bytes of tpz_deflate_parse_greedy's scratch for B rows of n bytes: the
+// segments' maps, then their entries and first tokens.
+extern "C" long long tpz_deflate_parse_scratch(int B, int n) {
+  const long long segs =
+      static_cast<long long>(B) * ((n + PARSE_SEG - 1) / PARSE_SEG);
+  return segs * (MAP_STRIDE * sizeof(uint32_t) + sizeof(int2));
+}
+
 namespace {
 
-// The best kernel, then the parse kernel of the rule LAZY, on `stream`.
-template <bool LAZY>
-int launch_parse(const void* blocks, const void* lengths, const void* prev,
-                 int B, int n, int max_chain, void* tokens, void* ntok,
-                 void* best_at, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The best kernel on `stream`.
+int launch_best(const void* blocks, const void* lengths, const void* prev,
+                int B, int n, int max_chain, void* best_at,
+                cudaStream_t s) {
   const long long grid =
       static_cast<long long>(B) * ((n + BEST_THREADS - 1) / BEST_THREADS);
   if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  if (grid > 0) {
+  if (grid > 0)
     deflate_best_kernel<<<static_cast<unsigned>(grid), BEST_THREADS, 0, s>>>(
         static_cast<const uint8_t*>(blocks),
         static_cast<const int32_t*>(lengths),
         static_cast<const int32_t*>(prev), n, max_chain,
         static_cast<int32_t*>(best_at));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  deflate_parse_kernel<LAZY><<<B, 32, 0, s>>>(
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The greedy parse's three launches over best_at (the maps, the chain, the
+// emit), on `stream`.
+int launch_segments(const void* blocks, const void* lengths,
+                    const void* best_at, int B, int n, void* tokens,
+                    void* ntok, void* scratch, cudaStream_t s) {
+  const int nseg = (n + PARSE_SEG - 1) / PARSE_SEG;
+  const long long total = static_cast<long long>(B) * nseg;
+  if (total == 0) return static_cast<int>(cudaSuccess);
+  if ((total + EMIT_WARPS - 1) / EMIT_WARPS > 0x7FFFFFFF)
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint32_t* maps = static_cast<uint32_t*>(scratch);
+  int2* segs = reinterpret_cast<int2*>(maps + total * MAP_STRIDE);
+  deflate_segment_maps_kernel<<<static_cast<unsigned>(
+                                    (total + MAP_WARPS - 1) / MAP_WARPS),
+                                32 * MAP_WARPS, 0, s>>>(
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(best_at), n, nseg, total, maps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many buffers as a whole row's chunks, at most MAP_BUFS
+  const int bufs = min(MAP_BUFS, (nseg + MAP_CHUNK - 1) / MAP_CHUNK);
+  const int smem = bufs * (MAP_CHUNK * MAP_STRIDE * sizeof(uint32_t) +
+                           sizeof(uint64_t));
+  err = cudaFuncSetAttribute(deflate_segment_chain_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deflate_segment_chain_kernel<<<B, 32, smem, s>>>(
+      static_cast<const int32_t*>(lengths), n, nseg, bufs, maps, segs,
+      static_cast<int32_t*>(ntok));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deflate_segment_emit_kernel<<<static_cast<unsigned>(
+                                    (total + EMIT_WARPS - 1) / EMIT_WARPS),
+                                32 * EMIT_WARPS, 0, s>>>(
+      static_cast<const uint8_t*>(blocks),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(best_at), n, nseg, total, segs,
+      static_cast<int32_t*>(tokens));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// blocks (B, n) u8, lengths (B,) i32 and prev (B, n) i32 from
+// tpz_deflate_links_shared or tpz_deflate_links_tiled in; max_chain >= 0
+// links a walk; best_at (B, n) i32 scratch; tokens (B, n) i32, zeroed by
+// the caller, and ntok (B,) i32 out.  Launches the best kernel (a thread a
+// position), then the lazy parse kernel (B blocks of one warp), on
+// `stream`; returns cudaGetLastError().
+extern "C" int tpz_deflate_parse(const void* blocks, const void* lengths,
+                                 const void* prev, int B, int n,
+                                 int max_chain, void* tokens, void* ntok,
+                                 void* best_at, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err =
+      launch_best(blocks, lengths, prev, B, n, max_chain, best_at, s);
+  if (err != cudaSuccess) return err;
+  deflate_parse_kernel<<<B, 32, 0, s>>>(
       static_cast<const uint8_t*>(blocks),
       static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(best_at), n,
@@ -1453,31 +1808,22 @@ int launch_parse(const void* blocks, const void* lengths, const void* prev,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// blocks (B, n) u8, lengths (B,) i32 and prev (B, n) i32 from
-// tpz_deflate_links or tpz_deflate_links_shared in; max_chain >= 0 links a
-// walk; best_at (B, n) i32 scratch; tokens (B, n) i32, zeroed by the
-// caller, and ntok (B,) i32 out.  Launches the best kernel (a thread a
-// position), then the lazy parse kernel (B blocks of one warp), on
-// `stream`; returns cudaGetLastError().
-extern "C" int tpz_deflate_parse(const void* blocks, const void* lengths,
-                                 const void* prev, int B, int n,
-                                 int max_chain, void* tokens, void* ntok,
-                                 void* best_at, void* stream) {
-  return launch_parse<true>(blocks, lengths, prev, B, n, max_chain, tokens,
-                            ntok, best_at, stream);
-}
-
-// tpz_deflate_parse with the greedy parse kernel (tpuzip's device rule at
-// max_chain 1): the same arguments and outputs.
+// tpuzip's device rule's greedy parse (at max_chain 1): the arguments and
+// outputs of tpz_deflate_parse and scratch of tpz_deflate_parse_scratch
+// bytes.  Launches the best kernel, then the segments' maps, chain and
+// emit, on `stream`; returns the first CUDA error.
 extern "C" int tpz_deflate_parse_greedy(const void* blocks,
                                         const void* lengths, const void* prev,
                                         int B, int n, int max_chain,
                                         void* tokens, void* ntok,
-                                        void* best_at, void* stream) {
-  return launch_parse<false>(blocks, lengths, prev, B, n, max_chain, tokens,
-                             ntok, best_at, stream);
+                                        void* best_at, void* scratch,
+                                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err =
+      launch_best(blocks, lengths, prev, B, n, max_chain, best_at, s);
+  if (err != cudaSuccess) return err;
+  return launch_segments(blocks, lengths, best_at, B, n, tokens, ntok,
+                         scratch, s);
 }
 
 namespace {

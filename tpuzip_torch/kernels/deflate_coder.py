@@ -15,7 +15,7 @@ functions here are theirs:
          The C++ inserts every position into its chain once, before its
          parse reaches it (the lazy step inserts i before it probes
          i + 1), so when it probes p the chain is prev's.  Rows of at
-         most 65,536 bytes take the shared route, wider ones the keyed
+         most 65,536 bytes take the shared route, wider ones the tiled
          route (links_route); both give the same prev.
   parse  best(p): the longest match over the first max_chain links of
          p's chain that lie at most 32,768 back, extended to at most
@@ -103,9 +103,9 @@ MAX_MATCH = 258
 WINDOW = 32768        # a link further back than this ends the walk
 MAX_CHAIN = 1 << 16   # links a walk can take at most
 STORED_MAX = 65535    # bytes of a stored block, at most
-POOL_BYTES = 1 << 30  # the keyed links kernel's tables, at most
 STAGE_MAX = 1 << 16   # bytes of a row the shared links kernel takes
-KEY_SLOT = 8          # bytes of a keyed table's slot
+LINK_TILE = 1 << 15   # positions a tile of the tiled links
+PARSE_SEG = 2048      # positions a segment of the device rule's parse
 THRESHOLD = 16        # libstdc++'s _S_threshold
 PKG = 1 << 10         # package-merge node ids: a leaf s, or PKG + package
 MATCH_SHIFT = 16      # a match token: length << 16 | distance
@@ -115,19 +115,6 @@ LEN_BASE = [b for _, b in LENGTH_TABLE]
 LEN_EXTRA = [e for e, _ in LENGTH_TABLE]
 DIST_BASE = [b for _, b in DIST_TABLE]
 DIST_EXTRA = [e for e, _ in DIST_TABLE]
-
-
-def slots_log(n: int) -> int:
-    """The keyed links kernel's table: 2^slots_log slots of KEY_SLOT bytes,
-    twice the hashes a row of n bytes can hold, so half full at most."""
-    return max(6, min(HASH_BITS + 1, (2 * max(n, 1) - 1).bit_length()))
-
-
-def table_count(b: int, n: int) -> int:
-    """Tables that a keyed links launch on b rows of n bytes gets: one a
-    row, or where b tables would pass POOL_BYTES a pool of fewer, whose
-    warps walk the rows by a grid-stride loop."""
-    return max(1, min(b, POOL_BYTES // (KEY_SLOT << slots_log(n))))
 
 
 # ---------------------------------------------------------------- std::sort
@@ -718,23 +705,25 @@ def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
 # ---------------------------------------------------------------- wrappers
 
 def _lib(name: str):
-    """The typed C entry point tpz_<name> of csrc/deflate_encode.cu (links,
-    links_shared, parse, parse_greedy, emit, emit_tuple) or csrc/inflate.cu
-    (inflate)."""
+    """The typed C entry point tpz_<name> of csrc/deflate_encode.cu
+    (links_shared, links_tiled, links_tiled_scratch, parse, parse_greedy,
+    parse_scratch, emit, emit_tuple) or csrc/inflate.cu (inflate)."""
     source = "inflate" if name == "inflate" else "deflate_encode"
     fn = getattr(_build.load(source), f"tpz_{name}" if name == "inflate"
                  else f"tpz_deflate_{name}")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            "links": [vp, vp, ci, ci, vp, vp, ci, ci, vp],
             "links_shared": [vp, vp, ci, ci, vp, vp],
+            "links_tiled": [vp, vp, ci, ci, vp, vp, vp],
+            "links_tiled_scratch": [ci, ci],
             "parse": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp],
-            "parse_greedy": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp],
+            "parse_greedy": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp],
+            "parse_scratch": [ci, ci],
             "emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp],
             "emit_tuple": [vp, vp, ci, ci, vp, ci, vp, vp, vp],
             "inflate": [vp, vp, ci, ci, vp, ci, vp, vp]}[name]
-        fn.restype = ci
+        fn.restype = ctypes.c_longlong if name.endswith("scratch") else ci
     return fn
 
 
@@ -745,9 +734,9 @@ def _stream(dev):
 def links_route(n: int) -> str:
     """The links' route for rows of n bytes, by shape alone: "shared" (a
     CTA of 8 warps a row, a direct table of 2^15 u16 slots in shared
-    memory) for n <= STAGE_MAX, else "keyed" (a warp a row, keyed tables
-    in device memory)."""
-    return "shared" if n <= STAGE_MAX else "keyed"
+    memory) for n <= STAGE_MAX, else "tiled" (the same a tile of LINK_TILE
+    positions, then a carry pass over the tiles)."""
+    return "shared" if n <= STAGE_MAX else "tiled"
 
 
 def deflate_links(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -756,14 +745,14 @@ def deflate_links(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor runs the plain version; a CUDA tensor launches
     csrc/deflate_encode.cu's links on the route of links_route(n), through
-    deflate_links_shared or deflate_links_keyed, which count their own
+    deflate_links_shared or deflate_links_tiled, which count their own
     launches."""
     _check_pair("deflate_links", blocks, lengths)
     if blocks.device.type == "cpu":
         return deflate_links_plain(blocks, lengths)
     if links_route(blocks.shape[1]) == "shared":
         return deflate_links_shared(blocks, lengths)
-    return deflate_links_keyed(blocks, lengths)
+    return deflate_links_tiled(blocks, lengths)
 
 
 def deflate_links_shared(blocks: torch.Tensor,
@@ -794,15 +783,17 @@ def deflate_links_shared(blocks: torch.Tensor,
     return prev
 
 
-def deflate_links_keyed(blocks: torch.Tensor,
+def deflate_links_tiled(blocks: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:
-    """deflate_links on the keyed route, rows of any width: one keyed table
-    a row in device memory, or a pool of fewer (table_count).
+    """deflate_links on the tiled route, rows of any width: each tile of
+    LINK_TILE positions linked as a row of the shared route, then a carry
+    pass over the tiles, its scratch 4 bytes x 2^15 a tile (the tiles'
+    tables and first positions).
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/deflate_encode.cu's keyed links kernel on the current stream (no
-    synchronisation)."""
-    _check_pair("deflate_links_keyed", blocks, lengths)
+    csrc/deflate_encode.cu's tiled links and carry kernels on the current
+    stream (no synchronisation); one launch is counted."""
+    _check_pair("deflate_links_tiled", blocks, lengths)
     if blocks.device.type == "cpu":
         return deflate_links_plain(blocks, lengths)
     b, n = blocks.shape
@@ -810,16 +801,14 @@ def deflate_links_keyed(blocks: torch.Tensor,
     prev = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return prev
-    slog = slots_log(n)
-    ntab = table_count(b, n)
-    tables = torch.empty(ntab * (KEY_SLOT << slog) // 4, dtype=torch.int32,
-                         device=dev)
     with torch.cuda.device(dev):
-        err = _lib("links")(blocks.data_ptr(), lengths.data_ptr(), b, n,
-                            prev.data_ptr(), tables.data_ptr(), ntab, slog,
-                            _stream(dev))
-    _build.check(err, "deflate_links_keyed")
-    deflate_links_keyed.launches += 1
+        scratch = torch.empty(_lib("links_tiled_scratch")(b, n),
+                              dtype=torch.uint8, device=dev)
+        err = _lib("links_tiled")(blocks.data_ptr(), lengths.data_ptr(), b,
+                                  n, prev.data_ptr(), scratch.data_ptr(),
+                                  _stream(dev))
+    _build.check(err, "deflate_links_tiled")
+    deflate_links_tiled.launches += 1
     return prev
 
 
@@ -857,9 +846,10 @@ def deflate_parse_greedy(blocks: torch.Tensor, lengths: torch.Tensor,
     parse going on at its end), as deflate_parse returns them.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/deflate_encode.cu's best kernel, then the greedy instance of its
-    parse kernel, on the current stream (no synchronisation); one launch
-    is counted."""
+    csrc/deflate_encode.cu's best kernel, then its greedy parse in
+    segments of 2,048 positions (their maps, the chain across them, their
+    tokens), on the current stream (no synchronisation); one launch is
+    counted."""
     _check_pair("deflate_parse_greedy", blocks, lengths)
     _check_prev(blocks, prev)
     if blocks.device.type == "cpu":
@@ -879,10 +869,14 @@ def _launch_parse(entry: str, blocks, lengths, prev, max_chain: int):
     prev = prev.contiguous()
     best_at = torch.empty((b, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        # the greedy parse's segments: their maps, entries and first tokens
+        scratch = [] if entry == "parse" else [torch.empty(
+            _lib("parse_scratch")(b, n), dtype=torch.uint8, device=dev)]
         err = _lib(entry)(blocks.data_ptr(), lengths.data_ptr(),
                           prev.data_ptr(), b, n, max_chain,
                           tokens.data_ptr(), ntok.data_ptr(),
-                          best_at.data_ptr(), _stream(dev))
+                          best_at.data_ptr(),
+                          *(t.data_ptr() for t in scratch), _stream(dev))
     _build.check(err, f"deflate_{entry}")
     return tokens, ntok
 
@@ -1031,7 +1025,7 @@ def inflate_batch(streams: torch.Tensor, lens: torch.Tensor, out_cap: int):
 
 
 deflate_links_shared.launches = 0
-deflate_links_keyed.launches = 0
+deflate_links_tiled.launches = 0
 deflate_parse.launches = 0
 deflate_parse_greedy.launches = 0
 deflate_emit.launches = 0
