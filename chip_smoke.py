@@ -143,8 +143,13 @@ Phases, one JSON line each:
             the tiled links on tile_rows() (2-3 tiles of 32 Ki positions:
             hashes last seen one or two tiles back or only in the first
             and last tile, zero and b"ab" rows, lengths that end in a
-            tile's last two bytes); every stream inflated back by
-            inflate.cu and zlib.
+            tile's last two bytes); the tiled histograms and emit (rows
+            past 64 KiB, emit_tiles_check) on rows of 64 KiB + 1 and
+            128 KiB (text, zero, b"ab", random, text whose tiles start on
+            a word boundary and only inside words, a last tile of one
+            token), both orders and both modes, and at every byte skip of
+            a row's first word; every stream inflated back by inflate.cu
+            and zlib.
 4. main     ari: a 64 MiB text-like corpus made from a fixed seed, 64 KiB
             blocks (1024 blocks): compress + decompress on cuda, the bytes
             round-trip, the streams equal the oracle (tpuzip_torch.oracle)
@@ -264,7 +269,8 @@ Phases, one JSON line each:
             on the tiled links, its parse in 4,096 segments): Python's
             zlib reads the stream back, the port reads zlib.compress(data,
             6); MB/s of each direction; each of the four launches on the
-            row timed alone, with its peak device memory.
+            row timed alone, with its peak device memory, and the tables
+            with the emit split by kernel (the tiled route asserted).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the dot route must have none on a container path.  The
@@ -2047,10 +2053,10 @@ def traced(fn, expect=()) -> dict:
     """One more run of fn under torch.profiler: wall time, the time of the
     device's own events (kernels and copies; host ops that launched them and
     the profiler's buffer requests left out), the ones that took most, and
-    the device ms of each kernel of `expect` (a name fragment).  `missing`
-    lists each kernel of `expect` that fn launches but the trace lacks:
-    the device time and idle share are then null, as they would be too
-    low and too high."""
+    the device ms of each kernel of `expect` (a name fragment), and the
+    name of every kernel traced (kernel_name).  `missing` lists each kernel
+    of `expect` that fn launches but the trace lacks: the device time and
+    idle share are then null, as they would be too low and too high."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2075,7 +2081,22 @@ def traced(fn, expect=()) -> dict:
             "device_idle_share": None if missing else 1 - device_ms / wall_ms,
             "top": [[name[:80], ms] for ms, name in rows[:6]],
             "expected_ms": {k: sum(ms for ms, name in rows if k in name)
-                            for k in expect}, "missing": missing}
+                            for k in expect}, "missing": missing,
+            "kernels": sorted({kernel_name(name)[:80] for _, name in rows})}
+
+
+def kernel_name(key: str) -> str:
+    """A device event's kernel as its source names it, from the profiler's
+    demangled key: `void (anonymous namespace)::k<(anonymous
+    namespace)::A<B> >(int const*, int)` -> `k<A<B>>`."""
+    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    return name.replace(" >", ">")
 
 
 def host_profile(fn, top: int = 10) -> list:
@@ -3257,9 +3278,10 @@ def phase_serving(smi: str):
         res[f"device_encode_hash_log_{hl}"] = {
             "container_bytes": len(blob), "ratio": len(blob) / len(data),
             "encode_mb_s": len(data) / 1e6 / t_enc}
+    trace = trace_in_child("serve")
+    emit_traced("deflate_emit_tuple", trace["deflate"]["encode"], "row")
     emit("serving", corpus_bytes=len(data), rows=list(x.shape),
-         last_length=SERVE_TAIL, codecs=res, kernels=kernels,
-         trace=trace_in_child("serve"),
+         last_length=SERVE_TAIL, codecs=res, kernels=kernels, trace=trace,
          card=smi)
     return counts_all, kernels, enc_counts
 
@@ -4185,6 +4207,231 @@ def segments_check(seed: int) -> dict:
     return res
 
 
+# csrc/deflate_encode.cu's kernels of the tiled route (rows past 64 KiB):
+# the histograms (mode 0), each tile's bits, each row's tile offsets, each
+# tile's fields
+TILED_EMIT = ("deflate_hist_kernel", "deflate_emit_sums_kernel",
+              "deflate_emit_scan_kernel", "deflate_emit_tiles_kernel")
+
+# csrc/deflate_encode.cu's kernels that an emit wrapper's launch takes (the
+# histograms, the tables, the bits), as kernel_name() gives them
+EMIT_PREFIXES = ("deflate_hist_kernel", "deflate_tables_kernel",
+                 "deflate_emit_")
+
+# {emit wrapper: {route: the kernels its launches took there}}, from the
+# traces of phase 3's tile rows, the serving path and phases 17 and 18
+EMIT_TRACED = {"deflate_emit": {}, "deflate_emit_tuple": {}}
+
+
+def emit_traced(wrapper: str, trace: dict, route: str) -> list:
+    """The tables' and emit's kernels of `trace` (traced() of a run in
+    which `wrapper` alone launched them), checked to be `route`'s ("row":
+    the row emit kernel and no tiles' fields; "tiled": the reverse) and
+    kept in EMIT_TRACED."""
+    names = sorted(k for k in trace["kernels"] if k.startswith(EMIT_PREFIXES))
+    tiled = "deflate_emit_tiles_kernel" in names
+    if tiled != (route == "tiled") or tiled == ("deflate_emit_kernel"
+                                                 in names):
+        raise AssertionError(f"{wrapper}: not the {route} route's kernels "
+                             f"in its trace: {names}")
+    EMIT_TRACED[wrapper].setdefault(route, set()).update(names)
+    return names
+
+
+def tile_bounds(tokens: list, order: str, skip: int) -> list:
+    """The first bit of each tile after the first, from the row's aligned
+    word, as csrc/deflate_encode.cu's tiled emit places them: the row's
+    byte skip, the header's bits (the tables in `order`) and every token's
+    bits before the tile."""
+    dc = deflate_coder
+    llen, dlen, head = dc.block_tables(tokens, 0, order)
+    _, lb, _, db = dc.token_fields(tokens, llen, dlen)
+    before = torch.cumsum(lb + db, 0)[dc.TOKEN_TILE - 1 :: dc.TOKEN_TILE]
+    base = 8 * skip + sum(b for _, b in head)
+    return [base + int(b) for b in before[: (len(tokens) - 1)
+                                          // dc.TOKEN_TILE]]
+
+
+def token_tile_rows(seed: int) -> dict:
+    """{width: (raw rows (B, n) u8 on the card, zero past each length,
+    lengths, {order: tokens (B, n) i32, ntok (B,)}, the rows' names)} for
+    the tiled histograms and emit (csrc/deflate_encode.cu past 64 KiB): at
+    65,537 bytes (64 KiB + 1) text, zeros, b"ab" and random bytes, among
+    64 text rows the first whose tiles in the tuple order start on a word
+    boundary somewhere (a tile's last field ending a word), the first
+    whose tiles in the C++ rule's order do, and the first whose tiles
+    start only inside words in both, and 4,097 random bytes as 4,097
+    literals (a last tile of one token); at 128 KiB text, zeros, b"ab" and
+    random bytes.  Tokens: the device rule's greedy parse ("tuple") and
+    the C++ rule's lazy parse at max_chain 8 ("std"), by the kernels (each
+    held against its plain version elsewhere); every row's tiles past its
+    tokens exit at once."""
+    dc = deflate_coder
+    rng = np.random.default_rng(seed)
+    out = {}
+    for n in (dc.STAGE_MAX + 1, 2 * dc.STAGE_MAX):
+        pitch = dc.encode_cap(n)
+        text = np.frombuffer(text_corpus(66 * n, seed), np.uint8)
+        base = [text[:n], np.zeros(n, np.uint8),
+                np.resize(np.frombuffer(b"ab", np.uint8), n),
+                rng.integers(0, 256, n, np.uint8)]
+        names = ["text", "zero", "ab", "random"]
+        cand = np.stack([text[(k + 1) * n : (k + 2) * n] for k in range(64)])
+        x = torch.from_numpy(np.stack(base + list(cand))).cuda()
+        xl = torch.full((len(x),), n, dtype=torch.int32, device="cuda")
+        prev = dc.deflate_links(x, xl)
+        toks = {"tuple": dc.deflate_parse_greedy(x, xl, prev),
+                "std": dc.deflate_parse(x, xl, prev, 8)}
+        keep = list(range(len(base)))
+        if n == dc.STAGE_MAX + 1:
+            # the candidates' tile starts in each order, at the byte skip
+            # each kind's row takes below (rows 4-6 of the group: the
+            # wrapper's rows start pitch bytes apart)
+            kinds = (("word_boundary_tuple", 4, ("tuple",), True),
+                     ("word_boundary_std", 5, ("std",), True),
+                     ("inside_words", 6, ("tuple", "std"), False))
+            found = {}
+            for kind, at, orders, on in kinds:
+                for k in range(len(base), len(x)):
+                    hit = [0 in {b % 32 for b in tile_bounds(
+                        toks[o][0][k, : int(toks[o][1][k])].tolist(), o,
+                        at * pitch % 4)} for o in orders]
+                    if (all(hit) if on else not any(hit)):
+                        found[kind] = k
+                        break
+            if len(found) != len(kinds):
+                raise AssertionError(f"no text rows with tiles on and off "
+                                     f"word boundaries: {found}")
+            keep += [found[kind] for kind, _, _, _ in kinds]
+            names += [f"text_{kind}" for kind, _, _, _ in kinds]
+        rows = x[keep].clone()
+        lens = xl[keep].clone()
+        tokens = {o: (t[0][keep].clone(), t[1][keep].clone())
+                  for o, t in toks.items()}
+        if n == dc.STAGE_MAX + 1:
+            one = rng.integers(0, 256, dc.TOKEN_TILE + 1, np.uint8)
+            row = torch.zeros((1, n), dtype=torch.uint8, device="cuda")
+            row[0, : len(one)] = torch.from_numpy(one).cuda()
+            tok = torch.zeros((1, n), dtype=torch.int32, device="cuda")
+            tok[0, : len(one)] = row[0, : len(one)].to(torch.int32)
+            nt = torch.tensor([len(one)], dtype=torch.int32, device="cuda")
+            rows = torch.cat([rows, row])
+            lens = torch.cat([lens, nt])
+            tokens = {o: (torch.cat([t[0], tok]), torch.cat([t[1], nt]))
+                      for o, t in tokens.items()}
+            names.append("one_token_tile")
+        out[n] = (rows, lens, tokens, names)
+    return out
+
+
+def emit_at_skips(order: str, tok, nt, n: int):
+    """One row's tokens (1, n) emitted four times by the C entry of
+    `order` (tpz_deflate_emit_tuple, or tpz_deflate_emit in mode 0) into
+    one buffer at an odd pitch from an offset of 1 byte, so that the four
+    rows start at byte skips 1, 0, 3, 2 of their words -> (their streams,
+    their lengths, the skips)."""
+    dc = deflate_coder
+    b = 4
+    pitch = dc.encode_cap(n) + 1
+    toks, nts = tok.repeat(b, 1).contiguous(), nt.repeat(b).contiguous()
+    buf = torch.zeros(b * pitch + 8, dtype=torch.uint8, device="cuda")
+    clens = torch.empty(b, dtype=torch.int32, device="cuda")
+    scratch = torch.empty(dc._emit_scratch_bytes(b, n), dtype=torch.uint8,
+                          device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    at = buf.data_ptr() + 1
+    if order == "tuple":
+        err = dc._lib("emit_tuple")(toks.data_ptr(), nts.data_ptr(), b, n, at,
+                                    pitch, clens.data_ptr(),
+                                    scratch.data_ptr(), stream)
+    else:
+        err = dc._lib("emit")(toks.data_ptr(), nts.data_ptr(), toks.data_ptr(),
+                              nts.data_ptr(), b, n, 0, at, pitch,
+                              clens.data_ptr(), scratch.data_ptr(), stream)
+    _build.check(err, f"deflate emit ({order}) at byte skips")
+    cl = clens.tolist()
+    data = buf.cpu().numpy()
+    return ([data[1 + r * pitch : 1 + r * pitch + cl[r]].tobytes()
+             for r in range(b)], cl, [(at + r * pitch) % 4 for r in range(b)])
+
+
+def emit_tiles_check(seed: int) -> dict:
+    """csrc/deflate_encode.cu's tiled histograms and emit (rows past 64
+    KiB) on token_tile_rows(): both orders (tpz_deflate_emit_tuple; and
+    tpz_deflate_emit, dynamic and fixed), each exact against
+    deflate_emit_plain, every stream inflated back by inflate.cu and by
+    zlib, the tiled route's kernels asserted by a trace; the first text
+    row once more at every byte skip of its word (emit_at_skips), each
+    stream the plain one."""
+    dc = deflate_coder
+    res, errs = {}, {"deflate_emit": 0, "deflate_emit_tuple": 0,
+                     "inflate": 0}
+    tiled = TILED_EMIT
+    groups = token_tile_rows(seed)
+    for n, (x, xl, tokens, names) in groups.items():
+        rec = {"rows": names, "width": n}
+        runs = (("deflate_emit_tuple", "tuple", 0), ("deflate_emit", "std", 0),
+                ("deflate_emit", "std", 1))
+        for name, order, mode in runs:
+            tok, nt = tokens[order]
+            if name == "deflate_emit_tuple":
+                call = lambda: dc.deflate_emit_tuple(x, xl, tok, nt)  # noqa: E731
+            else:
+                call = lambda: dc.deflate_emit(x, xl, tok, nt, mode)  # noqa: E731
+            got = call()
+            ref, plain_ms = timed(
+                lambda: dc.deflate_emit_plain(x, xl, tok, nt, mode, order))
+            e = max(max_err(a, c) for a, c in zip(got, ref))
+            errs[name] = max(errs[name], e)
+            out, st = dc.inflate_batch(*got, n)
+            iref = dc.inflate_batch_plain(*got, n)
+            errs["inflate"] = max(errs["inflate"], max_err(out, iref[0]),
+                                  max_err(st, iref[1]))
+            comp, clens = (a.cpu().numpy() for a in got)
+            rows, lens = x.cpu().numpy(), xl.tolist()
+            back = (torch.equal(st, xl.to(torch.int64))
+                    and torch.equal(out, x)
+                    and all(zlib.decompress(comp[r, : clens[r]].tobytes(), -15)
+                            == rows[r, : lens[r]].tobytes()
+                            for r in range(len(lens))))
+            tr = traced(call, tiled + ("deflate_emit_kernel",))
+            key = f"{order}_mode_{mode}"
+            rec[key] = {"max_abs_err": e, "round_trip": back,
+                        "ntok": nt.tolist(), "stream_bytes": clens.tolist(),
+                        "plain_ms": plain_ms, "ms": cuda_ms(call, 3),
+                        "kernels_ms": tr["expected_ms"]}
+            if not back:
+                raise AssertionError(f"tiled emit {key} at {n}: streams did "
+                                     "not decode back")
+            # the fixed mode counts no histograms
+            if set(tr["missing"]) != {"deflate_emit_kernel"} | (
+                    {tiled[0]} if mode else set()):
+                raise AssertionError(f"tiled emit {key} at {n}: not the tiled "
+                                     f"route's kernels: {tr['missing']}")
+            emit_traced(name, tr, "tiled")
+        res[str(n)] = rec
+    x, xl, tokens, names = groups[dc.STAGE_MAX + 1]
+    skips = {}
+    for order in ("tuple", "std"):
+        tok, nt = (t[:1].contiguous() for t in tokens[order])
+        want = dc.deflate_emit_plain(x[:1], xl[:1], tok, nt, 0, order)
+        want = want[0][0, : int(want[1][0])].cpu().numpy().tobytes()
+        streams, cl, at = emit_at_skips(order, tok, nt, x.shape[1])
+        e = int(any(st != want for st in streams))
+        errs["deflate_emit_tuple" if order == "tuple" else "deflate_emit"] = \
+            max(errs["deflate_emit_tuple" if order == "tuple"
+                     else "deflate_emit"], e)
+        skips[order] = {"skips": at, "stream_bytes": cl, "max_abs_err": e}
+        if sorted(at) != [0, 1, 2, 3] or e or any(
+                zlib.decompress(st, -15) != x[0].cpu().numpy().tobytes()
+                for st in streams):
+            raise AssertionError(f"tiled emit ({order}) at byte skips {at}: "
+                                 "streams differ from the plain one")
+    res["byte_skips"] = skips
+    res["max_abs_err"] = errs
+    return res
+
+
 def deflate_kernel_check(x, xl, n: int):
     """csrc/deflate_encode.cu and csrc/inflate.cu against their plain
     versions: on the mixed rows (rows of 0 to 12 bytes, empty rows, runs,
@@ -4225,6 +4472,7 @@ def deflate_kernel_check(x, xl, n: int):
     res["table_rows"] = table_rows_check(SEED + 24)
     res["xla_rule"] = xla_rule_check(SEED + 25)
     res["segments"] = segments_check(SEED + 26)
+    res["emit_tiles"] = emit_tiles_check(SEED + 28)
     comp, clens = res["big"]["streams"]["stored"]
     want = [5 * max(1, -(-int(ln) // 65535)) + int(ln) for ln in blens]
     if clens.tolist() != want:
@@ -4263,7 +4511,8 @@ def deflate_kernel_check(x, xl, n: int):
         raise AssertionError(f"zlib's multi-block streams decoded to {got}, "
                              f"not {[len(m) for m in multi]}")
     for rec in (res["mixed"], res["far"], res["big"], res["links_edges"],
-                res["table_rows"], res["xla_rule"], res["segments"]):
+                res["table_rows"], res["xla_rule"], res["segments"],
+                res["emit_tiles"]):
         for k, e in rec["max_abs_err"].items():
             errs[k] = max(errs.get(k, 0), e)
         rec.pop("streams", None)
@@ -4377,8 +4626,11 @@ def deflate_wide(data: bytes):
     its four launches run, its links on the tiled route; the links held
     exact against their plain version on every row whole and on the path's
     first 8 rows cut to DEFLATE_PLAIN_BYTES (the tiled kernel called
-    there directly) -> (the path's launch counts, the tiled links' row:
-    times at the path's shape and on the cut, the bound)."""
+    there directly); its tables with the emit (the tiled route) held exact
+    against their plain version on the path's first 8 whole rows of
+    tokens, the path's own streams there too -> (the path's launch counts,
+    the tiled links' row: times at the path's shape and on the cut, the
+    bound; the emit's check)."""
     dc = deflate_coder
     with counted_run() as (calls, counts):
         blob = tpuzip_torch.compress(data, codec="deflate",
@@ -4390,7 +4642,18 @@ def deflate_wide(data: bytes):
         raise AssertionError(f"deflate at {DEFLATE_WIDE_BLOCK}-byte blocks: "
                              f"round trip {back == data}, {counts}")
     (args, kw, prev), = calls["deflate_links"]
+    (eargs, _, eout), = calls["deflate_emit"]
     calls.clear()
+    ecut = tuple(a[:8].contiguous() for a in eargs[:4])
+    eref, emit_plain_ms = timed(
+        lambda: dc.deflate_emit_plain(*ecut, eargs[4]))
+    emit_err = max(max(max_err(a, c) for a, c in zip(
+                       dc.deflate_emit(*ecut, eargs[4]), eref)),
+                   max(max_err(a[:8], c) for a, c in zip(eout, eref)))
+    if emit_err:
+        raise AssertionError("the tables with the emit disagree with their "
+                             f"plain version at the wide path: {emit_err}")
+    del eargs, eout, eref
     blocks, lens = args[:2]
     cut = blocks[:8, :DEFLATE_PLAIN_BYTES].contiguous()
     clen = lens[:8].clamp(max=DEFLATE_PLAIN_BYTES).contiguous()
@@ -4407,7 +4670,10 @@ def deflate_wide(data: bytes):
         "ms": cuda_ms(lambda: dc.deflate_links_tiled(blocks, lens), 3),
         "ms_at_plain_inputs": cuda_ms(
             lambda: dc.deflate_links_tiled(cut, clen), 3),
-        "plain_ms": plain_ms, **deflate_bound("deflate_links", args, prev)}
+        "plain_ms": plain_ms, **deflate_bound("deflate_links", args, prev)}, {
+        "plain_inputs": [list(a.shape) for a in ecut[:2]],
+        "plain_rows": list(range(8)), "plain_ms": emit_plain_ms,
+        "max_abs_err": emit_err}
 
 
 def phase_deflate(smi: str):
@@ -4415,12 +4681,13 @@ def phase_deflate(smi: str):
     max_chain DEFLATE_PATH_CHAIN, tpuzip's defaults): compress and
     decompress of the 64 MiB corpus at 64 KiB blocks, then
     decompress(to_device=True), then the wide path (deflate_wide: 8 MiB
-    at 128 KiB blocks, the tiled links).  The bytes round-trip both ways;
+    at 128 KiB blocks, the tiled links and emit).  The bytes round-trip
+    both ways;
     the four launches run (deflate_encode.cu's links, parse and tables+emit, and
     inflate.cu); 8 blocks' streams inflate by zlib to the blocks; each
     launch held against its plain version (deflate_against_plain); MB/s,
     ratio, peak memory and a device trace of each direction in a fresh
-    process."""
+    process (the emit's row route asserted by it)."""
     data = text_corpus(CORPUS_BYTES, SEED)
     tpuzip_torch.decompress(tpuzip_torch.compress(data[: 4 * BLOCK],
                                                   codec="deflate"))
@@ -4449,7 +4716,14 @@ def phase_deflate(smi: str):
         peak_dev = torch.cuda.max_memory_allocated()
     calls.clear()
     need(dev_counts, {"inflate": 1}, "deflate to_device")
-    wide_counts, wide_links = deflate_wide(data[:DEFLATE_WIDE_BYTES])
+    trace = trace_in_child("deflate")
+    emit_traced("deflate_emit", trace["encode"], "row")
+    wide_counts, wide_links, wide_emit = deflate_wide(
+        data[:DEFLATE_WIDE_BYTES])
+    # the kernels line's error of the emit: the deflate path's and the wide
+    # path's (the tiled route)
+    kernels["deflate_emit"] = {**kernels["deflate_emit"], "max_abs_err": max(
+        kernels["deflate_emit"]["max_abs_err"], wide_emit["max_abs_err"])}
     x = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(-1, BLOCK)
     if not (torch.equal(out.cpu(), x) and orig == len(data)
             and list(olens) == lens_np.tolist()):
@@ -4468,8 +4742,9 @@ def phase_deflate(smi: str):
                             "decode_to_device": peak_dev},
          to_device={"launches": dev_counts,
                     "decode_mb_s": len(data) / 1e6 / t_dev},
-         wide={"launches": wide_counts, "deflate_links": wide_links},
-         kernels=kernels, trace=trace_in_child("deflate"), card=smi)
+         wide={"launches": wide_counts, "deflate_links": wide_links,
+               "deflate_emit": wide_emit},
+         kernels=kernels, trace=trace, card=smi)
     return counts, dev_counts, wide_counts, {**kernels,
                                              "deflate_links": wide_links}
 
@@ -4486,8 +4761,12 @@ def phase_zlib(smi: str):
     C++ rule's do not; each launch on the one 8 MiB row is held exact
     against its plain version on the same inputs and timed alone (CUDA
     events), with the peak device memory it takes beyond what is held
-    before it; MB/s of each direction (the inflate of one stream is one
-    serial chain).  Returns (the launches, each launch's max_abs_err)."""
+    before it; the tuple tables with the emit split by kernel from one
+    traced launch (the tiled histograms, the tables, each tile's bits, the
+    tile offsets, each tile's fields: the tiled route asserted, the row
+    emit kernel not launched); MB/s of each direction (the inflate of one
+    stream is one serial chain).  Returns (the launches, each launch's
+    max_abs_err)."""
     data = text_corpus(CORPUS_BYTES, SEED)[:ZLIB_BYTES]
     zlib_.decompress(zlib_.compress(data[:4096]), 4096)
     with counted_run() as (calls, counts):
@@ -4525,6 +4804,14 @@ def phase_zlib(smi: str):
         torch.cuda.synchronize()
         peak[name] = torch.cuda.max_memory_allocated() - base
         launch_ms[name] = cuda_ms(lambda: run(*args, **kw), 3)
+    # the tables with the emit on the tiled route: each kernel's device ms
+    # alone, from one traced launch on the same row in a fresh process (the
+    # profiler lost events late in this one); the row emit not launched
+    split = trace_in_child("zlib_emit")
+    if split["missing"] != ["deflate_emit_kernel"]:
+        raise AssertionError("zlib: the tuple tables with the emit did not "
+                             f"take the tiled route: {split}")
+    emit_traced("deflate_emit_tuple", split, "tiled")
     calls.clear()
     if any(errs.values()):
         raise AssertionError("zlib: the device rule's launches on one "
@@ -4543,6 +4830,9 @@ def phase_zlib(smi: str):
          encode_mb_s=len(data) / 1e6 / t_enc,
          decode_mb_s=len(data) / 1e6 / t_dec, max_abs_err=errs,
          plain_ms=plain_ms, launch_ms=launch_ms, launch_peak_bytes=peak,
+         emit_tuple_kernels_ms={
+             "tables": split["expected_ms"]["Counted"],
+             **{k: split["expected_ms"][k] for k in TILED_EMIT}},
          encode_kernels_mb_s=len(data) / 1e3 / sum(
              launch_ms[k] for k in ("deflate_links", "deflate_parse_greedy",
                                     "deflate_emit_tuple")),
@@ -4564,7 +4854,8 @@ TRACED = {"bwtdc": (("ari_encode_kernel",),
                              "deflate_best_kernel",
                              "deflate_segment_maps_kernel",
                              "deflate_segment_chain_kernel",
-                             "deflate_segment_emit_kernel", "TupleShared",
+                             "deflate_segment_emit_kernel",
+                             "deflate_hist_kernel", "TupleShared",
                              "deflate_emit_kernel"), ("inflate_kernel",)),
           "lz4p": (("lz4_encode_kernel", "lz4p_pack_kernel"),
                    ("lz4p_decode_kernel",)),
@@ -4582,8 +4873,9 @@ TRACED = {"bwtdc": (("ari_encode_kernel",),
 
 def trace_in_child(codec: str) -> dict:
     """traced() of one compress and one decompress of the corpus through
-    `codec`, in a fresh process (this script with --trace): in this
-    process the profiler lost kernels from traces taken late in the run
+    `codec` (or trace_child's other traces), in a fresh process (this
+    script with --trace): in this process the profiler lost kernels from
+    traces taken late in the run
     (a bwtdc decode without its ari decode kernel, apm traces with no
     device events at all), while a fresh process traced every kernel of
     repeated runs."""
@@ -4596,9 +4888,12 @@ def trace_in_child(codec: str) -> dict:
 
 def trace_child(codec: str) -> int:
     """--trace CODEC: traced() of one compress and one decompress of the
-    corpus through CODEC; --trace lz4_chain: lz4 at CHAIN_PATH_DEPTH."""
+    corpus through CODEC; --trace lz4_chain: lz4 at CHAIN_PATH_DEPTH;
+    --trace zlib_emit: trace_zlib_emit()."""
     if codec.startswith("serve"):
         return trace_serving(codec)
+    if codec == "zlib_emit":
+        return trace_zlib_emit()
     data = text_corpus(CORPUS_BYTES, SEED)
     block = BWT_BLOCK if codec == "bwtdc" else BLOCK
     kw = {"codec": codec, "block_size": block}
@@ -4612,6 +4907,22 @@ def trace_child(codec: str) -> int:
     print(json.dumps({
         "encode": traced(lambda: tpuzip_torch.compress(data, **kw), enc),
         "decode": traced(lambda: tpuzip_torch.decompress(blob), dec)}))
+    return 0
+
+
+def trace_zlib_emit() -> int:
+    """--trace zlib_emit: traced() of deflate_emit_tuple on phase 18's row
+    (ZLIB_BYTES of the corpus as one row, its tokens from the links and
+    the greedy parse), after one launch: the tiled route's kernels, the
+    tables' ("Counted") and the row emit's, which must be missing."""
+    dc = deflate_coder
+    data = text_corpus(CORPUS_BYTES, SEED)[:ZLIB_BYTES]
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).view(1, -1).cuda()
+    xl = torch.tensor([len(data)], dtype=torch.int32, device="cuda")
+    tok, nt = dc.deflate_parse_greedy(x, xl, dc.deflate_links(x, xl))
+    dc.deflate_emit_tuple(x, xl, tok, nt)
+    print(json.dumps(traced(lambda: dc.deflate_emit_tuple(x, xl, tok, nt),
+                            TILED_EMIT + ("Counted", "deflate_emit_kernel"))))
     return 0
 
 
@@ -4677,8 +4988,11 @@ def ab_inputs(wanted) -> dict:
     and phase 18's 8 MiB row; deflate_emit (the
     tables and the emit) at the deflate and wide paths' compress, on those
     zero, b"ab" and random rows' tokens (the links and the parse at
-    max_chain 128) and on phase 3's table_rows();
-    inflate_batch at the deflate path's decompress and on phase 3's
+    max_chain 128) and on phase 3's table_rows(); deflate_emit_tuple (the
+    device rule's tables and emit) at the serving path's
+    compress_from_device, on as many zero and random rows' tokens and on
+    phase 18's 8 MiB row's (the greedy parse), and on phase 3's
+    table_rows(); inflate_batch at the deflate path's decompress and on phase 3's
     inflate_edge_streams() and deflate_garbage(); lz4p_pack at the lz4p path's compress (runs split),
     at its serving path's compress_from_device (unsplit) and on phase 3's
     pack_edge_rows() both ways, lz4p_decode_batch at the lz4p path's
@@ -4795,6 +5109,27 @@ def ab_inputs(wanted) -> dict:
                     SEED + 24).items():
                 out["deflate_emit"][f"table_{group}"] = (
                     (raw, rl, tok, nt, 0), {})
+    if "deflate_emit_tuple" in wanted:
+        dc_ = deflate_coder
+        x, lens, _ = serving_tensor()
+        with recorded(dc_, "deflate_emit_tuple") as emit:
+            tpuzip_torch.compress_from_device(x, lens, codec="deflate")
+        keep("deflate_emit_tuple", "serving", emit)
+        rng = np.random.default_rng(SEED + 29)
+        row = x.view(1, -1)[:, :ZLIB_BYTES].contiguous()
+        row_len = torch.tensor([ZLIB_BYTES], dtype=torch.int32,
+                               device="cuda")
+        for name, rows, ln in (
+                ("serving_zero", torch.zeros_like(x), lens),
+                ("serving_random", torch.from_numpy(rng.integers(
+                    0, 256, tuple(x.shape), np.uint8)).cuda(), lens),
+                ("zlib_row", row, row_len)):
+            tok = dc_.deflate_parse_greedy(rows, ln,
+                                           dc_.deflate_links(rows, ln))
+            out["deflate_emit_tuple"][name] = ((rows, ln, *tok), {})
+        for group, (tok, nt, raw, rl, _) in table_rows(SEED + 24).items():
+            out["deflate_emit_tuple"][f"table_{group}"] = (
+                (raw, rl, tok, nt), {})
     if "inflate" in wanted:
         with recorded(deflate_coder, "inflate_batch") as dec:
             if tpuzip_torch.decompress(blob) != data:
@@ -4838,29 +5173,38 @@ AB_KERNELS = ("ari_encode", "ari_decode", "bin_decode", "mtf", "bin_encode",
               "dc_decode", "lz4_encode", "lz4_decode", "rle_encode",
               "rle_decode", "inflate", "lz4p_pack", "lz4p_decode",
               "deflate_links", "deflate_links_wide", "deflate_parse_greedy",
-              "deflate_emit")
+              "deflate_emit", "deflate_emit_tuple")
 AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle",   # else the name
              "lz4p_pack": "lz4p", "lz4p_decode": "lz4p",
              "deflate_links": "deflate_encode",
              "deflate_links_wide": "deflate_encode",
              "deflate_parse_greedy": "deflate_encode",
-             "deflate_emit": "deflate_encode"}
+             "deflate_emit": "deflate_encode",
+             "deflate_emit_tuple": "deflate_encode"}
 # an A/B kernel's functions, where they are not those whose names hold
 # "<kernel>_kernel": the links' shared route; their route past 64 KiB
 # (a DIR's keyed kernel, the tiled kernel and its carry); the greedy parse
 # (a DIR's instance of the parse kernel, the segments' three kernels);
-# tpz_deflate_emit's tables and emit kernels
+# tpz_deflate_emit's C++-rule tables on rows of at most 64 KiB and the row
+# emit kernel; tpz_deflate_emit_tuple's tables (a DIR's TupleShared
+# instance, the checkout's Counted ones) and the tiled route's kernels
 AB_FUNCTIONS = {"deflate_links": ("deflate_links_shared_kernel",),
                 "deflate_links_wide": ("deflate_links_kernel",
                                        "deflate_links_tiled_kernel",
                                        "deflate_links_carry_kernel"),
                 "deflate_parse_greedy": ("deflate_parse_kernelILb0E",
                                          "deflate_segment_"),
-                "deflate_emit": ("deflate_tables_kernel",
-                                 "deflate_emit_kernel")}
+                "deflate_emit": ("deflate_tables_kernelINS_11TableShared",
+                                 "deflate_emit_kernel"),
+                "deflate_emit_tuple": ("deflate_tables_kernelINS_11TupleShared",
+                                       "deflate_tables_kernelINS_7Counted",
+                                       "deflate_hist_kernel",
+                                       "deflate_emit_sums_kernel",
+                                       "deflate_emit_scan_kernel",
+                                       "deflate_emit_tiles_kernel")}
 # the A/B kernels this checkout redesigns: every other one must keep the
 # DIR's SASS
-AB_REDESIGNED = ("deflate_links_wide", "deflate_parse_greedy")
+AB_REDESIGNED = ("deflate_emit_tuple",)
 # sources whose SASS --ab compares and does not time (no launch of theirs
 # is recorded for it): deflate_encode.cu's best, lazy parse and stored
 # kernels, all of the DIR's functions but the A/B kernels'
@@ -4920,7 +5264,8 @@ def ab_entry(lib, kernel: str):
         "lz4p_pack": [vp, vp, ci, ci, vp, ci, vp, ci, vp],
         "lz4p_decode": [vp, vp, ci, ci, vp, ci, vp, vp],
         "deflate_emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp,
-                         vp]}[kernel]
+                         vp],
+        "deflate_emit_tuple": [vp, vp, ci, ci, vp, ci, vp, vp, vp]}[kernel]
     fn.restype = ci
     return fn
 
@@ -5157,27 +5502,37 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
         # the longest row's tokens
         steps = int(deflate_coder.deflate_parse_greedy(blocks, lens,
                                                        prev)[1].max())
-    elif kernel == "deflate_emit":
-        blocks, lens, tokens, ntok, mode = args[:5]
+    elif kernel in ("deflate_emit", "deflate_emit_tuple"):
+        blocks, lens, tokens, ntok = args[:4]
+        mode = args[4] if kernel == "deflate_emit" else 0
         b, n = blocks.shape
         cap = deflate_coder.encode_cap(n)
         lo, hi = DEFLATE_RECORD
 
         def make(lib):
             fn = ab_entry(lib, kernel)
+            # since the tiled route, a build sizes its own scratch
+            size = getattr(lib, "tpz_deflate_emit_scratch", None)
+            if size is not None:
+                size.argtypes, size.restype = [ctypes.c_int, ctypes.c_int], \
+                    ctypes.c_longlong
+            rows = b * deflate_coder.SCRATCH_BYTES
+            nbytes = rows if size is None else size(b, n)
 
             def run():
                 out = (torch.zeros((b, cap), dtype=torch.uint8,
                                    device="cuda"),
                        torch.empty(b, dtype=torch.int32, device="cuda"),
-                       torch.empty((b, deflate_coder.SCRATCH_BYTES),
-                                   dtype=torch.uint8, device="cuda"))
-                _build.check(fn(blocks.data_ptr(), lens.data_ptr(),
-                                tokens.data_ptr(), ntok.data_ptr(), b, n,
-                                mode, out[0].data_ptr(), cap,
+                       torch.empty(nbytes, dtype=torch.uint8, device="cuda"))
+                head = ((blocks.data_ptr(), lens.data_ptr())
+                        if kernel == "deflate_emit" else ())
+                mid = (b, n, mode) if kernel == "deflate_emit" else (b, n)
+                _build.check(fn(*head, tokens.data_ptr(), ntok.data_ptr(),
+                                *mid, out[0].data_ptr(), cap,
                                 out[1].data_ptr(), out[2].data_ptr(),
-                                stream()), "tpz_deflate_emit")
-                return out[0], out[1], out[2][:, lo:hi]
+                                stream()), f"tpz_{kernel}")
+                rec = out[2][:rows].view(b, deflate_coder.SCRATCH_BYTES)
+                return out[0], out[1], rec[:, lo:hi]
             return run
         # the longest row's tokens
         steps = int(ntok.max())
@@ -5448,7 +5803,7 @@ def ab_child(dirs: list) -> int:
     csrc/ari_encode.cu, ari_decode.cu, bin_decode.cu, mtf.cu, bin_encode.cu,
     dc_decode.cu, lz4_encode.cu, lz4_decode.cu, rle.cu, inflate.cu,
     lz4p.cu, deflate_encode.cu's links (both routes), its greedy parse and
-    its tables and emit,
+    its tables and emit in both orders,
     lz4_chain.cu and lz4_dense.cu
     against the same files in each
     DIR (beside the headers they include), for instance a parent commit's:
@@ -5472,7 +5827,9 @@ def ab_child(dirs: list) -> int:
     tensor, as many zero and random rows and that 8 MiB row, its tables
     and emit (tpz_deflate_emit,
     streams, lengths and the record in the scratch) at the deflate and
-    wide paths, on those rows' tokens and on phase 3's table rows; a
+    wide paths, on those rows' tokens and on phase 3's table rows, and the
+    device rule's (tpz_deflate_emit_tuple) at the serving path, on as many
+    zero and random rows, on that 8 MiB row and on the table rows; a
     kernel whose source no DIR holds gets a
     line that says so and no row, and the paths of no other kernel are
     not run), checks that every build gives the same outputs there
@@ -5721,6 +6078,11 @@ def main() -> int:
                serve_kernels, chain_kernels, lz4p_kernels,
                lz4p_serve_kernels, deflate_kernels,
                {k: {"max_abs_err": e} for k, e in zlib_errs.items()})
+    # each emit wrapper's kernels by route, as its traces show them
+    for name, seen in EMIT_TRACED.items():
+        if sorted(seen) != ["row", "tiled"]:
+            raise AssertionError(f"{name}: traced on the routes "
+                                 f"{sorted(seen)}, not on both")
     print(smi)
     rows = []
     for name, source, replaces in (
@@ -5793,6 +6155,10 @@ def main() -> int:
              "with tpuzip/codecs/deflate.py:396 _header_fields")):
         k = at_shape[name]
         extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}
+        if name in EMIT_TRACED:
+            extra["device_kernels"] = {
+                route: sorted(names)
+                for route, names in sorted(EMIT_TRACED[name].items())}
         rows.append({
             "name": name, "route": "cuda",
             "source": f"tpuzip_torch/csrc/{source}", "replaces": replaces,

@@ -105,10 +105,11 @@ HISTOGRAMS = _histograms()
 def tuple_merge_replica(freq: list, limit: int) -> list:
     """The tables kernel's tuple_merge, step for step: each level's items
     ranked by counting (binary searches over the sorted leaves and the
-    packages' non-falling weights, then the equal-weight items compared
-    one by one), its tuples laid out in a pool in rank order, a package's
-    tuple a slice of the last level's pool; the lengths counted over the
-    last level's first 2n - 2 tuples."""
+    packages' non-falling weights, a package's packages below it searched
+    only where the package before it has its weight, then the equal-weight
+    items compared one by one), its tuples laid out in a pool in rank order, a
+    package's tuple a slice of the last level's pool; the lengths counted
+    over the last level's first 2n - 2 tuples."""
     act = [(f, s) for s, f in enumerate(freq) if f]
     na = len(act)
     lens = [0] * len(freq)
@@ -160,7 +161,13 @@ def tuple_merge_replica(freq: list, limit: int) -> list:
                 t0 = pool[a0]
                 llo = point(0, na, lambda i: lw[i] < wk)
                 r = point(llo, na, lambda i: lw[i] == wk and ls[i] <= t0)
-                q = point(0, np_, lambda i: pw[i] < wk)
+                # the packages below it: those before its run of equal
+                # weight (the weights do not fall), searched only where the
+                # package before it has its weight
+                q = j
+                if q > 0 and pw[q - 1] == wk:
+                    q = point(0, q - 1, lambda i: pw[i] < wk)
+                assert q == point(0, np_, lambda i: pw[i] < wk)
                 r += q
                 while q < np_ and pw[q] == wk:
                     if q != j:

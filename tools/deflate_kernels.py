@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check and time csrc/deflate_encode.cu and csrc/inflate.cu on one GPU:
 
-    python3 tools/deflate_kernels.py [--ab DIR ... | --wide]
+    python3 tools/deflate_kernels.py [--ab DIR ... | --wide | --routes]
 
 Builds both sources with nvcc -Xptxas -v (registers and spills), then
 holds every launch exact against its plain version on 40 rows of 4 KiB
@@ -21,15 +21,22 @@ the checkout's, outputs held equal, timed in turns (DIR, checkout,
 checkout, DIR) at 1024 x 64 KiB of text at max_chain 8 and 128, of zero
 rows and of random rows at 128.  With --wide, after the build only phase 18's four
 launches on its one 8 MiB row, each alone, and the links at the wide
-path's 64 x 128 KiB (wide()), then each kernel's device ms of the
-greedy parse and of those links from one traced call (parts()).  Prints the card, the ptxas lines and one
-JSON line a group."""
+path's 64 x 128 KiB with the C++ rule's tables and emit there (wide()),
+then each kernel's device ms of the greedy parse, of the tuple tables
+with the emit (at 1024 x 64 KiB of text and on the 8 MiB row), of those
+links and of the C++ rule's tables with the emit at the wide path from
+one traced call (parts()).  Prints the card, the ptxas lines and one
+JSON line a group.  With --routes, only routes() (no ptxas lines): the
+tables with the emit at 1024 x 64 KiB on the checkout's row route against
+builds of the same source that take the tiled route there
+(ROUTE_PATCHES)."""
 
 from __future__ import annotations
 
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -274,6 +281,10 @@ def wide() -> None:
     res["wide_path_rows"] = list(w.shape)
     res["wide_path_links_ms"] = cs.cuda_ms(lambda: dc.deflate_links(w, wl),
                                            3)
+    tok, nt = dc.deflate_parse(w, wl, dc.deflate_links(w, wl),
+                               cs.DEFLATE_PATH_CHAIN)
+    res["wide_path_emit_ms"] = cs.cuda_ms(
+        lambda: dc.deflate_emit(w, wl, tok, nt, 0), 3)
     res["links_exact"] = bool(
         torch.equal(prev, dc.deflate_links_plain(x, xl))
         and torch.equal(dc.deflate_links(w, wl), dc.deflate_links_plain(w, wl)))
@@ -304,14 +315,23 @@ def parts() -> None:
                 0, 256, tuple(x.shape), np.uint8)).cuda(), xl),
             ("zlib_row", row, row_len)):
         prev = dc.deflate_links(rows, lens)
-        dc.deflate_parse_greedy(rows, lens, prev)
+        tok, nt = dc.deflate_parse_greedy(rows, lens, prev)
         res[f"parse_{name}"] = cs.traced(
             lambda: dc.deflate_parse_greedy(rows, lens, prev))["top"]
+        if name in ("text", "zlib_row"):
+            dc.deflate_emit_tuple(rows, lens, tok, nt)
+            res[f"emit_tuple_{name}"] = cs.traced(
+                lambda: dc.deflate_emit_tuple(rows, lens, tok, nt))["top"]
     for name, rows, lens in (("wide", wide, wide_len),
                              ("zlib_row", row, row_len)):
         dc.deflate_links(rows, lens)
         res[f"links_{name}"] = cs.traced(
             lambda: dc.deflate_links(rows, lens))["top"]
+    tok, nt = dc.deflate_parse(wide, wide_len, dc.deflate_links(
+        wide, wide_len), cs.DEFLATE_PATH_CHAIN)
+    dc.deflate_emit(wide, wide_len, tok, nt, 0)
+    res["emit_wide"] = cs.traced(
+        lambda: dc.deflate_emit(wide, wide_len, tok, nt, 0))["top"]
     print(json.dumps({"group": "parts", "card": cs.nvidia_smi(), **res}),
           flush=True)
 
@@ -382,8 +402,139 @@ def ab(dirs: list) -> None:
                               "turns_ms": t}), flush=True)
 
 
+# csrc/deflate_encode.cu with its tables and emit on another route at rows
+# of at most 64 KiB: "tiled", the tiled route at every width (launch_emit's
+# size switch and tpz_deflate_emit_scratch's set so); "counted", the C++
+# rule's histograms by tiles (deflate_hist_kernel, then its Counted<>
+# tables instance) with the row emit
+ROUTE_PATCHES = {
+    "tiled": (("const bool wide = n > lz4s::STAGE_MAX;",
+               "const bool wide = true;"),
+              ("  if (n <= lz4s::STAGE_MAX) return rows;\n", "")),
+    "counted": (("  if (Shared::TUPLE || wide) {", "  if (true) {"),)}
+
+# the kernels the tables and emit launch, as name fragments for traced()
+EMIT_PARTS = ("deflate_hist_kernel", "deflate_tables_kernel",
+              "deflate_emit_kernel", "deflate_emit_sums_kernel",
+              "deflate_emit_scan_kernel", "deflate_emit_tiles_kernel")
+
+
+def route_build(route: str, path: str) -> subprocess.Popen:
+    """Write the checkout's deflate_encode.cu patched to `route`
+    (ROUTE_PATCHES) into path/route/, beside the header it includes, and
+    start its nvcc (the checkout's flags) into path/route.so."""
+    src = (_build.CSRC / "deflate_encode.cu").read_text()
+    for old, new in ROUTE_PATCHES[route]:
+        if src.count(old) != 1:
+            raise SystemExit(f"deflate_encode.cu: {old!r} is not there once")
+        src = src.replace(old, new)
+    os.makedirs(f"{path}/{route}")
+    with open(f"{path}/{route}/deflate_encode.cu", "w") as f:
+        f.write(src)
+    shutil.copy(_build.CSRC / "lz4_shared.cuh", f"{path}/{route}/")
+    return subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", f"{path}/{route}.so",
+         f"{path}/{route}/deflate_encode.cu"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def emit_entries(lib) -> dict:
+    """{"std": emit, "tuple": emit} of a build: its tpz_deflate_emit in
+    mode 0 and its tpz_deflate_emit_tuple, each called as deflate_coder's
+    wrappers call them (the output zeroed, the scratch of the build's own
+    tpz_deflate_emit_scratch) -> (comp, clens)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tpz_deflate_emit.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp,
+                                     vp, vp]
+    lib.tpz_deflate_emit_tuple.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp,
+                                           vp]
+    lib.tpz_deflate_emit_scratch.argtypes = [ci, ci]
+    lib.tpz_deflate_emit_scratch.restype = ctypes.c_longlong
+
+    def call(order, x, xl, tok, nt):
+        b, n = x.shape
+        comp = torch.zeros((b, dc.encode_cap(n)), dtype=torch.uint8,
+                           device="cuda")
+        clens = torch.empty(b, dtype=torch.int32, device="cuda")
+        scratch = torch.empty(lib.tpz_deflate_emit_scratch(b, n),
+                              dtype=torch.uint8, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        tail = (comp.data_ptr(), comp.shape[1], clens.data_ptr(),
+                scratch.data_ptr(), stream)
+        if order == "std":
+            err = lib.tpz_deflate_emit(x.data_ptr(), xl.data_ptr(),
+                                       tok.data_ptr(), nt.data_ptr(), b, n,
+                                       0, *tail)
+        else:
+            err = lib.tpz_deflate_emit_tuple(tok.data_ptr(), nt.data_ptr(),
+                                             b, n, *tail)
+        _build.check(err, f"tpz_deflate_emit ({order})")
+        return comp, clens
+    return {order: (lambda *a, o=order: call(o, *a))
+            for order in ("std", "tuple")}
+
+
+def routes() -> None:
+    """The tables with the emit of both rules at 1024 x 64 KiB (text, zero
+    and random rows; the C++ rule's tokens at max_chain 128, the device
+    rule's from its greedy parse) on the checkout's routes ("row": the C++
+    rule's tables counting their own histograms, the row emit) against
+    ROUTE_PATCHES' builds of the same source: outputs held equal, timed in
+    turns (row, tiled, counted, counted, tiled, row; each the mean of 3
+    launches), and each build's device ms by kernel from one traced call."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {r: route_build(r, tmp) for r in ROUTE_PATCHES}
+        _build.build("deflate_encode")
+        for r, p in procs.items():
+            if p.wait(timeout=900):
+                raise SystemExit(f"nvcc failed on the {r} copy:\n"
+                                 f"{p.stdout.read()}")
+        libs = {"row": _build.load("deflate_encode"),
+                **{r: ctypes.CDLL(f"{tmp}/{r}.so") for r in ROUTE_PATCHES}}
+        entries = {r: emit_entries(lib) for r, lib in libs.items()}
+        n = 1 << 16
+        data = cs.text_corpus(1024 * n, cs.SEED)
+        rng = np.random.default_rng(13)
+        kinds = {"text": lambda: torch.frombuffer(
+                     bytearray(data), dtype=torch.uint8).view(1024, n),
+                 "zero": lambda: torch.zeros((1024, n), dtype=torch.uint8),
+                 "random": lambda: torch.from_numpy(
+                     rng.integers(0, 256, (1024, n), np.uint8))}
+        xl = torch.full((1024,), n, dtype=torch.int32, device="cuda")
+        order_turns = ("row", "tiled", "counted", "counted", "tiled", "row")
+        for kind, make in kinds.items():
+            x = make().cuda()
+            prev = dc.deflate_links(x, xl)
+            tokens = {"std": dc.deflate_parse(x, xl, prev, 128),
+                      "tuple": dc.deflate_parse_greedy(x, xl, prev)}
+            del prev
+            for order, (tok, nt) in tokens.items():
+                fns = {r: (lambda f=e[order]: f(x, xl, tok, nt))
+                       for r, e in entries.items()}
+                outs = {r: fn() for r, fn in fns.items()}
+                same = {r: all(torch.equal(a, b) for a, b in
+                               zip(outs[r], outs["row"])) for r in outs}
+                del outs
+                t = [cs.cuda_ms(fns[r], 3) for r in order_turns]
+                ms = {r: sum(v for k, v in zip(order_turns, t) if k == r) / 2
+                      for r in fns}
+                parts = {r: cs.traced(fn, EMIT_PARTS)["expected_ms"]
+                         for r, fn in fns.items()}
+                print(json.dumps({
+                    "group": "routes", "card": cs.nvidia_smi(), "rows": kind,
+                    "order": order, "ntok": int(nt.sum()),
+                    "outputs_equal": same, "ms": ms,
+                    "ratio_to_row": {r: v / ms["row"] for r, v in ms.items()},
+                    "turns": list(zip(order_turns, t)), "parts_ms": parts}),
+                    flush=True)
+            del x, tokens
+
+
 def main() -> int:
     print(cs.nvidia_smi(), flush=True)
+    if sys.argv[1:2] == ["--routes"]:
+        routes()
+        return 0
     ptxas()
     if sys.argv[1:2] == ["--wide"]:
         wide()

@@ -1,4 +1,4 @@
-// step_clocks.cu — clock64-stamped copies of fifteen kernels' steps, as they
+// step_clocks.cu — clock64-stamped copies of sixteen kernels' steps, as they
 // stood before their redesign: the ari encoder's (csrc/ari_encode.cu), the
 // apm bit decoder's (csrc/bin_decode.cu, indexed), the apm bit encoder's
 // (csrc/bin_encode.cu, one thread a stream), the DC walk's
@@ -13,8 +13,10 @@
 // decode (csrc/lz4p.cu, a sequence at a time after a pass of prefix sums),
 // the deflate links (csrc/deflate_encode.cu, a keyed table in device
 // memory), the deflate tables (csrc/deflate_encode.cu, lane 0's
-// package-merge) and the deflate device rule's greedy parse
-// (csrc/deflate_encode.cu, a warp a row over windows of best values);
+// package-merge), the deflate device rule's tuple-order tables
+// (csrc/deflate_encode.cu, their pools in shared memory, their own
+// histograms) and its greedy parse (csrc/deflate_encode.cu, a warp a row
+// over windows of best values);
 // and the redesigned ari encoder, DC walk, lz4 step, lz4 decoder,
 // deflate decoder and lz4p decode, built from their own sources, the
 // encoder stamped by warp, the others by part.  One stream each (one warp, one thread; the lz4 and rle copies
@@ -3539,6 +3541,380 @@ deflate_tables_new_clocks(const int32_t* __restrict__ tokens,
   }
 }
 
+
+// The device rule's tables (csrc/deflate_encode.cu's
+// deflate_tables_kernel<TupleShared>) as they stood before their redesign:
+// a CTA of two warps a row, each tree's levels as tuples in pools of
+// shared memory (36,160 B a CTA), the leaves ranked by counting every
+// leaf a lane (O(na^2)).  Copies of its TupleTree, tuple_merge, shared
+// struct and dynamic_header, stamped by part; the rest is the source's own
+// functions.  Row 0's cycles by part, on each warp's lane 0 (warp 0 the
+// literal/length tree then the header, warp 1 the distance tree then the
+// canonical codes): 0 the histograms, 1 the leaves' rank, 2 the levels'
+// ranking, 3 the offsets scan, 4 the pool build, 5 the lengths' count, 6
+// the wait for the other warp's tree, 7 the degenerate tables' fixes, 8
+// the header (warp 0) or the canonical codes (warp 1), 9 the record's
+// store; then the whole row, and counters: active symbols, levels,
+// items ranked, pool symbols written, equal-weight tuple compares (summed
+// over the warp).  Warp 0's 16 entries first, then warp 1's.
+namespace tuple_old {
+
+using dfe::FULL;
+using dfe::LEAF;
+using dfe::partition_point;
+using dfe::tuple_cmp;
+
+template <int NSYM, int LVN, int POOL>
+struct TupleTree {
+  uint32_t lw[NSYM];
+  uint32_t w[2][LVN];
+  uint32_t starts[(POOL + 31) / 32];
+  uint16_t ls[NSYM];
+  uint16_t off[2][LVN + 1];
+  uint16_t src[LVN];
+  uint16_t pool[2][POOL];
+};
+
+template <int NSYM, int LVN, int POOL, int LIMIT, bool STAMP>
+__device__ __forceinline__ void tuple_merge(
+    uint32_t* freq, uint8_t* lens, TupleTree<NSYM, LVN, POOL>& t, int lane,
+    tables_new::NClocks<STAMP>& k) {
+  const unsigned below = (1u << lane) - 1;
+  int na = 0;
+  for (int s0 = 0; s0 < NSYM; s0 += 32) {
+    const int sym = s0 + lane;
+    const uint32_t f = sym < NSYM ? freq[sym] : 0;
+    if (sym < NSYM) lens[sym] = 0;
+    const unsigned act = __ballot_sync(FULL, f != 0);
+    if (f) {
+      t.w[1][na + __popc(act & below)] = f;
+      t.src[na + __popc(act & below)] = static_cast<uint16_t>(sym);
+    }
+    na += __popc(act);
+  }
+  __syncwarp();
+  k.count(0, na);
+  if (na < 2) {
+    if (na && lane == 0) lens[t.src[0]] = 1;
+    __syncwarp();
+    k.lap(1, static_cast<uint32_t>(na));
+    return;
+  }
+  for (int q = lane; q < na; q += 32) {
+    const uint32_t f = t.w[1][q];
+    int r = 0;
+    for (int j = 0; j < na; ++j) {
+      const uint32_t g = t.w[1][j];
+      r += g < f || (g == f && j < q);
+    }
+    t.lw[r] = f;
+    t.ls[r] = t.src[q];
+  }
+  __syncwarp();
+  for (int q = lane; q < na; q += 32) {
+    t.w[0][q] = t.lw[q];
+    t.pool[0][q] = t.ls[q];
+    t.off[0][q] = static_cast<uint16_t>(q);
+  }
+  if (lane == 0) t.off[0][na] = static_cast<uint16_t>(na);
+  __syncwarp();
+  k.lap(1, t.w[0][0]);
+  int m = na, cur = 0;
+  for (int level = 1; level < LIMIT; ++level) {
+    const int np = m / 2, mm = na + np, nxt = cur ^ 1;
+    const uint32_t* w = t.w[cur];
+    const uint16_t* off = t.off[cur];
+    const uint16_t* pool = t.pool[cur];
+    auto pw = [&](int j) { return w[2 * j] + w[2 * j + 1]; };
+    const int total = na + off[2 * np];
+    for (int q = lane; q < (total + 31) / 32; q += 32) t.starts[q] = 0;
+    int cmps = 0;
+    for (int q = lane; q < mm; q += 32) {
+      uint32_t wk;
+      int r, len, from;
+      if (q < na) {
+        wk = t.lw[q];
+        const int s = t.ls[q];
+        int p = partition_point(0, np, [&](int j) { return pw(j) < wk; });
+        r = q + p;
+        for (; p < np && pw(p) == wk; ++p) r += pool[off[2 * p]] < s;
+        len = 1;
+        from = s | LEAF;
+      } else {
+        const int j = q - na;
+        wk = pw(j);
+        from = off[2 * j];
+        len = off[2 * j + 2] - from;
+        const int t0 = pool[from];
+        const int llo =
+            partition_point(0, na, [&](int i) { return t.lw[i] < wk; });
+        r = partition_point(llo, na, [&](int i) {
+          return t.lw[i] == wk && t.ls[i] <= t0;
+        });
+        int p = partition_point(0, np, [&](int i) { return pw(i) < wk; });
+        r += p;
+        for (; p < np && pw(p) == wk; ++p) {
+          if (p == j) continue;
+          const int b0 = off[2 * p];
+          const int c = tuple_cmp(pool, b0, off[2 * p + 2] - b0, from, len);
+          r += c < 0 || (c == 0 && p < j);
+          ++cmps;
+        }
+      }
+      t.w[nxt][r] = wk;
+      t.src[r] = static_cast<uint16_t>(from);
+      t.off[nxt][r + 1] = static_cast<uint16_t>(len);
+    }
+    __syncwarp();
+    k.count(1, 1);
+    k.count(2, mm);
+    k.count(3, total);
+    if constexpr (STAMP) k.count(4, __reduce_add_sync(FULL, cmps));
+    k.lap(2, t.w[nxt][0]);
+    int base = 0;
+    for (int k0 = 0; k0 < mm; k0 += 32) {
+      const int q = k0 + lane;
+      const int len = q < mm ? t.off[nxt][q + 1] : 0;
+      int incl = len;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (q < mm) {
+        const int at = base + incl - len;
+        t.off[nxt][q + 1] = static_cast<uint16_t>(base + incl);
+        atomicOr(&t.starts[at >> 5], 1u << (at & 31));
+      }
+      base += __shfl_sync(FULL, incl, 31);
+    }
+    if (lane == 0) t.off[nxt][0] = 0;
+    __syncwarp();
+    k.lap(3, t.starts[0]);
+    int seen = -1;
+    for (int q0 = 0; q0 < total; q0 += 32) {
+      const unsigned bits = t.starts[q0 >> 5];
+      const int q = q0 + lane;
+      if (q < total) {
+        const int r = seen + __popc(bits & ((2u << lane) - 1));
+        const int v = t.src[r];
+        t.pool[nxt][q] = v & LEAF ? static_cast<uint16_t>(v & ~LEAF)
+                                  : pool[v + q - t.off[nxt][r]];
+      }
+      seen += __popc(bits);
+    }
+    __syncwarp();
+    k.lap(4, t.pool[nxt][0]);
+    m = mm;
+    cur = nxt;
+  }
+  const int end = t.off[cur][min(2 * na - 2, m)];
+  for (int s = lane; s < NSYM; s += 32) freq[s] = 0;
+  __syncwarp();
+  for (int q = lane; q < end; q += 32) atomicAdd(&freq[t.pool[cur][q]], 1u);
+  __syncwarp();
+  for (int s = lane; s < NSYM; s += 32)
+    lens[s] = static_cast<uint8_t>(freq[s]);
+  __syncwarp();
+  k.lap(5, lens[0]);
+}
+
+struct TupleShared {
+  static constexpr bool TUPLE = true;
+  uint32_t lfreq[288];
+  uint32_t dfreq[32];
+  uint32_t clfreq[20];
+  uint16_t codes[320];
+  uint8_t lens[320];
+  TupleTree<286, dfe::LIT_LV, 15 * 286> lit;
+  TupleTree<30, dfe::DIST_LV, 15 * 30> dist;
+  TupleTree<19, dfe::CL_LV, 7 * 19> cl;
+  uint16_t runs[320];
+  uint8_t clsym[320];
+  uint8_t clextra[320];
+  uint8_t cllen[20];
+  uint16_t clcode[20];
+  int cnt[2][16], next[2][16];
+  uint32_t hdr[dfe::HDR_WORDS];
+};
+
+// dfe::dynamic_header with this copy's code-length tree (unstamped).
+__device__ __forceinline__ int dynamic_header(TupleShared& sh, uint8_t* dst,
+                                              int lane) {
+  using dfe::kOrder;
+  using dfe::HDR_WORDS;
+  const unsigned below = (1u << lane) - 1;
+  const uint8_t* llen = sh.lens;
+  const uint8_t* dlen = sh.lens + 288;
+  int lt = -1, dt = -1;
+  for (int s = lane; s < 286; s += 32)
+    if (llen[s]) lt = s;
+  if (lane < 30 && dlen[lane]) dt = lane;
+  const int hlit = max(257, __reduce_max_sync(FULL, lt) + 1);
+  const int hdist = max(1, __reduce_max_sync(FULL, dt) + 1);
+  const int nall = hlit + hdist;
+  auto at = [&](int q) { return q < hlit ? llen[q] : dlen[q - hlit]; };
+  if (lane < 20) sh.clfreq[lane] = 0;
+  int nrun = 0;
+  for (int q0 = 0; q0 < nall; q0 += 32) {
+    const int q = q0 + lane;
+    const bool start = q < nall && (q == 0 || at(q) != at(q - 1));
+    const unsigned b = __ballot_sync(FULL, start);
+    if (start) sh.runs[nrun + __popc(b & below)] = static_cast<uint16_t>(q);
+    nrun += __popc(b);
+  }
+  if (lane == 0) sh.runs[nrun] = static_cast<uint16_t>(nall);
+  __syncwarp();
+  int ncl = 0;
+  for (int j0 = 0; j0 < nrun; j0 += 32) {
+    const int j = j0 + lane;
+    int v = 0, r = 0, c = 0;
+    if (j < nrun) {
+      v = at(sh.runs[j]);
+      r = sh.runs[j + 1] - sh.runs[j];
+      c = dfe::run_codes<false>(v, r, nullptr, nullptr, nullptr, 0);
+    }
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (j < nrun)
+      dfe::run_codes<true>(v, r, sh.clsym, sh.clextra, sh.clfreq,
+                           ncl + incl - c);
+    ncl += __shfl_sync(FULL, incl, 31);
+  }
+  __syncwarp();
+  tables_new::NClocks<false> none;
+  tuple_merge<19, dfe::CL_LV, 7 * 19, 7>(sh.clfreq, sh.cllen, sh.cl, lane,
+                                         none);
+  dfe::one_code(sh.cllen, 19, lane);
+  dfe::canon_codes(sh.cllen, 19, sh.clcode, sh.cnt[0], sh.next[0], lane);
+  int hclen = 19;
+  while (hclen > 4 && sh.cllen[kOrder[hclen - 1]] == 0) --hclen;
+  const int nf = 1 + hclen + ncl;
+  int base = 0;
+  for (int f0 = 0; f0 < nf; f0 += 32) {
+    const int f = f0 + lane;
+    uint32_t v = 0;
+    int bits = 0;
+    if (f == 0) {
+      v = 1 | 2 << 1 | (hlit - 257) << 3 | (hdist - 1) << 8 |
+          (hclen - 4) << 13;
+      bits = 17;
+    } else if (f <= hclen) {
+      v = sh.cllen[kOrder[f - 1]];
+      bits = 3;
+    } else if (f < nf) {
+      const int q = f - 1 - hclen, sym = sh.clsym[q];
+      v = sh.clcode[sym] | static_cast<uint32_t>(sh.clextra[q])
+                               << sh.cllen[sym];
+      bits = sh.cllen[sym] + (sym < 16 ? 0 : sym == 16 ? 2 : sym == 17 ? 3 : 7);
+    }
+    int incl = bits;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    dfe::put(sh.hdr, HDR_WORDS, base + incl - bits, v, bits);
+    base += __shfl_sync(FULL, incl, 31);
+  }
+  __syncwarp();
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(sh.hdr);
+  for (int q = lane; q < (base + 7) / 8; q += 32) dst[q] = bytes[q];
+  return base;
+}
+
+}  // namespace tuple_old
+
+template <bool STAMP>
+__global__ void __launch_bounds__(dfe::TABLE_THREADS)
+deflate_tables_tuple_clocks(const int32_t* __restrict__ tokens,
+                            const int32_t* __restrict__ ntok, int n,
+                            uint8_t* __restrict__ comp, int pitch,
+                            uint8_t* __restrict__ scratch, long long* cycles) {
+  using namespace dfe;
+  __shared__ tuple_old::TupleShared sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x;
+  uint8_t* rec = scratch + static_cast<size_t>(row) * SCRATCH_BYTES;
+  uint8_t* dst = comp + static_cast<size_t>(row) * pitch;
+  uint8_t* llen = sh.lens;
+  uint8_t* dlen = sh.lens + 288;
+  tables_new::NClocks<STAMP> k;
+  k.start();
+  const long long t0 = k.t;
+  for (int q = tid; q < 320; q += TABLE_THREADS) {
+    sh.lens[q] = 0;
+    sh.codes[q] = 0;
+    if (q < 288) sh.lfreq[q] = 0;
+    if (q < 32) sh.dfreq[q] = 0;
+  }
+  for (int q = tid; q < HDR_WORDS; q += TABLE_THREADS) sh.hdr[q] = 0;
+  __syncthreads();
+  const int32_t* tok = tokens + static_cast<size_t>(row) * n;
+  const int nt = ntok[row];
+  for (int t0g = 0; t0g < nt; t0g += TABLE_THREADS * HIST_BATCH) {
+    int v[HIST_BATCH];
+#pragma unroll
+    for (int j = 0; j < HIST_BATCH; ++j) {
+      const int t = t0g + j * TABLE_THREADS + tid;
+      v[j] = t < nt ? tok[t] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < HIST_BATCH; ++j) {
+      if (v[j] < 0) continue;
+      if (v[j] < 256) {
+        atomicAdd(&sh.lfreq[v[j]], 1u);
+      } else {
+        atomicAdd(&sh.lfreq[257 + len_code(v[j] >> 16)], 1u);
+        atomicAdd(&sh.dfreq[dist_code(v[j] & 0xFFFF)], 1u);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0) sh.lfreq[256] = 1;
+  __syncthreads();
+  k.lap(0, sh.lfreq[0]);
+  if (warp == 0)
+    tuple_old::tuple_merge<286, LIT_LV, 15 * 286, 15>(sh.lfreq, llen, sh.lit,
+                                                      lane, k);
+  else
+    tuple_old::tuple_merge<30, DIST_LV, 15 * 30, 15>(sh.dfreq, dlen, sh.dist,
+                                                     lane, k);
+  __syncthreads();
+  k.lap(6, sh.lens[lane]);
+  if (warp == 0) {
+    one_code(llen, 286, lane);
+    if (!__any_sync(FULL, lane < 30 && dlen[lane]) && lane == 0) dlen[0] = 1;
+  }
+  __syncthreads();
+  k.lap(7, sh.lens[lane]);
+  if (warp == 1) {
+    canon_codes(llen, 286, sh.codes, sh.cnt[1], sh.next[1], lane);
+    canon_codes(dlen, 30, sh.codes + 288, sh.cnt[1], sh.next[1], lane);
+  } else {
+    const int hbits = tuple_old::dynamic_header(sh, dst, lane);
+    if (lane == 0) *reinterpret_cast<int32_t*>(rec + REC_HBITS) = hbits;
+  }
+  k.lap(8, sh.codes[lane]);
+  __syncthreads();
+  uint16_t* codes = reinterpret_cast<uint16_t*>(rec + REC_CODES);
+  for (int q = tid; q < 320; q += TABLE_THREADS) {
+    codes[q] = sh.codes[q];
+    rec[REC_LENS + q] = sh.lens[q];
+  }
+  __syncthreads();
+  k.lap(9, codes[lane]);
+  const long long t1 = stamp(static_cast<uint32_t>(rec[REC_LENS]));
+  if (lane == 0 && row == 0) {
+    long long* c = cycles + 16 * warp;
+    for (int p = 0; p < tables_new::PARTS; ++p) c[p] = k.sum[p];
+    c[tables_new::PARTS] = t1 - t0;
+    for (int q = 0; q < tables_new::NCOUNT; ++q)
+      c[tables_new::PARTS + 1 + q] = k.cnt[q];
+  }
+}
+
 }  // namespace
 
 extern "C" int tpz_ari_encode_clocks(const void* row, int len, void* out,
@@ -3970,4 +4346,81 @@ extern "C" int tpz_deflate_tables_new_clocks(const void* tokens,
       n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
       static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
+}
+
+// B rows of the device rule's tables as they stood before their redesign
+// (tuple_old), stamped by part: their records into scratch, then with emit
+// the source's row emit kernel on them into comp (zeroed) and clens; block
+// 0's row 0 cycles into cycles (32 int64: warp 0's 16, then warp 1's).
+extern "C" int tpz_deflate_tables_tuple_clocks(const void* tokens,
+                                               const void* ntok, int B, int n,
+                                               void* comp, int pitch,
+                                               void* clens, void* scratch,
+                                               void* cycles, int stamped,
+                                               int emit) {
+  auto kern = stamped ? deflate_tables_tuple_clocks<true>
+                      : deflate_tables_tuple_clocks<false>;
+  kern<<<B, dfe::TABLE_THREADS>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      n, static_cast<uint8_t*>(comp), pitch, static_cast<uint8_t*>(scratch),
+      static_cast<long long*>(cycles));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !emit) return static_cast<int>(err);
+  dfe::deflate_emit_kernel<<<B, dfe::EMIT_THREADS>>>(
+      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
+      n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
+      static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// csrc/deflate_encode.cu's own tuple tables and emit (its
+// tpz_deflate_emit_tuple) with a scratch of the caller's.
+extern "C" int tpz_deflate_emit_tuple_source(const void* tokens,
+                                             const void* ntok, int B, int n,
+                                             void* comp, int pitch,
+                                             void* clens, void* scratch,
+                                             void* stream) {
+  return dfe::tpz_deflate_emit_tuple(tokens, ntok, B, n, comp, pitch, clens,
+                                     scratch, stream);
+}
+
+// CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and static
+// shared bytes of csrc/deflate_encode.cu's tables and emit kernels, and of
+// the device rule's tables before their redesign (tuple_old), in the
+// order tpz_deflate_tables_kernels names them (8 pairs).
+constexpr int TABLE_KERNELS = 8;
+
+extern "C" const char* tpz_deflate_tables_kernels() {
+  return "tables<TableShared>,tables<Counted<TableShared>>,"
+         "tables<Counted<TupleShared>>,tables before the redesign (tuple),"
+         "row emit,tiled histograms,tiles' bits,tiles' fields";
+}
+
+extern "C" int tpz_deflate_tables_occupancy(int* out) {
+  const void* kerns[TABLE_KERNELS] = {
+      reinterpret_cast<const void*>(
+          dfe::deflate_tables_kernel<dfe::TableShared>),
+      reinterpret_cast<const void*>(
+          dfe::deflate_tables_kernel<dfe::Counted<dfe::TableShared>>),
+      reinterpret_cast<const void*>(
+          dfe::deflate_tables_kernel<dfe::Counted<dfe::TupleShared>>),
+      reinterpret_cast<const void*>(deflate_tables_tuple_clocks<false>),
+      reinterpret_cast<const void*>(dfe::deflate_emit_kernel),
+      reinterpret_cast<const void*>(dfe::deflate_hist_kernel),
+      reinterpret_cast<const void*>(dfe::deflate_emit_sums_kernel),
+      reinterpret_cast<const void*>(dfe::deflate_emit_tiles_kernel)};
+  const int threads[TABLE_KERNELS] = {
+      dfe::TABLE_THREADS, dfe::TABLE_THREADS, dfe::TABLE_THREADS,
+      dfe::TABLE_THREADS, dfe::EMIT_THREADS,  dfe::TILE_THREADS,
+      dfe::TILE_THREADS,  dfe::TILE_THREADS};
+  for (int i = 0; i < TABLE_KERNELS; ++i) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2 * i, kerns[i], threads[i], 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kerns[i]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[2 * i + 1] = static_cast<int>(attr.sharedSizeBytes);
+  }
+  return 0;
 }

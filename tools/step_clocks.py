@@ -47,10 +47,12 @@ memory) on the deflate path's rows and on phase 18's one 8 MiB row
 (beside the checkout's links there, the tiled route), the deflate tables
 as they stood before theirs (lane 0's package-merge) on that path's
 tokens, each copy's records and streams held against
-csrc/deflate_encode.cu's, and the device rule's greedy parse as it stood
+csrc/deflate_encode.cu's, the device rule's greedy parse as it stood
 before its redesign (a warp a row over windows of best values) on the
 serving tensor's rows and that 8 MiB row, beside the checkout's parse in
-segments on the same best values.
+segments on the same best values, and the device rule's tuple-order
+tables as they stood before theirs (pools in shared memory, their own
+histograms) on the serving path's tokens and that row.
 One JSON line a section (SECTIONS; all of them without arguments, about
 60-90 s; lz4_chain and lz4_dense alone about 30 s, inflate and lz4p_pack
 about 30 s)."""
@@ -1197,6 +1199,116 @@ def deflate_tables(lib, res) -> None:
             lambda: launch_new(b, 0, 0), 3)
 
 
+TUPLE_PARTS = ("histograms", "leaves' rank", "levels' ranking",
+               "offsets scan", "pool build", "lengths' count",
+               "wait for the other tree", "fixes",
+               "header (warp 0) or codes (warp 1)", "record store")
+TUPLE_COUNTERS = ("active symbols", "levels", "items ranked",
+                  "pool symbols written", "equal-weight tuple compares")
+
+
+def deflate_tables_tuple(lib, res) -> None:
+    """The device rule's tables as they stood before their redesign
+    (deflate_tables_kernel<TupleShared>: a CTA of two warps a row, the
+    levels' tuples in pools of shared memory), stamped by part on each
+    warp: on the serving path's tokens (the serving tensor through
+    compress_from_device(codec="deflate"), 1024 rows of 64 KiB) row 0
+    alone and beside the other 1023 rows, and on phase 18's one 8 MiB row;
+    each copy's records held against csrc/deflate_encode.cu's own
+    (tpz_deflate_emit_tuple into a scratch of this section's) and its
+    streams, through the source's row emit kernel, against the path's;
+    then the unstamped copy's ms (tables alone) beside the source's
+    launch (tables and emit), and the CTAs an SM of each tables instance
+    and emit kernel with their static shared memory."""
+    x, lens, _ = cs.serving_tensor()
+    with cs.recorded(deflate_coder, "deflate_emit_tuple") as calls:
+        tpuzip_torch.compress_from_device(x, lens, codec="deflate")
+    (args, _, ref), = calls
+    inputs = {"serving": (args[2].contiguous(), args[3].contiguous(), ref)}
+    row, row_len = zlib_row()
+    with cs.recorded(deflate_coder, "deflate_emit_tuple") as calls:
+        deflate_coder.deflate_emit_tuple(
+            row, row_len, *deflate_coder.deflate_parse_greedy(
+                row, row_len, deflate_coder.deflate_links(row, row_len)))
+    (args, _, ref), = calls
+    inputs["zlib_row"] = (args[2].contiguous(), args[3].contiguous(), ref)
+    layout = (ctypes.c_int * 3)()
+    lib.tpz_deflate_record_layout(layout)
+    row_bytes, rec_from, rec_to = layout
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.tpz_deflate_tables_tuple_clocks
+    fn.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, vp, ci, ci]
+    src = lib.tpz_deflate_emit_tuple_source
+    src.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, vp]
+    rec = res.setdefault("deflate_tables_tuple", {})
+    for name, (tokens, ntok, ref) in inputs.items():
+        b_all, n = tokens.shape
+        cap = ref[0].shape[1]
+
+        def outputs(b):
+            return (torch.zeros((b, cap), dtype=torch.uint8, device="cuda"),
+                    torch.empty(b, dtype=torch.int32, device="cuda"),
+                    torch.zeros((b, row_bytes), dtype=torch.uint8,
+                                device="cuda"))
+
+        def launch(b, stamped, emit=1):
+            comp, clens, scratch = outputs(b)
+            cyc = torch.zeros(32, dtype=torch.int64, device="cuda")
+            _build.check(fn(tokens.data_ptr(), ntok.data_ptr(), b, n,
+                            comp.data_ptr(), cap, clens.data_ptr(),
+                            scratch.data_ptr(), cyc.data_ptr(), stamped,
+                            emit), "deflate_tables_tuple_clocks")
+            return comp, clens, scratch, cyc
+
+        def source(b):
+            comp, clens, _ = outputs(b)
+            scratch = torch.zeros(
+                int(deflate_coder._emit_scratch_bytes(b, n)),
+                dtype=torch.uint8, device="cuda")
+            _build.check(src(tokens.data_ptr(), ntok.data_ptr(), b, n,
+                             comp.data_ptr(), cap, clens.data_ptr(),
+                             scratch.data_ptr(), None),
+                         "deflate_emit_tuple_source")
+            return comp, clens, scratch[: b * row_bytes].view(b, row_bytes)
+
+        out = rec.setdefault(name, {"rows": [b_all, n],
+                                    "row0_tokens": int(ntok[0])})
+        for b in sorted({1, b_all}):
+            scomp, sclens, sscratch = source(b)
+            for stamped in (1, 0):
+                comp, clens, scratch, cyc = launch(b, stamped)
+                torch.cuda.synchronize()
+                if not (torch.equal(comp, ref[0][:b])
+                        and torch.equal(clens, ref[1][:b])
+                        and torch.equal(scomp, ref[0][:b])
+                        and torch.equal(scratch[:, rec_from:rec_to],
+                                        sscratch[:, rec_from:rec_to])):
+                    raise AssertionError(
+                        f"the tuple tables' copy (stamped={stamped}, {b} "
+                        f"rows of {name}) differs from "
+                        "csrc/deflate_encode.cu")
+                cyc = cyc.tolist()
+                out[f"rows_{b}_{'stamped' if stamped else 'unstamped'}"] = {
+                    f"warp_{w}": {
+                        "cycles": {**{p: cyc[16 * w + i]
+                                      for i, p in enumerate(TUPLE_PARTS)},
+                                   "whole row": cyc[16 * w + 10]},
+                        "counters": {c: cyc[16 * w + 11 + i]
+                                     for i, c in enumerate(TUPLE_COUNTERS)}}
+                    for w in (0, 1)}
+            out[f"rows_{b}_unstamped_tables_ms"] = cs.cuda_ms(
+                lambda: launch(b, 0, 0), 3)
+            out[f"rows_{b}_source_ms"] = cs.cuda_ms(lambda: source(b), 3)
+    lib.tpz_deflate_tables_kernels.restype = ctypes.c_char_p
+    names = lib.tpz_deflate_tables_kernels().decode().split(",")
+    occ = (ctypes.c_int * (2 * len(names)))()
+    _build.check(lib.tpz_deflate_tables_occupancy(occ),
+                 "deflate_tables_occupancy")
+    rec["ctas_an_sm"] = {
+        name: {"ctas": occ[2 * i], "static_shared_bytes": occ[2 * i + 1]}
+        for i, name in enumerate(names)}
+
+
 SECTIONS = {"coders": coders, "dc_walk": dc_walk, "lz4_encode": lz4_probe,
             "lz4_decode": lambda lib, res: (old_decoders(lib, res),
                                             new_lz4_decoder(lib, res)),
@@ -1204,6 +1316,7 @@ SECTIONS = {"coders": coders, "dc_walk": dc_walk, "lz4_encode": lz4_probe,
             "inflate": inflate, "lz4p_pack": lz4p_pack,
             "lz4p_decode": lz4p_decode, "deflate_links": deflate_links,
             "deflate_tables": deflate_tables,
+            "deflate_tables_tuple": deflate_tables_tuple,
             "deflate_parse_greedy": deflate_parse_greedy}
 
 

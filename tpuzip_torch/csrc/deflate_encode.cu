@@ -3,8 +3,9 @@
 // positions on rows past 64 KiB, then a carry pass), parse (best a thread
 // a position, then one warp a row, or segments of 2,048 positions on
 // tpuzip's device rule), tables a block of two warps a row, emit one block
-// a row (or, for stored blocks, the stored kernel alone); the parse and
-// the tables in a form for each of tpuzip's two rules.
+// a row (or, for stored blocks, the stored kernel alone), the histograms
+// and the emit by tiles of a row's tokens on rows past 64 KiB; the parse
+// and the tables in a form for each of tpuzip's two rules.
 //
 // It replaces tpuzip's host C++ `tpz_deflate` (csrc/tpuzip_host.cpp:
 // 1314-1583, called from tpuzip/dist/runner.py:884-900 through
@@ -116,12 +117,23 @@
 //     row beside 1023 rows, the distance tree a quarter of them after the
 //     literal tree (tools/step_clocks.py deflate_tables);
 //   - the device rule's tables: the same CTA, each tree's levels kept as
-//     tuples in pools in shared memory, each item ranked by counting the
-//     items below it (tuple_merge's note below); a simple form, not tuned;
+//     tuples in a pool in shared memory, each item ranked by counting the
+//     items below it (tuple_merge's note below); the literal/length tree's
+//     next level built in the row's scratch, then copied into its pool,
+//     so that 8 CTAs fit an SM and 1024 rows the card at once;
 //   - emit: a block of 256 threads a row; each token's bit count, a block
 //     scan for its offset, and its fields OR-ed into the aligned 32-bit
 //     words that hold the row (zeroed by the caller; a word shared with
-//     the row before gets no bit of it).
+//     the row before gets no bit of it);
+//   - rows past 64 KiB (tiled): one CTA a row for the histograms and the
+//     bits left one 8 MiB row (1.8 M tokens) on one SM, 13 ms.  The row's
+//     tokens are cut into tiles of 4,096, a CTA a tile: the histograms
+//     counted into a copy a warp in shared memory and added once into the
+//     row's record, the tables kernel reading them; then each tile's bits,
+//     a scan of the row's tiles (a block a row) for each tile's first bit,
+//     and each tile's fields, a thread a run of 16 tokens, gathered in a
+//     64-bit register and written a word at a time (a word two runs share
+//     OR-ed).
 
 #include <cuda_runtime.h>
 
@@ -160,14 +172,25 @@ constexpr int TABLE_THREADS = 64;   // a tables block: a row, two warps
 constexpr int HIST_BATCH = 8;       // tokens a thread loads at once
 constexpr int EMIT_THREADS = 256;
 constexpr int BEST_THREADS = 128;   // positions a best block
+// rows past lz4s::STAGE_MAX bytes: the histograms and the emit by tiles of
+// a row's tokens, TILE_RUN consecutive tokens a thread
+constexpr int TILE_THREADS = 256;
+constexpr int TILE_RUN = 16;
+constexpr int TOKEN_TILE = TILE_THREADS * TILE_RUN;
+constexpr int SCAN_THREADS = 256;   // a row's tile offsets, a block a row
 
-// a row's scratch (bytes): the levels' orders, then the record the emit
-// kernel reads: codes (literal/length 0..287, distance at 288..319), their
-// lengths, and the header's bits
+// a row's scratch (bytes): the levels' orders (the C++ rule) or the
+// literal/length tree's next level (the device rule), then the record the
+// emit kernel reads: codes (literal/length 0..287, distance at 288..319),
+// their lengths, and the header's bits; past it the tiled histograms'
+// counts (in the codes' order).  Past the rows' scratch, on the tiled
+// route, each tile's first bit (an int a tile).
 constexpr int SCRATCH_BYTES = 20480;
 constexpr int REC_CODES = 17408;
 constexpr int REC_LENS = REC_CODES + 640;
 constexpr int REC_HBITS = REC_LENS + 320;
+constexpr int REC_FREQ = REC_HBITS + 16;
+static_assert(REC_FREQ + 320 * 4 <= SCRATCH_BYTES, "the counts fit the row");
 
 __constant__ int16_t kLenBase[29] = {3,   4,   5,   6,   7,  8,  9,  10,
                                      11,  13,  15,  17,  19, 23, 27, 31,
@@ -1039,15 +1062,25 @@ __device__ __forceinline__ void one_code(uint8_t* lens, int n, int lane) {
 // then its tuple is written at its rank's offset (a lane a symbol).  The
 // leaves stay sorted and the packages' weights do not fall (each sums
 // two neighbours of a sorted level), so the items of lower weight are
-// counted by binary searches; among equal weights a leaf (s,) comes after
-// the packages whose tuple starts below s and before the others, and a
-// package is compared with the equal-weight packages one by one (their
-// tuples need not be in order: one may be a proper prefix of the next).
+// counted by binary searches (a package's packages below it only where
+// the package before it has its weight); among equal weights a leaf (s,)
+// comes after the packages whose tuple starts below s and before the
+// others, and a package is compared with the equal-weight packages one by
+// one (their tuples need not be in order: one may be a proper prefix of
+// the next).  Each level is read from its pool in shared memory and the
+// next built beside it, then copied into the pool: for the literal/length
+// tree (8,580 B a pool) beside it in the row's scratch, so that a CTA
+// holds 27,584 B and 8 CTAs fit an SM (1024 rows the card at once; with
+// both of its pools in shared memory, 36,160 B, 6 CTAs an SM and a second
+// wave; with both in the scratch, 11 CTAs an SM, but each compare of two
+// packages' tuples read device memory).
 constexpr uint16_t LEAF = 0x8000;   // a ranked item's source: a leaf's symbol
+constexpr int COPY_BATCH = 8;       // words a lane copies at once
 
 // A tree's tuple-order space (shared memory): NSYM symbols, levels of at
 // most LVN items, pools of at most POOL symbols (a level's symbols grow by
-// at most NSYM a level).
+// at most NSYM a level); the pool itself (a level's tuples in order) and
+// the next level's lie beside it.
 template <int NSYM, int LVN, int POOL>
 struct TupleTree {
   uint32_t lw[NSYM];                 // the leaves' weights, by (weight, symbol)
@@ -1057,7 +1090,6 @@ struct TupleTree {
   uint16_t off[2][LVN + 1];          // a level's tuples' offsets, then the end
   uint16_t src[LVN];                 // the new level's items by rank: a leaf's
                                      // symbol | LEAF, or a package's offset
-  uint16_t pool[2][POOL];            // a level's tuples in order, the last's
 };
 
 // The first i in [lo, hi) where pred(i) is false (pred true on a prefix).
@@ -1087,10 +1119,14 @@ __device__ __forceinline__ int tuple_cmp(const uint16_t* pool, int a0, int al,
 
 // The oracle's package_merge by a warp, as the note says: code lengths of
 // at most LIMIT for the symbols with freq > 0 (a lone one gets 1) into
-// lens; freq is overwritten (with the lengths).  Starts and ends converged.
+// lens; freq is overwritten (with the lengths); pool: POOL u16 of shared
+// memory, the level's tuples; build: POOL u16 (shared memory or the row's
+// scratch), where the next level's are built before their copy into pool.
+// POOL even, both 4-byte aligned.  Starts and ends converged.
 template <int NSYM, int LVN, int POOL, int LIMIT>
 __device__ __forceinline__ void tuple_merge(uint32_t* freq, uint8_t* lens,
                                             TupleTree<NSYM, LVN, POOL>& t,
+                                            uint16_t* pool, uint16_t* build,
                                             int lane) {
   const unsigned below = (1u << lane) - 1;
   int na = 0;   // the active symbols, in symbol order (w[1], src for now)
@@ -1124,7 +1160,7 @@ __device__ __forceinline__ void tuple_merge(uint32_t* freq, uint8_t* lens,
   __syncwarp();
   for (int k = lane; k < na; k += 32) {   // level 0: the leaves
     t.w[0][k] = t.lw[k];
-    t.pool[0][k] = t.ls[k];
+    pool[k] = t.ls[k];
     t.off[0][k] = static_cast<uint16_t>(k);
   }
   if (lane == 0) t.off[0][na] = static_cast<uint16_t>(na);
@@ -1134,7 +1170,6 @@ __device__ __forceinline__ void tuple_merge(uint32_t* freq, uint8_t* lens,
     const int np = m / 2, mm = na + np, nxt = cur ^ 1;
     const uint32_t* w = t.w[cur];
     const uint16_t* off = t.off[cur];
-    const uint16_t* pool = t.pool[cur];
     auto pw = [&](int j) { return w[2 * j] + w[2 * j + 1]; };
     const int total = na + off[2 * np];   // the new level's symbols
     for (int k = lane; k < (total + 31) / 32; k += 32) t.starts[k] = 0;
@@ -1160,7 +1195,12 @@ __device__ __forceinline__ void tuple_merge(uint32_t* freq, uint8_t* lens,
         r = partition_point(llo, na, [&](int i) {
           return t.lw[i] == wk && t.ls[i] <= t0;
         });
-        int q = partition_point(0, np, [&](int i) { return pw(i) < wk; });
+        // the packages below it: those before its run of equal weight
+        // (the packages' weights do not fall), searched only where the
+        // package before it has its weight
+        int q = j;
+        if (q > 0 && pw(q - 1) == wk)
+          q = partition_point(0, q - 1, [&](int i) { return pw(i) < wk; });
         r += q;
         for (; q < np && pw(q) == wk; ++q) {
           if (q == j) continue;
@@ -1202,10 +1242,27 @@ __device__ __forceinline__ void tuple_merge(uint32_t* freq, uint8_t* lens,
       if (q < total) {
         const int r = seen + __popc(bits & ((2u << lane) - 1));
         const int v = t.src[r];
-        t.pool[nxt][q] = v & LEAF ? static_cast<uint16_t>(v & ~LEAF)
-                                  : pool[v + q - t.off[nxt][r]];
+        build[q] = v & LEAF ? static_cast<uint16_t>(v & ~LEAF)
+                            : pool[v + q - t.off[nxt][r]];
       }
       seen += __popc(bits);
+    }
+    __syncwarp();
+    // into the pool, two symbols a word, COPY_BATCH words a lane loaded
+    // at once (the scratch's round trip is one latency a batch)
+    const uint32_t* from = reinterpret_cast<const uint32_t*>(build);
+    uint32_t* to = reinterpret_cast<uint32_t*>(pool);
+    const int words = (total + 1) / 2;
+    for (int q0 = lane; q0 < words; q0 += 32 * COPY_BATCH) {
+      uint32_t v[COPY_BATCH];
+#pragma unroll
+      for (int j = 0; j < COPY_BATCH; ++j) {
+        const int q = q0 + 32 * j;
+        v[j] = q < words ? from[q] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < COPY_BATCH; ++j)
+        if (q0 + 32 * j < words) to[q0 + 32 * j] = v[j];
     }
     __syncwarp();
     m = mm;
@@ -1215,7 +1272,7 @@ __device__ __forceinline__ void tuple_merge(uint32_t* freq, uint8_t* lens,
   const int end = t.off[cur][min(2 * na - 2, m)];
   for (int s = lane; s < NSYM; s += 32) freq[s] = 0;
   __syncwarp();
-  for (int q = lane; q < end; q += 32) atomicAdd(&freq[t.pool[cur][q]], 1u);
+  for (int q = lane; q < end; q += 32) atomicAdd(&freq[pool[q]], 1u);
   __syncwarp();
   for (int s = lane; s < NSYM; s += 32)
     lens[s] = static_cast<uint8_t>(freq[s]);
@@ -1299,8 +1356,13 @@ constexpr int DIST_LV = 64;        // distance levels' (30 + 29)
 constexpr int CL_LV = 40;          // code-length levels' (19 + 18)
 constexpr int HDR_WORDS = 144;     // a dynamic header's bits, at most 4,498
 
+// A tables CTA's shared memory.  TUPLE: the rule's order; COUNTED: the
+// histograms come from the row's record (deflate_hist_kernel's counts),
+// as Counted<> says: the device rule's rows and rows past lz4s::STAGE_MAX
+// bytes.
 struct TableShared {   // the C++ rule's (std::sort on the weight)
   static constexpr bool TUPLE = false;
+  static constexpr bool COUNTED = false;
   uint32_t lfreq[288];
   uint32_t dfreq[32];
   uint32_t clfreq[20];
@@ -1320,16 +1382,26 @@ struct TableShared {   // the C++ rule's (std::sort on the weight)
   uint32_t hdr[HDR_WORDS];         // the header's bits
 };
 
+// u16 a pool of each tree (even: the pools are copied a word at a time)
+constexpr int LIT_POOL = 15 * 286;
+constexpr int DIST_POOL = 15 * 30;
+constexpr int CL_POOL = 7 * 19 + 1;
+static_assert(LIT_POOL * 2 <= REC_CODES, "its next level fits the scratch");
+
 struct TupleShared {   // the device rule's (the tuple order)
   static constexpr bool TUPLE = true;
+  static constexpr bool COUNTED = false;
   uint32_t lfreq[288];
   uint32_t dfreq[32];
   uint32_t clfreq[20];
   uint16_t codes[320];
   uint8_t lens[320];               // literal/length 0..287, distance at 288..
-  TupleTree<286, LIT_LV, 15 * 286> lit;
-  TupleTree<30, DIST_LV, 15 * 30> dist;
-  TupleTree<19, CL_LV, 7 * 19> cl;
+  TupleTree<286, LIT_LV, LIT_POOL> lit;   // its next level in the scratch
+  TupleTree<30, DIST_LV, DIST_POOL> dist;
+  TupleTree<19, CL_LV, CL_POOL> cl;
+  alignas(4) uint16_t lpool[LIT_POOL];
+  alignas(4) uint16_t dpool[2 * DIST_POOL];   // the pool, then the next's
+  alignas(4) uint16_t clpool[2 * CL_POOL];
   uint16_t runs[320];              // the run starts of the length sequence
   uint8_t clsym[320];
   uint8_t clextra[320];
@@ -1337,6 +1409,11 @@ struct TupleShared {   // the device rule's (the tuple order)
   uint16_t clcode[20];
   int cnt[2][16], next[2][16];     // canon_codes' of each warp
   uint32_t hdr[HDR_WORDS];         // the header's bits
+};
+
+template <class Shared>
+struct Counted : Shared {
+  static constexpr bool COUNTED = true;
 };
 
 // OR the low `bits` bits of v (bits <= 32) into words at bit pos
@@ -1399,7 +1476,8 @@ __device__ __forceinline__ int dynamic_header(Shared& sh, uint8_t* dst,
   }
   __syncwarp();
   if constexpr (Shared::TUPLE)
-    tuple_merge<19, CL_LV, 7 * 19, 7>(sh.clfreq, sh.cllen, sh.cl, lane);
+    tuple_merge<19, CL_LV, CL_POOL, 7>(sh.clfreq, sh.cllen, sh.cl, sh.clpool,
+                                       sh.clpool + CL_POOL, lane);
   else
     package_merge<19, CL_LV, 7>(sh.clfreq, sh.cllen, sh.cl, sh.cllv, lane);
   one_code(sh.cllen, 19, lane);
@@ -1443,9 +1521,12 @@ __device__ __forceinline__ int dynamic_header(Shared& sh, uint8_t* dst,
 
 // The tables of a block of two warps a row, package-merge's levels in the
 // C++ rule's order (std::sort on the weight; Shared TableShared) or in the
-// device rule's (the tuple order, its levels all in shared memory;
-// TupleShared).  The rule is picked by `if constexpr` on Shared::TUPLE, so
-// the C++ rule's instance keeps its SASS.
+// device rule's (the tuple order, the literal/length tree's next level
+// built in the row's scratch; TupleShared); the histograms counted here,
+// or (Counted<>) read from the row's record, where deflate_hist_kernel
+// counted them.  The rule and the counts are picked by `if constexpr` on
+// Shared::TUPLE and Shared::COUNTED, so the C++ rule's row instance keeps
+// its SASS.
 template <class Shared>
 __global__ void __launch_bounds__(TABLE_THREADS)
 deflate_tables_kernel(const int32_t* __restrict__ tokens,
@@ -1481,38 +1562,53 @@ deflate_tables_kernel(const int32_t* __restrict__ tokens,
       }
     }
   } else {
-    // the histograms: HIST_BATCH tokens a thread loaded at once, then
-    // counted by shared-memory atomics
-    const int32_t* tok = tokens + static_cast<size_t>(row) * n;
-    const int nt = ntok[row];
-    for (int t0 = 0; t0 < nt; t0 += TABLE_THREADS * HIST_BATCH) {
-      int v[HIST_BATCH];
-#pragma unroll
-      for (int j = 0; j < HIST_BATCH; ++j) {
-        const int t = t0 + j * TABLE_THREADS + tid;
-        v[j] = t < nt ? tok[t] : -1;   // a token is never negative
+    if constexpr (Shared::COUNTED) {
+      const uint32_t* f = reinterpret_cast<const uint32_t*>(rec + REC_FREQ);
+      for (int k = tid; k < 320; k += TABLE_THREADS) {
+        if (k < 288)
+          sh.lfreq[k] = f[k];
+        else
+          sh.dfreq[k - 288] = f[k];
       }
+    } else {
+      // the histograms: HIST_BATCH tokens a thread loaded at once, then
+      // counted by shared-memory atomics
+      const int32_t* tok = tokens + static_cast<size_t>(row) * n;
+      const int nt = ntok[row];
+      for (int t0 = 0; t0 < nt; t0 += TABLE_THREADS * HIST_BATCH) {
+        int v[HIST_BATCH];
 #pragma unroll
-      for (int j = 0; j < HIST_BATCH; ++j) {
-        if (v[j] < 0) continue;
-        if (v[j] < 256) {
-          atomicAdd(&sh.lfreq[v[j]], 1u);
-        } else {
-          atomicAdd(&sh.lfreq[257 + len_code(v[j] >> 16)], 1u);
-          atomicAdd(&sh.dfreq[dist_code(v[j] & 0xFFFF)], 1u);
+        for (int j = 0; j < HIST_BATCH; ++j) {
+          const int t = t0 + j * TABLE_THREADS + tid;
+          v[j] = t < nt ? tok[t] : -1;   // a token is never negative
+        }
+#pragma unroll
+        for (int j = 0; j < HIST_BATCH; ++j) {
+          if (v[j] < 0) continue;
+          if (v[j] < 256) {
+            atomicAdd(&sh.lfreq[v[j]], 1u);
+          } else {
+            atomicAdd(&sh.lfreq[257 + len_code(v[j] >> 16)], 1u);
+            atomicAdd(&sh.dfreq[dist_code(v[j] & 0xFFFF)], 1u);
+          }
         }
       }
     }
     __syncthreads();
     if (tid == 0) sh.lfreq[256] = 1;   // EOB
     __syncthreads();
-    // the two trees side by side; the literal levels' orders in the row's
-    // scratch, the distance levels' in shared memory
+    // the two trees side by side; the literal tree's levels' orders (or
+    // next levels) in the row's scratch, the distance tree's in shared
+    // memory
     if constexpr (Shared::TUPLE) {
       if (warp == 0)
-        tuple_merge<286, LIT_LV, 15 * 286, 15>(sh.lfreq, llen, sh.lit, lane);
+        tuple_merge<286, LIT_LV, LIT_POOL, 15>(
+            sh.lfreq, llen, sh.lit, sh.lpool,
+            reinterpret_cast<uint16_t*>(rec), lane);
       else
-        tuple_merge<30, DIST_LV, 15 * 30, 15>(sh.dfreq, dlen, sh.dist, lane);
+        tuple_merge<30, DIST_LV, DIST_POOL, 15>(sh.dfreq, dlen, sh.dist,
+                                                sh.dpool,
+                                                sh.dpool + DIST_POOL, lane);
     } else {
       if (warp == 0)
         package_merge<286, LIT_LV, 15>(sh.lfreq, llen, sh.lit,
@@ -1614,6 +1710,272 @@ deflate_emit_kernel(const int32_t* __restrict__ tokens,
     const int bytes = (base - skip + lens[256] + 7) / 8;
     clens[row] = bytes <= cap ? bytes : -1;
   }
+}
+
+// ---------------------------------------------------------------- tiles
+// The histograms of the device rule's rows and of rows past
+// lz4s::STAGE_MAX bytes, and the bits of the latter (one 8 MiB zlib row is
+// 1.8 M tokens): a row's tokens cut into tiles of TOKEN_TILE, a CTA a
+// tile, so that one row fills the card.  Launches over B x tiles CTAs
+// (tiles = ceil(n / TOKEN_TILE), the most a row can hold); a tile past
+// its row's tokens exits at once.
+
+// A tile's row, its first token and its tokens; false past the row's.
+__device__ __forceinline__ bool token_tile(const int32_t* ntok, int tiles,
+                                           int& row, int& from, int& count) {
+  row = blockIdx.x / tiles;
+  from = (blockIdx.x - row * tiles) * TOKEN_TILE;
+  count = min(TOKEN_TILE, ntok[row] - from);
+  return count > 0;
+}
+
+// The histograms of a tile: each warp counts into its own copy in shared
+// memory (the hot bins of a text contend within a warp, not across them),
+// then the copies' sums go once into the row's counts in its record
+// (REC_FREQ, zeroed by the caller; literal/length 0..287, distance at
+// 288..).
+__global__ void __launch_bounds__(TILE_THREADS)
+deflate_hist_kernel(const int32_t* __restrict__ tokens,
+                    const int32_t* __restrict__ ntok, int n, int tiles,
+                    uint8_t* __restrict__ scratch) {
+  __shared__ uint32_t hist[TILE_THREADS / 32][320];
+  int row, from, count;
+  if (!token_tile(ntok, tiles, row, from, count)) return;
+  const int tid = threadIdx.x;
+  uint32_t* h = hist[tid >> 5];
+  for (int k = tid; k < (TILE_THREADS / 32) * 320; k += TILE_THREADS)
+    (&hist[0][0])[k] = 0;
+  const int32_t* tok = tokens + static_cast<size_t>(row) * n + from;
+  int v[TILE_RUN];
+#pragma unroll
+  for (int j = 0; j < TILE_RUN; ++j) {
+    const int t = j * TILE_THREADS + tid;
+    v[j] = t < count ? tok[t] : -1;   // a token is never negative
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < TILE_RUN; ++j) {
+    if (v[j] < 0) continue;
+    if (v[j] < 256) {
+      atomicAdd(&h[v[j]], 1u);
+    } else {
+      atomicAdd(&h[257 + len_code(v[j] >> 16)], 1u);
+      atomicAdd(&h[288 + dist_code(v[j] & 0xFFFF)], 1u);
+    }
+  }
+  __syncthreads();
+  uint32_t* freq = reinterpret_cast<uint32_t*>(
+      scratch + static_cast<size_t>(row) * SCRATCH_BYTES + REC_FREQ);
+  for (int k = tid; k < 320; k += TILE_THREADS) {
+    uint32_t sum = 0;
+#pragma unroll
+    for (int w = 0; w < TILE_THREADS / 32; ++w) sum += hist[w][k];
+    if (sum) atomicAdd(freq + k, sum);
+  }
+}
+
+// A token's fields from the row's codes and lengths (in shared memory):
+// (f1, n1) the literal or the length code with its extra bits, (f2, n2)
+// the distance's (n2 0 for a literal).
+__device__ __forceinline__ void token_fields(int v, const uint16_t* codes,
+                                             const uint8_t* lens,
+                                             uint32_t& f1, int& n1,
+                                             uint32_t& f2, int& n2) {
+  if (v < 256) {
+    f1 = codes[v];
+    n1 = lens[v];
+    f2 = 0;
+    n2 = 0;
+  } else {
+    const int l = v >> 16, d = v & 0xFFFF;
+    const int lc = len_code(l), dc = dist_code(d);
+    const int ll = lens[257 + lc], dl = lens[288 + dc];
+    f1 = codes[257 + lc] | static_cast<uint32_t>(l - kLenBase[lc]) << ll;
+    n1 = ll + kLenEb[lc];
+    f2 = codes[288 + dc] | static_cast<uint32_t>(d - kDistBase[dc]) << dl;
+    n2 = dl + kDistEb[dc];
+  }
+}
+
+// Exclusive sum of v over the block (TILE_THREADS threads); total gets the
+// whole.  warp_sums: TILE_THREADS / 32 ints of shared memory.  Ends with a
+// barrier.
+__device__ __forceinline__ int tile_scan(int v, int* warp_sums, int& total) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int k = 0; k < TILE_THREADS / 32; ++k) {
+    before += k < warp ? warp_sums[k] : 0;
+    total += warp_sums[k];
+  }
+  __syncthreads();
+  return before + incl - v;
+}
+
+// The row's codes and lengths from its record into shared memory.
+__device__ __forceinline__ void load_codes(const uint8_t* rec,
+                                           uint16_t* codes, uint8_t* lens) {
+  for (int k = threadIdx.x; k < 320; k += TILE_THREADS) {
+    codes[k] = reinterpret_cast<const uint16_t*>(rec + REC_CODES)[k];
+    lens[k] = rec[REC_LENS + k];
+  }
+  __syncthreads();
+}
+
+// Each tile's bits: thread t takes tokens t * TILE_RUN .. + TILE_RUN of
+// the tile; the sum into firsts[row * tiles + tile].
+__global__ void __launch_bounds__(TILE_THREADS)
+deflate_emit_sums_kernel(const int32_t* __restrict__ tokens,
+                         const int32_t* __restrict__ ntok, int n, int tiles,
+                         const uint8_t* __restrict__ scratch,
+                         int* __restrict__ firsts) {
+  __shared__ uint16_t codes[320];
+  __shared__ uint8_t lens[320];
+  __shared__ int warp_sums[TILE_THREADS / 32];
+  int row, from, count;
+  if (!token_tile(ntok, tiles, row, from, count)) return;
+  load_codes(scratch + static_cast<size_t>(row) * SCRATCH_BYTES, codes, lens);
+  const int32_t* tok = tokens + static_cast<size_t>(row) * n + from;
+  const int t0 = threadIdx.x * TILE_RUN;
+  int bits = 0;
+#pragma unroll
+  for (int j = 0; j < TILE_RUN; ++j) {
+    if (t0 + j < count) {
+      uint32_t f1, f2;
+      int n1, n2;
+      token_fields(tok[t0 + j], codes, lens, f1, n1, f2, n2);
+      bits += n1 + n2;
+    }
+  }
+  int total;
+  tile_scan(bits, warp_sums, total);
+  if (threadIdx.x == 0) firsts[blockIdx.x] = total;
+}
+
+// A row's stream from the aligned word that holds its first byte: the
+// words, their count, and the bit its header starts at.
+struct RowWords {
+  uint32_t* words;
+  int nwords, skip;
+  __device__ __forceinline__ RowWords(uint8_t* comp, int row, int pitch,
+                                      int cap) {
+    const uintptr_t at =
+        reinterpret_cast<uintptr_t>(comp + static_cast<size_t>(row) * pitch);
+    words = reinterpret_cast<uint32_t*>(at & ~uintptr_t{3});
+    skip = static_cast<int>(at & 3) * 8;
+    nwords = (skip / 8 + cap + 3) / 4;
+  }
+};
+
+// A row's tile offsets, a block a row: the tiles' bits (firsts, from the
+// sums kernel) become each tile's first bit, from the header's end on; then
+// the EOB and the row's length in bytes (-1 past cap).
+__global__ void __launch_bounds__(SCAN_THREADS)
+deflate_emit_scan_kernel(const int32_t* __restrict__ ntok, int tiles,
+                         uint8_t* __restrict__ comp, int pitch, int cap,
+                         int32_t* __restrict__ clens,
+                         const uint8_t* __restrict__ scratch,
+                         int* __restrict__ firsts) {
+  static_assert(SCAN_THREADS == TILE_THREADS, "tile_scan's block");
+  __shared__ int warp_sums[SCAN_THREADS / 32];
+  const int row = blockIdx.x;
+  const RowWords out(comp, row, pitch, cap);
+  const uint8_t* rec = scratch + static_cast<size_t>(row) * SCRATCH_BYTES;
+  const int nt = ntok[row];
+  const int used = (nt + TOKEN_TILE - 1) / TOKEN_TILE;
+  int* f = firsts + static_cast<size_t>(row) * tiles;
+  int base = out.skip + *reinterpret_cast<const int32_t*>(rec + REC_HBITS);
+  for (int k0 = 0; k0 < used; k0 += SCAN_THREADS) {
+    const int k = k0 + threadIdx.x;
+    const int bits = k < used ? f[k] : 0;
+    int total;
+    const int before = tile_scan(bits, warp_sums, total);
+    if (k < used) f[k] = base + before;
+    base += total;
+  }
+  if (threadIdx.x == 0) {
+    const uint16_t eob =
+        reinterpret_cast<const uint16_t*>(rec + REC_CODES)[256];
+    const int eob_bits = rec[REC_LENS + 256];
+    put(out.words, out.nwords, base, eob, eob_bits);
+    const int bytes = (base - out.skip + eob_bits + 7) / 8;
+    clens[row] = bytes <= cap ? bytes : -1;
+  }
+}
+
+// Each tile's fields at its first bit: thread t's run of TILE_RUN tokens
+// at its offset (a block scan of the runs' bits), its fields gathered in a
+// 64-bit register and written a word at a time: the first word it touches
+// and its last partial word by atomicOr (they may hold a neighbour's
+// bits), the words between by a store.
+__global__ void __launch_bounds__(TILE_THREADS)
+deflate_emit_tiles_kernel(const int32_t* __restrict__ tokens,
+                          const int32_t* __restrict__ ntok, int n, int tiles,
+                          uint8_t* __restrict__ comp, int pitch, int cap,
+                          const uint8_t* __restrict__ scratch,
+                          const int* __restrict__ firsts) {
+  __shared__ uint16_t codes[320];
+  __shared__ uint8_t lens[320];
+  __shared__ int warp_sums[TILE_THREADS / 32];
+  int row, from, count;
+  if (!token_tile(ntok, tiles, row, from, count)) return;
+  load_codes(scratch + static_cast<size_t>(row) * SCRATCH_BYTES, codes, lens);
+  const RowWords out(comp, row, pitch, cap);
+  const int32_t* tok = tokens + static_cast<size_t>(row) * n + from;
+  const int t0 = threadIdx.x * TILE_RUN;
+  int v[TILE_RUN];
+  int bits = 0;
+#pragma unroll
+  for (int j = 0; j < TILE_RUN; ++j) {
+    v[j] = t0 + j < count ? tok[t0 + j] : -1;
+    if (v[j] >= 0) {
+      uint32_t f1, f2;
+      int n1, n2;
+      token_fields(v[j], codes, lens, f1, n1, f2, n2);
+      bits += n1 + n2;
+    }
+  }
+  int total;
+  const int pos = firsts[blockIdx.x] + tile_scan(bits, warp_sums, total);
+  if (bits == 0) return;
+  int w = pos >> 5, fill = pos & 31;
+  unsigned long long acc = 0;
+  bool first = true;
+  auto field = [&](uint32_t f, int nb) {
+    acc |= static_cast<unsigned long long>(f) << fill;
+    fill += nb;
+    if (fill >= 32) {
+      if (w < out.nwords) {
+        if (first)
+          atomicOr(out.words + w, static_cast<uint32_t>(acc));
+        else
+          out.words[w] = static_cast<uint32_t>(acc);
+      }
+      first = false;
+      acc >>= 32;
+      fill -= 32;
+      ++w;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < TILE_RUN; ++j) {
+    if (v[j] < 0) continue;
+    uint32_t f1, f2;
+    int n1, n2;
+    token_fields(v[j], codes, lens, f1, n1, f2, n2);
+    field(f1, n1);
+    field(f2, n2);
+  }
+  if (fill && w < out.nwords)
+    atomicOr(out.words + w, static_cast<uint32_t>(acc));
 }
 
 // Stored blocks (deflate_impl's mode 2): [BFINAL][LEN][NLEN][bytes] each.
@@ -1828,30 +2190,93 @@ extern "C" int tpz_deflate_parse_greedy(const void* blocks,
 
 namespace {
 
+// The tile CTAs of B rows of n tokens (B x ceil(n / TOKEN_TILE)), or -1
+// past a grid's reach.
+long long token_tiles(int B, int n) {
+  const long long grid =
+      static_cast<long long>(B) * ((n + TOKEN_TILE - 1) / TOKEN_TILE);
+  return grid > 0x7FFFFFFF ? -1 : grid;
+}
+
 // The tables kernel in the order of the rule whose shared memory is Shared,
-// then the emit kernel, on `stream`.
+// then the emit, on `stream`.  The histograms: counted by the tables
+// kernel itself on the C++ rule's rows of at most lz4s::STAGE_MAX bytes,
+// else (the device rule, wider rows) by tiles (the counts zeroed, the
+// tiled histograms in mode 0, then the tables kernel reading them,
+// Counted<Shared>).  The bits: rows of at most lz4s::STAGE_MAX bytes by
+// the row emit kernel (a block a row), wider ones by tiles: each tile's
+// bits, each row's tile offsets with its EOB and length, each tile's
+// fields.
 template <class Shared>
 int launch_emit(const void* tokens, const void* ntok, int B, int n, int mode,
                 void* comp, int pitch, void* clens, void* scratch,
                 cudaStream_t s) {
-  deflate_tables_kernel<Shared><<<B, TABLE_THREADS, 0, s>>>(
-      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
-      n, mode, static_cast<uint8_t*>(comp), pitch,
-      static_cast<uint8_t*>(scratch));
-  const cudaError_t err = cudaGetLastError();
+  const int32_t* tok = static_cast<const int32_t*>(tokens);
+  const int32_t* nt = static_cast<const int32_t*>(ntok);
+  uint8_t* out = static_cast<uint8_t*>(comp);
+  uint8_t* rec = static_cast<uint8_t*>(scratch);
+  const int cap = 2 * n + 4096;
+  const bool wide = n > lz4s::STAGE_MAX;
+  const long long grid = token_tiles(B, n);
+  if (grid < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (n + TOKEN_TILE - 1) / TOKEN_TILE;
+  cudaError_t err;
+  if (Shared::TUPLE || wide) {
+    if (mode == 0) {
+      err = cudaMemset2DAsync(rec + REC_FREQ, SCRATCH_BYTES, 0,
+                              320 * sizeof(uint32_t), B, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (grid > 0)
+        deflate_hist_kernel<<<static_cast<unsigned>(grid), TILE_THREADS, 0,
+                              s>>>(tok, nt, n, tiles, rec);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    deflate_tables_kernel<Counted<Shared>><<<B, TABLE_THREADS, 0, s>>>(
+        tok, nt, n, mode, out, pitch, rec);
+  } else if constexpr (!Shared::TUPLE) {
+    deflate_tables_kernel<Shared><<<B, TABLE_THREADS, 0, s>>>(
+        tok, nt, n, mode, out, pitch, rec);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  deflate_emit_kernel<<<B, EMIT_THREADS, 0, s>>>(
-      static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
-      n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
-      static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
+  if (!wide) {
+    deflate_emit_kernel<<<B, EMIT_THREADS, 0, s>>>(
+        tok, nt, n, out, pitch, cap, static_cast<int32_t*>(clens), rec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int* firsts = reinterpret_cast<int*>(
+      rec + static_cast<size_t>(B) * SCRATCH_BYTES);
+  deflate_emit_sums_kernel<<<static_cast<unsigned>(grid), TILE_THREADS, 0,
+                             s>>>(tok, nt, n, tiles, rec, firsts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deflate_emit_scan_kernel<<<B, SCAN_THREADS, 0, s>>>(
+      nt, tiles, out, pitch, cap, static_cast<int32_t*>(clens), rec, firsts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deflate_emit_tiles_kernel<<<static_cast<unsigned>(grid), TILE_THREADS, 0,
+                              s>>>(tok, nt, n, tiles, out, pitch, cap, rec,
+                                   firsts);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Bytes of tpz_deflate_emit's and tpz_deflate_emit_tuple's scratch for B
+// rows of n bytes: SCRATCH_BYTES a row, and past lz4s::STAGE_MAX bytes an
+// int a tile of TOKEN_TILE tokens.
+extern "C" long long tpz_deflate_emit_scratch(int B, int n) {
+  const long long rows = static_cast<long long>(B) * SCRATCH_BYTES;
+  if (n <= lz4s::STAGE_MAX) return rows;
+  return rows + static_cast<long long>(B) *
+                    ((n + TOKEN_TILE - 1) / TOKEN_TILE) * sizeof(int);
+}
+
 // Mode 0 (dynamic) or 1 (fixed): tokens (B, n) i32 and ntok (B,) i32 from
-// tpz_deflate_parse in, scratch SCRATCH_BYTES a row; the tables kernel,
-// then the emit kernel.  Mode 2 (stored): blocks (B, n) u8 and lengths
+// tpz_deflate_parse in, scratch of tpz_deflate_emit_scratch bytes; the
+// tables kernel, then the emit (by rows, or by tiles past lz4s::STAGE_MAX
+// bytes: launch_emit).  Mode 2 (stored): blocks (B, n) u8 and lengths
 // (B,) i32 in, the stored kernel alone.  comp (B, pitch) u8, zeroed by the
 // caller (pitch at least 2n + 4096), and clens (B,) i32 out (-1 past
 // 2n + 4096).  Returns cudaGetLastError().
@@ -1867,8 +2292,8 @@ extern "C" int tpz_deflate_emit(const void* blocks, const void* lengths,
         static_cast<uint8_t*>(comp), pitch, static_cast<int32_t*>(clens));
     return static_cast<int>(cudaGetLastError());
   }
-  return launch_emit<TableShared>(tokens, ntok, B, n, mode, comp, pitch, clens,
-                            scratch, s);
+  return launch_emit<TableShared>(tokens, ntok, B, n, mode, comp, pitch,
+                                  clens, scratch, s);
 }
 
 // tpz_deflate_emit in mode 0 (dynamic) with the tables in tpuzip's device

@@ -76,11 +76,14 @@ The plain versions: the links by one stable sort of each row's hashes;
 best at every position, chain link by chain link over the positions still
 walking, each match length a common prefix by doubling over ranks of the
 row's substrings (kernels/lz4_chain.py's); then the lazy (or greedy)
-parse, the tables and the bits of each row one after another.
+parse a Python step a token, and the tables and bits of each row one
+after another, each row's histograms and fields by torch ops over its
+tokens.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 
 import torch
@@ -106,6 +109,7 @@ STORED_MAX = 65535    # bytes of a stored block, at most
 STAGE_MAX = 1 << 16   # bytes of a row the shared links kernel takes
 LINK_TILE = 1 << 15   # positions a tile of the tiled links
 PARSE_SEG = 2048      # positions a segment of the device rule's parse
+TOKEN_TILE = 4096     # tokens a tile of the tiled histograms and emit
 THRESHOLD = 16        # libstdc++'s _S_threshold
 PKG = 1 << 10         # package-merge node ids: a leaf s, or PKG + package
 MATCH_SHIFT = 16      # a match token: length << 16 | distance
@@ -115,6 +119,9 @@ LEN_BASE = [b for _, b in LENGTH_TABLE]
 LEN_EXTRA = [e for e, _ in LENGTH_TABLE]
 DIST_BASE = [b for _, b in DIST_TABLE]
 DIST_EXTRA = [e for e, _ in DIST_TABLE]
+_LEN_BASE, _LEN_EXTRA, _DIST_BASE, _DIST_EXTRA = (
+    torch.tensor(t, dtype=torch.int64)
+    for t in (LEN_BASE, LEN_EXTRA, DIST_BASE, DIST_EXTRA))
 
 
 # ---------------------------------------------------------------- std::sort
@@ -317,21 +324,48 @@ def tuple_package_merge(freq: list, maxbits: int) -> list:
     return [got.get(s, 0) for s in range(len(freq))]
 
 
-def block_tables(tokens: list, mode: int, order: str = "std"):
-    """A dynamic or fixed block's tables from its tokens: (literal/length
-    lengths, distance lengths, header fields as (value, bits) pairs).
+def _token_tensor(tokens) -> torch.Tensor:
+    """A row's tokens (a list or a tensor) as a 1-D int64 CPU tensor."""
+    return torch.as_tensor(tokens, dtype=torch.int64).reshape(-1).cpu()
+
+
+def _token_codes(tok: torch.Tensor):
+    """(literal, length code, distance code) of each token of an int64
+    tensor: the literal mask, and each match's codes (0 at literals), by
+    one sorted search each (len_code, dist_code)."""
+    lit = tok < 256
+    lc = torch.searchsorted(_LEN_BASE, tok >> MATCH_SHIFT, right=True) - 1
+    dc = torch.searchsorted(_DIST_BASE, tok & 0xFFFF, right=True) - 1
+    return lit, torch.where(lit, 0, lc), torch.where(lit, 0, dc)
+
+
+def block_tables(tokens, mode: int, order: str = "std"):
+    """A dynamic or fixed block's tables from its tokens (a list or a
+    tensor): (literal/length lengths, distance lengths, header fields as
+    (value, bits) pairs).
     order "std" takes package_merge (the C++ rule), "tuple" the oracle's
     (tpuzip's device rule) for the three trees; the rest is one rule."""
     if mode == 1:
         return fixed_lit_lengths(), fixed_dist_lengths(), [(1, 1), (1, 2)]
+    return freq_tables(*token_histograms(tokens), order)
+
+
+def token_histograms(tokens):
+    """(literal/length counts (286), distance counts (30)) of a row's
+    tokens (a list or a tensor), EOB not counted."""
+    tok = _token_tensor(tokens)
+    lit, lc, dc = _token_codes(tok)
+    lfreq = torch.bincount(torch.where(lit, tok, 257 + lc),
+                           minlength=286).tolist()
+    return lfreq, torch.bincount(dc[~lit], minlength=30).tolist()
+
+
+def freq_tables(lfreq: list, dfreq: list, order: str = "std"):
+    """A dynamic block's tables (block_tables) from its histograms (EOB
+    counted once whatever lfreq[256] holds)."""
     merge = {"std": package_merge, "tuple": tuple_package_merge}[order]
-    lfreq, dfreq = [0] * 286, [0] * 30
-    for t in tokens:
-        if t < 256:
-            lfreq[t] += 1
-        else:
-            lfreq[257 + len_code(t >> MATCH_SHIFT)] += 1
-            dfreq[dist_code(t & 0xFFFF)] += 1
+    lfreq = list(lfreq[:286])
+    dfreq = list(dfreq[:30])
     lfreq[256] = 1
     llen = merge(lfreq, 15)
     dlen = merge(dfreq, 15)
@@ -365,28 +399,33 @@ def block_tables(tokens: list, mode: int, order: str = "std"):
 
 def len_code(length: int) -> int:
     """The length code 0..28 of a match length 3..258."""
-    return max(i for i, b in enumerate(LEN_BASE) if length >= b)
+    return bisect.bisect_right(LEN_BASE, length) - 1
 
 
 def dist_code(dist: int) -> int:
     """The distance code 0..29 of a distance 1..32768."""
-    return max(i for i, b in enumerate(DIST_BASE) if dist >= b)
+    return bisect.bisect_right(DIST_BASE, dist) - 1
 
 
 def _pack_fields(values: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
-    """The bytes of (value, bits) fields written LSB-first one after
-    another, the last byte zero-filled."""
-    b = torch.arange(32, dtype=torch.int64)
-    bits = (values[:, None] >> b) & 1
-    bits = bits[b[None, :] < nbits[:, None]]
-    bits = F.pad(bits, (0, -len(bits) % 8)).reshape(-1, 8)
-    return (bits << torch.arange(8)).sum(1).to(torch.uint8)
+    """The bytes of (value, bits) fields (int64 tensors, bits <= 32, each
+    value below 2^bits) written LSB-first one after another, the last byte
+    zero-filled: each field added into the 32-bit words it spans at its
+    bit offset (the fields' bits are disjoint, so a sum is an OR)."""
+    end = torch.cumsum(nbits, 0)
+    total = int(end[-1]) if len(end) else 0
+    pos = end - nbits
+    shifted = values << (pos & 31)        # below 2^63
+    words = torch.zeros(total // 32 + 2, dtype=torch.int64)
+    words.index_add_(0, pos >> 5, shifted & 0xFFFFFFFF)
+    words.index_add_(0, (pos >> 5) + 1, shifted >> 32)
+    out = (words[:, None] >> torch.arange(0, 32, 8)) & 0xFF
+    return out.reshape(-1)[: (total + 7) // 8].to(torch.uint8)
 
 
-def _emit_row(row: bytes, tokens: list, mode: int,
-              order: str = "std") -> bytes:
-    """One block's stream (deflate_impl, final_flag 1), its tables in
-    `order` (block_tables)."""
+def _emit_row(row: bytes, tokens, mode: int, order: str = "std") -> bytes:
+    """One block's stream (deflate_impl, final_flag 1) from its tokens (a
+    list or a tensor), its tables in `order` (block_tables)."""
     if mode == 2:
         out, i = bytearray(), 0
         while True:
@@ -398,22 +437,37 @@ def _emit_row(row: bytes, tokens: list, mode: int,
             i += take
             if last:
                 return bytes(out)
-    llen, dlen, head = block_tables(tokens, mode, order)
-    lcode, dcode = _reversed_codes(llen), _reversed_codes(dlen)
-    fields = list(head)
-    for t in tokens:
-        if t < 256:
-            fields.append((lcode[t], llen[t]))
-            continue
-        ln, d = t >> MATCH_SHIFT, t & 0xFFFF
-        lc, dc = len_code(ln), dist_code(d)
-        fields.append((lcode[257 + lc] | (ln - LEN_BASE[lc]) << llen[257 + lc],
-                       llen[257 + lc] + LEN_EXTRA[lc]))
-        fields.append((dcode[dc] | (d - DIST_BASE[dc]) << dlen[dc],
-                       dlen[dc] + DIST_EXTRA[dc]))
-    fields.append((lcode[256], llen[256]))
-    vals, bits = torch.tensor(fields, dtype=torch.int64).T
+    tok = _token_tensor(tokens)
+    llen, dlen, head = block_tables(tok, mode, order)
+    lv, lb, dv, db = token_fields(tok, llen, dlen)
+    hv, hb = (torch.tensor([f[k] for f in head], dtype=torch.int64)
+              for k in (0, 1))
+    vals = torch.cat([hv, torch.stack([lv, dv], 1).reshape(-1),
+                      torch.tensor(_reversed_codes(llen)[256:257])])
+    bits = torch.cat([hb, torch.stack([lb, db], 1).reshape(-1),
+                      torch.tensor(llen[256:257])])
     return _pack_fields(vals, bits).numpy().tobytes()
+
+
+def token_fields(tokens, llen: list, dlen: list):
+    """Each token's two fields under the code lengths llen and dlen, as
+    int64 tensors (value, bits, value, bits): the literal or the length
+    code with its extra bits, then the distance code with its extra bits
+    (0 bits at a literal)."""
+    tok = _token_tensor(tokens)
+    lcode = torch.tensor(_reversed_codes(llen), dtype=torch.int64)
+    dcode = torch.tensor(_reversed_codes(dlen), dtype=torch.int64)
+    ll = torch.tensor(llen, dtype=torch.int64)
+    dl = torch.tensor(dlen, dtype=torch.int64)
+    lit, lc, dc = _token_codes(tok)
+    sym = torch.where(lit, tok, 257 + lc)
+    lv = lcode[sym] | torch.where(
+        lit, 0, (tok >> MATCH_SHIFT) - _LEN_BASE[lc]) << ll[sym]
+    lb = ll[sym] + torch.where(lit, 0, _LEN_EXTRA[lc])
+    dv = torch.where(lit, 0, dcode[dc] | ((tok & 0xFFFF) - _DIST_BASE[dc])
+                     << dl[dc])
+    db = torch.where(lit, 0, dl[dc] + _DIST_EXTRA[dc])
+    return lv, lb, dv, db
 
 
 # ---------------------------------------------------------------- plain
@@ -520,11 +574,12 @@ def deflate_emit_plain(blocks: torch.Tensor, lengths: torch.Tensor,
     comp = torch.zeros((b, encode_cap(n)), dtype=torch.uint8)
     clens = torch.zeros(b, dtype=torch.int32)
     lens = lengths.tolist()
-    toks = tokens.tolist() if mode != 2 else [[]] * b
+    toks = (tokens.cpu() if mode != 2
+            else torch.zeros((b, 0), dtype=torch.int32))
     counts = ntok.tolist() if mode != 2 else [0] * b
-    for r, (row, ln) in enumerate(zip(blocks.tolist(), lens)):
+    for r, (row, ln) in enumerate(zip(blocks.cpu().numpy(), lens)):
         ln = min(max(ln, 0), n)
-        s = _emit_row(bytes(row[:ln]), toks[r][: counts[r]], mode, order)
+        s = _emit_row(row[:ln].tobytes(), toks[r, : counts[r]], mode, order)
         comp[r, : len(s)] = torch.frombuffer(bytearray(s), dtype=torch.uint8)
         clens[r] = len(s)
     return comp.to(blocks.device), clens.to(blocks.device)
@@ -707,7 +762,8 @@ def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
 def _lib(name: str):
     """The typed C entry point tpz_<name> of csrc/deflate_encode.cu
     (links_shared, links_tiled, links_tiled_scratch, parse, parse_greedy,
-    parse_scratch, emit, emit_tuple) or csrc/inflate.cu (inflate)."""
+    parse_scratch, emit, emit_tuple, emit_scratch) or csrc/inflate.cu
+    (inflate)."""
     source = "inflate" if name == "inflate" else "deflate_encode"
     fn = getattr(_build.load(source), f"tpz_{name}" if name == "inflate"
                  else f"tpz_deflate_{name}")
@@ -722,6 +778,7 @@ def _lib(name: str):
             "parse_scratch": [ci, ci],
             "emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp],
             "emit_tuple": [vp, vp, ci, ci, vp, ci, vp, vp, vp],
+            "emit_scratch": [ci, ci],
             "inflate": [vp, vp, ci, ci, vp, ci, vp, vp]}[name]
         fn.restype = ctypes.c_longlong if name.endswith("scratch") else ci
     return fn
@@ -905,9 +962,11 @@ def deflate_emit(blocks: torch.Tensor, lengths: torch.Tensor,
     i32).
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/deflate_encode.cu's tables kernel, then its emit kernel (one
-    launch of the stored kernel in mode 2) on the current stream (no
-    synchronisation)."""
+    csrc/deflate_encode.cu's tables kernel, then its emit, on the route its
+    C entry takes by the width (a block a row up to STAGE_MAX bytes, tiles
+    of TOKEN_TILE tokens past it; one launch of the stored kernel in mode
+    2), on the current stream (no synchronisation); one launch is
+    counted."""
     _check_pair("deflate_emit", blocks, lengths)
     if mode not in (0, 1, 2):
         raise ValueError(f"deflate mode {mode} is not 0, 1 or 2")
@@ -943,7 +1002,8 @@ def deflate_emit_tuple(blocks: torch.Tensor, lengths: torch.Tensor,
 
     A CPU tensor runs the plain version; a CUDA tensor launches
     csrc/deflate_encode.cu's tables kernel in the tuple order, then its
-    emit kernel, on the current stream (no synchronisation)."""
+    emit, on deflate_emit's route for the width, on the current stream (no
+    synchronisation); one launch is counted."""
     _check_pair("deflate_emit_tuple", blocks, lengths)
     _check_tokens(blocks, lengths, tokens, ntok)
     check_row_bits(blocks.shape[1])
@@ -964,6 +1024,13 @@ def deflate_emit_tuple(blocks: torch.Tensor, lengths: torch.Tensor,
     return comp, clens
 
 
+def _emit_scratch_bytes(b: int, n: int) -> int:
+    """Bytes of an emit launch's scratch for b rows of n bytes (csrc's
+    tpz_deflate_emit_scratch): each row's record, and on the tiled route
+    each tile's first bit."""
+    return _lib("emit_scratch")(b, n)
+
+
 def _emit_outputs(blocks: torch.Tensor, mode: int):
     """(comp zeroed, clens, the rows' scratch; the blocks in mode 2) of an
     emit launch."""
@@ -972,7 +1039,7 @@ def _emit_outputs(blocks: torch.Tensor, mode: int):
     comp = torch.zeros((b, encode_cap(n)), dtype=torch.uint8, device=dev)
     clens = torch.empty(b, dtype=torch.int32, device=dev)
     scratch = blocks if mode == 2 else torch.empty(
-        b * SCRATCH_BYTES, dtype=torch.uint8, device=dev)
+        _emit_scratch_bytes(b, n), dtype=torch.uint8, device=dev)
     return comp, clens, scratch
 
 
