@@ -86,12 +86,15 @@ Phases, one JSON line each:
             streams, pairs and chains of 255s across rle.cu's thread, warp
             and tile ends; one row of each at an out_cap well under its
             length (status -1, all 0); both of rle_decode's write routes
-            reached.  And tpuzip's device lz4 encoder (csrc/lz4_dense.cu):
-            the keyed route's two launches (the candidates compared too)
-            at hash_log 0, 4, 12, 15, 20, 32 and 40 on those rows (one with
-            random bytes past its length), on the 128 KiB far rows at 12
-            and 15 and in pools at 12 and 20, both table routes and the
-            pool asserted; the shared route's words and their parse at
+            reached.  And tpuzip's device lz4 encoder (csrc/lz4_dense.cu)
+            past its shared route: csrc/lz4_links.cu's links, the words
+            from them and their parse, on the sorted route at hash_log
+            17, 20, 24 and 32 on those rows (one with random bytes past its
+            length) and on the 128 KiB far rows, and at 24 and 32 on rows
+            whose aligned 4-grams' hashes share their top 16 bits; on the
+            tiled route on the far rows at 12 and 16 (their repeats
+            65,533-70,000 back, across the 32 Ki tiles' edge), both routes
+            asserted; the shared route's words and their parse at
             hash_log 0, 4, 12, 15, 16 and
             40 on those rows, on cap_rows (matches of WORD_CAP - 1,
             WORD_CAP and WORD_CAP + 1 bytes) and the 65,536-byte edge rows
@@ -108,9 +111,10 @@ Phases, one JSON line each:
             BEST_CAP and BEST_CAP + 1 bytes, two earlier copies that both
             reach it, a lazy step between two MARKED words); on
             65,536-byte edge rows at 12 and 16 (the repeat 65,523 back
-            taken); on the 128 KiB far rows at 12 and 16 and in a pool at
-            24; the links' shared, keyed and pool routes and best's staged
-            and device routes asserted, every stream decoded back; lz4p.cu's
+            taken); on the 128 KiB far rows at 12 and 16 (the tiled links);
+            the links' shared, tiled and sorted (24) routes and best's
+            staged and device routes asserted, every stream decoded back;
+            lz4p.cu's
             pack under both rules (runs split or refused) on those rows,
             a 64 KiB row where no 4 bytes repeat (65,535 + 1 literals;
             refused under the XLA rule), a 256 KiB zero row and 64 KiB
@@ -224,8 +228,9 @@ Phases, one JSON line each:
             each new launch held, exact, against its plain version on 8
             whole rows of the path's own tensors; compress(device_encode=
             True) round-trips at hash_log 16 (the shared route) and 20
-            (the keyed route's two launches, held against their plain
-            versions on 8 rows); MB/s (wall, synchronised) and peak
+            (the sorted links, the words from them and their parse, each
+            held against its plain version on 8 whole rows; the sorted
+            links' scratch measured); MB/s (wall, synchronised) and peak
             memory.  deflate there is tpuzip's device rule (the shared
             links, the greedy parse, the tuple tables with the emit; never
             the C++ rule's lazy parse or std::sort tables), its parse held
@@ -245,7 +250,11 @@ Phases, one JSON line each:
             version on the path's first 8 rows cut to 4096 bytes (the
             links also on the path's own output there, a causal prefix);
             MB/s, ratio, peak memory, and a device trace taken in a fresh
-            process.
+            process.  Then lz4_wide: 8 MiB of the corpus at 128 KiB blocks
+            through compress(device_encode=True) at hash_log 16 and
+            compress at max_chain 8, each decompressed back; both take
+            csrc/lz4_links.cu's tiled links (never the shared kernels),
+            held exact with the dense encoder's words on 8 whole rows.
 16. lz4p    the 64 MiB corpus through compress(codec="lz4p") and
             decompress (lz4_encode.cu, lz4p.cu's pack with runs split, its
             decode), and the serving tensor through compress_from_device
@@ -306,9 +315,9 @@ from tpuzip_torch.core import blocks as blk
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.dist import runner
 from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, deflate_coder,
-                                  lz4_chain, lz4_coder, lz4_dense, lz4p_coder,
-                                  mtf_scan, range_coder, range_decoder,
-                                  rle_coder)
+                                  lz4_chain, lz4_coder, lz4_dense, lz4_links,
+                                  lz4p_coder, mtf_scan, range_coder,
+                                  range_decoder, rle_coder)
 from tpuzip_torch.oracle import ari as oari
 from tpuzip_torch.oracle import bwt as obwt
 from tpuzip_torch.oracle import dc as odc
@@ -328,11 +337,11 @@ BIN_PLAIN_BYTES = 512     # bytes a block of the bin/apm checks on their paths
 BIN_KNOBS = ((12, 5), (10, 4), (11, 5))   # (model_bits, rate)
 HASH_LOGS = (12, 16, 20, 40)   # the lz4 table's bits; 40 is taken as 16
 FAR_BLOCK = 1 << 17       # lz4 rows past the 65,535-byte offset bound
+LZ4_WIDE_BLOCK = 1 << 17  # the lz4 wide path's blocks: the tiled links
+LZ4_WIDE_BYTES = 8 << 20  # its corpus
 FAR_GAPS = (65533, 65534, 65535, 65536, 65537, 70000)   # repeats' distances
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory rate
-# tpuzip's device lz4 encoder takes any hash_log: both table routes of
-# csrc/lz4_dense.cu (direct up to 12 bits, keyed past), and h = 0 at 0, 40
-DENSE_HASH_LOGS = (0, 4, 12, 15, 20, 32, 40)
+SORTED_HASH_LOGS = (17, 20, 24, 32)   # lz4_dense.cu's sorted route's checks
 CHAIN_DEPTHS = (2, 8, 64)         # max_chain of lz4_chain.cu's checks
 CHAIN_HASH_LOGS = (4, 12, 16, 24)
 CHAIN_PATH_DEPTH = 8              # max_chain of the lz4_chain path
@@ -465,7 +474,7 @@ def mixed_blocks(b: int, n: int, seed: int):
 
 SOURCES = ("ari_encode", "ari_decode", "mtf", "dc_decode", "bin_encode",
            "bin_decode", "lz4_encode", "lz4_decode", "rle", "lz4_dense",
-           "lz4_chain", "lz4p", "deflate_encode", "inflate")
+           "lz4_chain", "lz4_links", "lz4p", "deflate_encode", "inflate")
 
 
 def ptxas_report(procs) -> dict:
@@ -514,10 +523,12 @@ def phase_build() -> None:
     rle_coder._lib("rle_encode")
     rle_coder._lib("rle_encode_seg")
     rle_coder._lib("rle_decode")
-    for name in ("candidates", "parse", "words", "words_parse"):
+    for name in ("words", "words_links", "words_parse"):
         lz4_dense._lib(name)
-    for name in ("links", "links_shared", "best", "parse"):
+    for name in ("links_shared", "best", "parse"):
         lz4_chain._lib(name)
+    for name in ("tiled", "sorted", "tiled_scratch", "sorted_scratch"):
+        lz4_links._lib(name)
     lz4p_coder._lib("pack")
     lz4p_coder._lib("decode")
     for name in ("links_shared", "links_tiled", "links_tiled_scratch",
@@ -1069,9 +1080,11 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
     res["rle_segments"] = rle_segments_check(x, xl)
     errs.update(dense_errs, rle_encode_seg=res["rle_segments"]["max_abs_err"])
     res["chain"], chain_errs = chain_kernel_check(x, xl, n)
+    for k, e in chain_errs.items():   # both encoders take the links
+        errs[k] = max(errs.get(k, 0), e)
     res["lz4p"], lz4p_errs = lz4p_kernel_check(x, xl, n)
     deflate_errs = deflate_kernel_check(x, xl, n)
-    errs.update(chain_errs, **lz4p_errs, **deflate_errs)
+    errs.update(**lz4p_errs, **deflate_errs)
     emit("kernels", kernel="lz4_rle", rows=b, bytes=n,
          short_rows=int((rlens_np < 13).sum()), **res)
     if errs["lz4_encode"] or errs["rle_encode"]:
@@ -1080,39 +1093,57 @@ def lz_kernel_check(blocks_np, lens_np) -> dict:
     return errs
 
 
-def dense_route(rows: torch.Tensor, hash_log: int) -> str:
-    """Where csrc/lz4_dense.cu keeps its candidates tables for rows at
-    hash_log: "direct" or "keyed", one a row, or a "pool" of fewer."""
-    b, n = rows.shape
-    route, _ = lz4_dense.table_route(hash_log, n)
-    return "pool" if lz4_dense.table_count(b, hash_log, n) < b else route
+def links_check(rows, lens, bits: int):
+    """csrc/lz4_links.cu's links of rows at bits, on the route their shape
+    takes (tiled or sorted), against the plain links, exact -> (the
+    record, the links, the plain links)."""
+    route = lz4_links.links_route(bits, rows.shape[1])
+    run = getattr(lz4_links, f"lz4_links_{route}")
+    prev = run(rows, lens, bits)
+    pref, plain_ms = timed(lambda: lz4_links.lz4_links_plain(rows, lens,
+                                                             bits))
+    rec = {"rows": list(rows.shape), "route": route, "bits": bits,
+           "max_abs_err": max_err(prev, pref), "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: run(rows, lens, bits), 3)}
+    return rec, prev, pref
 
 
-def dense_check(rows, lens, hash_log: int) -> dict:
-    """Both launches of csrc/lz4_dense.cu on rows at hash_log against their
-    plain versions (the candidates, then the parse on the plain
-    candidates), exact, and the streams decoded back by lz4_decode."""
-    cand = lz4_dense.lz4_dense_candidates(rows, lens, hash_log)
-    cref, cand_plain_ms = timed(
-        lambda: lz4_dense.lz4_dense_candidates_plain(rows, lens, hash_log))
-    got = lz4_dense.lz4_dense_parse(rows, lens, cand)
-    ref, parse_plain_ms = timed(
-        lambda: lz4_dense.lz4_dense_parse_plain(rows, lens, cref))
-    err = {"lz4_dense_candidates": max_err(cand, cref),
-           "lz4_dense_parse": max(max_err(a, c) for a, c in zip(got, ref))}
+def wide_dense_check(rows, lens, hash_log: int) -> dict:
+    """csrc/lz4_dense.cu past its shared route on rows at hash_log: the
+    links (csrc/lz4_links.cu), the words from them and the parse over the
+    words, each against its plain version on the same inputs (the words on
+    the plain links, the parse on the plain words, and the plain words
+    equal to lz4_dense_words_plain's), exact; the streams decoded back by
+    lz4_decode."""
+    rec, prev, pref = links_check(rows, lens, lz4_dense.table_bits(hash_log))
+    words = lz4_dense.lz4_dense_words_links(rows, lens, pref)
+    wref, words_plain_ms = timed(
+        lambda: lz4_dense.lz4_dense_words_links_plain(rows, lens, pref))
+    got = lz4_dense.lz4_dense_words_parse(rows, lens, words)
+    ref = lz4_dense.lz4_dense_words_parse_plain(rows, lens, wref)
+    err = {f"lz4_links_{rec['route']}": rec["max_abs_err"],
+           "lz4_dense_words_links": max(
+               max_err(words, wref), max_err(wref, lz4_dense.
+                                             lz4_dense_words_plain(
+                                                 rows, lens, hash_log))),
+           "lz4_dense_words_parse": max(max_err(a, c)
+                                        for a, c in zip(got, ref))}
     out, status = lz4_coder.lz4_decode_batch(*got, rows.shape[1])
     keep = torch.arange(rows.shape[1], device="cuda")[None, :] < lens[:, None]
     back = (torch.equal(status, lens.to(torch.int64))
             and torch.equal(out, torch.where(keep, rows, 0)))
-    return {"rows": list(rows.shape), "route": dense_route(rows, hash_log),
-            "max_abs_err": err, "round_trip": back,
-            "stream_bytes": int(got[1].sum()),
-            "candidates_ms": cuda_ms(lambda: lz4_dense.lz4_dense_candidates(
-                rows, lens, hash_log), 3),
-            "parse_ms": cuda_ms(lambda: lz4_dense.lz4_dense_parse(
-                rows, lens, cand), 3),
-            "candidates_plain_ms": cand_plain_ms,
-            "parse_plain_ms": parse_plain_ms}
+    rec.update(max_abs_err=err, round_trip=back, words_plain_ms=words_plain_ms,
+               marked=int((words < 0).sum()), stream_bytes=int(got[1].sum()),
+               comp=got, links_ms=rec.pop("ms"),
+               words_ms=cuda_ms(lambda: lz4_dense.lz4_dense_words_links(
+                   rows, lens, prev), 3),
+               parse_ms=cuda_ms(lambda: lz4_dense.lz4_dense_words_parse(
+                   rows, lens, words), 3))
+    if any(err.values()) or not back:
+        raise AssertionError(f"lz4_dense at hash_log {hash_log} on "
+                             f"{list(rows.shape)}: max_abs_err {err}, round "
+                             f"trip {back}")
+    return rec
 
 
 def shared_check(rows, lens, hash_log: int) -> dict:
@@ -1156,9 +1187,10 @@ def dense_shared_check(xr, xl):
     the route's widest rows, its u16 slots up to 65,524) at 15 and 16; the
     mixed rows cut to ODD_WIDTH bytes (rows not 16-byte aligned) at 15.  And
     the route choice through lz4_dense_encode_batch: the words and their
-    parse alone at 16 bits on the mixed rows, the candidates and parse at
-    17 bits and on the 128 KiB far rows at 15.  Returns (the results, each
-    launch's max_abs_err)."""
+    parse alone at 16 bits on the mixed rows, the sorted links, the words
+    from them and the parse at 17 bits, the same with the tiled links on
+    the 128 KiB far rows at 15.  Returns (the results, each launch's
+    max_abs_err)."""
     res = {f"hash_log_{hl}": shared_check(xr, xl, hl)
            for hl in (0, 4, 12, 15, 16, 40)}
     # rows of an odd width: not 16-byte aligned, so no TMA stream; the
@@ -1175,8 +1207,8 @@ def dense_shared_check(xr, xl):
             res[f"{name}_hash_log_{hl}"] = shared_check(rx, rl, hl)
     far, flens = (torch.from_numpy(a).cuda() for a in far_rows(SEED + 9))
     routes = {}
-    names = ("lz4_dense_words", "lz4_dense_words_parse",
-             "lz4_dense_candidates", "lz4_dense_parse")
+    names = ("lz4_dense_words", "lz4_links_tiled", "lz4_links_sorted",
+             "lz4_dense_words_links", "lz4_dense_words_parse")
     for name, rows, lens, hl in (("mixed_16", xr, xl, 16),
                                  ("mixed_17", xr, xl, 17),
                                  ("far_15", far, flens, 15)):
@@ -1185,8 +1217,9 @@ def dense_shared_check(xr, xl):
         calls.clear()
         routes[name] = [k for k in names if counts[k]]
     res["routes"] = routes
-    if routes != {"mixed_16": list(names[:2]), "mixed_17": list(names[2:]),
-                  "far_15": list(names[2:])}:
+    if routes != {"mixed_16": [names[0], names[4]],
+                  "mixed_17": list(names[2:]),
+                  "far_15": [names[1], *names[3:]]}:
         raise AssertionError(f"lz4_dense took a wrong route: {routes}")
     errs = {k: max(rec["max_abs_err"][k] for rec in res.values()
                    if "max_abs_err" in rec)
@@ -1196,57 +1229,55 @@ def dense_shared_check(xr, xl):
 
 def dense_kernel_check(x, xl, n: int):
     """csrc/lz4_dense.cu (tpuzip's device lz4 encoder) against its plain
-    versions: on the mixed rows, one of them with random bytes past its
-    length (the caller's, which enter no hash that counts), at each of
-    DENSE_HASH_LOGS; on far_rows() (128 KiB, repeats 65,533 to 70,000 back)
-    at 12 and 15 (a direct and a keyed table), the offsets up to 65,535
-    taken and the others refused; and pools (POOL_BYTES cut to 4 tables)
-    at 12 and 20.  The direct and keyed routes and the pool must all be
-    reached.  Returns (the results, each launch's max_abs_err)."""
+    versions past its shared route (wide_dense_check: csrc/lz4_links.cu's
+    links, the words from them, their parse): the sorted route at
+    SORTED_HASH_LOGS on the mixed rows, one of them with random bytes past
+    its length (the caller's, which enter no hash that counts), and on
+    far_rows() (128 KiB, repeats 65,533 to 70,000 back), and on
+    top_bits_rows() (every aligned 4-gram's hash sharing its top 16 bits)
+    at 24 and 32; the tiled route on the far rows at 12 and 16; on the far
+    rows the offsets up to 65,535 taken and the others refused.  Then the
+    shared route (dense_shared_check).  Returns (the results, each
+    launch's max_abs_err)."""
     xr = x.clone()
     ragged = int(torch.nonzero(xl[:128] < n)[-1])   # a ragged mixed row
     tail = n - int(xl[ragged])
     xr[ragged, n - tail:] = torch.from_numpy(np.random.default_rng(
         SEED + 10).integers(0, 256, tail, np.uint8)).cuda()
-    res, routes = {"past_length_row": ragged}, set()
-    for hl in DENSE_HASH_LOGS:
-        res[f"hash_log_{hl}"] = dense_check(xr, xl, hl)
+    res = {"past_length_row": ragged}
     far, flens = (torch.from_numpy(a).cuda() for a in far_rows(SEED + 9))
-    for hl in (12, 15):
-        rec = dense_check(far, flens, hl)
-        comp, clens = lz4_dense.lz4_dense_encode_batch(far, flens, hl)
+    top = torch.from_numpy(top_bits_rows(8, 4096, SEED + 17)).cuda()
+    tlens = torch.full((8,), 4096, dtype=torch.int32, device="cuda")
+    for hl in SORTED_HASH_LOGS:
+        res[f"hash_log_{hl}"] = wide_dense_check(xr, xl, hl)
+        res[f"far_hash_log_{hl}"] = wide_dense_check(far, flens, hl)
+    for hl in (24, 32):
+        res[f"top_bits_hash_log_{hl}"] = wide_dense_check(top, tlens, hl)
+    for hl in (12, 16):
+        res[f"far_hash_log_{hl}"] = wide_dense_check(far, flens, hl)
+    for hl in (12, 16) + SORTED_HASH_LOGS:
+        comp, clens = res[f"far_hash_log_{hl}"]["comp"]
         offs = [max(lz4_offsets(comp[r, : int(clens[r])].cpu().numpy()
                                 .tobytes()), default=0)
                 for r in range(len(FAR_GAPS))]
-        rec["max_offset"] = offs
+        res[f"far_hash_log_{hl}"]["max_offset"] = offs
         if offs[:3] != [65533, 65534, 65535] or max(offs[3:]) >= 65533:
             raise AssertionError(f"lz4_dense at hash_log {hl}: repeats near "
                                  f"the offset bound taken or refused wrong: "
                                  f"{offs}")
-        res[f"far_hash_log_{hl}"] = rec
-    pool = lz4_dense.POOL_BYTES
-    try:
-        for hl in (12, 20):
-            lz4_dense.POOL_BYTES = 4 * lz4_dense.table_bytes(hl, n)
-            res[f"pool_hash_log_{hl}"] = dense_check(xr, xl, hl)
-    finally:
-        lz4_dense.POOL_BYTES = pool
-    errs = {"lz4_dense_candidates": 0, "lz4_dense_parse": 0}
-    shared, shared_errs = dense_shared_check(xr, xl)
+    errs, routes = {}, set()
     for rec in res.values():
         if isinstance(rec, dict):
+            rec.pop("comp")
             routes.add(rec["route"])
             for k, e in rec["max_abs_err"].items():
-                errs[k] = max(errs[k], e)
-            if not rec["round_trip"]:
-                raise AssertionError(f"lz4_dense streams did not decode "
-                                     f"back: {rec}")
+                errs[k] = max(errs.get(k, 0), e)
     res["routes"] = sorted(routes)
-    if routes != {"direct", "keyed", "pool"} or any(errs.values()):
-        raise AssertionError(f"lz4_dense disagrees with its plain version, or "
-                             f"a table route was not reached: {res}")
-    res["shared"] = shared
-    errs.update(shared_errs)
+    if routes != {"tiled", "sorted"}:
+        raise AssertionError(f"lz4_dense: a route was not reached: {res}")
+    res["shared"], shared_errs = dense_shared_check(xr, xl)
+    for k, e in shared_errs.items():
+        errs[k] = max(errs.get(k, 0), e)
     return res, errs
 
 
@@ -1292,29 +1323,22 @@ def rle_segments_check(x, xl) -> dict:
     return res
 
 
-def chain_route(rows: torch.Tensor, hash_log: int) -> str:
-    """Where csrc/lz4_chain.cu's links keep their table for rows at
-    hash_log: "shared" (beside the staged row), or keyed in device memory,
-    one a "row" or a "pool" of fewer."""
-    b, n = rows.shape
-    if lz4_chain.routes(hash_log, n)[0] == "shared":
-        return "shared"
-    return "pool" if lz4_chain.table_count(b, hash_log, n) < b else "row"
-
-
 def chain_check(rows, lens, hash_log: int, depths) -> dict:
     """The three launches of csrc/lz4_chain.cu on rows at hash_log against
     their plain versions (the links; best at each max_chain of depths on
     the plain links; the parse on the plain links and words), exact, and
     the streams decoded back by lz4_decode."""
+    route, best_route = lz4_chain.routes(hash_log, rows.shape[1])
     prev = lz4_chain.lz4_chain_links(rows, lens, hash_log)
     pref, links_plain_ms = timed(
         lambda: lz4_chain.lz4_chain_links_plain(rows, lens, hash_log))
-    err = {"lz4_chain_links": max_err(prev, pref), "lz4_chain_best": 0,
+    # the links kernel of the route: lz4_chain.cu's shared one, or
+    # csrc/lz4_links.cu's
+    links = "lz4_chain_links" if route == "shared" else f"lz4_links_{route}"
+    err = {links: max_err(prev, pref), "lz4_chain_best": 0,
            "lz4_chain_parse": 0}
     keep = torch.arange(rows.shape[1], device="cuda")[None, :] < lens[:, None]
-    rec = {"rows": list(rows.shape), "route": chain_route(rows, hash_log),
-           "best_route": lz4_chain.routes(hash_log, rows.shape[1])[1],
+    rec = {"rows": list(rows.shape), "route": route, "best_route": best_route,
            "links_ms": cuda_ms(lambda: lz4_chain.lz4_chain_links(
                rows, lens, hash_log), 3), "links_plain_ms": links_plain_ms}
     for mc in depths:
@@ -1360,13 +1384,12 @@ def chain_kernel_check(x, xl, n: int):
     stage_edge_rows() (65,536 bytes: the shared routes' widest rows, the
     farthest repeat they hold) at 12 and 16; the mixed rows cut to
     ODD_WIDTH bytes and the far rows to 131,069 (rows not 16-byte aligned:
-    no TMA, best at every skew) at 16; on far_rows() (128 KiB:
-    keyed links and best from device memory; repeats 65,533 to 70,000
-    back) at 12 and 16, max_chain 8, the offsets up to 65,535 taken and the
-    others refused; and in a pool (POOL_BYTES cut to 4 tables) at 24.
-    Every route of the links (shared, a keyed table a row, a pool) and of
-    best (staged, device) must be reached.  Returns (the results, each
-    launch's max_abs_err)."""
+    no TMA, best at every skew) at 16; on far_rows() (128 KiB: the tiled
+    links, best from device memory; repeats 65,533 to 70,000 back) at 12
+    and 16, max_chain 8, the offsets up to 65,535 taken and the others
+    refused.  Every route of the links (shared, tiled, sorted: hash_log
+    24) and of best (staged, device) must be reached.  Returns (the
+    results, each launch's max_abs_err)."""
     rng = np.random.default_rng(SEED + 12)
     extra = np.stack([np.zeros(n), np.resize([97, 98], n),
                       rng.integers(0, 256, n), rng.integers(0, 256, n)])
@@ -1414,25 +1437,18 @@ def chain_kernel_check(x, xl, n: int):
     res["far_odd_width"] = chain_check(
         far[:, : FAR_BLOCK - 3].contiguous(),
         flens.clamp(max=FAR_BLOCK - 3), 16, (CHAIN_PATH_DEPTH,))
-    pool = lz4_chain.POOL_BYTES
-    try:
-        lz4_chain.POOL_BYTES = 4 * (lz4_dense.KEY_SLOT
-                                    << lz4_chain.slots_log(24, n))
-        res["pool_hash_log_24"] = chain_check(rows, lens, 24, (8,))
-    finally:
-        lz4_chain.POOL_BYTES = pool
-    errs = {"lz4_chain_links": 0, "lz4_chain_best": 0, "lz4_chain_parse": 0}
+    errs = {}
     routes, best_routes = set(), set()
     for rec in res.values():
         routes.add(rec["route"])
         best_routes.add(rec["best_route"])
         for k, e in rec["max_abs_err"].items():
-            errs[k] = max(errs[k], e)
+            errs[k] = max(errs.get(k, 0), e)
         for v in rec.values():
             if isinstance(v, dict):
                 v.pop("comp", None)
     res["routes"], res["best_routes"] = sorted(routes), sorted(best_routes)
-    if routes != {"shared", "row", "pool"} or \
+    if routes != {"shared", "tiled", "sorted"} or \
             best_routes != {"staged", "device"} or any(errs.values()):
         raise AssertionError(f"lz4_chain disagrees with its plain version, "
                              f"or a route was not reached: {res}")
@@ -2151,9 +2167,10 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "lz4_decode": (lz4_coder, "lz4_decode_batch"),
             "rle_encode": (rle_coder, "rle_encode_batch"),
             "rle_decode": (rle_coder, "rle_decode_batch"),
-            "lz4_dense_candidates": (lz4_dense, "lz4_dense_candidates"),
-            "lz4_dense_parse": (lz4_dense, "lz4_dense_parse"),
+            "lz4_links_tiled": (lz4_links, "lz4_links_tiled"),
+            "lz4_links_sorted": (lz4_links, "lz4_links_sorted"),
             "lz4_dense_words": (lz4_dense, "lz4_dense_words"),
+            "lz4_dense_words_links": (lz4_dense, "lz4_dense_words_links"),
             "lz4_dense_words_parse": (lz4_dense, "lz4_dense_words_parse"),
             "rle_encode_seg": (rle_coder, "rle_encode_segments_batch"),
             "lz4_chain_links": (lz4_chain, "lz4_chain_links"),
@@ -2186,6 +2203,8 @@ PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (lz4_dense, "lz4_dense_candidates_plain"),
           (lz4_dense, "lz4_dense_parse_plain"),
           (lz4_dense, "lz4_dense_words_plain"),
+          (lz4_dense, "lz4_dense_words_links_plain"),
+          (lz4_links, "lz4_links_plain"),
           (lz4_dense, "lz4_dense_words_parse_plain"),
           (rle_coder, "rle_encode_segments_batch_plain"),
           (lz4_chain, "lz4_chain_links_plain"),
@@ -3033,7 +3052,8 @@ def phase_lz(smi: str, codec: str):
 SERVE_NEEDS = {
     "lz4": ({"lz4_dense_words": 1, "lz4_dense_words_parse": 1,
              "lz4_decode": 1},
-            ("lz4_encode", "lz4_dense_candidates", "lz4_dense_parse")),
+            ("lz4_encode", "lz4_links_tiled", "lz4_links_sorted",
+             "lz4_dense_words_links")),
     "rle": ({"rle_encode_seg": 1, "rle_decode": 1}, ("rle_encode",)),
     "ari": ({"ari_encode": 1, "ari_decode": 1}, ()),
     "bwt": ({"ari_encode": 1, "ari_decode": 1, "mtf": 2}, ()),
@@ -3048,12 +3068,11 @@ SERVE_NEEDS = {
 # the serving path's new launches, each held against its plain version:
 # (wrapper module, wrapper, plain version)
 SERVE_KERNELS = {
-    "lz4_dense_candidates": (lz4_dense, "lz4_dense_candidates",
-                             "lz4_dense_candidates_plain"),
-    "lz4_dense_parse": (lz4_dense, "lz4_dense_parse",
-                        "lz4_dense_parse_plain"),
+    "lz4_links_sorted": (lz4_links, "lz4_links_sorted", "lz4_links_plain"),
     "lz4_dense_words": (lz4_dense, "lz4_dense_words",
                         "lz4_dense_words_plain"),
+    "lz4_dense_words_links": (lz4_dense, "lz4_dense_words_links",
+                              "lz4_dense_words_links_plain"),
     "lz4_dense_words_parse": (lz4_dense, "lz4_dense_words_parse",
                               "lz4_dense_words_parse_plain"),
     "rle_encode_seg": (rle_coder, "rle_encode_segments_batch",
@@ -3080,9 +3099,9 @@ def serving_tensor():
 
 def serve_bound(name: str, args, out) -> dict:
     """bound() of one launch of a serving kernel at its own inputs: the
-    valid bytes and the lengths read, and cand (the candidates write it,
-    the parse reads it; the words likewise), the streams and their lengths
-    written; lz4p's
+    valid bytes and the lengths read, the links written (and read by the
+    words from them), the words written (and read by their parse), the
+    streams and their lengths written; lz4p's
     pack reads LZ4 streams and writes lz4p rows, its decode reads those
     and writes every byte of its rows and the statuses."""
     rows, lens = args[:2]
@@ -3092,8 +3111,10 @@ def serve_bound(name: str, args, out) -> dict:
         return bound(int(lens.sum()) + 4 * lens.numel()
                      + int(out[1].clamp(min=0).sum()) + 4 * out[1].numel())
     nbytes = int(lens.sum()) + 4 * lens.numel()
-    if name in ("lz4_dense_candidates", "lz4_dense_words"):
+    if name in ("lz4_links_sorted", "lz4_dense_words"):
         return bound(nbytes + 4 * out.numel())
+    if name == "lz4_dense_words_links":
+        return bound(nbytes + 4 * args[2].numel() + 4 * out.numel())
     comp, clens = out
     nbytes += int(clens.sum()) + 4 * clens.numel()
     return bound(nbytes + (4 * args[2].numel() if len(args) > 2
@@ -3248,36 +3269,60 @@ def phase_serving(smi: str):
                                             "decode": peak_dec},
                       "launches": {k: v for k, v in counts.items() if v}}
         del out, blob
-    # device_encode=True at 16 bits takes the shared route, at 20 the keyed
-    # tables (lz4_dense.encode_route)
+    # device_encode=True at 16 bits takes the shared route, at 20 the sorted
+    # links, the words from them and their parse (lz4_dense.encode_route)
     enc_counts = {}
     for hl, needs in ((16, {"lz4_dense_words": 1,
                             "lz4_dense_words_parse": 1}),
-                      (20, {"lz4_dense_candidates": 1,
-                            "lz4_dense_parse": 1})):
+                      (20, {"lz4_links_sorted": 1,
+                            "lz4_dense_words_links": 1,
+                            "lz4_dense_words_parse": 1})):
         cfg = Config()
         cfg.codec.lz4.device_encode, cfg.codec.lz4.hash_log = True, hl
         with counted_run() as (calls, enc_counts[hl]):
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             blob = tpuzip_torch.compress(data, config=cfg)
             torch.cuda.synchronize()
             t_enc = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
             back = tpuzip_torch.decompress(blob)
         need(enc_counts[hl], {**needs, "lz4_decode": 1},
              f"device_encode at hash_log {hl}")
         if back != data or enc_counts[hl]["lz4_encode"] or sum(
-                enc_counts[hl][k] for k in ("lz4_dense_words",
-                                            "lz4_dense_candidates")) != 1:
+                enc_counts[hl][k] for k in (
+                    "lz4_dense_words", "lz4_dense_words_links",
+                    "lz4_links_tiled")) != 1:
             raise AssertionError("compress(device_encode=True) did not "
                                  "round-trip on its dense route: "
                                  f"{enc_counts[hl]}")
         if hl == 20:
-            for name in needs:
-                kernels[name] = rows_against_plain(name, calls, rows)
+            kernels["lz4_links_sorted"] = rows_against_plain(
+                "lz4_links_sorted", calls, rows)
+            kernels["lz4_dense_words_links"] = rows_against_plain(
+                "lz4_dense_words_links", calls, rows)
+            # the parse over these words: held too, its error folded into
+            # the serving path's row
+            err = rows_against_plain("lz4_dense_words_parse", calls,
+                                     rows)["max_abs_err"]
+            kernels["lz4_dense_words_parse"]["max_abs_err"] = max(
+                kernels["lz4_dense_words_parse"]["max_abs_err"], err)
+            # the sorted links' scratch at this shape, beside its output
+            (largs, _, prev), = calls["lz4_links_sorted"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            lz4_links.lz4_links_sorted(*largs)
+            torch.cuda.synchronize()
+            kernels["lz4_links_sorted"]["scratch_peak_bytes"] = (
+                torch.cuda.max_memory_allocated() - before
+                - 4 * prev.numel())
+            del largs, prev
         calls.clear()
         res[f"device_encode_hash_log_{hl}"] = {
             "container_bytes": len(blob), "ratio": len(blob) / len(data),
-            "encode_mb_s": len(data) / 1e6 / t_enc}
+            "encode_mb_s": len(data) / 1e6 / t_enc,
+            "peak_device_bytes": peak}
     trace = trace_in_child("serve")
     emit_traced("deflate_emit_tuple", trace["deflate"]["encode"], "row")
     emit("serving", corpus_bytes=len(data), rows=list(x.shape),
@@ -3459,13 +3504,111 @@ def chain_against_plain(calls) -> dict:
                     + 4 * clens.numel())}}
 
 
+def lz4_wide(data: bytes):
+    """The lz4 encoders at LZ4_WIDE_BLOCK blocks (tpuzip's block_size knob
+    past 64 KiB, at hash_log 16): compress(device_encode=True) and compress
+    at max_chain CHAIN_PATH_DEPTH of `data`, each decompressed back; both
+    take csrc/lz4_links.cu's tiled links (the dense encoder then the words
+    from them and their parse; the chained one best on device memory and
+    its parse), never the shared kernels.  The links of each and the
+    dense encoder's words held exact against their plain versions on the
+    paths' first 8 whole rows (the kernels run there too) -> ({path:
+    launch counts}, {path: the tiled links' row (times at the path's shape
+    and on the 8 rows, the bound), each later launch's time, the ratio and
+    the compress and decompress MB/s; the words' check})."""
+    cut_rows = 8
+    counts_by, res = {}, {}
+    for path, knobs, needs, never in (
+            ("lz4_wide_dense", {"device_encode": True, "hash_log": 16},
+             {"lz4_links_tiled": 1, "lz4_dense_words_links": 1,
+              "lz4_dense_words_parse": 1, "lz4_decode": 1},
+             ("lz4_dense_words", "lz4_links_sorted", "lz4_encode")),
+            ("lz4_wide_chain", {"max_chain": CHAIN_PATH_DEPTH,
+                                "hash_log": 16},
+             {"lz4_links_tiled": 1, "lz4_chain_best": 1,
+              "lz4_chain_parse": 1, "lz4_decode": 1},
+             ("lz4_chain_links", "lz4_links_sorted", "lz4_encode"))):
+        cfg = Config()
+        for k, v in knobs.items():
+            setattr(cfg.codec.lz4, k, v)
+        with counted_run() as (calls, counts):
+            t0 = time.perf_counter()
+            blob = tpuzip_torch.compress(data, block_size=LZ4_WIDE_BLOCK,
+                                         config=cfg)
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = tpuzip_torch.decompress(blob)
+            t_dec = time.perf_counter() - t0
+        need(counts, needs, path)
+        if back != data or any(counts[k] for k in never):
+            raise AssertionError(f"{path}: round trip {back == data}, "
+                                 f"launches {counts}")
+        (args, kw, prev), = calls["lz4_links_tiled"]
+        blocks, lens, bits = args
+        cut = blocks[:cut_rows].contiguous()
+        clen = lens[:cut_rows].contiguous()
+        pref, plain_ms = timed(lambda: lz4_links.lz4_links_plain(cut, clen,
+                                                                 bits))
+        err = max(max_err(lz4_links.lz4_links_tiled(cut, clen, bits), pref),
+                  max_err(prev[:cut_rows], pref))
+        rec = {"inputs": [list(a.shape) for a in args if torch.is_tensor(a)],
+               "bits": bits, "route": lz4_links.links_route(
+                   bits, blocks.shape[1]), "max_abs_err": err,
+               "plain_inputs": list(cut.shape),
+               "plain_rows": list(range(cut_rows)), "plain_ms": plain_ms,
+               "ms": cuda_ms(lambda: lz4_links.lz4_links_tiled(*args, **kw),
+                             3),
+               "ms_at_plain_inputs": cuda_ms(
+                   lambda: lz4_links.lz4_links_tiled(cut, clen, bits), 3),
+               **bound(int(lens.sum()) + 4 * lens.numel() + 4 * prev.numel())}
+        if path == "lz4_wide_dense":
+            (wargs, _, words), = calls["lz4_dense_words_links"]
+            wref, wplain_ms = timed(
+                lambda: lz4_dense.lz4_dense_words_links_plain(cut, clen,
+                                                              pref))
+            werr = max(max_err(lz4_dense.lz4_dense_words_links(cut, clen,
+                                                               pref), wref),
+                       max_err(words[:cut_rows], wref))
+            res["lz4_dense_words_links"] = {
+                "inputs": rec["inputs"] + [list(words.shape)],
+                "max_abs_err": werr, "plain_ms": wplain_ms,
+                "ms": cuda_ms(lambda: lz4_dense.lz4_dense_words_links(
+                    *wargs), 3)}
+            err = max(err, werr)
+            del wargs, words
+        if err:
+            raise AssertionError(f"{path}: the tiled links or the words "
+                                 f"disagree with their plain versions: "
+                                 f"{rec}, {res}")
+        rec.update(ratio=len(blob) / len(data),
+                   encode_mb_s=len(data) / 1e6 / t_enc,
+                   decode_mb_s=len(data) / 1e6 / t_dec)
+        if path == "lz4_wide_dense":
+            (pargs, _, _), = calls["lz4_dense_words_parse"]
+            rec["words_parse_ms"] = cuda_ms(
+                lambda: lz4_dense.lz4_dense_words_parse(*pargs), 3)
+        else:
+            (bargs, _, _), = calls["lz4_chain_best"]
+            (pargs, _, _), = calls["lz4_chain_parse"]
+            rec["best_ms"] = cuda_ms(lambda: lz4_chain.lz4_chain_best(*bargs),
+                                     3)
+            rec["parse_ms"] = cuda_ms(
+                lambda: lz4_chain.lz4_chain_parse(*pargs), 3)
+        calls.clear()
+        res[path] = rec
+        counts_by[path] = counts
+    return counts_by, res
+
+
 def phase_lz4_chain(smi: str, lz4_payload: int):
     """Phase 15: lz4 at max_chain CHAIN_PATH_DEPTH (tpuzip's chained
     encoder): compress of the 64 MiB corpus at 64 KiB blocks, then
     decompress (lz4_decode.cu reads any LZ4).  The bytes round-trip; both
     lz4_chain.cu launches and lz4_decode.cu run, lz4_encode.cu does not;
     the payload is smaller than phase 11's; each launch held against its
-    plain version on the path's first rows cut to CHAIN_PLAIN_BYTES."""
+    plain version on the path's first rows cut to CHAIN_PLAIN_BYTES.  Then
+    the wide lz4 paths (lz4_wide: 8 MiB at 128 KiB blocks, the tiled
+    links)."""
     data = text_corpus(CORPUS_BYTES, SEED)
     cfg = Config()
     cfg.codec.lz4.max_chain = CHAIN_PATH_DEPTH
@@ -3484,6 +3627,13 @@ def phase_lz4_chain(smi: str, lz4_payload: int):
                              f"bytes, the single probe {lz4_payload}")
     kernels = chain_against_plain(calls)
     calls.clear()
+    wide_counts, wide = lz4_wide(data[:LZ4_WIDE_BYTES])
+    # the tiled links' row: the dense wide path's launch; the chained one's
+    # error beside it
+    kernels["lz4_links_tiled"] = {**wide["lz4_wide_dense"], "max_abs_err": max(
+        wide["lz4_wide_dense"]["max_abs_err"],
+        wide["lz4_wide_chain"]["max_abs_err"])}
+    kernels["lz4_dense_words_links_wide"] = wide["lz4_dense_words_links"]
     emit("lz4_chain", corpus_bytes=len(data), block_size=BLOCK,
          max_chain=CHAIN_PATH_DEPTH, container_bytes=len(blob),
          ratio=len(blob) / len(data), payload_bytes=payload,
@@ -3494,8 +3644,10 @@ def phase_lz4_chain(smi: str, lz4_payload: int):
              kernels[k]["ms"] for k in ("lz4_chain_links", "lz4_chain_best",
                                         "lz4_chain_parse")),
          peak_device_bytes={"encode": peak_enc, "decode": peak_dec},
+         wide={"bytes": LZ4_WIDE_BYTES, "block_size": LZ4_WIDE_BLOCK,
+               "launches": wide_counts, **wide},
          kernels=kernels, trace=trace_in_child("lz4_chain"), card=smi)
-    return counts, kernels
+    return counts, wide_counts, kernels
 
 
 def phase_lz4p(smi: str):
@@ -4355,29 +4507,53 @@ def emit_at_skips(order: str, tok, nt, n: int):
              for r in range(b)], cl, [(at + r * pitch) % 4 for r in range(b)])
 
 
+# emit_tiles_check's launches: (wrapper, order, mode)
+EMIT_TILE_RUNS = (("deflate_emit_tuple", "tuple", 0),
+                  ("deflate_emit", "std", 0), ("deflate_emit", "std", 1))
+
+
+def emit_tile_call(name: str, x, xl, tok, nt, mode: int):
+    """A closure of one launch of the emit wrapper `name` on token rows."""
+    dc = deflate_coder
+    if name == "deflate_emit_tuple":
+        return lambda: dc.deflate_emit_tuple(x, xl, tok, nt)
+    return lambda: dc.deflate_emit(x, xl, tok, nt, mode)
+
+
+def emit_tiles_traces(seed: int) -> dict:
+    """--trace emit_tiles:SEED: traced() of each launch of emit_tiles_check
+    on token_tile_rows(SEED), after one launch: {"n:order_mode_m": the
+    trace}."""
+    out = {}
+    for n, (x, xl, tokens, _) in token_tile_rows(seed).items():
+        for name, order, mode in EMIT_TILE_RUNS:
+            call = emit_tile_call(name, x, xl, *tokens[order], mode)
+            call()
+            out[f"{n}:{order}_mode_{mode}"] = traced(
+                call, TILED_EMIT + ("deflate_emit_kernel",))
+    return out
+
+
 def emit_tiles_check(seed: int) -> dict:
     """csrc/deflate_encode.cu's tiled histograms and emit (rows past 64
     KiB) on token_tile_rows(): both orders (tpz_deflate_emit_tuple; and
     tpz_deflate_emit, dynamic and fixed), each exact against
     deflate_emit_plain, every stream inflated back by inflate.cu and by
-    zlib, the tiled route's kernels asserted by a trace; the first text
-    row once more at every byte skip of its word (emit_at_skips), each
-    stream the plain one."""
+    zlib, the tiled route's kernels asserted by a trace (taken in a fresh
+    process, emit_tiles_traces, where this one's recorded no device event
+    at all); the first text row once more at every byte skip of its word
+    (emit_at_skips), each stream the plain one."""
     dc = deflate_coder
     res, errs = {}, {"deflate_emit": 0, "deflate_emit_tuple": 0,
                      "inflate": 0}
     tiled = TILED_EMIT
     groups = token_tile_rows(seed)
+    child = None
     for n, (x, xl, tokens, names) in groups.items():
         rec = {"rows": names, "width": n}
-        runs = (("deflate_emit_tuple", "tuple", 0), ("deflate_emit", "std", 0),
-                ("deflate_emit", "std", 1))
-        for name, order, mode in runs:
+        for name, order, mode in EMIT_TILE_RUNS:
             tok, nt = tokens[order]
-            if name == "deflate_emit_tuple":
-                call = lambda: dc.deflate_emit_tuple(x, xl, tok, nt)  # noqa: E731
-            else:
-                call = lambda: dc.deflate_emit(x, xl, tok, nt, mode)  # noqa: E731
+            call = emit_tile_call(name, x, xl, tok, nt, mode)
             got = call()
             ref, plain_ms = timed(
                 lambda: dc.deflate_emit_plain(x, xl, tok, nt, mode, order))
@@ -4396,6 +4572,10 @@ def emit_tiles_check(seed: int) -> dict:
                             for r in range(len(lens))))
             tr = traced(call, tiled + ("deflate_emit_kernel",))
             key = f"{order}_mode_{mode}"
+            if not tr["kernels"]:   # the profiler lost the whole trace here
+                if child is None:
+                    child = trace_in_child(f"emit_tiles:{seed}")
+                tr = {**child[f"{n}:{key}"], "in_child": True}
             rec[key] = {"max_abs_err": e, "round_trip": back,
                         "ntok": nt.tolist(), "stream_bytes": clens.tolist(),
                         "plain_ms": plain_ms, "ms": cuda_ms(call, 3),
@@ -4889,11 +5069,15 @@ def trace_in_child(codec: str) -> dict:
 def trace_child(codec: str) -> int:
     """--trace CODEC: traced() of one compress and one decompress of the
     corpus through CODEC; --trace lz4_chain: lz4 at CHAIN_PATH_DEPTH;
-    --trace zlib_emit: trace_zlib_emit()."""
+    --trace zlib_emit: trace_zlib_emit(); --trace emit_tiles:SEED:
+    emit_tiles_traces(SEED)."""
     if codec.startswith("serve"):
         return trace_serving(codec)
     if codec == "zlib_emit":
         return trace_zlib_emit()
+    if codec.startswith("emit_tiles:"):
+        print(json.dumps(emit_tiles_traces(int(codec.split(":")[1]))))
+        return 0
     data = text_corpus(CORPUS_BYTES, SEED)
     block = BWT_BLOCK if codec == "bwtdc" else BLOCK
     kw = {"codec": codec, "block_size": block}
@@ -5183,15 +5367,16 @@ AB_SOURCE = {"rle_encode": "rle", "rle_decode": "rle",   # else the name
              "deflate_emit_tuple": "deflate_encode"}
 # an A/B kernel's functions, where they are not those whose names hold
 # "<kernel>_kernel": the links' shared route; their route past 64 KiB
-# (a DIR's keyed kernel, the tiled kernel and its carry); the greedy parse
+# (a DIR's keyed kernel, the tiled kernel and its carry, since moved into
+# lz4_shared.cuh as templates); the greedy parse
 # (a DIR's instance of the parse kernel, the segments' three kernels);
 # tpz_deflate_emit's C++-rule tables on rows of at most 64 KiB and the row
 # emit kernel; tpz_deflate_emit_tuple's tables (a DIR's TupleShared
 # instance, the checkout's Counted ones) and the tiled route's kernels
 AB_FUNCTIONS = {"deflate_links": ("deflate_links_shared_kernel",),
                 "deflate_links_wide": ("deflate_links_kernel",
-                                       "deflate_links_tiled_kernel",
-                                       "deflate_links_carry_kernel"),
+                                       "links_tiled_kernel",
+                                       "links_carry_kernel"),
                 "deflate_parse_greedy": ("deflate_parse_kernelILb0E",
                                          "deflate_segment_"),
                 "deflate_emit": ("deflate_tables_kernelINS_11TableShared",
@@ -5202,9 +5387,10 @@ AB_FUNCTIONS = {"deflate_links": ("deflate_links_shared_kernel",),
                                        "deflate_emit_sums_kernel",
                                        "deflate_emit_scan_kernel",
                                        "deflate_emit_tiles_kernel")}
-# the A/B kernels this checkout redesigns: every other one must keep the
-# DIR's SASS
-AB_REDESIGNED = ("deflate_emit_tuple",)
+# the A/B kernels this checkout redesigns (the wide deflate links moved into
+# lz4_shared.cuh's template, and both lz4 encoders' links past their shared
+# routes): every other one must keep the DIR's SASS
+AB_REDESIGNED = ("deflate_links_wide", "lz4_chain", "lz4_dense")
 # sources whose SASS --ab compares and does not time (no launch of theirs
 # is recorded for it): deflate_encode.cu's best, lazy parse and stored
 # kernels, all of the DIR's functions but the A/B kernels'
@@ -5586,24 +5772,51 @@ def ab_launchers(libs: dict, kernel: str, args, kw) -> tuple:
     return {k: make(lib) for k, lib in libs.items()}, steps
 
 
+# the keyed tables of the lz4 encoders as PR 13-22's wrappers sized them
+# (a DIR's keyed routes, before the tiled and sorted links): 2^slots_log
+# slots of KEY_SLOT bytes, twice the hashes a row can hold, one a row or a
+# pool within KEYED_POOL_BYTES; lz4_dense.cu's direct tables of int32
+# slots up to 12 bits
+def old_lz4_table(bits: int, n: int, b: int, direct_max: int = -1):
+    """(keyed, the table's log2 slots, tables, bytes a table) of a DIR's
+    keyed (or, at bits <= direct_max, direct) links or candidates."""
+    if bits <= direct_max:
+        tbytes = max(16, 4 << bits)
+        return False, bits, max(1, min(b, KEYED_POOL_BYTES // tbytes)), tbytes
+    slog = max(6, min(bits + 1, (2 * max(n, 1) - 1).bit_length()))
+    return (True, slog, max(1, min(b, KEYED_POOL_BYTES // (KEY_SLOT << slog))),
+            KEY_SLOT << slog)
+
+
+def ab_links_run(rows, lens, bits: int):
+    """A closure of the checkout's links at `bits` past the shared route
+    (csrc/lz4_links.cu, tiled or sorted by shape) -> prev."""
+    from tpuzip_torch.kernels import lz4_links
+    return lambda: lz4_links.lz4_links(rows, lens, bits)
+
+
 def ab_chain_runs(lib, blocks, lens, hash_log: int, max_chain: int) -> dict:
     """{launch: a closure that runs it once} for one build of
-    csrc/lz4_chain.cu on rows at (hash_log, max_chain): a DIR's links and
-    parse over prev, or the checkout's links on either route, best at each
-    and the parse over the words; and "encode", the whole
-    encode as the build's wrapper runs it -> (comp, clens)."""
+    csrc/lz4_chain.cu on rows at (hash_log, max_chain): the links on the
+    build's route (a DIR's keyed table or shared kernel, the checkout's
+    shared kernel or csrc/lz4_links.cu's tiled or sorted links), best and
+    the parse over the words; and "encode", the whole encode as the
+    build's wrapper runs it -> (comp, clens)."""
     b, n = blocks.shape
     vp, ci = ctypes.c_void_p, ctypes.c_int
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     bits = lz4_coder.resolve_hash_log(hash_log)
-    slog = lz4_chain.slots_log(hash_log, n)
-    ntab = lz4_chain.table_count(b, hash_log, n)
-    tables = torch.empty(ntab * (lz4_dense.KEY_SLOT << slog) // 4,
-                         dtype=torch.int32, device="cuda")
+    shared = n <= lz4_chain.STAGE_MAX and bits <= lz4_chain.SHARED_MAX_LOG
+    keyed_lib = hasattr(lib, "tpz_lz4_chain_links")
     cap_n = lz4_coder.encode_cap(n)
-    new = hasattr(lib, "tpz_lz4_chain_best")
+    if keyed_lib and not shared:
+        _, slog, ntab, tbytes = old_lz4_table(bits, n, b)
+        tables = torch.empty(ntab * tbytes // 4, dtype=torch.int32,
+                             device="cuda")
 
-    def links(shared: bool):
+    def links():
+        if not shared and not keyed_lib:
+            return ab_links_run(blocks, lens, bits)()
         prev = torch.empty((b, n), dtype=torch.int32, device="cuda")
         if shared:
             fn = lib.tpz_lz4_chain_links_shared
@@ -5628,91 +5841,46 @@ def ab_chain_runs(lib, blocks, lens, hash_log: int, max_chain: int) -> dict:
                      "tpz_lz4_chain_best")
         return words
 
-    def parse(prev, words=None):
+    def parse(prev, words):
         comp = torch.zeros((b, cap_n), dtype=torch.uint8, device="cuda")
         clens = torch.empty(b, dtype=torch.int32, device="cuda")
         fn = lib.tpz_lz4_chain_parse
-        if new:
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]
-            head = (prev.data_ptr(), words.data_ptr())
-        else:
-            fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]
-            head = (prev.data_ptr(),)
-        _build.check(fn(blocks.data_ptr(), lens.data_ptr(), *head, b, n,
-                        max_chain, comp.data_ptr(), cap_n, clens.data_ptr(),
-                        stream()), "tpz_lz4_chain_parse")
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]
+        _build.check(fn(blocks.data_ptr(), lens.data_ptr(), prev.data_ptr(),
+                        words.data_ptr(), b, n, max_chain, comp.data_ptr(),
+                        cap_n, clens.data_ptr(), stream()),
+                     "tpz_lz4_chain_parse")
         return comp, clens
 
-    if not new:
-        prev = links(False)
-        return {"links": lambda: links(False),
-                "parse": lambda: parse(prev),
-                "encode": lambda: parse(links(False))}
-    shared = lz4_chain.routes(hash_log, n)[0] == "shared"
-    prev = links(shared)
+    prev = links()
     words = best(prev)
 
     def encode():
-        p = links(shared)
+        p = links()
         return parse(p, best(p))
 
-    runs = {"links": lambda: links(shared),
-            f"links_{'keyed' if shared else 'shared'}":
-                lambda: links(not shared),
-            "best": lambda: best(prev), "parse": lambda: parse(prev, words),
-            "encode": encode}
-    if n > lz4_chain.STAGE_MAX or bits > lz4_chain.SHARED_MAX_LOG:
-        del runs["links_shared"]
-    return runs
+    return {"links": links, "best": lambda: best(prev),
+            "parse": lambda: parse(prev, words), "encode": encode}
 
 
 def ab_dense_runs(lib, rows, lens, hash_log: int) -> dict:
-    """{launch: a closure} for one build of csrc/lz4_dense.cu at hash_log:
-    the candidates then the parse (a DIR's, and the checkout's keyed or
-    direct route); the checkout's shared route's words and the parse over
-    them; "encode" as the build's wrapper runs it -> (comp, clens)."""
+    """{launch: a closure} for one build of csrc/lz4_dense.cu at hash_log,
+    on the route its wrapper takes there: the shared route's words and the
+    parse over them; past it a DIR's candidates (direct or keyed tables)
+    and their parse, or the checkout's links (csrc/lz4_links.cu, tiled or
+    sorted), the words from them and the parse over the words; "encode"
+    as the build's wrapper runs it -> (comp, clens)."""
     b, n = rows.shape
     vp, ci = ctypes.c_void_p, ctypes.c_int
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    route, tbits = lz4_dense.table_route(hash_log, n)
-    ntab = lz4_dense.table_count(b, hash_log, n)
-    tables = torch.empty(ntab * lz4_dense.table_bytes(hash_log, n) // 4,
-                         dtype=torch.int32, device="cuda")
+    bits = lz4_dense.table_bits(hash_log)
+    shared = n <= lz4_dense.STAGE_MAX and bits <= lz4_dense.SHARED_MAX_LOG
+    keyed_lib = hasattr(lib, "tpz_lz4_dense_candidates")
     cap_n = lz4_coder.encode_cap(n)
 
     def out():
         return (torch.zeros((b, cap_n), dtype=torch.uint8, device="cuda"),
                 torch.empty(b, dtype=torch.int32, device="cuda"))
-
-    def two_step():
-        cand = torch.empty((b, n), dtype=torch.int32, device="cuda")
-        fn = lib.tpz_lz4_dense_candidates
-        fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp]
-        _build.check(fn(rows.data_ptr(), lens.data_ptr(), b, n,
-                        cand.data_ptr(), tables.data_ptr(), ntab,
-                        lz4_dense.table_bits(hash_log), tbits,
-                        int(route == "keyed"), stream()),
-                     "tpz_lz4_dense_candidates")
-        comp, clens = out()
-        fn = lib.tpz_lz4_dense_parse
-        fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp]
-        _build.check(fn(rows.data_ptr(), lens.data_ptr(), cand.data_ptr(), b,
-                        n, comp.data_ptr(), cap_n, clens.data_ptr(),
-                        stream()), "tpz_lz4_dense_parse")
-        return comp, clens
-
-    if not hasattr(lib, "tpz_lz4_dense_words"):
-        return {"encode": two_step}
-
-    bits = lz4_dense.table_bits(hash_log)
-
-    def words_of():
-        words = torch.empty((b, n), dtype=torch.int32, device="cuda")
-        fn = lib.tpz_lz4_dense_words
-        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp]
-        _build.check(fn(rows.data_ptr(), lens.data_ptr(), b, n, bits,
-                        words.data_ptr(), stream()), "tpz_lz4_dense_words")
-        return words
 
     def words_parse(words):
         comp, clens = out()
@@ -5723,11 +5891,79 @@ def ab_dense_runs(lib, rows, lens, hash_log: int) -> dict:
                         stream()), "tpz_lz4_dense_words_parse")
         return comp, clens
 
-    words = words_of()
-    shared = lz4_dense.encode_route(hash_log, n) == "shared"
-    return {"encode": (lambda: words_parse(words_of())) if shared
-            else two_step, "two_step": two_step, "words": words_of,
-            "words_parse": functools.partial(words_parse, words)}
+    if shared:
+        def words_of():
+            words = torch.empty((b, n), dtype=torch.int32, device="cuda")
+            fn = lib.tpz_lz4_dense_words
+            fn.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+            _build.check(fn(rows.data_ptr(), lens.data_ptr(), b, n, bits,
+                            words.data_ptr(), stream()),
+                         "tpz_lz4_dense_words")
+            return words
+
+        words = words_of()
+        return {"words": words_of,
+                "words_parse": functools.partial(words_parse, words),
+                "encode": lambda: words_parse(words_of())}
+    if keyed_lib:
+        keyed, tlog, ntab, tbytes = old_lz4_table(bits, n, b, 12)
+        tables = torch.empty(ntab * tbytes // 4, dtype=torch.int32,
+                             device="cuda")
+
+        def candidates():
+            cand = torch.empty((b, n), dtype=torch.int32, device="cuda")
+            fn = lib.tpz_lz4_dense_candidates
+            fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp]
+            _build.check(fn(rows.data_ptr(), lens.data_ptr(), b, n,
+                            cand.data_ptr(), tables.data_ptr(), ntab, bits,
+                            tlog, int(keyed), stream()),
+                         "tpz_lz4_dense_candidates")
+            return cand
+
+        def parse(cand):
+            comp, clens = out()
+            fn = lib.tpz_lz4_dense_parse
+            fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp]
+            _build.check(fn(rows.data_ptr(), lens.data_ptr(),
+                            cand.data_ptr(), b, n, comp.data_ptr(), cap_n,
+                            clens.data_ptr(), stream()),
+                         "tpz_lz4_dense_parse")
+            return comp, clens
+
+        cand = candidates()
+        return {"candidates": candidates,
+                "parse": functools.partial(parse, cand),
+                "encode": lambda: parse(candidates())}
+    links = ab_links_run(rows, lens, bits)
+
+    def words_links(prev):
+        words = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        fn = lib.tpz_lz4_dense_words_links
+        fn.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+        _build.check(fn(rows.data_ptr(), lens.data_ptr(), prev.data_ptr(), b,
+                        n, words.data_ptr(), stream()),
+                     "tpz_lz4_dense_words_links")
+        return words
+
+    prev = links()
+    words = words_links(prev)
+    return {"links": links, "words_links": functools.partial(words_links,
+                                                             prev),
+            "words_parse": functools.partial(words_parse, words),
+            "encode": lambda: words_parse(words_links(links()))}
+
+
+def top_bits_rows(b: int, n: int, seed: int) -> np.ndarray:
+    """(b, n) u8 rows whose every 4-byte-aligned 4-gram hashes to h with
+    the same top 16 bits at 24 and at 32 bits (seq = (T << 16 | k) times
+    the inverse of the hash's multiplier, k random): the rows on which a
+    sort by the top bits of h first would put a quarter of a row's
+    positions in one bucket."""
+    rng = np.random.default_rng(seed)
+    inv = pow(lz4_coder.HASH_MUL, -1, 1 << 32)
+    k = rng.integers(0, 1 << 16, (b, n // 4), dtype=np.uint64)
+    seq = (((0x5A5A << 16) | k) * np.uint64(inv)) & np.uint64(0xFFFFFFFF)
+    return seq.astype("<u4").view(np.uint8).reshape(b, n)
 
 
 def ab_lz4(src: str, libs: dict) -> dict:
@@ -5736,36 +5972,44 @@ def ab_lz4(src: str, libs: dict) -> dict:
     in turns (old, new, new, old; each the mean of 3 launches), and each
     launch of each build timed alone.  lz4_chain: the lz4_chain path's
     1024 x 64 KiB rows at hash_log 16 and max_chain 2, 8 and 64, 1024 zero
-    rows at 8 and 64 and 1024 random rows at 8.  lz4_dense: the serving
-    path's tensor at compress_from_device's 15 bits, one row and 132 rows
-    of it, and as many zero rows (a row of one hash, whose candidates fall
-    on one warp of the shared route's eight)."""
+    rows at 8 and 64, 1024 random rows at 8, the path's rows at hash_log
+    24 (max_chain 8), and the wide path's 64 x 128 KiB at 16.  lz4_dense:
+    the serving path's tensor at compress_from_device's 15 bits and at 20,
+    24 and 32 (device_encode's route past 16 bits), as many zero, b"ab"
+    and random rows at 20, as many top_bits_rows at 32, and the wide
+    path's 64 x 128 KiB at 16."""
+    x, lens, _ = serving_tensor()
+    rng = np.random.default_rng(SEED + 16)
+    kinds = {"text": x, "zero": torch.zeros_like(x),
+             "ab": torch.tensor([97, 98], dtype=torch.uint8,
+                                device="cuda").repeat(x.numel() // 2).view(
+                                    x.shape),
+             "random": torch.from_numpy(rng.integers(
+                 0, 256, tuple(x.shape), np.uint8)).cuda()}
+    wide = x.view(-1)[:LZ4_WIDE_BYTES].view(-1, LZ4_WIDE_BLOCK)
+    wide_lens = torch.full((wide.shape[0],), LZ4_WIDE_BLOCK,
+                           dtype=torch.int32, device="cuda")
     if src == "lz4_chain":
-        data = text_corpus(CORPUS_BYTES, SEED)
-        cfg = Config()
-        cfg.codec.lz4.max_chain = CHAIN_PATH_DEPTH
-        with recorded(lz4_chain, "lz4_chain_links") as calls:
-            tpuzip_torch.compress(data, config=cfg)
-        (args, _, _), = calls
-        x, lens, hl = args[0].contiguous(), args[1].contiguous(), args[2]
-        rng = np.random.default_rng(SEED + 16)
-        rand = torch.from_numpy(rng.integers(0, 256, tuple(x.shape),
-                                             np.uint8)).cuda()
-        shapes = {f"text_max_chain_{mc}": (x, lens, mc) for mc in (2, 8, 64)}
-        shapes.update(zero_max_chain_8=(torch.zeros_like(x), lens, 8),
-                      zero_max_chain_64=(torch.zeros_like(x), lens, 64),
-                      random_max_chain_8=(rand, lens, 8))
-        make = {k: (lambda lib, a=a: ab_chain_runs(lib, a[0], a[1], hl, a[2]))
+        shapes = {f"text_max_chain_{mc}": (x, lens, 16, mc)
+                  for mc in (2, 8, 64)}
+        shapes.update(zero_max_chain_8=(kinds["zero"], lens, 16, 8),
+                      zero_max_chain_64=(kinds["zero"], lens, 16, 64),
+                      random_max_chain_8=(kinds["random"], lens, 16, 8),
+                      text_hash_log_24=(x, lens, 24, 8),
+                      wide_hash_log_16=(wide, wide_lens, 16, 8))
+        make = {k: (lambda lib, a=a: ab_chain_runs(lib, *a))
                 for k, a in shapes.items()}
     else:
-        x, lens, _ = serving_tensor()
-        hl = lz4_dense.HASH_LOG
-        make = {f"serving_{r}_rows": (
-            lambda lib, r=r: ab_dense_runs(lib, x[:r].contiguous(),
-                                           lens[:r].contiguous(), hl))
-                for r in (x.shape[0], 132, 1)}
-        make["serving_zero_rows"] = (
-            lambda lib: ab_dense_runs(lib, torch.zeros_like(x), lens, hl))
+        shapes = {"text_hash_log_15": (x, lens, lz4_dense.HASH_LOG)}
+        shapes.update({f"text_hash_log_{hl}": (x, lens, hl)
+                       for hl in (20, 24, 32)})
+        shapes.update({f"{k}_hash_log_20": (kinds[k], lens, 20)
+                       for k in ("zero", "ab", "random")})
+        shapes["top_bits_hash_log_32"] = (torch.from_numpy(top_bits_rows(
+            *x.shape, SEED + 17)).cuda(), lens, 32)
+        shapes["wide_hash_log_16"] = (wide, wide_lens, 16)
+        make = {k: (lambda lib, a=a: ab_dense_runs(lib, *a))
+                for k, a in shapes.items()}
     res = {}
     for shape, mk in make.items():
         runs = {k: mk(lib) for k, lib in libs.items()}
@@ -5783,16 +6027,13 @@ def ab_lz4(src: str, libs: dict) -> dict:
         row["launch_ms"] = {k: {name: cuda_ms(fn, 3) for name, fn in r.items()
                                 if name != "encode"}
                             for k, r in runs.items()}
-        # each variant of a launch gives that launch's output
-        new = runs["new"]
-        for name, base in (("two_step", "encode"), ("links_keyed", "links"),
-                           ("links_shared", "links")):
-            if name in new:
-                got, want = new[name](), new[base]()
-                if not isinstance(got, tuple):
-                    got, want = (got,), (want,)
-                row["outputs_equal"][f"new:{name}"] = all(
-                    torch.equal(a, c) for a, c in zip(got, want))
+        if src == "lz4_chain":   # the links alone in turns
+            t = {k: [] for k in runs}
+            for k in runs:
+                if k != "new":
+                    for j in (k, "new", "new", k):
+                        t[j].append(cuda_ms(runs[j]["links"], 3))
+            row["links_turns_ms"] = t
         del runs
         res[shape] = row
     return res
@@ -5811,7 +6052,8 @@ def ab_child(dirs: list) -> int:
         mkdir -p _parent && for f in $(git ls-tree --name-only REV \\
             tpuzip_torch/csrc/); do git show REV:$f > _parent/${f##*/}; done
 
-    Builds them all at once with their registers and spills, takes each
+    Builds them all at once (those of the checkout whose source some DIR
+    holds) with their registers and spills, takes each
     kernel's launch on the container paths (ari_encode and ari_decode at
     the ari, bwt, bwt_big and bwtdc paths; mtf both ways at the bwt and
     bwt_big paths; bin_encode and bin_decode at the bin and apm paths, and
@@ -5865,11 +6107,13 @@ def ab_child(dirs: list) -> int:
     for kernel in (AB_KERNELS + AB_SASS_ONLY + AB_LZ4_SOURCES
                    + ("ari_decode_dot",)):
         src = AB_SOURCE.get(kernel, kernel)
-        if kernel != "ari_decode_dot":
+        held = [i for i, d in enumerate(dirs)
+                if os.path.exists(f"{d}/{src}.cu")]
+        # the checkout's build of a source no DIR holds is not needed
+        if kernel != "ari_decode_dot" and held:
             jobs[f"new:{kernel}"] = _build.CSRC / f"{src}.cu"
-        for i, d in enumerate(dirs):
-            if os.path.exists(f"{d}/{src}.cu"):
-                jobs[f"old{i}:{kernel}"] = f"{d}/{src}.cu"
+        for i in held:
+            jobs[f"old{i}:{kernel}"] = f"{dirs[i]}/{src}.cu"
     res = {"nvidia_smi": smi, "old": {f"old{i}": d for i, d in
                                       enumerate(dirs)}}
     differ = []
@@ -5933,8 +6177,8 @@ def ab_child(dirs: list) -> int:
             libs["ari_decode_dot"]["new"] = libs["ari_decode"]["new"]
         shapes = {}
         # a kernel no DIR holds (a source newer than every DIR) has no row
-        res["skipped"] = sorted(k for k in AB_KERNELS if set(libs[k]) ==
-                                {"new"})
+        res["skipped"] = sorted(k for k in AB_KERNELS
+                                if set(libs.get(k, {})) <= {"new"})
         for kernel in res["skipped"]:
             print(json.dumps({"kernel": kernel, "skipped": "no DIR holds "
                               f"{AB_SOURCE.get(kernel, kernel)}.cu"}),
@@ -5984,7 +6228,7 @@ def ab_child(dirs: list) -> int:
                 print(json.dumps({"kernel": kernel, "path": path, **row}),
                       flush=True)
         for src in AB_LZ4_SOURCES:
-            if set(libs[src]) == {"new"}:
+            if set(libs.get(src, {})) <= {"new"}:
                 print(json.dumps({"kernel": src, "skipped":
                                   f"no DIR holds {src}.cu"}), flush=True)
                 continue
@@ -6033,9 +6277,10 @@ def main() -> int:
     lz4_launches, lz4_kernels, lz4_payload = phase_lz(smi, "lz4")
     rle_launches, rle_kernels, _ = phase_lz(smi, "rle")
     serve_launches, serve_kernels, encode_launches = phase_serving(smi)
-    # the fused route at 16 bits, the keyed tables at 20
+    # the shared route at 16 bits, the sorted links at 20
     corpus_launches = phase_corpus(smi, lz4_payload, dc_peak)
-    chain_launches, chain_kernels = phase_lz4_chain(smi, lz4_payload)
+    chain_launches, wide_launches, chain_kernels = phase_lz4_chain(
+        smi, lz4_payload)
     (lz4p_launches, lz4p_serve_launches, lz4p_kernels,
      lz4p_serve_kernels) = phase_lz4p(smi)
     (deflate_launches, deflate_dev_launches, deflate_wide_launches,
@@ -6053,6 +6298,7 @@ def main() -> int:
                "device_encode": encode_launches[16],
                "device_encode_20": encode_launches[20],
                "corpus": corpus_launches, "lz4_chain": chain_launches,
+               **wide_launches,
                "lz4p": lz4p_launches, "lz4p_serving": lz4p_serve_launches,
                "deflate": deflate_launches,
                "deflate_to_device": deflate_dev_launches,
@@ -6063,9 +6309,10 @@ def main() -> int:
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
     # the ari path's decode inputs, lz4 and rle at theirs (1024 x 64 KiB),
     # the dense lz4 words and rle segment kernels at the serving path's, the
-    # dense lz4 candidates and parse at device_encode's at hash_log 20, the
-    # chained lz4 kernels at the lz4_chain path's, lz4p's at its compress
-    # path's, deflate's at its path's (the keyed links at the wide path's
+    # sorted links and the words from them at device_encode's at hash_log
+    # 20, the chained lz4 kernels at the lz4_chain path's, the tiled lz4
+    # links at the wide lz4 path's 128 KiB rows, lz4p's at its compress
+    # path's, deflate's at its path's (the tiled links at the wide path's
     # 128 KiB rows); the error over every phase
     dot_kernels = {"ari_decode_dot": dot_kernel}
     at_shape = {**bwt_kernels, **ari_kernels,
@@ -6076,6 +6323,8 @@ def main() -> int:
                ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels,
                dot_kernels, legacy_kernels, lz4_kernels, rle_kernels,
                serve_kernels, chain_kernels, lz4p_kernels,
+               {"lz4_dense_words_links":
+                chain_kernels["lz4_dense_words_links_wide"]},
                lz4p_serve_kernels, deflate_kernels,
                {k: {"max_abs_err": e} for k, e in zlib_errs.items()})
     # each emit wrapper's kernels by route, as its traces show them
@@ -6110,12 +6359,10 @@ def main() -> int:
              "csrc/tpuzip_host.cpp:1822 tpz_rle_decode"),
             # tpuzip's device encoders (XLA, not Pallas), which its
             # compress_from_device runs
-            ("lz4_dense_candidates", "lz4_dense.cu",
-             "tpuzip/codecs/lz4.py:153 _candidates"),
-            ("lz4_dense_parse", "lz4_dense.cu",
-             "tpuzip/codecs/lz4.py:179 encode"),
             ("lz4_dense_words", "lz4_dense.cu",
              "tpuzip/codecs/lz4.py:153 _candidates"),
+            ("lz4_dense_words_links", "lz4_dense.cu",
+             "tpuzip/codecs/lz4.py:153 _candidates (its filter)"),
             ("lz4_dense_words_parse", "lz4_dense.cu",
              "tpuzip/codecs/lz4.py:179 encode"),
             ("rle_encode_seg", "rle.cu", "tpuzip/codecs/rle.py:30 encode"),
@@ -6129,6 +6376,14 @@ def main() -> int:
              "find_best)"),
             ("lz4_chain_parse", "lz4_chain.cu",
              "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained"),
+            # both lz4 encoders' links past their shared routes
+            ("lz4_links_tiled", "lz4_links.cu",
+             "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained (its "
+             "hash chain); tpuzip/codecs/lz4.py:153 _candidates"),
+            ("lz4_links_sorted", "lz4_links.cu",
+             "tpuzip/codecs/lz4.py:153 _candidates (its argsort); "
+             "csrc/tpuzip_host.cpp:463 tpz_lz4_compress_chained (its "
+             "hash chain)"),
             ("lz4p_pack", "lz4p.cu",
              "csrc/tpuzip_host.cpp:333 tpz_lz4p_encode; "
              "tpuzip/codecs/lz4p.py:50 encode"),

@@ -226,7 +226,8 @@ def _hash(row: np.ndarray, p: int) -> int:
 
 
 def tiled_links(row: np.ndarray, ln: int, tile: int) -> list:
-    """deflate_links_tiled_kernel and deflate_links_carry_kernel on one row:
+    """lz4_shared.cuh's links_tiled_kernel and links_carry_kernel under
+    deflate's key (csrc/deflate_encode.cu's tiled links) on one row:
     each tile's positions below the limit linked by the split_row replica
     as a row of their own (-1 where the tile holds no earlier position of
     the hash), its table and, for each hash it holds, its first position;

@@ -18,7 +18,7 @@ from tpuzip.dist import runner as jrun
 import chip_smoke
 import tpuzip_torch
 from tpuzip_torch.core.config import config_from_dict
-from tpuzip_torch.kernels import lz4_dense
+from tpuzip_torch.kernels import lz4_dense, lz4_links
 
 MESH1 = meshlib.make_mesh(1)
 with open(__file__.rsplit("/tests/", 1)[0] + "/SURVEY.md", "rb") as _f:
@@ -105,16 +105,17 @@ def _port(blocks, lens, hash_log):
 def test_plain_encoder_equals_xla(hash_log):
     """The plain candidates equal XLA's _candidates and the streams XLA's
     encode_batch, row by row; each stream decodes back."""
-    before = (lz4_dense.lz4_dense_candidates.launches,
-              lz4_dense.lz4_dense_parse.launches)
+    counters = (lz4_dense.lz4_dense_words, lz4_dense.lz4_dense_words_links,
+                lz4_dense.lz4_dense_words_parse, lz4_links.lz4_links_tiled,
+                lz4_links.lz4_links_sorted)
+    before = [f.launches for f in counters]
     assert _port(ROWS, LENS, hash_log) == _xla(ROWS, LENS, hash_log)
     got = lz4_dense.lz4_dense_candidates_plain(
         torch.from_numpy(ROWS), torch.from_numpy(LENS), hash_log)
     ref = jax.vmap(lambda b, n: jlz4._candidates(b, n, hash_log))(ROWS, LENS)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     # the wrappers ran their plain versions on the CPU: no launch counted
-    assert (lz4_dense.lz4_dense_candidates.launches,
-            lz4_dense.lz4_dense_parse.launches) == before
+    assert [f.launches for f in counters] == before
     for st, row, ln in zip(_port(ROWS, LENS, hash_log), ROWS, LENS):
         assert chip_smoke.olz4.decompress_block(st) == row[:ln].tobytes()
 
@@ -161,20 +162,3 @@ def test_device_encode_container_identical(hash_log):
     assert mine == ref
     assert tpuzip_torch.decompress(ref, device="cpu") == data
     assert jrun.decompress(mine, mesh=MESH1) == data
-
-
-def test_table_routes():
-    """Direct tables up to DIRECT_MAX_LOG bits, keyed past it with twice
-    the hashes a row can hold; out-of-range hash_logs take one slot; the
-    pool shrinks past POOL_BYTES."""
-    assert lz4_dense.DIRECT_MAX_LOG == 12
-    assert lz4_dense.table_route(12, 65536) == ("direct", 12)
-    assert lz4_dense.table_route(15, 65536) == ("keyed", 16)
-    assert lz4_dense.table_route(20, 65536) == ("keyed", 17)
-    assert lz4_dense.table_route(32, 2048) == ("keyed", 12)
-    assert lz4_dense.table_route(40, 65536) == ("direct", 0)
-    assert lz4_dense.table_route(-3, 65536) == ("direct", 0)
-    assert lz4_dense.table_bytes(0, 100) == 16
-    assert lz4_dense.table_count(1024, 15, 65536) == 1024
-    assert lz4_dense.table_count(1024, 20, 65536) == 1024
-    assert lz4_dense.table_count(4096, 20, 65536) == 1024

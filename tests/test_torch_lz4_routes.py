@@ -205,12 +205,12 @@ def test_direct_u16_rule_equals_xla(hash_log):
 def test_dense_route_is_a_function_of_shape(n):
     """The dense encoder's route: shared for rows of at most 65,536 bytes
     at table_bits <= 16 (hash_log 0, 33 and up and negative ones hash to
-    0), else the candidates' table route; the same for any batch."""
+    0), tiled for wider rows there, sorted at 17-32 bits at any width; the
+    same for any batch."""
     for hash_log in range(-2, 42):
         bits = lz4_dense.table_bits(hash_log)
-        want = ("shared" if n <= 65536 and bits <= 16
-                else "direct" if bits <= lz4_dense.DIRECT_MAX_LOG
-                else "keyed")
+        want = ("sorted" if bits > 16 else "shared" if n <= 65536
+                else "tiled")
         assert lz4_dense.encode_route(hash_log, n) == want, hash_log
         assert lz4_dense.encode_route(hash_log, n) == \
             lz4_dense.encode_route(hash_log, n)
@@ -223,11 +223,12 @@ def test_dense_route_is_a_function_of_shape(n):
 def test_chain_routes_are_a_function_of_shape(n):
     """The chained encoder's routes: links shared for rows of at most
     65,536 bytes at a resolved hash_log <= 16 (out-of-range ones are 16),
-    keyed else; best staged for rows of at most 65,536 bytes."""
+    tiled for wider rows there, sorted at 17-24; best staged for rows of at
+    most 65,536 bytes."""
     for hash_log in range(0, 32):
         bits = resolve_hash_log(hash_log)
-        want = ("shared" if n <= 65536 and bits <= 16 else "keyed",
-                "staged" if n <= 65536 else "device")
+        want = ("sorted" if bits > 16 else "shared" if n <= 65536
+                else "tiled", "staged" if n <= 65536 else "device")
         assert lz4_chain.routes(hash_log, n) == want, hash_log
 
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Check and time csrc/lz4_chain.cu, csrc/lz4_dense.cu and csrc/lz4p.cu on
-one GPU:
+"""Check and time csrc/lz4_chain.cu, csrc/lz4_dense.cu, csrc/lz4_links.cu
+and csrc/lz4p.cu on one GPU:
 
     python3 tools/lz4_chain_depths.py
 
-Builds the three sources with nvcc -Xptxas -v (registers and spills), then
+Builds the four sources with nvcc -Xptxas -v (registers and spills), then
 holds every launch exact against its plain version: the chained encoder's
 links, best words and parse at hash_log 4, 12, 16 and 24 and max_chain 2, 8
 and 64 on 72 rows of 4 KiB (text, text cut short with random bytes past its
@@ -18,7 +18,9 @@ at 15, two 64 KiB rows where no 4 bytes repeat) and its decode on the
 packed rows and 64 garbage streams.  Then one timed launch of each (CUDA
 events) at 1024 x 64 KiB of chip_smoke's text corpus: the links at hash_log
 16, best and the parse at max_chain 2, 8 and 64 with each one's ratio, the
-dense words and their parse against the candidates and parse at 15 bits, lz4_encode.cu, the pack and the decode; and the links, best and
+dense words and their parse at 15 bits, the sorted links, the words from
+them and their parse at 20, lz4_encode.cu, the pack and the decode; and the
+links, best and
 parse of 1024 all-zero rows (max_chain 64), 1024 b"ab" rows (8) and 1024
 random rows (8).  Prints the card, the ptxas lines and one JSON line a
 group."""
@@ -39,13 +41,13 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from tpuzip_torch.kernels import (_build, lz4_chain, lz4_coder,  # noqa: E402
-                                  lz4_dense, lz4p_coder)
+                                  lz4_dense, lz4_links, lz4p_coder)
 
 
 def ptxas() -> None:
     nvcc = _build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("lz4_chain", "lz4_dense", "lz4p"):
+        for name in ("lz4_chain", "lz4_dense", "lz4_links", "lz4p"):
             r = subprocess.run(
                 [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                  f"{tmp}/{name}.so", str(_build.CSRC / f"{name}.cu")],
@@ -54,7 +56,7 @@ def ptxas() -> None:
                 line for line in (r.stdout + r.stderr).splitlines()
                 if "registers" in line or "error" in line
                 or "spill" in line), flush=True)
-    _build.build("lz4_chain", "lz4_dense", "lz4p")
+    _build.build("lz4_chain", "lz4_dense", "lz4_links", "lz4p")
 
 
 def rows(n: int):
@@ -191,11 +193,12 @@ def times() -> dict:
         lambda: lz4_dense.lz4_dense_words(x, lens, 15))
     (_, cl), t["words_parse15_ms"] = cs.timed(
         lambda: lz4_dense.lz4_dense_words_parse(x, lens, w))
-    cand, t["candidates15_ms"] = cs.timed(
-        lambda: lz4_dense.lz4_dense_candidates(x, lens, 15))
-    (_, cl2), t["parse15_ms"] = cs.timed(
-        lambda: lz4_dense.lz4_dense_parse(x, lens, cand))
-    t["shared_equal"] = bool(torch.equal(cl, cl2))
+    prev, t["links20_ms"] = cs.timed(
+        lambda: lz4_links.lz4_links_sorted(x, lens, 20))
+    w2, t["words_links20_ms"] = cs.timed(
+        lambda: lz4_dense.lz4_dense_words_links(x, lens, prev))
+    _, t["words_parse20_ms"] = cs.timed(
+        lambda: lz4_dense.lz4_dense_words_parse(x, lens, w2))
     (c, cl), t["lz4_encode_ms"] = cs.timed(
         lambda: lz4_coder.lz4_encode_batch(x, lens, 16))
     (p, pl), t["pack_ms"] = cs.timed(
@@ -204,7 +207,7 @@ def times() -> dict:
     (d, _), t["decode_ms"] = cs.timed(
         lambda: lz4p_coder.lz4p_decode_batch(p, pl, cs.BLOCK))
     t["decoded"] = bool(torch.equal(d, x))
-    del c, p, d, cand
+    del c, p, d, prev, w2
     for name, rows_, mc in (
             ("zero", torch.zeros_like(x), 64),
             ("ab", x.new_tensor(np.resize(np.frombuffer(b"ab", np.uint8),

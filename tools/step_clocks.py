@@ -34,7 +34,8 @@ on the lz4_chain path's rows (max_chain 8 and 64), counting the positions
 the parse never reads; the dense lz4 candidates step as it stood before
 its redesign (keyed tables in device memory, and the direct ones of 15
 bits it had before them) on the serving path's tensor; both on row 0
-alone and beside the other 1023 rows, held against the kernels' output.
+alone and beside the other 1023 rows, held against the kernels' output
+(the dense candidates against their plain version: the kernel is gone).
 The deflate decoder's step as it stood before its redesign (lane 0
 decoding a symbol at a time) is stamped by part on the deflate path's
 streams, and lz4p's pack as it stood before its redesign (two walks, a
@@ -457,23 +458,24 @@ def chain_parse(lib, res) -> None:
 
 def dense_candidates(lib, res) -> None:
     """The dense lz4 candidates step as it stood before its redesign (the
-    keyed route at compress_from_device's 15 bits), on the serving path's
-    tensor (1024 rows of 64 KiB), stamped by part on row 0 alone and
-    beside the other 1023 rows, held against csrc/lz4_dense.cu's
-    candidates there, into res["lz4_dense_candidates"]: cycles a step by
-    part and the unstamped copy's and the kernel's ms; and the same step
-    on the direct route it took at 15 bits before it was keyed (2^15
-    int32 slots a row in device memory), into "direct_*"."""
+    keyed route at compress_from_device's 15 bits, a warp a row; since
+    removed from csrc/lz4_dense.cu), on the serving path's tensor (1024
+    rows of 64 KiB), stamped by part on row 0 alone and beside the other
+    1023 rows, held against the plain candidates there, into
+    res["lz4_dense_candidates"]: cycles a step by part and the unstamped
+    copy's ms; and the same step on the direct route it took at 15 bits
+    before it was keyed (2^15 int32 slots a row in device memory), into
+    "direct_*"."""
     x, lens, _ = cs.serving_tensor()
     b_all, n = x.shape
     bits = lz4_dense.table_bits(lz4_dense.HASH_LOG)
-    route, slog = lz4_dense.table_route(lz4_dense.HASH_LOG, n)
-    assert route == "keyed"
+    # the keyed table as its wrapper sized it: twice the hashes a row holds
+    slog = max(6, min(bits + 1, (2 * n - 1).bit_length()))
     fn = lib.tpz_dense_candidates_clocks
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci, vp, ci]
     tables = torch.empty(b_all << slog, dtype=torch.int64, device="cuda")
-    ref = lz4_dense.lz4_dense_candidates(x, lens, lz4_dense.HASH_LOG)
+    ref = lz4_dense.lz4_dense_candidates_plain(x, lens, lz4_dense.HASH_LOG)
 
     def launch(b: int, stamped: int, keyed: int = 1):
         cand = torch.empty((b, n), dtype=torch.int32, device="cuda")
@@ -494,7 +496,7 @@ def dense_candidates(lib, res) -> None:
             if not torch.equal(cand, ref[:b]):
                 raise AssertionError(f"dense candidates copy ({name}stamped="
                                      f"{stamped}, {b} rows) differs from "
-                                     "csrc/lz4_dense.cu")
+                                     "the plain candidates")
             cyc = cyc.tolist()
             steps = cyc[8]
             rec[f"{name}rows_{b}_"
@@ -506,10 +508,6 @@ def dense_candidates(lib, res) -> None:
                 "whole_row_cycles": cyc[7]}
         rec[f"{name}rows_{b}_unstamped_ms"] = cs.cuda_ms(
             lambda: launch(b, 0, keyed), 3)
-        if keyed:
-            rec[f"rows_{b}_kernel_ms"] = cs.cuda_ms(
-                lambda: lz4_dense.lz4_dense_candidates(
-                    x[:b], lens[:b], lz4_dense.HASH_LOG), 3)
 
 
 def coders(lib, res) -> None:

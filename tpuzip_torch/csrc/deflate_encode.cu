@@ -55,7 +55,8 @@
 //     inside a run of one hash skip them.  As first ported, the links were
 //     one warp a row over a keyed table of 8-byte slots in device memory,
 //     512 KiB a row (PERF.md §6, row 18);
-//   - links, on wider rows (tiled): the row cut into tiles of LINK_TILE
+//   - links, on wider rows (tiled, lz4_shared.cuh's template, which the
+//     lz4 encoders share): the row cut into tiles of LINK_TILE
 //     positions, each run by split_row as a row of its own (positions
 //     relative to the tile, so each fits the u16 slot), a CTA a tile, so
 //     one 8 MiB row fills the card.  Each tile writes out its table (the
@@ -150,9 +151,6 @@ constexpr int HASH_BITS = 15;
 constexpr int STORED_MAX = 65535;
 constexpr uint32_t HASH_MUL = 2654435761u;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int SLOTS = 1 << HASH_BITS;
-constexpr int LINK_TILE = 1 << 15;  // positions a tile of the tiled links
-constexpr int CARRY_THREADS = 256;
 // the device rule's greedy parse in segments
 constexpr int PARSE_SEG = 2048;     // positions a segment
 constexpr int ENTRIES = MAX_MATCH;  // a segment's first positions a token
@@ -238,6 +236,7 @@ __device__ __forceinline__ uint32_t load4_aligned(const uint8_t* p) {
 // deflate's key (its hash is hash_bits of the 3 bytes at 15 bits), the row
 // read through L1, 3 bytes a position, none past the row.
 struct Key3 {
+  static constexpr bool ALIGNED = false;   // read byte by byte from the row
   __device__ __forceinline__ uint32_t operator()(const uint8_t* row,
                                                  int q) const {
     return row[q] | row[q + 1] << 8 | static_cast<uint32_t>(row[q + 2]) << 16;
@@ -266,101 +265,6 @@ deflate_links_shared_kernel(const uint8_t* __restrict__ blocks,
     lz4s::split_row<Key3>(src, 0, limit, HASH_BITS, table,
                           queues + 64 * warp, warp, lane,
                           [&](int p, int c) { out[p] = c; });
-  }
-}
-
-// links on the tiled route, tiles blockIdx.x, + gridDim.x, ... of the B
-// rows' ceil(n / LINK_TILE) each: split_row over the tile as over a row of
-// the shared route (positions relative to the tile, the bytes read up to
-// the row's limit, into the next tile), its links inside the tile into
-// prev (-1 where none), then the tile's table (slot h: the tile's last
-// position of hash h, + 1; 0 for none) into lasts and, for each hash the
-// tile holds, the position that found no link inside it into firsts (a
-// hash's first position in the tile; no other entry is read).  A tile past
-// the row's limit writes -1s alone.
-__global__ void __launch_bounds__(32 * lz4s::SPLIT_CLASSES)
-deflate_links_tiled_kernel(const uint8_t* __restrict__ blocks,
-                           const int32_t* __restrict__ lengths, int B,
-                           int n, int32_t* __restrict__ prev,
-                           uint16_t* __restrict__ lasts,
-                           uint16_t* __restrict__ firsts) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int THREADS = 32 * lz4s::SPLIT_CLASSES;
-  uint32_t* queues = reinterpret_cast<uint32_t*>(smem);
-  uint16_t* table = reinterpret_cast<uint16_t*>(smem + lz4s::QUEUE_BYTES);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tiles = (n + LINK_TILE - 1) / LINK_TILE;
-  const long long jobs = static_cast<long long>(B) * tiles;
-  for (long long job = blockIdx.x; job < jobs; job += gridDim.x) {
-    const int row = static_cast<int>(job / tiles);
-    const int t0 = static_cast<int>(job % tiles) * LINK_TILE;
-    const uint8_t* src = blocks + static_cast<size_t>(row) * n + t0;
-    int32_t* out = prev + static_cast<size_t>(row) * n + t0;
-    const int len = min(max(lengths[row], 0), n);
-    const int limit = max(len - (MIN_MATCH - 1), 0);   // p + 2 < len
-    const int width = min(LINK_TILE, n - t0);
-    const int live = min(max(limit - t0, 0), width);  // the tile's positions
-    __syncthreads();   // the last tile's steps on the table done
-    if (live)
-      for (int k = tid; k < lz4s::table_bytes(HASH_BITS) / 16; k += THREADS)
-        reinterpret_cast<int4*>(table)[k] = make_int4(0, 0, 0, 0);
-    for (int p = live + tid; p < width; p += THREADS) out[p] = -1;
-    if (!live) continue;
-    __syncthreads();
-    uint16_t* first = firsts + static_cast<size_t>(job) * SLOTS;
-    lz4s::split_row<Key3>(
-        src, 0, live, HASH_BITS, table, queues + 64 * warp, warp, lane,
-        [&](int p, int c) {
-          out[p] = c < 0 ? -1 : t0 + c;
-          if (c < 0)
-            first[lz4s::hash_bits(Key3{}(src, p), HASH_BITS)] =
-                static_cast<uint16_t>(p);
-        });
-    __syncthreads();
-    int4* last = reinterpret_cast<int4*>(lasts + static_cast<size_t>(job) *
-                                                     SLOTS);
-    for (int k = tid; k < SLOTS / 8; k += THREADS)
-      last[k] = reinterpret_cast<const int4*>(table)[k];
-  }
-}
-
-// The tiled links' carry and fix-up, a thread a hash h of a row: walks the
-// row's tiles below its limit in order, carrying the last position of h
-// in the tiles before; where a tile holds h, its first position of h (which
-// found no link inside the tile) takes the carried one.  Tiles' entries
-// are loaded 8 at a time.
-__global__ void __launch_bounds__(CARRY_THREADS)
-deflate_links_carry_kernel(const int32_t* __restrict__ lengths, int B, int n,
-                           int32_t* __restrict__ prev,
-                           const uint16_t* __restrict__ lasts,
-                           const uint16_t* __restrict__ firsts) {
-  constexpr int BATCH = 8;
-  const long long id = blockIdx.x * static_cast<long long>(CARRY_THREADS) +
-                       threadIdx.x;
-  const int row = static_cast<int>(id >> HASH_BITS);
-  const int h = static_cast<int>(id & (SLOTS - 1));
-  if (row >= B) return;
-  const int tiles = (n + LINK_TILE - 1) / LINK_TILE;
-  const int len = min(max(lengths[row], 0), n);
-  const int limit = max(len - (MIN_MATCH - 1), 0);
-  const int used = (limit + LINK_TILE - 1) / LINK_TILE;   // tiles with links
-  const size_t first_job = static_cast<size_t>(row) * tiles;
-  int32_t* out = prev + static_cast<size_t>(row) * n;
-  int carried = -1;
-  for (int base = 0; base < used; base += BATCH) {
-    int last[BATCH];
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k)
-      last[k] = base + k < used
-                    ? lasts[(first_job + base + k) * SLOTS + h] : 0;
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k) {
-      if (!last[k]) continue;
-      const int t0 = (base + k) * LINK_TILE;
-      if (carried >= 0)
-        out[t0 + firsts[(first_job + base + k) * SLOTS + h]] = carried;
-      carried = t0 + last[k] - 1;
-    }
   }
 }
 
@@ -2032,8 +1936,9 @@ extern "C" int tpz_deflate_links_shared(const void* blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// links on the tiled route: blocks (B, n) u8 and lengths (B,) i32 in,
-// prev (B, n) i32 out, every entry written; scratch: 2 x B x
+// links on the tiled route (lz4_shared.cuh's links_tiled_kernel and
+// links_carry_kernel under Key3 at 15 bits): blocks (B, n) u8 and lengths
+// (B,) i32 in, prev (B, n) i32 out, every entry written; scratch: 2 x B x
 // ceil(n / LINK_TILE) x 2^15 u16 (tpz_deflate_links_tiled_scratch bytes),
 // the tiles' tables then their first positions.  Launches as many CTAs of
 // SPLIT_CLASSES warps as fit the card at once (at most the tiles), each
@@ -2043,39 +1948,15 @@ extern "C" int tpz_deflate_links_tiled(const void* blocks,
                                        const void* lengths, int B, int n,
                                        void* prev, void* scratch,
                                        void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long tiles =
-      static_cast<long long>(B) * ((n + LINK_TILE - 1) / LINK_TILE);
-  const long long carry = static_cast<long long>(B) * SLOTS / CARRY_THREADS;
-  if (tiles > 0x7FFFFFFF || carry > 0x7FFFFFFF)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (tiles == 0) return static_cast<int>(cudaSuccess);
-  const int threads = 32 * lz4s::SPLIT_CLASSES;
-  const int smem = lz4s::QUEUE_BYTES + lz4s::table_bytes(HASH_BITS);
-  int grid = 0;
-  cudaError_t err = lz4s::persistent_grid(
-      reinterpret_cast<const void*>(deflate_links_tiled_kernel), threads,
-      smem, static_cast<int>(tiles), &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  uint16_t* lasts = static_cast<uint16_t*>(scratch);
-  uint16_t* firsts = lasts + static_cast<size_t>(tiles) * SLOTS;
-  deflate_links_tiled_kernel<<<grid, threads, smem, s>>>(
-      static_cast<const uint8_t*>(blocks),
-      static_cast<const int32_t*>(lengths), B, n,
-      static_cast<int32_t*>(prev), lasts, firsts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  deflate_links_carry_kernel<<<static_cast<unsigned>(carry), CARRY_THREADS,
-                               0, s>>>(static_cast<const int32_t*>(lengths),
-                                       B, n, static_cast<int32_t*>(prev),
-                                       lasts, firsts);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      lz4s::launch_links_tiled<Key3, MIN_MATCH - 1, HASH_BITS>(
+          blocks, lengths, B, n, HASH_BITS, prev, scratch,
+          static_cast<cudaStream_t>(stream)));
 }
 
 // Bytes of tpz_deflate_links_tiled's scratch for B rows of n bytes.
 extern "C" long long tpz_deflate_links_tiled_scratch(int B, int n) {
-  return 2ll * B * ((n + LINK_TILE - 1) / LINK_TILE) * SLOTS *
-         static_cast<long long>(sizeof(uint16_t));
+  return lz4s::links_tiled_scratch(B, n, HASH_BITS);
 }
 
 // Bytes of tpz_deflate_parse_greedy's scratch for B rows of n bytes: the

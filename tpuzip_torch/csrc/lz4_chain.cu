@@ -42,10 +42,11 @@
 //     table steps (one warp on the whole row took 5.22 ms at the path's
 //     shape, 8 split ones 2.03; PERF.md), and 128 positions inside a run
 //     of one hash skip them (zero rows 3.1 ms without that, 1.3 with it).
-//     Other rows keep the
-//     keyed table in device memory, a warp a row (open addressing on the
-//     full h, at most half full; a direct table of 2^24 slots would be
-//     64 MiB a row);
+//     Other rows take csrc/lz4_links.cu's links (kernels/lz4_chain.py
+//     calls them): by tiles of split_row and a carry past 65,536 bytes,
+//     by sorting at hash_log 17-24.  As first ported they took a keyed
+//     table in device memory, a warp a row (a direct table of 2^24 slots
+//     would be 64 MiB a row);
 //   - best does not depend on the parse, so a CTA of 1024 threads a row
 //     computes it at every position, a thread a position, with the row's
 //     bytes (TMA) and its links as u16 distances (p - prev[p], 0 for none
@@ -73,7 +74,6 @@
 namespace {
 
 using lz4s::FULL;
-using lz4s::HASH_MUL;
 using lz4s::LAST_LITERALS;
 using lz4s::MARKED;
 using lz4s::MF_LIMIT;
@@ -81,102 +81,6 @@ using lz4s::MIN_MATCH;
 using lz4s::persistent_grid;
 
 constexpr int WINDOW = 0xFFFF;              // a link further back ends a walk
-constexpr uint32_t SLOT_MUL = 0x9E3779B1u;   // spreads h over keyed slots
-constexpr unsigned long long EMPTY = ~0ull;   // a keyed slot's empty value
-
-__device__ __forceinline__ uint32_t load4(const uint8_t* p) {
-  return p[0] | (p[1] << 8) | (p[2] << 16) | (uint32_t(p[3]) << 24);
-}
-
-// The keyed table's helpers (as in lz4_dense.cu): a row's salt, h's first
-// slot, its last position or -1, and p as its last position.
-__device__ __forceinline__ uint32_t row_salt(int row) {
-  return static_cast<uint32_t>(row) * SLOT_MUL;
-}
-
-__device__ __forceinline__ uint32_t keyed_slot(uint32_t h, uint32_t salt,
-                                               int slots_log) {
-  return ((h ^ salt) * SLOT_MUL) >> (32 - slots_log);
-}
-
-__device__ __forceinline__ int keyed_find(const unsigned long long* t,
-                                          uint32_t h, uint32_t salt,
-                                          int slots_log) {
-  const uint32_t mask = (1u << slots_log) - 1;
-  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
-    const unsigned long long v = t[s];
-    if (v == EMPTY) return -1;
-    if (static_cast<uint32_t>(v) == h) return static_cast<int>(v >> 32);
-  }
-}
-
-__device__ __forceinline__ void keyed_put(unsigned long long* t, uint32_t h,
-                                          uint32_t salt, int p,
-                                          int slots_log) {
-  const uint32_t mask = (1u << slots_log) - 1;
-  const unsigned long long entry =
-      static_cast<unsigned long long>(static_cast<uint32_t>(p)) << 32 | h;
-  for (uint32_t s = keyed_slot(h, salt, slots_log);; s = (s + 1) & mask) {
-    unsigned long long v = t[s];
-    if (v == EMPTY) {
-      v = atomicCAS(t + s, EMPTY, entry);
-      if (v == EMPTY) return;
-    }
-    if (static_cast<uint32_t>(v) == h) {
-      t[s] = entry;
-      return;
-    }
-  }
-}
-
-// Rows blockIdx.x, + gridDim.x, ...; table blockIdx.x of `tables`, 2^
-// slots_log slots of 8 bytes (slots_log >= 6).
-__global__ void __launch_bounds__(32)
-lz4_chain_links_kernel(const uint8_t* __restrict__ blocks,
-                       const int32_t* __restrict__ lengths, int B, int n,
-                       int32_t* __restrict__ prev,
-                       unsigned long long* __restrict__ tables, int bits,
-                       int slots_log) {
-  const int lane = threadIdx.x;
-  const unsigned below = (1u << lane) - 1;     // lanes before this one
-  const unsigned above = ~((2u << lane) - 1);  // lanes after it
-  const size_t words = (size_t{1} << slots_log) / 2;   // 16-byte words
-  int4* table = reinterpret_cast<int4*>(tables) + blockIdx.x * words;
-  unsigned long long* keyed = reinterpret_cast<unsigned long long*>(table);
-  for (int row = blockIdx.x; row < B; row += gridDim.x) {
-    for (size_t k = lane; k < words; k += 32)   // every slot EMPTY
-      table[k] = make_int4(-1, -1, -1, -1);
-    __syncwarp();
-    const uint8_t* src = blocks + static_cast<size_t>(row) * n;
-    int32_t* out = prev + static_cast<size_t>(row) * n;
-    const int len = min(max(lengths[row], 0), n);
-    const int limit = max(len - MF_LIMIT, 0);
-    const uint32_t salt = row_salt(row);
-    // positions from limit on take no link and are no one's: a link lies
-    // before a position below limit
-    for (int base = 0; base < limit; base += 32) {
-      const int p = base + lane;
-      const bool live = p < limit;               // p + 3 < n: in the row
-      const uint32_t h = live ? (load4(src + p) * HASH_MUL) >> (32 - bits)
-                              : 0u;
-      const unsigned lanes = __ballot_sync(FULL, live);
-      unsigned group = 0;
-      if (live) group = __match_any_sync(lanes, h);
-      const unsigned earlier = group & below;
-      int c = -1;
-      if (live)
-        c = earlier ? base + 31 - __clz(earlier)
-                    : keyed_find(keyed, h, salt, slots_log);
-      __syncwarp();   // every slot read before this step writes one
-      if (live && !(group & above)) keyed_put(keyed, h, salt, p, slots_log);
-      if (live) out[p] = c;
-      __syncwarp();   // this step's writes before the next step's reads
-    }
-    for (int p = limit + lane; p < n; p += 32) out[p] = -1;
-    __syncwarp();     // this row's table writes before the next row's reset
-  }
-}
-
 // best(p) as a word (the note's), the walk of the C++'s find_best over the
 // links with the extension capped at K: Links::next(c) is the link after c
 // (-1 where none), a link at or past p ends the walk as one past the
@@ -502,22 +406,6 @@ lz4_chain_links_shared_kernel(const uint8_t* __restrict__ blocks,
 }
 
 }  // namespace
-
-// blocks (B, n) u8 and lengths (B,) i32 in; prev (B, n) i32 out, every
-// entry written.  tables: ntab keyed tables of scratch (1 <= ntab <= B),
-// each 2^slots_log slots of 8 bytes, 2^slots_log at least twice min(n,
-// 2^bits) and 6 <= slots_log <= 31; bits 4..24, the hash's.  Launches ntab
-// blocks of one warp on `stream` and returns cudaGetLastError().
-extern "C" int tpz_lz4_chain_links(const void* blocks, const void* lengths,
-                                   int B, int n, void* prev, void* tables,
-                                   int ntab, int bits, int slots_log,
-                                   void* stream) {
-  lz4_chain_links_kernel<<<ntab, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(blocks),
-      static_cast<const int32_t*>(lengths), B, n, static_cast<int32_t*>(prev),
-      static_cast<unsigned long long*>(tables), bits, slots_log);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // links on the shared route: blocks (B, n) u8 and lengths (B,) i32 in,
 // prev (B, n) i32 out, every entry written; n <= 65536, bits 4..16.  Sets

@@ -5,7 +5,10 @@
 // order it; the candidates step split over the hash's classes
 // (split_row); and, for the parses over words, a row streamed
 // through shared memory (RowStream) and sequences written 32 at a time
-// (put_batch).
+// (put_batch).  And the links past those routes, written once for the lz4
+// encoders (csrc/lz4_links.cu) and deflate's (its tiled route): by tiles
+// of split_row and a carry (rows past 65,536 bytes, at most 16 bits), or
+// by sorting (any width, any bits).
 //
 // split_row is lz4_dense.cu's keyed step moved on chip and spread over a
 // CTA: the candidate of p is the last earlier position with p's hash, so
@@ -172,6 +175,7 @@ __device__ __forceinline__ uint32_t hash_bits(uint32_t seq, int bits) {
 
 // split_row's key of LZ4's hash: the 4 bytes at base + q (load4_at).
 struct Key4 {
+  static constexpr bool ALIGNED = true;   // read from base = row - skew
   __device__ __forceinline__ uint32_t operator()(const uint8_t* base,
                                                  int q) const {
     return load4_at(base, q);
@@ -424,4 +428,572 @@ __host__ __device__ __forceinline__ int table_bytes(int bits) {
   return ((2 << bits) + 15) & ~15;
 }
 
+// ---------------------------------------------------------------- links
+// past the shared route.  The links of a row: for every position p below
+// limit = length - TAIL, the last earlier position with p's hash (of the
+// key Key{} reads there, at `bits` bits); -1 where there is none and from
+// limit on.  Positions from limit on take no link and are no one's.
+// split_row gives them on rows of at most STAGE_MAX bytes at hashes of at
+// most SHARED_MAX_LOG bits (its u16 slots and direct table); two routes
+// take the rest, by shape alone:
+//   - tiled (rows past STAGE_MAX bytes, hashes of at most SHARED_MAX_LOG
+//     bits): the row cut into tiles of LINK_TILE positions, each run by
+//     split_row as a row of its own (positions relative to the tile, so
+//     each fits the u16 slot; the keys read up to the row's limit, into
+//     the next tile), a CTA a tile, so one wide row fills the card.  Each
+//     tile writes out its table (the tile's last position of each hash)
+//     and, for each hash, the first position that found no link inside
+//     it; a carry pass, a thread a hash of a row, walks the row's tiles in
+//     order with the last position seen before each and gives that first
+//     position its link.  Scratch: 4 bytes x 2^bits a tile;
+//   - sorted (any width, any bits: the lz4 encoders' hashes of 17-32
+//     bits, whose direct table would not fit on chip): XLA's construction,
+//     a stable order of a row's positions by hash, each position's link
+//     the one before it in that order where the hash is the same.  Within
+//     a tile of SORT_TILE positions a CTA sorts the keys h << 12 | p (u32
+//     up to 20 bits of hash, u64 past) with a bitonic network, a thread's
+//     keys in registers, the steps within a warp by shuffles, the rest
+//     through shared memory, which gives every position but
+//     each hash's first in the tile its link, and writes one entry a
+//     distinct hash, h << 32 | its index in the row, with the hash's first
+//     and last position in the tile.  Across tiles the same rule once more
+//     on those entries: each tile's run is sorted, so rounds of pairwise
+//     merges (merge path: a CTA an output chunk of MERGE_CHUNK, its split
+//     by a warp's 32-way search, its part merged in shared memory) order a
+//     row's entries by (h, tile), and in the last round each entry whose
+//     predecessor has its hash gives its first position that entry's last
+//     position.  No step's work grows with 2^bits or with how the hashes'
+//     bits fall: no table of 2^bits slots, no bucket by the top bits of h;
+//     a tile of one hash (a zero page) skips the network and is one entry.
+//     Rows go in groups of at most SORT_GROUP positions, which bound the
+//     scratch.
+
+// The kernels below have internal linkage in each source that includes
+// them, as every other kernel of the port has (its source's unnamed
+// namespace).
+namespace {
+
+constexpr int LINK_TILE = 1 << 15;   // positions a tile of the tiled links
+constexpr int CARRY_THREADS = 256;   // the carry's threads a block
+constexpr int SORT_TILE = 1 << 12;   // positions a tile of the sorted links
+constexpr int SORT_THREADS = 512;
+constexpr int MERGE_CHUNK = 2048;    // entries a block of a merge round
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_RUN = MERGE_CHUNK / MERGE_THREADS;   // entries a thread
+                                                         // merges
+constexpr long long SORT_GROUP = 1ll << 24;   // positions a group, at most
+
+// Tiles blockIdx.x, + gridDim.x, ... of the B rows' ceil(n / LINK_TILE)
+// each: split_row over the tile as over a row of the shared route, its
+// links inside the tile into prev (-1 where none), then the tile's table
+// (slot h: the tile's last position of hash h, + 1; 0 for none) into lasts
+// and, for each hash the tile holds, the position that found no link
+// inside it into firsts (a hash's first position in the tile; no other
+// entry is read).  A tile past the row's limit writes -1s alone.  BITS:
+// the hash's bits where fixed, else (-1) bits_arg.
+template <class Key, int TAIL, int BITS>
+__global__ void __launch_bounds__(32 * SPLIT_CLASSES)
+links_tiled_kernel(const uint8_t* __restrict__ blocks,
+                   const int32_t* __restrict__ lengths, int B, int n,
+                   int bits_arg, int32_t* __restrict__ prev,
+                   uint16_t* __restrict__ lasts,
+                   uint16_t* __restrict__ firsts) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int THREADS = 32 * SPLIT_CLASSES;
+  const int bits = BITS >= 0 ? BITS : bits_arg;
+  const int slots = 1 << bits;
+  uint32_t* queues = reinterpret_cast<uint32_t*>(smem);
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem + QUEUE_BYTES);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (n + LINK_TILE - 1) / LINK_TILE;
+  const long long jobs = static_cast<long long>(B) * tiles;
+  for (long long job = blockIdx.x; job < jobs; job += gridDim.x) {
+    const int row = static_cast<int>(job / tiles);
+    const int t0 = static_cast<int>(job % tiles) * LINK_TILE;
+    const uint8_t* src = blocks + static_cast<size_t>(row) * n + t0;
+    int32_t* out = prev + static_cast<size_t>(row) * n + t0;
+    const int len = min(max(lengths[row], 0), n);
+    const int limit = max(len - TAIL, 0);
+    const int width = min(LINK_TILE, n - t0);
+    const int live = min(max(limit - t0, 0), width);  // the tile's positions
+    __syncthreads();   // the last tile's steps on the table done
+    if (live)
+      for (int k = tid; k < table_bytes(bits) / 16; k += THREADS)
+        reinterpret_cast<int4*>(table)[k] = make_int4(0, 0, 0, 0);
+    for (int p = live + tid; p < width; p += THREADS) out[p] = -1;
+    if (!live) continue;
+    __syncthreads();
+    // an aligned key reads the tile's byte q at base[q + skew]
+    const int skew = Key::ALIGNED ? skew_of(src) : 0;
+    const uint8_t* base = src - skew;
+    uint16_t* first = firsts + static_cast<size_t>(job) * slots;
+    split_row<Key>(base, skew, live, bits, table, queues + 64 * warp, warp,
+                   lane, [&](int p, int c) {
+                     out[p] = c < 0 ? -1 : t0 + c;
+                     if (c < 0)
+                       first[hash_bits(Key{}(base, p + skew), bits)] =
+                           static_cast<uint16_t>(p);
+                   });
+    __syncthreads();
+    uint16_t* last = lasts + static_cast<size_t>(job) * slots;
+    if (slots >= 8) {
+      for (int k = tid; k < slots / 8; k += THREADS)
+        reinterpret_cast<int4*>(last)[k] =
+            reinterpret_cast<const int4*>(table)[k];
+    } else {
+      for (int k = tid; k < slots; k += THREADS) last[k] = table[k];
+    }
+  }
+}
+
+// The tiled links' carry and fix-up, a thread a hash h of a row: walks the
+// row's tiles below its limit in order, carrying the last position of h
+// in the tiles before; where a tile holds h, its first position of h (which
+// found no link inside the tile) takes the carried one.  Tiles' entries
+// are loaded 8 at a time.
+template <int TAIL, int BITS>
+__global__ void __launch_bounds__(CARRY_THREADS)
+links_carry_kernel(const int32_t* __restrict__ lengths, int B, int n,
+                   int bits_arg, int32_t* __restrict__ prev,
+                   const uint16_t* __restrict__ lasts,
+                   const uint16_t* __restrict__ firsts) {
+  constexpr int BATCH = 8;
+  const int bits = BITS >= 0 ? BITS : bits_arg;
+  const size_t slots = size_t{1} << bits;
+  const long long id = blockIdx.x * static_cast<long long>(CARRY_THREADS) +
+                       threadIdx.x;
+  const int row = static_cast<int>(id >> bits);
+  const int h = static_cast<int>(id & (slots - 1));
+  if (row >= B) return;
+  const int tiles = (n + LINK_TILE - 1) / LINK_TILE;
+  const int len = min(max(lengths[row], 0), n);
+  const int limit = max(len - TAIL, 0);
+  const int used = (limit + LINK_TILE - 1) / LINK_TILE;   // tiles with links
+  const size_t first_job = static_cast<size_t>(row) * tiles;
+  int32_t* out = prev + static_cast<size_t>(row) * n;
+  int carried = -1;
+  for (int base = 0; base < used; base += BATCH) {
+    int last[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k)
+      last[k] = base + k < used
+                    ? lasts[(first_job + base + k) * slots + h] : 0;
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      if (!last[k]) continue;
+      const int t0 = (base + k) * LINK_TILE;
+      if (carried >= 0)
+        out[t0 + firsts[(first_job + base + k) * slots + h]] = carried;
+      carried = t0 + last[k] - 1;
+    }
+  }
+}
+
+// Bytes of launch_links_tiled's scratch for B rows of n bytes at `bits`:
+// the tiles' tables, then their first positions.
+inline long long links_tiled_scratch(int B, int n, int bits) {
+  return 2ll * B * ((n + LINK_TILE - 1) / LINK_TILE) * (1ll << bits) *
+         static_cast<long long>(sizeof(uint16_t));
+}
+
+// The tiled links: blocks (B, n) u8 and lengths (B,) i32 in, prev (B, n)
+// i32 out, every entry written; bits 0..SHARED_MAX_LOG (BITS where fixed);
+// scratch of links_tiled_scratch bytes.  Launches as many CTAs of
+// SPLIT_CLASSES warps as fit the card at once (at most the tiles), each
+// walking tiles, then the carry kernel, on `s`; returns the first error.
+template <class Key, int TAIL, int BITS>
+inline cudaError_t launch_links_tiled(const void* blocks, const void* lengths,
+                                      int B, int n, int bits, void* prev,
+                                      void* scratch, cudaStream_t s) {
+  if (BITS >= 0) bits = BITS;
+  if (bits < 0 || bits > SHARED_MAX_LOG) return cudaErrorInvalidValue;
+  const long long tiles =
+      static_cast<long long>(B) * ((n + LINK_TILE - 1) / LINK_TILE);
+  const long long carry =
+      ((static_cast<long long>(B) << bits) + CARRY_THREADS - 1) /
+      CARRY_THREADS;
+  if (tiles > 0x7FFFFFFF || carry > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  if (tiles == 0) return cudaSuccess;
+  const int threads = 32 * SPLIT_CLASSES;
+  const int smem = QUEUE_BYTES + table_bytes(bits);
+  int grid = 0;
+  auto kernel = links_tiled_kernel<Key, TAIL, BITS>;
+  cudaError_t err = persistent_grid(reinterpret_cast<const void*>(kernel),
+                                    threads, smem, static_cast<int>(tiles),
+                                    &grid);
+  if (err != cudaSuccess) return err;
+  uint16_t* lasts = static_cast<uint16_t*>(scratch);
+  uint16_t* firsts = lasts + (static_cast<size_t>(tiles) << bits);
+  kernel<<<grid, threads, smem, s>>>(
+      static_cast<const uint8_t*>(blocks),
+      static_cast<const int32_t*>(lengths), B, n, bits,
+      static_cast<int32_t*>(prev), lasts, firsts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  links_carry_kernel<TAIL, BITS>
+      <<<static_cast<unsigned>(carry), CARRY_THREADS, 0, s>>>(
+          static_cast<const int32_t*>(lengths), B, n, bits,
+          static_cast<int32_t*>(prev), lasts, firsts);
+  return cudaGetLastError();
+}
+
+// The sorted links' tile step, a CTA a tile of SORT_TILE positions
+// (blockIdx.x: row, then tile) of `rows` rows: the keys h << P_BITS | p
+// of the tile's positions below the row's limit (p relative to the tile;
+// K: u32 where h has at most 32 - P_BITS bits, else u64) sorted in shared
+// memory, a position's link the one before it where the
+// hash is the same, else -1 (the merges give it); then, for each distinct
+// hash d-th in the tile, ents[d] = h << 32 | (t0 + d) (t0 the tile's
+// first position: the entry's index in the row's entries, whose tiles
+// are SORT_TILE apart as the positions are), firsts[d] and lasts[d] its
+// first and last position in the tile, and the tile's count of them.
+constexpr int P_BITS = 12;   // a key's bits of position
+static_assert(SORT_TILE <= 1 << P_BITS, "a tile's positions fit the key");
+
+template <class Key, int TAIL, class K>
+__global__ void __launch_bounds__(SORT_THREADS)
+links_sort_tile_kernel(const uint8_t* __restrict__ blocks,
+                       const int32_t* __restrict__ lengths, int n, int bits,
+                       int32_t* __restrict__ prev,
+                       uint64_t* __restrict__ ents,
+                       uint16_t* __restrict__ firsts,
+                       uint16_t* __restrict__ lasts,
+                       int* __restrict__ counts) {
+  constexpr int PER = SORT_TILE / SORT_THREADS;   // sorted keys a thread
+  // key g at keys[g + g / PER]: a thread's PER keys side by side, and the
+  // warp's accesses of its e-th keys in distinct banks
+  __shared__ K keys[SORT_TILE + SORT_TILE / PER];
+  auto at = [](int g) { return g + g / PER; };
+  __shared__ int sums[SORT_THREADS / 32];
+  // the tile's links relative to it (-1: none), written out at once
+  __shared__ int16_t links[SORT_TILE];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles = (n + SORT_TILE - 1) / SORT_TILE;
+  const int row = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x % tiles) * SORT_TILE;
+  const uint8_t* src = blocks + static_cast<size_t>(row) * n;
+  const int skew = Key::ALIGNED ? skew_of(src) : 0;
+  const uint8_t* base = src - skew;
+  int32_t* out = prev + static_cast<size_t>(row) * n + t0;
+  const size_t first = static_cast<size_t>(row) * tiles * SORT_TILE + t0;
+  const int len = min(max(lengths[row], 0), n);
+  const int limit = max(len - TAIL, 0);
+  const int width = min(SORT_TILE, n - t0);
+  const int live = min(max(limit - t0, 0), width);
+  for (int p = live + tid; p < width; p += SORT_THREADS) out[p] = -1;
+  if (!live) {
+    if (tid == 0) counts[blockIdx.x] = 0;
+    return;
+  }
+  // the network over all SORT_TILE keys, thread t holding keys PER t ..
+  // PER t + PER - 1 in registers: pairs PER or more apart within a warp
+  // exchanged by shuffles, farther ones through shared memory
+  K v[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int k = tid * PER + e;
+    v[e] = k < live ? static_cast<K>(hash_bits(Key{}(base, t0 + k + skew),
+                                               bits)) << P_BITS |
+                          static_cast<K>(k)
+                    : ~K{0};
+  }
+  // a tile of one hash (a zero page) is in order already: no network
+  const K h0 = static_cast<K>(hash_bits(Key{}(base, t0 + skew), bits));
+  bool one = true;
+#pragma unroll
+  for (int e = 0; e < PER; ++e)
+    one = one && (tid * PER + e >= live || v[e] >> P_BITS == h0);
+  const int first_k = __syncthreads_and(one) ? 2 * SORT_TILE : 2;
+  for (int k = first_k; k <= SORT_TILE; k <<= 1) {
+    int j = k >> 1;
+    if (j >= 32 * PER) {   // across warps: through shared memory
+#pragma unroll
+      for (int e = 0; e < PER; ++e) keys[at(tid * PER + e)] = v[e];
+      for (; j >= 32 * PER; j >>= 1) {
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < PER; ++e) {
+          const int g = tid * PER + e;
+          const K o = keys[at(g ^ j)];
+          const bool low = ((g & j) == 0) == ((g & k) == 0);   // the min
+          v[e] = low == (o < v[e]) ? o : v[e];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < PER; ++e) keys[at(tid * PER + e)] = v[e];
+      }
+      __syncthreads();
+    }
+    for (; j >= PER; j >>= 1) {   // within a warp: lane ^ (j / PER)
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int g = tid * PER + e;
+        const K o = __shfl_xor_sync(FULL, v[e], j / PER);
+        const bool low = ((g & j) == 0) == ((g & k) == 0);
+        v[e] = low == (o < v[e]) ? o : v[e];
+      }
+    }
+    // within a thread: the steps from j = min(k / 2, PER / 2) down, each
+    // unrolled so that v is indexed by constants (it stays in registers)
+#pragma unroll
+    for (int jj = PER / 2; jj > 0; jj >>= 1) {
+      if (jj > j) continue;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        if (e & jj) continue;
+        const K a = v[e], b = v[e + jj];
+        if ((((tid * PER + e) & k) == 0) == (b < a)) {   // out of order
+          v[e] = b;
+          v[e + jj] = a;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < PER; ++e) keys[at(tid * PER + e)] = v[e];
+  __syncthreads();
+  // thread t takes sorted keys PER t .. PER t + PER - 1: its hashes' first
+  // keys counted, an exclusive scan over the threads, then each key's
+  // entry index d is the firsts up to it, less one
+  const int i0 = tid * PER;
+  int starts = 0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = i0 + j;
+    starts += i < live &&
+              (i == 0 || keys[at(i - 1)] >> P_BITS != keys[at(i)] >> P_BITS);
+  }
+  int incl = starts;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += up;
+  }
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  int before = incl - starts;
+  for (int w = 0; w < warp; ++w) before += sums[w];
+  int d = before - 1;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = i0 + j;
+    if (i >= live) break;
+    const K key = keys[at(i)];
+    const K h = key >> P_BITS;
+    const int p = static_cast<int>(key & ((1 << P_BITS) - 1));
+    if (i == 0 || keys[at(i - 1)] >> P_BITS != h) {
+      ++d;
+      ents[first + d] = static_cast<uint64_t>(h) << 32 |
+                        static_cast<uint32_t>(t0 + d);
+      firsts[first + d] = static_cast<uint16_t>(p);
+      links[p] = -1;
+    } else {
+      links[p] = static_cast<int16_t>(keys[at(i - 1)] &
+                                      ((1 << P_BITS) - 1));
+    }
+    if (i + 1 == live || keys[at(i + 1)] >> P_BITS != h)
+      lasts[first + d] = static_cast<uint16_t>(p);
+  }
+  if (tid == SORT_THREADS - 1) counts[blockIdx.x] = d + 1;
+  __syncthreads();
+  for (int p = tid; p < live; p += SORT_THREADS)
+    out[p] = links[p] < 0 ? -1 : t0 + links[p];
+}
+
+// The number of a's among the first d of the merge of a (la keys) and b
+// (lb keys), both ascending, no key in both (merge path), by a whole warp
+// (every lane calls it, all get the answer): 32 probes a step, each
+// narrowing the range 32 times, so a split takes few dependent loads from
+// device memory, not log2 of the run.
+__device__ __forceinline__ int merge_split_warp(const uint64_t* a, int la,
+                                                const uint64_t* b, int lb,
+                                                int d, int lane) {
+  int lo = max(0, d - lb), hi = min(d, la);   // the answer is in [lo, hi]
+  while (lo < hi) {
+    const int at = lo + static_cast<int>(
+                            static_cast<long long>(hi - lo) * lane / 32);
+    const unsigned below = __ballot_sync(FULL, a[at] < b[d - 1 - at]);
+    const int c = __popc(below);   // probes below the answer: the first c
+    if (c == 0) return lo;         // probe 0 is lo itself
+    const int last = __shfl_sync(FULL, at, c - 1);
+    hi = c < 32 ? __shfl_sync(FULL, at, c) : hi;
+    lo = last + 1;
+  }
+  return lo;
+}
+
+// One merge round of the sorted links over `rows` rows of `tiles` tiles:
+// runs of `width` tiles (a run's entries from its first tile's start,
+// count cin[that tile]) merged in pairs, a CTA an output chunk of
+// MERGE_CHUNK (blockIdx.x: row, pair, chunk; `chunks` a pair).  Not LAST:
+// the merged run into out from the pair's first tile, its count into cout
+// there.  LAST (one pair a row): each entry whose predecessor in the
+// merged order has its hash gives the link prev[first] = the predecessor's
+// last position.
+template <bool LAST>
+__global__ void __launch_bounds__(MERGE_THREADS)
+links_merge_kernel(const uint64_t* __restrict__ in,
+                   uint64_t* __restrict__ out, const int* __restrict__ cin,
+                   int* __restrict__ cout, int tiles, int width, int chunks,
+                   int n, int32_t* __restrict__ prev,
+                   const uint16_t* __restrict__ firsts,
+                   const uint16_t* __restrict__ lasts) {
+  // the chunk's a's, then b's, and the merged chunk, entry g at g + g /
+  // MERGE_RUN: a thread's run side by side, the warp's in distinct banks
+  __shared__ uint64_t runs[MERGE_CHUNK + MERGE_CHUNK / MERGE_RUN];
+  __shared__ uint64_t merged[MERGE_CHUNK + MERGE_CHUNK / MERGE_RUN];
+  auto at = [](int g) { return g + g / MERGE_RUN; };
+  __shared__ int split[2];
+  const int tid = threadIdx.x;
+  const int pairs = (tiles + 2 * width - 1) / (2 * width);
+  const int chunk = blockIdx.x % chunks;
+  const int pair = (blockIdx.x / chunks) % pairs;
+  const int row = blockIdx.x / chunks / pairs;
+  const int ta = 2 * width * pair, tb = ta + width;
+  const int la = cin[row * tiles + ta];
+  const int lb = tb < tiles ? cin[row * tiles + tb] : 0;
+  const int total = la + lb;
+  if (!LAST && chunk == 0 && tid == 0) cout[row * tiles + ta] = total;
+  const int d0 = chunk * MERGE_CHUNK;
+  if (d0 >= total) return;
+  const int d1 = min(d0 + MERGE_CHUNK, total);
+  const size_t rbase = static_cast<size_t>(row) * tiles * SORT_TILE;
+  const uint64_t* a = in + rbase + static_cast<size_t>(ta) * SORT_TILE;
+  const uint64_t* b = a + static_cast<size_t>(width) * SORT_TILE;
+  if (tid < 64) {   // warp 0 splits at d0, warp 1 at d1
+    const int at = merge_split_warp(a, la, b, lb, tid < 32 ? d0 : d1,
+                                    tid & 31);
+    if ((tid & 31) == 0) split[tid >> 5] = at;
+  }
+  __syncthreads();
+  const int a0 = split[0], b0 = d0 - a0;
+  const int na = split[1] - a0, m = d1 - d0;
+  for (int k = tid; k < m; k += MERGE_THREADS)
+    runs[at(k)] = k < na ? a[a0 + k] : b[b0 + k - na];
+  __syncthreads();
+  // this thread's diagonal: merge_split in shared memory, then its run
+  const int dt = min(tid * MERGE_RUN, m), nb = m - na;
+  int i = max(0, dt - nb), hi = min(dt, na);
+  while (i < hi) {
+    const int mid = (i + hi) >> 1;
+    if (runs[at(mid)] < runs[at(na + dt - 1 - mid)])
+      i = mid + 1;
+    else
+      hi = mid;
+  }
+  int j = dt - i;
+  for (int k = 0; k < MERGE_RUN && dt + k < m; ++k)
+    merged[at(dt + k)] =
+        j >= nb || (i < na && runs[at(i)] < runs[at(na + j)])
+            ? runs[at(i++)] : runs[at(na + j++)];
+  __syncthreads();
+  if (!LAST) {
+    uint64_t* dst = out + rbase + static_cast<size_t>(ta) * SORT_TILE + d0;
+    for (int k = tid; k < m; k += MERGE_THREADS) dst[k] = merged[at(k)];
+  }
+  for (int k = tid; LAST && k < m; k += MERGE_THREADS) {
+    const uint64_t cur = merged[at(k)];
+    uint64_t pre = 0;
+    if (k)
+      pre = merged[at(k - 1)];
+    else if (a0 > 0 || b0 > 0)   // the key before the chunk: the larger
+      pre = a0 > 0 && (b0 == 0 || a[a0 - 1] > b[b0 - 1]) ? a[a0 - 1]
+                                                          : b[b0 - 1];
+    else
+      continue;
+    if (pre >> 32 != cur >> 32) continue;
+    const uint32_t e = static_cast<uint32_t>(cur);
+    const uint32_t f = static_cast<uint32_t>(pre);
+    constexpr uint32_t TILE_MASK = ~static_cast<uint32_t>(SORT_TILE - 1);
+    prev[static_cast<size_t>(row) * n + (e & TILE_MASK) + firsts[rbase + e]] =
+        static_cast<int32_t>((f & TILE_MASK) + lasts[rbase + f]);
+  }
+}
+
+// Rows a group of the sorted links for B rows of n bytes.
+inline int links_sort_group(int B, int n) {
+  const long long pad =
+      static_cast<long long>((n + SORT_TILE - 1) / SORT_TILE) * SORT_TILE;
+  return static_cast<int>(max(1ll, min(static_cast<long long>(B),
+                                       SORT_GROUP / max(pad, 1ll))));
+}
+
+// Bytes of launch_links_sorted's scratch for B rows of n bytes: for a
+// group's rows, each padded to whole tiles, two buffers of 8-byte entries,
+// their first and last positions (u16), and two buffers of tile counts.
+inline long long links_sorted_scratch(int B, int n) {
+  const long long tiles = (n + SORT_TILE - 1) / SORT_TILE;
+  const long long g = links_sort_group(B, n);
+  return g * tiles * (SORT_TILE * (2ll * 8 + 2 * 2) + 2 * 4);
+}
+
+// The sorted links: blocks (B, n) u8 and lengths (B,) i32 in, prev (B, n)
+// i32 out, every entry written; bits 0..32; scratch of links_sorted_scratch
+// bytes.  For each group of rows: the tile kernel, then
+// ceil(log2(tiles)) merge rounds, on `s`; returns the first error.
+template <class Key, int TAIL>
+inline cudaError_t launch_links_sorted(const void* blocks,
+                                       const void* lengths, int B, int n,
+                                       int bits, void* prev, void* scratch,
+                                       cudaStream_t s) {
+  if (bits < 0 || bits > 32 || B < 0 || n < 0) return cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return cudaSuccess;
+  const int tiles = (n + SORT_TILE - 1) / SORT_TILE;
+  const long long pad = static_cast<long long>(tiles) * SORT_TILE;
+  if (pad > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  const int group = links_sort_group(B, n);
+  const size_t cells = static_cast<size_t>(group) * pad;
+  uint64_t* ents[2] = {static_cast<uint64_t*>(scratch),
+                       static_cast<uint64_t*>(scratch) + cells};
+  uint16_t* firsts = reinterpret_cast<uint16_t*>(ents[1] + cells);
+  uint16_t* lasts = firsts + cells;
+  int* counts[2] = {reinterpret_cast<int*>(lasts + cells),
+                    reinterpret_cast<int*>(lasts + cells) +
+                        static_cast<size_t>(group) * tiles};
+  int rounds = 0;
+  while ((1 << rounds) < tiles) ++rounds;
+  for (int r0 = 0; r0 < B; r0 += group) {
+    const int rows = min(group, B - r0);
+    const uint8_t* rb = static_cast<const uint8_t*>(blocks) +
+                        static_cast<size_t>(r0) * n;
+    const int32_t* rl = static_cast<const int32_t*>(lengths) + r0;
+    int32_t* rp = static_cast<int32_t*>(prev) + static_cast<size_t>(r0) * n;
+    const long long grid = static_cast<long long>(rows) * tiles;
+    if (grid > 0x7FFFFFFF) return cudaErrorInvalidValue;
+    if (bits <= 32 - P_BITS)   // the keys fit 32 bits
+      links_sort_tile_kernel<Key, TAIL, uint32_t>
+          <<<static_cast<unsigned>(grid), SORT_THREADS, 0, s>>>(
+              rb, rl, n, bits, rp, ents[0], firsts, lasts, counts[0]);
+    else
+      links_sort_tile_kernel<Key, TAIL, uint64_t>
+          <<<static_cast<unsigned>(grid), SORT_THREADS, 0, s>>>(
+              rb, rl, n, bits, rp, ents[0], firsts, lasts, counts[0]);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    for (int r = 0; r < rounds; ++r) {
+      const int width = 1 << r;
+      const int pairs = (tiles + 2 * width - 1) / (2 * width);
+      const long long per = 2ll * width * SORT_TILE;
+      const int chunks = static_cast<int>((per + MERGE_CHUNK - 1) /
+                                          MERGE_CHUNK);
+      const long long blocks_ = static_cast<long long>(rows) * pairs * chunks;
+      if (blocks_ > 0x7FFFFFFF) return cudaErrorInvalidValue;
+      const int k = r & 1;
+      if (r + 1 < rounds)
+        links_merge_kernel<false>
+            <<<static_cast<unsigned>(blocks_), MERGE_THREADS, 0, s>>>(
+                ents[k], ents[k ^ 1], counts[k], counts[k ^ 1], tiles, width,
+                chunks, n, rp, firsts, lasts);
+      else
+        links_merge_kernel<true>
+            <<<static_cast<unsigned>(blocks_), MERGE_THREADS, 0, s>>>(
+                ents[k], ents[k ^ 1], counts[k], counts[k ^ 1], tiles, width,
+                chunks, n, rp, firsts, lasts);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
 }  // namespace lz4s

@@ -40,12 +40,13 @@ where a word is MARKED.
 
 Routes, by shape alone (`routes`): the links of rows of at most 65,536
 bytes at hash_log <= 16 take a direct table of u16 slots in shared memory
-beside the staged row ("shared"), others a keyed table in device memory
-("keyed"); best stages such rows and their links in shared memory
-("staged") and walks device memory past them ("device").
+beside the staged row ("shared"), others kernels/lz4_links.py's ("tiled"
+past 65,536 bytes at hash_log <= 16, "sorted" at 17-24); best stages such
+rows and their links in shared memory ("staged") and walks device memory
+past them ("device").
 
 The plain versions run every row at once: the links by one stable sort of
-each row's hashes (kernels/lz4_dense.py's construction, unfiltered); best
+each row's hashes (kernels/lz4_links.py's construction); best
 at every position, chain link by chain link, each match length a common
 prefix found by doubling over ranks of the row's substrings of 2^k bytes
 (so a run costs no more than text); then the parse one sequence a row a
@@ -60,57 +61,32 @@ import torch
 import torch.nn.functional as F
 
 from tpuzip_torch.codecs.lz4 import hash_log as resolve_hash_log
-from tpuzip_torch.kernels import _build
+from tpuzip_torch.kernels import _build, lz4_links
 from tpuzip_torch.kernels.lz4_coder import (LAST_LITERALS, MF_LIMIT,
                                             MIN_MATCH, _check_pair, _read,
                                             _serialise, encode_cap)
-from tpuzip_torch.kernels.lz4_dense import (KEY_SLOT, MARKED, SHARED_MAX_LOG,
-                                            STAGE_MAX, _hashes)
+from tpuzip_torch.kernels.lz4_dense import MARKED, SHARED_MAX_LOG, STAGE_MAX
 
 WINDOW = 0xFFFF          # a link further back than this ends the walk
 MAX_CHAIN = 1 << 16      # links a walk can take at most (the window's)
-POOL_BYTES = 1 << 30     # the links kernel's tables, at most
 BEST_CAP = 64            # the best kernel's cap (csrc/lz4_chain.cu's)
 
 
 def routes(hash_log: int, n: int) -> tuple[str, str]:
-    """(the links' route, best's) for rows of n bytes at hash_log: "shared"
-    or "keyed", and "staged" or "device", as the module note says."""
-    bits = resolve_hash_log(hash_log)
-    staged = n <= STAGE_MAX
-    return ("shared" if staged and bits <= SHARED_MAX_LOG else "keyed",
-            "staged" if staged else "device")
-
-
-def slots_log(hash_log: int, n: int) -> int:
-    """The links kernel's keyed table: 2^slots_log slots of KEY_SLOT bytes,
-    twice the hashes a row of n bytes can hold, so half full at most."""
-    bits = resolve_hash_log(hash_log)
-    return max(6, min(bits + 1, (2 * max(n, 1) - 1).bit_length()))
-
-
-def table_count(b: int, hash_log: int, n: int) -> int:
-    """Tables that a links launch on b rows of n bytes gets: one a row, or
-    where b tables would pass POOL_BYTES a pool of fewer, whose warps walk
-    the rows by a grid-stride loop."""
-    return max(1, min(b, POOL_BYTES // (KEY_SLOT << slots_log(hash_log, n))))
+    """(the links' route, best's) for rows of n bytes at hash_log: "shared",
+    "tiled" or "sorted", and "staged" or "device", as the module note
+    says."""
+    return (lz4_links.links_route(resolve_hash_log(hash_log), n),
+            "staged" if n <= STAGE_MAX else "device")
 
 
 def lz4_chain_links_plain(blocks: torch.Tensor, lengths: torch.Tensor,
                           hash_log: int = 16) -> torch.Tensor:
-    """Plain version of the links kernel: blocks (B, n) u8, lengths (B,) ->
-    prev (B, n) i32, as the module note says."""
-    b, n = blocks.shape
-    _, h = _hashes(blocks, resolve_hash_log(hash_log))
-    order = torch.sort(h, dim=1, stable=True).indices  # positions ascending
-    hs = h.gather(1, order)                              # within a hash
-    earlier = F.pad(order[:, :-1], (1, 0), value=-1)
-    same = F.pad(hs[:, 1:] == hs[:, :-1], (1, 0), value=False)
-    prev = torch.empty_like(order).scatter_(1, order,
-                                            torch.where(same, earlier, -1))
-    idx = torch.arange(n, device=blocks.device)[None, :]
-    limit = lengths.to(torch.int64).clamp(0, n)[:, None] - MF_LIMIT
-    return torch.where(idx < limit, prev, -1).to(torch.int32)
+    """Plain version of the links: blocks (B, n) u8, lengths (B,) -> prev
+    (B, n) i32, as the module note says (kernels/lz4_links.py's at the
+    hash_log clamped as the C++ clamps it)."""
+    return lz4_links.lz4_links_plain(blocks, lengths,
+                                     resolve_hash_log(hash_log))
 
 
 def _rank_levels(blocks: torch.Tensor, most: int | None = None) -> list:
@@ -264,7 +240,6 @@ def _lib(name: str):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            "links": [vp, vp, ci, ci, vp, vp, ci, ci, ci, vp],
             "links_shared": [vp, vp, ci, ci, vp, ci, vp],
             "best": [vp, vp, vp, ci, ci, ci, vp, vp],
             "parse": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp]}[name]
@@ -277,32 +252,25 @@ def lz4_chain_links(blocks: torch.Tensor, lengths: torch.Tensor,
     """prev (B, n) i32 of every row, as the module note says: blocks (B, n)
     u8, lengths (B,) i32; hash_log outside 4..24 taken as 16.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/lz4_chain.cu's links kernel on its route (`routes`) on the current
-    stream (no synchronisation); the keyed route's tables are freed when it
-    returns."""
+    A CPU tensor runs the plain version; a CUDA tensor launches, on the
+    current stream (no synchronisation), csrc/lz4_chain.cu's links kernel
+    on the shared route (one launch counted here), else
+    kernels/lz4_links.py's tiled or sorted links (counted there)."""
     _check_pair("lz4_chain_links", blocks, lengths)
     if blocks.device.type == "cpu":
         return lz4_chain_links_plain(blocks, lengths, hash_log)
     b, n = blocks.shape
+    bits = resolve_hash_log(hash_log)
+    if routes(hash_log, n)[0] != "shared":
+        return lz4_links.lz4_links(blocks, lengths, bits)
     dev = blocks.device
     prev = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return prev
-    bits = resolve_hash_log(hash_log)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if routes(hash_log, n)[0] == "shared":
-            err = _lib("links_shared")(blocks.data_ptr(), lengths.data_ptr(),
-                                       b, n, prev.data_ptr(), bits, stream)
-        else:
-            slog = slots_log(hash_log, n)
-            ntab = table_count(b, hash_log, n)
-            tables = torch.empty(ntab * (KEY_SLOT << slog) // 4,
-                                 dtype=torch.int32, device=dev)
-            err = _lib("links")(blocks.data_ptr(), lengths.data_ptr(), b, n,
-                                prev.data_ptr(), tables.data_ptr(), ntab,
-                                bits, slog, stream)
+        err = _lib("links_shared")(blocks.data_ptr(), lengths.data_ptr(), b,
+                                   n, prev.data_ptr(), bits,
+                                   torch.cuda.current_stream().cuda_stream)
     _build.check(err, "lz4_chain_links")
     lz4_chain_links.launches += 1
     return prev

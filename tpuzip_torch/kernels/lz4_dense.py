@@ -9,8 +9,8 @@ tpuzip encodes lz4 on the device with XLA, not Pallas:
 unclamped.  It writes other bytes than the single-probe parse of
 kernels/lz4_coder.py: a position's candidate is the last earlier position
 with its hash, whatever the parse did there.  csrc/lz4_dense.cu computes it
-in two launches on either of two routes, and the functions here are
-theirs:
+as words and a parse over them, on one of three routes, and the functions
+here are theirs:
 
   candidates  cand[p] for every position p of a row: the last q < p whose
               4 bytes hash as p's, h = (seq * 2654435761 mod 2^32) >>
@@ -19,24 +19,28 @@ theirs:
               count); kept where p - q <= 65535, the 4 bytes are equal and
               p < length - 12, else -1.  Bytes past the row width read as
               0; bytes between the length and the width are the row's own.
+              Before the filter they are kernels/lz4_links.py's links at
+              table_bits(hash_log).
   parse       the greedy parse over cand: at i, cand[i]'s match is
               extended while the bytes agree before length - 5, emitted,
               and the parse goes on at its end; where cand[i] is -1, at the
               next position with a candidate.  The last literals are the
               last sequence; an empty block is the byte 0.
 
-  words       the shared route's first launch, on rows of at most 65,536
-              bytes at table_bits(hash_log) <= 16 (a direct table of u16
-              slots in shared memory): at each candidate c of p, its
-              match's length m (the 4 bytes, then while the bytes agree
-              before length - 5) as m << 16 | (p - c), or MARKED | (p - c)
-              where m reaches WORD_CAP first; 0 without a candidate.
+  words       at each candidate c of p, its match's length m (the 4 bytes,
+              then while the bytes agree before length - 5) as m << 16 |
+              (p - c), or MARKED | (p - c) where m reaches WORD_CAP first;
+              0 without a candidate.  On the shared route (rows of at most
+              65,536 bytes at table_bits(hash_log) <= 16) one kernel
+              (lz4_dense_words, a direct table of u16 slots in shared
+              memory); on the tiled and sorted routes the links
+              (kernels/lz4_links.py), then the filter and the lengths
+              (lz4_dense_words_links).
   words_parse the parse over the words: the candidates' parse, each
               match's length read from its word unless MARKED.
 
-The route is chosen by shape alone (`encode_route`): "shared" where it
-fits, else the candidates' table route, "direct" (up to DIRECT_MAX_LOG
-bits) or "keyed", and the parse.
+The route is chosen by shape alone (`encode_route`): lz4_links.links_route
+at table_bits(hash_log).
 
 The plain versions run every row at once: the candidates by one stable
 sort of each row's hashes (XLA's construction), the parse one sequence a
@@ -52,25 +56,18 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from tpuzip_torch.kernels import _build
-from tpuzip_torch.kernels.lz4_coder import (EXT, HASH_MUL, LAST_LITERALS,
-                                            MF_LIMIT, MIN_MATCH, _check_pair,
-                                            _gather, _mul32, _read,
-                                            _serialise, encode_cap)
+from tpuzip_torch.kernels import _build, lz4_links
+from tpuzip_torch.kernels.lz4_coder import (EXT, LAST_LITERALS, MF_LIMIT,
+                                            MIN_MATCH, _check_pair, _gather,
+                                            _read, _serialise, encode_cap)
 
 HASH_LOG = 15          # tpuzip.codecs.lz4.HASH_LOG: compress_from_device's
-# A direct table of 2^hash_log slots up to here (16 KiB: 1024 rows' tables
-# stay in the card's L2 beside the rows), a keyed one past it: on the H100
-# at 1024 x 64 KiB the direct tables at 15 bits took 58 ms, the keyed 6.4
-DIRECT_MAX_LOG = 12
-POOL_BYTES = 1 << 30   # the candidates kernel's tables, at most
-KEY_SLOT = 8           # bytes of a keyed slot: (position, hash)
 # lz4_shared.cuh's: the shared routes of both encoders (this one's and
 # kernels/lz4_chain.py's) take rows of at most STAGE_MAX bytes and u16
 # direct tables of at most SHARED_MAX_LOG bits; a word is MARKED where its
 # match reached the cap (WORD_CAP here, lz4_chain's BEST_CAP there)
-STAGE_MAX = 1 << 16
-SHARED_MAX_LOG = 16
+STAGE_MAX = lz4_links.STAGE_MAX
+SHARED_MAX_LOG = lz4_links.SHARED_MAX_LOG
 MARKED = -(1 << 31)
 WORD_CAP = 64          # the words' match lengths, at most (the kernel's)
 
@@ -80,70 +77,34 @@ def table_bits(hash_log: int) -> int:
     return hash_log if 1 <= hash_log <= 32 else 0
 
 
-def table_route(hash_log: int, n: int) -> tuple[str, int]:
-    """("direct", bits): a table of 2^bits int32 slots indexed by h; or
-    ("keyed", log): open addressing on h over 2^log slots of KEY_SLOT
-    bytes, twice the hashes a row can hold (min(n, 2^bits)) at least, so
-    half full at most."""
-    bits = table_bits(hash_log)
-    if bits <= DIRECT_MAX_LOG:
-        return "direct", bits
-    return "keyed", max(6, min(bits + 1, (2 * max(n, 1) - 1).bit_length()))
-
-
 def encode_route(hash_log: int, n: int) -> str:
     """How lz4_dense_encode_batch encodes rows of n bytes at hash_log:
-    "shared" (the words, their table in shared memory, and their parse),
-    else the candidates' table_route, "direct" or "keyed", then the
-    parse."""
-    if n <= STAGE_MAX and table_bits(hash_log) <= SHARED_MAX_LOG:
-        return "shared"
-    return table_route(hash_log, n)[0]
+    "shared" (the words, their table in shared memory), "tiled" or
+    "sorted" (kernels/lz4_links.py's links, then the words from them), each
+    then the parse over the words."""
+    return lz4_links.links_route(table_bits(hash_log), n)
 
 
-def table_count(b: int, hash_log: int, n: int) -> int:
-    """Tables that a candidates launch on b rows of n bytes gets: one a
-    row, or where b tables would pass POOL_BYTES a pool of fewer, whose
-    warps walk the rows by a grid-stride loop."""
-    return max(1, min(b, POOL_BYTES // table_bytes(hash_log, n)))
-
-
-def table_bytes(hash_log: int, n: int) -> int:
-    """Bytes of one table (16 at least: the kernel resets 16 at a time)."""
-    route, bits = table_route(hash_log, n)
-    return max(16, (4 if route == "direct" else KEY_SLOT) << bits)
-
-
-def _hashes(blocks: torch.Tensor, hash_log: int):
-    """(seq, h) of every position: its 4 bytes as a u32 (bytes past the
-    row read 0) and their hash, both int64."""
+def _filter(blocks: torch.Tensor, lengths: torch.Tensor,
+            prev: torch.Tensor) -> torch.Tensor:
+    """The candidates of the links prev: each kept where it lies at most
+    65535 back, its 4 bytes equal p's and p < length - 12, else -1."""
     n = blocks.shape[1]
-    src = F.pad(blocks, (0, 3)).to(torch.int64)
-    seq = (src[:, :n] | (src[:, 1:n + 1] << 8) | (src[:, 2:n + 2] << 16)
-           | (src[:, 3:n + 3] << 24))
-    bits = table_bits(hash_log)
-    if bits == 0:
-        return seq, torch.zeros_like(seq)
-    return seq, _mul32(seq, HASH_MUL) >> (32 - bits)
-
-
-def lz4_dense_candidates_plain(blocks: torch.Tensor, lengths: torch.Tensor,
-                               hash_log: int = HASH_LOG) -> torch.Tensor:
-    """Plain version of the candidates kernel: blocks (B, n) u8, lengths
-    (B,) -> cand (B, n) i32, as the module note says."""
-    b, n = blocks.shape
-    seq, h = _hashes(blocks, hash_log)
-    order = torch.sort(h, dim=1, stable=True).indices  # positions ascending
-    hs = h.gather(1, order)                              # within a hash
-    prev = F.pad(order[:, :-1], (1, 0), value=-1)
-    same = F.pad(hs[:, 1:] == hs[:, :-1], (1, 0), value=False)
-    cand = torch.empty_like(order).scatter_(1, order,
-                                            torch.where(same, prev, -1))
+    seq, _ = lz4_links.hashes(blocks, 0)
+    cand = prev.to(torch.int64)
     idx = torch.arange(n, device=blocks.device)[None, :]
     limit = lengths.to(torch.int64).clamp(0, n)[:, None] - MF_LIMIT
     ok = ((cand >= 0) & (idx - cand <= 0xFFFF) & (idx < limit)
           & (_gather(seq, cand) == seq))
     return torch.where(ok, cand, -1).to(torch.int32)
+
+
+def lz4_dense_candidates_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                               hash_log: int = HASH_LOG) -> torch.Tensor:
+    """Plain version of the candidates: blocks (B, n) u8, lengths (B,) ->
+    cand (B, n) i32, as the module note says."""
+    return _filter(blocks, lengths, lz4_links.lz4_links_plain(
+        blocks, lengths, table_bits(hash_log)))
 
 
 def lz4_dense_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
@@ -200,19 +161,13 @@ def lz4_dense_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
                       encode_cap(n))
 
 
-def lz4_dense_words_plain(blocks: torch.Tensor, lengths: torch.Tensor,
-                          hash_log: int = HASH_LOG,
-                          cap: int = WORD_CAP) -> torch.Tensor:
-    """Plain version of the words kernel: blocks (B, n) u8, lengths (B,) ->
-    words (B, n) i32: at a position p with a candidate c, the match's
-    length m (the 4 bytes, then while the bytes agree before length - 5)
-    capped at cap, as m << 16 | (p - c), or MARKED | (p - c) where m reaches
-    cap and p + cap < length - 5; else 0."""
+def _words(blocks: torch.Tensor, lengths: torch.Tensor, cand: torch.Tensor,
+           cap: int) -> torch.Tensor:
+    """The words of the candidates cand, their lengths capped at cap."""
     from tpuzip_torch.kernels.lz4_chain import _common_prefix, _rank_levels
 
     b, n = blocks.shape
-    cand = lz4_dense_candidates_plain(blocks, lengths, hash_log).to(
-        torch.int64)
+    cand = cand.to(torch.int64)
     p = torch.arange(n, device=blocks.device)[None, :]
     end = lengths.to(torch.int64).clamp(0, n)[:, None] - LAST_LITERALS
     has = cand >= 0
@@ -223,6 +178,27 @@ def lz4_dense_words_plain(blocks: torch.Tensor, lengths: torch.Tensor,
     m = MIN_MATCH + agree
     head = torch.where(has & (m >= cap) & (p + cap < end), MARKED, m << 16)
     return torch.where(has, head | (p - c), 0).to(torch.int32)
+
+
+def lz4_dense_words_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                          hash_log: int = HASH_LOG,
+                          cap: int = WORD_CAP) -> torch.Tensor:
+    """Plain version of the words: blocks (B, n) u8, lengths (B,) ->
+    words (B, n) i32: at a position p with a candidate c, the match's
+    length m (the 4 bytes, then while the bytes agree before length - 5)
+    capped at cap, as m << 16 | (p - c), or MARKED | (p - c) where m reaches
+    cap and p + cap < length - 5; else 0."""
+    return _words(blocks, lengths,
+                  lz4_dense_candidates_plain(blocks, lengths, hash_log), cap)
+
+
+def lz4_dense_words_links_plain(blocks: torch.Tensor, lengths: torch.Tensor,
+                                prev: torch.Tensor,
+                                cap: int = WORD_CAP) -> torch.Tensor:
+    """Plain version of the words from the links: blocks (B, n) u8, lengths
+    (B,), prev (B, n) i32 (kernels/lz4_links.py's) -> the words of prev's
+    candidates (the filter, then lz4_dense_words_plain's lengths)."""
+    return _words(blocks, lengths, _filter(blocks, lengths, prev), cap)
 
 
 def lz4_dense_words_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
@@ -240,76 +216,11 @@ def _lib(name: str):
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            "candidates": [vp, vp, ci, ci, vp, vp, ci, ci, ci, ci, vp],
-            "parse": [vp, vp, vp, ci, ci, vp, ci, vp, vp],
             "words": [vp, vp, ci, ci, ci, vp, vp],
+            "words_links": [vp, vp, vp, ci, ci, vp, vp],
             "words_parse": [vp, vp, vp, ci, ci, vp, ci, vp, vp]}[name]
         fn.restype = ci
     return fn
-
-
-def lz4_dense_candidates(blocks: torch.Tensor, lengths: torch.Tensor,
-                         hash_log: int = HASH_LOG) -> torch.Tensor:
-    """cand (B, n) i32 of every row, as the module note says: blocks
-    (B, n) u8, lengths (B,) i32; any integer hash_log.
-
-    A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/lz4_dense.cu's candidates kernel on the current stream (no
-    synchronisation)."""
-    _check_pair("lz4_dense_candidates", blocks, lengths)
-    if blocks.device.type == "cpu":
-        return lz4_dense_candidates_plain(blocks, lengths, hash_log)
-    b, n = blocks.shape
-    dev = blocks.device
-    cand = torch.empty((b, n), dtype=torch.int32, device=dev)
-    if b == 0 or n == 0:
-        return cand
-    route, bits = table_route(hash_log, n)
-    ntab = table_count(b, hash_log, n)
-    tables = torch.empty(ntab * table_bytes(hash_log, n) // 4,
-                         dtype=torch.int32, device=dev)
-    fn = _lib("candidates")
-    with torch.cuda.device(dev):
-        err = fn(blocks.data_ptr(), lengths.data_ptr(), b, n,
-                 cand.data_ptr(), tables.data_ptr(), ntab,
-                 table_bits(hash_log), bits, int(route == "keyed"),
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "lz4_dense_candidates")
-    lz4_dense_candidates.launches += 1
-    return cand
-
-
-def lz4_dense_parse(blocks: torch.Tensor, lengths: torch.Tensor,
-                    cand: torch.Tensor):
-    """The LZ4 streams of the greedy parse over cand: blocks (B, n) u8,
-    lengths (B,) i32, cand (B, n) i32 from lz4_dense_candidates ->
-    (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,) i32).
-
-    A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/lz4_dense.cu's parse kernel on the current stream (no
-    synchronisation)."""
-    _check_pair("lz4_dense_parse", blocks, lengths)
-    if cand.shape != blocks.shape or cand.dtype != torch.int32 or \
-            cand.device != blocks.device:
-        raise ValueError("cand must be (B, n) i32 beside the blocks")
-    if blocks.device.type == "cpu":
-        return lz4_dense_parse_plain(blocks, lengths, cand)
-    b, n = blocks.shape
-    cap = encode_cap(n)
-    dev = blocks.device
-    comp = torch.zeros((b, cap), dtype=torch.uint8, device=dev)
-    clens = torch.empty(b, dtype=torch.int32, device=dev)
-    if b == 0:
-        return comp, clens
-    cand = cand.contiguous()
-    fn = _lib("parse")
-    with torch.cuda.device(dev):
-        err = fn(blocks.data_ptr(), lengths.data_ptr(), cand.data_ptr(), b,
-                 n, comp.data_ptr(), cap, clens.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "lz4_dense_parse")
-    lz4_dense_parse.launches += 1
-    return comp, clens
 
 
 def lz4_dense_words(blocks: torch.Tensor, lengths: torch.Tensor,
@@ -341,10 +252,41 @@ def lz4_dense_words(blocks: torch.Tensor, lengths: torch.Tensor,
     return words
 
 
+def lz4_dense_words_links(blocks: torch.Tensor, lengths: torch.Tensor,
+                          prev: torch.Tensor) -> torch.Tensor:
+    """The words of the tiled and sorted routes (lz4_dense_words_links_plain's,
+    at WORD_CAP): blocks (B, n) u8, lengths (B,) i32, prev (B, n) i32 from
+    kernels/lz4_links.py -> words (B, n) i32.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/lz4_dense.cu's words from the links on the current stream (no
+    synchronisation)."""
+    _check_pair("lz4_dense_words_links", blocks, lengths)
+    if prev.shape != blocks.shape or prev.dtype != torch.int32 or \
+            prev.device != blocks.device:
+        raise ValueError("prev must be (B, n) i32 beside the blocks")
+    if blocks.device.type == "cpu":
+        return lz4_dense_words_links_plain(blocks, lengths, prev)
+    b, n = blocks.shape
+    dev = blocks.device
+    words = torch.empty((b, n), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return words
+    prev = prev.contiguous()
+    with torch.cuda.device(dev):
+        err = _lib("words_links")(blocks.data_ptr(), lengths.data_ptr(),
+                                  prev.data_ptr(), b, n, words.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_dense_words_links")
+    lz4_dense_words_links.launches += 1
+    return words
+
+
 def lz4_dense_words_parse(blocks: torch.Tensor, lengths: torch.Tensor,
                           words: torch.Tensor):
     """The LZ4 streams of the greedy parse over the words: blocks (B, n)
-    u8, lengths (B,) i32, words (B, n) i32 from lz4_dense_words -> (comp (B,
+    u8, lengths (B,) i32, words (B, n) i32 from lz4_dense_words or
+    lz4_dense_words_links -> (comp (B,
     encode_cap(n)) u8, zero past each stream, clens (B,) i32).
 
     A CPU tensor runs the plain version; a CUDA tensor launches
@@ -383,13 +325,13 @@ def lz4_dense_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
     hashes to 0)."""
     if blocks.dim() == 2 and encode_route(hash_log,
                                           blocks.shape[1]) == "shared":
-        return lz4_dense_words_parse(
-            blocks, lengths, lz4_dense_words(blocks, lengths, hash_log))
-    return lz4_dense_parse(blocks, lengths,
-                           lz4_dense_candidates(blocks, lengths, hash_log))
+        words = lz4_dense_words(blocks, lengths, hash_log)
+    else:
+        words = lz4_dense_words_links(blocks, lengths, lz4_links.lz4_links(
+            blocks, lengths, table_bits(hash_log)))
+    return lz4_dense_words_parse(blocks, lengths, words)
 
 
-lz4_dense_candidates.launches = 0
-lz4_dense_parse.launches = 0
 lz4_dense_words.launches = 0
+lz4_dense_words_links.launches = 0
 lz4_dense_words_parse.launches = 0
