@@ -176,14 +176,14 @@ Phases, one JSON line each:
             directions and both ari kernels launched; L and the origins
             equal the oracle's BWT on 4 blocks; each MTF launch held,
             exact, against the plain version on its own CUDA tensors cut
-            to their first 65553 columns (mtf_cut: at least 3 chunks, and
+            to their first 12305 columns (mtf_cut: at least 3 chunks, and
             rows that end inside one; the kernel run on the cut too), and
             each ari launch on its first
             4096 symbols (both are causal, so the prefix is exact); MB/s,
             a device trace of each direction, peak memory.
 7. bwt_big  one 100,000,000-byte block made from the same seed (flag 8,
             128 segments of 781,312): the bytes round-trip; each MTF launch
-            held against the plain version on the first 16401 columns of
+            held against the plain version on the first 12305 columns of
             the 128 segment rows, each ari launch on their first 4096
             symbols; MB/s and peak memory.
 8. bwtdc    the 64 MiB corpus through codec="bwtdc" at 1 MiB blocks: the
@@ -280,6 +280,17 @@ Phases, one JSON line each:
             6); MB/s of each direction; each of the four launches on the
             row timed alone, with its peak device memory, and the tables
             with the emit split by kernel (the tiled route asserted).
+19. streams the LZ4 frame and tpuzip.io's streaming adapters: 64 MiB
+            through codecs.lz4_frame.compress_frame and decompress_frame at
+            64 KiB and 4 MiB blocks, a linked frame and a frame with block
+            checksums, 8 MiB through each writer and reader of
+            tpuzip_torch.open (lz4f, zlib, ari, bwt, rle, mtf, dc), an LZ4
+            frame nested over zlib, the zlib reader's growing output and
+            the bytes after its Adler-32; every path round-trips.  The new
+            kernel (csrc/xxh32.cu, both entries) and modes (lz4_decode.cu's
+            history, deflate_encode.cu's fragments, inflate.cu's ends) held
+            exact against their plain versions on the cuts its line names,
+            each mode timed in turns against its stream instance.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the dot route must have none on a container path.  The
@@ -296,6 +307,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import io
 import json
 import os
 import re
@@ -310,19 +322,22 @@ import numpy as np
 import torch
 
 import tpuzip_torch
-from tpuzip_torch.codecs import bin_apm, bwt, dc, zlib_
+from tpuzip_torch.codecs import bin_apm, bwt, dc, lz4_frame, zlib_
 from tpuzip_torch.core import blocks as blk
+from tpuzip_torch.core.checksum import Xxh32Stream
 from tpuzip_torch.core.config import Config
 from tpuzip_torch.dist import runner
 from tpuzip_torch.kernels import (_build, bin_coder, dc_scan, deflate_coder,
                                   lz4_chain, lz4_coder, lz4_dense, lz4_links,
                                   lz4p_coder, mtf_scan, range_coder,
                                   range_decoder, rle_coder)
+from tpuzip_torch.kernels import xxh32 as kxxh32
 from tpuzip_torch.oracle import ari as oari
 from tpuzip_torch.oracle import bwt as obwt
 from tpuzip_torch.oracle import dc as odc
 from tpuzip_torch.oracle import lz4 as olz4
 from tpuzip_torch.oracle import rle as orle
+from tpuzip_torch.oracle import xxh32 as oxxh32
 
 SEED = 20261016
 KNOBS = ((8, 1 << 13), (8, 512), (16, 40000), (0, 1 << 13))  # (inc, thr)
@@ -330,7 +345,7 @@ BLOCK = 1 << 16
 CORPUS_BYTES = 64 << 20   # 1024 ari blocks: the JAX bench's headline shape
 BWT_BLOCK = 1 << 20       # the bwt codec's default block size
 BIG_BLOCK = 100_000_000   # BASELINE config 4: bwt on 100 MB blocks
-MTF_PLAIN_COLS = {"bwt": 65536, "bwt_big": 16384}   # before mtf_cut()
+MTF_PLAIN_COLS = {"bwt": 12288, "bwt_big": 12288}   # before mtf_cut()
 ARI_PLAIN_COLS = 4096     # symbols of the ari prefix checks on the bwt paths
 DC_PLAIN_STEPS = 8192     # runs of the DC-walk check on the bwtdc path
 BIN_PLAIN_BYTES = 512     # bytes a block of the bin/apm checks on their paths
@@ -474,7 +489,8 @@ def mixed_blocks(b: int, n: int, seed: int):
 
 SOURCES = ("ari_encode", "ari_decode", "mtf", "dc_decode", "bin_encode",
            "bin_decode", "lz4_encode", "lz4_decode", "rle", "lz4_dense",
-           "lz4_chain", "lz4_links", "lz4p", "deflate_encode", "inflate")
+           "lz4_chain", "lz4_links", "lz4p", "deflate_encode", "inflate",
+           "xxh32")
 
 
 def ptxas_report(procs) -> dict:
@@ -520,6 +536,9 @@ def phase_build() -> None:
     bin_coder._lib("bin_decode")
     lz4_coder._lib("lz4_encode")
     lz4_coder._lib("lz4_decode")
+    lz4_coder._lib("lz4_decode", "lz4_decode_history")
+    kxxh32._lib("batch")
+    kxxh32._lib("stripes")
     rle_coder._lib("rle_encode")
     rle_coder._lib("rle_encode_seg")
     rle_coder._lib("rle_decode")
@@ -533,7 +552,7 @@ def phase_build() -> None:
     lz4p_coder._lib("decode")
     for name in ("links_shared", "links_tiled", "links_tiled_scratch",
                  "parse", "parse_greedy", "parse_scratch", "emit",
-                 "emit_tuple", "inflate"):
+                 "emit_fragment", "emit_tuple", "inflate", "inflate_ends"):
         deflate_coder._lib(name)
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds={k: round(v, 3) for k, v in secs.items()}, ptxas=ptxas)
@@ -2185,6 +2204,14 @@ WRAPPERS = {"ari_encode": (range_coder, "ari_encode_indexed"),
             "deflate_parse_greedy": (deflate_coder, "deflate_parse_greedy"),
             "deflate_emit_tuple": (deflate_coder, "deflate_emit_tuple"),
             "inflate": (deflate_coder, "inflate_batch"),
+            # the modes the streams phase adds: the linked LZ4 frame's
+            # history, the zlib writer's fragments, the zlib reader's ends
+            "lz4_decode_history": (lz4_coder, "lz4_decode_history"),
+            "deflate_emit_fragment": (deflate_coder,
+                                      "deflate_emit_fragment"),
+            "inflate_ends": (deflate_coder, "inflate_ends"),
+            "xxh32_batch": (kxxh32, "xxh32_batch"),
+            "xxh32_stripes": (kxxh32, "xxh32_stripes"),
             # the same two kernels in their modes without the chunk index
             "ari_decode_unindexed": (range_decoder, "decode_batch"),
             "bin_decode_unindexed": (bin_apm, "decode_batch")}
@@ -2215,7 +2242,9 @@ PLAINS = ((range_coder, "ari_encode_indexed_plain"),
           (deflate_coder, "deflate_links_plain"),
           (deflate_coder, "deflate_parse_plain"),
           (deflate_coder, "deflate_emit_plain"),
-          (deflate_coder, "inflate_batch_plain"))
+          (deflate_coder, "inflate_batch_plain"),
+          (kxxh32, "xxh32_batch_plain"),
+          (kxxh32, "xxh32_stripes_plain"))
 
 
 @contextlib.contextmanager
@@ -4382,8 +4411,9 @@ def emit_traced(wrapper: str, trace: dict, route: str) -> list:
     kept in EMIT_TRACED."""
     names = sorted(k for k in trace["kernels"] if k.startswith(EMIT_PREFIXES))
     tiled = "deflate_emit_tiles_kernel" in names
-    if tiled != (route == "tiled") or tiled == ("deflate_emit_kernel"
-                                                 in names):
+    # the row emit is a template (its fragment mode): deflate_emit_kernel<..>
+    row = any(k.startswith("deflate_emit_kernel") for k in names)
+    if tiled != (route == "tiled") or tiled == row:
         raise AssertionError(f"{wrapper}: not the {route} route's kernels "
                              f"in its trace: {names}")
     EMIT_TRACED[wrapper].setdefault(route, set()).update(names)
@@ -5019,6 +5049,405 @@ def phase_zlib(smi: str):
          zlib_level_6={"ratio": len(ref) / len(data),
                        "decode_mb_s": len(data) / 1e6 / t_ref}, card=smi)
     return counts, errs
+
+
+STREAM_FRAME_BLOCKS = (1 << 16, 1 << 22)   # compress_frame's block_max
+STREAM_BYTES = 8 << 20      # each streaming adapter's input
+STREAM_FORMATS = ("lz4f", "zlib", "ari", "bwt", "rle", "mtf", "dc")
+LINKED_BYTES = 1 << 19      # the linked frame's content
+XXH_PLAIN_BYTES = 1 << 16   # the xxh32 plain checks' rows
+HISTORY_PLAIN_BYTES = 16 << 10   # the history check's block, after 64 KiB
+INFLATE_PLAIN_BYTES = 1 << 20    # the inflate_ends check's zlib stream
+FRAGMENT_WIDE = 1 << 17          # rows of the fragments' tiled-route check
+
+
+def linked_block(window: bytes, chunk: bytes) -> bytes:
+    """An LZ4 block of a linked frame: oracle.lz4.compress_block's greedy
+    single-probe parse over chunk, its table primed with the last 64 KiB
+    of window, so that matches reach back into the blocks before it
+    (liblz4 links a frame's blocks so by default)."""
+    hist = window[-lz4_frame.WINDOW:]
+    src, base = hist + chunk, len(hist)
+    n = len(src)
+    table = {}
+    for p in range(max(0, base - 3)):
+        table[olz4._hash(int.from_bytes(src[p : p + 4], "little"))] = p
+    out = bytearray()
+    anchor = i = base
+    limit = max(n - olz4.MF_LIMIT, base)
+    while i < limit:
+        seq = src[i : i + 4]
+        h = olz4._hash(int.from_bytes(seq, "little"))
+        cand = table.get(h, -1)
+        table[h] = i
+        if cand >= 0 and i - cand <= 0xFFFF and src[cand : cand + 4] == seq:
+            m, c, end = i + 4, cand + 4, n - olz4.LAST_LITERALS
+            while m < end and src[m] == src[c]:
+                m += 1
+                c += 1
+            olz4._emit_sequence(out, src, anchor, i - anchor, i - cand, m - i)
+            i = anchor = m
+        else:
+            i += 1
+    out.append(min(n - anchor, 15) << 4)
+    olz4._emit_len_ext(out, n - anchor, 15)
+    out += src[anchor:n]
+    return bytes(out)
+
+
+def linked_frame(data: bytes, block_max: int, block_checksum: bool) -> bytes:
+    """data as a linked LZ4 frame (FLG bit 5 clear) of linked_block()s, a
+    block stored where it does not shrink, with its content checksum and,
+    if asked, its block checksums (oracle xxh32 on the host)."""
+    flg = (1 << 6) | (int(block_checksum) << 4) | (1 << 2)
+    desc = bytes([flg, {v: k for k, v in olz4._BD_MAX_SIZES.items()}
+                  [block_max] << 4])
+    out = bytearray(struct.pack("<I", olz4.MAGIC) + desc
+                    + bytes([(oxxh32.xxh32(desc) >> 8) & 0xFF]))
+    for k in range(0, len(data), block_max):
+        chunk = data[k : k + block_max]
+        comp = linked_block(data[:k], chunk)
+        body, flag = (comp, 0) if len(comp) < len(chunk) else (chunk, 1 << 31)
+        out += struct.pack("<I", len(body) | flag) + body
+        if block_checksum:
+            out += struct.pack("<I", oxxh32.xxh32(body))
+    out += struct.pack("<II", 0, oxxh32.xxh32(data))
+    return bytes(out)
+
+
+def with_block_checksums(frame: bytes) -> bytes:
+    """An independent frame of compress_frame's with FLG bit 4 set and
+    each block's xxh32 (oracle, host) after it."""
+    desc = bytes([frame[4] | 1 << 4, frame[5]])
+    out = bytearray(frame[:4] + desc
+                    + bytes([(oxxh32.xxh32(desc) >> 8) & 0xFF]))
+    i = 7
+    while True:
+        (blen,) = struct.unpack_from("<I", frame, i)
+        n = blen & 0x7FFFFFFF
+        out += frame[i : i + 4 + n]
+        i += 4 + n
+        if blen == 0:
+            return bytes(out + frame[i:])
+        out += struct.pack("<I", oxxh32.xxh32(frame[i - n : i]))
+
+
+def stream_write(fmt: str, data: bytes, **kw) -> bytes:
+    """data through tpuzip_torch.open(f, "wb", format=fmt) in three writes
+    that split its blocks."""
+    f = io.BytesIO()
+    w = tpuzip_torch.open(f, "wb", format=fmt, **kw)
+    cuts = (0, 1000, len(data) // 2 + 7, len(data))
+    for a, b in zip(cuts, cuts[1:]):
+        w.write(data[a:b])
+    w.close()
+    return f.getvalue()
+
+
+def stream_read(fmt: str, blob: bytes) -> bytes:
+    """blob through tpuzip_torch.open(f, "rb", format=fmt) in reads of 7
+    bytes, 1 MiB and the rest."""
+    r = tpuzip_torch.open(io.BytesIO(blob), "rb", format=fmt)
+    return r.read(7) + r.read(1 << 20) + r.read()
+
+
+def nested(data: bytes) -> bytes:
+    """data through an LZ4 frame writer nested over a zlib writer, read back
+    through the readers nested the same way."""
+    f = io.BytesIO()
+    z = tpuzip_torch.open(f, "wb", format="zlib")
+    w = tpuzip_torch.open(z, "wb", format="lz4f")
+    w.write(data[:333])
+    w.write(data[333:])
+    w.close()
+    z.close()
+    r = tpuzip_torch.open(tpuzip_torch.open(io.BytesIO(f.getvalue()), "rb",
+                                            format="zlib"),
+                          "rb", format="lz4f")
+    return r.read()
+
+
+def xxh32_chain(n: int) -> int:
+    """Dependent steps of a row of n bytes: each lane's n / 16 stripes, then
+    the tail's words and bytes."""
+    return n // 16 + (n % 16) // 4 + n % 4
+
+
+def streams_against_plain(calls) -> dict:
+    """The streams phase's new launches held, exact, against their plain
+    versions, on the cuts the module note names; each timed at the path's
+    shape."""
+    res = {}
+    # xxh32 batch: the content checksum of the 64 MiB frame (one row) cut
+    # to its first XXH_PLAIN_BYTES, and the linked frame's block checksums
+    # on 4 whole rows of their launch
+    content = max((c for c in calls["xxh32_batch"] if c[0][0].shape[0] == 1),
+                  key=lambda c: c[0][0].shape[1])
+    blocksums = max(calls["xxh32_batch"], key=lambda c: c[0][0].shape[0])
+    rows, lens = content[0][:2]
+    cut = rows[:, :XXH_PLAIN_BYTES].contiguous()
+    cut_lens = lens.clamp(max=XXH_PLAIN_BYTES)
+    ref, plain_ms = timed(lambda: kxxh32.xxh32_batch_plain(cut, cut_lens))
+    err = max_err(kxxh32.xxh32_batch(cut, cut_lens), ref)
+    brows, blens = blocksums[0][:2]
+    nb = brows.shape[0]
+    pick = torch.tensor(sorted({0, nb // 2, nb - 2, nb - 1} - {-1, -2}),
+                        device="cuda")
+    bref = kxxh32.xxh32_batch_plain(brows[pick], blens[pick])
+    err = max(err, max_err(blocksums[2][pick], bref))
+    n = int(lens[0])
+    ms = cuda_ms(lambda: kxxh32.xxh32_batch(rows, lens), 3)
+    res["xxh32_batch"] = {
+        "inputs": [list(rows.shape)], "plain_inputs": list(cut.shape),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "ns_a_step": ms * 1e6 / xxh32_chain(n),
+        "block_checksums": {
+            "inputs": list(brows.shape), "plain_rows": pick.tolist(),
+            "ms": cuda_ms(lambda: kxxh32.xxh32_batch(brows, blens), 3)},
+        **bound(n + 4)}
+    # xxh32 stripes: the writer's first batch from the seed's lanes, cut
+    (args, kw, _) = calls["xxh32_stripes"][0]
+    state0 = Xxh32Stream(device="cuda").state   # the seed's lanes
+    data = args[1]
+    sc = data[:XXH_PLAIN_BYTES].contiguous()
+    got, want = state0.clone(), state0.clone()
+    kxxh32.xxh32_stripes(got, sc, sc.numel() // 16)
+    _, s_plain_ms = timed(lambda: kxxh32.xxh32_stripes_plain(
+        want, sc, sc.numel() // 16))
+    st = state0.clone()
+    ms = cuda_ms(lambda: kxxh32.xxh32_stripes(st, data, args[2]), 3)
+    res["xxh32_stripes"] = {
+        "inputs": [list(data.shape)], "plain_inputs": list(sc.shape),
+        "max_abs_err": max_err(got, want), "ms": ms,
+        "plain_ms": s_plain_ms, "ns_a_step": ms * 1e6 / args[2],
+        **bound(16 * args[2] + 32)}
+    # the history mode: a HISTORY_PLAIN_BYTES block linked to the 64 KiB
+    # before it; the path's own launches (the linked frame's blocks) timed
+    text = text_corpus(CORPUS_BYTES, SEED)
+    window = text[: lz4_frame.WINDOW]
+    chunk = text[lz4_frame.WINDOW : lz4_frame.WINDOW + HISTORY_PLAIN_BYTES]
+    comp = linked_block(window, chunk)
+    crow = torch.frombuffer(bytearray(comp), dtype=torch.uint8).cuda()[None]
+    clen = torch.tensor([len(comp)], dtype=torch.int32, device="cuda")
+    hist = torch.frombuffer(bytearray(window), dtype=torch.uint8).cuda()[None]
+    got = lz4_coder.lz4_decode_batch(crow, clen, HISTORY_PLAIN_BYTES, hist)
+    ref, h_plain_ms = timed(lambda: lz4_coder.lz4_decode_batch_plain(
+        crow, clen, HISTORY_PLAIN_BYTES, hist))
+    err = max(max_err(a, b) for a, b in zip(got, ref))
+    if ref[0][0].cpu().numpy().tobytes() != chunk:
+        raise AssertionError("streams: the history check's block did not "
+                             "decode to its bytes")
+    (hargs, hkw, hout), = [c for c in calls["lz4_decode_history"]
+                           if c[0][3].shape[1] == lz4_frame.WINDOW][:1]
+    # both modes on one block of the independent 64 KiB frame (its matches
+    # within the block), the history mode after 64 KiB of zeros, in turns
+    (bargs, _, _) = min((c for c in calls["lz4_decode"]
+                         if c[0][0].shape[0] == CORPUS_BYTES // BLOCK),
+                        key=lambda c: c[0][0].shape[1])
+    one = (bargs[0][:1].contiguous(), bargs[1][:1].contiguous(), bargs[2])
+    zeros = torch.zeros((1, lz4_frame.WINDOW), dtype=torch.uint8,
+                        device="cuda")
+    modes = {}
+    for mode in ("history", "block", "block", "history"):
+        modes.setdefault(mode, []).append(cuda_ms(
+            (lambda: lz4_coder.lz4_decode_history(*one, zeros))
+            if mode == "history" else
+            (lambda: lz4_coder.lz4_decode_batch(*one)), 3))
+    res["lz4_decode_history"] = {
+        "inputs": [list(hargs[0].shape), list(hargs[3].shape)],
+        "plain_inputs": [list(crow.shape), list(hist.shape)],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: lz4_coder.lz4_decode_history(*hargs), 3),
+        "one_block_in_turns_ms": modes, "plain_ms": h_plain_ms,
+        **bound(int(hargs[1][0]) + hargs[3].numel() + 2 * int(hout[1][0]))}
+    # the fragment mode: the zlib writer's first batch on 4 whole rows, and
+    # in turns against the stream instance on the same tokens
+    (fargs, fkw, fout) = calls["deflate_emit_fragment"][0]
+    nb = fargs[0].shape[0]
+    pick = torch.tensor(sorted({0, nb // 2, nb - 2, nb - 1}), device="cuda")
+    fcut = tuple(a[pick].contiguous() for a in fargs[:4])
+    ref, f_plain_ms = timed(lambda: deflate_coder.deflate_emit_plain(
+        *fcut, fargs[4], fragment=True))
+    got = deflate_coder.deflate_emit_fragment(*fcut, fargs[4])
+    err = max(max(max_err(a, b) for a, b in zip(got, ref)),
+              max(max_err(a[pick], b) for a, b in zip(fout, ref)))
+    turns = {}
+    for name in ("deflate_emit_fragment", "deflate_emit", "deflate_emit",
+                 "deflate_emit_fragment"):
+        run = getattr(deflate_coder, name)
+        turns.setdefault(name, []).append(
+            cuda_ms(lambda: run(*fargs), 3))
+    # the tiled route's fragments (rows past 64 KiB) and the stored mode's,
+    # each spliced into one stream that zlib reads
+    wide = text[: 2 * FRAGMENT_WIDE] + bytes(FRAGMENT_WIDE)
+    wrows = torch.frombuffer(bytearray(wide), dtype=torch.uint8).cuda(
+        ).reshape(3, FRAGMENT_WIDE)
+    wlens = torch.tensor([FRAGMENT_WIDE, FRAGMENT_WIDE - 777, FRAGMENT_WIDE],
+                         dtype=torch.int32, device="cuda")
+    tok = deflate_coder.deflate_parse(wrows, wlens, deflate_coder.deflate_links(
+        wrows, wlens), 64)
+    for mode, toks in ((0, tok), (1, tok), (2, (None, None))):
+        got = deflate_coder.deflate_emit_fragment(wrows, wlens, *toks, mode)
+        ref = deflate_coder.deflate_emit_plain(wrows, wlens, *toks, mode,
+                                               fragment=True)
+        err = max(err, max(max_err(a, b) for a, b in zip(got, ref)))
+        splice = b"".join(got[0][k, : int(got[1][k])].cpu().numpy().tobytes()
+                          for k in range(3))
+        want = b"".join(wide[k * FRAGMENT_WIDE : k * FRAGMENT_WIDE + n]
+                        for k, n in enumerate(wlens.tolist()))
+        if zlib.decompressobj(-15).decompress(splice + b"\x03\x00") != want:
+            raise AssertionError(f"streams: mode {mode}'s fragments do not "
+                                 "splice")
+    res["deflate_emit_fragment"] = {
+        "inputs": [list(fargs[0].shape)], "plain_inputs": list(fcut[0].shape),
+        "plain_rows": pick.tolist(), "max_abs_err": err,
+        "also_exact_on": f"3 rows of {FRAGMENT_WIDE} bytes (the tiled "
+        "route) in the three modes",
+        "ms": sum(turns["deflate_emit_fragment"]) / 2,
+        "in_turns_ms": turns, "plain_ms": f_plain_ms,
+        **deflate_bound("deflate_emit", fargs, fout)}
+    # the inflate's ends: a zlib writer's stream of INFLATE_PLAIN_BYTES
+    # with 5 bytes after its Adler-32; the reader's 8 MiB stream timed,
+    # against the inflate without ends in turns
+    z = stream_write("zlib", text[:INFLATE_PLAIN_BYTES]) + b"after"
+    zrow = torch.frombuffer(bytearray(z[2:]), dtype=torch.uint8).cuda()[None]
+    zlen = torch.tensor([len(z) - 2], dtype=torch.int32, device="cuda")
+    cap = 2 * INFLATE_PLAIN_BYTES
+    got = deflate_coder.inflate_ends(zrow, zlen, cap)
+    ref, i_plain_ms = timed(lambda: deflate_coder.inflate_batch_plain(
+        zrow, zlen, cap, with_ends=True))
+    err = max(max_err(a, b) for a, b in zip(got, ref))
+    if int(ref[2][0]) != len(z) - 2 - 4 - 5:
+        raise AssertionError(f"streams: the inflate's end {int(ref[2][0])} "
+                             "is not the stream's")
+    big = max(calls["inflate_ends"], key=lambda c: c[0][0].shape[1])
+    iargs = big[0]
+    turns = {}
+    for name in ("inflate_ends", "inflate_batch", "inflate_batch",
+                 "inflate_ends"):
+        run = getattr(deflate_coder, name)
+        turns.setdefault(name, []).append(cuda_ms(lambda: run(*iargs), 1))
+    res["inflate_ends"] = {
+        "inputs": [list(iargs[0].shape)], "plain_inputs": list(zrow.shape),
+        "max_abs_err": err, "ms": sum(turns["inflate_ends"]) / 2,
+        "in_turns_ms": turns, "plain_ms": i_plain_ms,
+        **bound(int(iargs[1][0]) + int(big[2][1][0]) + 16)}
+    return res
+
+
+def phase_streams(smi: str):
+    """Phase 19: the LZ4 frame and tpuzip.io's streaming adapters, through
+    the entry points a user calls.  codecs.lz4_frame.compress_frame and
+    decompress_frame of the 64 MiB corpus at block_max 64 KiB (1024
+    blocks) and 4 MiB (16: the dense encoder's tiled links); a linked
+    frame of LINKED_BYTES (its matches reaching into the blocks before,
+    liblz4's default) with block checksums, and compress_frame's 64 KiB
+    frame of its first LINKED_BYTES with block checksums added, each read
+    back and by the oracle; STREAM_BYTES of the corpus through
+    tpuzip_torch.open's writer and reader of each format (lz4f, zlib and
+    the five framed codecs), written in three pieces and read in three;
+    the zlib reader on 8 MiB of zeros (its output grown from 64 KiB) and
+    on a stream with bytes after its Adler-32.  Every path round-trips.
+    The new launches held exact against their plain versions
+    (streams_against_plain): xxh32_batch on the content row cut to
+    XXH_PLAIN_BYTES and on 4 whole rows of the block checksums' launch,
+    xxh32_stripes on the writer's first batch cut to XXH_PLAIN_BYTES,
+    lz4_decode's history mode on a HISTORY_PLAIN_BYTES block after 64
+    KiB, the fragment emit on 4 whole rows of the zlib writer's batch,
+    the inflate's ends on a zlib stream of INFLATE_PLAIN_BYTES.  Returns
+    (the launches, the kernels' records)."""
+    data = text_corpus(CORPUS_BYTES, SEED)
+    head = data[:LINKED_BYTES]
+    t0 = time.perf_counter()
+    linked = linked_frame(head, 1 << 16, True)
+    indep = with_block_checksums(lz4_frame.compress_frame(head))
+    build_s = time.perf_counter() - t0
+    for fmt in STREAM_FORMATS:   # warm each path outside the counts
+        stream_read(fmt, stream_write(fmt, data[:5000]))
+    zeros = bytes(STREAM_BYTES)
+    zeros_z = zlib.compress(zeros, 9)
+    after = zlib.compress(data[:100_000], 6) + b"ignored"
+    res, sizes = {}, {}
+    with counted_run() as (calls, counts):
+        for bm in STREAM_FRAME_BLOCKS:
+            t0 = time.perf_counter()
+            frame = lz4_frame.compress_frame(data, bm)
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = lz4_frame.decompress_frame(frame)
+            t_dec = time.perf_counter() - t0
+            if back != data:
+                raise AssertionError(f"streams: the {bm}-byte-block frame "
+                                     "did not round-trip")
+            res[f"frame_{bm}"] = {"ratio": len(frame) / len(data),
+                                  "encode_mb_s": len(data) / 1e6 / t_enc,
+                                  "decode_mb_s": len(data) / 1e6 / t_dec}
+        for name, frame in (("linked", linked), ("block_checksums", indep)):
+            t0 = time.perf_counter()
+            back = lz4_frame.decompress_frame(frame)
+            res[name] = {"decode_mb_s": len(head) / 1e6
+                         / (time.perf_counter() - t0)}
+            if back != head:
+                raise AssertionError(f"streams: the {name} frame misread")
+        src = data[:STREAM_BYTES]
+        for fmt in STREAM_FORMATS:
+            t0 = time.perf_counter()
+            blob = stream_write(fmt, src)
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = stream_read(fmt, blob)
+            t_dec = time.perf_counter() - t0
+            if back != src:
+                raise AssertionError(f"streams: {fmt} did not round-trip")
+            sizes[fmt] = blob
+            res[fmt] = {"ratio": len(blob) / len(src),
+                        "encode_mb_s": len(src) / 1e6 / t_enc,
+                        "decode_mb_s": len(src) / 1e6 / t_dec}
+        t0 = time.perf_counter()
+        if stream_read("zlib", zeros_z) != zeros:
+            raise AssertionError("streams: the zlib reader misread zeros")
+        res["zlib_zeros"] = {"stream_bytes": len(zeros_z), "decode_mb_s":
+                             len(zeros) / 1e6 / (time.perf_counter() - t0)}
+        if stream_read("zlib", after) != data[:100_000]:
+            raise AssertionError("streams: bytes after the Adler-32 misread")
+        if nested(head) != head:
+            raise AssertionError("streams: lz4f over zlib misread")
+    if zlib.decompress(sizes["zlib"]) != data[:STREAM_BYTES] or any(
+            olz4.decompress_frame(f) != head for f in (
+                linked, indep, stream_write("lz4f", head))):
+        raise AssertionError("streams: zlib or the oracle misread a frame")
+    need(counts, {"xxh32_batch": 2, "xxh32_stripes": 1, "lz4_dense_words": 1,
+                  "lz4_links_tiled": 1, "lz4_dense_words_links": 1, "lz4_dense_words_parse": 2,
+                  "lz4_decode": 3, "lz4_decode_history": 1,
+                  "lz4_encode": 1, "deflate_links_shared": 1,
+                  "deflate_parse": 1, "deflate_emit_fragment": 1,
+                  "inflate_ends": 2, "ari_encode": 1,
+                  "ari_decode_unindexed": 1, "rle_encode": 1,
+                  "rle_decode": 1, "mtf": 2, "dc_decode": 1}, "streams")
+    if counts["deflate_emit"] or counts["inflate"]:
+        raise AssertionError(f"streams: a stream instance ran: {counts}")
+    kernels = streams_against_plain(calls)
+    calls.clear()
+    bad = {k: v["max_abs_err"] for k, v in kernels.items()
+           if v["max_abs_err"]}
+    if bad:
+        raise AssertionError(f"streams: kernels disagree with their plain "
+                             f"versions: {bad}")
+    emit("streams", paths=res, launches={k: v for k, v in counts.items()
+                                         if v},
+         frames_built_s=build_s, kernels=kernels,
+         cuts={"xxh32_batch": f"the content row's first {XXH_PLAIN_BYTES} "
+               "bytes; 4 whole rows of the block checksums",
+               "xxh32_stripes": f"the first {XXH_PLAIN_BYTES} bytes of the "
+               "writer's first batch",
+               "lz4_decode_history": f"a {HISTORY_PLAIN_BYTES}-byte block "
+               f"after {lz4_frame.WINDOW} bytes of history",
+               "deflate_emit_fragment": "4 whole rows of the zlib writer's "
+               f"first batch; 3 rows of {FRAGMENT_WIDE} bytes in each mode",
+               "inflate_ends": f"the zlib writer's stream of "
+               f"{INFLATE_PLAIN_BYTES} bytes, 5 bytes after its Adler-32"},
+         card=smi)
+    return counts, kernels
 
 
 TRACED = {"bwtdc": (("ari_encode_kernel",),
@@ -6286,6 +6715,7 @@ def main() -> int:
     (deflate_launches, deflate_dev_launches, deflate_wide_launches,
      deflate_kernels) = phase_deflate(smi)
     zlib_launches, zlib_errs = phase_zlib(smi)
+    streams_launches, streams_kernels = phase_streams(smi)
     if "jax" in sys.modules or any(m.split(".")[0] == "tpuzip"
                                    for m in sys.modules):
         raise AssertionError("the port's path imported jax or tpuzip")
@@ -6303,7 +6733,7 @@ def main() -> int:
                "deflate": deflate_launches,
                "deflate_to_device": deflate_dev_launches,
                "deflate_wide": deflate_wide_launches,
-               "zlib": zlib_launches}
+               "zlib": zlib_launches, "streams": streams_launches}
     # times at the main paths' shapes: ari at 1024 x 64 KiB, MTF at the bwt
     # path's 64 x 1 MiB, the DC walk at the bwtdc path's, the bin kernels
     # at the apm path's 1024 x 64 KiB (bin beside it), the dot decoder at
@@ -6318,7 +6748,8 @@ def main() -> int:
     at_shape = {**bwt_kernels, **ari_kernels,
                 "dc_decode": dc_kernels["dc_decode"], **bin_kernels,
                 **dot_kernels, **lz4_kernels, **rle_kernels, **serve_kernels,
-                **chain_kernels, **lz4p_kernels, **deflate_kernels}
+                **chain_kernels, **lz4p_kernels, **deflate_kernels,
+                **streams_kernels}
     checked = ({k: {"max_abs_err": e} for k, e in small.items()},
                ari_kernels, bwt_kernels, big_kernels, dc_kernels, bin_kernels,
                dot_kernels, legacy_kernels, lz4_kernels, rle_kernels,
@@ -6326,7 +6757,8 @@ def main() -> int:
                {"lz4_dense_words_links":
                 chain_kernels["lz4_dense_words_links_wide"]},
                lz4p_serve_kernels, deflate_kernels,
-               {k: {"max_abs_err": e} for k, e in zlib_errs.items()})
+               {k: {"max_abs_err": e} for k, e in zlib_errs.items()},
+               streams_kernels)
     # each emit wrapper's kernels by route, as its traces show them
     for name, seen in EMIT_TRACED.items():
         if sorted(seen) != ["row", "tiled"]:
@@ -6407,7 +6839,22 @@ def main() -> int:
              "tpuzip/codecs/deflate.py:250 lz77_stage (greedy parse)"),
             ("deflate_emit_tuple", "deflate_encode.cu",
              "tpuzip/oracle/deflate.py:273 package_merge (tuple order) "
-             "with tpuzip/codecs/deflate.py:396 _header_fields")):
+             "with tpuzip/codecs/deflate.py:396 _header_fields"),
+            # the LZ4 frame and the streaming adapters (host C++ and
+            # Python in tpuzip)
+            ("xxh32_batch", "xxh32.cu",
+             "csrc/tpuzip_host.cpp:92 tpz_xxh32; "
+             "tpuzip/oracle/xxh32.py:23 xxh32"),
+            ("xxh32_stripes", "xxh32.cu",
+             "csrc/tpuzip_host.cpp:74 tpz_xxh32_stripes; "
+             "tpuzip/oracle/xxh32.py:56 Xxh32State"),
+            ("lz4_decode_history", "lz4_decode.cu",
+             "tpuzip/oracle/lz4.py:265 _decompress_linked"),
+            ("deflate_emit_fragment", "deflate_encode.cu",
+             "csrc/tpuzip_host.cpp:1592 tpz_deflate_fragment"),
+            ("inflate_ends", "inflate.cu",
+             "tpuzip/oracle/deflate.py:186 decompress_ex (its bytes "
+             "consumed)")):
         k = at_shape[name]
         extra = {key: k[key] for key in ("ms_bin", "bound_ms_bin") if key in k}
         if name in EMIT_TRACED:

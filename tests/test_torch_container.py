@@ -9,6 +9,7 @@ because on the tests' 8-device mesh it pads the batch with empty blocks
 held against the plain versions on the card by chip_smoke.py."""
 
 import dataclasses
+import io
 import struct
 import zlib
 
@@ -19,6 +20,8 @@ import torch
 from tpuzip.core.config import Config
 from tpuzip.dist import mesh as meshlib
 from tpuzip.dist import runner as jrun
+from tpuzip.runtime import native
+import tpuzip
 import tpuzip_torch
 from tpuzip_torch import device as tdevice
 from tpuzip_torch.core.checksum import adler32_batch
@@ -346,14 +349,27 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    """open is not ported yet and names its ROADMAP.md item (15); deflate
-    and lz4p are ported (tests/test_torch_deflate.py,
+    """open is ported (tests/test_torch_io.py): its default, an LZ4 frame,
+    round-trips here and writes tpuzip's bytes; the part of item 15 still
+    to port, ZlibWriter(batch_blocks=1), names its ROADMAP.md item.
+    deflate and lz4p are ported (tests/test_torch_deflate.py,
     tests/test_torch_lz4p.py), and so are the corpus calls and
     compress_from_device, deflate's device rule included
     (tests/test_torch_serving.py, tests/test_torch_deflate_xla.py): their
     calls here give tpuzip's bytes."""
+    native.available()   # tpuzip's writer takes its C++ coder, loaded first
+    data = b"open me " * 100
+    mine, theirs = io.BytesIO(), io.BytesIO()
+    for mod, f in ((tpuzip_torch, mine), (tpuzip, theirs)):
+        with mod.open(f, "wb", **({"device": "cpu"} if mod is tpuzip_torch
+                                  else {})) as w:
+            w.write(data)
+    assert mine.getvalue() == theirs.getvalue()
+    assert tpuzip_torch.open(io.BytesIO(mine.getvalue()),
+                             device="cpu").read() == data
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 15"):
-        tpuzip_torch.open(None)
+        tpuzip_torch.open(io.BytesIO(), "wb", format="zlib", batch_blocks=1,
+                          device="cpu")
     zeros = np.zeros((1, 8), np.uint8)
     assert tpuzip_torch.compress_from_device(
         zeros, [8], codec="deflate", device="cpu") == \

@@ -1,6 +1,7 @@
 """The port's own copies of tpuzip's modules against the originals: block
 chunking, the config tree, the error classes, the format oracles (the LZ4
-block codec, rle, Adler-32 and the DEFLATE decoder among them) and the
+block and frame codec, xxh32, rle, Adler-32 and the DEFLATE decoder among
+them) and the
 varint packer of core/bitio (tpuzip_torch imports nothing of tpuzip)."""
 
 import dataclasses
@@ -24,6 +25,7 @@ from tpuzip.oracle import deflate as jdeflate
 from tpuzip.oracle import lz4 as jlz4
 from tpuzip.oracle import mtf as jmtf
 from tpuzip.oracle import rle as jrle
+from tpuzip.oracle import xxh32 as jxxh32
 from tpuzip.runtime import errors as jerrors
 import tpuzip_torch
 from tpuzip_torch.core import bitio as tbitio
@@ -37,6 +39,7 @@ from tpuzip_torch.oracle import deflate as tdeflate
 from tpuzip_torch.oracle import lz4 as tlz4
 from tpuzip_torch.oracle import mtf as tmtf
 from tpuzip_torch.oracle import rle as trle
+from tpuzip_torch.oracle import xxh32 as txxh32
 from tpuzip_torch.runtime import errors as terrors
 
 
@@ -160,6 +163,38 @@ def test_lz4_block_oracle_same_bytes(samples, hash_log):
     for mod in (tlz4, jlz4):
         with pytest.raises(ValueError, match="zero offset"):
             mod.decompress_block(b"\x10a\x00\x00")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 0xFFFFFFFF])
+def test_xxh32_oracle_same_hashes(samples, seed):
+    """oracle/xxh32.py: the same hash, one call and streamed in pieces."""
+    for data in samples:
+        assert txxh32.xxh32(data, seed) == jxxh32.xxh32(data, seed)
+        mine, theirs = txxh32.Xxh32State(seed), jxxh32.Xxh32State(seed)
+        for k in range(0, len(data), 1000):
+            mine.update(data[k : k + 1000])
+            theirs.update(data[k : k + 1000])
+        assert mine.digest() == theirs.digest() == jxxh32.xxh32(data, seed)
+
+
+@pytest.mark.parametrize("block_checksum", [False, True])
+def test_lz4_frame_oracle_same_bytes(samples, block_checksum):
+    """The frame half of tpuzip/oracle/lz4.py: the same frames, each reader
+    reads the other's; the same constants."""
+    assert tlz4.MAGIC == jlz4.MAGIC
+    assert tlz4._BD_MAX_SIZES == jlz4._BD_MAX_SIZES
+    for data in samples:
+        if len(data) > 8192:
+            continue
+        frame = tlz4.compress_frame(data, 1 << 16, True, block_checksum)
+        assert frame == jlz4.compress_frame(data, 1 << 16, True,
+                                            block_checksum)
+        assert tlz4.decompress_frame(frame) == \
+            jlz4.decompress_frame(frame) == data
+    window = bytearray(b"0123456789" * 10)
+    block = bytes([0x0F]) + b"\x64\x00" + bytes([0x01]) + b"\x10z"
+    assert tlz4._decompress_linked(block, window, 1 << 16) == \
+        jlz4._decompress_linked(block, window, 1 << 16)
 
 
 def test_adler_oracle_same_sums(samples):

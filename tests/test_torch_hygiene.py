@@ -57,8 +57,9 @@ def test_round_trips_load_no_tpuzip_module():
     """In a fresh interpreter, lz4 (the default codec, and at max_chain
     8), rle, lz4p, deflate, ari, bwt (flag 2 and the segmented flag 8),
     bwtdc and apm round trips on the CPU, compress_from_device with
-    decompress(to_device=True) (lz4, rle, lz4p, apm) and the corpus API
-    load neither jax nor any tpuzip module, so the port runs its own code
+    decompress(to_device=True) (lz4, rle, lz4p, apm), the corpus API, the
+    LZ4 frame and a writer and reader of each format through open load
+    neither jax nor any tpuzip module, so the port runs its own code
     there (never tpuzip's C++ coder)."""
     code = (
         "import sys\n"
@@ -92,6 +93,19 @@ def test_round_trips_load_no_tpuzip_module():
         "c = tpuzip_torch.compress_corpus(d, block_size=256, superbatch=512,\n"
         "                                 device='cpu')\n"
         "assert tpuzip_torch.decompress(c, device='cpu') == d\n"
+        "import io\n"
+        "from tpuzip_torch.codecs import lz4_frame\n"
+        "f = lz4_frame.compress_frame(d, device='cpu')\n"
+        "assert lz4_frame.decompress_frame(f, device='cpu') == d\n"
+        "for fmt in ('lz4f', 'zlib', 'ari', 'bwt', 'rle', 'mtf', 'dc'):\n"
+        "    kw = {} if fmt == 'lz4f' else {'block_size': 512}\n"
+        "    b = io.BytesIO()\n"
+        "    with tpuzip_torch.open(b, 'wb', format=fmt, device='cpu',\n"
+        "                           **kw) as w:\n"
+        "        w.write(d)\n"
+        "    r = tpuzip_torch.open(io.BytesIO(b.getvalue()), 'rb',\n"
+        "                          format=fmt, device='cpu')\n"
+        "    assert r.read() == d, fmt\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('tpuzip', 'jax', 'jaxlib')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

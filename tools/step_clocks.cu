@@ -4297,7 +4297,7 @@ extern "C" int tpz_deflate_tables_clocks(const void* tokens, const void* ntok,
       static_cast<long long*>(cycles));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !emit) return static_cast<int>(err);
-  dfe::deflate_emit_kernel<<<B, dfe::EMIT_THREADS>>>(
+  dfe::deflate_emit_kernel<false><<<B, dfe::EMIT_THREADS>>>(
       static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
       n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
       static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
@@ -4341,7 +4341,7 @@ extern "C" int tpz_deflate_tables_new_clocks(const void* tokens,
       static_cast<long long*>(cycles));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !emit) return static_cast<int>(err);
-  dfe::deflate_emit_kernel<<<B, dfe::EMIT_THREADS>>>(
+  dfe::deflate_emit_kernel<false><<<B, dfe::EMIT_THREADS>>>(
       static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
       n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
       static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
@@ -4366,7 +4366,7 @@ extern "C" int tpz_deflate_tables_tuple_clocks(const void* tokens,
       static_cast<long long*>(cycles));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !emit) return static_cast<int>(err);
-  dfe::deflate_emit_kernel<<<B, dfe::EMIT_THREADS>>>(
+  dfe::deflate_emit_kernel<false><<<B, dfe::EMIT_THREADS>>>(
       static_cast<const int32_t*>(tokens), static_cast<const int32_t*>(ntok),
       n, static_cast<uint8_t*>(comp), pitch, 2 * n + 4096,
       static_cast<int32_t*>(clens), static_cast<const uint8_t*>(scratch));
@@ -4405,7 +4405,7 @@ extern "C" int tpz_deflate_tables_occupancy(int* out) {
       reinterpret_cast<const void*>(
           dfe::deflate_tables_kernel<dfe::Counted<dfe::TupleShared>>),
       reinterpret_cast<const void*>(deflate_tables_tuple_clocks<false>),
-      reinterpret_cast<const void*>(dfe::deflate_emit_kernel),
+      reinterpret_cast<const void*>(dfe::deflate_emit_kernel<false>),
       reinterpret_cast<const void*>(dfe::deflate_hist_kernel),
       reinterpret_cast<const void*>(dfe::deflate_emit_sums_kernel),
       reinterpret_cast<const void*>(dfe::deflate_emit_tiles_kernel)};

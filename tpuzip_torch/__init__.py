@@ -21,9 +21,14 @@ For data that lives on the device, ``compress_from_device`` and
 ``decompress(to_device=True)`` (deflate there is tpuzip's device rule,
 as in ``codecs.deflate.deflate`` and the zlib wrapper ``codecs.zlib_``);
 for large corpora, ``compress_corpus`` and ``decompress_corpus`` (the
-TPZC container of superbatches, which ``decompress`` also reads).
-``open`` raises NotImplementedError naming the ROADMAP.md item that
-ports it.
+TPZC container of superbatches, which ``decompress`` also reads).  The
+LZ4 frame format (``codecs.lz4_frame``: frames liblz4 reads, with their
+xxh32 checksums) and the streaming adapters of ``io`` behind ``open``:
+LZ4 frame, zlib and framed ari, bwt, rle, mtf and dc writers and readers.
+Not ported yet: tpuzip's CLI, ``metrics=``, ``decompress``'s
+``config=``, ``run_job``, ``ZlibWriter(batch_blocks=1)`` and ``dist``;
+they raise NotImplementedError naming their ROADMAP.md item where the
+port has the entry point.
 
 ``device="cuda"`` (the default) runs the kernels and raises when there is
 no usable GPU; ``device="cpu"`` runs their plain PyTorch versions.
@@ -93,6 +98,20 @@ def compress_from_device(blocks, lengths, codec: str = "lz4", **kw) -> bytes:
 
 
 def open(file, mode: str = "rb", format: str = "lz4f", **kw):  # noqa: A001
-    from tpuzip_torch.dist import runner
+    """Streaming reader/writer over a binary file object (io.py): an LZ4
+    frame ("lz4f", the default), zlib, or a framed block codec of
+    io.STREAM_CODECS.  A writer takes its keywords (device= among them); a
+    reader takes device= and, as tpuzip's, no other."""
+    from tpuzip_torch import io as tio
 
-    raise runner.not_ported("open (the streaming adapters)", 15)
+    device = kw.get("device", "cuda")
+    if format == "lz4f":
+        return tio.Lz4FrameWriter(file, **kw) if "w" in mode \
+            else tio.Lz4FrameReader(file, device=device)
+    if format == "zlib":
+        return tio.ZlibWriter(file, **kw) if "w" in mode \
+            else tio.ZlibReader(file, device=device)
+    if format in tio.STREAM_CODECS:
+        return tio.CodecWriter(file, format, **kw) if "w" in mode \
+            else tio.CodecReader(file, format, device=device)
+    raise ValueError(f"unknown streaming format {format!r}")

@@ -30,7 +30,11 @@
 //     their code (19 at 7 bits), hclen trimmed, and the header's bits; in
 //     fixed mode the RFC's codes and a 3-bit header;
 //   - emit: each token's bits behind the header, then EOB;
-//   - stored: blocks of at most 65535 raw bytes, BFINAL on the last.
+//   - stored: blocks of at most 65535 raw bytes, BFINAL on the last;
+//   - the fragment mode (tpz_deflate_fragment, the batches of tpuzip's
+//     ZlibWriter, tpuzip/io.py:258-262): no block sets BFINAL, and a
+//     dynamic or fixed row ends byte-aligned after an empty stored block,
+//     so that rows splice into one zlib stream.
 // And tpuzip's device rule (its deflate_batch, tpuzip/codecs/deflate.py:
 // 523: compress_from_device, deflate() and the zlib wrapper), the same
 // links, best at max_chain 1 and emit around two instances: the parse
@@ -1543,6 +1547,26 @@ deflate_tables_kernel(const int32_t* __restrict__ tokens,
   }
 }
 
+// A fragment's end (deflate_impl with final_flag 0, tpz_deflate_fragment,
+// tpuzip_host.cpp:1444-1450, :1572-1580): BFINAL, bit 0 of the stream
+// (bit `skip` of its first word), cleared; after the EOB, which ends at
+// bit `end` of the words, the 3 bits of an empty stored block's header
+// (0), the byte boundary, LEN 0 and NLEN 0xFFFF.  The row (dst, its
+// first byte) is zero past the EOB (the caller zeroed comp), so only the
+// NLEN bytes are written.  Returns the row's length, or -1 past cap.
+__device__ __forceinline__ int fragment_end(uint32_t* words, int skip,
+                                            int end, uint8_t* dst, int cap) {
+  atomicAnd(words, ~(1u << skip));
+  const int bytes = (end - skip + 3 + 7) / 8;
+  if (bytes + 4 > cap) return -1;
+  dst[bytes + 2] = 0xFF;
+  dst[bytes + 3] = 0xFF;
+  return bytes + 4;
+}
+
+// The row emit; FRAGMENT (picked by `if constexpr`, so the stream's
+// instance keeps its SASS) ends the row as a fragment.
+template <bool FRAGMENT>
 __global__ void __launch_bounds__(EMIT_THREADS)
 deflate_emit_kernel(const int32_t* __restrict__ tokens,
                     const int32_t* __restrict__ ntok, int n,
@@ -1611,8 +1635,13 @@ deflate_emit_kernel(const int32_t* __restrict__ tokens,
   }
   if (tid == 0) {
     put(words, nwords, base, codes[256], lens[256]);   // EOB
-    const int bytes = (base - skip + lens[256] + 7) / 8;
-    clens[row] = bytes <= cap ? bytes : -1;
+    if constexpr (FRAGMENT) {
+      clens[row] = fragment_end(words, skip, base + lens[256],
+                                reinterpret_cast<uint8_t*>(at), cap);
+    } else {
+      const int bytes = (base - skip + lens[256] + 7) / 8;
+      clens[row] = bytes <= cap ? bytes : -1;
+    }
   }
 }
 
@@ -1782,6 +1811,7 @@ struct RowWords {
 // A row's tile offsets, a block a row: the tiles' bits (firsts, from the
 // sums kernel) become each tile's first bit, from the header's end on; then
 // the EOB and the row's length in bytes (-1 past cap).
+template <bool FRAGMENT>
 __global__ void __launch_bounds__(SCAN_THREADS)
 deflate_emit_scan_kernel(const int32_t* __restrict__ ntok, int tiles,
                          uint8_t* __restrict__ comp, int pitch, int cap,
@@ -1810,8 +1840,13 @@ deflate_emit_scan_kernel(const int32_t* __restrict__ ntok, int tiles,
         reinterpret_cast<const uint16_t*>(rec + REC_CODES)[256];
     const int eob_bits = rec[REC_LENS + 256];
     put(out.words, out.nwords, base, eob, eob_bits);
-    const int bytes = (base - out.skip + eob_bits + 7) / 8;
-    clens[row] = bytes <= cap ? bytes : -1;
+    if constexpr (FRAGMENT) {
+      clens[row] = fragment_end(out.words, out.skip, base + eob_bits,
+                                comp + static_cast<size_t>(row) * pitch, cap);
+    } else {
+      const int bytes = (base - out.skip + eob_bits + 7) / 8;
+      clens[row] = bytes <= cap ? bytes : -1;
+    }
   }
 }
 
@@ -1882,7 +1917,9 @@ deflate_emit_tiles_kernel(const int32_t* __restrict__ tokens,
     atomicOr(out.words + w, static_cast<uint32_t>(acc));
 }
 
-// Stored blocks (deflate_impl's mode 2): [BFINAL][LEN][NLEN][bytes] each.
+// Stored blocks (deflate_impl's mode 2): [BFINAL][LEN][NLEN][bytes] each;
+// BFINAL never set in a FRAGMENT, which needs no sync block after them.
+template <bool FRAGMENT>
 __global__ void __launch_bounds__(EMIT_THREADS)
 deflate_stored_kernel(const uint8_t* __restrict__ blocks,
                       const int32_t* __restrict__ lengths, int n,
@@ -1901,7 +1938,7 @@ deflate_stored_kernel(const uint8_t* __restrict__ blocks,
       byte = src[k * STORED_MAX + r - 5];
     } else {
       const int take = min(STORED_MAX, len - k * STORED_MAX);
-      const uint32_t field = r == 0 ? (k == nblk - 1)
+      const uint32_t field = r == 0 ? (!FRAGMENT && k == nblk - 1)
                                     : (r < 3 ? take : ~take) >> (r & 1 ? 0 : 8);
       byte = static_cast<uint8_t>(field);
     }
@@ -2088,7 +2125,7 @@ long long token_tiles(int B, int n) {
 // the row emit kernel (a block a row), wider ones by tiles: each tile's
 // bits, each row's tile offsets with its EOB and length, each tile's
 // fields.
-template <class Shared>
+template <class Shared, bool FRAGMENT>
 int launch_emit(const void* tokens, const void* ntok, int B, int n, int mode,
                 void* comp, int pitch, void* clens, void* scratch,
                 cudaStream_t s) {
@@ -2122,7 +2159,7 @@ int launch_emit(const void* tokens, const void* ntok, int B, int n, int mode,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!wide) {
-    deflate_emit_kernel<<<B, EMIT_THREADS, 0, s>>>(
+    deflate_emit_kernel<FRAGMENT><<<B, EMIT_THREADS, 0, s>>>(
         tok, nt, n, out, pitch, cap, static_cast<int32_t*>(clens), rec);
     return static_cast<int>(cudaGetLastError());
   }
@@ -2132,7 +2169,7 @@ int launch_emit(const void* tokens, const void* ntok, int B, int n, int mode,
                              s>>>(tok, nt, n, tiles, rec, firsts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  deflate_emit_scan_kernel<<<B, SCAN_THREADS, 0, s>>>(
+  deflate_emit_scan_kernel<FRAGMENT><<<B, SCAN_THREADS, 0, s>>>(
       nt, tiles, out, pitch, cap, static_cast<int32_t*>(clens), rec, firsts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -2154,6 +2191,27 @@ extern "C" long long tpz_deflate_emit_scratch(int B, int n) {
                     ((n + TOKEN_TILE - 1) / TOKEN_TILE) * sizeof(int);
 }
 
+namespace {
+
+// The C++ rule's emit or stored blocks, as a stream or as a fragment.
+template <bool FRAGMENT>
+int launch_encode_emit(const void* blocks, const void* lengths,
+                       const void* tokens, const void* ntok, int B, int n,
+                       int mode, void* comp, int pitch, void* clens,
+                       void* scratch, cudaStream_t s) {
+  if (mode == 2) {
+    deflate_stored_kernel<FRAGMENT><<<B, EMIT_THREADS, 0, s>>>(
+        static_cast<const uint8_t*>(blocks),
+        static_cast<const int32_t*>(lengths), n,
+        static_cast<uint8_t*>(comp), pitch, static_cast<int32_t*>(clens));
+    return static_cast<int>(cudaGetLastError());
+  }
+  return launch_emit<TableShared, FRAGMENT>(tokens, ntok, B, n, mode, comp,
+                                            pitch, clens, scratch, s);
+}
+
+}  // namespace
+
 // Mode 0 (dynamic) or 1 (fixed): tokens (B, n) i32 and ntok (B,) i32 from
 // tpz_deflate_parse in, scratch of tpz_deflate_emit_scratch bytes; the
 // tables kernel, then the emit (by rows, or by tiles past lz4s::STAGE_MAX
@@ -2165,16 +2223,24 @@ extern "C" int tpz_deflate_emit(const void* blocks, const void* lengths,
                                 const void* tokens, const void* ntok, int B,
                                 int n, int mode, void* comp, int pitch,
                                 void* clens, void* scratch, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 2) {
-    deflate_stored_kernel<<<B, EMIT_THREADS, 0, s>>>(
-        static_cast<const uint8_t*>(blocks),
-        static_cast<const int32_t*>(lengths), n,
-        static_cast<uint8_t*>(comp), pitch, static_cast<int32_t*>(clens));
-    return static_cast<int>(cudaGetLastError());
-  }
-  return launch_emit<TableShared>(tokens, ntok, B, n, mode, comp, pitch,
-                                  clens, scratch, s);
+  return launch_encode_emit<false>(blocks, lengths, tokens, ntok, B, n, mode,
+                                   comp, pitch, clens, scratch,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The fragment mode (tpz_deflate_fragment, tpuzip_host.cpp:1592-1604): as
+// tpz_deflate_emit, but no block sets BFINAL and a dynamic or fixed row
+// ends with an empty stored block, byte-aligned (00 00 FF FF after its 3
+// header bits); a stored row writes no sync block.
+extern "C" int tpz_deflate_emit_fragment(const void* blocks,
+                                         const void* lengths,
+                                         const void* tokens, const void* ntok,
+                                         int B, int n, int mode, void* comp,
+                                         int pitch, void* clens,
+                                         void* scratch, void* stream) {
+  return launch_encode_emit<true>(blocks, lengths, tokens, ntok, B, n, mode,
+                                  comp, pitch, clens, scratch,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // tpz_deflate_emit in mode 0 (dynamic) with the tables in tpuzip's device
@@ -2183,6 +2249,7 @@ extern "C" int tpz_deflate_emit_tuple(const void* tokens, const void* ntok,
                                       int B, int n, void* comp, int pitch,
                                       void* clens, void* scratch,
                                       void* stream) {
-  return launch_emit<TupleShared>(tokens, ntok, B, n, 0, comp, pitch, clens,
-                           scratch, static_cast<cudaStream_t>(stream));
+  return launch_emit<TupleShared, false>(tokens, ntok, B, n, 0, comp, pitch,
+                                         clens, scratch,
+                                         static_cast<cudaStream_t>(stream));
 }

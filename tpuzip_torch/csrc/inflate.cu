@@ -19,7 +19,9 @@
 // block starts at the next byte boundary, as the RFC says (the C++ drops
 // the whole bytes its lookahead has buffered).  The output row holds the
 // bytes decoded until the end or the fault and 0 after them (the caller
-// zeroes it); an empty stream decodes to 0 bytes.
+// zeroes it); an empty stream decodes to 0 bytes.  tpz_inflate_ends
+// also gives each stream's end (the zlib stream reader's Adler-32 lies
+// after it, tpuzip/oracle/zlib_.py:37-41).
 //
 // What bounds it on this card: the symbol chain.  Each symbol's place in
 // the stream depends on every code before it, so a stream decodes one
@@ -649,11 +651,18 @@ struct Inflater {
   }
 };
 
+// ENDS (picked by `if constexpr`, so the plain instance keeps its SASS)
+// also writes each row's end: the stream bytes its blocks took, through
+// the final block's last bit to the byte boundary, where the stream
+// decoded; the bytes decoded before the fault where it did not (the zlib
+// reader reads the Adler-32 after the stream's end, and grows its output
+// where a fault came at the output's end).
+template <bool ENDS>
 __global__ void __launch_bounds__(32)
 inflate_kernel(const uint8_t* __restrict__ streams,
                const int32_t* __restrict__ lens, int B, int w,
                uint8_t* __restrict__ out, int cap,
-               long long* __restrict__ status) {
+               long long* __restrict__ status, long long* __restrict__ ends) {
   const int lane = threadIdx.x;
   const int row = blockIdx.x;
   const uint8_t* src = streams + static_cast<size_t>(row) * w;
@@ -661,6 +670,8 @@ inflate_kernel(const uint8_t* __restrict__ streams,
   const int n = min(max(lens[row], 0), w);
   if (n == 0) {   // an empty row is an empty block
     if (lane == 0) status[row] = 0;
+    if constexpr (ENDS)
+      if (lane == 0) ends[row] = 0;
     return;
   }
   const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
@@ -732,6 +743,23 @@ inflate_kernel(const uint8_t* __restrict__ streams,
   }
   cp_wait<0>();
   if (lane == 0) status[row] = result;
+  if constexpr (ENDS)
+    if (lane == 0) ends[row] = result < 0 ? f.o : (f.r.pos + 7) >> 3;
+}
+
+template <bool ENDS>
+int launch(const void* streams, const void* lens, int B, int w, void* out,
+           int cap, void* status, void* ends, void* stream) {
+  // shared memory before L1, so that 8 blocks of 26 KiB fit an SM
+  const cudaError_t err = cudaFuncSetAttribute(
+      inflate_kernel<ENDS>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  inflate_kernel<ENDS><<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(streams), static_cast<const int32_t*>(lens),
+      B, w, static_cast<uint8_t*>(out), cap, static_cast<long long*>(status),
+      static_cast<long long*>(ends));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -742,14 +770,15 @@ inflate_kernel(const uint8_t* __restrict__ streams,
 extern "C" int tpz_inflate(const void* streams, const void* lens, int B,
                            int w, void* out, int cap, void* status,
                            void* stream) {
-  // shared memory before L1, so that 8 blocks of 26 KiB fit an SM
-  const cudaError_t err = cudaFuncSetAttribute(
-      inflate_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  inflate_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(streams), static_cast<const int32_t*>(lens),
-      B, w, static_cast<uint8_t*>(out), cap,
-      static_cast<long long*>(status));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(streams, lens, B, w, out, cap, status, nullptr,
+                       stream);
+}
+
+// tpz_inflate, and ends (B,) i64 out: each row's stream bytes through its
+// final block's end, or, where its status is -1, the bytes it decoded
+// before the fault.
+extern "C" int tpz_inflate_ends(const void* streams, const void* lens, int B,
+                                int w, void* out, int cap, void* status,
+                                void* ends, void* stream) {
+  return launch<true>(streams, lens, B, w, out, cap, status, ends, stream);
 }

@@ -9,7 +9,10 @@
 // past out_cap, or a truncated offset or length extension.  A stream that
 // ends right after a literal run is complete.  Unlike the C++, every byte
 // of the output row is written: 0 past the decoded length, and a row with
-// status -1 is all 0.
+// status -1 is all 0.  Its history mode (tpz_lz4_decode_history) reads
+// the blocks of a linked LZ4 frame, as tpuzip's _decompress_linked
+// (tpuzip/oracle/lz4.py:265-300) does: a row starts with up to 64 KiB of
+// the output before it, and its matches may reach into it.
 //
 // What bounds it on this card: not bytes but each row's chain of
 // dependent steps.  A sequence's token, its length extensions and its
@@ -297,11 +300,17 @@ __device__ __forceinline__ int hop(unsigned t, int p) {
   return p < WIN ? (w >> (8 * (p & 3))) & 255 : p;
 }
 
+// HISTORY (the history mode, linked LZ4 frame blocks): each output row
+// holds `pre` bytes of earlier output before the row's own, which the
+// caller wrote there; the row decodes from byte pre on, its matches may
+// reach back into those bytes, and its status counts its own bytes.  The
+// mode is picked by `if constexpr`, so the block mode keeps its SASS.
+template <bool HISTORY>
 __global__ void __launch_bounds__(32)
 lz4_decode_kernel(const uint8_t* __restrict__ comp,
                   const int32_t* __restrict__ clens, int w,
                   uint8_t* __restrict__ out, int out_cap,
-                  int64_t* __restrict__ status) {
+                  int64_t* __restrict__ status, int pre) {
   __shared__ __align__(16) uint8_t ring[RING];
   __shared__ __align__(16) uint8_t hist[HIST + 16];   // and a spare byte
   const int lane = threadIdx.x;
@@ -312,8 +321,10 @@ lz4_decode_kernel(const uint8_t* __restrict__ comp,
   Stream s{ring, src - skew, skew, min(max(clens[row], 0), w), 0};
   s.start();
   const int n = s.n;
-  int i = 0, o = 0;
-  int hist_lo = 0;   // the output bytes before it are not in hist
+  int o0 = 0;   // the row's first output byte
+  if constexpr (HISTORY) o0 = pre;
+  int i = 0, o = o0;
+  int hist_lo = o0;   // the output bytes before it are not in hist
   bool bad = false;
   while (i < n) {
     // a batch: the sequences from i whose bytes lie in the stream and the
@@ -445,9 +456,26 @@ lz4_decode_kernel(const uint8_t* __restrict__ comp,
     hist_lo = o;
   }
   cp_wait<0>();
-  __syncwarp();   // then zero past the output, or the whole row
-  warp_zero(dst, bad ? 0 : o, out_cap);
-  if (lane == 0) status[row] = bad ? -1 : o;
+  __syncwarp();   // then zero past the output, or all the row's own
+  warp_zero(dst, bad ? o0 : o, out_cap);
+  if (lane == 0) status[row] = bad ? -1 : o - o0;
+}
+
+template <bool HISTORY>
+int launch(const void* comp, const void* clens, int B, int w, void* out,
+           int out_cap, void* status, int pre, void* stream) {
+  // shared memory before L1, so that 8 blocks of 20 KiB fit an SM
+  const cudaError_t err = cudaFuncSetAttribute(
+      lz4_decode_kernel<HISTORY>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lz4_decode_kernel<HISTORY>
+      <<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(comp),
+          static_cast<const int32_t*>(clens), w, static_cast<uint8_t*>(out),
+          out_cap, static_cast<int64_t*>(status), pre);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -459,14 +487,16 @@ lz4_decode_kernel(const uint8_t* __restrict__ comp,
 extern "C" int tpz_lz4_decode(const void* comp, const void* clens, int B,
                               int w, void* out, int out_cap, void* status,
                               void* stream) {
-  // shared memory before L1, so that 8 blocks of 20 KiB fit an SM
-  const cudaError_t err = cudaFuncSetAttribute(
-      lz4_decode_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lz4_decode_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(comp), static_cast<const int32_t*>(clens),
-      w, static_cast<uint8_t*>(out), out_cap,
-      static_cast<int64_t*>(status));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(comp, clens, B, w, out, out_cap, status, 0, stream);
+}
+
+// The history mode: as tpz_lz4_decode, but each out row (pitch out_cap)
+// holds pre bytes of earlier output in front, written by the caller and
+// left as they are; the row's own bytes follow them (every byte from pre
+// on written), matches may reach back into them, and status counts the
+// row's own bytes.
+extern "C" int tpz_lz4_decode_history(const void* comp, const void* clens,
+                                      int B, int w, void* out, int out_cap,
+                                      int pre, void* status, void* stream) {
+  return launch<true>(comp, clens, B, w, out, out_cap, status, pre, stream);
 }

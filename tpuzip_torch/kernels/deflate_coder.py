@@ -34,7 +34,10 @@ functions here are theirs:
          the header, the tokens and EOB.  Fixed (mode 1): the RFC's codes.
          Stored (mode 2, no tokens): blocks of at most 65,535 bytes.
          Every stream is one final block but stored ones; comp is zero past
-         each stream.
+         each stream.  The fragment mode (deflate_emit_fragment, tpuzip's
+         tpz_deflate_fragment, the batches of its ZlibWriter) sets no
+         BFINAL and ends a dynamic or fixed row with an empty stored
+         block, byte-aligned (00 00 FF FF after its 3 header bits).
   inflate  tpz_inflate's status, the decoded length or -1, on any RFC 1951
          stream (stored, fixed and dynamic blocks in sequence): -1 for a
          read past the stream, BTYPE 3, a stored LEN/NLEN mismatch, hlit
@@ -49,6 +52,9 @@ functions here are theirs:
          the RFC says (tpuzip's reader drops whole bytes it has buffered
          there).  The output row holds the bytes decoded until the end or
          the fault, 0 after them; an empty stream decodes to 0 bytes.
+         inflate_ends also gives each row's end: the stream bytes through
+         its final block (where a zlib stream's Adler-32 lies), or the
+         bytes decoded before the fault.
 
 package-merge sorts each level's items with std::sort on the weight
 alone (tpuzip_host.cpp:1262), which is not stable: the order of equal
@@ -423,16 +429,20 @@ def _pack_fields(values: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1)[: (total + 7) // 8].to(torch.uint8)
 
 
-def _emit_row(row: bytes, tokens, mode: int, order: str = "std") -> bytes:
+def _emit_row(row: bytes, tokens, mode: int, order: str = "std",
+              fragment: bool = False) -> bytes:
     """One block's stream (deflate_impl, final_flag 1) from its tokens (a
-    list or a tensor), its tables in `order` (block_tables)."""
+    list or a tensor), its tables in `order` (block_tables); with
+    `fragment`, deflate_impl's final_flag 0 (tpz_deflate_fragment): no
+    BFINAL, and after a dynamic or fixed block's EOB an empty stored
+    block's 3 bits, the byte boundary and 00 00 FF FF."""
     if mode == 2:
         out, i = bytearray(), 0
         while True:
             take = min(len(row) - i, STORED_MAX)
             last = i + take >= len(row)
-            out += bytes([int(last), take & 0xFF, take >> 8,
-                          ~take & 0xFF, (~take >> 8) & 0xFF])
+            out += bytes([int(last and not fragment), take & 0xFF,
+                          take >> 8, ~take & 0xFF, (~take >> 8) & 0xFF])
             out += row[i : i + take]
             i += take
             if last:
@@ -446,7 +456,12 @@ def _emit_row(row: bytes, tokens, mode: int, order: str = "std") -> bytes:
                       torch.tensor(_reversed_codes(llen)[256:257])])
     bits = torch.cat([hb, torch.stack([lb, db], 1).reshape(-1),
                       torch.tensor(llen[256:257])])
-    return _pack_fields(vals, bits).numpy().tobytes()
+    out = _pack_fields(vals, bits).numpy().tobytes()
+    if not fragment:
+        return out
+    end = (int(bits.sum()) + 3 + 7) // 8
+    out = bytes([out[0] & 0xFE]) + out[1:]
+    return out + bytes(end - len(out)) + b"\x00\x00\xff\xff"
 
 
 def token_fields(tokens, llen: list, dlen: list):
@@ -565,11 +580,12 @@ def deflate_parse_plain(blocks: torch.Tensor, lengths: torch.Tensor,
 def deflate_emit_plain(blocks: torch.Tensor, lengths: torch.Tensor,
                        tokens: torch.Tensor | None,
                        ntok: torch.Tensor | None, mode: int,
-                       order: str = "std"):
+                       order: str = "std", fragment: bool = False):
     """Plain version of the emit launch (its tables and its bits): blocks
     (B, n) u8, lengths (B,), tokens (B, n) i32 and ntok (B,) from the
-    parse (None in mode 2), the tables in `order` (block_tables) ->
-    (comp (B, encode_cap(n)) u8, zero past each stream, clens (B,) i32)."""
+    parse (None in mode 2), the tables in `order` (block_tables), each row
+    a stream or (fragment) a fragment (_emit_row) -> (comp (B,
+    encode_cap(n)) u8, zero past each stream, clens (B,) i32)."""
     b, n = blocks.shape
     comp = torch.zeros((b, encode_cap(n)), dtype=torch.uint8)
     clens = torch.zeros(b, dtype=torch.int32)
@@ -579,7 +595,8 @@ def deflate_emit_plain(blocks: torch.Tensor, lengths: torch.Tensor,
     counts = ntok.tolist() if mode != 2 else [0] * b
     for r, (row, ln) in enumerate(zip(blocks.cpu().numpy(), lens)):
         ln = min(max(ln, 0), n)
-        s = _emit_row(row[:ln].tobytes(), toks[r, : counts[r]], mode, order)
+        s = _emit_row(row[:ln].tobytes(), toks[r, : counts[r]], mode, order,
+                      fragment)
         comp[r, : len(s)] = torch.frombuffer(bytearray(s), dtype=torch.uint8)
         clens[r] = len(s)
     return comp.to(blocks.device), clens.to(blocks.device)
@@ -642,8 +659,9 @@ def _decode(rd: _Reader, huff) -> int:
     return hit[0]
 
 
-def _inflate_row(data: bytes, out: bytearray, cap: int) -> None:
-    """Decode one stream into out (tpz_inflate); _Fault on any fault."""
+def _inflate_row(data: bytes, out: bytearray, cap: int) -> int:
+    """Decode one stream into out (tpz_inflate); _Fault on any fault.
+    Returns the bits its blocks took."""
     rd = _Reader(data)
     while True:
         final, btype = rd.bits(1), rd.bits(2)
@@ -670,7 +688,7 @@ def _inflate_row(data: bytes, out: bytearray, cap: int) -> None:
                 lit, dist = _dynamic_header(rd)
             _inflate_symbols(rd, lit, dist, out, cap)
         if final:
-            return
+            return rd.pos
 
 
 def _dynamic_header(rd: _Reader):
@@ -734,13 +752,14 @@ def _inflate_symbols(rd: _Reader, lit, dist, out: bytearray,
 
 
 def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
-                        out_cap: int):
+                        out_cap: int, with_ends: bool = False):
     """Plain version of inflate.cu: streams (B, w) u8, lens (B,) i32 (read
     as at most w) -> (out (B, out_cap) u8, status (B,) i64), as the module
-    note says."""
+    note says; with_ends adds inflate_ends' ends (B,) i64."""
     b, w = streams.shape
     out = torch.zeros((b, out_cap), dtype=torch.uint8)
     status = torch.zeros(b, dtype=torch.int64)
+    ends = torch.zeros(b, dtype=torch.int64)
     for r, (row, ln) in enumerate(zip(streams.cpu().numpy(),
                                       lens.tolist())):
         ln = min(max(ln, 0), w)
@@ -748,13 +767,16 @@ def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
             continue
         got = bytearray()
         try:
-            _inflate_row(row[:ln].tobytes(), got, out_cap)
+            ends[r] = (_inflate_row(row[:ln].tobytes(), got, out_cap) + 7) // 8
             status[r] = len(got)
         except _Fault:
-            status[r] = -1
+            status[r], ends[r] = -1, len(got)
         if got:
             out[r, : len(got)] = torch.frombuffer(got, dtype=torch.uint8)
-    return out.to(streams.device), status.to(streams.device)
+    dev = streams.device
+    if with_ends:
+        return out.to(dev), status.to(dev), ends.to(dev)
+    return out.to(dev), status.to(dev)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -762,11 +784,11 @@ def inflate_batch_plain(streams: torch.Tensor, lens: torch.Tensor,
 def _lib(name: str):
     """The typed C entry point tpz_<name> of csrc/deflate_encode.cu
     (links_shared, links_tiled, links_tiled_scratch, parse, parse_greedy,
-    parse_scratch, emit, emit_tuple, emit_scratch) or csrc/inflate.cu
-    (inflate)."""
-    source = "inflate" if name == "inflate" else "deflate_encode"
-    fn = getattr(_build.load(source), f"tpz_{name}" if name == "inflate"
-                 else f"tpz_deflate_{name}")
+    parse_scratch, emit, emit_fragment, emit_tuple, emit_scratch) or
+    csrc/inflate.cu (inflate, inflate_ends)."""
+    inflate = name.startswith("inflate")
+    fn = getattr(_build.load("inflate" if inflate else "deflate_encode"),
+                 f"tpz_{name}" if inflate else f"tpz_deflate_{name}")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
@@ -777,9 +799,12 @@ def _lib(name: str):
             "parse_greedy": [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp],
             "parse_scratch": [ci, ci],
             "emit": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp, vp],
+            "emit_fragment": [vp, vp, vp, vp, ci, ci, ci, vp, ci, vp, vp,
+                              vp],
             "emit_tuple": [vp, vp, ci, ci, vp, ci, vp, vp, vp],
             "emit_scratch": [ci, ci],
-            "inflate": [vp, vp, ci, ci, vp, ci, vp, vp]}[name]
+            "inflate": [vp, vp, ci, ci, vp, ci, vp, vp],
+            "inflate_ends": [vp, vp, ci, ci, vp, ci, vp, vp, vp]}[name]
         fn.restype = ctypes.c_longlong if name.endswith("scratch") else ci
     return fn
 
@@ -967,14 +992,32 @@ def deflate_emit(blocks: torch.Tensor, lengths: torch.Tensor,
     of TOKEN_TILE tokens past it; one launch of the stored kernel in mode
     2), on the current stream (no synchronisation); one launch is
     counted."""
-    _check_pair("deflate_emit", blocks, lengths)
+    return _emit("emit", blocks, lengths, tokens, ntok, mode)
+
+
+def deflate_emit_fragment(blocks: torch.Tensor, lengths: torch.Tensor,
+                          tokens: torch.Tensor | None,
+                          ntok: torch.Tensor | None, mode: int):
+    """deflate_emit's fragment mode (tpuzip's tpz_deflate_fragment, the
+    batches of its ZlibWriter): no block sets BFINAL, and a dynamic or
+    fixed row ends with an empty stored block, byte-aligned; a stored row
+    needs none.  The same arguments and outputs, the entry
+    tpz_deflate_emit_fragment, its own launch count."""
+    return _emit("emit_fragment", blocks, lengths, tokens, ntok, mode)
+
+
+def _emit(entry: str, blocks, lengths, tokens, ntok, mode: int):
+    wrapper = {"emit": deflate_emit,
+               "emit_fragment": deflate_emit_fragment}[entry]
+    _check_pair(f"deflate_{entry}", blocks, lengths)
     if mode not in (0, 1, 2):
         raise ValueError(f"deflate mode {mode} is not 0, 1 or 2")
     if mode != 2:
         _check_tokens(blocks, lengths, tokens, ntok)
         check_row_bits(blocks.shape[1])
     if blocks.device.type == "cpu":
-        return deflate_emit_plain(blocks, lengths, tokens, ntok, mode)
+        return deflate_emit_plain(blocks, lengths, tokens, ntok, mode,
+                                  fragment=entry == "emit_fragment")
     comp, clens, scratch = _emit_outputs(blocks, mode)
     if blocks.shape[0] == 0:
         return comp, clens
@@ -984,13 +1027,13 @@ def deflate_emit(blocks: torch.Tensor, lengths: torch.Tensor,
     else:
         tokens, ntok = tokens.contiguous(), ntok.contiguous()
     with torch.cuda.device(blocks.device):
-        err = _lib("emit")(blocks.data_ptr(), lengths.data_ptr(),
-                           tokens.data_ptr(), ntok.data_ptr(), b, n, mode,
-                           comp.data_ptr(), comp.shape[1],
-                           clens.data_ptr(), scratch.data_ptr(),
-                           _stream(blocks.device))
-    _build.check(err, "deflate_emit")
-    deflate_emit.launches += 1
+        err = _lib(entry)(blocks.data_ptr(), lengths.data_ptr(),
+                          tokens.data_ptr(), ntok.data_ptr(), b, n, mode,
+                          comp.data_ptr(), comp.shape[1],
+                          clens.data_ptr(), scratch.data_ptr(),
+                          _stream(blocks.device))
+    _build.check(err, f"deflate_{entry}")
+    wrapper.launches += 1
     return comp, clens
 
 
@@ -1057,6 +1100,19 @@ def deflate_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
                         mode)
 
 
+def deflate_fragment_batch(blocks: torch.Tensor, lengths: torch.Tensor,
+                           max_chain: int = 64, mode: int = 0):
+    """tpuzip's tpz_deflate_fragment of every row (the batches of its
+    ZlibWriter, max_chain 64 there), as deflate_encode_batch returns it:
+    the same links and parse, the emit's fragment mode."""
+    if mode == 2:
+        return deflate_emit_fragment(blocks, lengths, None, None, 2)
+    prev = deflate_links(blocks, lengths)
+    return deflate_emit_fragment(
+        blocks, lengths, *deflate_parse(blocks, lengths, prev, max_chain),
+        mode)
+
+
 def deflate_xla_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor):
     """tpuzip's device rule (its deflate_batch) of every row, as
     deflate_encode_batch returns it: dynamic blocks from the links, the
@@ -1091,10 +1147,41 @@ def inflate_batch(streams: torch.Tensor, lens: torch.Tensor, out_cap: int):
     return out, status
 
 
+def inflate_ends(streams: torch.Tensor, lens: torch.Tensor, out_cap: int):
+    """inflate_batch, and each row's end -> (out, status, ends (B,) i64):
+    where a row decoded, the stream bytes its blocks took, through its
+    final block's last bit to the byte boundary (the oracle's
+    bytes_consumed); where it failed, the bytes it decoded before the
+    fault.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    csrc/inflate.cu's tpz_inflate_ends on the current stream (no
+    synchronisation), with its own launch count."""
+    _check_pair("inflate_ends", streams, lens)
+    if streams.device.type == "cpu":
+        return inflate_batch_plain(streams, lens, out_cap, with_ends=True)
+    b, w = streams.shape
+    dev = streams.device
+    out = torch.zeros((b, out_cap), dtype=torch.uint8, device=dev)
+    status = torch.empty(b, dtype=torch.int64, device=dev)
+    ends = torch.empty(b, dtype=torch.int64, device=dev)
+    if b == 0:
+        return out, status, ends
+    with torch.cuda.device(dev):
+        err = _lib("inflate_ends")(streams.data_ptr(), lens.data_ptr(), b, w,
+                                   out.data_ptr(), out_cap, status.data_ptr(),
+                                   ends.data_ptr(), _stream(dev))
+    _build.check(err, "inflate_ends")
+    inflate_ends.launches += 1
+    return out, status, ends
+
+
 deflate_links_shared.launches = 0
 deflate_links_tiled.launches = 0
 deflate_parse.launches = 0
 deflate_parse_greedy.launches = 0
 deflate_emit.launches = 0
+deflate_emit_fragment.launches = 0
 deflate_emit_tuple.launches = 0
 inflate_batch.launches = 0
+inflate_ends.launches = 0

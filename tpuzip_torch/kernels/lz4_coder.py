@@ -16,7 +16,10 @@ are theirs:
           offset or length extension.  A stream that ends right after a
           literal run is complete, and an empty stream decodes to 0 bytes.
           The output row holds the decoded bytes and 0 after them; a row
-          with status -1 is all 0.
+          with status -1 is all 0.  The history mode (a linked LZ4 frame's
+          blocks, tpuzip/oracle/lz4.py:265 _decompress_linked) decodes
+          each row after up to 64 KiB of the output before it, into
+          which its offsets may reach.
 
 The plain versions run every row at once.  The encoder probes a window of
 WINDOW positions a step (the kernel's construction, at 8 or 32): inside
@@ -200,19 +203,28 @@ def _read(src: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
 
 
 def lz4_decode_batch_plain(comp: torch.Tensor, clens: torch.Tensor,
-                           out_cap: int):
+                           out_cap: int, history: torch.Tensor | None = None):
     """Plain version of the decoder: comp (B, w) u8, clens (B,) (read as at
-    most w) -> (out (B, out_cap) u8, status (B,) i64)."""
+    most w), history None or (B, h) u8 -> (out (B, out_cap) u8, status
+    (B,) i64).  With a history, row r decodes after history[r] as if those
+    h bytes were its output so far (its matches may reach into them), and
+    out and status hold its own bytes."""
     b, w = comp.shape
     dev = comp.device
+    h = 0 if history is None else history.shape[1]
     n = clens.to(torch.int64).clamp(0, w)
     src = comp.to(torch.int64)
     zero = torch.zeros(b, dtype=torch.int64, device=dev)
-    i, o = zero.clone(), zero.clone()
-    status = zero.clone()
+    i, o = zero.clone(), zero + h
+    status = zero + h
     running = n > 0
     segs = []          # per step: (out start, length, literal source or -1,
     #                     offset) of the literal run, then of the match
+    if h:              # the history: a literal run read past the stream
+        src = torch.cat([src, history.to(torch.int64)], dim=1)
+        segs.append((zero, zero + h, zero + w, zero))
+    row_cap = out_cap
+    out_cap += h
 
     def fail(rows):
         nonlocal running
@@ -257,9 +269,9 @@ def lz4_decode_batch_plain(comp: torch.Tensor, clens: torch.Tensor,
         ml = torch.where(running, ml, 0)
         segs.append((o, ml, torch.full_like(i, -1), offset))
         o = o + ml
-    out = torch.zeros((b, out_cap), dtype=torch.uint8, device=dev)
-    if not segs or out_cap == 0:
-        return out, status
+    out = torch.zeros((b, row_cap), dtype=torch.uint8, device=dev)
+    if not segs or row_cap == 0:
+        return out, torch.where(status >= 0, status - h, status)
     start, length, lsrc, offset = (torch.stack(c, dim=1) for c in zip(*segs))
     # every byte's segment: the last one starting at or before it (a zero
     # length segment shares its start with the next one, which wins)
@@ -276,20 +288,23 @@ def lz4_decode_batch_plain(comp: torch.Tensor, clens: torch.Tensor,
         if torch.equal(nxt, ptr):
             break
         ptr = nxt
-    keep = p < status[:, None]
+    keep = (p < status[:, None]) & (p >= h)
     out = torch.where(keep, val.gather(1, ptr), 0).to(torch.uint8)
-    return out, status
+    return out[:, h:], torch.where(status >= 0, status - h, status)
 
 
-def _lib(name: str):
-    """The typed C entry point of csrc/<name>.cu."""
+def _lib(name: str, entry: str | None = None):
+    """The typed C entry point tpz_<entry or name> of csrc/<name>.cu."""
     lib = _build.load(name)
-    fn = getattr(lib, f"tpz_{name}")
+    entry = entry or name
+    fn = getattr(lib, f"tpz_{entry}")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp, vp, ci, ci, vp, ci, vp, vp, ci, ci, vp]
-                       if name == "lz4_encode"
-                       else [vp, vp, ci, ci, vp, ci, vp, vp])
+        fn.argtypes = {"lz4_encode": [vp, vp, ci, ci, vp, ci, vp, vp, ci, ci,
+                                      vp],
+                       "lz4_decode": [vp, vp, ci, ci, vp, ci, vp, vp],
+                       "lz4_decode_history": [vp, vp, ci, ci, vp, ci, ci, vp,
+                                              vp]}[entry]
         fn.restype = ci
     return fn
 
@@ -347,16 +362,29 @@ def lz4_encode_batch(blocks: torch.Tensor, lengths: torch.Tensor,
     return comp, clens
 
 
-def lz4_decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
+def lz4_decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int,
+                     history: torch.Tensor | None = None):
     """LZ4 block decode of every row: comp (B, w) u8, clens (B,) i32 (read
     as at most w) -> (out (B, out_cap) u8, status (B,) i64), as the module
-    note says.
+    note says.  history, None or (B, h) u8 on the rows' device, is the
+    history mode (the blocks of a linked LZ4 frame): row r decodes after
+    the h bytes of history[r], its matches reaching into them, and out and
+    status hold its own bytes (out is then a view of rows of h + out_cap).
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    csrc/lz4_decode.cu on the current stream (no synchronisation)."""
+    csrc/lz4_decode.cu (tpz_lz4_decode_history with a history) on the
+    current stream (no synchronisation); the history mode counts its own
+    launches (lz4_decode_history.launches)."""
     _check_pair("lz4_decode_batch", comp, clens)
+    if history is not None and (history.dtype != torch.uint8
+                                or history.dim() != 2
+                                or history.shape[0] != comp.shape[0]
+                                or history.device != comp.device):
+        raise ValueError("history must be (B, h) u8 beside the rows")
     if comp.device.type == "cpu":
-        return lz4_decode_batch_plain(comp, clens, out_cap)
+        return lz4_decode_batch_plain(comp, clens, out_cap, history)
+    if history is not None:
+        return lz4_decode_history(comp, clens, out_cap, history)
     b, w = comp.shape
     dev = comp.device
     out = torch.empty((b, out_cap), dtype=torch.uint8, device=dev)
@@ -373,5 +401,28 @@ def lz4_decode_batch(comp: torch.Tensor, clens: torch.Tensor, out_cap: int):
     return out, status
 
 
+def lz4_decode_history(comp: torch.Tensor, clens: torch.Tensor,
+                       out_cap: int, history: torch.Tensor):
+    """lz4_decode_batch's history mode on CUDA tensors: each output row is
+    the history's h bytes, then out_cap of its own; returns the own bytes
+    (a view) and the status."""
+    b, w = comp.shape
+    h = history.shape[1]
+    full = torch.empty((b, h + out_cap), dtype=torch.uint8, device=comp.device)
+    status = torch.empty(b, dtype=torch.int64, device=comp.device)
+    if b == 0:
+        return full[:, h:], status
+    full[:, :h] = history
+    fn = _lib("lz4_decode", "lz4_decode_history")
+    with torch.cuda.device(comp.device):
+        err = fn(comp.data_ptr(), clens.data_ptr(), b, w, full.data_ptr(),
+                 h + out_cap, h, status.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "lz4_decode_history")
+    lz4_decode_history.launches += 1
+    return full[:, h:], status
+
+
 lz4_encode_batch.launches = 0
 lz4_decode_batch.launches = 0
+lz4_decode_history.launches = 0

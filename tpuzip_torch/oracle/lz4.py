@@ -1,7 +1,9 @@
-"""LZ4 block format — pure-Python reference codec: a copy of the block half
-of tpuzip/oracle/lz4.py (``compress_block``, ``decompress_block``,
-``worst_case_size``, ``_hash``).  The frame half, which needs xxh32, waits
-for the port of the LZ4 frame format (ROADMAP.md, queue 1, item 12).
+"""LZ4 block and frame formats — pure-Python reference codec: a copy of
+tpuzip/oracle/lz4.py (the block half: ``compress_block``,
+``decompress_block``, ``worst_case_size``, ``_hash``; the frame half:
+``MAGIC``, ``_BD_MAX_SIZES``, ``compress_frame``, ``decompress_frame``,
+``_decompress_linked``).  The frame half is the format contract that
+codecs/lz4_frame.py and io.py are held to.
 
 Encoder policy: greedy single-probe hash-table match search with the
 multiplicative hash ``seq * 2654435761 >> (32 - HASH_LOG)``, the policy of
@@ -23,6 +25,9 @@ from __future__ import annotations
 
 import struct
 
+from tpuzip_torch.oracle.xxh32 import xxh32
+
+MAGIC = 0x184D2204
 MIN_MATCH = 4
 # spec: last 5 bytes literals; no match starting in last 12 bytes
 MF_LIMIT = 12
@@ -156,3 +161,140 @@ def decompress_block(src: bytes, max_out: int | None = None) -> bytes:
         if max_out is not None and len(out) > max_out:
             raise ValueError("LZ4 block output exceeds limit")
     return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# Frame format
+# ---------------------------------------------------------------------------
+
+_BD_MAX_SIZES = {4: 1 << 16, 5: 1 << 18, 6: 1 << 20, 7: 1 << 22}
+
+
+def compress_frame(data: bytes, block_max: int = 1 << 20,
+                   content_checksum: bool = True,
+                   block_checksum: bool = False) -> bytes:
+    """LZ4 frame with independent blocks (the DP axis for the TPU build)."""
+    bd_id = {v: k for k, v in _BD_MAX_SIZES.items()}[block_max]
+    out = bytearray(struct.pack("<I", MAGIC))
+    # FLG: version=01, block-independence=1, checksum flags
+    flg = (1 << 6) | (1 << 5) | (int(block_checksum) << 4) | (int(content_checksum) << 2)
+    bd = bd_id << 4
+    descriptor = bytes([flg, bd])
+    hc = (xxh32(descriptor) >> 8) & 0xFF
+    out += descriptor + bytes([hc])
+    for ofs in range(0, max(len(data), 1), block_max):
+        chunk = data[ofs : ofs + block_max]
+        if not chunk:
+            break
+        comp = compress_block(chunk)
+        if len(comp) < len(chunk):
+            out += struct.pack("<I", len(comp)) + comp
+            if block_checksum:
+                out += struct.pack("<I", xxh32(comp))
+        else:  # stored block: MSB set
+            out += struct.pack("<I", len(chunk) | 0x80000000) + chunk
+            if block_checksum:
+                out += struct.pack("<I", xxh32(chunk))
+    out += struct.pack("<I", 0)  # EndMark
+    if content_checksum:
+        out += struct.pack("<I", xxh32(data))
+    return bytes(out)
+
+
+def decompress_frame(data: bytes) -> bytes:
+    i = 0
+    (magic,) = struct.unpack_from("<I", data, i)
+    i += 4
+    if magic != MAGIC:
+        raise ValueError(f"bad LZ4 frame magic: {magic:#x}")
+    flg = data[i]
+    bd = data[i + 1]
+    i += 2
+    version = flg >> 6
+    if version != 1:
+        raise ValueError("unsupported LZ4 frame version")
+    block_indep = (flg >> 5) & 1
+    block_checksum = (flg >> 4) & 1
+    content_size_flag = (flg >> 3) & 1
+    content_checksum = (flg >> 2) & 1
+    dict_id = flg & 1
+    bd_id = (bd >> 4) & 0x7
+    if bd_id not in _BD_MAX_SIZES:
+        raise ValueError("bad BD byte")
+    block_max = _BD_MAX_SIZES[bd_id]
+    if content_size_flag:
+        i += 8
+    if dict_id:
+        i += 4
+    i += 1  # header checksum byte (tolerated, like the reference reader)
+    out = bytearray()
+    window = bytearray()  # for linked blocks
+    while True:
+        (blen,) = struct.unpack_from("<I", data, i)
+        i += 4
+        if blen == 0:
+            break
+        stored = bool(blen & 0x80000000)
+        blen &= 0x7FFFFFFF
+        if blen > block_max:
+            raise ValueError("block length exceeds frame maximum")
+        payload = data[i : i + blen]
+        i += blen
+        if block_checksum:
+            (bc,) = struct.unpack_from("<I", data, i)
+            i += 4
+            if bc != xxh32(payload):
+                raise ValueError("LZ4 block checksum mismatch")
+        if stored:
+            dec = payload
+        elif block_indep:
+            dec = decompress_block(payload, max_out=block_max)
+        else:
+            dec = _decompress_linked(payload, window, block_max)
+        out += dec
+        if not block_indep:
+            window += dec
+            window = window[-(1 << 16):]
+    if content_checksum:
+        (cc,) = struct.unpack_from("<I", data, i)
+        if cc != xxh32(bytes(out)):
+            raise ValueError("LZ4 content checksum mismatch")
+    return bytes(out)
+
+
+def _decompress_linked(src: bytes, window: bytearray, block_max: int) -> bytes:
+    """Decode a block whose matches may reach into the previous window."""
+    buf = bytearray(window)
+    base = len(buf)
+    i, n = 0, len(src)
+    while i < n:
+        token = src[i]
+        i += 1
+        lit_len = token >> 4
+        if lit_len == 15:
+            while True:
+                b = src[i]
+                i += 1
+                lit_len += b
+                if b != 255:
+                    break
+        buf += src[i : i + lit_len]
+        i += lit_len
+        if i >= n:
+            break
+        offset = src[i] | (src[i + 1] << 8)
+        i += 2
+        match_len = (token & 0xF) + MIN_MATCH
+        if (token & 0xF) == 15:
+            while True:
+                b = src[i]
+                i += 1
+                match_len += b
+                if b != 255:
+                    break
+        start = len(buf) - offset
+        if start < 0:
+            raise ValueError("corrupt linked LZ4 block")
+        for k in range(match_len):
+            buf.append(buf[start + k])
+    return bytes(buf[base:])
